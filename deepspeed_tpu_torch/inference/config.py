@@ -1,9 +1,10 @@
 """Inference config (counterpart of ``deepspeed_tpu/inference/config.py``).
 
-The port carries the single-card dense generate() path. The JAX config's
-other knobs are accepted at their defaults, so a JAX config ports as it is,
-and raise ``NotImplementedError`` when set: each names the ROADMAP.md item
-(queue 1) that will port it. Unknown keys raise ``ValueError``.
+The port carries the single-card generate() path, dense or with int8/int4
+weight-only quantization (WOQ). The JAX config's other knobs are accepted
+at their defaults, so a JAX config ports as it is, and raise
+``NotImplementedError`` when set: each names the ROADMAP.md item (queue 1)
+that will port it. Unknown keys raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -17,13 +18,9 @@ _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32,
            "float16": torch.float16, "fp16": torch.float16}
 
-_WOQ = "item 2 (WOQ decode)"
 _PAR = "item 6 (tensor and expert parallelism)"
 # key → (the JAX default, accepted as a no-op; the ROADMAP item that ports it)
 _LATER = {
-    "quantize": (False, _WOQ), "quant_group_size": (128, _WOQ),
-    "quant_bits": (8, _WOQ), "woq_kernel": (None, _WOQ),
-    "dequant_per_step": (False, _WOQ),
     "tensor_parallel": (1, _PAR), "expert_parallel": (1, _PAR),
     "tp_comm_quant": (0, _PAR),
     "observability": (False, "item 9 (observability)"),
@@ -45,6 +42,21 @@ class InferenceConfig:
     # engine reads the (B,) done flags and stops once every row hit eos.
     # 0 keeps one uninterrupted decode loop with no host read-back.
     decode_chunk: int = 0
+    # Weight-only quantization (inference/quantization.py): the engine
+    # stores the matmul weights as int8 or row-pair-packed int4 with fp32
+    # scales over groups of quant_group_size rows, and decode reads them
+    # quantized.
+    quantize: bool = False
+    quant_group_size: int = 128
+    quant_bits: int = 8                # 8 or 4
+    # WOQ only: the CUDA GEMMs of ops/woq_matmul.py for every quantized
+    # projection and head of the decode step. None = auto: on for a CUDA
+    # device, off on the CPU. False dequantizes each weight to the compute
+    # dtype at its point of use instead (the JAX package's off-TPU path).
+    woq_kernel: Optional[bool] = None
+    # Obsolete JAX knob, accepted with a warning: decode always keeps the
+    # weights quantized.
+    dequant_per_step: bool = False
 
     def __post_init__(self):
         if self.dtype not in _DTYPES:
@@ -53,10 +65,21 @@ class InferenceConfig:
         if self.decode_chunk < 0:
             raise ValueError(f"decode_chunk must be >= 0, got "
                              f"{self.decode_chunk}")
+        if self.quant_bits not in (4, 8):
+            raise ValueError(f"quant_bits must be 8 or 4, got "
+                             f"{self.quant_bits}")
+        if self.quant_group_size <= 0:
+            raise ValueError(f"quant_group_size must be > 0, got "
+                             f"{self.quant_group_size}")
 
     def flash_decode_resolved(self, device: torch.device) -> bool:
         if self.flash_decode is not None:
             return self.flash_decode
+        return torch.device(device).type == "cuda"
+
+    def woq_kernel_resolved(self, device: torch.device) -> bool:
+        if self.woq_kernel is not None:
+            return self.woq_kernel
         return torch.device(device).type == "cuda"
 
     @property

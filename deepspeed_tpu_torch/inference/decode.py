@@ -23,10 +23,13 @@ from typing import Any, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from ..models.transformer import (TransformerConfig, _apply_rope, _norm,
-                                  alibi_slopes, layer_params, rope_tables)
+from ..models.transformer import (LAYER_PREFIX, TransformerConfig,
+                                  _apply_rope, _norm, alibi_slopes,
+                                  layer_params, rope_tables)
 from ..ops import decode_attention as _da
 from ..utils.logging import warning_once
+from .quantization import (QuantizedTensor, dequant_rows, matmul_any, woq_dot,
+                           woq_dot_t)
 
 BIG_NEG = -2.0 ** 30      # not -inf: an all-masked row must not turn NaN
 
@@ -103,15 +106,16 @@ def _qkv_proj(model, y, p):
     cfg = model.cfg
     B, T, _ = y.shape
     h, kv, hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
+    use_kernel = getattr(model, "woq_kernel", False)
     if "wqkv" in p:
-        qkv = y @ p["wqkv"].to(y.dtype)
+        qkv = matmul_any(y, p["wqkv"], use_kernel)
         if cfg.use_bias and "bqkv" in p:
             qkv = qkv + p["bqkv"].to(qkv.dtype)
         q, k, v = qkv.split([h * hd, kv * hd, kv * hd], dim=-1)
     else:
-        q = model._maybe_bias(y @ p["wq"].to(y.dtype), p, "bq")
-        k = model._maybe_bias(y @ p["wk"].to(y.dtype), p, "bk")
-        v = model._maybe_bias(y @ p["wv"].to(y.dtype), p, "bv")
+        q = model._maybe_bias(matmul_any(y, p["wq"], use_kernel), p, "bq")
+        k = model._maybe_bias(matmul_any(y, p["wk"], use_kernel), p, "bk")
+        v = model._maybe_bias(matmul_any(y, p["wv"], use_kernel), p, "bv")
     return (q.reshape(B, T, h, hd), k.reshape(B, T, kv, hd),
             v.reshape(B, T, kv, hd))
 
@@ -143,8 +147,9 @@ def _layer_step(model, x, p, cache_k, cache_v, length, rope=None,
     _append(cache_k, cache_v, k, v, length)
     o = _cache_attend(q, cache_k, cache_v, length, flash_decode=flash_decode,
                       alibi=alibi)
-    o = model._maybe_bias(o.reshape(B, T, h * hd) @ p["wo"].to(x.dtype),
-                          p, "bo")
+    o = model._maybe_bias(
+        matmul_any(o.reshape(B, T, h * hd), p["wo"],
+                   getattr(model, "woq_kernel", False)), p, "bo")
     if cfg.parallel_residual:
         y2 = y if cfg.parallel_shared_ln else _norm(
             x, p["ln2_scale"], p.get("ln2_bias"), cfg.norm, cfg.norm_eps)
@@ -155,6 +160,10 @@ def _layer_step(model, x, p, cache_k, cache_v, length, rope=None,
 
 
 def _embed_rows(table, ids, dtype):
+    """Row gather from a dense or an int8/int4-stored table: a quantized
+    table reads the batch's rows only."""
+    if isinstance(table, QuantizedTensor):
+        return dequant_rows(table, ids, dtype)
     return F.embedding(ids, table).to(dtype)
 
 
@@ -167,12 +176,20 @@ def _decode_head(model, params, x):
     products and the fp32 sum are the same. On the card that holds only
     while ``torch.backends.cuda.matmul.allow_tf32`` is False (PyTorch's
     default): TF32 would cut the operands back to 10 mantissa bits. The
-    engine refuses to start with it on."""
+    engine refuses to start with it on.
+
+    A quantized table goes through ``woq_dot_t`` (tied, read in ``(V, d)``
+    layout) or ``woq_dot`` (untied ``lm_head``), with fp32 out."""
     cfg = model.cfg
-    x = model._head_norm(params, x).float()
+    x = model._head_norm(params, x)
     w = params["tok_embed"] if cfg.tie_embeddings else params["lm_head"]
-    w = w.to(model.cfg.dtype).float()
-    logits = x @ (w.T if cfg.tie_embeddings else w)
+    if isinstance(w, QuantizedTensor):
+        dot = woq_dot_t if cfg.tie_embeddings else woq_dot
+        logits = dot(x, w, use_kernel=getattr(model, "woq_kernel", False),
+                     out_dtype=torch.float32)
+    else:
+        w = w.to(model.cfg.dtype).float()
+        logits = x.float() @ (w.T if cfg.tie_embeddings else w)
     if cfg.lm_head_bias:
         logits = logits + params["lm_head_bias"].float()
     return logits
@@ -180,14 +197,23 @@ def _decode_head(model, params, x):
 
 def forward_with_cache(model, params, input_ids, cache: KVCache,
                        flash_decode: bool = False,
-                       last_token_head: bool = False):
+                       last_token_head: bool = False, materialize=None):
     """Run T tokens through all layers, appending to the cache in place.
 
     input_ids: (B, T): prefill (T = prompt length) and decode (T = 1)
     alike. Returns (fp32 logits (B, T, V), the cache with its new length).
     ``last_token_head=True`` computes the unembedding for the final
-    position only (the generation loop's prefill)."""
+    position only (the generation loop's prefill). ``materialize``: an
+    optional ``params -> dense params`` function (``dequantize_params``),
+    applied to the top-level leaves once and to each layer's leaves as the
+    loop reaches it, so a quantized model runs dense with one layer's
+    dense copy alive at a time — the values of the JAX package's
+    whole-tree ``materialize``."""
     cfg = model.cfg
+    mat = materialize if materialize is not None else (lambda p: p)
+    layers = layer_params(params)
+    params = mat({k: v for k, v in params.items()
+                  if not k.startswith(LAYER_PREFIX)})
     B, T = input_ids.shape
     dev = input_ids.device
     new_len = cache.length + T
@@ -205,9 +231,8 @@ def forward_with_cache(model, params, input_ids, cache: KVCache,
         rope = (*rope_tables(positions, cfg.rope_theta, rd), rd)
     elif cfg.pos_embedding == "alibi":
         alibi = alibi_slopes(cfg.n_head, dev)
-    layers = layer_params(params)
     for i in range(cfg.n_layer):
-        x = _layer_step(model, x, {k: w[i] for k, w in layers.items()},
+        x = _layer_step(model, x, mat({k: w[i] for k, w in layers.items()}),
                         cache.k[i], cache.v[i], new_len, rope=rope,
                         flash_decode=flash_decode, alibi=alibi)
     if last_token_head:
@@ -227,9 +252,12 @@ class GenCarry(NamedTuple):
 def prefill_tokens(model, params, input_ids, rng, *, max_new: int, sampler,
                    eos_token_id=None, cache_dtype=None,
                    flash_decode: bool = False,
-                   cache_len: Optional[int] = None) -> GenCarry:
+                   cache_len: Optional[int] = None,
+                   materialize=None) -> GenCarry:
     """Prompt → first sampled token + primed KV cache (the TTFT phase).
-    ``cache_len`` overrides the tight ``S + max_new`` allocation."""
+    ``cache_len`` overrides the tight ``S + max_new`` allocation.
+    ``materialize`` (quantized params → dense) applies HERE only: the
+    prefill runs dense, the decode loop consumes ``params`` as given."""
     objective = getattr(model.cfg, "objective", "clm")
     if objective != "clm":
         raise ValueError(
@@ -249,7 +277,8 @@ def prefill_tokens(model, params, input_ids, rng, *, max_new: int, sampler,
     cache = init_cache(model.cfg, B, cache_len, cache_dtype or model.cfg.dtype,
                        device=input_ids.device)
     logits, cache = forward_with_cache(model, params, input_ids, cache,
-                                       last_token_head=True)
+                                       last_token_head=True,
+                                       materialize=materialize)
     tok = sampler(logits[:, -1], rng)
     done = (tok == eos_token_id) if eos_token_id is not None \
         else torch.zeros(B, dtype=torch.bool, device=tok.device)
@@ -288,12 +317,12 @@ def decode_tokens(model, params, carry: GenCarry, *, steps: int, sampler,
 def generate_tokens(model, params, input_ids, rng, *, max_new: int, sampler,
                     eos_token_id=None, cache_dtype=None,
                     flash_decode: bool = False,
-                    cache_len: Optional[int] = None):
+                    cache_len: Optional[int] = None, materialize=None):
     """Prefill + decode loop: (B, S) prompt → (B, max_new) tokens."""
     carry = prefill_tokens(model, params, input_ids, rng, max_new=max_new,
                            sampler=sampler, eos_token_id=eos_token_id,
                            cache_dtype=cache_dtype, flash_decode=flash_decode,
-                           cache_len=cache_len)
+                           cache_len=cache_len, materialize=materialize)
     return decode_tokens(model, params, carry, steps=max_new - 1,
                          sampler=sampler, eos_token_id=eos_token_id,
                          flash_decode=flash_decode)

@@ -3,13 +3,15 @@
 
 The engine casts the state dict to the compute dtype on its device, fuses
 the attention projections into one ``[wq | wk | wv]`` weight for the
-decode step, and serves ``generate`` through ``inference/decode.py``. The
-JAX engine compiles one program per shape; this one runs eagerly, so there
-is no program cache (CUDA graphs are later work).
+decode step, quantizes the matmul weights when the config asks for WOQ,
+and serves ``generate`` through ``inference/decode.py``. The JAX engine
+compiles one program per shape; this one runs eagerly, so there is no
+program cache (CUDA graphs are later work).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from functools import partial
 from typing import Optional
@@ -19,9 +21,11 @@ import torch
 from ..models.convert import split_fused_qkv
 from ..models.transformer import LAYER_PREFIX, Params, layer_params
 from ..platform.device import resolve_device
-from ..utils.logging import log_dist
+from ..utils.logging import log_dist, warning_once
 from .config import InferenceConfig
 from .decode import decode_tokens, generate_tokens, prefill_tokens
+from .quantization import (QuantizedTensor, dequantize_params,
+                           quantize_params, quantized_bytes)
 from .sampling import per_request_generators, sample_logits
 
 _QKV = ("wq", "wk", "wv")
@@ -50,12 +54,41 @@ class InferenceEngine:
         self.compute_dtype = cfg.compute_dtype
         self.model = model_with_dtype(model, self.compute_dtype)
         self.flash_decode = cfg.flash_decode_resolved(self.device)
+        prequantized = any(isinstance(v, QuantizedTensor)
+                           for v in params.values())
+        if prequantized and not cfg.quantize:
+            raise ValueError("InferenceEngine: the params hold quantized "
+                             "leaves; pass {'quantize': True} to serve them")
         cast = {k: v.to(self.device, self.compute_dtype)
-                if v.is_floating_point() else v.to(self.device)
-                for k, v in params.items()}
+                if isinstance(v, torch.Tensor) and v.is_floating_point()
+                else v.to(self.device) for k, v in params.items()}
         self._fused = (self.model.cfg.objective == "clm"
                        and all(LAYER_PREFIX + n in cast for n in _QKV))
         self.params = self._fuse_qkv(cast) if self._fused else cast
+        # the prefill's quantized → dense function (None: dense weights)
+        self.materialize = None
+        if cfg.dequant_per_step:
+            warning_once(
+                "inference config: dequant_per_step is obsolete — decode "
+                "keeps weights quantized and dequantizes at each point of "
+                "use; the knob is accepted and changes nothing.")
+        if cfg.quantize:
+            # after the cast and the qkv fusion, as the JAX engine: a fused
+            # wqkv has its parts' bytes (the scales are per column). Leaf by
+            # leaf on the device; the dense leaves go with the dict.
+            self.params = quantize_params(
+                self.params, group_size=cfg.quant_group_size,
+                bits=cfg.quant_bits)
+            self.materialize = partial(dequantize_params,
+                                       dtype=self.compute_dtype)
+            # the decode consumption sites read the flag off the model;
+            # clone first so the caller's model is not flagged
+            if self.model is model:
+                self.model = copy.copy(model)
+            self.model.woq_kernel = cfg.woq_kernel_resolved(self.device)
+            log_dist(f"inference: int{cfg.quant_bits} WOQ, "
+                     f"{quantized_bytes(self.params) / 2**20:.0f} MiB "
+                     f"weights, kernel={self.model.woq_kernel}", ranks=[0])
         self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         log_dist(f"inference: {self.model.cfg.param_count() / 1e6:.1f} M "
                  f"params, {self.compute_dtype} on {self.device}, "
@@ -68,8 +101,11 @@ class InferenceEngine:
         for fused, names in (("wqkv", _QKV), ("bqkv", _BQKV)):
             keys = [LAYER_PREFIX + n for n in names]
             if all(k in out for k in keys):
-                out[LAYER_PREFIX + fused] = torch.cat(
-                    [out.pop(k) for k in keys], dim=-1)
+                parts = [out.pop(k) for k in keys]
+                out[LAYER_PREFIX + fused] = (
+                    QuantizedTensor.cat_columns(parts)
+                    if isinstance(parts[0], QuantizedTensor)
+                    else torch.cat(parts, dim=-1))
         return out
 
     def _unfused(self, params: Params) -> Params:
@@ -89,9 +125,11 @@ class InferenceEngine:
     # -------------------------------------------------------------- forward
     @torch.inference_mode()
     def forward(self, input_ids) -> torch.Tensor:
-        """Full forward (no cache): (B, S) → (B, S, V) logits."""
-        return self.model.apply(self._unfused(self.params),
-                                self._ids(input_ids))
+        """Full forward (no cache): (B, S) → (B, S, V) logits, on dense
+        (dequantized) weights for a quantized engine."""
+        params = self.params if self.materialize is None \
+            else self.materialize(self.params)
+        return self.model.apply(self._unfused(params), self._ids(input_ids))
 
     __call__ = forward
 
@@ -135,7 +173,7 @@ class InferenceEngine:
             self.model, self.params, ids, rng, max_new=max_new,
             sampler=sampler, eos_token_id=self.config.eos_token_id,
             cache_dtype=self.compute_dtype, flash_decode=self.flash_decode,
-            cache_len=cache_len)
+            cache_len=cache_len, materialize=self.materialize)
 
     def _chunked_generate(self, ids, rng, max_new: int, sampler, cache_len):
         """Decode in ``decode_chunk``-step chunks with one host read of the
@@ -147,7 +185,8 @@ class InferenceEngine:
                   flash_decode=self.flash_decode)
         carry = prefill_tokens(self.model, self.params, ids, rng,
                                max_new=max_new, cache_dtype=self.compute_dtype,
-                               cache_len=cache_len, **kw)
+                               cache_len=cache_len,
+                               materialize=self.materialize, **kw)
         parts = [carry.tok[:, None]]
         remaining = max_new - 1
         while remaining > 0:

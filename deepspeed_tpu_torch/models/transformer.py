@@ -329,14 +329,24 @@ class TransformerLM(nn.Module):
         return self._maybe_bias(o.reshape(B, S, h * hd) @ p["wo"].to(x.dtype),
                                 p, "bo")
 
+    def _proj(self, y, p, name):
+        """``y @ p[name]`` whether the weight is dense or int8/int4
+        (inference WOQ: the engine keeps weights quantized and the decode
+        step consumes them at the point of use — through the CUDA GEMM
+        when ``self.woq_kernel`` is set, else a per-use dequant)."""
+        # imported here: inference/ imports this module
+        from ..inference.quantization import matmul_any
+
+        return matmul_any(y, p[name], getattr(self, "woq_kernel", False))
+
     def _mlp_block(self, y, p):
         cfg = self.cfg
-        u = self._maybe_bias(y @ p["w_in"].to(y.dtype), p, "b_in")
+        u = self._maybe_bias(self._proj(y, p, "w_in"), p, "b_in")
         if cfg.is_glu:
-            u = F.silu(y @ p["w_gate"].to(y.dtype)) * u
+            u = F.silu(self._proj(y, p, "w_gate")) * u
         else:
             u = _activation(u, cfg.activation)
-        return self._maybe_bias(u @ p["w_out"].to(u.dtype), p, "b_out")
+        return self._maybe_bias(self._proj(u, p, "w_out"), p, "b_out")
 
     def _layer(self, x, p, positions, attn_mask):
         cfg = self.cfg

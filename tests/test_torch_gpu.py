@@ -86,3 +86,108 @@ def test_generate_through_the_kernel(cuda, cfg):
     got = flash.generate(ids, 10, greedy=True)
     assert da.decode_attention.launches - before == cfg.n_layer * 9
     assert torch.equal(got, want)
+
+
+# ------------------------------------------------------------- WOQ GEMMs
+# max |kernel - plain| as a share of max |plain|, by output dtype: fp32
+# sums in another order; bf16/fp16 one output rounding on each side
+WOQ_SHARE = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7,
+             torch.float16: 2.0 ** -9}
+
+
+def _woq_pair(cuda, kernel, M, rows, cols, group, bits, xdtype, seed=0):
+    from deepspeed_tpu_torch.inference.quantization import quantize
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    w = torch.randn(rows, cols, generator=g, device=cuda) * 0.05
+    qt = quantize(w, group, bits)
+    x = torch.randn(M, cols if kernel == "t" else rows, generator=g,
+                    device=cuda).to(xdtype)
+    return x, qt
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M", [1, 4, 17])
+@pytest.mark.parametrize("K,N,out", [
+    (4096, 12288, None), (4096, 4096, None), (4096, 11008, None),
+    (11008, 4096, None), (4096, 32000, torch.float32),   # Llama-2-7B decode
+    (4096, 16384, None), (16384, 4096, None),            # OPT-6.7B MLP
+    (1000, 512, None), (256, 1001, torch.float32)])      # G = 1, ragged N
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32])
+def test_woq_matmul_kernel_matches_plain(cuda, bits, M, K, N, out, xdtype):
+    from deepspeed_tpu_torch.ops import woq_matmul as wm
+
+    x, qt = _woq_pair(cuda, "mm", M, K, N, 128, bits, xdtype)
+    kw = dict(group_size=qt.group_size, bits=qt.bits, out_dtype=out)
+    before = wm.woq_matmul.launches
+    got = wm.woq_matmul(x, qt.q, qt.scale, **kw)
+    want = wm.woq_matmul_plain(x, qt.q, qt.scale, **kw)
+    torch.cuda.synchronize()
+    assert wm.woq_matmul.launches == before + 1
+    assert got.dtype == (out or xdtype) and got.shape == (M, N)
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=0,
+        atol=WOQ_SHARE[got.dtype] * want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M", [1, 4, 17])
+@pytest.mark.parametrize("V,K,group", [(50272, 4096, 128), (32000, 4096, 128),
+                                       (1002, 256, 64), (2048, 130, 128)])
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32])
+def test_woq_matmul_t_kernel_matches_plain(cuda, bits, M, V, K, group, xdtype):
+    from deepspeed_tpu_torch.ops import woq_matmul as wm
+
+    x, qt = _woq_pair(cuda, "t", M, V, K, group, bits, xdtype)
+    kw = dict(group_size=qt.group_size, bits=qt.bits, out_dtype=torch.float32)
+    before = wm.woq_matmul_t.launches
+    got = wm.woq_matmul_t(x, qt.q, qt.scale, **kw)
+    want = wm.woq_matmul_t_plain(x, qt.q, qt.scale, **kw)
+    torch.cuda.synchronize()
+    assert wm.woq_matmul_t.launches == before + 1
+    torch.testing.assert_close(
+        got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+
+
+def test_woq_kernels_refuse_what_they_do_not_take(cuda):
+    from deepspeed_tpu_torch.ops import woq_matmul as wm
+
+    x, qt = _woq_pair(cuda, "mm", 4, 256, 128, 64, 8, torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        wm.woq_matmul(x.t().contiguous().t(), qt.q, qt.scale, group_size=64)
+    with pytest.raises(ValueError, match="group_size"):
+        wm.woq_matmul(x, qt.q, qt.scale, group_size=48)
+    with pytest.raises(ValueError, match="out_dtype"):
+        wm.woq_matmul(x, qt.q, qt.scale, group_size=64,
+                      out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="scale must be"):
+        wm.woq_matmul_t(x[:, :128], qt.q, qt.scale, group_size=64, bits=4)
+
+
+@pytest.mark.parametrize("cfg,bits", [
+    (tiny_test(dtype=torch.float32), 8),
+    (llama2("tiny", dtype=torch.float32), 4),
+    (bloom("tiny", dtype=torch.float32, vocab_size=1000), 8)])
+def test_woq_generate_through_the_kernels(cuda, cfg, bits):
+    """fp32 greedy tokens through the WOQ kernels equal the per-use
+    dequant path's, with one launch per quantized projection per decode
+    step and one head launch (woq_matmul_t for a tied table)."""
+    from deepspeed_tpu_torch.ops import woq_matmul as wm
+
+    model = dt.models.build_model(cfg)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = model.init(g, device=cuda)
+    ids = torch.randint(0, cfg.vocab_size, (3, 20), generator=g, device=cuda)
+    conf = {"dtype": "float32", "quantize": True, "quant_bits": bits,
+            "quant_group_size": 32}
+    per_use = dt.init_inference(model, params, {**conf, "woq_kernel": False})
+    kernel = dt.init_inference(model, params, conf)
+    assert kernel.model.woq_kernel and not per_use.model.woq_kernel
+    want = per_use.generate(ids, 10, greedy=True)
+    before = (wm.woq_matmul.launches, wm.woq_matmul_t.launches)
+    got = kernel.generate(ids, 10, greedy=True)
+    per_step = (5 if cfg.is_glu else 4) * cfg.n_layer \
+        + (not cfg.tie_embeddings)
+    assert wm.woq_matmul.launches - before[0] == per_step * 9
+    assert wm.woq_matmul_t.launches - before[1] == 9 * cfg.tie_embeddings
+    assert torch.equal(got, want)

@@ -86,7 +86,7 @@ def test_library_path_keys_on_the_source():
     path = builder.library_path("decode_attention")
     assert path.parent == builder.BUILD_DIR
     assert path.name.startswith("libdecode_attention-")
-    assert builder.sources() == ["decode_attention"]
+    assert builder.sources() == ["decode_attention", "woq_matmul"]
 
 
 def test_inference_config_ports_and_refuses():
@@ -96,8 +96,15 @@ def test_inference_config_ports_and_refuses():
     assert cfg.flash_decode_resolved(torch.device("cuda"))
     assert not cfg.flash_decode_resolved(torch.device("cpu"))
     assert not InferenceConfig(flash_decode=False).flash_decode_resolved("cuda")
-    for key, value, item in (("quantize", True, "WOQ"),
-                             ("tensor_parallel", 2, "tensor"),
+    woq = InferenceConfig.from_any({"quantize": True, "quant_bits": 4,
+                                    "quant_group_size": 64})
+    assert (woq.quantize, woq.quant_bits, woq.quant_group_size) == (True, 4, 64)
+    assert woq.woq_kernel_resolved(torch.device("cuda"))
+    assert not woq.woq_kernel_resolved(torch.device("cpu"))
+    assert not InferenceConfig(woq_kernel=False).woq_kernel_resolved("cuda")
+    with pytest.raises(ValueError, match="quant_bits"):
+        InferenceConfig.from_any({"quantize": True, "quant_bits": 2})
+    for key, value, item in (("tensor_parallel", 2, "tensor"),
                              ("tensor_parallel", {"tp_size": 2}, "tensor"),
                              ("moe", {"ep_size": 2}, "expert"),
                              ("tp_comm_quant", 8, "tensor"),

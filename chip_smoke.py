@@ -26,7 +26,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    depth, group 128, with every kernel's launch count read around one
    ``generate``; the kernel path's logits teacher-forced against the
    per-use dequantization path on the same quantized weights (gated) and
-   against the bf16 engine (logged).
+   against the bf16 engine (logged);
+5. flash kernels: the forward, dq and dk/dv kernels against their plain
+   versions in bf16 and fp16 at GPT-2 1.5B's attention shape, Llama-2-7B's
+   (hd 128, S 4096), Llama-2-70B's GQA heads, S 8192 (where the TPU
+   switches to its streamed kernels) and edge cases (padding masks with
+   fully masked rows, ALiBi, non-causal, odd S, hd 16/32); timed at the
+   GPT-2 shape and at S 8192 beside the bound, the plain versions and the
+   library calls (SDPA's forward; the aten flash backward for dq + dk/dv);
+6. training slice: GPT-2 1.5B at full width and depth with
+   ``fused_xent=False`` (the unfused head, which the JAX package takes on
+   its TPU too with that setting) through ``initialize(TRAIN_CONFIG,
+   build_model(cfg, attention_fn=make_flash_attention())).train_batch``;
+   first the kernel path's loss and grads against the plain attention path
+   at 4 layers; then 3 warm-up and 10 timed steps on learnable data with
+   every flash kernel's count read around the timed steps (exact), each
+   loss finite, the loss falling; step time, tokens/s, MFU, peak memory
+   and a profile of two steps.
+
+``remat_sweep()`` is a one-off measurement outside the phases: the same
+training step under each remat policy.
 
 The last three lines of standard output are the kernels' JSON, then
 ``nvidia-smi``'s name and power limit of the card, then the device JSON.
@@ -784,8 +803,24 @@ def phase_woq(cfg, *, bits: int, group: int = 128, batch=4, prompt=512,
 
 
 def profile_decode(engine, cache, out, step_kw, steps: int = 4):
-    """Where a decode step's time goes: torch.profiler over ``steps``
-    steps; the device's busy share of the window (the sum of the device
+    """Where a decode step's time goes (:func:`profile_calls` over
+    ``steps`` decode steps)."""
+    import torch
+
+    from deepspeed_tpu_torch.inference.decode import GenCarry, decode_tokens
+
+    carry = GenCarry(out[:, 0], cache, None,
+                     torch.zeros_like(out[:, 0], dtype=torch.bool))
+    with torch.inference_mode():
+        return profile_calls(
+            lambda: decode_tokens(engine.model, engine.params, carry,
+                                  steps=steps, **step_kw),
+            steps, "decode steps")
+
+
+def profile_calls(fn, steps: int, what: str):
+    """torch.profiler around one call of ``fn``, which runs ``steps``
+    steps: the device's busy share of the window (the sum of the device
     events' durations, one stream, over the host wall time) and the top
     kernels by device time. Returns ``{"by_name": {kernel: us}, "busy":
     us, "wall": us}``, or None when the profiler saw no device time."""
@@ -793,16 +828,11 @@ def profile_decode(engine, cache, out, step_kw, steps: int = 4):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from deepspeed_tpu_torch.inference.decode import GenCarry, decode_tokens
-
-    carry = GenCarry(out[:, 0], cache, None,
-                     torch.zeros_like(out[:, 0], dtype=torch.bool))
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        decode_tokens(engine.model, engine.params, carry, steps=steps,
-                      **step_kw)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict = {}
@@ -815,13 +845,507 @@ def profile_decode(engine, cache, out, step_kw, steps: int = 4):
         log("[profile] the profiler saw no device time: busy share not "
             "measured")
         return None
-    log(f"[profile] {steps} decode steps: wall {wall_us / steps / 1e3:.2f} "
+    log(f"[profile] {steps} {what}: wall {wall_us / steps / 1e3:.2f} "
         f"ms/step, device busy {busy / steps / 1e3:.2f} ms/step = "
         f"{busy / wall_us:.1%} of the wall (idle {1 - busy / wall_us:.1%})")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"[profile]   {us / steps:9.1f} us/step {us / busy:6.1%}  "
             f"{name[:100]}")
     return {"by_name": by_name, "busy": busy, "wall": wall_us}
+
+
+# ------------------------------------------------------------------ phase 5
+# (name, B, H, KV, S, hd, causal, mask kind, alibi): the slice's shape
+# first; then hd 128 at Llama-2-7B's full length, Llama-2-70B's GQA heads,
+# S 8192 where the TPU switches to its streamed kernels (rows 5-7), and
+# the edge cases
+FLASH_CASES = (
+    ("gpt2_1.5b", 4, 25, 25, 1024, 64, True, None, False),
+    ("llama2_7b", 1, 32, 32, 4096, 128, True, None, False),
+    ("gqa_70b_heads", 1, 64, 8, 2048, 128, True, None, False),
+    ("streamed_8192", 1, 8, 8, 8192, 128, True, None, False),
+    ("mask_dead_rows", 2, 4, 4, 256, 64, True, "left_pad", False),
+    ("mask_noncausal", 2, 4, 2, 256, 64, False, "dead_row", False),
+    ("alibi", 2, 8, 8, 512, 64, True, None, True),
+    ("noncausal", 2, 4, 4, 512, 128, False, None, False),
+    ("odd_S_1000", 2, 4, 4, 1000, 64, True, None, False),
+    ("hd32_gqa_alibi_mask", 1, 4, 1, 77, 32, True, "left_pad", True),
+    ("hd16_noncausal", 2, 4, 4, 100, 16, False, None, False),
+)
+# kernel vs plain, max |Δ| / max |plain| of o, dq, dk, dv: the same
+# function; the kernels' online softmax rounds p to the storage dtype
+# against a running max, the plain version against the row max, and fp32
+# sums run in another order, so a few ulps of the output dtype at the top
+# of each tensor (bf16 2^-8, fp16 2^-11); lse (fp32) within 2e-3 absolute
+# on rows with a live key
+FLASH_TOL_SHARE = {"torch.bfloat16": 2e-2, "torch.float16": 1e-2}
+FLASH_LSE_ATOL = 2e-3
+
+
+def _flash_case(gen, B, H, KV, S, hd, causal, mask_kind, alibi, dtype,
+                device):
+    import torch
+
+    from deepspeed_tpu_torch.models.transformer import alibi_slopes
+
+    mk = partial(torch.randn, generator=gen, device=device)
+    q, do = (mk((B, S, H, hd)).to(dtype) for _ in range(2))
+    k, v = (mk((B, S, KV, hd)).to(dtype) for _ in range(2))
+    mask = None
+    if mask_kind is not None:
+        mask = torch.ones((B, S), dtype=torch.bool, device=device)
+        if mask_kind == "left_pad":        # rows 0-2 of batch 1: no live key
+            mask[-1, :3] = False
+        else:                              # batch 1 has no live key at all
+            mask[-1] = False
+            mask[0, S - 5:] = False
+    slopes = alibi_slopes(H, device) if alibi else None
+    return dict(q=q, k=k, v=v, do=do, mask=mask, slopes=slopes, causal=causal)
+
+
+def _share(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def flash_bound(B, H, KV, S, hd, causal, esize) -> dict:
+    """Least time of each kernel on an H100: FLOPs (fwd 2, dq 3, dk/dv 4
+    products of 2·B·H·S²·hd, halved when causal) at 989 TFLOP/s against
+    each input read and each output written once at 3.35 TB/s."""
+    prod = 2 * B * H * S * S * hd / (2 if causal else 1)
+    qb, kvb, rowb = B * S * H * hd * esize, B * S * KV * hd * esize, B * H * S * 4
+    work = {"flash_fwd": (2 * prod, 2 * qb + 2 * kvb + rowb),
+            "flash_bwd_dq": (3 * prod, 3 * qb + 2 * kvb + 2 * rowb),
+            "flash_bwd_dkv": (4 * prod, 2 * qb + 4 * kvb + 2 * rowb)}
+    out = {}
+    for name, (ops, nbytes) in work.items():
+        t_ops = ops / PEAK_OPS_PER_S["torch.bfloat16"] * 1e3
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        out[name] = {"bound_ms": max(t_ops, t_bytes), "ops": ops,
+                     "bytes": nbytes, "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations"}
+    return out
+
+
+def phase_flash_kernels(device="cuda", cases=FLASH_CASES, dtypes=None,
+                        iters=50) -> dict:
+    """The three flash kernels against their plain versions on every case,
+    in bf16 and fp16, each kernel fed the plain forward's lse and delta;
+    on the card, timed at the first (the slice's) shape and at S 8192."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    dtypes = dtypes or (torch.bfloat16, torch.float16)
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    worst = dict.fromkeys(names, 0.0)
+    for case in cases:
+        name, shape = case[0], case[1:]
+        for dtype in dtypes:
+            x = _flash_case(gen, *shape, dtype, device)
+            kw = dict(mask=x["mask"], alibi_slopes=x["slopes"],
+                      causal=x["causal"])
+            q, k, v, do = x["q"], x["k"], x["v"], x["do"]
+            o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
+            o, lse = fa.flash_fwd(q, k, v, **kw)
+            delta = fa.attention_delta(o_p, do)
+            dq = fa.flash_bwd_dq(q, k, v, do, lse_p, delta, **kw)
+            dq_p = fa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw)
+            dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
+            dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta,
+                                                **kw)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            live = lse_p > fa.BIG_NEG / 2
+            lse_err = (lse - lse_p).abs()[live].max().item()
+            shares = {"o": _share(o, o_p), "dq": _share(dq, dq_p),
+                      "dk": _share(dk, dk_p), "dv": _share(dv, dv_p)}
+            tol = FLASH_TOL_SHARE.get(str(dtype), 1e-5)
+            finite = all(bool(torch.isfinite(t).all()) for t in
+                         (o, lse, dq, dk, dv))
+            ok = finite and lse_err <= FLASH_LSE_ATOL and all(
+                s <= tol for s in shares.values())
+            log(f"[flash] {name:20s} {str(dtype):15s} B{shape[0]} H{shape[1]}"
+                f" KV{shape[2]} S{shape[3]} hd{shape[4]}: " + ", ".join(
+                    f"{n} {s:.2e}" for n, s in shares.items())
+                + f" of max |plain| (tol {tol:g}); lse {lse_err:.1e} (tol "
+                f"{FLASH_LSE_ATOL:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash {name} {dtype}: {shares}, lse "
+                                     f"{lse_err}, finite {finite}")
+            for n, a, b in (("flash_fwd", o, o_p), ("flash_bwd_dq", dq, dq_p),
+                            ("flash_bwd_dkv", dk, dk_p),
+                            ("flash_bwd_dkv", dv, dv_p)):
+                worst[n] = max(worst[n],
+                               (a.float() - b.float()).abs().max().item())
+            del x, o, o_p, dq, dq_p, dk, dv, dk_p, dv_p
+    result = {n: {"max_abs_err": worst[n]} for n in names}
+    if device != "cuda":
+        return result
+
+    main = _flash_timing(gen, cases[0], iters)
+    for n in names:
+        result[n].update(main[n])
+    # the TPU's streamed regime (rows 5-7): the same kernels at S 8192
+    long = [c for c in cases if c[0].startswith("streamed")]
+    if long:
+        result["streamed"] = _flash_timing(gen, long[0], max(iters // 5, 5))
+    return result
+
+
+def _flash_timing(gen, case, iters) -> dict:
+    """Kernel, plain and bound of each flash kernel at one case's shape in
+    bf16 (device time, 4 input sets in rotation past the 50 MB L2), with
+    the library calls the port never makes as yardsticks, device-timed
+    too: SDPA's forward for ``flash_fwd``, and for the backward pair
+    ``aten._scaled_dot_product_flash_attention_backward``, one call that
+    computes dq, dk and dv from the same (dO, q, k, v, o, lse)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    name, B, H, KV, S, hd, causal = case[:7]
+    dtype, device = torch.bfloat16, "cuda"
+    sets = []
+    for _ in range(4):
+        x = _flash_case(gen, B, H, KV, S, hd, causal, None, False, dtype,
+                        device)
+        o, lse = fa.flash_attention_fwd_plain(x["q"], x["k"], x["v"],
+                                              causal=causal)
+        x.update(o=o, lse=lse, delta=fa.attention_delta(o, x["do"]))
+        sets.append(x)
+    args = lambda i: (sets[i % 4]["q"], sets[i % 4]["k"],        # noqa: E731
+                      sets[i % 4]["v"])
+    bwd = lambda i: (*args(i), sets[i % 4]["do"], sets[i % 4]["lse"],  # noqa
+                     sets[i % 4]["delta"])
+    calls = {"flash_fwd": (lambda i: fa.flash_fwd(*args(i), causal=causal),
+                           lambda i: fa.flash_attention_fwd_plain(
+                               *args(i), causal=causal)),
+             "flash_bwd_dq": (lambda i: fa.flash_bwd_dq(*bwd(i),
+                                                        causal=causal),
+                              lambda i: fa.flash_bwd_dq_plain(
+                                  *bwd(i), causal=causal)),
+             "flash_bwd_dkv": (lambda i: fa.flash_bwd_dkv(*bwd(i),
+                                                          causal=causal),
+                               lambda i: fa.flash_bwd_dkv_plain(
+                                   *bwd(i), causal=causal))}
+    bounds = flash_bound(B, H, KV, S, hd, causal, 2)
+    # GQA: SDPA takes the KV heads repeated (enable_gqa needs a newer torch)
+    rep = lambda t: t.repeat_interleave(H // KV, 2) if KV != H else t  # noqa
+    tq = [tuple(rep(t).transpose(1, 2).contiguous() for t in args(i))
+          for i in range(4)]
+    sdpa_fwd = device_ms(lambda i: F.scaled_dot_product_attention(
+        *tq[i % 4], is_causal=causal), 4, iters)
+    # the flash backward's own inputs: its forward's o and lse per set
+    aten = torch.ops.aten
+    fw = [aten._scaled_dot_product_flash_attention(
+        *tq[i], 0.0, causal, False) for i in range(4)]
+    gdo = [s["do"].transpose(1, 2).contiguous() for s in sets]
+
+    def sdpa_bwd(i):
+        t, f = tq[i % 4], fw[i % 4]
+        return aten._scaled_dot_product_flash_attention_backward(
+            gdo[i % 4], *t, f[0], f[1], f[2], f[3], f[4], f[5], 0.0, causal,
+            f[6], f[7])
+
+    library = {"flash_fwd": sdpa_fwd}
+    library["flash_bwd_dq"] = library["flash_bwd_dkv"] = device_ms(
+        sdpa_bwd, 4, iters)
+    out = {}
+    for n, (kern, plain) in calls.items():
+        ms = device_ms(kern, 4, iters)
+        plain_ms = time_ms(plain, max(iters // 10, 3))
+        b = bounds[n]
+        out[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                      bound_by=b["bound_by"], library_ms=library[n])
+        log(f"[flash] {n} {name} B{B} H{H} KV{KV} S{S} hd{hd} causal bf16: "
+            f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
+            f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}: {b['bytes']} B, "
+            f"{b['ops']:.4g} flop), kernel at {b['bound_ms'] / ms:.1%} of the "
+            "bound")
+    bwd = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkv"]["ms"]
+    log(f"[flash] {name} library calls (device, not called by the port): "
+        f"SDPA forward {sdpa_fwd * 1e3:.2f} us vs flash_fwd "
+        f"{out['flash_fwd']['ms'] * 1e3:.2f} us; the aten flash backward "
+        f"(dq, dk and dv in one call) {library['flash_bwd_dq'] * 1e3:.2f} us "
+        f"vs flash_bwd_dq + flash_bwd_dkv {bwd * 1e3:.2f} us; forward + "
+        f"backward {(sdpa_fwd + library['flash_bwd_dq']) * 1e3:.2f} us vs "
+        f"{(out['flash_fwd']['ms'] + bwd) * 1e3:.2f} us")
+    del sets, tq, fw, gdo
+    return out
+
+
+# ------------------------------------------------------------------ phase 6
+# the slice's training config: examples/pretrain_gpt2.py's at micro 4,
+# gas 2 (its warm-up of 2000 steps keeps the first steps' lr at 2.7e-5 to
+# 1.1e-4; a 5-step warm-up at 3e-4 threw the loss of the random 1.5 B init
+# up from 10.4 to 12.2 within three steps on an H100)
+TRAIN_CONFIG = {
+    "train_batch_size": 8, "train_micro_batch_size_per_gpu": 4,
+    "gradient_accumulation_steps": 2,
+    "optimizer": {"type": "adamw",
+                  "params": {"lr": 3e-4, "weight_decay": 0.01}},
+    "scheduler": {"type": "WarmupDecayLR",
+                  "params": {"warmup_num_steps": 2000,
+                             "total_num_steps": 100000}},
+    "gradient_clipping": 1.0, "zero_optimization": {"stage": 1},
+    "remat": {"enabled": True, "policy": "dots_saveable"},
+    "bf16": {"enabled": True}, "steps_per_print": 1000}
+# kernel path vs plain path at full width and 4 layers, bf16, one
+# micro-batch, the same params: the loss within 1e-2 relative and every
+# grad leaf within 5e-2 relative in norm (||Δ|| / ||plain||). The two
+# attention paths differ by a few bf16 ulps at their outputs (phase 5:
+# <= 3.4e-3 of max |plain|); the bf16 residual stream, norms and every grad
+# are rounded after them, over 4 layers and a 50257-way head. CPU rehearsal
+# of the same check between two attention paths that round differently
+# (plain flash vs the dense causal_attention, bf16, 4 layers, d 512, S 256):
+# loss 1.0e-6 rel, grads <= 1.4e-2. A wrong kernel (a dropped tile, a wrong
+# mask or scale) gives O(1). ``layers.bk`` is logged, not gated: a key bias
+# shifts a whole softmax row, so its grad is 0 up to rounding noise (its
+# norm is ~3e-3 of bq's) and its relative difference is noise over noise.
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_GRAD_RTOL = 5e-2
+
+
+def _plain_flash_attention():
+    """The flash attention Function with the plain versions on every
+    device: the reference the kernel path is held against."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, mask, slopes):
+            o, lse = fa.flash_attention_fwd_plain(q, k, v, mask=mask,
+                                                  alibi_slopes=slopes)
+            ctx.save_for_backward(q, k, v, o, lse, mask, slopes)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse, mask, slopes = ctx.saved_tensors
+            delta = fa.attention_delta(o, do)
+            kw = dict(mask=mask, alibi_slopes=slopes)
+            dq = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+            dk, dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
+            return dq, dk, dv, None, None
+
+    def attn(q, k, v, *, mask=None, bias=None, alibi_slopes=None):
+        assert bias is None
+        return Plain.apply(q, k, v, mask, alibi_slopes)
+
+    attn.accepts_alibi_slopes = True
+    return attn
+
+
+def _rel_norm(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def _loss_and_grads(model, master, batch, dtype, remat):
+    params = {k: v.detach().to(dtype).requires_grad_()
+              for k, v in master.items()}
+    loss = model.loss(params, batch, remat_policy=remat)
+    loss.backward()
+    return loss.detach().float(), {k: v.grad for k, v in params.items()}
+
+
+def _token_batch(data) -> dict:
+    import numpy as np
+
+    return {"input_ids": np.stack([d["input_ids"] for d in data])}
+
+
+def phase_train(cfg=None, *, check_layers=4, seq=1024, warmup=3, steps=10,
+                device=None, profile_steps=2) -> dict:
+    """The training main path: ``initialize(TRAIN_CONFIG, build_model(cfg,
+    attention_fn=make_flash_attention())).train_batch`` at full width and
+    depth, with every flash kernel's count zeroed just before the timed
+    steps and read just after; first, at ``check_layers`` layers, the
+    kernel path's loss and grads against the plain path's."""
+    import dataclasses
+
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.runtime import random_token_dataset
+
+    # fused_xent=False: the unfused head, which the JAX package takes on its
+    # TPU too; its auto mode there runs the fused xent kernels (not ported)
+    cfg = cfg or gpt2("1.5b", fused_xent=False)
+    dev = torch.device(device or "cuda")
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    kw = {} if device is None else {"device": device}
+    counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    micro = TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+    gas = TRAIN_CONFIG["gradient_accumulation_steps"]
+    tag = f"[train {cfg.n_layer}L d{cfg.d_model}]"
+
+    # ---- (a) kernel path vs plain path, check_layers deep ----
+    small = dataclasses.replace(cfg, n_layer=check_layers)
+    gen = torch.Generator(device=dev).manual_seed(77)
+    master = dt.build_model(small).init(gen, device=dev, dtype=torch.float32)
+    ids = torch.randint(0, cfg.vocab_size, (micro, seq), generator=gen,
+                        device=dev)
+    remat = TRAIN_CONFIG["remat"]["policy"]
+    lk, gk = _loss_and_grads(
+        dt.build_model(small, attention_fn=dt.make_flash_attention()),
+        master, {"input_ids": ids}, cfg.dtype, remat)
+    lp, gp = _loss_and_grads(
+        dt.build_model(small, attention_fn=_plain_flash_attention()),
+        master, {"input_ids": ids}, cfg.dtype, remat)
+    sync()
+    loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    grad_rel = {k: _rel_norm(gk[k], gp[k]) for k in gk}
+    bk = grad_rel.pop("layers.bk", None)
+    worst = max(grad_rel, key=grad_rel.get)
+    finite = all(bool(torch.isfinite(g).all()) for g in gk.values())
+    log(f"{tag} kernel vs plain attention path, {check_layers} layers, "
+        f"{micro}x{seq} tokens, bf16, remat {remat}: loss {lk.item():.5f} vs "
+        f"{lp.item():.5f} ({loss_rel:.2e} rel, tol {TRAIN_LOSS_RTOL}); grads "
+        f"||Δ||/||plain|| max {grad_rel[worst]:.2e} at {worst} (tol "
+        f"{TRAIN_GRAD_RTOL}), median "
+        f"{sorted(grad_rel.values())[len(grad_rel) // 2]:.2e}; layers.bk "
+        f"(noise, not gated) {bk}")
+    if not (finite and loss_rel <= TRAIN_LOSS_RTOL
+            and grad_rel[worst] <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"{tag} kernel vs plain: loss {loss_rel}, "
+                             f"grads {grad_rel}, finite {finite}")
+    del master, gk, gp
+    _free_memory(dev)
+
+    # ---- the engine at full depth ----
+    t0 = time.perf_counter()
+    engine = dt.initialize(TRAIN_CONFIG, dt.build_model(
+        cfg, attention_fn=dt.make_flash_attention()), seed=1234, **kw)
+    sync()
+    state_bytes = _free_memory(dev)
+    rows = engine.train_batch_size
+    # one batch of learnable rows (each a single token repeated), taken by
+    # every step: the loss on it must fall
+    data = random_token_dataset(rows, seq, cfg.vocab_size, seed=5,
+                                learnable=True)
+    log(f"{tag} {cfg.param_count() / 1e9:.3f} B params ({engine.param_count} "
+        f"tensors' elements), initialize {time.perf_counter() - t0:.1f} s, "
+        f"state {state_bytes / 2**30:.2f} GiB on {engine.device}")
+    losses = []
+    for i in range(warmup):
+        losses.append(float(engine.train_batch(_token_batch(data))["loss"]))
+
+    # ---- the main path, counted and timed ----
+    _free_memory(dev)
+    for c in counters:
+        c.launches = 0
+    step_s = []
+    for i in range(warmup, warmup + steps):
+        sync()
+        t1 = time.perf_counter()
+        m = engine.train_batch(_token_batch(data))
+        losses.append(float(m["loss"]))           # a host read: synchronizes
+        step_s.append(time.perf_counter() - t1)
+    got = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    per_step = cfg.n_layer * gas if cuda else 0
+    want = {"flash_fwd": 2 * per_step * steps,      # remat reruns the forward
+            "flash_bwd_dq": per_step * steps, "flash_bwd_dkv": per_step * steps}
+    if got != want:
+        raise AssertionError(f"{tag} launches {got}, want {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag} non-finite loss: {losses}")
+    # the first warm-up step measures the initial params; the timed steps'
+    # mean must be below half of that (one repeated batch of learnable
+    # rows: on an H100 it went from 10.43 to a timed mean of 1.26, with
+    # Adam oscillating from step to step, so no single step is gated)
+    first, mean = losses[0], sum(losses[warmup:]) / steps
+    if not mean < 0.5 * first:
+        raise AssertionError(f"{tag} loss did not fall on learnable data: "
+                             f"{losses}")
+    step = sorted(step_s)[len(step_s) // 2]
+    tokens = rows * seq
+    mfu = cfg.flops_per_token() * tokens / step / PEAK_OPS_PER_S[
+        "torch.bfloat16"]
+    log(f"{tag} launches over {steps} steps {got} (per step: flash_fwd "
+        f"{2 * per_step} = {cfg.n_layer} layers x gas {gas} x 2, the "
+        f"checkpoint reruns the forward in the backward; dq = dk/dv = "
+        f"{per_step})")
+    log(f"{tag} losses {[round(x, 4) for x in losses]}: initial {first:.4f}"
+        f", mean of the {steps} timed steps {mean:.4f} (gate < half the "
+        "initial)")
+    log(f"{tag} step {step * 1e3:.1f} ms median (min {min(step_s) * 1e3:.1f},"
+        f" max {max(step_s) * 1e3:.1f}), {tokens / step:.0f} tokens/s, MFU "
+        f"{mfu:.1%} of 989 TFLOP/s ({cfg.flops_per_token() / 1e9:.2f} GFLOP "
+        f"per token); peak memory {peak / 2**30:.2f} GiB ({state_bytes / 2**30:.2f}"
+        " GiB of state before the steps)")
+    result = {"launches": got, "step_ms": step * 1e3,
+              "tokens_per_s": tokens / step, "mfu": mfu, "peak_bytes": peak,
+              "losses": losses, "loss_rel": loss_rel,
+              "grad_rel": grad_rel[worst], "shares": {}}
+    if cuda and profile_steps:
+        prof = profile_calls(
+            lambda: [engine.train_batch(_token_batch(data))
+                     for _ in range(profile_steps)], profile_steps,
+            "training steps")
+        if prof:
+            for name in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                         "flash_bwd_dkv_kernel"):
+                us = sum(v for k, v in prof["by_name"].items()
+                         if f"{name}<" in k)
+                result["shares"][name] = us / prof["busy"]
+            result["busy_share"] = prof["busy"] / prof["wall"]
+            log(f"{tag} flash kernels' share of device time: " + ", ".join(
+                f"{k} {v:.1%}" for k, v in result["shares"].items()))
+    del engine
+    _free_memory(dev)
+    return result
+
+
+def remat_sweep(cfg=None, *, seq=1024, steps=3) -> dict:
+    """Where the training step's host time goes: the phase-6 step of
+    GPT-2 1.5B under each remat policy (``dots_saveable``, none, ``full``),
+    median step ms and peak memory. A one-off measurement, not a phase::
+
+        python3 -c "import chip_smoke as c; c.remat_sweep()"
+    """
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.runtime import random_token_dataset
+
+    cfg = cfg or gpt2("1.5b", fused_xent=False)
+    dev = torch.device("cuda")
+    engine = dt.initialize(TRAIN_CONFIG, dt.build_model(
+        cfg, attention_fn=dt.make_flash_attention()), seed=1234)
+    data = random_token_dataset(engine.train_batch_size, seq, cfg.vocab_size,
+                                seed=5, learnable=True)
+    out = {}
+    for policy in ("dots_saveable", None, "full"):
+        engine.remat_policy = policy
+        _free_memory(dev)
+        engine.train_batch(_token_batch(data))
+        step_s = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            float(engine.train_batch(_token_batch(data))["loss"])
+            step_s.append(time.perf_counter() - t1)
+        ms = sorted(step_s)[len(step_s) // 2] * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        out[str(policy)] = {"step_ms": ms, "peak_bytes": peak}
+        log(f"[remat] GPT-2 1.5B, {engine.train_batch_size}x{seq} tokens, "
+            f"remat {policy}: step {ms:.1f} ms median of {steps} "
+            f"({', '.join(f'{s * 1e3:.1f}' for s in step_s)}), peak memory "
+            f"{peak / 2**30:.2f} GiB")
+    del engine
+    _free_memory(dev)
+    return out
 
 
 def main() -> int:
@@ -847,9 +1371,11 @@ def main() -> int:
     dev = phase_device()
     kern = phase_kernels()
     woq = phase_woq_kernels()
+    flash = phase_flash_kernels()
     sl = phase_slice()
     woq8 = phase_woq(llama2("7b"), bits=8)
     woq4 = phase_woq(opt("6.7b"), bits=4)
+    train = phase_train()
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     src = "deepspeed_tpu_torch/ops/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -870,6 +1396,16 @@ def main() -> int:
          "replaces": "deepspeed_tpu/ops/woq_matmul.py:130",
          "launches": woq4["launches"]["woq_matmul_t"],
          **{k: woq["woq_matmul_t"][k] for k in keys}}]
+    # launches: the GPT-2 1.5B training run's timed steps; each also
+    # stands for the TPU's streamed kernel of its row (checked at S 8192)
+    for name, line in (("flash_fwd", 43), ("flash_bwd_dq", 228),
+                       ("flash_bwd_dkv", 285)):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": src + "flash_attention.cu",
+                        "replaces": f"deepspeed_tpu/ops/flash_attention.py:"
+                                    f"{line}",
+                        "launches": train["launches"][name],
+                        **{k: flash[name][k] for k in keys}})
     print(json.dumps({"kernels": kernels}))
     print(dev["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

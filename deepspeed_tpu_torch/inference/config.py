@@ -14,18 +14,18 @@ from typing import Optional
 
 import torch
 
+from ..utils.roadmap import later
+
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32,
            "float16": torch.float16, "fp16": torch.float16}
 
-_PAR = "item 6 (tensor and expert parallelism)"
 # key → (the JAX default, accepted as a no-op; the ROADMAP item that ports it)
 _LATER = {
-    "tensor_parallel": (1, _PAR), "expert_parallel": (1, _PAR),
-    "tp_comm_quant": (0, _PAR),
-    "observability": (False, "item 9 (observability)"),
-    "trace_ring_size": (256, "item 9 (observability)"),
-    "serving": (None, "item 1 (ServingEngine)"),
+    "tensor_parallel": (1, 5), "expert_parallel": (1, 5),
+    "tp_comm_quant": (0, 5),
+    "observability": (False, 8), "trace_ring_size": (256, 8),
+    "serving": (None, 3),
 }
 
 
@@ -106,7 +106,7 @@ class InferenceConfig:
             if key in flat and flat.pop(key) != default:
                 raise NotImplementedError(
                     f"inference config {key!r} is not ported yet: "
-                    f"ROADMAP.md queue 1, {item}")
+                    f"{later(item)}")
         known = {f.name for f in dataclasses.fields(cls)}
         unknown = set(flat) - known
         if unknown:

@@ -36,7 +36,8 @@ def model_with_dtype(model, dtype):
     """The same model class over a config whose compute dtype is ``dtype``."""
     if model.cfg.dtype == dtype:
         return model
-    return type(model)(dataclasses.replace(model.cfg, dtype=dtype))
+    return type(model)(dataclasses.replace(model.cfg, dtype=dtype),
+                       attention_fn=model.attention_fn)
 
 
 class InferenceEngine:

@@ -13,6 +13,11 @@ A JAX-quantized tree (what ``InferenceEngine(..., {"quantize": True})
 with ``q``, ``scale``, ``group_size`` and ``bits`` — becomes the port's
 ``QuantizedTensor`` with the same bytes, and a fused quantized ``wqkv``
 splits along N in both ``q`` and ``scale``.
+
+A JAX training engine's fp32 master tree (``engine.fp32_params()``) has
+the model's own tree layout and converts the same way, into the port
+engine's ``params=``; :func:`params_to_numpy` goes back, so that master
+params after N steps compare leaf by leaf.
 """
 
 from __future__ import annotations
@@ -90,3 +95,16 @@ def params_from_jax(tree: Mapping, cfg: TransformerConfig, *,
                              f"{want[name]}")
         out[name] = t.to(device)
     return out
+
+
+def params_to_numpy(params: Params) -> dict:
+    """The port's state dict → the JAX tree layout (``layers`` nested) of
+    fp32 numpy arrays."""
+    tree: dict = {}
+    for name, t in params.items():
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if name.startswith(LAYER_PREFIX):
+            tree.setdefault("layers", {})[name[len(LAYER_PREFIX):]] = a
+        else:
+            tree[name] = a
+    return tree

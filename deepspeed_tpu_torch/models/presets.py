@@ -3,6 +3,7 @@ dense decoders only)."""
 
 from __future__ import annotations
 
+from ..utils.roadmap import later
 from .transformer import TransformerConfig, TransformerLM
 
 
@@ -77,10 +78,12 @@ def tiny_test(**overrides) -> TransformerConfig:
     return TransformerConfig(**base)
 
 
-def build_model(cfg: TransformerConfig) -> TransformerLM:
-    """Dense decoders only; MoE and T5 trunks raise (ROADMAP.md queue 1)."""
+def build_model(cfg: TransformerConfig, attention_fn=None) -> TransformerLM:
+    """Dense decoders only (``presets.py:119``); ``attention_fn`` e.g.
+    ``ops.flash_attention.make_flash_attention()``. MoE and T5 trunks
+    raise."""
     if not isinstance(cfg, TransformerConfig):
         raise NotImplementedError(
             f"deepspeed_tpu_torch builds TransformerLM only, got "
-            f"{type(cfg).__name__} (ROADMAP.md queue 1, item 10)")
-    return TransformerLM(cfg)
+            f"{type(cfg).__name__}: {later(9)}")
+    return TransformerLM(cfg, attention_fn=attention_fn)

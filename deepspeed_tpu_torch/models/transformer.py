@@ -8,19 +8,26 @@ the JAX package's tree flattened with dots. Weights keep the JAX layout
 ``(in, out)`` for ``y @ W``, so a converted tree is used as it is.
 
 ``TransformerLM.init`` draws that state dict from an explicit
-``torch.Generator``; ``apply`` is a function of it; ``forward`` runs on the
-module's own parameters after ``load_params``.
+``torch.Generator``; ``apply`` is a function of it (each layer optionally
+under ``torch.utils.checkpoint``); ``loss`` is the training objective on
+the unfused head; ``forward`` runs on the module's own parameters after
+``load_params``. Attention goes through ``attention_fn``: the dense
+``causal_attention`` by default, or ``ops.flash_attention
+.make_flash_attention()`` for the CUDA kernels.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from functools import partial
 from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..utils.roadmap import later
 
 Params = dict[str, torch.Tensor]
 LAYER_PREFIX = "layers."
@@ -80,20 +87,38 @@ class TransformerConfig:
     def is_glu(self) -> bool:
         return self.activation.endswith("glu")
 
-    def param_count(self) -> int:
-        return sum(math.prod(s) for s in param_shapes(self).values())
+    def flops_per_token(self) -> float:
+        """Forward + backward model FLOPs per token (``transformer.py:116``
+        of the JAX package, Megatron's convention): 6 × the non-embedding
+        parameters, the attention term 12·L·d·S and the unembedding 6·d·V."""
+        attn = 12 * self.n_layer * self.d_model * self.max_seq
+        head = 0 if self.objective == "feature" \
+            else 6 * self.d_model * self.vocab_size
+        return 6 * self.param_count(non_embedding=True) + attn + head
+
+    def param_count(self, non_embedding: bool = False) -> int:
+        """The JAX package's count (``transformer.py:143``): the attention
+        and FFN matrices of every layer plus the embedding table (twice
+        when untied); norms and biases are not counted."""
+        d, L = self.d_model, self.n_layer
+        h, kv, hd = self.n_head, self.kv_heads, self.head_dim
+        per_layer = d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d
+        per_layer += d * self.ffn_dim * (3 if self.is_glu else 2)
+        emb = self.vocab_size * d
+        total = L * per_layer + (0 if non_embedding else emb)
+        if not self.tie_embeddings and not non_embedding \
+                and self.objective != "feature":
+            total += emb
+        return total
 
 
 # Switches the dense decoder port does not carry yet, with the ROADMAP.md
 # item (queue 1) that will port each.
 _LATER = (
-    (lambda c: c.num_experts > 1, "num_experts > 1",
-     "item 5 (MoE: models/moe.py)"),
-    (lambda c: c.post_ln, "post_ln", "item 3 (training slice: encoders)"),
-    (lambda c: c.mlm_transform, "mlm_transform",
-     "item 3 (training slice: encoders)"),
-    (lambda c: c.tiled_head > 1, "tiled_head > 1",
-     "item 3 (training slice: ops/tiled.py)"),
+    (lambda c: c.num_experts > 1, "num_experts > 1 (models/moe.py)", 4),
+    (lambda c: c.post_ln, "post_ln (encoders)", 1),
+    (lambda c: c.mlm_transform, "mlm_transform (encoders)", 1),
+    (lambda c: c.tiled_head > 1, "tiled_head > 1 (ops/tiled.py)", 1),
 )
 
 
@@ -101,8 +126,7 @@ def check_supported(cfg: TransformerConfig) -> None:
     for unported, what, item in _LATER:
         if unported(cfg):
             raise NotImplementedError(
-                f"deepspeed_tpu_torch does not port {what} yet: ROADMAP.md "
-                f"queue 1, {item}")
+                f"deepspeed_tpu_torch does not port {what} yet: {later(item)}")
 
 
 def param_shapes(cfg: TransformerConfig) -> dict[str, tuple]:
@@ -254,14 +278,91 @@ def causal_attention(q, k, v, *, mask=None, causal: bool = True, bias=None):
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
+def token_nll(logits, targets):
+    """Per-token NLL, fp32, with ``_token_nll_impl``'s rounding
+    (``transformer.py:274``): max and subtract in the logits' dtype, then
+    fp32 exp, sum and log; the target logit gathered and upcast."""
+    m = logits.amax(dim=-1, keepdim=True)
+    se = torch.exp((logits - m).float()).sum(dim=-1)
+    lse = torch.log(se) + m[..., 0].float()
+    tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return lse - tgt.float()
+
+
+# the fused xent kernels' element budget for their (bt + bv) x d tiles and
+# their smallest tile (``ops/xent.py:186-187`` of the JAX package)
+_XENT_TILE_ELEM_BUDGET = (256 + 512) * 2048
+_XENT_MIN_TILE = 128
+
+
+def _fused_xent_eligible(cfg_dtype, compute_dtype, d_model: int,
+                         on_card: bool) -> bool:
+    """``fused_xent_eligible`` (``ops/xent.py:197``): fp16 never reaches the
+    kernels on the accelerator, and past d 6144 their tiles do not fit."""
+    if on_card and torch.float16 in (cfg_dtype, compute_dtype):
+        return False
+    return 2 * _XENT_MIN_TILE * d_model <= _XENT_TILE_ELEM_BUDGET
+
+
+# remat policy name -> ops whose outputs a layer's checkpoint keeps (None:
+# keep nothing, recompute the whole layer in the backward)
+_MATMULS = ("mm", "addmm", "bmm", "baddbmm")
+REMAT_POLICIES = {"full": None, "save_nothing": None,
+                  "dots_saveable": _MATMULS}
+
+
+def remat_wrap(fn, policy: Optional[str]):
+    """``fn`` under a non-reentrant ``torch.utils.checkpoint``: ``full`` /
+    ``save_nothing`` keep only the inputs, ``dots_saveable`` (JAX's
+    ``checkpoint_policies.dots_saveable``) also keeps every matmul output
+    through selective checkpointing and recomputes the rest, the flash
+    forward kernel included. ``None`` / ``"none"`` runs ``fn`` as it is."""
+    if policy in (None, "none"):
+        return fn
+    if policy not in REMAT_POLICIES:
+        raise NotImplementedError(
+            f"remat policy {policy!r} is not ported yet: {later(1)}")
+    from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    saved = REMAT_POLICIES[policy]
+    kw = {}
+    if saved is not None:
+        ops = {getattr(torch.ops.aten, n).default for n in saved}
+
+        def pick(ctx, op, *args, **kwargs):
+            return (CheckpointPolicy.MUST_SAVE if op in ops
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts, pick)
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return run
+
+
 # -------------------------------------------------------------------- model
 class TransformerLM(nn.Module):
     """init / apply over a :class:`TransformerConfig`."""
 
-    def __init__(self, config: TransformerConfig):
+    def __init__(self, config: TransformerConfig, attention_fn=None):
         super().__init__()
         check_supported(config)
+        if attention_fn is not None and not config.causal:
+            raise ValueError(
+                "encoder (causal=False) configs require the default "
+                "attention: the flash attention_fn applies a causal mask and "
+                "would silently break bidirectionality")
+        if attention_fn is not None and config.pos_embedding == "alibi" \
+                and not (getattr(attention_fn, "accepts_bias", False)
+                         or getattr(attention_fn, "accepts_alibi_slopes",
+                                    False)):
+            raise ValueError(
+                "alibi needs an additive score bias; this attention_fn "
+                "accepts neither a bias nor alibi slopes")
         self.cfg = config
+        self.attention_fn = attention_fn          # None: causal_attention
         self.layers = nn.Module()
 
     # ----------------------------------------------------------------- init
@@ -321,11 +422,17 @@ class TransformerLM(nn.Module):
         v = self._maybe_bias(y @ p["wv"].to(y.dtype), p, "bv").reshape(B, S, kv, hd)
         if cfg.pos_embedding == "rope":
             q, k = _rope(q, k, positions, cfg.rope_theta, cfg.rotary_dim)
-        bias = None
+        attn = self.attention_fn or partial(causal_attention, causal=cfg.causal)
+        attn_kw = {}
         if cfg.pos_embedding == "alibi":
-            bias = alibi_bias(alibi_slopes(h, x.device), S)
-        o = causal_attention(q, k, v, mask=attn_mask, causal=cfg.causal,
-                             bias=bias)
+            # functions that take slopes build the ramp themselves (the
+            # flash kernels in-kernel); the dense path gets the (H, S, S) bias
+            slopes = alibi_slopes(h, x.device)
+            if getattr(attn, "accepts_alibi_slopes", False):
+                attn_kw["alibi_slopes"] = slopes
+            else:
+                attn_kw["bias"] = alibi_bias(slopes, S)
+        o = attn(q, k, v, mask=attn_mask, **attn_kw)
         return self._maybe_bias(o.reshape(B, S, h * hd) @ p["wo"].to(x.dtype),
                                 p, "bo")
 
@@ -388,17 +495,77 @@ class TransformerLM(nn.Module):
             logits = logits + params["lm_head_bias"].to(logits.dtype)
         return logits
 
-    def apply(self, params: Params, input_ids, *, attn_mask=None):
+    def apply(self, params: Params, input_ids, *, attn_mask=None,
+              remat_policy: Optional[str] = None):
         """(B, S) ids → (B, S, V) logits in the compute dtype, or (B, S, d)
-        final-norm hidden states for ``objective='feature'``."""
+        final-norm hidden states for ``objective='feature'``.
+
+        A ``layers.<name>`` value is the stacked ``(L, ...)`` tensor or a
+        sequence of L per-layer tensors (the training engine's leaves).
+        ``remat_policy`` (:data:`REMAT_POLICIES`) runs each layer under
+        ``torch.utils.checkpoint``, as the JAX trunk wraps its scan body in
+        ``jax.checkpoint``."""
         x, positions = self._embed(params, input_ids)
         layers = layer_params(params)
+        layer = remat_wrap(self._layer, remat_policy)
         for i in range(self.cfg.n_layer):
-            x = self._layer(x, {k: v[i] for k, v in layers.items()},
-                            positions, attn_mask)
+            x = layer(x, {k: v[i] for k, v in layers.items()}, positions,
+                      attn_mask)
         if self.cfg.objective == "feature":
             return self._head_norm(params, x)
         return self._head(params, x)
+
+    # ----------------------------------------------------------------- loss
+    def loss(self, params: Params, batch: dict, *,
+             remat_policy: Optional[str] = None):
+        """Objective-dependent cross-entropy, fp32, mean over the counted
+        tokens (``transformer.py:781``): ``clm`` next-token over the
+        (``loss_mask``-ed) positions, ``mlm`` ``batch['labels']`` at the
+        ``loss_mask`` positions."""
+        cfg = self.cfg
+        if cfg.objective == "feature":
+            raise ValueError(
+                "objective='feature' models have no unembedding/LM loss; "
+                "train them under a task head (apply() gives hidden states)")
+        ids = batch["input_ids"]
+        compute = getattr(params.get("tok_embed"), "dtype", None)
+        if self._fused_xent_active(ids.device.type == "cuda", compute):
+            raise NotImplementedError(
+                "the fused softmax-xent head (ops/xent.py), which the JAX "
+                "package takes here (fused_xent="
+                f"{cfg.fused_xent}, a tied head), is not ported yet: "
+                f"{later(1)}; fused_xent=False takes the unfused head, as "
+                "the JAX package does on every backend")
+        mlm = cfg.objective == "mlm"
+        logits = self.apply(params, ids, attn_mask=batch.get("attention_mask"),
+                            remat_policy=remat_policy)
+        if mlm:
+            nll = token_nll(logits, batch["labels"])
+        else:
+            nll = token_nll(logits[:, :-1], ids[:, 1:])
+        mask = batch["loss_mask"] if mlm else batch.get("loss_mask")
+        if mask is None:
+            return nll.mean()
+        mask = (mask if mlm else mask[:, 1:]).float()
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+    def _fused_xent_active(self, on_card: bool, compute_dtype=None) -> bool:
+        """Would the JAX package route this loss through its fused
+        softmax-xent kernels (#10-#12; ``_fused_xent_active``,
+        ``transformer.py:823-865``)? Only for a tied clm/mlm head at an
+        eligible width and dtype; then ``fused_xent=True`` always, and the
+        auto mode (``None``) on its accelerator, which the port reads as
+        the card. ``loss`` raises where this is True: those kernels are not
+        ported, and their work must not run as plain PyTorch in their
+        place. At world size 1 the JAX mesh checks all pass."""
+        cfg = self.cfg
+        if cfg.fused_xent is False or not cfg.tie_embeddings \
+                or cfg.objective not in ("clm", "mlm"):
+            return False
+        if not _fused_xent_eligible(cfg.dtype, compute_dtype, cfg.d_model,
+                                    on_card):
+            return False
+        return bool(cfg.fused_xent) or on_card
 
     def forward(self, input_ids, attn_mask=None):
         return self.apply(dict(self.named_parameters()), input_ids,

@@ -1,0 +1,336 @@
+"""Flash attention, forward and backward.
+
+Counterpart of ``deepspeed_tpu/ops/flash_attention.py``, whose Pallas
+kernels (``_fwd_kernel``, ``_make_bwd_dq_kernel``, ``_make_bwd_dkv_kernel``
+and their streamed long-sequence twins) become three CUDA kernels for
+Hopper in ``csrc/flash_attention.cu`` (its header says what bounds them and
+how they are laid out), built by ``ops/builder.py`` and called through
+ctypes. The kernels stream K/V (or Q/dO) through shared memory at any S,
+so one kernel stands for each TPU pair.
+
+The wrappers :func:`flash_fwd`, :func:`flash_bwd_dq` and
+:func:`flash_bwd_dkv` launch their kernel for CUDA tensors and take the
+plain PyTorch versions beside them for CPU tensors only; on a CUDA tensor
+they launch or raise. Each counts its launches in ``.launches``.
+:func:`flash_attention` wraps them in one ``torch.autograd.Function``;
+:func:`make_flash_attention` is the ``attention_fn`` factory of
+``TransformerLM``.
+
+On the card the kernels take bf16 and fp16 (fp32 accumulation) with head
+dims 16, 32, 64 and 128; fp32 inputs and other head dims raise. The CPU
+path takes any float dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from ..utils.roadmap import later
+from . import builder
+
+BIG_NEG = -2.0 ** 30
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+_DTYPE_CODE = {torch.float16: 1, torch.bfloat16: 2}
+
+
+# ------------------------------------------------------------ plain versions
+def _keep_mask(B, S, device, *, mask, causal):
+    """(B|1, 1, S, S) bool: key t visible to query s."""
+    keep = torch.ones((1, 1, S, S), dtype=torch.bool, device=device)
+    if causal:
+        keep = keep & torch.ones((S, S), dtype=torch.bool,
+                                 device=device).tril()
+    if mask is not None:
+        keep = keep & (mask.float() > 0.5)[:, None, None, :]
+    return keep
+
+
+def _scores(q, k, *, mask, alibi_slopes, causal):
+    """fp32 (B, H, S, S) scores as the kernels form them, masked positions
+    at BIG_NEG, and the keep mask. q: (B, S, H, hd); k: (B, S, KV, hd)."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    kr = k.repeat_interleave(G, dim=2) if G > 1 else k
+    # products of storage-dtype values are exact in fp32: the fp32 matmul
+    # of the upcast operands is the kernels' bf16 x bf16 -> fp32 dot
+    s = torch.einsum("bshd,bthd->bhst", q.float(), kr.float())
+    s = s * (1.0 / math.sqrt(hd))
+    if alibi_slopes is not None:
+        pos = torch.arange(S, device=q.device)
+        rel = (pos[None, :] - pos[:, None]).float()
+        s = s + alibi_slopes.float().to(q.device)[:, None, None] * rel
+    keep = _keep_mask(B, S, q.device, mask=mask, causal=causal)
+    return torch.where(keep, s, BIG_NEG), keep
+
+
+def flash_attention_fwd_plain(q, k, v, *, mask=None, alibi_slopes=None,
+                              causal=True):
+    """The forward kernel's function in plain tensor ops: masked scores at
+    BIG_NEG with zero probability, p rounded to v's dtype before p·v,
+    l clamped to 1e-30. Returns o (B, S, H, hd) in q's dtype and the fp32
+    logsumexp (B, H, S)."""
+    G = q.shape[2] // k.shape[2]
+    vr = v.repeat_interleave(G, dim=2) if G > 1 else v
+    s, keep = _scores(q, k, mask=mask, alibi_slopes=alibi_slopes,
+                      causal=causal)
+    m = s.amax(dim=-1, keepdim=True).clamp_min(BIG_NEG)
+    p = torch.where(keep, torch.exp(s - m), 0.0)
+    l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    acc = torch.einsum("bhst,bthd->bshd", p.to(v.dtype).float(), vr.float())
+    o = acc / l_safe.permute(0, 2, 1, 3)
+    lse = (m + torch.log(l_safe))[..., 0]
+    return o.to(q.dtype), lse
+
+
+def _bwd_plain(q, k, v, do, lse, delta, *, mask, alibi_slopes, causal):
+    """(p, ds) (B, H, S, S) fp32, recomputed from the logsumexp."""
+    G = q.shape[2] // k.shape[2]
+    vr = v.repeat_interleave(G, dim=2) if G > 1 else v
+    s, keep = _scores(q, k, mask=mask, alibi_slopes=alibi_slopes,
+                      causal=causal)
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bshd,bthd->bhst", do.float(), vr.float())
+    return p, p * (dp - delta[..., None])
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, mask=None,
+                       alibi_slopes=None, causal=True):
+    """dq (B, S, H, hd): ds rounded to k's dtype before ds·k, scaled once."""
+    G = q.shape[2] // k.shape[2]
+    kr = k.repeat_interleave(G, dim=2) if G > 1 else k
+    _, ds = _bwd_plain(q, k, v, do, lse, delta, mask=mask,
+                       alibi_slopes=alibi_slopes, causal=causal)
+    dq = torch.einsum("bhst,bthd->bshd", ds.to(k.dtype).float(), kr.float())
+    return (dq * (1.0 / math.sqrt(q.shape[-1]))).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, mask=None,
+                        alibi_slopes=None, causal=True):
+    """(dk, dv) (B, S, KV, hd), each KV head summed over its query heads in
+    fp32: p rounded to dO's dtype before pᵀ·dO, ds to q's before dsᵀ·q."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    p, ds = _bwd_plain(q, k, v, do, lse, delta, mask=mask,
+                       alibi_slopes=alibi_slopes, causal=causal)
+    dk = torch.einsum("bhst,bshd->bthd", ds.to(q.dtype).float(), q.float())
+    dv = torch.einsum("bhst,bshd->bthd", p.to(do.dtype).float(), do.float())
+    dk = dk.reshape(B, S, KV, H // KV, hd).sum(3) * (1.0 / math.sqrt(hd))
+    dv = dv.reshape(B, S, KV, H // KV, hd).sum(3)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, mask=None,
+                              alibi_slopes=None, causal=True):
+    """dq, dk, dv from the forward's o and lse (delta = rowsum(dO·o))."""
+    delta = attention_delta(o, do)
+    kw = dict(mask=mask, alibi_slopes=alibi_slopes, causal=causal)
+    return (flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw),
+            *flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw))
+
+
+def attention_delta(o, do):
+    """rowsum(dO·o) in fp32, (B, H, S), as JAX computes it outside its
+    kernels (``_bwd_call`` :348)."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+# ------------------------------------------------------------------ kernels
+def _lib():
+    lib = builder.load("flash_attention")
+    if lib.dstpu_flash_fwd.argtypes is None:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # pointers and the stream as c_void_p: without argtypes ctypes
+        # passes a Python int as a 32-bit C int and cuts the pointer
+        lib.dstpu_flash_fwd.argtypes = [P] * 7 + [I] * 7 + [F, P]
+        lib.dstpu_flash_bwd_dq.argtypes = [P] * 9 + [I] * 7 + [F, P]
+        lib.dstpu_flash_bwd_dkv.argtypes = [P] * 10 + [I] * 7 + [F, P]
+        for fn in (lib.dstpu_flash_fwd, lib.dstpu_flash_bwd_dq,
+                   lib.dstpu_flash_bwd_dkv):
+            fn.restype = I
+    return lib
+
+
+def _check(name, q, k, v, do=None, *fp32):
+    """Raise on what the kernels do not take; returns (B, S, H, KV, hd).
+    q, k, v (and dO) share a dtype; ``fp32`` are lse and delta."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    B, S, H, hd = q.shape
+    if k.ndim != 4 or k.shape != v.shape or k.shape[:2] != (B, S) \
+            or k.shape[3] != hd or H % k.shape[2]:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not fit k "
+                         f"{tuple(k.shape)} / v {tuple(v.shape)}")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: the CUDA kernels take bf16 or fp16, got "
+                         f"{q.dtype} (fp32 runs on the CPU path only)")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {hd} not in {KERNEL_HEAD_DIMS}")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: q is on {q.device}, the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    same = (k, v) if do is None else (k, v, do)
+    if do is not None and do.shape != q.shape:
+        raise ValueError(f"{name}: dO {tuple(do.shape)} is not q's shape")
+    if any(t.dtype != q.dtype for t in same) \
+            or any(t.dtype != torch.float32 or t.shape != (B, H, S)
+                   for t in fp32):
+        raise ValueError(f"{name}: q/k/v/dO dtypes must match, lse and "
+                         f"delta must be fp32 ({B}, {H}, {S})")
+    for t in (q, *same, *fp32):
+        if t.device != q.device or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be contiguous, "
+                             "16-byte aligned and on q's device")
+    return B, S, H, k.shape[2], hd
+
+
+def _side(mask, slopes, B, S, H, device):
+    """The kernels' mask (B, S) uint8 and slopes (H,) fp32, or None."""
+    m = s = None
+    if mask is not None:
+        if tuple(mask.shape) != (B, S):
+            raise ValueError(f"mask must be ({B}, {S}), got "
+                             f"{tuple(mask.shape)}")
+        m = (mask.to(device).float() > 0.5).to(torch.uint8).contiguous()
+    if slopes is not None:
+        s = slopes.to(device, torch.float32).contiguous()
+        if tuple(s.shape) != (H,):
+            raise ValueError(f"alibi_slopes must be ({H},)")
+    return m, s
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def flash_fwd(q, k, v, *, mask=None, alibi_slopes=None, causal=True):
+    """Forward: o (B, S, H, hd) and fp32 lse (B, H, S). q (B, S, H, hd),
+    k/v (B, S, KV, hd) in the JAX layout; ``mask`` (B, S) key padding
+    ({0, 1}); ``alibi_slopes`` (H,)."""
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, mask=mask,
+                                         alibi_slopes=alibi_slopes,
+                                         causal=causal)
+    B, S, H, KV, hd = _check("flash_fwd", q, k, v)
+    m, s = _side(mask, alibi_slopes, B, S, H, q.device)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    err = _lib().dstpu_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(m), _ptr(s),
+        o.data_ptr(), lse.data_ptr(), B, S, H, KV, hd, int(causal),
+        _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "flash_fwd")
+    flash_fwd.launches += 1
+    return o, lse
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, mask=None, alibi_slopes=None,
+                 causal=True):
+    """dq (B, S, H, hd) from dO, the forward's lse and delta (B, H, S)."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, mask=mask,
+                                  alibi_slopes=alibi_slopes, causal=causal)
+    B, S, H, KV, hd = _check("flash_bwd_dq", q, k, v, do, lse, delta)
+    m, s = _side(mask, alibi_slopes, B, S, H, q.device)
+    dq = torch.empty_like(q)
+    err = _lib().dstpu_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(m), _ptr(s), dq.data_ptr(),
+        B, S, H, KV, hd, int(causal), _DTYPE_CODE[q.dtype],
+        1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, mask=None, alibi_slopes=None,
+                  causal=True):
+    """(dk, dv) (B, S, KV, hd), summed over each KV head's query heads."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, mask=mask,
+                                   alibi_slopes=alibi_slopes, causal=causal)
+    B, S, H, KV, hd = _check("flash_bwd_dkv", q, k, v, do, lse, delta)
+    m, s = _side(mask, alibi_slopes, B, S, H, q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _lib().dstpu_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(m), _ptr(s), dk.data_ptr(),
+        dv.data_ptr(), B, S, H, KV, hd, int(causal), _DTYPE_CODE[q.dtype],
+        1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "flash_bwd_dkv")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_fwd.launches = 0
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+
+
+# ------------------------------------------------------------ autograd
+class _Flash(torch.autograd.Function):
+    """Forward saves o and the fp32 lse; backward runs dq then dk/dv."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, slopes, causal):
+        o, lse = flash_fwd(q, k, v, mask=mask, alibi_slopes=slopes,
+                           causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse, mask, slopes)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, mask, slopes = ctx.saved_tensors
+        do = do.contiguous()
+        delta = attention_delta(o, do)
+        kw = dict(mask=mask, alibi_slopes=slopes, causal=ctx.causal)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, mask: Optional[torch.Tensor] = None,
+                    alibi_slopes: Optional[torch.Tensor] = None,
+                    causal: bool = True, block: int = 512,
+                    bias: Optional[torch.Tensor] = None):
+    """Fused attention, differentiable. q: (B, S, H, hd); k/v: (B, S, KV,
+    hd); returns (B, S, H, hd). ``mask`` is a (B, S) key-padding mask and
+    ``alibi_slopes`` (H,) per-head slopes whose ramp the kernels build
+    themselves. ``block`` is the TPU tile size, kept for the signature:
+    the CUDA kernels pick their own tiles and take any S. GQA's dk/dv come
+    out summed per group inside the dk/dv kernel."""
+    del block
+    if bias is not None:
+        raise NotImplementedError(
+            "flash_attention: the additive bias operand and its dbias are "
+            f"not ported yet: {later(9)}; pass alibi_slopes for ALiBi")
+    if q.device.type == "cuda":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    return _Flash.apply(q, k, v, mask, alibi_slopes, causal)
+
+
+def make_flash_attention(block: int = 512, bias_is_constant: bool = True):
+    """``attention_fn`` factory for :class:`TransformerLM`, with the JAX
+    factory's capability flags (``ops/flash_attention.py:935-957``)."""
+
+    def attn(q, k, v, *, mask=None, bias=None, alibi_slopes=None):
+        return flash_attention(q, k, v, mask=mask, bias=bias,
+                               alibi_slopes=alibi_slopes, block=block)
+
+    # the bias operand raises until it is ported (queue 1 item 9): a caller
+    # routing an additive bias by this flag takes its dense path instead
+    attn.accepts_bias = False
+    attn.bias_is_constant = bias_is_constant
+    attn.accepts_alibi_slopes = True
+    return attn

@@ -191,3 +191,124 @@ def test_woq_generate_through_the_kernels(cuda, cfg, bits):
     assert wm.woq_matmul.launches - before[0] == per_step * 9
     assert wm.woq_matmul_t.launches - before[1] == 9 * cfg.tie_embeddings
     assert torch.equal(got, want)
+
+
+# ------------------------------------------------------------- flash attention
+# (B, H, KV, S, hd, causal, mask kind, alibi): chip_smoke.py phase 5's cases
+FLASH_CASES = [
+    (4, 25, 25, 1024, 64, True, None, False),      # GPT-2 1.5B
+    (1, 32, 32, 4096, 128, True, None, False),     # Llama-2-7B
+    (1, 64, 8, 2048, 128, True, None, False),      # Llama-2-70B heads (GQA)
+    (1, 8, 8, 8192, 128, True, None, False),       # where the TPU streams
+    (2, 4, 4, 256, 64, True, "left_pad", False),
+    (2, 4, 2, 256, 64, False, "dead_row", False),
+    (2, 8, 8, 512, 64, True, None, True),
+    (2, 4, 4, 512, 128, False, None, False),
+    (2, 4, 4, 1000, 64, True, None, False),
+    (1, 4, 1, 77, 32, True, "left_pad", True),
+    (2, 4, 4, 100, 16, False, None, False),
+]
+# max |kernel - plain| / max |plain| of o, dq, dk, dv: a few ulps of the
+# storage dtype at the top of each tensor (chip_smoke.py FLASH_TOL_SHARE)
+FLASH_SHARE = {torch.bfloat16: 2e-2, torch.float16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda, case, dtype):
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    B, H, KV, S, hd, causal, mask_kind, alibi = case
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, do = (torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, KV, hd, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    mask = None
+    if mask_kind:
+        mask = torch.ones(B, S, dtype=torch.bool, device=cuda)
+        if mask_kind == "left_pad":
+            mask[-1, :3] = False
+        else:
+            mask[-1] = False
+    kw = dict(mask=mask, alibi_slopes=alibi_slopes(H, cuda) if alibi else None,
+              causal=causal)
+    o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    delta = fa.attention_delta(o_p, do)
+    before = [f.launches for f in (fa.flash_fwd, fa.flash_bwd_dq,
+                                   fa.flash_bwd_dkv)]
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_p, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
+    want = (o_p, fa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw),
+            *fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, **kw))
+    torch.cuda.synchronize()
+    assert [f.launches for f in (fa.flash_fwd, fa.flash_bwd_dq,
+                                 fa.flash_bwd_dkv)] == [b + 1 for b in before]
+    for got, ref in zip((o, dq, dk, dv), want):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        share = ((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max().clamp_min(1e-30)).item()
+        assert share <= FLASH_SHARE[dtype]
+    live = lse_p > fa.BIG_NEG / 2
+    assert (lse - lse_p).abs()[live].max().item() <= 2e-3
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(cuda):
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    q = torch.zeros(1, 64, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="bf16 or fp16"):
+        fa.flash_fwd(q, q, q)
+    q = q.bfloat16()
+    with pytest.raises(ValueError, match="head dim"):
+        x = torch.zeros(1, 64, 2, 48, device=cuda, dtype=torch.bfloat16)
+        fa.flash_fwd(x, x, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)
+
+
+def test_loss_refuses_the_fused_xent_head_on_the_card(cuda):
+    """A tied head with fused_xent=None is where the JAX package takes its
+    fused xent kernels on its accelerator: not ported, so the loss raises."""
+    model = dt.build_model(tiny_test(dtype=torch.bfloat16))
+    params = model.init(torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda, dtype=torch.bfloat16)
+    ids = torch.zeros(1, 8, dtype=torch.long, device=cuda)
+    with pytest.raises(NotImplementedError, match="fused softmax-xent"):
+        model.loss(params, {"input_ids": ids})
+
+
+# tied heads with fused_xent=False: the unfused head, as in the JAX package
+@pytest.mark.parametrize("cfg", [tiny_test(dtype=torch.bfloat16,
+                                           fused_xent=False),
+                                 llama2("tiny", dtype=torch.bfloat16,
+                                        vocab_size=512),
+                                 bloom("tiny", dtype=torch.bfloat16,
+                                       vocab_size=512, fused_xent=False)])
+def test_training_step_through_the_kernels(cuda, cfg):
+    """One optimizer step through the kernels on the card: the flash launch
+    counts of remat (the forward reruns in the backward) and a finite loss
+    and grad norm within 2e-2 of the plain attention path's."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    conf = {"train_batch_size": 4, "gradient_accumulation_steps": 2,
+            "remat": {"enabled": True}, "gradient_clipping": 1.0,
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}}
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 64))
+    eng = dt.initialize(conf, dt.build_model(
+        cfg, attention_fn=dt.make_flash_attention()), seed=0)
+    before = [f.launches for f in (fa.flash_fwd, fa.flash_bwd_dq,
+                                   fa.flash_bwd_dkv)]
+    m = eng.train_batch({"input_ids": ids})
+    n = cfg.n_layer * 2
+    assert [f.launches - b for f, b in zip(
+        (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv), before)] \
+        == [2 * n, n, n]
+    dense = dt.initialize(conf, dt.build_model(cfg), seed=0)
+    r = dense.train_batch({"input_ids": ids})
+    assert float(m["loss"]) == pytest.approx(float(r["loss"]), rel=2e-2)
+    assert float(m["grad_norm"]) == pytest.approx(float(r["grad_norm"]),
+                                                  rel=2e-2)

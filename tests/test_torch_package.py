@@ -8,6 +8,7 @@ import pytest
 import torch
 
 import deepspeed_tpu_torch as dt
+from deepspeed_tpu_torch.config import Config
 from deepspeed_tpu_torch.inference.config import InferenceConfig
 from deepspeed_tpu_torch.models import tiny_test
 from deepspeed_tpu_torch.ops import builder
@@ -86,7 +87,8 @@ def test_library_path_keys_on_the_source():
     path = builder.library_path("decode_attention")
     assert path.parent == builder.BUILD_DIR
     assert path.name.startswith("libdecode_attention-")
-    assert builder.sources() == ["decode_attention", "woq_matmul"]
+    assert builder.sources() == ["decode_attention", "flash_attention",
+                                 "woq_matmul"]
 
 
 def test_inference_config_ports_and_refuses():
@@ -118,6 +120,96 @@ def test_inference_config_ports_and_refuses():
         InferenceConfig.from_any({"decode_chunk": -1})
 
 
+def test_training_entry_point_defaults_to_cuda():
+    """Without a card, initialize with no device raises; device='cpu'
+    builds the engine on the host."""
+    model = dt.build_model(tiny_test(dtype=torch.float32))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            dt.initialize({"train_batch_size": 2}, model)
+    eng = dt.initialize({"train_batch_size": 2}, model, device="cpu")
+    assert all(p.device.type == "cpu" and p.dtype == torch.float32
+               for p in eng.master.values())
+
+
+def test_training_config_ports_and_refuses():
+    cfg = Config.from_any({"train_batch_size": 16,
+                           "train_micro_batch_size_per_gpu": 4,
+                           "zero_optimization": {"stage": 2},
+                           "data_types": {"grad_accum_dtype": "bf16"},
+                           "monitor": {"enabled": False},
+                           "mesh": {"data": 1}}).resolve_batch_sizes(1)
+    assert (cfg.gradient_accumulation_steps, cfg.zero_stage,
+            cfg.accum_dtype, cfg.compute_dtype) == (4, 2, torch.bfloat16,
+                                                    torch.bfloat16)
+    assert Config.from_any({"fp16": {"enabled": True}}).compute_dtype \
+        == torch.float16
+    for conf, item in (
+            ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
+             "item 7"),
+            ({"compression": {"sparse_pruning": {"enabled": True}}},
+             "item 9"),
+            ({"lora": {"enabled": True}}, "item 9"),
+            ({"progressive_layer_drop": {"enabled": True}}, "item 9"),
+            ({"data_efficiency": {"random_ltd": {"enabled": True}}},
+             "item 9"),
+            ({"data_efficiency": {"curriculum_learning": {"enabled": True}}},
+             "item 9"),
+            ({"gradient_compression": {"enabled": True}}, "item 9"),
+            ({"checkpoint": {"async_save": True}}, "item 1"),
+            ({"monitor": {"enabled": True}}, "item 8"),
+            ({"observability": {"spans": True}}, "item 8"),
+            ({"elasticity": {"enabled": True}}, "item 9"),
+            ({"moe": {"enabled": True}}, "item 4"),
+            ({"mesh": {"model": 2}}, "item 5"),
+            ({"mesh": {"data": 2}}, "item 1"),
+            ({"remat": {"enabled": True, "offload": True}}, "item 1")):
+        with pytest.raises(NotImplementedError, match=item):
+            Config.from_any(conf)
+    model = dt.build_model(tiny_test(dtype=torch.float32))
+    for conf, item in (({"optimizer": {"type": "OneBitAdam"}}, "item 9"),
+                       ({"remat": {"enabled": True, "policy": "save_names"}},
+                        "item 1")):
+        with pytest.raises(NotImplementedError, match=item):
+            dt.initialize(conf, model, device="cpu")
+    with pytest.raises(ValueError, match="unknown config keys"):
+        Config.from_any({"gradient_clip": 1.0})
+    with pytest.raises(ValueError, match="unknown config keys in lora"):
+        Config.from_any({"lora": {"rnak": 4}})
+    with pytest.raises(ValueError, match="inconsistent"):
+        Config.from_any({"train_batch_size": 6,
+                         "train_micro_batch_size_per_gpu": 4,
+                         "gradient_accumulation_steps": 2}
+                        ).resolve_batch_sizes(1)
+    with pytest.raises(NotImplementedError, match="fused_xent"):
+        dt.build_model(tiny_test(fused_xent=True)).loss(
+            {}, {"input_ids": torch.zeros(1, 4, dtype=torch.long)})
+
+
+def test_every_roadmap_item_the_port_names_exists():
+    """Each "ROADMAP.md queue 1, item N (title)" the port can raise names
+    queue 1's item N of ROADMAP.md, under that title."""
+    import re
+
+    from deepspeed_tpu_torch.utils import roadmap
+
+    text = (ROOT / "ROADMAP.md").read_text()
+    queue = text[text.index("### 1. Modules to port"):
+                 text.index("### 2. TPU kernels")]
+    titles = {int(n): t.replace("`", "").lower() for n, t in
+              re.findall(r"^(\d+)\. \*\*(.+?)\*\*", queue, re.M)}
+    named = dict(roadmap.ITEMS)
+    for path in PORT_FILES:
+        for n, t in re.findall(r"queue 1, item (\d+) \(([^)]+)\)",
+                               path.read_text()):
+            named.setdefault(int(n), t)
+            assert named[int(n)] == t, (path, n, t)
+    assert len(named) >= 9
+    for n, t in named.items():
+        assert n in titles and titles[n].startswith(t.lower()), (n, t)
+    assert roadmap.later(3) == "ROADMAP.md queue 1, item 3 (ServingEngine)"
+
+
 def test_engine_refuses_tf32_matmuls_on_the_card(monkeypatch):
     """The fp32 decode head needs full fp32 products on the card."""
     model = dt.models.build_model(tiny_test(dtype=torch.float32))
@@ -132,7 +224,9 @@ def test_engine_refuses_tf32_matmuls_on_the_card(monkeypatch):
 
 def test_public_surface():
     assert {"init_inference", "InferenceEngine", "InferenceConfig",
-            "models"} <= set(dt.__all__)
+            "models", "initialize", "build_model",
+            "make_flash_attention"} <= set(dt.__all__)
     for name in ("gpt2", "llama2", "opt", "bloom", "tiny_test",
-                 "build_model", "params_from_jax", "TransformerLM"):
+                 "build_model", "params_from_jax", "params_to_numpy",
+                 "TransformerLM"):
         assert hasattr(dt.models, name)

@@ -34,18 +34,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    fully masked rows, ALiBi, non-causal, odd S, hd 16/32); timed at the
    GPT-2 shape and at S 8192 beside the bound, the plain versions and the
    library calls (SDPA's forward; the aten flash backward for dq + dk/dv);
-6. training slice: GPT-2 1.5B at full width and depth with
-   ``fused_xent=False`` (the unfused head, which the JAX package takes on
-   its TPU too with that setting) through ``initialize(TRAIN_CONFIG,
-   build_model(cfg, attention_fn=make_flash_attention())).train_batch``;
-   first the kernel path's loss and grads against the plain attention path
-   at 4 layers; then 3 warm-up and 10 timed steps on learnable data with
-   every flash kernel's count read around the timed steps (exact), each
-   loss finite, the loss falling; step time, tokens/s, MFU, peak memory
-   and a profile of two steps.
+5b. xent kernels: the forward (its ``partials`` mode on each shard of a
+   4-way hand split of a 50304-row vocab, combined by hand), dx and dW/db
+   kernels against their plain versions in bf16 at GPT-2 1.5B's head shape
+   (T 4092, V 50257, d 1600), BERT-large's (T 8192, V 30522, d 1024, with
+   the bias) and the edges (nothing divides, one token, d 2304 and 6144; a
+   target in the last valid column, targets outside the vocab, rows with
+   g = 0);
+   timed at the GPT-2 shape beside the bound, the plain versions and the
+   library (``F.cross_entropy`` of ``F.linear`` and its autograd backward);
+6. training, the unfused reference: GPT-2 1.5B at full width and depth with
+   ``fused_xent=False`` through ``initialize(TRAIN_CONFIG, build_model(cfg,
+   attention_fn=make_flash_attention())).train_batch``; first the kernel
+   attention path's loss and grads against the plain attention path at 4
+   layers; then 2 warm-up and 4 timed steps on learnable data with every
+   kernel's count read around the timed steps (exact), each loss finite,
+   the loss falling; step time, tokens/s, MFU, peak memory and a profile
+   of two steps;
+7. training, the main path: GPT-2 1.5B under its default config (a tied
+   head with ``fused_xent=None``: the fused xent kernels on the card), the
+   same entry points, 3 + 10 steps; first, at 4 layers, the fused head's
+   loss and grads against the unfused head's on the same weights and
+   batch, and each head timed alone; launches exact (xent 2 / 2 / 2 per
+   optimizer step at gas 2, flash as in phase 6);
+8. training, BERT-large's MLM objective in the Hugging Face layout
+   (``post_ln``, ``embed_norm``, ``mlm_transform``, ``lm_head_bias``), 24
+   layers, micro-batch 16 x 512, bidirectional flash attention under a
+   key-padding mask, 15% of the positions counted, through the same xent
+   kernels with the bias operand live: the same checks, 3 + 6 steps.
 
-``remat_sweep()`` is a one-off measurement outside the phases: the same
-training step under each remat policy.
+``remat_sweep()`` is a one-off measurement outside the phases: the default
+GPT-2 1.5B training step under each remat policy.
 
 The last three lines of standard output are the kernels' JSON, then
 ``nvidia-smi``'s name and power limit of the card, then the device JSON.
@@ -1077,6 +1096,230 @@ def _flash_timing(gen, case, iters) -> dict:
     return out
 
 
+# ------------------------------------------------------- phase 5b, xent
+# (name, T, V, d, bias): GPT-2 1.5B's head (micro-batch 4 x 1023 shifted
+# tokens), BERT-large's MLM head (16 x 512 tokens, decoder bias), then the
+# edges: nothing divides a tile, one token, a d that two clusters of the
+# backward share unevenly (blocks past d), the widest eligible d
+XENT_CASES = (
+    ("gpt2_1.5b", 4092, 50257, 1600, False),
+    ("bert_large", 8192, 30522, 1024, True),
+    ("ragged", 77, 1000, 64, True),
+    ("one_token", 1, 1000, 64, False),
+    ("d_2304", 300, 3000, 2304, True),
+    ("d_6144", 256, 2000, 6144, True),
+)
+# kernel vs plain as shares of max |plain|. nll, lse and db are fp32 sums of
+# the same bf16 products in another order, with __expf (ex2.approx, ~2 ulp)
+# in the kernels; dx and dW are bf16: dl is rounded to bf16 before both
+# products on both sides and the result once more, a few ulps (2^-8) at the
+# top of each tensor. A wrong tile, mask or onehot gives O(1).
+XENT_TOL_SHARE = {"nll": 1e-4, "lse": 1e-4, "dx": 2e-2, "dw": 2e-2,
+                  "db": 1e-3}
+# the 4-way hand split of a padded NeoX-size vocab: 12576 rows a shard
+XENT_TP_VOCAB, XENT_TP_SHARDS = 50304, 4
+
+
+def _xent_case(gen, T, V, d, bias, dtype, device):
+    """Operands with the awkward rows set: a target in the last valid
+    column, one past the vocab, a negative one, and every 7th g at 0."""
+    import torch
+
+    mk = partial(torch.randn, generator=gen, device=device)
+    x = mk((T, d)).to(dtype)
+    w = (mk((V, d)) * 0.05).to(dtype)
+    b = (mk((V,)) * 0.5).to(dtype) if bias else None
+    t = torch.randint(0, V, (T,), generator=gen, device=device,
+                      dtype=torch.int32)
+    t[0] = V - 1
+    if T > 2:
+        t[1], t[2] = V + 3, -5
+    g = mk((T,)) / T
+    g[::7] = 0.0
+    return x, w, b, t, g
+
+
+def xent_bound(T, V, d, bias: bool) -> dict:
+    """Least time of each kernel on an H100: 2 T V d FLOPs for the
+    forward, 4 T V d for dx and for dW (one recompute of the logits and
+    one product) at 989 TFLOP/s, against each input read and each output
+    written once at 3.35 TB/s."""
+    base = 2 * (T * d + V * d) + (2 * V if bias else 0) + 4 * T
+    work = {"xent_fwd": (2 * T * V * d, base + 8 * T),
+            "xent_dx": (4 * T * V * d, base + 8 * T + 2 * T * d),
+            "xent_dw": (4 * T * V * d, base + 8 * T + 2 * V * d + 4 * V)}
+    out = {}
+    for name, (ops, nbytes) in work.items():
+        t_ops = ops / PEAK_OPS_PER_S["torch.bfloat16"] * 1e3
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        out[name] = {"bound_ms": max(t_ops, t_bytes), "ops": ops,
+                     "bytes": nbytes, "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations"}
+    return out
+
+
+def phase_xent_kernels(device="cuda", cases=XENT_CASES, dtype=None,
+                       tp_vocab=XENT_TP_VOCAB, iters=20) -> dict:
+    """The three xent kernels against their plain versions on every case
+    (the backward kernels fed the plain forward's lse), the ``partials``
+    mode on each shard of a hand split of the vocab, combined by hand and
+    held against the full forward; on the card, timed at the first (GPT-2
+    1.5B's) shape beside the bound, the plain versions and the library."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import xent as xe
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    dtype = dtype or torch.bfloat16
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    names = ("xent_fwd", "xent_dx", "xent_dw")
+    worst = dict.fromkeys(names, 0.0)
+    for name, T, V, d, bias in cases:
+        x, w, b, t, g = _xent_case(gen, T, V, d, bias, dtype, device)
+        nll_p, lse_p = xe.xent_fwd_plain(x, w, b, t)
+        dx_p, dw_p, db_p = xe.xent_bwd_plain(x, w, b, t, lse_p, g)
+        nll, lse = xe.xent_fwd(x, w, b, t)
+        dx = xe.xent_dx(x, w, b, t, lse_p, g)
+        dw, db = xe.xent_dw(x, w, b, t, lse_p, g)
+        sync()
+        pairs = {"nll": (nll, nll_p), "lse": (lse, lse_p), "dx": (dx, dx_p),
+                 "dw": (dw, dw_p), "db": (db, db_p)}
+        shares = {k: _share(a, r) for k, (a, r) in pairs.items()}
+        finite = all(bool(torch.isfinite(a).all()) for a, _ in pairs.values())
+        # masked rows take exactly no gradient; a target past the vocab or
+        # below 0 leaves nll = lse
+        exact = not bool(dx[::7].any()) and (
+            T <= 2 or bool((nll[1:3] == lse[1:3]).all()))
+        ok = finite and exact and all(shares[k] <= XENT_TOL_SHARE[k]
+                                      for k in shares)
+        log(f"[xent] {name:11s} T{T} V{V} d{d} bias {bias} {dtype}: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in shares.items())
+            + f" of max |plain| (tol {XENT_TOL_SHARE}); g=0 rows and "
+            f"out-of-vocab targets exact {exact} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"xent {name}: {shares}, finite {finite}, "
+                                 f"exact {exact}")
+        for n, keys in (("xent_fwd", ("nll", "lse")), ("xent_dx", ("dx",)),
+                        ("xent_dw", ("dw", "db"))):
+            for k in keys:
+                a, r = pairs[k]
+                worst[n] = max(worst[n],
+                               (a.float() - r.float()).abs().max().item())
+        del x, w, b, dx, dw, dx_p, dw_p, pairs
+
+    # partials: each shard of the hand split, then the combine of
+    # ``_fwd_tp`` (max, sum-exp, sum) against the full forward
+    T, d = cases[0][1], cases[0][3]
+    x, w, b, t, _ = _xent_case(gen, T, tp_vocab, d, True, dtype, device)
+    t[1], t[2] = tp_vocab - 2, 5                    # global ids: all valid
+    vs = tp_vocab // XENT_TP_SHARDS
+    tgts, lses = [], []
+    for s in range(XENT_TP_SHARDS):
+        sl = slice(s * vs, (s + 1) * vs)
+        t_loc = (t - s * vs).to(torch.int32)
+        got = xe.xent_fwd(x, w[sl].contiguous(), b[sl], t_loc, partials=True)
+        want = xe.xent_fwd_plain(x, w[sl], b[sl], t_loc, partials=True)
+        foreign = (t_loc < 0) | (t_loc >= vs)
+        sh = [_share(a, r) for a, r in zip(got, want)]
+        ok = max(sh) <= XENT_TOL_SHARE["nll"] \
+            and not bool(got[0][foreign].any())
+        log(f"[xent] partials shard {s} of {XENT_TP_SHARDS} (V {vs}, "
+            f"{int(foreign.sum())} of {T} targets foreign): target logit "
+            f"{sh[0]:.2e}, lse {sh[1]:.2e} of max |plain|; foreign targets "
+            f"contribute 0 {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"xent partials shard {s}: {sh}")
+        tgts.append(got[0])
+        lses.append(got[1])
+        worst["xent_fwd"] = max(worst["xent_fwd"], *(
+            (a - r).abs().max().item() for a, r in zip(got, want)))
+    lse_l = torch.stack(lses)
+    m_g = lse_l.amax(0)
+    lse_g = m_g + torch.log(torch.exp(lse_l - m_g).sum(0))
+    nll_g = lse_g - torch.stack(tgts).sum(0)
+    nll_f, lse_f = xe.xent_fwd(x, w, b, t)
+    sh = (_share(nll_g, nll_f), _share(lse_g, lse_f))
+    log(f"[xent] partials combined by hand vs the full forward (V "
+        f"{tp_vocab}): nll {sh[0]:.2e}, lse {sh[1]:.2e} (tol "
+        f"{XENT_TOL_SHARE['nll']})")
+    if max(sh) > XENT_TOL_SHARE["nll"]:
+        raise AssertionError(f"xent partials combine: {sh}")
+    del x, w, b
+    result = {n: {"max_abs_err": worst[n]} for n in names}
+    if device != "cuda":
+        return result
+    timing = _xent_timing(gen, cases[0], iters)
+    for n in names:
+        result[n].update(timing[n])
+    return result
+
+
+def _xent_timing(gen, case, iters) -> dict:
+    """Kernel, plain and bound of each xent kernel at one case's shape in
+    bf16 (device time, 2 operand sets in rotation: one table alone passes
+    the 50 MB L2), with the library calls the port never makes, device-timed
+    too: ``F.cross_entropy(F.linear(x, w, b).float(), t)`` for the forward,
+    and its autograd backward (forward + backward captured together, minus
+    the forward) against ``xent_dx`` + ``xent_dw`` together."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import xent as xe
+
+    name, T, V, d, bias = case
+    sets = []
+    for _ in range(2):
+        x, w, b, t, g = _xent_case(gen, T, V, d, bias, torch.bfloat16, "cuda")
+        lse = xe.xent_fwd_plain(x, w, b, t)[1]
+        sets.append((x, w, b, t, lse, g))
+    fw = lambda i: sets[i % 2][:4]                               # noqa: E731
+    calls = {"xent_fwd": lambda i: xe.xent_fwd(*fw(i)),
+             "xent_dx": lambda i: xe.xent_dx(*sets[i % 2]),
+             "xent_dw": lambda i: xe.xent_dw(*sets[i % 2])}
+    plain = {"xent_fwd": lambda i: xe.xent_fwd_plain(*fw(i)),
+             "xent_dx": lambda i: xe.xent_bwd_plain(*sets[i % 2])}
+    plain_ms = {k: time_ms(f, max(iters // 10, 3)) for k, f in plain.items()}
+    plain_ms["xent_dw"] = plain_ms["xent_dx"]   # one call computes both
+
+    leaves = [tuple(a.detach().clone().requires_grad_() if a is not None
+                    else None for a in s[:3]) for s in sets]
+    tl = [s[3].long().clamp(0, V - 1) for s in sets]
+
+    def lib_fwd(i):
+        a = leaves[i % 2]
+        return F.cross_entropy(F.linear(*a).float(), tl[i % 2],
+                               reduction="none")
+
+    def lib_fwd_bwd(i):
+        a = [v for v in leaves[i % 2] if v is not None]
+        return torch.autograd.grad(lib_fwd(i), a, sets[i % 2][5])
+
+    with torch.no_grad():
+        lib_f = device_ms(lib_fwd, 2, iters)
+    lib_b = device_ms(lib_fwd_bwd, 2, iters) - lib_f
+    library = {"xent_fwd": lib_f, "xent_dx": lib_b, "xent_dw": lib_b}
+    bounds = xent_bound(T, V, d, bias)
+    out = {}
+    for n, kern in calls.items():
+        ms = device_ms(kern, 2, iters)
+        b = bounds[n]
+        out[n] = dict(ms=ms, plain_ms=plain_ms[n], bound_ms=b["bound_ms"],
+                      bound_by=b["bound_by"], library_ms=library[n])
+        log(f"[xent] {n} {name} T{T} V{V} d{d} bf16: kernel {ms * 1e3:.2f} us,"
+            f" plain {plain_ms[n] * 1e3:.2f} us, bound "
+            f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}: {b['bytes']} B, "
+            f"{b['ops']:.4g} flop), kernel at {b['bound_ms'] / ms:.1%} of the "
+            "bound")
+    log(f"[xent] {name} library calls (device, not called by the port): "
+        f"F.cross_entropy(F.linear(x, w).float()) forward {lib_f * 1e3:.2f} "
+        f"us vs xent_fwd {out['xent_fwd']['ms'] * 1e3:.2f} us; its autograd "
+        f"backward (dx and dW in one pass) {lib_b * 1e3:.2f} us vs xent_dx + "
+        f"xent_dw {(out['xent_dx']['ms'] + out['xent_dw']['ms']) * 1e3:.2f} "
+        "us; plain backward = one xent_bwd_plain call for dx, dW and db")
+    del sets, leaves
+    return out
+
+
 # ------------------------------------------------------------------ phase 6
 # the slice's training config: examples/pretrain_gpt2.py's at micro 4,
 # gas 2 (its warm-up of 2000 steps keeps the first steps' lr at 2.7e-5 to
@@ -1160,13 +1403,93 @@ def _token_batch(data) -> dict:
     return {"input_ids": np.stack([d["input_ids"] for d in data])}
 
 
-def phase_train(cfg=None, *, check_layers=4, seq=1024, warmup=3, steps=10,
-                device=None, profile_steps=2) -> dict:
-    """The training main path: ``initialize(TRAIN_CONFIG, build_model(cfg,
-    attention_fn=make_flash_attention())).train_batch`` at full width and
-    depth, with every flash kernel's count zeroed just before the timed
-    steps and read just after; first, at ``check_layers`` layers, the
-    kernel path's loss and grads against the plain path's."""
+# BERT-large's MLM step: micro-batch 16 x 512 tokens, ZeRO stage 1 and the
+# remat policy of bench_bert.py's config, AdamW at the 1e-4 of BERT's
+# pretraining recipe, constant: the phase takes a handful of steps
+BERT_TRAIN_CONFIG = {
+    "train_batch_size": 16, "train_micro_batch_size_per_gpu": 16,
+    "gradient_accumulation_steps": 1,
+    "optimizer": {"type": "adamw",
+                  "params": {"lr": 1e-4, "weight_decay": 0.01}},
+    "gradient_clipping": 1.0, "zero_optimization": {"stage": 1},
+    "remat": {"enabled": True, "policy": "dots_saveable"},
+    "bf16": {"enabled": True}, "steps_per_print": 1000}
+
+
+def _mlm_batch(rows: int, seq: int, vocab: int, seed: int = 5,
+               mask_frac: float = 0.15, mask_id: int = 103) -> dict:
+    """A learnable MLM batch: each row one token repeated, 15% of its live
+    positions replaced by [MASK] and counted in ``loss_mask``; every fourth
+    row is padded out past three quarters of its length."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    labels = np.repeat(rng.integers(1000, vocab, (rows, 1)), seq, axis=1)
+    att = np.ones((rows, seq), np.int32)
+    att[1::4, 3 * seq // 4:] = 0
+    picked = (rng.random((rows, seq)) < mask_frac) & (att == 1)
+    picked[:, 0] = True
+    ids = np.where(picked, mask_id, labels)
+    return {"input_ids": ids.astype(np.int32),
+            "labels": labels.astype(np.int32),
+            "loss_mask": picked.astype(np.int32), "attention_mask": att}
+
+
+def _head_alone(model, master, batch, dtype, iters: int = 3) -> dict:
+    """Device ms (CUDA events) and peak bytes above the resident ones of the
+    model's head alone, forward and backward, on random trunk outputs of
+    the batch's shape: the final norm (and MLM transform), then the fused
+    xent kernels or the unfused logits and ``token_nll``, as ``loss``
+    routes them."""
+    import torch
+
+    from deepspeed_tpu_torch.models.transformer import token_nll
+
+    cfg = model.cfg
+    ids = batch["input_ids"]
+    names = [k for k in master if not k.startswith("layers.")]
+    params = {k: master[k].detach().to(dtype).requires_grad_() for k in names}
+    feats = torch.randn((*ids.shape, cfg.d_model), device=ids.device,
+                        generator=torch.Generator(device=ids.device)
+                        .manual_seed(3)).to(dtype).requires_grad_()
+    mlm = cfg.objective == "mlm"
+    tgt = batch["labels"] if mlm else ids[:, 1:]
+    fused = model._fused_xent_active(ids.device.type == "cuda", dtype)
+
+    def run(_):
+        if fused:
+            x = model._pre_head(params, feats)
+            nll = model._fused_nll(params, x if mlm else x[:, :-1], tgt)
+        else:
+            logits = model._head(params, feats)
+            nll = token_nll(logits if mlm else logits[:, :-1], tgt)
+        nll.mean().backward()
+
+    run(0)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(run, iters)
+    return {"ms": ms, "peak_bytes": torch.cuda.max_memory_allocated() - resident,
+            "fused": fused}
+
+
+XENT_KERNEL_NAMES = ("xent_fwd_kernel", "xent_fwd_merge_kernel",
+                     "xent_bwd_kernel")
+
+
+def phase_train(cfg=None, *, config=None, check="attention", check_layers=4,
+                seq=1024, warmup=3, steps=10, fall=0.5, device=None,
+                profile_steps=2, name="train") -> dict:
+    """A training main path: ``initialize(config, build_model(cfg,
+    attention_fn=make_flash_attention(causal=cfg.causal))).train_batch`` at
+    full width and depth, with every flash and xent kernel's count zeroed
+    just before the timed steps and read just after. First, at
+    ``check_layers`` layers on the same weights and batch: with ``check=
+    "attention"`` the kernel attention path's loss and grads against the
+    plain attention path's; with ``check="head"`` the fused xent head's
+    against the unfused head's (``fused_xent=False``), and each head timed
+    alone."""
     import dataclasses
 
     import torch
@@ -1174,97 +1497,138 @@ def phase_train(cfg=None, *, check_layers=4, seq=1024, warmup=3, steps=10,
     import deepspeed_tpu_torch as dt
     from deepspeed_tpu_torch.models import gpt2
     from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import xent as xe
     from deepspeed_tpu_torch.runtime import random_token_dataset
 
     # fused_xent=False: the unfused head, which the JAX package takes on its
-    # TPU too; its auto mode there runs the fused xent kernels (not ported)
+    # TPU too; the default sends a tied head through the fused xent kernels
     cfg = cfg or gpt2("1.5b", fused_xent=False)
+    config = config or TRAIN_CONFIG
     dev = torch.device(device or "cuda")
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     kw = {} if device is None else {"device": device}
-    counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
-    micro = TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
-    gas = TRAIN_CONFIG["gradient_accumulation_steps"]
-    tag = f"[train {cfg.n_layer}L d{cfg.d_model}]"
+    flash = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    xent = (xe.xent_fwd, xe.xent_dx, xe.xent_dw)
+    micro = config["train_micro_batch_size_per_gpu"]
+    gas = config["gradient_accumulation_steps"]
+    rows = micro * gas
+    mlm = cfg.objective == "mlm"
+    tag = f"[{name} {cfg.n_layer}L d{cfg.d_model}]"
+    attention = partial(dt.make_flash_attention, causal=cfg.causal)
 
-    # ---- (a) kernel path vs plain path, check_layers deep ----
+    def batch_of(n):
+        if mlm:
+            return _mlm_batch(n, seq, cfg.vocab_size)
+        return _token_batch(random_token_dataset(n, seq, cfg.vocab_size,
+                                                 seed=5, learnable=True))
+
+    # ---- (a) the path under test vs its reference, check_layers deep ----
     small = dataclasses.replace(cfg, n_layer=check_layers)
     gen = torch.Generator(device=dev).manual_seed(77)
     master = dt.build_model(small).init(gen, device=dev, dtype=torch.float32)
-    ids = torch.randint(0, cfg.vocab_size, (micro, seq), generator=gen,
-                        device=dev)
-    remat = TRAIN_CONFIG["remat"]["policy"]
-    lk, gk = _loss_and_grads(
-        dt.build_model(small, attention_fn=dt.make_flash_attention()),
-        master, {"input_ids": ids}, cfg.dtype, remat)
-    lp, gp = _loss_and_grads(
-        dt.build_model(small, attention_fn=_plain_flash_attention()),
-        master, {"input_ids": ids}, cfg.dtype, remat)
+    if mlm:
+        mb = {k: torch.as_tensor(v).to(dev) for k, v in
+              _mlm_batch(micro, seq, cfg.vocab_size, seed=6).items()}
+    else:
+        mb = {"input_ids": torch.randint(0, cfg.vocab_size, (micro, seq),
+                                         generator=gen, device=dev)}
+    remat = config["remat"]["policy"]
+    under_test = dt.build_model(small, attention_fn=attention())
+    if check == "attention":
+        what = "kernel vs plain attention path"
+        reference = dt.build_model(small,
+                                   attention_fn=_plain_flash_attention())
+    else:
+        what = "fused xent head vs unfused head (fused_xent=False)"
+        reference = dt.build_model(
+            dataclasses.replace(small, fused_xent=False),
+            attention_fn=attention())
+    lk, gk = _loss_and_grads(under_test, master, mb, cfg.dtype, remat)
+    lp, gp = _loss_and_grads(reference, master, mb, cfg.dtype, remat)
     sync()
     loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
     grad_rel = {k: _rel_norm(gk[k], gp[k]) for k in gk}
     bk = grad_rel.pop("layers.bk", None)
     worst = max(grad_rel, key=grad_rel.get)
     finite = all(bool(torch.isfinite(g).all()) for g in gk.values())
-    log(f"{tag} kernel vs plain attention path, {check_layers} layers, "
-        f"{micro}x{seq} tokens, bf16, remat {remat}: loss {lk.item():.5f} vs "
-        f"{lp.item():.5f} ({loss_rel:.2e} rel, tol {TRAIN_LOSS_RTOL}); grads "
-        f"||Δ||/||plain|| max {grad_rel[worst]:.2e} at {worst} (tol "
+    log(f"{tag} {what}, {check_layers} layers, {micro}x{seq} tokens, bf16, "
+        f"remat {remat}: loss {lk.item():.5f} vs {lp.item():.5f} "
+        f"({loss_rel:.2e} rel, tol {TRAIN_LOSS_RTOL}); grads "
+        f"||Δ||/||reference|| max {grad_rel[worst]:.2e} at {worst} (tol "
         f"{TRAIN_GRAD_RTOL}), median "
         f"{sorted(grad_rel.values())[len(grad_rel) // 2]:.2e}; layers.bk "
         f"(noise, not gated) {bk}")
+    if check == "head":
+        log(f"{tag} head leaves: " + ", ".join(
+            f"{k} {grad_rel[k]:.2e}" for k in sorted(grad_rel)
+            if not k.startswith("layers.")))
     if not (finite and loss_rel <= TRAIN_LOSS_RTOL
             and grad_rel[worst] <= TRAIN_GRAD_RTOL):
-        raise AssertionError(f"{tag} kernel vs plain: loss {loss_rel}, "
-                             f"grads {grad_rel}, finite {finite}")
-    del master, gk, gp
+        raise AssertionError(f"{tag} {what}: loss {loss_rel}, grads "
+                             f"{grad_rel}, finite {finite}")
+    heads = {}
+    if check == "head" and cuda:
+        del gk, gp
+        _free_memory(dev)
+        for label, model in (("fused", under_test), ("unfused", reference)):
+            heads[label] = _head_alone(model, master, mb, cfg.dtype)
+            _free_memory(dev)
+        log(f"{tag} the head alone, forward + backward on {micro}x{seq} "
+            "tokens (eager, CUDA events; peak above the resident bytes): "
+            + "; ".join(f"{k} {v['ms']:.2f} ms, {v['peak_bytes'] / 2**30:.2f}"
+                        f" GiB" for k, v in heads.items()))
+    del master
+    gk = gp = None
     _free_memory(dev)
 
     # ---- the engine at full depth ----
     t0 = time.perf_counter()
-    engine = dt.initialize(TRAIN_CONFIG, dt.build_model(
-        cfg, attention_fn=dt.make_flash_attention()), seed=1234, **kw)
+    engine = dt.initialize(config, dt.build_model(
+        cfg, attention_fn=attention()), seed=1234, **kw)
     sync()
     state_bytes = _free_memory(dev)
-    rows = engine.train_batch_size
+    assert rows == engine.train_batch_size
+    fused = engine.model._fused_xent_active(cuda, engine.compute_dtype)
     # one batch of learnable rows (each a single token repeated), taken by
     # every step: the loss on it must fall
-    data = random_token_dataset(rows, seq, cfg.vocab_size, seed=5,
-                                learnable=True)
+    data = batch_of(rows)
     log(f"{tag} {cfg.param_count() / 1e9:.3f} B params ({engine.param_count} "
         f"tensors' elements), initialize {time.perf_counter() - t0:.1f} s, "
-        f"state {state_bytes / 2**30:.2f} GiB on {engine.device}")
+        f"state {state_bytes / 2**30:.2f} GiB on {engine.device}; fused xent "
+        f"head {fused}")
     losses = []
     for i in range(warmup):
-        losses.append(float(engine.train_batch(_token_batch(data))["loss"]))
+        losses.append(float(engine.train_batch(dict(data))["loss"]))
 
     # ---- the main path, counted and timed ----
     _free_memory(dev)
-    for c in counters:
+    for c in flash + xent:
         c.launches = 0
     step_s = []
     for i in range(warmup, warmup + steps):
         sync()
         t1 = time.perf_counter()
-        m = engine.train_batch(_token_batch(data))
+        m = engine.train_batch(dict(data))
         losses.append(float(m["loss"]))           # a host read: synchronizes
         step_s.append(time.perf_counter() - t1)
-    got = {c.__name__: c.launches for c in counters}
+    got = {c.__name__: c.launches for c in flash + xent}
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     per_step = cfg.n_layer * gas if cuda else 0
+    head = gas * steps if cuda and fused else 0
     want = {"flash_fwd": 2 * per_step * steps,      # remat reruns the forward
-            "flash_bwd_dq": per_step * steps, "flash_bwd_dkv": per_step * steps}
+            "flash_bwd_dq": per_step * steps, "flash_bwd_dkv": per_step * steps,
+            "xent_fwd": head, "xent_dx": head, "xent_dw": head}
     if got != want:
         raise AssertionError(f"{tag} launches {got}, want {want}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{tag} non-finite loss: {losses}")
     # the first warm-up step measures the initial params; the timed steps'
-    # mean must be below half of that (one repeated batch of learnable
-    # rows: on an H100 it went from 10.43 to a timed mean of 1.26, with
-    # Adam oscillating from step to step, so no single step is gated)
+    # mean must be below ``fall`` of that (one repeated batch of learnable
+    # rows: GPT-2 1.5B went from 10.43 to a timed mean of 1.26 on an H100,
+    # with Adam oscillating from step to step, so no single step is gated)
     first, mean = losses[0], sum(losses[warmup:]) / steps
-    if not mean < 0.5 * first:
+    if not mean < fall * first:
         raise AssertionError(f"{tag} loss did not fall on learnable data: "
                              f"{losses}")
     step = sorted(step_s)[len(step_s) // 2]
@@ -1274,9 +1638,10 @@ def phase_train(cfg=None, *, check_layers=4, seq=1024, warmup=3, steps=10,
     log(f"{tag} launches over {steps} steps {got} (per step: flash_fwd "
         f"{2 * per_step} = {cfg.n_layer} layers x gas {gas} x 2, the "
         f"checkpoint reruns the forward in the backward; dq = dk/dv = "
-        f"{per_step})")
+        f"{per_step}; each xent kernel {gas if fused else 0}: the head sits "
+        "outside the layer checkpoints)")
     log(f"{tag} losses {[round(x, 4) for x in losses]}: initial {first:.4f}"
-        f", mean of the {steps} timed steps {mean:.4f} (gate < half the "
+        f", mean of the {steps} timed steps {mean:.4f} (gate < {fall} of the "
         "initial)")
     log(f"{tag} step {step * 1e3:.1f} ms median (min {min(step_s) * 1e3:.1f},"
         f" max {max(step_s) * 1e3:.1f}), {tokens / step:.0f} tokens/s, MFU "
@@ -1286,30 +1651,36 @@ def phase_train(cfg=None, *, check_layers=4, seq=1024, warmup=3, steps=10,
     result = {"launches": got, "step_ms": step * 1e3,
               "tokens_per_s": tokens / step, "mfu": mfu, "peak_bytes": peak,
               "losses": losses, "loss_rel": loss_rel,
-              "grad_rel": grad_rel[worst], "shares": {}}
+              "grad_rel": grad_rel[worst], "shares": {}, "heads": heads,
+              "gas": gas}
     if cuda and profile_steps:
         prof = profile_calls(
-            lambda: [engine.train_batch(_token_batch(data))
+            lambda: [engine.train_batch(dict(data))
                      for _ in range(profile_steps)], profile_steps,
             "training steps")
         if prof:
-            for name in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                         "flash_bwd_dkv_kernel"):
+            for kname in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                          "flash_bwd_dkv_kernel") + XENT_KERNEL_NAMES:
                 us = sum(v for k, v in prof["by_name"].items()
-                         if f"{name}<" in k)
-                result["shares"][name] = us / prof["busy"]
+                         if f"{kname}<" in k or k.startswith(kname)
+                         or f"::{kname}(" in k)
+                result["shares"][kname] = us / prof["busy"]
             result["busy_share"] = prof["busy"] / prof["wall"]
-            log(f"{tag} flash kernels' share of device time: " + ", ".join(
-                f"{k} {v:.1%}" for k, v in result["shares"].items()))
+            result["busy_ms"] = prof["busy"] / profile_steps / 1e3
+            log(f"{tag} hand-written kernels' share of device time: "
+                + ", ".join(f"{k} {v:.1%}"
+                            for k, v in result["shares"].items()))
     del engine
     _free_memory(dev)
     return result
 
 
 def remat_sweep(cfg=None, *, seq=1024, steps=3) -> dict:
-    """Where the training step's host time goes: the phase-6 step of
-    GPT-2 1.5B under each remat policy (``dots_saveable``, none, ``full``),
-    median step ms and peak memory. A one-off measurement, not a phase::
+    """Where the training step's host time goes: the step of GPT-2 1.5B
+    under its default config (the fused xent head) under each remat policy
+    (``dots_saveable``, none, ``full``, ``save_names``,
+    ``save_names_mlp``), median step ms and peak memory. A one-off
+    measurement, not a phase::
 
         python3 -c "import chip_smoke as c; c.remat_sweep()"
     """
@@ -1319,14 +1690,15 @@ def remat_sweep(cfg=None, *, seq=1024, steps=3) -> dict:
     from deepspeed_tpu_torch.models import gpt2
     from deepspeed_tpu_torch.runtime import random_token_dataset
 
-    cfg = cfg or gpt2("1.5b", fused_xent=False)
+    cfg = cfg or gpt2("1.5b")
     dev = torch.device("cuda")
     engine = dt.initialize(TRAIN_CONFIG, dt.build_model(
         cfg, attention_fn=dt.make_flash_attention()), seed=1234)
     data = random_token_dataset(engine.train_batch_size, seq, cfg.vocab_size,
                                 seed=5, learnable=True)
     out = {}
-    for policy in ("dots_saveable", None, "full"):
+    for policy in ("dots_saveable", None, "full", "save_names",
+                   "save_names_mlp"):
         engine.remat_policy = policy
         _free_memory(dev)
         engine.train_batch(_token_batch(data))
@@ -1365,17 +1737,41 @@ def main() -> int:
         print(f"chip_smoke: the deepspeed_tpu_torch package is not beside "
               f"this script ({e})", file=sys.stderr)
         return 1
-    from deepspeed_tpu_torch.models import llama2, opt
+    from deepspeed_tpu_torch.models import bert, gpt2, llama2, opt
 
     t0 = time.perf_counter()
     dev = phase_device()
     kern = phase_kernels()
     woq = phase_woq_kernels()
     flash = phase_flash_kernels()
+    xent = phase_xent_kernels()
     sl = phase_slice()
     woq8 = phase_woq(llama2("7b"), bits=8)
     woq4 = phase_woq(opt("6.7b"), bits=4)
-    train = phase_train()
+    # phase 6, the unfused reference: fewer steps than the default-config
+    # phase, the same depth, so step time and peak memory compare
+    unfused = phase_train(warmup=2, steps=4, name="train unfused")
+    train = phase_train(gpt2("1.5b"), check="head", name="train default")
+    mlm = phase_train(
+        bert("large", post_ln=True, embed_norm=True, mlm_transform=True,
+             lm_head_bias=True), config=BERT_TRAIN_CONFIG, check="head",
+        seq=512, warmup=3, steps=6, fall=0.8, name="train bert mlm")
+    for label, r in (("GPT-2 1.5B", train), ("BERT-large", mlm)):
+        h = r["heads"]
+        log(f"[head] {label}: fused {h['fused']['ms']:.2f} ms and "
+            f"{h['fused']['peak_bytes'] / 2**30:.2f} GiB, unfused "
+            f"{h['unfused']['ms']:.2f} ms and "
+            f"{h['unfused']['peak_bytes'] / 2**30:.2f} GiB per micro-batch, "
+            "forward + backward alone")
+    if "busy_ms" in unfused:
+        h = train["heads"]["unfused"]["ms"] * unfused["gas"]
+        log(f"[head] GPT-2 1.5B, fused_xent=False: the unfused head takes "
+            f"{h:.2f} ms of the step's {unfused['busy_ms']:.2f} ms of device "
+            f"time ({h / unfused['busy_ms']:.1%}); step "
+            f"{unfused['step_ms']:.1f} ms and peak "
+            f"{unfused['peak_bytes'] / 2**30:.2f} GiB against the default "
+            f"config's {train['step_ms']:.1f} ms and "
+            f"{train['peak_bytes'] / 2**30:.2f} GiB")
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     src = "deepspeed_tpu_torch/ops/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1406,6 +1802,12 @@ def main() -> int:
                                     f"{line}",
                         "launches": train["launches"][name],
                         **{k: flash[name][k] for k in keys}})
+    # launches: the same run (GPT-2 1.5B under its default config)
+    for name, line in (("xent_fwd", 49), ("xent_dx", 110), ("xent_dw", 128)):
+        kernels.append({"name": name, "route": "cuda", "source": src + "xent.cu",
+                        "replaces": f"deepspeed_tpu/ops/xent.py:{line}",
+                        "launches": train["launches"][name],
+                        **{k: xent[name][k] for k in keys}})
     print(json.dumps({"kernels": kernels}))
     print(dev["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

@@ -51,7 +51,7 @@ _LATER_SECTIONS = {
                             output_file=None), 9),
     "checkpoint": (dict(use_node_local_storage=False, tag_validation="warn",
                         load_universal=False, async_save=False,
-                        verify="size", keep_last=0), 1),
+                        verify="size", keep_last=0), 2),
     "resilience": (dict(resume="none", resume_dir=None,
                         max_consecutive_bad_steps=0), 9),
     "gradient_compression": (dict(enabled=False, type="int8", overlap=False,
@@ -88,20 +88,20 @@ _LATER_KEYS = {"wall_clock_breakdown": (False, 8),
                "sparse_gradients": (False, 7)}
 # zero_optimization keys beyond ``stage``: (JAX default, item)
 _ZERO_LATER = {
-    "param_persistence_threshold": (10_000, 1),
-    "reduce_bucket_size": (500_000_000, 1),
-    "overlap_comm": (True, 1), "contiguous_gradients": (True, 1),
+    "param_persistence_threshold": (10_000, 2),
+    "reduce_bucket_size": (500_000_000, 2),
+    "overlap_comm": (True, 2), "contiguous_gradients": (True, 2),
     "offload_optimizer": (dict(device="none", nvme_path=None, buffer_count=4,
                                pin_memory=True, pipeline_read=True,
                                pipeline_write=True), 7),
     "offload_param": (dict(device="none", nvme_path=None, buffer_count=4,
                            pin_memory=True, pipeline_read=True,
                            pipeline_write=True), 7),
-    "zero_hpz_partition_size": (1, 1), "zero_quantized_weights": (False, 1),
-    "zero_quantized_gradients": (False, 1), "mics_shard_size": (0, 1),
+    "zero_hpz_partition_size": (1, 2), "zero_quantized_weights": (False, 2),
+    "zero_quantized_gradients": (False, 2), "mics_shard_size": (0, 2),
 }
 # mesh axis -> item that brings a degree > 1 (data: multi-rank training)
-_MESH_LATER = {"data": 1, "zero": 1, "model": 5, "expert": 5, "pipe": 9,
+_MESH_LATER = {"data": 2, "zero": 2, "model": 5, "expert": 5, "pipe": 9,
                "seq": 9}
 REMAT_POLICY_NAMES = ("none", "full", "dots_saveable", "save_nothing",
                       "save_names", "save_names_mlp", "offload_dots")
@@ -170,7 +170,7 @@ class RematConfig:
                              f"{REMAT_POLICY_NAMES}")
         if self.offload:
             raise NotImplementedError(f"config remat.offload is not ported "
-                                      f"yet: {later(1)}")
+                                      f"yet: {later(7)}")
 
     @property
     def resolved(self) -> Optional[str]:

@@ -181,7 +181,7 @@ def _decode_head(model, params, x):
     A quantized table goes through ``woq_dot_t`` (tied, read in ``(V, d)``
     layout) or ``woq_dot`` (untied ``lm_head``), with fp32 out."""
     cfg = model.cfg
-    x = model._head_norm(params, x)
+    x = model._pre_head(params, x)
     w = params["tok_embed"] if cfg.tie_embeddings else params["lm_head"]
     if isinstance(w, QuantizedTensor):
         dot = woq_dot_t if cfg.tie_embeddings else woq_dot

@@ -1,5 +1,5 @@
 """Model-family presets (counterpart of ``deepspeed_tpu/models/presets.py``,
-dense decoders only)."""
+dense decoders and the BERT encoder)."""
 
 from __future__ import annotations
 
@@ -32,6 +32,23 @@ def llama2(size: str = "7b", **overrides) -> TransformerConfig:
     base = dict(vocab_size=32000, max_seq=4096, pos_embedding="rope",
                 norm="rmsnorm", activation="silu_glu", use_bias=False,
                 tie_embeddings=False)
+    base.update(table[size])
+    base.update(overrides)
+    return TransformerConfig(**base)
+
+
+def bert(size: str = "base", **overrides) -> TransformerConfig:
+    """Encoder (bidirectional) trunk + MLM objective. The Hugging Face
+    layout adds ``post_ln=True, embed_norm=True, mlm_transform=True,
+    lm_head_bias=True``."""
+    table = {
+        "tiny": dict(n_layer=2, n_head=4, d_model=128, d_ff=512, max_seq=128),
+        "base": dict(n_layer=12, n_head=12, d_model=768, max_seq=512),
+        "large": dict(n_layer=24, n_head=16, d_model=1024, max_seq=512),
+    }
+    base = dict(vocab_size=30522, pos_embedding="learned", norm="layernorm",
+                activation="gelu", use_bias=True, tie_embeddings=True,
+                causal=False, objective="mlm")
     base.update(table[size])
     base.update(overrides)
     return TransformerConfig(**base)
@@ -79,9 +96,9 @@ def tiny_test(**overrides) -> TransformerConfig:
 
 
 def build_model(cfg: TransformerConfig, attention_fn=None) -> TransformerLM:
-    """Dense decoders only (``presets.py:119``); ``attention_fn`` e.g.
-    ``ops.flash_attention.make_flash_attention()``. MoE and T5 trunks
-    raise."""
+    """Dense ``TransformerLM`` trunks only (``presets.py:119``);
+    ``attention_fn`` e.g. ``ops.flash_attention.make_flash_attention()``.
+    MoE and T5 trunks raise."""
     if not isinstance(cfg, TransformerConfig):
         raise NotImplementedError(
             f"deepspeed_tpu_torch builds TransformerLM only, got "

@@ -1,4 +1,5 @@
-"""Decoder-only transformer LM (GPT-2, OPT, Bloom and Llama families).
+"""Transformer LM: decoders (GPT-2, OPT, Bloom and Llama families) and
+post-LN encoders with an MLM head (BERT).
 
 Counterpart of ``deepspeed_tpu/models/transformer.py``. The parameters are
 one flat state dict of tensors: top-level names (``tok_embed``,
@@ -9,11 +10,12 @@ the JAX package's tree flattened with dots. Weights keep the JAX layout
 
 ``TransformerLM.init`` draws that state dict from an explicit
 ``torch.Generator``; ``apply`` is a function of it (each layer optionally
-under ``torch.utils.checkpoint``); ``loss`` is the training objective on
-the unfused head; ``forward`` runs on the module's own parameters after
-``load_params``. Attention goes through ``attention_fn``: the dense
-``causal_attention`` by default, or ``ops.flash_attention
-.make_flash_attention()`` for the CUDA kernels.
+under ``torch.utils.checkpoint``); ``loss`` is the training objective, through
+the fused softmax-xent kernels (``ops/xent.py``) where the JAX package
+takes its own and through the unfused head otherwise; ``forward`` runs on
+the module's own parameters after ``load_params``. Attention goes through
+``attention_fn``: the dense ``causal_attention`` by default, or
+``ops.flash_attention.make_flash_attention()`` for the CUDA kernels.
 """
 
 from __future__ import annotations
@@ -27,11 +29,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.tiled import tiled_matmul
+from ..ops.xent import fused_token_nll, fused_xent_eligible
 from ..utils.roadmap import later
 
 Params = dict[str, torch.Tensor]
 LAYER_PREFIX = "layers."
-_BIASES = ("bq", "bk", "bv", "bo", "b_in", "b_out")
+_BIASES = ("bq", "bk", "bv", "bo", "b_in", "b_out", "mlm_dense_b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,9 +120,6 @@ class TransformerConfig:
 # item (queue 1) that will port each.
 _LATER = (
     (lambda c: c.num_experts > 1, "num_experts > 1 (models/moe.py)", 4),
-    (lambda c: c.post_ln, "post_ln (encoders)", 1),
-    (lambda c: c.mlm_transform, "mlm_transform (encoders)", 1),
-    (lambda c: c.tiled_head > 1, "tiled_head > 1 (ops/tiled.py)", 1),
 )
 
 
@@ -149,11 +150,16 @@ def param_shapes(cfg: TransformerConfig) -> dict[str, tuple]:
                        "b_in": (L, f), "b_out": (L, d)})
         if two_ln:
             layers["ln2_bias"] = (L, d)
-    shapes = {"tok_embed": (V, d), "lnf_scale": (d,)}
+    shapes = {"tok_embed": (V, d)}
+    if not cfg.post_ln:           # a post-LN trunk ends normalized
+        shapes["lnf_scale"] = (d,)
     if cfg.pos_embedding == "learned":
         shapes["pos_embed"] = (cfg.max_seq, d)
-    if cfg.use_bias:
+    if cfg.use_bias and not cfg.post_ln:
         shapes["lnf_bias"] = (d,)
+    if cfg.mlm_transform:
+        shapes.update(mlm_dense_w=(d, d), mlm_dense_b=(d,),
+                      mlm_ln_scale=(d,), mlm_ln_bias=(d,))
     if cfg.embed_norm:
         shapes["embed_ln_scale"] = (d,)
         if cfg.use_bias:
@@ -289,46 +295,28 @@ def token_nll(logits, targets):
     return lse - tgt.float()
 
 
-# the fused xent kernels' element budget for their (bt + bv) x d tiles and
-# their smallest tile (``ops/xent.py:186-187`` of the JAX package)
-_XENT_TILE_ELEM_BUDGET = (256 + 512) * 2048
-_XENT_MIN_TILE = 128
-
-
-def _fused_xent_eligible(cfg_dtype, compute_dtype, d_model: int,
-                         on_card: bool) -> bool:
-    """``fused_xent_eligible`` (``ops/xent.py:197``): fp16 never reaches the
-    kernels on the accelerator, and past d 6144 their tiles do not fit."""
-    if on_card and torch.float16 in (cfg_dtype, compute_dtype):
-        return False
-    return 2 * _XENT_MIN_TILE * d_model <= _XENT_TILE_ELEM_BUDGET
-
-
-# remat policy name -> ops whose outputs a layer's checkpoint keeps (None:
-# keep nothing, recompute the whole layer in the backward)
+# remat policies (``runtime/engine.py:70-99`` of the JAX package). ``full`` /
+# ``save_nothing`` keep a layer's inputs only; ``dots_saveable`` also keeps
+# every matmul output; ``save_names`` keeps the residual stream entering the
+# layer and the projected attention output; ``save_names_mlp`` adds the MLP's
+# pre-activation (the gated product for a GLU).
 _MATMULS = ("mm", "addmm", "bmm", "baddbmm")
-REMAT_POLICIES = {"full": None, "save_nothing": None,
-                  "dots_saveable": _MATMULS}
+REMAT_POLICIES = ("full", "save_nothing", "dots_saveable", "save_names",
+                  "save_names_mlp")
 
 
-def remat_wrap(fn, policy: Optional[str]):
-    """``fn`` under a non-reentrant ``torch.utils.checkpoint``: ``full`` /
-    ``save_nothing`` keep only the inputs, ``dots_saveable`` (JAX's
-    ``checkpoint_policies.dots_saveable``) also keeps every matmul output
-    through selective checkpointing and recomputes the rest, the flash
-    forward kernel included. ``None`` / ``"none"`` runs ``fn`` as it is."""
-    if policy in (None, "none"):
-        return fn
-    if policy not in REMAT_POLICIES:
-        raise NotImplementedError(
-            f"remat policy {policy!r} is not ported yet: {later(1)}")
+def _checkpointed(fn, save_matmuls: bool = False):
+    """``fn`` under a non-reentrant ``torch.utils.checkpoint``: its tensor
+    inputs are kept and everything inside is recomputed in the backward,
+    the flash forward kernel included; with ``save_matmuls`` selective
+    checkpointing also keeps every matmul output (JAX's
+    ``checkpoint_policies.dots_saveable``)."""
     from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                         create_selective_checkpoint_contexts)
 
-    saved = REMAT_POLICIES[policy]
     kw = {}
-    if saved is not None:
-        ops = {getattr(torch.ops.aten, n).default for n in saved}
+    if save_matmuls:
+        ops = {getattr(torch.ops.aten, n).default for n in _MATMULS}
 
         def pick(ctx, op, *args, **kwargs):
             return (CheckpointPolicy.MUST_SAVE if op in ops
@@ -349,11 +337,13 @@ class TransformerLM(nn.Module):
     def __init__(self, config: TransformerConfig, attention_fn=None):
         super().__init__()
         check_supported(config)
-        if attention_fn is not None and not config.causal:
+        if attention_fn is not None and not config.causal \
+                and getattr(attention_fn, "causal", True):
             raise ValueError(
                 "encoder (causal=False) configs require the default "
-                "attention: the flash attention_fn applies a causal mask and "
-                "would silently break bidirectionality")
+                "attention or one built for them (make_flash_attention("
+                "causal=False)): a causal attention_fn would silently break "
+                "bidirectionality")
         if attention_fn is not None and config.pos_embedding == "alibi" \
                 and not (getattr(attention_fn, "accepts_bias", False)
                          or getattr(attention_fn, "accepts_alibi_slopes",
@@ -416,7 +406,8 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         B, S, _ = x.shape
         h, kv, hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
-        y = _norm(x, p["ln1_scale"], p.get("ln1_bias"), cfg.norm, cfg.norm_eps)
+        y = x if cfg.post_ln else _norm(x, p["ln1_scale"], p.get("ln1_bias"),
+                                        cfg.norm, cfg.norm_eps)
         q = self._maybe_bias(y @ p["wq"].to(y.dtype), p, "bq").reshape(B, S, h, hd)
         k = self._maybe_bias(y @ p["wk"].to(y.dtype), p, "bk").reshape(B, S, kv, hd)
         v = self._maybe_bias(y @ p["wv"].to(y.dtype), p, "bv").reshape(B, S, kv, hd)
@@ -446,26 +437,82 @@ class TransformerLM(nn.Module):
 
         return matmul_any(y, p[name], getattr(self, "woq_kernel", False))
 
-    def _mlp_block(self, y, p):
-        cfg = self.cfg
+    def _mlp_pre(self, y, p):
+        """The MLP up to the activation JAX tags ``mlp_h``: the
+        pre-activation, or the gated product for a GLU."""
         u = self._maybe_bias(self._proj(y, p, "w_in"), p, "b_in")
-        if cfg.is_glu:
+        if self.cfg.is_glu:
             u = F.silu(self._proj(y, p, "w_gate")) * u
-        else:
-            u = _activation(u, cfg.activation)
+        return u
+
+    def _mlp_post(self, u, p):
+        if not self.cfg.is_glu:
+            u = _activation(u, self.cfg.activation)
         return self._maybe_bias(self._proj(u, p, "w_out"), p, "b_out")
 
-    def _layer(self, x, p, positions, attn_mask):
+    def _mlp_block(self, y, p):
+        return self._mlp_post(self._mlp_pre(y, p), p)
+
+    def _ln(self, x, p, name):
+        return _norm(x, p[f"{name}_scale"], p.get(f"{name}_bias"),
+                     self.cfg.norm, self.cfg.norm_eps)
+
+    def _residual(self, x, o, p):
+        """The stream after attention: post-LN normalizes it here."""
+        return self._ln(x + o, p, "ln1") if self.cfg.post_ln else x + o
+
+    def _mlp_input(self, x, res, p):
         cfg = self.cfg
-        o = self._attention_block(x, p, positions, attn_mask)
+        if cfg.post_ln:
+            return res
         if cfg.parallel_residual:
-            ln = "ln1" if cfg.parallel_shared_ln else "ln2"
-            y = _norm(x, p[f"{ln}_scale"], p.get(f"{ln}_bias"), cfg.norm,
-                      cfg.norm_eps)
-            return x + o + self._mlp_block(y, p)
-        x = x + o
-        y = _norm(x, p["ln2_scale"], p.get("ln2_bias"), cfg.norm, cfg.norm_eps)
-        return x + self._mlp_block(y, p)
+            return self._ln(x, p, "ln1" if cfg.parallel_shared_ln else "ln2")
+        return self._ln(res, p, "ln2")
+
+    def _finish(self, res, m, p):
+        return self._ln(res + m, p, "ln2") if self.cfg.post_ln else res + m
+
+    def _after_attention(self, x, o, p):
+        res = self._residual(x, o, p)
+        return self._finish(res, self._mlp_block(self._mlp_input(x, res, p),
+                                                 p), p)
+
+    def _layer(self, x, p, positions, attn_mask):
+        """Pre-LN ``x + attn(n1(x))`` then ``+ mlp(n2(.))``; the parallel
+        block ``x + attn(n1(x)) + mlp(n(x))``; the post-LN (BERT) block with
+        its norms after each residual."""
+        o = self._attention_block(x, p, positions, attn_mask)
+        return self._after_attention(x, o, p)
+
+    def _remat_layer(self, policy: Optional[str]):
+        """``_layer`` under a remat policy (:data:`REMAT_POLICIES`).
+        PyTorch has no named activations, so ``save_names`` and
+        ``save_names_mlp`` cut the layer into checkpointed segments whose
+        inputs are exactly the saved names: ``x -> attn_out``, then ``(x,
+        attn_out) -> out``, with a third cut at ``mlp_h``."""
+        if policy in (None, "none"):
+            return self._layer
+        if policy not in REMAT_POLICIES:
+            raise NotImplementedError(
+                f"remat policy {policy!r} is not ported yet: {later(7)}")
+        if not policy.startswith("save_names"):
+            return _checkpointed(self._layer, policy == "dots_saveable")
+        attn = _checkpointed(self._attention_block)
+        if policy == "save_names":
+            rest = _checkpointed(self._after_attention)
+        else:
+            pre = _checkpointed(lambda x, o, p: self._mlp_pre(
+                self._mlp_input(x, self._residual(x, o, p), p), p))
+            post = _checkpointed(lambda x, o, u, p: self._finish(
+                self._residual(x, o, p), self._mlp_post(u, p), p))
+
+            def rest(x, o, p):
+                return post(x, o, pre(x, o, p), p)
+
+        def layer(x, p, positions, attn_mask):
+            return rest(x, attn(x, p, positions, attn_mask), p)
+
+        return layer
 
     def _embed(self, params, input_ids):
         """(B, S) ids → ((B, S, d) embeddings, (B, S) positions)."""
@@ -481,19 +528,51 @@ class TransformerLM(nn.Module):
         return x, positions
 
     def _head_norm(self, params, x):
+        """Final norm; a post-LN trunk has none (each block ends
+        normalized)."""
+        if self.cfg.post_ln:
+            return x
         return _norm(x, params["lnf_scale"], params.get("lnf_bias"),
                      self.cfg.norm, self.cfg.norm_eps)
 
-    def _head(self, params, x):
-        """Final norm + unembedding: (B, S, d) → (B, S, V) logits."""
+    def _pre_head(self, params, x):
+        """Final norm + (BERT) MLM transform (dense, activation, norm):
+        everything before the unembedding product, shared by the logits
+        head and the fused-xent loss path."""
         cfg = self.cfg
         x = self._head_norm(params, x)
+        if cfg.mlm_transform:
+            x = _activation(x @ params["mlm_dense_w"].to(x.dtype)
+                            + params["mlm_dense_b"].to(x.dtype),
+                            cfg.activation)
+            x = _norm(x, params["mlm_ln_scale"], params.get("mlm_ln_bias"),
+                      cfg.norm, cfg.norm_eps)
+        return x
+
+    def _head(self, params, x):
+        """Pre-head + unembedding: (B, S, d) → (B, S, V) logits."""
+        cfg = self.cfg
+        x = self._pre_head(params, x)
         w = (params["tok_embed"].to(x.dtype).T if cfg.tie_embeddings
              else params["lm_head"].to(x.dtype))
-        logits = x @ w
+        if cfg.tiled_head > 1 and w.shape[1] % cfg.tiled_head == 0:
+            logits = tiled_matmul(x, w, cfg.tiled_head)
+        else:
+            logits = x @ w
         if cfg.lm_head_bias:
             logits = logits + params["lm_head_bias"].to(logits.dtype)
         return logits
+
+    def _trunk(self, params: Params, input_ids, attn_mask, remat_policy):
+        """Embed + layer stack: (B, S) ids → (B, S, d) before the final
+        norm."""
+        x, positions = self._embed(params, input_ids)
+        layers = layer_params(params)
+        layer = self._remat_layer(remat_policy)
+        for i in range(self.cfg.n_layer):
+            x = layer(x, {k: v[i] for k, v in layers.items()}, positions,
+                      attn_mask)
+        return x
 
     def apply(self, params: Params, input_ids, *, attn_mask=None,
               remat_policy: Optional[str] = None):
@@ -505,12 +584,7 @@ class TransformerLM(nn.Module):
         ``remat_policy`` (:data:`REMAT_POLICIES`) runs each layer under
         ``torch.utils.checkpoint``, as the JAX trunk wraps its scan body in
         ``jax.checkpoint``."""
-        x, positions = self._embed(params, input_ids)
-        layers = layer_params(params)
-        layer = remat_wrap(self._layer, remat_policy)
-        for i in range(self.cfg.n_layer):
-            x = layer(x, {k: v[i] for k, v in layers.items()}, positions,
-                      attn_mask)
+        x = self._trunk(params, input_ids, attn_mask, remat_policy)
         if self.cfg.objective == "feature":
             return self._head_norm(params, x)
         return self._head(params, x)
@@ -521,33 +595,49 @@ class TransformerLM(nn.Module):
         """Objective-dependent cross-entropy, fp32, mean over the counted
         tokens (``transformer.py:781``): ``clm`` next-token over the
         (``loss_mask``-ed) positions, ``mlm`` ``batch['labels']`` at the
-        ``loss_mask`` positions."""
+        ``loss_mask`` positions. Where :meth:`_fused_xent_active` says so
+        the head runs through the fused xent kernels and no logits are
+        formed; the mask and the mean stay outside them."""
         cfg = self.cfg
         if cfg.objective == "feature":
             raise ValueError(
                 "objective='feature' models have no unembedding/LM loss; "
                 "train them under a task head (apply() gives hidden states)")
         ids = batch["input_ids"]
+        mlm = cfg.objective == "mlm"
+        attn_mask = batch.get("attention_mask")
         compute = getattr(params.get("tok_embed"), "dtype", None)
         if self._fused_xent_active(ids.device.type == "cuda", compute):
-            raise NotImplementedError(
-                "the fused softmax-xent head (ops/xent.py), which the JAX "
-                "package takes here (fused_xent="
-                f"{cfg.fused_xent}, a tied head), is not ported yet: "
-                f"{later(1)}; fused_xent=False takes the unfused head, as "
-                "the JAX package does on every backend")
-        mlm = cfg.objective == "mlm"
-        logits = self.apply(params, ids, attn_mask=batch.get("attention_mask"),
-                            remat_policy=remat_policy)
-        if mlm:
-            nll = token_nll(logits, batch["labels"])
+            feats = self._pre_head(params, self._trunk(params, ids, attn_mask,
+                                                       remat_policy))
+            if mlm:
+                nll = self._fused_nll(params, feats, batch["labels"])
+            else:
+                nll = self._fused_nll(params, feats[:, :-1], ids[:, 1:])
         else:
-            nll = token_nll(logits[:, :-1], ids[:, 1:])
+            logits = self.apply(params, ids, attn_mask=attn_mask,
+                                remat_policy=remat_policy)
+            if mlm:
+                nll = token_nll(logits, batch["labels"])
+            else:
+                nll = token_nll(logits[:, :-1], ids[:, 1:])
         mask = batch["loss_mask"] if mlm else batch.get("loss_mask")
         if mask is None:
             return nll.mean()
         mask = (mask if mlm else mask[:, 1:]).float()
         return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+    def _fused_nll(self, params, feats, targets):
+        """(B, S', d) features and (B, S') targets → (B, S') fp32 NLL
+        through the fused kernels; the table and the bias go in the
+        features' dtype (``_fused_nll``, ``transformer.py:871``)."""
+        B, S, d = feats.shape
+        bias = (params["lm_head_bias"].to(feats.dtype)
+                if self.cfg.lm_head_bias else None)
+        nll = fused_token_nll(feats.reshape(B * S, d),
+                              params["tok_embed"].to(feats.dtype), bias,
+                              targets.reshape(B * S))
+        return nll.reshape(B, S)
 
     def _fused_xent_active(self, on_card: bool, compute_dtype=None) -> bool:
         """Would the JAX package route this loss through its fused
@@ -555,14 +645,12 @@ class TransformerLM(nn.Module):
         ``transformer.py:823-865``)? Only for a tied clm/mlm head at an
         eligible width and dtype; then ``fused_xent=True`` always, and the
         auto mode (``None``) on its accelerator, which the port reads as
-        the card. ``loss`` raises where this is True: those kernels are not
-        ported, and their work must not run as plain PyTorch in their
-        place. At world size 1 the JAX mesh checks all pass."""
+        the card. At world size 1 the JAX mesh checks all pass."""
         cfg = self.cfg
         if cfg.fused_xent is False or not cfg.tie_embeddings \
                 or cfg.objective not in ("clm", "mlm"):
             return False
-        if not _fused_xent_eligible(cfg.dtype, compute_dtype, cfg.d_model,
+        if not fused_xent_eligible(cfg.dtype, compute_dtype, cfg.d_model,
                                     on_card):
             return False
         return bool(cfg.fused_xent) or on_card

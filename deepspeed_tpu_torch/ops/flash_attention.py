@@ -320,17 +320,23 @@ def flash_attention(q, k, v, *, mask: Optional[torch.Tensor] = None,
     return _Flash.apply(q, k, v, mask, alibi_slopes, causal)
 
 
-def make_flash_attention(block: int = 512, bias_is_constant: bool = True):
+def make_flash_attention(block: int = 512, bias_is_constant: bool = True,
+                         causal: bool = True):
     """``attention_fn`` factory for :class:`TransformerLM`, with the JAX
-    factory's capability flags (``ops/flash_attention.py:935-957``)."""
+    factory's capability flags (``ops/flash_attention.py:935-957``).
+    ``causal=False`` builds the bidirectional function an encoder
+    (``TransformerConfig.causal=False``) needs; the model refuses a causal
+    one there."""
 
     def attn(q, k, v, *, mask=None, bias=None, alibi_slopes=None):
         return flash_attention(q, k, v, mask=mask, bias=bias,
-                               alibi_slopes=alibi_slopes, block=block)
+                               alibi_slopes=alibi_slopes, causal=causal,
+                               block=block)
 
     # the bias operand raises until it is ported (queue 1 item 9): a caller
     # routing an additive bias by this flag takes its dense path instead
     attn.accepts_bias = False
     attn.bias_is_constant = bias_is_constant
     attn.accepts_alibi_slopes = True
+    attn.causal = causal
     return attn

@@ -1,0 +1,272 @@
+"""Fused softmax cross-entropy over the unembedding.
+
+Counterpart of ``deepspeed_tpu/ops/xent.py``, whose Pallas kernels
+(``_fwd_kernel``, ``_dx_kernel``, ``_dw_kernel``) become three CUDA
+kernels for Hopper in ``csrc/xent.cu`` (its header says what bounds them
+and how they are laid out), built by ``ops/builder.py`` and called through
+ctypes. No ``(T, V)`` logits tensor reaches device memory: the forward
+emits the per-token NLL and logsumexp only, the backward recomputes the
+logits tile by tile from the saved logsumexp.
+
+The wrappers :func:`xent_fwd`, :func:`xent_dx` and :func:`xent_dw` launch
+their kernel for CUDA tensors and take the plain PyTorch versions beside
+them for CPU tensors only; on a CUDA tensor they launch or raise. Each
+counts its launches in ``.launches``. :func:`fused_token_nll` wraps them in
+one ``torch.autograd.Function``.
+
+On the card the kernels take bf16 with ``d % 16 == 0``; fp32 and fp16
+operands raise there (fp16 never reaches them: :func:`fused_xent_eligible`).
+The CPU path takes any float dtype. The vocab-sharded collective wrapper
+of the JAX package (``fused_token_nll_tp``) is not ported; the
+``partials`` mode of the forward it is built on is.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import builder
+
+# the TPU kernels' element budget for their (bt + bv) x d tiles and their
+# smallest tile (``ops/xent.py:186-187`` of the JAX package): kept as the
+# routing rule only, so both packages take the same loss path for the same
+# config; the CUDA kernels pick their own tiles
+_TILE_ELEM_BUDGET = (256 + 512) * 2048
+_MIN_TILE = 128
+_FWD_ROWS, _FWD_COLS = 128, 256       # the forward's tile (csrc/xent.cu)
+
+
+def fused_xent_eligible_d(d: int) -> bool:
+    """Does the feature width fit the TPU kernels' smallest tiles? Past
+    d 6144 the JAX package routes the unfused loss; so does the port."""
+    return (2 * _MIN_TILE) * d <= _TILE_ELEM_BUDGET
+
+
+def fused_xent_eligible(cfg_dtype, compute_dtype, d_model: int,
+                        on_card: bool) -> bool:
+    """``fused_xent_eligible`` of the JAX package: fp16, as the trunk's
+    dtype or the engine's compute dtype, never reaches the kernels on the
+    accelerator, and the width must pass :func:`fused_xent_eligible_d`."""
+    if on_card and torch.float16 in (cfg_dtype, compute_dtype):
+        return False
+    return fused_xent_eligible_d(d_model)
+
+
+# ------------------------------------------------------------ plain versions
+def _logits(x, w, bias):
+    """fp32 (T, V) logits as the kernels form them: products of the
+    storage-dtype operands summed in fp32 (never a bf16 matmul output), the
+    bias rounded to x's dtype first."""
+    logits = x.float() @ w.float().T
+    if bias is not None:
+        logits = logits + bias.to(x.dtype).float()
+    return logits
+
+
+def _onehot(targets, V: int):
+    """(T, V) bool: column == target; a target outside [0, V) matches
+    nothing."""
+    cols = torch.arange(V, device=targets.device)
+    return cols[None, :] == targets[:, None]
+
+
+def xent_fwd_plain(x, w, bias, targets, partials: bool = False):
+    """The forward kernel's function in plain tensor ops. Returns fp32
+    ``(nll, lse)``, each ``(T,)``; with ``partials`` the target logit (0
+    for a target outside ``[0, V)``) and ``m + log(max(s, 1e-30))``."""
+    logits = _logits(x, w, bias)
+    m = logits.amax(dim=-1)
+    s = torch.exp(logits - m[:, None]).sum(dim=-1)
+    tgt = torch.where(_onehot(targets, w.shape[0]), logits, 0.0).sum(dim=-1)
+    if partials:
+        return tgt, m + torch.log(s.clamp_min(1e-30))
+    lse = m + torch.log(s)
+    return lse - tgt, lse
+
+
+def xent_bwd_plain(x, w, bias, targets, lse, g):
+    """Both backward kernels' function: ``(dx, dw, db)`` with dx in x's
+    dtype, dw in w's and db ``(V,)`` fp32. ``dl = (exp(logits - lse) -
+    onehot) * g`` in fp32 is rounded to w's dtype before both products
+    (fp32 accumulation); db sums the unrounded dl."""
+    logits = _logits(x, w, bias)
+    p = torch.exp(logits - lse.float()[:, None])
+    dl = (p - _onehot(targets, w.shape[0]).float()) * g.float()[:, None]
+    dlr = dl.to(w.dtype).float()
+    dx = (dlr @ w.float()).to(x.dtype)
+    dw = (dlr.T @ x.float()).to(w.dtype)
+    return dx, dw, dl.sum(dim=0)
+
+
+# ------------------------------------------------------------------ kernels
+def _lib():
+    lib = builder.load("xent")
+    if lib.dstpu_xent_fwd.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        # pointers and the stream as c_void_p: without argtypes ctypes
+        # passes a Python int as a 32-bit C int and cuts the pointer
+        lib.dstpu_xent_fwd.argtypes = [P] * 7 + [I] * 5 + [P]
+        lib.dstpu_xent_dx.argtypes = [P] * 7 + [I] * 3 + [P]
+        lib.dstpu_xent_dw.argtypes = [P] * 8 + [I] * 3 + [P]
+        for fn in (lib.dstpu_xent_fwd, lib.dstpu_xent_dx, lib.dstpu_xent_dw):
+            fn.restype = I
+    return lib
+
+
+def _check(name, x, w, bias, targets, *fp32):
+    """Raise on what the kernels do not take; returns the operands as the
+    kernels read them: ``(T, V, d, bias in x's dtype or None, int32
+    targets)``. ``fp32`` are lse and g."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[1]:
+        raise ValueError(f"{name}: x {tuple(x.shape)} does not fit w "
+                         f"{tuple(w.shape)}; want (T, d) and (V, d)")
+    (T, d), V = x.shape, w.shape[0]
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise ValueError(
+            f"{name}: the CUDA kernels take bf16 x and w, got {x.dtype} and "
+            f"{w.dtype} (fp32 runs on the CPU path only; fp16 takes the "
+            "unfused loss)")
+    if d % 16 or T == 0:
+        raise ValueError(f"{name}: d must be a multiple of 16 and T > 0, "
+                         f"got T {T}, d {d}")
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: x is on {x.device}, the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    if tuple(targets.shape) != (T,) or targets.dtype not in (torch.int32,
+                                                              torch.int64):
+        raise ValueError(f"{name}: targets must be ({T},) int32 or int64")
+    if bias is not None:
+        if tuple(bias.shape) != (V,):
+            raise ValueError(f"{name}: bias must be ({V},)")
+        bias = bias.to(x.dtype).contiguous()
+    targets = targets.to(torch.int32).contiguous()
+    if any(t.dtype != torch.float32 or tuple(t.shape) != (T,) for t in fp32):
+        raise ValueError(f"{name}: lse and g must be fp32 ({T},)")
+    for t in (x, w, targets, *fp32) + (() if bias is None else (bias,)):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous and on "
+                             "x's device")
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(f"{name}: x and w must be 16-byte aligned")
+    return T, V, d, bias, targets
+
+
+def fwd_splits(T: int, V: int, sms: int) -> int:
+    """Vocab splits of the forward's grid: as many as keep its blocks (one
+    to an SM) within one wave over the card's ``sms`` SMs when the token
+    tiles alone are fewer, none of them empty."""
+    tiles_t = -(-T // _FWD_ROWS)
+    tiles_v = -(-V // _FWD_COLS)
+    want = max(1, min(tiles_v, sms // tiles_t))
+    per = -(-tiles_v // want)
+    return -(-tiles_v // per)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def xent_fwd(x, w, bias, targets, partials: bool = False):
+    """Forward: fp32 ``(nll, lse)`` of ``softmax(x @ w.T + bias)`` per
+    token, or with ``partials`` the shard-local ``(target logit,
+    logsumexp)``. x ``(T, d)``, w ``(V, d)``, bias ``(V,)`` or None,
+    targets ``(T,)`` ints."""
+    if x.device.type == "cpu":
+        return xent_fwd_plain(x, w, bias, targets, partials)
+    T, V, d, bias, targets = _check("xent_fwd", x, w, bias, targets)
+    nsplit = fwd_splits(T, V, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    part = torch.empty((3, nsplit, T), dtype=torch.float32, device=x.device)
+    out0, out1 = (torch.empty((T,), dtype=torch.float32, device=x.device)
+                  for _ in range(2))
+    err = _lib().dstpu_xent_fwd(
+        x.data_ptr(), w.data_ptr(), _ptr(bias), targets.data_ptr(),
+        part.data_ptr(), out0.data_ptr(), out1.data_ptr(), T, V, d, nsplit,
+        int(partials), torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "xent_fwd")
+    xent_fwd.launches += 1
+    return out0, out1
+
+
+def xent_dx(x, w, bias, targets, lse, g):
+    """dx ``(T, d)`` in x's dtype from the saved lse and the cotangent g,
+    both ``(T,)`` fp32."""
+    if x.device.type == "cpu":
+        return xent_bwd_plain(x, w, bias, targets, lse, g)[0]
+    T, V, d, bias, targets = _check("xent_dx", x, w, bias, targets, lse, g)
+    dx = torch.empty_like(x)
+    err = _lib().dstpu_xent_dx(
+        x.data_ptr(), w.data_ptr(), _ptr(bias), targets.data_ptr(),
+        lse.data_ptr(), g.data_ptr(), dx.data_ptr(), T, V, d,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "xent_dx")
+    xent_dx.launches += 1
+    return dx
+
+
+def xent_dw(x, w, bias, targets, lse, g):
+    """``(dw, db)``: dw ``(V, d)`` in w's dtype, db ``(V,)`` fp32."""
+    if x.device.type == "cpu":
+        return xent_bwd_plain(x, w, bias, targets, lse, g)[1:]
+    T, V, d, bias, targets = _check("xent_dw", x, w, bias, targets, lse, g)
+    dw = torch.empty_like(w)
+    db = torch.empty((V,), dtype=torch.float32, device=x.device)
+    err = _lib().dstpu_xent_dw(
+        x.data_ptr(), w.data_ptr(), _ptr(bias), targets.data_ptr(),
+        lse.data_ptr(), g.data_ptr(), dw.data_ptr(), db.data_ptr(), T, V, d,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "xent_dw")
+    xent_dw.launches += 1
+    return dw, db
+
+
+xent_fwd.launches = 0
+xent_dx.launches = 0
+xent_dw.launches = 0
+
+
+# ------------------------------------------------------------ autograd
+class _FusedNLL(torch.autograd.Function):
+    """Forward saves the operands and the fp32 lse; backward runs dx then
+    dW/db against it."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, targets):
+        nll, lse = xent_fwd(x, w, bias, targets)
+        ctx.save_for_backward(x, w, bias, targets, lse)
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, bias, targets, lse = ctx.saved_tensors
+        g = g.float().contiguous()
+        if x.device.type == "cpu":           # one pass of the plain version
+            dx, dw, db = xent_bwd_plain(x, w, bias, targets, lse, g)
+        else:
+            dx = xent_dx(x, w, bias, targets, lse, g)
+            dw, db = xent_dw(x, w, bias, targets, lse, g)
+        dbias = None if bias is None else db.to(bias.dtype)
+        return dx, dw, dbias, None
+
+
+def fused_token_nll(x, w, bias: Optional[torch.Tensor], targets):
+    """Per-token NLL of ``softmax(x @ w.T + bias)`` with no ``(T, V)``
+    tensor, differentiable in x, w and bias.
+
+    x: ``(T, d)`` compute dtype; w: ``(V, d)``, the unembedding in the
+    embedding table's layout; bias: ``(V,)`` or None; targets: ``(T,)``
+    ints in ``[0, V)`` (one outside matches nothing). Returns ``(T,)``
+    fp32."""
+    if x.device.type == "cuda":
+        x, w = x.contiguous(), w.contiguous()
+    return _FusedNLL.apply(x, w, bias, targets)

@@ -50,7 +50,7 @@ class Engine:
                 and dist.get_world_size() > 1:
             raise NotImplementedError(
                 "multi-rank training (runtime/zero/partitioning.py) is not "
-                f"ported yet: {later(1)}")
+                f"ported yet: {later(2)}")
         self.config = Config.from_any(config).resolve_batch_sizes(1)
         cfg = self.config
         self.model = model
@@ -75,8 +75,8 @@ class Engine:
         if self.remat_policy is not None \
                 and self.remat_policy not in REMAT_POLICIES:
             raise NotImplementedError(
-                f"remat policy {self.remat_policy!r} is not ported yet: "
-                f"{later(1)}")
+                f"remat policy {self.remat_policy!r} (activations offloaded "
+                f"to the host) is not ported yet: {later(7)}")
         self.compute_dtype = cfg.compute_dtype
         self.accum_dtype = cfg.accum_dtype
         self.master = self._init_master(params)

@@ -10,8 +10,8 @@ from __future__ import annotations
 
 # item number -> the start of its bold title in ROADMAP.md, queue 1
 ITEMS = {
-    1: "training slice, part 2",
-    2: "sparse attention",
+    1: "sparse attention",
+    2: "multi-rank ZeRO and checkpoints",
     3: "ServingEngine",
     4: "MoE",
     5: "tensor and expert parallelism",

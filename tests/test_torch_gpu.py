@@ -9,7 +9,7 @@ import pytest
 import torch
 
 import deepspeed_tpu_torch as dt
-from deepspeed_tpu_torch.models import bloom, llama2, tiny_test
+from deepspeed_tpu_torch.models import bert, bloom, llama2, tiny_test
 from deepspeed_tpu_torch.models.transformer import alibi_slopes
 from deepspeed_tpu_torch.ops import decode_attention as da
 
@@ -268,20 +268,173 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda):
         fa.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)
 
 
-def test_loss_refuses_the_fused_xent_head_on_the_card(cuda):
+# ------------------------------------------------------------- fused xent
+# (T, V, d, bias): nothing divides a tile, one token, BERT-large's and
+# GPT-2 1.5B's widths at a cut vocab, a d that two clusters share unevenly
+# (blocks past d), the widest eligible d
+XENT_CASES = [(77, 1000, 64, True), (1, 1000, 64, False),
+              (300, 3001, 1024, True), (200, 2500, 1600, False),
+              (300, 3000, 2304, True), (130, 700, 6144, True),
+              (4092, 50257, 1600, False)]
+# max |kernel - plain| / max |plain| (chip_smoke.py XENT_TOL_SHARE)
+XENT_SHARE = {"nll": 1e-4, "lse": 1e-4, "dx": 2e-2, "dw": 2e-2, "db": 1e-3}
+
+
+def _xent_operands(cuda, T, V, d, bias, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(T, d, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(V, d, generator=g, device=cuda) * 0.05).bfloat16()
+    b = (torch.randn(V, generator=g, device=cuda) * 0.5).bfloat16() \
+        if bias else None
+    t = torch.randint(0, V, (T,), generator=g, device=cuda)
+    t[0] = V - 1                      # the tail tile's last valid column
+    cot = torch.randn(T, generator=g, device=cuda) / T
+    cot[::7] = 0.0
+    return x, w, b, t, cot
+
+
+@pytest.mark.parametrize("case", XENT_CASES)
+def test_xent_kernels_match_plain(cuda, case):
+    from deepspeed_tpu_torch.ops import xent as xe
+
+    T, V, d, bias = case
+    x, w, b, t, cot = _xent_operands(cuda, T, V, d, bias)
+    if T > 2:
+        t[1], t[2] = V + 3, -5        # outside the vocab: match nothing
+    nll_p, lse_p = xe.xent_fwd_plain(x, w, b, t)
+    dx_p, dw_p, db_p = xe.xent_bwd_plain(x, w, b, t, lse_p, cot)
+    fns = (xe.xent_fwd, xe.xent_dx, xe.xent_dw)
+    before = [f.launches for f in fns]
+    nll, lse = xe.xent_fwd(x, w, b, t)
+    dx = xe.xent_dx(x, w, b, t, lse_p, cot)
+    dw, db = xe.xent_dw(x, w, b, t, lse_p, cot)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [n + 1 for n in before]
+    assert dx.dtype == dw.dtype == torch.bfloat16 and db.dtype == torch.float32
+    for name, got, ref in (("nll", nll, nll_p), ("lse", lse, lse_p),
+                           ("dx", dx, dx_p), ("dw", dw, dw_p),
+                           ("db", db, db_p)):
+        assert bool(torch.isfinite(got).all()), name
+        share = ((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max().clamp_min(1e-30)).item()
+        assert share <= XENT_SHARE[name], (name, share)
+    assert not bool(dx[::7].any())
+    if T > 2:
+        assert bool((nll[1:3] == lse[1:3]).all())
+
+
+def test_xent_partials_combine_to_the_full_forward(cuda):
+    """Each shard of a 4-way hand split against its plain version (three
+    of four see a foreign target), combined as the vocab-sharded caller
+    combines them."""
+    from deepspeed_tpu_torch.ops import xent as xe
+
+    T, V, d, P = 500, 4000, 256, 4
+    x, w, b, t, _ = _xent_operands(cuda, T, V, d, True, seed=1)
+    vs = V // P
+    tgt, lse = [], []
+    for s in range(P):
+        sl = slice(s * vs, (s + 1) * vs)
+        got = xe.xent_fwd(x, w[sl], b[sl], t - s * vs, partials=True)
+        want = xe.xent_fwd_plain(x, w[sl], b[sl], t - s * vs, partials=True)
+        for a, r in zip(got, want):
+            torch.testing.assert_close(a, r, rtol=0,
+                                       atol=1e-4 * r.abs().max().item())
+        tgt.append(got[0])
+        lse.append(got[1])
+    lse_l = torch.stack(lse)
+    m = lse_l.amax(0)
+    lse_g = m + torch.log(torch.exp(lse_l - m).sum(0))
+    nll_f, lse_f = xe.xent_fwd(x, w, b, t)
+    torch.testing.assert_close(lse_g, lse_f, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(lse_g - torch.stack(tgt).sum(0), nll_f,
+                               atol=1e-4, rtol=1e-5)
+
+
+def test_xent_kernels_refuse_what_they_do_not_take(cuda):
+    from deepspeed_tpu_torch.ops import xent as xe
+
+    x, w, b, t, cot = _xent_operands(cuda, 8, 64, 32, True)
+    with pytest.raises(ValueError, match="bf16"):
+        xe.xent_fwd(x.float(), w.float(), None, t)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        xe.xent_fwd(x[:, :24].contiguous(), w[:, :24].contiguous(), None, t)
+    with pytest.raises(ValueError, match="contiguous"):
+        xe.xent_fwd(x.t().contiguous().t(), w, None, t)
+    with pytest.raises(ValueError, match="fp32"):
+        xe.xent_dx(x, w, b, t, cot.double(), cot)
+
+
+def test_default_config_loss_runs_the_fused_xent_head_on_the_card(cuda):
     """A tied head with fused_xent=None is where the JAX package takes its
-    fused xent kernels on its accelerator: not ported, so the loss raises."""
-    model = dt.build_model(tiny_test(dtype=torch.bfloat16))
-    params = model.init(torch.Generator(device=cuda).manual_seed(0),
-                        device=cuda, dtype=torch.bfloat16)
-    ids = torch.zeros(1, 8, dtype=torch.long, device=cuda)
-    with pytest.raises(NotImplementedError, match="fused softmax-xent"):
-        model.loss(params, {"input_ids": ids})
+    fused xent kernels on its accelerator; so does the port on the card,
+    within bf16 rounding of its own unfused head."""
+    from deepspeed_tpu_torch.ops import xent as xe
+
+    cfg = tiny_test(dtype=torch.bfloat16)
+    model = dt.build_model(cfg)
+    unfused = dt.build_model(tiny_test(dtype=torch.bfloat16, fused_xent=False))
+    master = model.init(torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    ids = torch.randint(0, cfg.vocab_size, (4, 33), device=cuda)
+    fns = (xe.xent_fwd, xe.xent_dx, xe.xent_dw)
+    before = [f.launches for f in fns]
+    out = []
+    for m in (model, unfused):
+        params = {k: v.bfloat16().requires_grad_() for k, v in master.items()}
+        loss = m.loss(params, {"input_ids": ids})
+        loss.backward()
+        out.append((loss.item(), params["tok_embed"].grad.float()))
+    assert [f.launches - n for f, n in zip(fns, before)] == [1, 1, 1]
+    assert out[0][0] == pytest.approx(out[1][0], rel=1e-2)
+    assert ((out[0][1] - out[1][1]).norm() / out[1][1].norm()).item() <= 5e-2
 
 
-# tied heads with fused_xent=False: the unfused head, as in the JAX package
+def test_bert_mlm_step_through_the_kernels(cuda):
+    """One optimizer step of a tiny BERT (Hugging Face layout) on the card:
+    bidirectional flash attention under a padding mask and the fused xent
+    head with its bias, against the unfused head on dense attention."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import xent as xe
+
+    over = dict(dtype=torch.bfloat16, vocab_size=1000, post_ln=True,
+                embed_norm=True, mlm_transform=True, lm_head_bias=True)
+    conf = {"train_batch_size": 4, "gradient_accumulation_steps": 2,
+            "remat": {"enabled": True, "policy": "save_names"},
+            "gradient_clipping": 1.0,
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}}
+    rng = np.random.default_rng(0)
+    att = np.ones((4, 64), np.int32)
+    att[1, 40:] = 0
+    batch = {"input_ids": rng.integers(0, 1000, (4, 64)),
+             "labels": rng.integers(0, 1000, (4, 64)),
+             "loss_mask": (rng.random((4, 64)) < 0.15).astype(np.int32) * att,
+             "attention_mask": att}
+    eng = dt.initialize(conf, dt.build_model(
+        bert("tiny", **over),
+        attention_fn=dt.make_flash_attention(causal=False)), seed=0)
+    fns = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, xe.xent_fwd,
+           xe.xent_dx, xe.xent_dw)
+    before = [f.launches for f in fns]
+    m = eng.train_batch(dict(batch))
+    n = 2 * 2                                     # layers x micro-batches
+    assert [f.launches - b for f, b in zip(fns, before)] \
+        == [2 * n, n, n, 2, 2, 2]
+    dense = dt.initialize(conf, dt.build_model(
+        bert("tiny", fused_xent=False, **over)), seed=0)
+    r = dense.train_batch(dict(batch))
+    assert float(m["loss"]) == pytest.approx(float(r["loss"]), rel=2e-2)
+    assert float(m["grad_norm"]) == pytest.approx(float(r["grad_norm"]),
+                                                  rel=5e-2)
+
+
+# tied heads with fused_xent=False take the unfused head, as in the JAX
+# package; the default config takes the fused xent kernels on the card
 @pytest.mark.parametrize("cfg", [tiny_test(dtype=torch.bfloat16,
                                            fused_xent=False),
+                                 tiny_test(dtype=torch.bfloat16),
                                  llama2("tiny", dtype=torch.bfloat16,
                                         vocab_size=512),
                                  bloom("tiny", dtype=torch.bfloat16,
@@ -293,6 +446,7 @@ def test_training_step_through_the_kernels(cuda, cfg):
     import numpy as np
 
     from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import xent as xe
 
     conf = {"train_batch_size": 4, "gradient_accumulation_steps": 2,
             "remat": {"enabled": True}, "gradient_clipping": 1.0,
@@ -300,13 +454,14 @@ def test_training_step_through_the_kernels(cuda, cfg):
     ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 64))
     eng = dt.initialize(conf, dt.build_model(
         cfg, attention_fn=dt.make_flash_attention()), seed=0)
-    before = [f.launches for f in (fa.flash_fwd, fa.flash_bwd_dq,
-                                   fa.flash_bwd_dkv)]
+    fns = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, xe.xent_fwd,
+           xe.xent_dx, xe.xent_dw)
+    before = [f.launches for f in fns]
     m = eng.train_batch({"input_ids": ids})
     n = cfg.n_layer * 2
-    assert [f.launches - b for f, b in zip(
-        (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv), before)] \
-        == [2 * n, n, n]
+    head = 2 * eng.model._fused_xent_active(True, torch.bfloat16)
+    assert [f.launches - b for f, b in zip(fns, before)] \
+        == [2 * n, n, n, head, head, head]
     dense = dt.initialize(conf, dt.build_model(cfg), seed=0)
     r = dense.train_batch({"input_ids": ids})
     assert float(m["loss"]) == pytest.approx(float(r["loss"]), rel=2e-2)

@@ -34,6 +34,13 @@ CASES = {
         parallel_residual=True, parallel_shared_ln=True, pos_embedding="rope",
         rotary_dim=8, tie_embeddings=False, lm_head_bias=True,
         embed_norm=True, n_kv_head=1, norm="rmsnorm", norm_eps=1e-6)),
+    # BERT in the Hugging Face layout: post-LN blocks, no final norm, the
+    # MLM transform and the decoder bias
+    "bert_hf": ("bert", ("tiny",), dict(
+        vocab_size=320, post_ln=True, embed_norm=True, mlm_transform=True,
+        lm_head_bias=True)),
+    "bert_plain": ("bert", ("tiny",), dict(vocab_size=320)),
+    "tiled_head": ("tiny_test", (), dict(tiled_head=4)),
 }
 
 
@@ -50,7 +57,8 @@ def make_pair(name, seed=0):
         if name.endswith("_scale"):
             return (1 + 0.1 * rng.standard_normal(a.shape)).astype(a.dtype)
         if name.endswith("_bias") or name in ("bq", "bk", "bv", "bo",
-                                              "b_in", "b_out"):
+                                              "b_in", "b_out",
+                                              "mlm_dense_b"):
             return (0.1 * rng.standard_normal(a.shape)).astype(a.dtype)
         return a
 
@@ -76,7 +84,8 @@ def test_logits_match_jax_apply(name):
     np.testing.assert_allclose(got.numpy(), want, atol=LOGIT_ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("name", ["llama2_tiny", "shared_ln_untied"])
+@pytest.mark.parametrize("name", ["llama2_tiny", "shared_ln_untied",
+                                  "bert_hf"])
 def test_param_shapes_and_init_scales_match_jax(name):
     jm, jparams, tm, _ = make_pair(name)
     jtree = jm.init(jax.random.PRNGKey(1))
@@ -136,10 +145,83 @@ def test_module_forward_uses_loaded_params():
         torch.testing.assert_close(tm(ids), tm.apply(tparams, ids))
 
 
-@pytest.mark.parametrize("override,item", [
-    (dict(num_experts=4), "MoE"), (dict(post_ln=True), "training slice"),
-    (dict(mlm_transform=True), "training slice"),
-    (dict(tiled_head=4), "ops/tiled.py")])
+@pytest.mark.parametrize("override,item", [(dict(num_experts=4), "MoE")])
 def test_unported_switches_raise_with_roadmap_item(override, item):
     with pytest.raises(NotImplementedError, match=item):
         TransformerLM(torch_presets.tiny_test(**override))
+
+
+@pytest.mark.parametrize("override", [dict(post_ln=True),
+                                      dict(mlm_transform=True),
+                                      dict(tiled_head=4)],
+                         ids=lambda o: next(iter(o)))
+def test_encoder_and_tiled_head_switches_build(override):
+    """Each switch alone changes the parameter tree as the JAX init does."""
+    cfg = torch_presets.tiny_test(**override)
+    names = set(TransformerLM(cfg).param_shapes())
+    base = set(TransformerLM(torch_presets.tiny_test()).param_shapes())
+    jtree = jax_build(jax_presets.tiny_test(**override)).init(
+        jax.random.PRNGKey(0))
+    assert names == {k for k in jtree if k != "layers"} | {
+        f"layers.{k}" for k in jtree["layers"]}
+    assert (names == base) == ("tiled_head" in override)
+
+
+def test_tiled_head_equals_untiled():
+    _, _, tm, tparams = make_pair("tiled_head")
+    _, _, plain, _ = make_pair("tiny_test")
+    ids = torch.as_tensor(ids_for(tm.cfg), dtype=torch.long)
+    with torch.no_grad():
+        torch.testing.assert_close(tm.apply(tparams, ids),
+                                   plain.apply(tparams, ids),
+                                   atol=1e-6, rtol=0)
+
+
+def mlm_batch(cfg, B=2, S=16, seed=0):
+    rng = np.random.default_rng(seed)
+    att = np.ones((B, S), np.int32)
+    att[1, S - 4:] = 0                       # right padding
+    mask = (rng.random((B, S)) < 0.3).astype(np.int32) * att
+    mask[0, 0] = 1
+    return {"input_ids": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+            "labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+            "loss_mask": mask, "attention_mask": att}
+
+
+@pytest.mark.parametrize("name", ["tiny_test", "opt_tiny", "bert_hf",
+                                  "bert_plain"])
+def test_fused_loss_matches_jax_and_the_unfused_loss(name):
+    """``fused_xent=True``: the loss and its gradients through the fused
+    head (the JAX kernels in interpret mode; the port's plain versions)
+    against JAX's, and the port's fused loss against its own unfused one.
+    fp32, 1e-5 of the loss and of each gradient leaf's max."""
+    import dataclasses
+
+    jm, jparams, tm, tparams = make_pair(name)
+    jf = jax_build(dataclasses.replace(jm.cfg, fused_xent=True))
+    tf = build_model(dataclasses.replace(tm.cfg, fused_xent=True))
+    tu = build_model(dataclasses.replace(tm.cfg, fused_xent=False))
+    assert tf._fused_xent_active(False) and not tu._fused_xent_active(False)
+    nb = mlm_batch(tm.cfg) if tm.cfg.objective == "mlm" \
+        else {"input_ids": ids_for(tm.cfg, S=16)}
+    jb = {k: jnp.asarray(v) for k, v in nb.items()}
+    tb = {k: torch.as_tensor(v, dtype=torch.long) for k, v in nb.items()}
+    want, jgrads = jax.value_and_grad(jf.loss)(jparams, jb)
+    jflat = {k: v for k, v in jgrads.items() if k != "layers"}
+    jflat.update({f"layers.{k}": v for k, v in jgrads["layers"].items()})
+
+    def run(model):
+        leaves = {k: v.clone().requires_grad_() for k, v in tparams.items()}
+        loss = model.loss(leaves, tb)
+        loss.backward()
+        return float(loss), {k: v.grad for k, v in leaves.items()}
+
+    lf, gf = run(tf)
+    lu, gu = run(tu)
+    assert lf == pytest.approx(float(want), rel=1e-5)
+    assert lf == pytest.approx(lu, rel=1e-5)
+    for k, g in gf.items():
+        ref = np.asarray(jflat[k])
+        scale = max(np.abs(ref).max(), 1e-6)
+        assert np.abs(g.numpy() - ref).max() <= 1e-5 * scale + 1e-7, k
+        assert (g - gu[k]).abs().max().item() <= 1e-5 * scale + 1e-7, k

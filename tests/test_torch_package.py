@@ -88,7 +88,7 @@ def test_library_path_keys_on_the_source():
     assert path.parent == builder.BUILD_DIR
     assert path.name.startswith("libdecode_attention-")
     assert builder.sources() == ["decode_attention", "flash_attention",
-                                 "woq_matmul"]
+                                 "woq_matmul", "xent"]
 
 
 def test_inference_config_ports_and_refuses():
@@ -156,20 +156,21 @@ def test_training_config_ports_and_refuses():
             ({"data_efficiency": {"curriculum_learning": {"enabled": True}}},
              "item 9"),
             ({"gradient_compression": {"enabled": True}}, "item 9"),
-            ({"checkpoint": {"async_save": True}}, "item 1"),
+            ({"checkpoint": {"async_save": True}}, "item 2"),
             ({"monitor": {"enabled": True}}, "item 8"),
             ({"observability": {"spans": True}}, "item 8"),
             ({"elasticity": {"enabled": True}}, "item 9"),
             ({"moe": {"enabled": True}}, "item 4"),
             ({"mesh": {"model": 2}}, "item 5"),
-            ({"mesh": {"data": 2}}, "item 1"),
-            ({"remat": {"enabled": True, "offload": True}}, "item 1")):
+            ({"mesh": {"data": 2}}, "item 2"),
+            ({"zero_optimization": {"overlap_comm": False}}, "item 2"),
+            ({"remat": {"enabled": True, "offload": True}}, "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             Config.from_any(conf)
     model = dt.build_model(tiny_test(dtype=torch.float32))
     for conf, item in (({"optimizer": {"type": "OneBitAdam"}}, "item 9"),
-                       ({"remat": {"enabled": True, "policy": "save_names"}},
-                        "item 1")):
+                       ({"remat": {"enabled": True,
+                                   "policy": "offload_dots"}}, "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             dt.initialize(conf, model, device="cpu")
     with pytest.raises(ValueError, match="unknown config keys"):
@@ -181,9 +182,26 @@ def test_training_config_ports_and_refuses():
                          "train_micro_batch_size_per_gpu": 4,
                          "gradient_accumulation_steps": 2}
                         ).resolve_batch_sizes(1)
-    with pytest.raises(NotImplementedError, match="fused_xent"):
-        dt.build_model(tiny_test(fused_xent=True)).loss(
-            {}, {"input_ids": torch.zeros(1, 4, dtype=torch.long)})
+    for policy in ("save_names", "save_names_mlp"):
+        eng = dt.initialize({"remat": {"enabled": True, "policy": policy}},
+                            model, device="cpu")
+        assert eng.remat_policy == policy
+
+
+def test_fused_xent_config_runs_on_the_cpu():
+    """``fused_xent=True`` takes the fused head on any device (its plain
+    version for CPU tensors) and agrees with the unfused head; the default
+    takes it on the card only."""
+    fused = dt.build_model(tiny_test(dtype=torch.float32, fused_xent=True))
+    unfused = dt.build_model(tiny_test(dtype=torch.float32, fused_xent=False))
+    auto = dt.build_model(tiny_test(dtype=torch.float32))
+    assert fused._fused_xent_active(False) and auto._fused_xent_active(True)
+    assert not auto._fused_xent_active(False)
+    params = fused.init(torch.Generator().manual_seed(0))
+    batch = {"input_ids": torch.arange(24).reshape(2, 12) % 7}
+    with torch.no_grad():
+        a, b = fused.loss(params, batch), unfused.loss(params, batch)
+    assert float(a) == pytest.approx(float(b), rel=1e-6)
 
 
 def test_every_roadmap_item_the_port_names_exists():
@@ -226,7 +244,7 @@ def test_public_surface():
     assert {"init_inference", "InferenceEngine", "InferenceConfig",
             "models", "initialize", "build_model",
             "make_flash_attention"} <= set(dt.__all__)
-    for name in ("gpt2", "llama2", "opt", "bloom", "tiny_test",
+    for name in ("gpt2", "llama2", "opt", "bloom", "bert", "tiny_test",
                  "build_model", "params_from_jax", "params_to_numpy",
                  "TransformerLM"):
         assert hasattr(dt.models, name)

@@ -73,7 +73,11 @@ def config(dtype, **over):
     return cfg
 
 
-# name: (preset, args, overrides, dtype, JAX flash attention?, masked batch?)
+BERT_HF = dict(vocab_size=320, max_seq=64, post_ln=True, embed_norm=True,
+               mlm_transform=True, lm_head_bias=True, fused_xent=True)
+
+# name: (preset, args, overrides, dtype, JAX flash attention?, batch kind:
+# False plain ids, True with padding and loss masks, "mlm" an MLM batch)
 CASES = {
     "gpt2_like_fp32": ("tiny_test", (), dict(max_seq=64), "float32", True,
                        False),
@@ -86,6 +90,18 @@ CASES = {
                        False),
     "masked_fp32": ("tiny_test", (), dict(max_seq=64), "float32", True,
                     True),
+    # the fused softmax-xent head (the JAX kernels in interpret mode)
+    "gpt2_like_fused_fp32": ("tiny_test", (), dict(max_seq=64,
+                                                   fused_xent=True),
+                             "float32", True, True),
+    # BERT's MLM objective, Hugging Face layout, fused head with its bias;
+    # the JAX encoder takes its dense attention, the port the bidirectional
+    # flash function
+    "bert_mlm_fused_fp32": ("bert", ("tiny",), BERT_HF, "float32", False,
+                            "mlm"),
+    "bert_mlm_unfused_fp32": ("bert", ("tiny",),
+                              dict(BERT_HF, fused_xent=False, tiled_head=4),
+                              "float32", False, "mlm"),
 }
 
 
@@ -102,6 +118,15 @@ def batches(vocab, masked, seed=0):
             loss = att.copy()
             loss[3, 20:] = 0
             b.update(attention_mask=att, loss_mask=loss)
+        if masked == "mlm":
+            rng = np.random.default_rng(seed + 100 + i)
+            att = np.ones((8, S), np.int32)
+            att[2, 25:] = 0           # right padding
+            att[5, 12:] = 0
+            picked = (rng.random((8, S)) < 0.15).astype(np.int32) * att
+            picked[:, 0] = 1
+            b.update(labels=rng.integers(0, vocab, (8, S)).astype(np.int32),
+                     loss_mask=picked, attention_mask=att)
         out.append(b)
     return out
 
@@ -118,8 +143,8 @@ def run_case(name):
     jeng = ds.initialize(config(dtype), jm, mesh=mesh, seed=0)
     master0 = jeng.fp32_params()
     teng = dt.initialize(config(dtype),
-                         dt.build_model(tcfg,
-                                        attention_fn=dt.make_flash_attention()),
+                         dt.build_model(tcfg, attention_fn=dt.make_flash_attention(
+                             causal=tcfg.causal)),
                          params=params_from_jax(master0, tcfg), device="cpu")
     jm_, tm_ = [], []
     for b in batches(tcfg.vocab_size, masked):
@@ -190,8 +215,8 @@ XENT_CASES = [("gpt2", ("1.5b",), {}),
 @pytest.mark.parametrize("case", XENT_CASES,
                          ids=lambda c: "-".join([c[0], *c[1], *map(str, c[2].items())]))
 def test_fused_xent_decision_matches_jax(monkeypatch, case, accelerator):
-    """The port's loss refuses exactly where the JAX package would take
-    its fused xent kernels: on its accelerator (a TPU there, the card
+    """The port's loss takes its fused xent kernels exactly where the JAX
+    package would take its own: on its accelerator (a TPU there, the card
     here) or off it."""
     fn, args, kw = case
     jkw, tkw = dict(kw), dict(kw)
@@ -250,6 +275,48 @@ def test_remat_grads_equal_no_remat():
         torch.testing.assert_close(full.master[k], v, atol=1e-7, rtol=0)
 
 
+@pytest.mark.parametrize("policy", ["save_names", "save_names_mlp"])
+@pytest.mark.parametrize("model_over", [dict(fused_xent=True),
+                                        dict(activation="silu_glu",
+                                             parallel_residual=True)],
+                         ids=["fused_head", "glu_parallel"])
+def test_segmented_remat_equals_no_remat(policy, model_over):
+    """``save_names`` / ``save_names_mlp`` cut each layer into checkpointed
+    segments; the recomputation repeats the same ops, so the losses equal
+    the run without remat exactly. ``save_names_mlp`` forms the residual
+    ``x + attn_out`` in two segments, so the gradient reaches x and
+    attn_out as a sum of two paths taken in another order: masters within
+    1e-6 absolute after two Adam steps (1e-7 where the ops are the same),
+    and ``layers.bk``, whose gradient is rounding noise (module docstring),
+    is left out."""
+    b = batches(256, True)[:2]
+    on = port_engine({"remat": {"enabled": True, "policy": policy}},
+                     model_over)
+    off = port_engine({"remat": {"enabled": False}}, model_over)
+    assert on.remat_policy == policy and off.remat_policy is None
+    for x in b:
+        a, c = on.train_batch(dict(x)), off.train_batch(dict(x))
+        assert float(a["loss"]) == float(c["loss"])
+        assert float(a["grad_norm"]) == pytest.approx(float(c["grad_norm"]),
+                                                      rel=1e-6)
+    for k, v in off.master.items():
+        if k != "layers.bk":
+            torch.testing.assert_close(
+                on.master[k], v, rtol=0,
+                atol=1e-6 if policy == "save_names_mlp" else 1e-7)
+
+
+def test_eval_batch_takes_an_mlm_batch():
+    tcfg = torch_presets.bert("tiny", dtype=torch.float32, **BERT_HF)
+    eng = dt.initialize(config("float32"), dt.build_model(tcfg), seed=1,
+                        device="cpu")
+    b = batches(tcfg.vocab_size, "mlm")[0]
+    first = eng.eval_batch(dict(b))
+    for _ in range(3):
+        eng.train_batch(dict(b))
+    assert np.isfinite(first) and eng.eval_batch(dict(b)) < first
+
+
 def test_fp16_loss_scale_skips_overflow_steps():
     eng = port_engine({"bf16": {"enabled": False},
                        "fp16": {"enabled": True, "initial_scale_power": 200,
@@ -269,8 +336,11 @@ def test_learnable_data_loss_falls():
 
 
 def test_cpu_training_launches_no_kernel():
-    before = (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
-              tfa.flash_bwd_dkv.launches)
-    port_engine().train_batch(dict(batches(256, False)[0]))
-    assert (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
-            tfa.flash_bwd_dkv.launches) == before
+    from deepspeed_tpu_torch.ops import xent as txe
+
+    fns = (tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkv, txe.xent_fwd,
+           txe.xent_dx, txe.xent_dw)
+    before = [f.launches for f in fns]
+    port_engine(model_over=dict(fused_xent=True)).train_batch(
+        dict(batches(256, False)[0]))
+    assert [f.launches for f in fns] == before

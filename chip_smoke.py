@@ -43,6 +43,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    g = 0);
    timed at the GPT-2 shape beside the bound, the plain versions and the
    library (``F.cross_entropy`` of ``F.linear`` and its autograd backward);
+5c. sparse kernels: the block-sparse forward, dq and dk/dv kernels against
+   their plain versions in bf16 and fp16 at the slice's shape (B 1, H 25,
+   S 8192, hd 64, the default Fixed layout, causal), each of the five
+   layouts causal and not, blocks 16, 32 and 128, hd 128 and 16, GQA and
+   MQA, one block, and a layout whose widest list is far wider than its
+   narrowest; the dense layout through them against the flash kernels;
+   timed at the slice's shape beside the bound, the plain versions, SDPA
+   under the expanded (S, S) boolean mask (forward and its autograd
+   backward), the flash kernels on the dense causal problem and the sparse
+   kernels in natural block order;
 6. training, the unfused reference: GPT-2 1.5B at full width and depth with
    ``fused_xent=False`` through ``initialize(TRAIN_CONFIG, build_model(cfg,
    attention_fn=make_flash_attention())).train_batch``; first the kernel
@@ -61,7 +71,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``post_ln``, ``embed_norm``, ``mlm_transform``, ``lm_head_bias``), 24
    layers, micro-batch 16 x 512, bidirectional flash attention under a
    key-padding mask, 15% of the positions counted, through the same xent
-   kernels with the bias operand live: the same checks, 3 + 6 steps.
+   kernels with the bias operand live: the same checks, 3 + 6 steps;
+9. training at 8192 tokens a row under the Fixed sparsity layout:
+   ``gpt2("1.5b", max_seq=8192)`` with ``make_sparse_attention_fn(
+   FixedSparsityConfig())`` through ``initialize(LONG_TRAIN_CONFIG, ...)``
+   (micro-batch 1 x gas 2): at 4 layers the kernel path against the plain
+   sparse path, then 2 + 5 steps at full depth; launches exact (sparse 192
+   / 96 / 96 per optimizer step, flash 0, xent 2 / 2 / 2).
 
 ``remat_sweep()`` is a one-off measurement outside the phases: the default
 GPT-2 1.5B training step under each remat policy.
@@ -1320,6 +1336,303 @@ def _xent_timing(gen, case, iters) -> dict:
     return out
 
 
+# ------------------------------------------------------- phase 5c, sparse
+# (name, B, H, KV, S, hd, causal, config class, its fields): the slice's
+# shape first (GPT-2 1.5B's heads at 8192 tokens under the default Fixed
+# layout); then each layout at its defaults (block 64), causal and not;
+# blocks 16, 32 and 128; hd 128 and 16; GQA and MQA; one block (S ==
+# block); a layout whose global row keeps every block and whose other rows
+# keep one or two without block 0, so a kernel that read its lists past
+# k_n / q_n (whose padding is 0, a valid index) would add block 0
+SPARSE_CASES = (
+    ("gpt2_1.5b_8192", 1, 25, 25, 8192, 64, True, "FixedSparsityConfig", {}),
+    ("dense", 2, 4, 4, 1024, 64, True, "SparsityConfig", {}),
+    ("dense_full", 2, 4, 4, 1024, 64, False, "SparsityConfig", {}),
+    ("fixed", 2, 4, 4, 1024, 64, True, "FixedSparsityConfig", {}),
+    ("fixed_full", 2, 4, 4, 1024, 64, False, "FixedSparsityConfig", {}),
+    ("variable", 2, 4, 4, 1024, 64, True, "VariableSparsityConfig", {}),
+    ("variable_full", 2, 4, 4, 1024, 64, False, "VariableSparsityConfig", {}),
+    ("bigbird", 2, 4, 4, 1024, 64, True, "BigBirdSparsityConfig", {}),
+    ("bigbird_full", 2, 4, 4, 1024, 64, False, "BigBirdSparsityConfig", {}),
+    ("longformer", 2, 4, 4, 1024, 64, True, "BSLongformerSparsityConfig",
+     {}),
+    ("longformer_full", 2, 4, 4, 1024, 64, False,
+     "BSLongformerSparsityConfig", {}),
+    ("fixed_block16", 2, 4, 4, 1024, 64, True, "FixedSparsityConfig",
+     {"block": 16}),
+    ("bigbird_block32_full", 2, 4, 4, 1024, 64, False,
+     "BigBirdSparsityConfig", {"block": 32, "num_random_blocks": 2}),
+    ("fixed_block128", 1, 4, 4, 2048, 64, True, "FixedSparsityConfig",
+     {"block": 128}),
+    ("longformer_block16_full", 1, 4, 4, 512, 32, False,
+     "BSLongformerSparsityConfig", {"block": 16}),
+    ("fixed_hd128", 1, 8, 8, 2048, 128, True, "FixedSparsityConfig", {}),
+    ("fixed_hd128_block128", 1, 4, 4, 1024, 128, True, "FixedSparsityConfig",
+     {"block": 128}),
+    ("variable_hd16_block32", 2, 4, 4, 256, 16, True,
+     "VariableSparsityConfig", {"block": 32}),
+    ("fixed_gqa", 1, 8, 2, 2048, 64, True, "FixedSparsityConfig", {}),
+    ("bigbird_mqa_full", 1, 8, 1, 1024, 128, False, "BigBirdSparsityConfig",
+     {}),
+    ("one_block", 2, 4, 4, 64, 64, True, "FixedSparsityConfig", {}),
+    ("one_block16_full", 2, 4, 4, 16, 32, False, "SparsityConfig",
+     {"block": 16}),
+    ("wide_vs_narrow", 1, 4, 4, 1024, 64, True, "BSLongformerSparsityConfig",
+     {"num_sliding_window_blocks": 1, "global_block_indices": (15,)}),
+    ("wide_vs_narrow_full", 1, 4, 4, 1024, 64, False,
+     "BSLongformerSparsityConfig",
+     {"num_sliding_window_blocks": 1, "global_block_indices": (15,)}),
+)
+# the dense layout through the sparse kernels against the flash kernels on
+# the same inputs, (name, B, H, KV, S, hd, causal): the same function, so
+# phase 5's tolerances
+SPARSE_VS_FLASH = (("dense_vs_flash", 1, 25, 25, 2048, 64, True),
+                   ("dense_vs_flash_gqa_full", 2, 4, 2, 1024, 128, False))
+SPARSE_NAMES = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
+
+
+def _sparse_config(cls: str, fields: dict):
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    return getattr(sa, cls)(**fields)
+
+
+def sparse_bound(layout, B, H, KV, hd, esize) -> dict:
+    """Least time of each sparse kernel on an H100: the kept (q, k)
+    elements (``layout.kept_elements()``: b² per off-diagonal pair, b(b+1)/2
+    per diagonal pair when causal) times 2·hd flop for each of 2 (forward),
+    3 (dq) or 4 (dk/dv) products at 989 TFLOP/s, against each input (the
+    lists included) read and each output written once at 3.35 TB/s."""
+    S = layout.seq
+    prod = 2 * B * H * hd * layout.kept_elements()
+    qb, kvb, rowb = B * S * H * hd * esize, B * S * KV * hd * esize, B * H * S * 4
+    kl = 4 * (layout.k_idx.numel() + 2 * layout.k_n.numel())
+    ql = 4 * (layout.q_idx.numel() + 2 * layout.q_n.numel())
+    work = {"sparse_fwd": (2 * prod, 2 * qb + 2 * kvb + rowb + kl),
+            "sparse_bwd_dq": (3 * prod, 3 * qb + 2 * kvb + 2 * rowb + kl),
+            "sparse_bwd_dkv": (4 * prod, 2 * qb + 4 * kvb + 2 * rowb + ql)}
+    out = {}
+    for name, (ops, nbytes) in work.items():
+        t_ops = ops / PEAK_OPS_PER_S["torch.bfloat16"] * 1e3
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        out[name] = {"bound_ms": max(t_ops, t_bytes), "ops": ops,
+                     "bytes": nbytes, "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations"}
+    return out
+
+
+def _qkv_do(gen, B, H, KV, S, hd, dtype, device):
+    x = _flash_case(gen, B, H, KV, S, hd, True, None, False, dtype, device)
+    return x["q"], x["k"], x["v"], x["do"]
+
+
+def _check_shares(tag, got: dict, want: dict, lse, lse_want, dtype) -> dict:
+    """Max |Δ| / max |want| of each tensor within phase 5's tolerance and
+    the lse within FLASH_LSE_ATOL; raises otherwise. Returns the max |Δ|
+    of each tensor."""
+    import torch
+
+    shares = {n: _share(got[n], want[n]) for n in want}
+    lse_err = (lse - lse_want).abs().max().item()
+    tol = FLASH_TOL_SHARE.get(str(dtype), 1e-5)
+    finite = all(bool(torch.isfinite(t).all()) for t in (*got.values(), lse))
+    ok = finite and lse_err <= FLASH_LSE_ATOL and all(
+        s <= tol for s in shares.values())
+    log(f"{tag}: " + ", ".join(f"{n} {s:.2e}" for n, s in shares.items())
+        + f" of max |reference| (tol {tol:g}); lse {lse_err:.1e} (tol "
+        f"{FLASH_LSE_ATOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: {shares}, lse {lse_err}, finite "
+                             f"{finite}")
+    return {n: (got[n].float() - want[n].float()).abs().max().item()
+            for n in want}
+
+
+def phase_sparse_kernels(device="cuda", cases=SPARSE_CASES,
+                         vs_flash=SPARSE_VS_FLASH, dtypes=None,
+                         iters=20) -> dict:
+    """The three sparse kernels against their plain versions on every case
+    in bf16 and fp16, the backward kernels fed the plain forward's lse and
+    delta; the dense layout through them against the flash kernels; on the
+    card, timed at the first (the slice's) shape."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    dtypes = dtypes or (torch.bfloat16, torch.float16)
+    worst = dict.fromkeys(SPARSE_NAMES, 0.0)
+
+    def note(errs):
+        for n, key in (("sparse_fwd", "o"), ("sparse_bwd_dq", "dq"),
+                       ("sparse_bwd_dkv", "dk"), ("sparse_bwd_dkv", "dv")):
+            worst[n] = max(worst[n], errs[key])
+
+    for name, B, H, KV, S, hd, causal, cls, fields in cases:
+        cfg = _sparse_config(cls, fields)
+        layout = sa.sparse_layout(cfg, S, causal, device)
+        widths = layout.k_n.tolist()
+        for dtype in dtypes:
+            q, k, v, do = _qkv_do(gen, B, H, KV, S, hd, dtype, device)
+            o_p, lse_p = sa.sparse_attention_fwd_plain(q, k, v, layout)
+            delta = fa.attention_delta(o_p, do)
+            want = {"o": o_p,
+                    "dq": sa.sparse_bwd_dq_plain(q, k, v, do, lse_p, delta,
+                                                 layout)}
+            want["dk"], want["dv"] = sa.sparse_bwd_dkv_plain(
+                q, k, v, do, lse_p, delta, layout)
+            o, lse = sa.sparse_fwd(q, k, v, layout)
+            got = {"o": o,
+                   "dq": sa.sparse_bwd_dq(q, k, v, do, lse_p, delta, layout)}
+            got["dk"], got["dv"] = sa.sparse_bwd_dkv(q, k, v, do, lse_p,
+                                                     delta, layout)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            note(_check_shares(
+                f"[sparse] {name:24s} {str(dtype):15s} B{B} H{H} KV{KV} S{S} "
+                f"hd{hd} block {cfg.block} {'causal' if causal else 'full'}, "
+                f"lists {min(widths)}-{max(widths)} wide", got, want, lse,
+                lse_p, dtype))
+            del q, k, v, do, o_p, lse_p, delta, want, got, o, lse
+    # the dense layout is the function the flash kernels compute
+    for name, B, H, KV, S, hd, causal in vs_flash:
+        layout = sa.sparse_layout(sa.SparsityConfig(), S, causal, device)
+        for dtype in dtypes:
+            q, k, v, do = _qkv_do(gen, B, H, KV, S, hd, dtype, device)
+            o_f, lse_f = fa.flash_fwd(q, k, v, causal=causal)
+            delta = fa.attention_delta(o_f, do)
+            want = {"o": o_f, "dq": fa.flash_bwd_dq(q, k, v, do, lse_f, delta,
+                                                    causal=causal)}
+            want["dk"], want["dv"] = fa.flash_bwd_dkv(q, k, v, do, lse_f,
+                                                      delta, causal=causal)
+            o, lse = sa.sparse_fwd(q, k, v, layout)
+            got = {"o": o,
+                   "dq": sa.sparse_bwd_dq(q, k, v, do, lse_f, delta, layout)}
+            got["dk"], got["dv"] = sa.sparse_bwd_dkv(q, k, v, do, lse_f,
+                                                     delta, layout)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            same = all(torch.equal(got[n], want[n]) for n in want) \
+                and torch.equal(lse, lse_f)
+            _check_shares(f"[sparse] {name:24s} {str(dtype):15s} B{B} H{H} "
+                          f"KV{KV} S{S} hd{hd} vs the flash kernels (bit for "
+                          f"bit: {same})", got, want, lse, lse_f, dtype)
+            del q, k, v, do, o_f, lse_f, delta, want, got, o, lse
+    result = {n: {"max_abs_err": worst[n]} for n in SPARSE_NAMES}
+    if device != "cuda":
+        return result
+    main = _sparse_timing(gen, cases[0], iters)
+    for n in SPARSE_NAMES:
+        result[n].update(main[n])
+    return result
+
+
+def _sparse_timing(gen, case, iters) -> dict:
+    """Kernel, plain and bound of each sparse kernel at one case's shape in
+    bf16 (device time, 4 input sets in rotation past the 50 MB L2), with
+    yardsticks the port never calls, device-timed too: SDPA with the layout
+    expanded to an (S, S) boolean mask (its forward, and its autograd
+    backward against ``sparse_bwd_dq`` + ``sparse_bwd_dkv`` together), the
+    port's flash kernels on the dense causal problem at the same shape, and
+    the sparse kernels launched in natural block order instead of widest
+    list first."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    name, B, H, KV, S, hd, causal, cls, fields = case
+    cfg = _sparse_config(cls, fields)
+    layout = sa.sparse_layout(cfg, S, causal, "cuda")
+    sets = []
+    for _ in range(4):
+        q, k, v, do = _qkv_do(gen, B, H, KV, S, hd, torch.bfloat16, "cuda")
+        o, lse = sa.sparse_fwd(q, k, v, layout)
+        sets.append(dict(q=q, k=k, v=v, do=do, lse=lse,
+                         delta=fa.attention_delta(o, do)))
+    args = lambda i: tuple(sets[i % 4][n] for n in "qkv")       # noqa: E731
+    bwd = lambda i: (*args(i), *(sets[i % 4][n]                 # noqa: E731
+                                 for n in ("do", "lse", "delta")))
+
+    def kernels(lay):
+        return {"sparse_fwd": lambda i: sa.sparse_fwd(*args(i), lay),
+                "sparse_bwd_dq": lambda i: sa.sparse_bwd_dq(*bwd(i), lay),
+                "sparse_bwd_dkv": lambda i: sa.sparse_bwd_dkv(*bwd(i), lay)}
+
+    plain = {"sparse_fwd": lambda i: sa.sparse_attention_fwd_plain(
+                 *args(i), layout),
+             "sparse_bwd_dq": lambda i: sa.sparse_bwd_dq_plain(*bwd(i), layout),
+             "sparse_bwd_dkv": lambda i: sa.sparse_bwd_dkv_plain(*bwd(i),
+                                                                 layout)}
+    flash = {"sparse_fwd": lambda i: fa.flash_fwd(*args(i), causal=causal),
+             "sparse_bwd_dq": lambda i: fa.flash_bwd_dq(*bwd(i),
+                                                        causal=causal),
+             "sparse_bwd_dkv": lambda i: fa.flash_bwd_dkv(*bwd(i),
+                                                          causal=causal)}
+    natural = dataclasses.replace(
+        layout, q_order=torch.arange(S // cfg.block, dtype=torch.int32,
+                                     device="cuda"),
+        k_order=torch.arange(S // cfg.block, dtype=torch.int32,
+                             device="cuda"))
+    # the library: SDPA under the expanded mask (causal folded in), the
+    # KV heads repeated for GQA
+    mask = layout.keep("cuda")
+    if causal:
+        mask = mask & torch.ones((S, S), dtype=torch.bool, device="cuda").tril()
+    rep = lambda t: t.repeat_interleave(H // KV, 2) if KV != H else t  # noqa
+    leaves = [tuple(rep(t).transpose(1, 2).contiguous().requires_grad_()
+                    for t in args(i)) for i in range(4)]
+    gdo = [s["do"].transpose(1, 2).contiguous() for s in sets]
+
+    def lib_fwd(i):
+        return F.scaled_dot_product_attention(*leaves[i % 4], attn_mask=mask)
+
+    def lib_fwd_bwd(i):
+        return torch.autograd.grad(lib_fwd(i), leaves[i % 4], gdo[i % 4])
+
+    with torch.no_grad():
+        lib_f = device_ms(lib_fwd, 4, iters)
+    lib_b = device_ms(lib_fwd_bwd, 4, iters) - lib_f
+    library = {"sparse_fwd": lib_f, "sparse_bwd_dq": lib_b,
+               "sparse_bwd_dkv": lib_b}
+    bounds = sparse_bound(layout, B, H, KV, hd, 2)
+    dense = flash_bound(B, H, KV, S, hd, causal, 2)
+    kept = layout.kept_elements() / (S * (S + 1) // 2 if causal else S * S)
+    out = {}
+    lpt, nat = kernels(layout), kernels(natural)
+    for n in SPARSE_NAMES:
+        ms = device_ms(lpt[n], 4, iters)
+        ms_nat = device_ms(nat[n], 4, iters)
+        flash_ms = device_ms(flash[n], 4, iters)
+        plain_ms = time_ms(plain[n], 3)
+        b, fb = bounds[n], dense["flash_" + n.split("_", 1)[1]]
+        out[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                      bound_by=b["bound_by"], library_ms=library[n],
+                      natural_order_ms=ms_nat, flash_dense_ms=flash_ms,
+                      flash_dense_bound_ms=fb["bound_ms"])
+        log(f"[sparse] {n} {name} B{B} H{H} KV{KV} S{S} hd{hd} block "
+            f"{cfg.block} {'causal' if causal else 'full'} bf16: kernel "
+            f"{ms * 1e3:.2f} us (natural block order {ms_nat * 1e3:.2f} us), "
+            f"plain {plain_ms * 1e3:.2f} us, bound {b['bound_ms'] * 1e3:.2f} us"
+            f" ({b['bound_by']}: {b['bytes']} B, {b['ops']:.4g} flop), kernel "
+            f"at {b['bound_ms'] / ms:.1%} of the bound; the flash kernel on the "
+            f"dense problem {flash_ms * 1e3:.2f} us (bound "
+            f"{fb['bound_ms'] * 1e3:.2f} us), sparse / dense "
+            f"{ms / flash_ms:.3f} for {kept:.1%} of the elements")
+    bwd_ms = out["sparse_bwd_dq"]["ms"] + out["sparse_bwd_dkv"]["ms"]
+    log(f"[sparse] {name} library calls (device, not called by the port): "
+        f"SDPA with the (S, S) boolean mask, forward {lib_f * 1e3:.2f} us vs "
+        f"sparse_fwd {out['sparse_fwd']['ms'] * 1e3:.2f} us; its autograd "
+        f"backward (dq, dk and dv in one pass) {lib_b * 1e3:.2f} us vs "
+        f"sparse_bwd_dq + sparse_bwd_dkv {bwd_ms * 1e3:.2f} us")
+    del sets, leaves, gdo, mask
+    return out
+
+
 # ------------------------------------------------------------------ phase 6
 # the slice's training config: examples/pretrain_gpt2.py's at micro 4,
 # gas 2 (its warm-up of 2000 steps keeps the first steps' lr at 2.7e-5 to
@@ -1350,6 +1663,10 @@ TRAIN_CONFIG = {
 # norm is ~3e-3 of bq's) and its relative difference is noise over noise.
 TRAIN_LOSS_RTOL = 1e-2
 TRAIN_GRAD_RTOL = 5e-2
+# phase 9, long rows under the Fixed sparsity layout: TRAIN_CONFIG at
+# micro-batch 1 x gas 2 x 8192 tokens, otherwise the same
+LONG_TRAIN_CONFIG = {**TRAIN_CONFIG, "train_batch_size": 2,
+                     "train_micro_batch_size_per_gpu": 1}
 
 
 def _plain_flash_attention():
@@ -1381,6 +1698,39 @@ def _plain_flash_attention():
         return Plain.apply(q, k, v, mask, alibi_slopes)
 
     attn.accepts_alibi_slopes = True
+    return attn
+
+
+def _plain_sparse_attention(config):
+    """The sparse attention Function with the plain versions on every
+    device, under ``config``'s causal layout: the reference phase 9's
+    kernel path is held against."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            ctx.layout = sa.sparse_layout(config, q.shape[1], True, q.device)
+            o, lse = sa.sparse_attention_fwd_plain(q, k, v, ctx.layout)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse = ctx.saved_tensors
+            delta = fa.attention_delta(o, do)
+            dq = sa.sparse_bwd_dq_plain(q, k, v, do, lse, delta, ctx.layout)
+            dk, dv = sa.sparse_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                             ctx.layout)
+            return dq, dk, dv
+
+    def attn(q, k, v, *, mask=None):
+        assert mask is None
+        return Plain.apply(q, k, v)
+
     return attn
 
 
@@ -1480,16 +1830,20 @@ XENT_KERNEL_NAMES = ("xent_fwd_kernel", "xent_fwd_merge_kernel",
 
 def phase_train(cfg=None, *, config=None, check="attention", check_layers=4,
                 seq=1024, warmup=3, steps=10, fall=0.5, device=None,
-                profile_steps=2, name="train") -> dict:
+                profile_steps=2, name="train", attention=None,
+                reference=None, kernels=None) -> dict:
     """A training main path: ``initialize(config, build_model(cfg,
-    attention_fn=make_flash_attention(causal=cfg.causal))).train_batch`` at
-    full width and depth, with every flash and xent kernel's count zeroed
-    just before the timed steps and read just after. First, at
+    attention_fn=attention())).train_batch`` at full width and depth
+    (``attention`` defaults to ``make_flash_attention(causal=cfg.causal)``),
+    with every flash, sparse and xent kernel's count zeroed just before the
+    timed steps and read just after: ``kernels``, the attention function's
+    forward, dq and dk/dv counters (default the flash kernels'), must count
+    every layer and micro-batch, the other attention kernels 0. First, at
     ``check_layers`` layers on the same weights and batch: with ``check=
     "attention"`` the kernel attention path's loss and grads against the
-    plain attention path's; with ``check="head"`` the fused xent head's
-    against the unfused head's (``fused_xent=False``), and each head timed
-    alone."""
+    plain attention path's (``reference()``, default the plain flash
+    Function); with ``check="head"`` the fused xent head's against the
+    unfused head's (``fused_xent=False``), and each head timed alone."""
     import dataclasses
 
     import torch
@@ -1497,6 +1851,7 @@ def phase_train(cfg=None, *, config=None, check="attention", check_layers=4,
     import deepspeed_tpu_torch as dt
     from deepspeed_tpu_torch.models import gpt2
     from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
     from deepspeed_tpu_torch.ops import xent as xe
     from deepspeed_tpu_torch.runtime import random_token_dataset
 
@@ -1509,13 +1864,16 @@ def phase_train(cfg=None, *, config=None, check="attention", check_layers=4,
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     kw = {} if device is None else {"device": device}
     flash = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    sparse = (sa.sparse_fwd, sa.sparse_bwd_dq, sa.sparse_bwd_dkv)
     xent = (xe.xent_fwd, xe.xent_dx, xe.xent_dw)
+    kernels = kernels or flash
     micro = config["train_micro_batch_size_per_gpu"]
     gas = config["gradient_accumulation_steps"]
     rows = micro * gas
     mlm = cfg.objective == "mlm"
     tag = f"[{name} {cfg.n_layer}L d{cfg.d_model}]"
-    attention = partial(dt.make_flash_attention, causal=cfg.causal)
+    attention = attention or partial(dt.make_flash_attention,
+                                     causal=cfg.causal)
 
     def batch_of(n):
         if mlm:
@@ -1537,8 +1895,8 @@ def phase_train(cfg=None, *, config=None, check="attention", check_layers=4,
     under_test = dt.build_model(small, attention_fn=attention())
     if check == "attention":
         what = "kernel vs plain attention path"
-        reference = dt.build_model(small,
-                                   attention_fn=_plain_flash_attention())
+        reference = dt.build_model(small, attention_fn=(
+            reference or _plain_flash_attention)())
     else:
         what = "fused xent head vs unfused head (fused_xent=False)"
         reference = dt.build_model(
@@ -1603,7 +1961,7 @@ def phase_train(cfg=None, *, config=None, check="attention", check_layers=4,
 
     # ---- the main path, counted and timed ----
     _free_memory(dev)
-    for c in flash + xent:
+    for c in flash + sparse + xent:
         c.launches = 0
     step_s = []
     for i in range(warmup, warmup + steps):
@@ -1612,13 +1970,15 @@ def phase_train(cfg=None, *, config=None, check="attention", check_layers=4,
         m = engine.train_batch(dict(data))
         losses.append(float(m["loss"]))           # a host read: synchronizes
         step_s.append(time.perf_counter() - t1)
-    got = {c.__name__: c.launches for c in flash + xent}
+    got = {c.__name__: c.launches for c in flash + sparse + xent}
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     per_step = cfg.n_layer * gas if cuda else 0
     head = gas * steps if cuda and fused else 0
-    want = {"flash_fwd": 2 * per_step * steps,      # remat reruns the forward
-            "flash_bwd_dq": per_step * steps, "flash_bwd_dkv": per_step * steps,
-            "xent_fwd": head, "xent_dx": head, "xent_dw": head}
+    want = dict.fromkeys(got, 0)
+    fwd, dq, dkv = (c.__name__ for c in kernels)
+    want.update({fwd: 2 * per_step * steps,         # remat reruns the forward
+                 dq: per_step * steps, dkv: per_step * steps,
+                 "xent_fwd": head, "xent_dx": head, "xent_dw": head})
     if got != want:
         raise AssertionError(f"{tag} launches {got}, want {want}")
     if not all(math.isfinite(x) for x in losses):
@@ -1635,18 +1995,18 @@ def phase_train(cfg=None, *, config=None, check="attention", check_layers=4,
     tokens = rows * seq
     mfu = cfg.flops_per_token() * tokens / step / PEAK_OPS_PER_S[
         "torch.bfloat16"]
-    log(f"{tag} launches over {steps} steps {got} (per step: flash_fwd "
+    log(f"{tag} launches over {steps} steps {got} (per step: {fwd} "
         f"{2 * per_step} = {cfg.n_layer} layers x gas {gas} x 2, the "
-        f"checkpoint reruns the forward in the backward; dq = dk/dv = "
+        f"checkpoint reruns the forward in the backward; {dq} = {dkv} = "
         f"{per_step}; each xent kernel {gas if fused else 0}: the head sits "
-        "outside the layer checkpoints)")
+        "outside the layer checkpoints; the other attention kernels 0)")
     log(f"{tag} losses {[round(x, 4) for x in losses]}: initial {first:.4f}"
         f", mean of the {steps} timed steps {mean:.4f} (gate < {fall} of the "
         "initial)")
     log(f"{tag} step {step * 1e3:.1f} ms median (min {min(step_s) * 1e3:.1f},"
         f" max {max(step_s) * 1e3:.1f}), {tokens / step:.0f} tokens/s, MFU "
         f"{mfu:.1%} of 989 TFLOP/s ({cfg.flops_per_token() / 1e9:.2f} GFLOP "
-        f"per token); peak memory {peak / 2**30:.2f} GiB ({state_bytes / 2**30:.2f}"
+        f"per token, attention counted dense); peak memory {peak / 2**30:.2f} GiB ({state_bytes / 2**30:.2f}"
         " GiB of state before the steps)")
     result = {"launches": got, "step_ms": step * 1e3,
               "tokens_per_s": tokens / step, "mfu": mfu, "peak_bytes": peak,
@@ -1659,8 +2019,8 @@ def phase_train(cfg=None, *, config=None, check="attention", check_layers=4,
                      for _ in range(profile_steps)], profile_steps,
             "training steps")
         if prof:
-            for kname in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                          "flash_bwd_dkv_kernel") + XENT_KERNEL_NAMES:
+            for kname in tuple(f"{c.__name__}_kernel"
+                               for c in flash + sparse) + XENT_KERNEL_NAMES:
                 us = sum(v for k, v in prof["by_name"].items()
                          if f"{kname}<" in k or k.startswith(kname)
                          or f"::{kname}(" in k)
@@ -1673,6 +2033,27 @@ def phase_train(cfg=None, *, config=None, check="attention", check_layers=4,
     del engine
     _free_memory(dev)
     return result
+
+
+# ------------------------------------------------------------------ phase 9
+def phase_long_train(cfg=None, *, seq=8192, check_layers=4, warmup=2,
+                     steps=5, device=None) -> dict:
+    """The slice: ``gpt2("1.5b", max_seq=8192)`` trained on 8192-token rows
+    with ``make_sparse_attention_fn(FixedSparsityConfig())`` as its
+    attention_fn, through ``initialize(LONG_TRAIN_CONFIG, ...)`` →
+    ``train_batch``: :func:`phase_train` with the sparse kernels' counters
+    and the plain sparse Function as the 4-layer reference."""
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    sc = sa.FixedSparsityConfig()
+    return phase_train(
+        cfg or gpt2("1.5b", max_seq=seq), config=LONG_TRAIN_CONFIG,
+        check_layers=check_layers, seq=seq, warmup=warmup, steps=steps,
+        device=device, name=f"train sparse {seq}",
+        attention=partial(sa.make_sparse_attention_fn, sc),
+        reference=partial(_plain_sparse_attention, sc),
+        kernels=(sa.sparse_fwd, sa.sparse_bwd_dq, sa.sparse_bwd_dkv))
 
 
 def remat_sweep(cfg=None, *, seq=1024, steps=3) -> dict:
@@ -1745,6 +2126,7 @@ def main() -> int:
     woq = phase_woq_kernels()
     flash = phase_flash_kernels()
     xent = phase_xent_kernels()
+    sparse = phase_sparse_kernels()
     sl = phase_slice()
     woq8 = phase_woq(llama2("7b"), bits=8)
     woq4 = phase_woq(opt("6.7b"), bits=4)
@@ -1772,6 +2154,7 @@ def main() -> int:
             f"{unfused['peak_bytes'] / 2**30:.2f} GiB against the default "
             f"config's {train['step_ms']:.1f} ms and "
             f"{train['peak_bytes'] / 2**30:.2f} GiB")
+    long = phase_long_train()
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     src = "deepspeed_tpu_torch/ops/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1808,6 +2191,15 @@ def main() -> int:
                         "replaces": f"deepspeed_tpu/ops/xent.py:{line}",
                         "launches": train["launches"][name],
                         **{k: xent[name][k] for k in keys}})
+    # launches: phase 9 (GPT-2 1.5B at 8192 tokens, the Fixed layout)
+    for name, line in (("sparse_fwd", 184), ("sparse_bwd_dq", 223),
+                       ("sparse_bwd_dkv", 252)):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": src + "sparse_attention.cu",
+                        "replaces": f"deepspeed_tpu/ops/sparse_attention.py:"
+                                    f"{line}",
+                        "launches": long["launches"][name],
+                        **{k: sparse[name][k] for k in keys}})
     print(json.dumps({"kernels": kernels}))
     print(dev["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

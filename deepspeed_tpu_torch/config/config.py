@@ -39,33 +39,33 @@ _FREE = {}   # a free-form dict default: any non-empty value counts as set
 _LATER_SECTIONS = {
     "monitor": (dict(enabled=False, tensorboard=_FREE, csv_monitor=_FREE,
                      wandb=_FREE, jsonl=_FREE, prometheus=_FREE,
-                     request_log=_FREE), 8),
+                     request_log=_FREE), 7),
     "observability": (dict(hbm_watermark=True, trace_steps=None,
                            trace_dir="./xla_trace", spans=False,
                            spans_ring=4096, flight_dir=None,
                            flight_max_dumps=8, slo=_FREE, goodput=False,
-                           telemetry=_FREE, commscope=_FREE), 8),
+                           telemetry=_FREE, commscope=_FREE), 7),
     "comms_logger": (dict(enabled=False, verbose=False, prof_all=True,
-                          prof_ops=[]), 8),
+                          prof_ops=[]), 7),
     "flops_profiler": (dict(enabled=False, profile_step=1, detailed=True,
-                            output_file=None), 9),
+                            output_file=None), 8),
     "checkpoint": (dict(use_node_local_storage=False, tag_validation="warn",
                         load_universal=False, async_save=False,
-                        verify="size", keep_last=0), 2),
+                        verify="size", keep_last=0), 1),
     "resilience": (dict(resume="none", resume_dir=None,
-                        max_consecutive_bad_steps=0), 9),
+                        max_consecutive_bad_steps=0), 8),
     "gradient_compression": (dict(enabled=False, type="int8", overlap=False,
-                                  bucket_elems=0), 9),
+                                  bucket_elems=0), 8),
     "moe": (dict(enabled=False, num_experts=1, top_k=2, capacity_factor=1.25,
                  eval_capacity_factor=2.0, min_capacity=4, drop_tokens=True,
-                 aux_loss_weight=0.01), 4),
+                 aux_loss_weight=0.01), 3),
     "data_efficiency": (dict(
         curriculum_learning=dict(
             enabled=False, min_difficulty=64, max_difficulty=1024,
             total_curriculum_step=10000, schedule_type="fixed_linear",
             difficulty_step=8, root_degree=2, difficulties=[], max_steps=[]),
         random_ltd=dict(enabled=False, start_tokens=128, total_steps=10000,
-                        difficulty_step=64, seed=17)), 9),
+                        difficulty_step=64, seed=17)), 8),
     "compression": (dict(
         weight_quantization=dict(
             enabled=False, bits=8, group_size=0, symmetric=True,
@@ -74,35 +74,35 @@ _LATER_SECTIONS = {
         sparse_pruning=dict(enabled=False, density=0.5, schedule_offset=0),
         row_pruning=dict(enabled=False, density=0.5, schedule_offset=0),
         head_pruning=dict(enabled=False, density=0.5, schedule_offset=0)),
-        9),
-    "lora": (dict(enabled=False, rank=8, alpha=16.0), 9),
+        8),
+    "lora": (dict(enabled=False, rank=8, alpha=16.0), 8),
     "elasticity": (dict(enabled=False, max_train_batch_size=2048,
                         micro_batch_sizes=[2, 4, 8], min_devices=1,
                         max_devices=1024, prefer_larger_batch=True,
-                        ignore_non_elastic_batch_info=False, version=0.1), 9),
+                        ignore_non_elastic_batch_info=False, version=0.1), 8),
     "progressive_layer_drop": (dict(enabled=False, theta=0.5, gamma=0.001),
-                               9),
+                               8),
 }
 # top-level scalar keys: (JAX default, item)
-_LATER_KEYS = {"wall_clock_breakdown": (False, 8),
-               "sparse_gradients": (False, 7)}
+_LATER_KEYS = {"wall_clock_breakdown": (False, 7),
+               "sparse_gradients": (False, 6)}
 # zero_optimization keys beyond ``stage``: (JAX default, item)
 _ZERO_LATER = {
-    "param_persistence_threshold": (10_000, 2),
-    "reduce_bucket_size": (500_000_000, 2),
-    "overlap_comm": (True, 2), "contiguous_gradients": (True, 2),
+    "param_persistence_threshold": (10_000, 1),
+    "reduce_bucket_size": (500_000_000, 1),
+    "overlap_comm": (True, 1), "contiguous_gradients": (True, 1),
     "offload_optimizer": (dict(device="none", nvme_path=None, buffer_count=4,
                                pin_memory=True, pipeline_read=True,
-                               pipeline_write=True), 7),
+                               pipeline_write=True), 6),
     "offload_param": (dict(device="none", nvme_path=None, buffer_count=4,
                            pin_memory=True, pipeline_read=True,
-                           pipeline_write=True), 7),
-    "zero_hpz_partition_size": (1, 2), "zero_quantized_weights": (False, 2),
-    "zero_quantized_gradients": (False, 2), "mics_shard_size": (0, 2),
+                           pipeline_write=True), 6),
+    "zero_hpz_partition_size": (1, 1), "zero_quantized_weights": (False, 1),
+    "zero_quantized_gradients": (False, 1), "mics_shard_size": (0, 1),
 }
 # mesh axis -> item that brings a degree > 1 (data: multi-rank training)
-_MESH_LATER = {"data": 2, "zero": 2, "model": 5, "expert": 5, "pipe": 9,
-               "seq": 9}
+_MESH_LATER = {"data": 1, "zero": 1, "model": 4, "expert": 4, "pipe": 8,
+               "seq": 8}
 REMAT_POLICY_NAMES = ("none", "full", "dots_saveable", "save_nothing",
                       "save_names", "save_names_mlp", "offload_dots")
 
@@ -170,7 +170,7 @@ class RematConfig:
                              f"{REMAT_POLICY_NAMES}")
         if self.offload:
             raise NotImplementedError(f"config remat.offload is not ported "
-                                      f"yet: {later(7)}")
+                                      f"yet: {later(6)}")
 
     @property
     def resolved(self) -> Optional[str]:

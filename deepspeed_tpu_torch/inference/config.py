@@ -22,10 +22,10 @@ _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
 
 # key → (the JAX default, accepted as a no-op; the ROADMAP item that ports it)
 _LATER = {
-    "tensor_parallel": (1, 5), "expert_parallel": (1, 5),
-    "tp_comm_quant": (0, 5),
-    "observability": (False, 8), "trace_ring_size": (256, 8),
-    "serving": (None, 3),
+    "tensor_parallel": (1, 4), "expert_parallel": (1, 4),
+    "tp_comm_quant": (0, 4),
+    "observability": (False, 7), "trace_ring_size": (256, 7),
+    "serving": (None, 2),
 }
 
 

@@ -13,7 +13,7 @@ rows along the weight's second-to-last dim (the contraction dim of an
 fp32. int4 packs two signed nibbles per byte along adjacent rows: row
 ``2r`` in the low nibble, ``2r + 1`` in the high.
 
-Not ported here (ROADMAP.md queue 1, item 5): the tensor-parallel
+Not ported here (ROADMAP.md queue 1, item 4): the tensor-parallel
 branches of ``woq_dot`` / ``woq_dot_t``, ``tp_quant_dot`` and
 ``quantized_shardings``.
 """

@@ -102,5 +102,5 @@ def build_model(cfg: TransformerConfig, attention_fn=None) -> TransformerLM:
     if not isinstance(cfg, TransformerConfig):
         raise NotImplementedError(
             f"deepspeed_tpu_torch builds TransformerLM only, got "
-            f"{type(cfg).__name__}: {later(9)}")
+            f"{type(cfg).__name__}: {later(8)}")
     return TransformerLM(cfg, attention_fn=attention_fn)

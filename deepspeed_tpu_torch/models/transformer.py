@@ -119,7 +119,7 @@ class TransformerConfig:
 # Switches the dense decoder port does not carry yet, with the ROADMAP.md
 # item (queue 1) that will port each.
 _LATER = (
-    (lambda c: c.num_experts > 1, "num_experts > 1 (models/moe.py)", 4),
+    (lambda c: c.num_experts > 1, "num_experts > 1 (models/moe.py)", 3),
 )
 
 
@@ -494,7 +494,7 @@ class TransformerLM(nn.Module):
             return self._layer
         if policy not in REMAT_POLICIES:
             raise NotImplementedError(
-                f"remat policy {policy!r} is not ported yet: {later(7)}")
+                f"remat policy {policy!r} is not ported yet: {later(6)}")
         if not policy.startswith("save_names"):
             return _checkpointed(self._layer, policy == "dots_saveable")
         attn = _checkpointed(self._attention_block)

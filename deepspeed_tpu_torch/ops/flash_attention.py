@@ -38,18 +38,26 @@ _DTYPE_CODE = {torch.float16: 1, torch.bfloat16: 2}
 
 
 # ------------------------------------------------------------ plain versions
-def _keep_mask(B, S, device, *, mask, causal):
-    """(B|1, 1, S, S) bool: key t visible to query s."""
-    keep = torch.ones((1, 1, S, S), dtype=torch.bool, device=device)
+def _acc(t):
+    """``t`` in the plain versions' compute type: fp32, or fp64 for fp64
+    inputs (``torch.autograd.gradcheck``)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _keep_mask(B, S, device, *, mask, causal, keep=None):
+    """(B|1, 1, S, S) bool: key t visible to query s. ``keep`` (S, S) bool
+    narrows it further (a block-sparse layout)."""
+    out = torch.ones((1, 1, S, S), dtype=torch.bool, device=device)
     if causal:
-        keep = keep & torch.ones((S, S), dtype=torch.bool,
-                                 device=device).tril()
+        out = out & torch.ones((S, S), dtype=torch.bool, device=device).tril()
+    if keep is not None:
+        out = out & keep.to(device)
     if mask is not None:
-        keep = keep & (mask.float() > 0.5)[:, None, None, :]
-    return keep
+        out = out & (mask.float() > 0.5)[:, None, None, :]
+    return out
 
 
-def _scores(q, k, *, mask, alibi_slopes, causal):
+def _scores(q, k, *, mask, alibi_slopes, causal, keep=None):
     """fp32 (B, H, S, S) scores as the kernels form them, masked positions
     at BIG_NEG, and the keep mask. q: (B, S, H, hd); k: (B, S, KV, hd)."""
     B, S, H, hd = q.shape
@@ -57,67 +65,69 @@ def _scores(q, k, *, mask, alibi_slopes, causal):
     kr = k.repeat_interleave(G, dim=2) if G > 1 else k
     # products of storage-dtype values are exact in fp32: the fp32 matmul
     # of the upcast operands is the kernels' bf16 x bf16 -> fp32 dot
-    s = torch.einsum("bshd,bthd->bhst", q.float(), kr.float())
+    s = torch.einsum("bshd,bthd->bhst", _acc(q), _acc(kr))
     s = s * (1.0 / math.sqrt(hd))
     if alibi_slopes is not None:
         pos = torch.arange(S, device=q.device)
         rel = (pos[None, :] - pos[:, None]).float()
         s = s + alibi_slopes.float().to(q.device)[:, None, None] * rel
-    keep = _keep_mask(B, S, q.device, mask=mask, causal=causal)
+    keep = _keep_mask(B, S, q.device, mask=mask, causal=causal, keep=keep)
     return torch.where(keep, s, BIG_NEG), keep
 
 
 def flash_attention_fwd_plain(q, k, v, *, mask=None, alibi_slopes=None,
-                              causal=True):
+                              causal=True, keep=None):
     """The forward kernel's function in plain tensor ops: masked scores at
     BIG_NEG with zero probability, p rounded to v's dtype before p·v,
     l clamped to 1e-30. Returns o (B, S, H, hd) in q's dtype and the fp32
-    logsumexp (B, H, S)."""
+    logsumexp (B, H, S). ``keep`` (S, S) bool is a further keep-mask (the
+    block-sparse plain versions pass their layout's)."""
     G = q.shape[2] // k.shape[2]
     vr = v.repeat_interleave(G, dim=2) if G > 1 else v
     s, keep = _scores(q, k, mask=mask, alibi_slopes=alibi_slopes,
-                      causal=causal)
+                      causal=causal, keep=keep)
     m = s.amax(dim=-1, keepdim=True).clamp_min(BIG_NEG)
     p = torch.where(keep, torch.exp(s - m), 0.0)
     l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    acc = torch.einsum("bhst,bthd->bshd", p.to(v.dtype).float(), vr.float())
+    acc = torch.einsum("bhst,bthd->bshd", _acc(p.to(v.dtype)), _acc(vr))
     o = acc / l_safe.permute(0, 2, 1, 3)
     lse = (m + torch.log(l_safe))[..., 0]
     return o.to(q.dtype), lse
 
 
-def _bwd_plain(q, k, v, do, lse, delta, *, mask, alibi_slopes, causal):
+def _bwd_plain(q, k, v, do, lse, delta, *, mask, alibi_slopes, causal,
+               keep=None):
     """(p, ds) (B, H, S, S) fp32, recomputed from the logsumexp."""
     G = q.shape[2] // k.shape[2]
     vr = v.repeat_interleave(G, dim=2) if G > 1 else v
     s, keep = _scores(q, k, mask=mask, alibi_slopes=alibi_slopes,
-                      causal=causal)
+                      causal=causal, keep=keep)
     p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
-    dp = torch.einsum("bshd,bthd->bhst", do.float(), vr.float())
+    dp = torch.einsum("bshd,bthd->bhst", _acc(do), _acc(vr))
     return p, p * (dp - delta[..., None])
 
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, mask=None,
-                       alibi_slopes=None, causal=True):
+                       alibi_slopes=None, causal=True, keep=None):
     """dq (B, S, H, hd): ds rounded to k's dtype before ds·k, scaled once."""
     G = q.shape[2] // k.shape[2]
     kr = k.repeat_interleave(G, dim=2) if G > 1 else k
     _, ds = _bwd_plain(q, k, v, do, lse, delta, mask=mask,
-                       alibi_slopes=alibi_slopes, causal=causal)
-    dq = torch.einsum("bhst,bthd->bshd", ds.to(k.dtype).float(), kr.float())
+                       alibi_slopes=alibi_slopes, causal=causal, keep=keep)
+    dq = torch.einsum("bhst,bthd->bshd", _acc(ds.to(k.dtype)), _acc(kr))
     return (dq * (1.0 / math.sqrt(q.shape[-1]))).to(q.dtype)
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, mask=None,
-                        alibi_slopes=None, causal=True):
+                        alibi_slopes=None, causal=True, keep=None):
     """(dk, dv) (B, S, KV, hd), each KV head summed over its query heads in
     fp32: p rounded to dO's dtype before pᵀ·dO, ds to q's before dsᵀ·q."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     p, ds = _bwd_plain(q, k, v, do, lse, delta, mask=mask,
-                       alibi_slopes=alibi_slopes, causal=causal)
-    dk = torch.einsum("bhst,bshd->bthd", ds.to(q.dtype).float(), q.float())
-    dv = torch.einsum("bhst,bshd->bthd", p.to(do.dtype).float(), do.float())
+                       alibi_slopes=alibi_slopes, causal=causal, keep=keep)
+    dk = torch.einsum("bhst,bshd->bthd", _acc(ds.to(q.dtype)), _acc(q))
+    dv = torch.einsum("bhst,bshd->bthd", _acc(p.to(do.dtype)), _acc(do))
     dk = dk.reshape(B, S, KV, H // KV, hd).sum(3) * (1.0 / math.sqrt(hd))
     dv = dv.reshape(B, S, KV, H // KV, hd).sum(3)
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -135,7 +145,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, mask=None,
 def attention_delta(o, do):
     """rowsum(dO·o) in fp32, (B, H, S), as JAX computes it outside its
     kernels (``_bwd_call`` :348)."""
-    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return (_acc(do) * _acc(o)).sum(-1).transpose(1, 2).contiguous()
 
 
 # ------------------------------------------------------------------ kernels
@@ -314,7 +324,7 @@ def flash_attention(q, k, v, *, mask: Optional[torch.Tensor] = None,
     if bias is not None:
         raise NotImplementedError(
             "flash_attention: the additive bias operand and its dbias are "
-            f"not ported yet: {later(9)}; pass alibi_slopes for ALiBi")
+            f"not ported yet: {later(8)}; pass alibi_slopes for ALiBi")
     if q.device.type == "cuda":
         q, k, v = (t.contiguous() for t in (q, k, v))
     return _Flash.apply(q, k, v, mask, alibi_slopes, causal)
@@ -333,7 +343,7 @@ def make_flash_attention(block: int = 512, bias_is_constant: bool = True,
                                alibi_slopes=alibi_slopes, causal=causal,
                                block=block)
 
-    # the bias operand raises until it is ported (queue 1 item 9): a caller
+    # the bias operand raises until it is ported (queue 1 item 8): a caller
     # routing an additive bias by this flag takes its dense path instead
     attn.accepts_bias = False
     attn.bias_is_constant = bias_is_constant

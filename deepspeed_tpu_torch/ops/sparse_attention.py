@@ -1,0 +1,414 @@
+"""Block-sparse attention: sparsity configs, layout lists and kernels.
+
+Counterpart of ``deepspeed_tpu/ops/sparse_attention.py``. Attention cost
+drops from O(S²) to O(S·w) by computing only the (q-block, k-block) pairs a
+block *layout* keeps. The configs (Dense, Fixed, Variable, BigBird,
+BSLongformer) and ``_layout_lists`` are copies of the JAX package's, so
+layouts and CSR lists agree bit for bit (BigBird draws its random blocks
+from ``np.random.default_rng(seed)`` as JAX does).
+
+The Pallas kernels ``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel``
+become three CUDA kernels for Hopper in ``csrc/sparse_attention.cu`` (its
+header says what bounds them and how they walk the lists), built by
+``ops/builder.py`` and called through ctypes. The wrappers
+:func:`sparse_fwd`, :func:`sparse_bwd_dq` and :func:`sparse_bwd_dkv` launch
+their kernel for CUDA tensors and take the plain PyTorch versions beside
+them for CPU tensors only; on a CUDA tensor they launch or raise. Each
+counts its launches in ``.launches``. The plain versions are the flash
+plain versions (``ops/flash_attention.py``) with the layout expanded to an
+(S, S) keep-mask.
+
+On the card the kernels take bf16 and fp16 (fp32 accumulation), head dims
+16, 32, 64 and 128 and blocks 16, 32, 64 and 128; fp32, other head dims
+and other blocks raise there. The CPU path takes any of them. The JAX
+package sends fp16 on its TPU down a dense path (Mosaic has no f16); here
+fp16 goes through the kernels, as it does for flash attention.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from . import builder
+from .flash_attention import (_DTYPE_CODE, _check, _raise_on,
+                              attention_delta, flash_attention_fwd_plain,
+                              flash_bwd_dkv_plain, flash_bwd_dq_plain)
+
+KERNEL_BLOCKS = (16, 32, 64, 128)
+
+
+# ------------------------------------------------------------------ configs
+@dataclasses.dataclass(frozen=True)
+class SparsityConfig:
+    """Base: dense layout (reference ``DenseSparsityConfig``)."""
+
+    block: int = 64
+
+    def make_layout(self, n_blocks: int) -> np.ndarray:
+        return np.ones((n_blocks, n_blocks), bool)
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedSparsityConfig(SparsityConfig):
+    """Local windows + periodic global blocks (reference
+    ``FixedSparsityConfig``): each block attends its window of
+    ``num_local_blocks``; the last ``num_global_blocks`` of each window are
+    global (attended by and attending everyone)."""
+
+    num_local_blocks: int = 4
+    num_global_blocks: int = 1
+
+    def make_layout(self, n: int) -> np.ndarray:
+        lay = np.zeros((n, n), bool)
+        w = self.num_local_blocks
+        for i in range(n):
+            start = (i // w) * w
+            lay[i, start:min(start + w, n)] = True
+        for wstart in range(0, n, w):
+            gstart = min(wstart + w, n) - self.num_global_blocks
+            g = slice(max(wstart, gstart), min(wstart + w, n))
+            lay[:, g] = True
+            lay[g, :] = True
+        return lay
+
+
+@dataclasses.dataclass(frozen=True)
+class VariableSparsityConfig(SparsityConfig):
+    """Custom local window sizes + explicit global block indices
+    (reference ``VariableSparsityConfig``)."""
+
+    local_window_blocks: Sequence[int] = (4,)
+    global_block_indices: Sequence[int] = (0,)
+
+    def make_layout(self, n: int) -> np.ndarray:
+        lay = np.zeros((n, n), bool)
+        start = 0
+        windows = list(self.local_window_blocks)
+        wi = 0
+        while start < n:
+            w = windows[min(wi, len(windows) - 1)]
+            end = min(start + w, n)
+            lay[start:end, start:end] = True
+            start = end
+            wi += 1
+        for g in self.global_block_indices:
+            if g < n:
+                lay[:, g] = True
+                lay[g, :] = True
+        return lay
+
+
+@dataclasses.dataclass(frozen=True)
+class BigBirdSparsityConfig(SparsityConfig):
+    """Random + sliding window + global (reference ``BigBirdSparsityConfig``)."""
+
+    num_random_blocks: int = 1
+    num_sliding_window_blocks: int = 3
+    num_global_blocks: int = 1
+    seed: int = 0
+
+    def make_layout(self, n: int) -> np.ndarray:
+        lay = np.zeros((n, n), bool)
+        half = self.num_sliding_window_blocks // 2
+        for i in range(n):
+            lay[i, max(0, i - half):min(n, i + half + 1)] = True
+        g = min(self.num_global_blocks, n)
+        lay[:, :g] = True
+        lay[:g, :] = True
+        rng = np.random.default_rng(self.seed)
+        for i in range(n):
+            picks = rng.choice(n, size=min(self.num_random_blocks, n),
+                               replace=False)
+            lay[i, picks] = True
+        return lay
+
+
+@dataclasses.dataclass(frozen=True)
+class BSLongformerSparsityConfig(SparsityConfig):
+    """Sliding window + explicit global indices (reference
+    ``BSLongformerSparsityConfig``)."""
+
+    num_sliding_window_blocks: int = 3
+    global_block_indices: Sequence[int] = (0,)
+
+    def make_layout(self, n: int) -> np.ndarray:
+        lay = np.zeros((n, n), bool)
+        half = self.num_sliding_window_blocks // 2
+        for i in range(n):
+            lay[i, max(0, i - half):min(n, i + half + 1)] = True
+        for g in self.global_block_indices:
+            if g < n:
+                lay[:, g] = True
+                lay[g, :] = True
+        return lay
+
+
+# ----------------------------------------------------------- layout → lists
+def _layout_lists(layout: np.ndarray, causal: bool):
+    """Boolean layout → CSR-ish index lists for the kernels.
+
+    Returns (k_idx (nq, A), k_n (nq,), q_idx (nk, B), q_n (nk,)) padded
+    int32 arrays: active k-blocks per q-block and the transpose."""
+    n = layout.shape[0]
+    lay = layout.copy()
+    if causal:
+        lay &= np.tril(np.ones((n, n), bool))
+    if not lay.any(axis=1).all():
+        bad = np.where(~lay.any(axis=1))[0]
+        raise ValueError(f"layout leaves q-blocks {bad.tolist()} with no "
+                         "active k-blocks (causal masking removed them all?)")
+
+    def lists(m):
+        counts = m.sum(axis=1)
+        width = int(counts.max())
+        idx = np.zeros((m.shape[0], width), np.int32)
+        for i in range(m.shape[0]):
+            act = np.nonzero(m[i])[0]
+            idx[i, :len(act)] = act
+        return idx, counts.astype(np.int32)
+
+    k_idx, k_n = lists(lay)
+    q_idx, q_n = lists(lay.T)
+    return k_idx, k_n, q_idx, q_n
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SparseLayout:
+    """One (config, S, causal) layout on one device: the block layout
+    (``blocks``, before the causal cut) for the plain versions, and the
+    kernels' int32 lists. ``q_order`` / ``k_order`` are the q-blocks (k-blocks)
+    in launch order, widest list first."""
+
+    block: int
+    causal: bool
+    blocks: np.ndarray
+    k_idx: torch.Tensor
+    k_n: torch.Tensor
+    q_idx: torch.Tensor
+    q_n: torch.Tensor
+    q_order: torch.Tensor
+    k_order: torch.Tensor
+
+    @property
+    def seq(self) -> int:
+        return self.blocks.shape[0] * self.block
+
+    def keep(self, device) -> torch.Tensor:
+        """(S, S) bool: the layout expanded to elements (causal not
+        applied)."""
+        blocks = torch.as_tensor(self.blocks, device=device)
+        return blocks.repeat_interleave(self.block, 0) \
+            .repeat_interleave(self.block, 1)
+
+    def kept_elements(self) -> int:
+        """(q, k) elements kept after the causal cut: b² per off-diagonal
+        pair, b(b + 1)/2 per diagonal pair when causal."""
+        b, lay = self.block, self.blocks
+        if not self.causal:
+            return int(lay.sum()) * b * b
+        lay = lay & np.tril(np.ones(lay.shape, bool))
+        diag = int(np.trace(lay))
+        return (int(lay.sum()) - diag) * b * b + diag * b * (b + 1) // 2
+
+
+_LAYOUTS: dict = {}
+
+
+def sparse_layout(config: SparsityConfig, seq: int, causal: bool,
+                  device) -> SparseLayout:
+    """The layout of ``config`` at ``seq`` positions on ``device``, built and
+    copied to the device once per (config, seq, causal, device) and cached:
+    no call after the first copies lists from the host."""
+    device = torch.device(device)
+    key = (repr(config), seq, causal, str(device))
+    lay = _LAYOUTS.get(key)
+    if lay is None:
+        block = config.block
+        if seq % block != 0:
+            raise ValueError(f"seq {seq} not divisible by sparsity block "
+                             f"{block}")
+        blocks = np.asarray(config.make_layout(seq // block), bool)
+        lists = _layout_lists(blocks, causal)
+        k_n, q_n = lists[1], lists[3]
+        order = [np.argsort(-n, kind="stable").astype(np.int32)
+                 for n in (k_n, q_n)]
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+             for a in (*lists, *order)]
+        lay = _LAYOUTS[key] = SparseLayout(block, causal, blocks, *t)
+    return lay
+
+
+# ------------------------------------------------------------ plain versions
+def _plain_kw(layout: SparseLayout, device) -> dict:
+    return dict(causal=layout.causal, keep=layout.keep(device))
+
+
+def sparse_attention_fwd_plain(q, k, v, layout: SparseLayout):
+    """The forward kernel's function in plain tensor ops (the flash plain
+    forward under the layout's keep-mask): o (B, S, H, hd) in q's dtype and
+    the fp32 lse (B, H, S)."""
+    return flash_attention_fwd_plain(q, k, v, **_plain_kw(layout, q.device))
+
+
+def sparse_bwd_dq_plain(q, k, v, do, lse, delta, layout: SparseLayout):
+    """dq (B, S, H, hd) under the layout's keep-mask."""
+    return flash_bwd_dq_plain(q, k, v, do, lse, delta,
+                              **_plain_kw(layout, q.device))
+
+
+def sparse_bwd_dkv_plain(q, k, v, do, lse, delta, layout: SparseLayout):
+    """(dk, dv) (B, S, KV, hd) under the layout's keep-mask, each KV head
+    summed over its query heads."""
+    return flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                               **_plain_kw(layout, q.device))
+
+
+# ------------------------------------------------------------------ kernels
+def _lib():
+    lib = builder.load("sparse_attention")
+    if lib.dstpu_sparse_fwd.argtypes is None:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # pointers and the stream as c_void_p: without argtypes ctypes
+        # passes a Python int as a 32-bit C int and cuts the pointer
+        lib.dstpu_sparse_fwd.argtypes = [P] * 8 + [I] * 9 + [F, P]
+        lib.dstpu_sparse_bwd_dq.argtypes = [P] * 10 + [I] * 9 + [F, P]
+        lib.dstpu_sparse_bwd_dkv.argtypes = [P] * 11 + [I] * 9 + [F, P]
+        for fn in (lib.dstpu_sparse_fwd, lib.dstpu_sparse_bwd_dq,
+                   lib.dstpu_sparse_bwd_dkv):
+            fn.restype = I
+    return lib
+
+
+def _check_layout(name, q, layout: SparseLayout):
+    """Raise on a layout the kernels do not take."""
+    if layout.block not in KERNEL_BLOCKS:
+        raise ValueError(f"{name}: sparsity block {layout.block} not in "
+                         f"{KERNEL_BLOCKS}")
+    if q.shape[1] != layout.seq:
+        raise ValueError(f"{name}: q has {q.shape[1]} positions, the layout "
+                         f"{layout.seq}")
+    if layout.k_idx.device != q.device:
+        raise ValueError(f"{name}: the layout's lists are on "
+                         f"{layout.k_idx.device}, q on {q.device}")
+
+
+def _launch_args(layout, q, k, lists_of):
+    B, S, H, hd = q.shape
+    idx, cnt, order = lists_of
+    return (idx.data_ptr(), cnt.data_ptr(), order.data_ptr(), idx.shape[1],
+            B, S, H, k.shape[2], hd, layout.block, int(layout.causal),
+            _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def sparse_fwd(q, k, v, layout: SparseLayout):
+    """Forward: o (B, S, H, hd) and fp32 lse (B, H, S). q (B, S, H, hd),
+    k/v (B, S, KV, hd) in the JAX layout."""
+    if q.device.type == "cpu":
+        return sparse_attention_fwd_plain(q, k, v, layout)
+    B, S, H, _, _ = _check("sparse_fwd", q, k, v)
+    _check_layout("sparse_fwd", q, layout)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    err = _lib().dstpu_sparse_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), *_launch_args(
+            layout, q, k, (layout.k_idx, layout.k_n, layout.q_order)))
+    _raise_on(err, "sparse_fwd")
+    sparse_fwd.launches += 1
+    return o, lse
+
+
+def sparse_bwd_dq(q, k, v, do, lse, delta, layout: SparseLayout):
+    """dq (B, S, H, hd) from dO, the forward's lse and delta (B, H, S)."""
+    if q.device.type == "cpu":
+        return sparse_bwd_dq_plain(q, k, v, do, lse, delta, layout)
+    _check("sparse_bwd_dq", q, k, v, do, lse, delta)
+    _check_layout("sparse_bwd_dq", q, layout)
+    dq = torch.empty_like(q)
+    err = _lib().dstpu_sparse_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_launch_args(
+            layout, q, k, (layout.k_idx, layout.k_n, layout.q_order)))
+    _raise_on(err, "sparse_bwd_dq")
+    sparse_bwd_dq.launches += 1
+    return dq
+
+
+def sparse_bwd_dkv(q, k, v, do, lse, delta, layout: SparseLayout):
+    """(dk, dv) (B, S, KV, hd), summed over each KV head's query heads."""
+    if q.device.type == "cpu":
+        return sparse_bwd_dkv_plain(q, k, v, do, lse, delta, layout)
+    _check("sparse_bwd_dkv", q, k, v, do, lse, delta)
+    _check_layout("sparse_bwd_dkv", q, layout)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _lib().dstpu_sparse_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_launch_args(layout, q, k,
+                      (layout.q_idx, layout.q_n, layout.k_order)))
+    _raise_on(err, "sparse_bwd_dkv")
+    sparse_bwd_dkv.launches += 1
+    return dk, dv
+
+
+sparse_fwd.launches = 0
+sparse_bwd_dq.launches = 0
+sparse_bwd_dkv.launches = 0
+
+
+# ------------------------------------------------------------ autograd
+class _Sparse(torch.autograd.Function):
+    """Forward saves (q, k, v, o, lse); backward computes delta = rowsum(dO·o)
+    outside the kernels, then dq, then dk/dv (JAX ``_sparse_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, layout):
+        o, lse = sparse_fwd(q, k, v, layout)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.layout = layout
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = attention_delta(o, do)
+        dq = sparse_bwd_dq(q, k, v, do, lse, delta, ctx.layout)
+        dk, dv = sparse_bwd_dkv(q, k, v, do, lse, delta, ctx.layout)
+        return dq, dk, dv, None
+
+
+def sparse_attention(q, k, v, config: SparsityConfig, *, causal: bool = True):
+    """Block-sparse attention, differentiable. q: (B, S, H, hd); k/v: (B, S,
+    KV, hd); returns (B, S, H, hd). GQA's query heads read KV head
+    h // (H / KV) in the kernels, and dk/dv come out summed per group."""
+    S = q.shape[1]
+    if S % config.block != 0:
+        raise ValueError(f"seq {S} not divisible by sparsity block "
+                         f"{config.block}")
+    layout = sparse_layout(config, S, causal, q.device)
+    if q.device.type == "cuda":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    return _Sparse.apply(q, k, v, layout)
+
+
+def make_sparse_attention_fn(config: SparsityConfig):
+    """``attention_fn`` factory for :class:`TransformerLM` (mask unsupported:
+    combine padding with the layout instead). It carries no capability
+    flag, so the model refuses it for encoders and for ALiBi, as the JAX
+    model does."""
+
+    def attn(q, k, v, *, mask=None):
+        if mask is not None:
+            raise ValueError("sparse_attention does not take a padding mask; "
+                             "fold padding into the sparsity layout")
+        return sparse_attention(q, k, v, config)
+
+    return attn

@@ -50,7 +50,7 @@ class Engine:
                 and dist.get_world_size() > 1:
             raise NotImplementedError(
                 "multi-rank training (runtime/zero/partitioning.py) is not "
-                f"ported yet: {later(2)}")
+                f"ported yet: {later(1)}")
         self.config = Config.from_any(config).resolve_batch_sizes(1)
         cfg = self.config
         self.model = model
@@ -64,7 +64,7 @@ class Engine:
         if opt_type in ONEBIT_TYPES:
             raise NotImplementedError(
                 f"optimizer {cfg.optimizer.type!r} (1-bit, runtime/onebit.py)"
-                f" is not ported yet: {later(9)}")
+                f" is not ported yet: {later(8)}")
         self.optimizer = build_optimizer(opt_type, cfg.optimizer.params)
         base_lr = float(cfg.optimizer.params.get("lr", 1e-3))
         sched = cfg.scheduler
@@ -76,7 +76,7 @@ class Engine:
                 and self.remat_policy not in REMAT_POLICIES:
             raise NotImplementedError(
                 f"remat policy {self.remat_policy!r} (activations offloaded "
-                f"to the host) is not ported yet: {later(7)}")
+                f"to the host) is not ported yet: {later(6)}")
         self.compute_dtype = cfg.compute_dtype
         self.accum_dtype = cfg.accum_dtype
         self.master = self._init_master(params)

@@ -10,15 +10,14 @@ from __future__ import annotations
 
 # item number -> the start of its bold title in ROADMAP.md, queue 1
 ITEMS = {
-    1: "sparse attention",
-    2: "multi-rank ZeRO and checkpoints",
-    3: "ServingEngine",
-    4: "MoE",
-    5: "tensor and expert parallelism",
-    6: "speculation",
-    7: "KV tiers, fleet and host native code",
-    8: "observability",
-    9: "off the main path",
+    1: "multi-rank ZeRO and checkpoints",
+    2: "ServingEngine",
+    3: "MoE",
+    4: "tensor and expert parallelism",
+    5: "speculation",
+    6: "KV tiers, fleet and host native code",
+    7: "observability",
+    8: "off the main path",
 }
 
 

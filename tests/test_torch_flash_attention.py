@@ -139,7 +139,7 @@ def test_plain_pieces_agree_with_the_autograd_function():
 
 def test_bias_raises_and_factory_flags():
     q = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match=r"item 9 \(off the main"):
+    with pytest.raises(NotImplementedError, match=r"item 8 \(off the main"):
         tfa.flash_attention(q, q, q, bias=torch.zeros(8, 8))
     fn = tfa.make_flash_attention()
     assert fn.bias_is_constant and fn.accepts_alibi_slopes

@@ -268,6 +268,147 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda):
         fa.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)
 
 
+# ------------------------------------------------------------- sparse attention
+# (B, H, KV, S, hd, causal, config class, fields): chip_smoke.py phase 5c's
+# cases at smaller sizes: the default Fixed layout, each layout, blocks 16,
+# 32 and 128, hd 128 and 16, GQA / MQA, one block, and a layout whose
+# narrow lists leave out block 0 (a kernel reading its lists past k_n /
+# q_n would add block 0, their padding)
+SPARSE_CASES = [
+    (1, 25, 25, 2048, 64, True, "FixedSparsityConfig", {}),
+    (2, 4, 4, 1024, 64, False, "FixedSparsityConfig", {}),
+    (2, 4, 4, 1024, 64, True, "VariableSparsityConfig", {}),
+    (2, 4, 4, 1024, 64, False, "BigBirdSparsityConfig", {}),
+    (2, 4, 4, 1024, 64, True, "BSLongformerSparsityConfig", {}),
+    (2, 4, 4, 512, 64, True, "FixedSparsityConfig", {"block": 16}),
+    (2, 4, 4, 512, 64, False, "BigBirdSparsityConfig", {"block": 32}),
+    (1, 4, 4, 1024, 64, True, "FixedSparsityConfig", {"block": 128}),
+    (1, 8, 2, 1024, 128, True, "FixedSparsityConfig", {}),
+    (1, 8, 1, 512, 128, False, "VariableSparsityConfig", {"block": 128}),
+    (2, 4, 4, 256, 16, True, "VariableSparsityConfig", {"block": 32}),
+    (2, 4, 4, 64, 32, True, "SparsityConfig", {}),
+    (1, 4, 4, 1024, 64, True, "BSLongformerSparsityConfig",
+     {"num_sliding_window_blocks": 1, "global_block_indices": (15,)}),
+    (1, 4, 4, 1024, 64, False, "BSLongformerSparsityConfig",
+     {"num_sliding_window_blocks": 1, "global_block_indices": (15,)}),
+]
+
+
+def _sparse_inputs(cuda, B, H, KV, S, hd, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, do = (torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, KV, hd, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def _max_share(got, ref) -> float:
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", SPARSE_CASES,
+                         ids=lambda c: "-".join(map(str, c[:7])))
+def test_sparse_kernels_match_plain(cuda, case, dtype):
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    B, H, KV, S, hd, causal, cls, fields = case
+    layout = sa.sparse_layout(getattr(sa, cls)(**fields), S, causal, cuda)
+    q, k, v, do = _sparse_inputs(cuda, B, H, KV, S, hd, dtype)
+    o_p, lse_p = sa.sparse_attention_fwd_plain(q, k, v, layout)
+    delta = fa.attention_delta(o_p, do)
+    fns = (sa.sparse_fwd, sa.sparse_bwd_dq, sa.sparse_bwd_dkv)
+    before = [f.launches for f in fns]
+    o, lse = sa.sparse_fwd(q, k, v, layout)
+    dq = sa.sparse_bwd_dq(q, k, v, do, lse_p, delta, layout)
+    dk, dv = sa.sparse_bwd_dkv(q, k, v, do, lse_p, delta, layout)
+    want = (o_p, sa.sparse_bwd_dq_plain(q, k, v, do, lse_p, delta, layout),
+            *sa.sparse_bwd_dkv_plain(q, k, v, do, lse_p, delta, layout))
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [b + 1 for b in before]
+    for got, ref in zip((o, dq, dk, dv), want):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        assert _max_share(got, ref) <= FLASH_SHARE[dtype]
+    assert (lse - lse_p).abs().max().item() <= 2e-3
+    # no atomics: a second launch repeats the first bit for bit
+    assert torch.equal(sa.sparse_fwd(q, k, v, layout)[0], o)
+    assert torch.equal(sa.sparse_bwd_dkv(q, k, v, do, lse_p, delta,
+                                         layout)[0], dk)
+
+
+@pytest.mark.parametrize("case", [(1, 25, 25, 1024, 64, True),
+                                  (2, 4, 2, 512, 128, False)])
+def test_sparse_dense_layout_equals_the_flash_kernels(cuda, case):
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    B, H, KV, S, hd, causal = case
+    layout = sa.sparse_layout(sa.SparsityConfig(), S, causal, cuda)
+    q, k, v, do = _sparse_inputs(cuda, B, H, KV, S, hd, torch.bfloat16, 1)
+    o_f, lse_f = fa.flash_fwd(q, k, v, causal=causal)
+    delta = fa.attention_delta(o_f, do)
+    want = (o_f, fa.flash_bwd_dq(q, k, v, do, lse_f, delta, causal=causal),
+            *fa.flash_bwd_dkv(q, k, v, do, lse_f, delta, causal=causal))
+    o, lse = sa.sparse_fwd(q, k, v, layout)
+    got = (o, sa.sparse_bwd_dq(q, k, v, do, lse_f, delta, layout),
+           *sa.sparse_bwd_dkv(q, k, v, do, lse_f, delta, layout))
+    for g, w in zip(got, want):
+        assert _max_share(g, w) <= FLASH_SHARE[torch.bfloat16]
+    assert (lse - lse_f).abs().max().item() <= 2e-3
+
+
+def test_sparse_kernels_refuse_what_they_do_not_take(cuda):
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    layout = sa.sparse_layout(sa.FixedSparsityConfig(), 128, True, cuda)
+    q = torch.zeros(1, 128, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="bf16 or fp16"):
+        sa.sparse_fwd(q, q, q, layout)
+    q = q.bfloat16()
+    x = torch.zeros(1, 128, 2, 48, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        sa.sparse_fwd(x, x, x, layout)
+    for block in (8, 256):
+        odd = sa.sparse_layout(sa.FixedSparsityConfig(block=block), 512,
+                               True, cuda)
+        y = torch.zeros(1, 512, 2, 64, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="sparsity block"):
+            sa.sparse_fwd(y, y, y, odd)
+    with pytest.raises(ValueError, match="positions"):
+        sa.sparse_fwd(q[:, :64], q[:, :64], q[:, :64], layout)
+    with pytest.raises(ValueError, match="lists are on"):
+        sa.sparse_fwd(q, q, q, sa.sparse_layout(sa.FixedSparsityConfig(), 128,
+                                                True, "cpu"))
+
+
+def test_sparse_training_step_through_the_kernels(cuda):
+    """One optimizer step of a tiny decoder with the sparse attention_fn:
+    the sparse launch counts of remat (the forward reruns in the backward),
+    no flash launch, and a finite loss."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    cfg = tiny_test(dtype=torch.bfloat16, max_seq=256)
+    conf = {"train_batch_size": 4, "gradient_accumulation_steps": 2,
+            "remat": {"enabled": True}, "gradient_clipping": 1.0,
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}}
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 256))
+    eng = dt.initialize(conf, dt.build_model(
+        cfg, attention_fn=sa.make_sparse_attention_fn(
+            sa.FixedSparsityConfig(block=16, num_local_blocks=2))), seed=0)
+    fns = (sa.sparse_fwd, sa.sparse_bwd_dq, sa.sparse_bwd_dkv, fa.flash_fwd)
+    before = [f.launches for f in fns]
+    m = eng.train_batch({"input_ids": ids})
+    n = cfg.n_layer * 2
+    assert [f.launches - b for f, b in zip(fns, before)] == [2 * n, n, n, 0]
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
+
+
 # ------------------------------------------------------------- fused xent
 # (T, V, d, bias): nothing divides a tile, one token, BERT-large's and
 # GPT-2 1.5B's widths at a cut vocab, a d that two clusters share unevenly

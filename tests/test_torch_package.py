@@ -88,7 +88,7 @@ def test_library_path_keys_on_the_source():
     assert path.parent == builder.BUILD_DIR
     assert path.name.startswith("libdecode_attention-")
     assert builder.sources() == ["decode_attention", "flash_attention",
-                                 "woq_matmul", "xent"]
+                                 "sparse_attention", "woq_matmul", "xent"]
 
 
 def test_inference_config_ports_and_refuses():
@@ -146,31 +146,31 @@ def test_training_config_ports_and_refuses():
         == torch.float16
     for conf, item in (
             ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
-             "item 7"),
+             "item 6"),
             ({"compression": {"sparse_pruning": {"enabled": True}}},
-             "item 9"),
-            ({"lora": {"enabled": True}}, "item 9"),
-            ({"progressive_layer_drop": {"enabled": True}}, "item 9"),
+             "item 8"),
+            ({"lora": {"enabled": True}}, "item 8"),
+            ({"progressive_layer_drop": {"enabled": True}}, "item 8"),
             ({"data_efficiency": {"random_ltd": {"enabled": True}}},
-             "item 9"),
+             "item 8"),
             ({"data_efficiency": {"curriculum_learning": {"enabled": True}}},
-             "item 9"),
-            ({"gradient_compression": {"enabled": True}}, "item 9"),
-            ({"checkpoint": {"async_save": True}}, "item 2"),
-            ({"monitor": {"enabled": True}}, "item 8"),
-            ({"observability": {"spans": True}}, "item 8"),
-            ({"elasticity": {"enabled": True}}, "item 9"),
-            ({"moe": {"enabled": True}}, "item 4"),
-            ({"mesh": {"model": 2}}, "item 5"),
-            ({"mesh": {"data": 2}}, "item 2"),
-            ({"zero_optimization": {"overlap_comm": False}}, "item 2"),
-            ({"remat": {"enabled": True, "offload": True}}, "item 7")):
+             "item 8"),
+            ({"gradient_compression": {"enabled": True}}, "item 8"),
+            ({"checkpoint": {"async_save": True}}, "item 1"),
+            ({"monitor": {"enabled": True}}, "item 7"),
+            ({"observability": {"spans": True}}, "item 7"),
+            ({"elasticity": {"enabled": True}}, "item 8"),
+            ({"moe": {"enabled": True}}, "item 3"),
+            ({"mesh": {"model": 2}}, "item 4"),
+            ({"mesh": {"data": 2}}, "item 1"),
+            ({"zero_optimization": {"overlap_comm": False}}, "item 1"),
+            ({"remat": {"enabled": True, "offload": True}}, "item 6")):
         with pytest.raises(NotImplementedError, match=item):
             Config.from_any(conf)
     model = dt.build_model(tiny_test(dtype=torch.float32))
-    for conf, item in (({"optimizer": {"type": "OneBitAdam"}}, "item 9"),
+    for conf, item in (({"optimizer": {"type": "OneBitAdam"}}, "item 8"),
                        ({"remat": {"enabled": True,
-                                   "policy": "offload_dots"}}, "item 7")):
+                                   "policy": "offload_dots"}}, "item 6")):
         with pytest.raises(NotImplementedError, match=item):
             dt.initialize(conf, model, device="cpu")
     with pytest.raises(ValueError, match="unknown config keys"):
@@ -222,10 +222,10 @@ def test_every_roadmap_item_the_port_names_exists():
                                path.read_text()):
             named.setdefault(int(n), t)
             assert named[int(n)] == t, (path, n, t)
-    assert len(named) >= 9
+    assert len(named) >= 8
     for n, t in named.items():
         assert n in titles and titles[n].startswith(t.lower()), (n, t)
-    assert roadmap.later(3) == "ROADMAP.md queue 1, item 3 (ServingEngine)"
+    assert roadmap.later(2) == "ROADMAP.md queue 1, item 2 (ServingEngine)"
 
 
 def test_engine_refuses_tf32_matmuls_on_the_card(monkeypatch):

@@ -1,0 +1,353 @@
+"""deepspeed_tpu_torch block-sparse attention vs the JAX package's.
+
+The same numpy inputs (seeded) go through the JAX ``sparse_attention`` with
+its Pallas kernels in interpret mode and through the port's, which takes its
+plain PyTorch versions on the CPU. Everything is fp32.
+
+Tolerances:
+- layouts and CSR lists: equal, element for element;
+- o: 3e-5 (rtol and atol, as the JAX package's own test holds its kernels
+  against a dense reference); the JAX kernels stream one block of keys at a
+  time with an online softmax, the port's plain version takes one softmax
+  over all keys, so sums run in another order;
+- lse: 3e-5 against ``_fwd_call``'s row 0 (the same sums);
+- dq, dk, dv: 5e-5 (rtol and atol, the JAX test's tolerance for its grads);
+- the slice, 4 training steps: losses and master params within 1e-5
+  relative (in norm per leaf, ``layers.bk`` left out), as
+  ``tests/test_torch_train.py`` holds the flash slice.
+"""
+
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import deepspeed_tpu as ds
+import deepspeed_tpu_torch as dt
+from deepspeed_tpu.models import build_model as jax_build
+from deepspeed_tpu.models import presets as jax_presets
+from deepspeed_tpu.ops import sparse_attention as jsa
+from deepspeed_tpu.platform.mesh import MeshSpec, build_mesh
+from deepspeed_tpu.runtime.dataloader import random_token_dataset
+from deepspeed_tpu_torch.models import params_from_jax, params_to_numpy
+from deepspeed_tpu_torch.models import presets as torch_presets
+from deepspeed_tpu_torch.ops import sparse_attention as tsa
+
+
+def config_pair(name, **kw):
+    """The same config in both packages."""
+    return getattr(jsa, name)(**kw), getattr(tsa, name)(**kw)
+
+
+# name: (config class, fields); the defaults of each, then small blocks
+CONFIGS = {
+    "dense": ("SparsityConfig", dict(block=16)),
+    "fixed": ("FixedSparsityConfig", dict(block=16, num_local_blocks=2,
+                                          num_global_blocks=1)),
+    "fixed_default": ("FixedSparsityConfig", {}),
+    "fixed_2_global": ("FixedSparsityConfig", dict(num_local_blocks=4,
+                                                   num_global_blocks=2)),
+    "variable": ("VariableSparsityConfig", dict(
+        block=16, local_window_blocks=(1, 2), global_block_indices=(0,))),
+    "variable_default": ("VariableSparsityConfig", {}),
+    "bigbird": ("BigBirdSparsityConfig", dict(
+        block=16, num_random_blocks=1, num_sliding_window_blocks=3,
+        num_global_blocks=1)),
+    "bigbird_seed_7": ("BigBirdSparsityConfig", dict(num_random_blocks=2,
+                                                     seed=7)),
+    "longformer": ("BSLongformerSparsityConfig", dict(
+        block=16, num_sliding_window_blocks=3)),
+    "longformer_last_global": ("BSLongformerSparsityConfig", dict(
+        block=16, num_sliding_window_blocks=1, global_block_indices=(3,))),
+}
+
+
+# ------------------------------------------------------------------ layouts
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_layouts_and_lists_equal_jax(name, causal):
+    jc, tc = config_pair(CONFIGS[name][0], **CONFIGS[name][1])
+    assert tc.block == jc.block
+    for n in range(1, 13):
+        lay = tc.make_layout(n)
+        np.testing.assert_array_equal(lay, jc.make_layout(n))
+        try:
+            want = jsa._layout_lists(jc.make_layout(n), causal)
+        except ValueError as e:
+            with pytest.raises(ValueError, match=re.escape(str(e))):
+                tsa._layout_lists(lay, causal)
+            continue
+        got = tsa._layout_lists(lay, causal)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype == np.int32
+            np.testing.assert_array_equal(g, w)
+
+
+def test_empty_row_error_equals_jax():
+    lay = np.array([[False, True], [True, True]])
+    with pytest.raises(ValueError) as want:
+        jsa._layout_lists(lay, True)
+    with pytest.raises(ValueError) as got:
+        tsa._layout_lists(lay, True)
+    assert str(got.value) == str(want.value)
+    assert "[0]" in str(got.value)
+
+
+def test_layout_is_built_once_per_config_seq_causal_device():
+    cfg = tsa.FixedSparsityConfig(block=16, num_local_blocks=2)
+    a = tsa.sparse_layout(cfg, 64, True, "cpu")
+    assert tsa.sparse_layout(tsa.FixedSparsityConfig(
+        block=16, num_local_blocks=2), 64, True, "cpu") is a
+    assert tsa.sparse_layout(cfg, 64, False, "cpu") is not a
+    assert tsa.sparse_layout(cfg, 128, True, "cpu") is not a
+    assert a.seq == 64 and a.k_idx.dtype == torch.int32
+    # widest lists first; kept elements counted with the diagonal triangle
+    assert (a.k_n[a.q_order.long()].diff() <= 0).all()
+    assert (a.q_n[a.k_order.long()].diff() <= 0).all()
+    keep = (a.keep("cpu") & torch.ones(64, 64, dtype=torch.bool).tril())
+    assert a.kept_elements() == int(keep.sum())
+
+
+# ------------------------------------------------------------------ kernels
+def qkv(B=2, S=64, H=2, KV=None, hd=32, seed=0):
+    rng = np.random.default_rng(seed)
+    KV = KV or H
+    return (rng.standard_normal((B, S, H, hd)).astype(np.float32),
+            rng.standard_normal((B, S, KV, hd)).astype(np.float32),
+            rng.standard_normal((B, S, KV, hd)).astype(np.float32),
+            rng.standard_normal((B, S, H, hd)).astype(np.float32))
+
+
+def jax_side(jc, causal, q, k, v, w):
+    def f(q, k, v):
+        return jsa.sparse_attention(q, k, v, jc, causal=causal, interpret=True)
+
+    def loss(q, k, v):
+        return jnp.sum(f(q, k, v) * w)
+
+    args = [jnp.asarray(a) for a in (q, k, v)]
+    o = f(*args)
+    grads = jax.grad(loss, argnums=(0, 1, 2))(*args)
+    return [np.asarray(a) for a in (o, *grads)]
+
+
+def jax_lse(jc, causal, q, k, v):
+    H, KV = q.shape[2], k.shape[2]
+    k, v = (np.repeat(a, H // KV, axis=2) for a in (k, v))
+    S = q.shape[1]
+    lists = jsa._layout_lists(jc.make_layout(S // jc.block), causal)
+    _, lse = jsa._fwd_call(*(jnp.asarray(a).swapaxes(1, 2) for a in (q, k, v)),
+                           lists[0], lists[1], block=jc.block, causal=causal,
+                           interpret=True)
+    return np.asarray(lse)[:, :, 0, :]
+
+
+def torch_side(tc, causal, q, k, v, w):
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    o = tsa.sparse_attention(q, k, v, tc, causal=causal)
+    (o * torch.from_numpy(w)).sum().backward()
+    return [t.detach().numpy() for t in (o, q.grad, k.grad, v.grad)]
+
+
+KERNEL_CONFIGS = ["dense", "fixed", "variable", "bigbird", "longformer",
+                  "longformer_last_global"]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("name", KERNEL_CONFIGS)
+def test_output_and_lse_match_jax(name, causal):
+    jc, tc = config_pair(CONFIGS[name][0], **CONFIGS[name][1])
+    q, k, v, w = qkv()
+    want = jax_side(jc, causal, q, k, v, w)[0]
+    got = torch_side(tc, causal, q, k, v, w)[0]
+    np.testing.assert_allclose(got, want, rtol=3e-5, atol=3e-5)
+    layout = tsa.sparse_layout(tc, q.shape[1], causal, "cpu")
+    _, lse = tsa.sparse_fwd(*(torch.from_numpy(a) for a in (q, k, v)), layout)
+    np.testing.assert_allclose(lse.numpy(), jax_lse(jc, causal, q, k, v),
+                               rtol=3e-5, atol=3e-5)
+
+
+# (config, causal, H, KV, S): every config's grads, GQA and MQA (the JAX
+# package repeats K/V and sums its grads through the repeat; the port sums
+# each group in the dk/dv plain version and in the kernel)
+GRAD_CASES = [("fixed", True, 2, 2, 64), ("fixed", False, 2, 2, 64),
+              ("variable", True, 4, 2, 64), ("bigbird", False, 4, 2, 64),
+              ("longformer", True, 2, 1, 48), ("dense", True, 2, 1, 48),
+              ("longformer_last_global", False, 2, 2, 64)]
+
+
+@pytest.mark.parametrize("case", GRAD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_grads_match_jax(case):
+    name, causal, H, KV, S = case
+    jc, tc = config_pair(CONFIGS[name][0], **CONFIGS[name][1])
+    q, k, v, w = qkv(S=S, H=H, KV=KV, seed=1)
+    want = jax_side(jc, causal, q, k, v, w)
+    got = torch_side(tc, causal, q, k, v, w)
+    for n, g, x in zip(("o", "dq", "dk", "dv"), got, want):
+        assert g.shape == x.shape, n
+        np.testing.assert_allclose(g, x, rtol=5e-5, atol=5e-5, err_msg=n)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_gradcheck_float64(causal):
+    """The Function's backward (dq, then dk/dv from delta) is the gradient
+    of its forward: finite differences in float64 at a tiny size, GQA."""
+    cfg = tsa.FixedSparsityConfig(block=2, num_local_blocks=2)
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((1, 8, 2, 4))).requires_grad_()
+    k, v = (torch.from_numpy(rng.standard_normal((1, 8, 1, 4)))
+            .requires_grad_() for _ in range(2))
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: tsa.sparse_attention(q, k, v, cfg, causal=causal),
+        (q, k, v))
+
+
+# ------------------------------------------------------------------ errors
+def test_errors_match_jax():
+    jc, tc = config_pair("FixedSparsityConfig", block=16)
+    q, k, v, _ = qkv(S=40)
+    with pytest.raises(ValueError) as want:
+        jsa.sparse_attention(*(jnp.asarray(a) for a in (q, k, v)), jc,
+                             interpret=True)
+    with pytest.raises(ValueError) as got:
+        tsa.sparse_attention(*(torch.from_numpy(a) for a in (q, k, v)), tc)
+    assert str(got.value) == str(want.value) == \
+        "seq 40 not divisible by sparsity block 16"
+
+    q, k, v, _ = qkv(S=32)
+    mask = np.ones((2, 32), np.int32)
+    with pytest.raises(ValueError) as want:
+        jsa.make_sparse_attention_fn(jc, interpret=True)(
+            *(jnp.asarray(a) for a in (q, k, v)), mask=jnp.asarray(mask))
+    with pytest.raises(ValueError) as got:
+        tsa.make_sparse_attention_fn(tc)(
+            *(torch.from_numpy(a) for a in (q, k, v)),
+            mask=torch.from_numpy(mask))
+    assert str(got.value) == str(want.value)
+
+    # the model refuses the function where JAX's does: ALiBi and encoders
+    for preset, phrase in (("bloom", "alibi needs an additive score bias; "
+                                     "this attention_fn accepts neither"),
+                           ("bert", "encoder (causal=False) configs require "
+                                    "the default attention")):
+        with pytest.raises(ValueError) as want:
+            jax_build(getattr(jax_presets, preset)("tiny"),
+                      attention_fn=jsa.make_sparse_attention_fn(jc))
+        with pytest.raises(ValueError) as got:
+            dt.build_model(getattr(torch_presets, preset)("tiny"),
+                           attention_fn=tsa.make_sparse_attention_fn(tc))
+        assert str(want.value).startswith(phrase)
+        assert str(got.value).startswith(phrase)
+
+
+def test_fn_carries_no_capability_flag():
+    fn = tsa.make_sparse_attention_fn(tsa.FixedSparsityConfig())
+    for flag in ("accepts_bias", "accepts_alibi_slopes", "causal"):
+        assert not hasattr(fn, flag)
+
+
+def test_non_cpu_tensors_never_take_the_plain_path():
+    """A tensor off the CPU launches a kernel or raises: here (no card) a
+    meta tensor is refused, and no launch is counted."""
+    layout = tsa.sparse_layout(tsa.FixedSparsityConfig(block=16), 64, True,
+                               "cpu")
+    q = torch.zeros(1, 64, 2, 16, device="meta", dtype=torch.bfloat16)
+    counters = (tsa.sparse_fwd, tsa.sparse_bwd_dq, tsa.sparse_bwd_dkv)
+    before = [f.launches for f in counters]
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsa.sparse_fwd(q, q, q, layout)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsa.sparse_bwd_dq(q, q, q, q, None, None, layout)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsa.sparse_bwd_dkv(q, q, q, q, None, None, layout)
+    assert [f.launches for f in counters] == before
+
+
+def test_plain_pieces_are_the_functions_grads():
+    """sparse_fwd / sparse_bwd_dq / sparse_bwd_dkv on CPU tensors are the
+    plain versions, and the Function's grads are theirs."""
+    _, tc = config_pair(CONFIGS["bigbird"][0], **CONFIGS["bigbird"][1])
+    q, k, v, w = qkv(H=4, KV=2, seed=2)
+    layout = tsa.sparse_layout(tc, 64, True, "cpu")
+    tq, tk, tv, do = (torch.from_numpy(a) for a in (q, k, v, w))
+    o, lse = tsa.sparse_fwd(tq, tk, tv, layout)
+    assert lse.shape == (2, 4, 64) and lse.dtype == torch.float32
+    delta = tsa.attention_delta(o, do)
+    dq = tsa.sparse_bwd_dq(tq, tk, tv, do, lse, delta, layout)
+    dk, dv = tsa.sparse_bwd_dkv(tq, tk, tv, do, lse, delta, layout)
+    got = torch_side(tc, True, q, k, v, w)
+    for a, b in zip((o, dq, dk, dv), got):
+        np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=1e-6)
+
+
+# ------------------------------------------------------------------ the slice
+STEPS, SEQ = 4, 32
+
+
+def train_config():
+    return {"train_batch_size": 8, "train_micro_batch_size_per_gpu": 4,
+            "gradient_accumulation_steps": 2,
+            "optimizer": {"type": "adamw",
+                          "params": {"lr": 3e-3, "weight_decay": 0.01}},
+            "scheduler": {"type": "WarmupDecayLR",
+                          "params": {"warmup_num_steps": 2,
+                                     "total_num_steps": 10}},
+            "gradient_clipping": 1.0, "zero_optimization": {"stage": 1},
+            "remat": {"enabled": True, "policy": "dots_saveable"},
+            "bf16": {"enabled": False}, "mesh": {"data": 1},
+            "steps_per_print": 1000}
+
+
+@pytest.fixture(scope="module")
+def slice_run():
+    """``tiny_test()`` with FixedSparsityConfig(block=16, num_local_blocks=2)
+    as its attention_fn, 4 steps through the JAX engine and through the
+    port's on the CPU from the same master params."""
+    jc, tc = config_pair("FixedSparsityConfig", block=16, num_local_blocks=2)
+    jm = jax_build(jax_presets.tiny_test(dtype=jnp.float32),
+                   attention_fn=jsa.make_sparse_attention_fn(jc,
+                                                             interpret=True))
+    mesh = build_mesh(MeshSpec(data=1), devices=jax.devices()[:1])
+    jeng = ds.initialize(train_config(), jm, mesh=mesh, seed=0)
+    tcfg = torch_presets.tiny_test(dtype=torch.float32)
+    counters = (tsa.sparse_fwd, tsa.sparse_bwd_dq, tsa.sparse_bwd_dkv)
+    before = [f.launches for f in counters]
+    teng = dt.initialize(train_config(), dt.build_model(
+        tcfg, attention_fn=tsa.make_sparse_attention_fn(tc)),
+        params=params_from_jax(jeng.fp32_params(), tcfg), device="cpu")
+    data = random_token_dataset(8 * STEPS, SEQ, tcfg.vocab_size, seed=0)
+    jl, tl = [], []
+    for i in range(STEPS):
+        b = {"input_ids": np.stack([d["input_ids"]
+                                    for d in data[8 * i:8 * i + 8]])}
+        jl.append(float(jeng.train_batch(dict(b))["loss"]))
+        tl.append(float(teng.train_batch(dict(b))["loss"]))
+    return dict(jax=jl, port=tl,
+                jax_master=jax.tree.map(np.asarray, jeng.fp32_params()),
+                port_master=params_to_numpy(teng.fp32_params()),
+                launches=[f.launches - b for f, b in zip(counters, before)])
+
+
+def test_slice_losses_match_jax(slice_run):
+    got, want = np.array(slice_run["port"]), np.array(slice_run["jax"])
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_slice_master_params_match_jax(slice_run):
+    flat = lambda t: {**{k: v for k, v in t.items() if k != "layers"},  # noqa
+                      **{f"layers.{k}": v for k, v in t["layers"].items()}}
+    want, got = flat(slice_run["jax_master"]), flat(slice_run["port_master"])
+    assert set(want) == set(got)
+    errs = {}
+    for k in sorted(set(want) - {"layers.bk"}):
+        g, w = (np.asarray(x, np.float64) for x in (got[k], want[k]))
+        errs[k] = float(np.linalg.norm(g - w) / (np.linalg.norm(w) or 1.0))
+    assert max(errs.values()) <= 1e-5, errs
+
+
+def test_slice_on_the_cpu_launches_no_kernel(slice_run):
+    assert slice_run["launches"] == [0, 0, 0]

@@ -53,6 +53,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    under the expanded (S, S) boolean mask (forward and its autograd
    backward), the flash kernels on the dense causal problem and the sparse
    kernels in natural block order;
+5d. flash kernels with the bias operand and in fp32: the forward, dq
+   (with and without dbias) and dk/dv kernels against their plain versions
+   in bf16, fp16 and fp32 on every bias layout ((S, S), (H, S, S), (B, H,
+   S, S), (B, 1, S, S), (1, H, S, S) and a (1, H, S, S) bias expanded at
+   stride 0), bias dtypes other than q's, masks, GQA / MQA, hd 16-128,
+   ragged S, dbias exactly 0 above a causal diagonal; the fp32 kernels
+   without a bias on phase 5's cases; timed at phase 10's two shapes
+   (AlphaFold 2's MSA rows in bf16, the DS4Science example in fp32) beside
+   the bound, the plain versions and SDPA with the bias as a float
+   attn_mask (forward and its autograd backward), and in fp32 at GPT-2
+   1.5B's shape beside SDPA in fp32;
 6. training, the unfused reference: GPT-2 1.5B at full width and depth with
    ``fused_xent=False`` through ``initialize(TRAIN_CONFIG, build_model(cfg,
    attention_fn=make_flash_attention())).train_batch``; first the kernel
@@ -77,11 +88,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    FixedSparsityConfig())`` through ``initialize(LONG_TRAIN_CONFIG, ...)``
    (micro-batch 1 x gas 2): at 4 layers the kernel path against the plain
    sparse path, then 2 + 5 steps at full depth; launches exact (sparse 192
-   / 96 / 96 per optimizer step, flash 0, xent 2 / 2 / 2).
+   / 96 / 96 per optimizer step, flash 0, xent 2 / 2 / 2);
+10. the evoformer block: ``ops.evoformer.evoformer_attention`` (the flash
+   kernels with a learned pair bias, its dbias from the dq kernel, gated
+   by sigmoid) trained by SGD. (a) ``examples/evoformer_science.py`` at
+   its full size (B 4, S 256, H 8, hd 32, a full (B, H, S, S) bias
+   projected from the pair representation) from its seeded weights, 50
+   steps at lr 0.05 in fp32 (losses within 1e-4 of the plain path's at
+   every step) and in bf16 (phase 6's gate); (b) AlphaFold 2's MSA
+   row-wise gated self-attention with pair bias at 128 clusters x 256
+   residues in bf16, one (1, 8, 256, 256) bias shared by the rows, a key
+   mask on padded residues: first step against the plain path, then 2 + 5
+   steps with ms a step, peak memory against the plain path's and the
+   kernels' share of device time. Launches exactly 1 / 1 / 1 a step.
 
 ``remat_sweep()`` is a one-off measurement outside the phases: the default
 GPT-2 1.5B training step under each remat policy.
 
+Before them, a ``[flash-bias]`` line holds the JSON of phases 5d and 10's
+kernel rows (each flash kernel with the bias at phase 10's two shapes,
+and in fp32 at GPT-2 1.5B's).
 The last three lines of standard output are the kernels' JSON, then
 ``nvidia-smi``'s name and power limit of the card, then the device JSON.
 Without a CUDA device, or outside the repository, it exits 1 and prints
@@ -943,18 +969,24 @@ def _share(got, want) -> float:
             / want.float().abs().max().clamp_min(1e-30)).item()
 
 
-def flash_bound(B, H, KV, S, hd, causal, esize) -> dict:
+def flash_bound(B, H, KV, S, hd, causal, esize, *, side_bytes=0,
+                dbias_bytes=0, dtype="torch.bfloat16") -> dict:
     """Least time of each kernel on an H100: FLOPs (fwd 2, dq 3, dk/dv 4
-    products of 2·B·H·S²·hd, halved when causal) at 989 TFLOP/s against
-    each input read and each output written once at 3.35 TB/s."""
+    products of 2·B·H·S²·hd, halved when causal) at the peak rate of the
+    operands' type (989 TFLOP/s bf16 / fp16, 67 fp32) against each input
+    read and each output written once at 3.35 TB/s: ``side_bytes`` (the
+    bias as stored and the (B, S) key mask) in each kernel, ``dbias_bytes``
+    as dq writes them."""
     prod = 2 * B * H * S * S * hd / (2 if causal else 1)
     qb, kvb, rowb = B * S * H * hd * esize, B * S * KV * hd * esize, B * H * S * 4
-    work = {"flash_fwd": (2 * prod, 2 * qb + 2 * kvb + rowb),
-            "flash_bwd_dq": (3 * prod, 3 * qb + 2 * kvb + 2 * rowb),
-            "flash_bwd_dkv": (4 * prod, 2 * qb + 4 * kvb + 2 * rowb)}
+    work = {"flash_fwd": (2 * prod, 2 * qb + 2 * kvb + rowb + side_bytes),
+            "flash_bwd_dq": (3 * prod, 3 * qb + 2 * kvb + 2 * rowb
+                             + side_bytes + dbias_bytes),
+            "flash_bwd_dkv": (4 * prod, 2 * qb + 4 * kvb + 2 * rowb
+                              + side_bytes)}
     out = {}
     for name, (ops, nbytes) in work.items():
-        t_ops = ops / PEAK_OPS_PER_S["torch.bfloat16"] * 1e3
+        t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         out[name] = {"bound_ms": max(t_ops, t_bytes), "ops": ops,
                      "bytes": nbytes, "bound_by": "bytes" if t_bytes >= t_ops
@@ -1633,6 +1665,364 @@ def _sparse_timing(gen, case, iters) -> dict:
     return out
 
 
+# ------------------------------------------------ phase 5d, bias and fp32
+# (name, B, H, KV, S, hd, causal, mask kind, bias layout, bias dtype): the
+# shapes phase 10 trains first (AlphaFold 2's MSA rows with the pair bias
+# shared by every row; the DS4Science example's full bias); then every
+# layout of the bias ("expanded" is a (1, H, S, S) tensor expanded to (B,
+# H, S, S), the stride-0 view a learned broadcast bias reaches the kernels
+# as), S past a tile, GQA and MQA, hd 16 to 128, masks with dead rows and a
+# bias dtype other than q's; each case runs in bf16, fp16 and fp32 q
+FLASH_BIAS_CASES = (
+    ("af2_msa_row", 128, 8, 8, 256, 32, False, "af2_pad", "1hss",
+     "torch.bfloat16"),
+    ("evoformer_example", 4, 8, 8, 256, 32, False, None, "bhss",
+     "torch.float32"),
+    ("ss_causal_gqa", 2, 4, 2, 333, 64, True, None, "ss", "torch.float32"),
+    ("hss_full", 2, 4, 2, 333, 64, False, None, "hss", "torch.bfloat16"),
+    ("bhss_causal_mask", 2, 4, 4, 200, 32, True, "left_pad", "bhss",
+     "torch.float16"),
+    ("b1ss_dead_rows", 2, 4, 4, 200, 32, False, "dead_row", "b1ss",
+     "torch.float32"),
+    ("expanded_causal", 3, 8, 8, 256, 32, True, None, "expanded",
+     "torch.bfloat16"),
+    ("hd16_mqa", 1, 4, 1, 130, 16, True, None, "bhss", "torch.float32"),
+    ("hd128", 2, 2, 2, 96, 128, False, None, "bhss", "torch.bfloat16"),
+    ("hd128_long_hss", 1, 4, 4, 1024, 128, True, "left_pad", "hss",
+     "torch.float32"),
+)
+# the residues past 230 of AlphaFold's 256-residue crop are padding
+AF2_LIVE = 230
+# kernel vs plain, max |Δ| / max |plain| of o, dq, dk, dv and dbias: phase
+# 5's for bf16 / fp16; fp32 operands go through 3xTF32 products (~2^-22 of
+# each term, fp32 sums in another order) and __expf (~2 ulp)
+FLASH_BIAS_TOL_SHARE = {**FLASH_TOL_SHARE, "torch.float32": 1e-4}
+# dbias is rounded to the bias's dtype on both sides: where that dtype is
+# coarser than q's tolerance, one ulp of it (relative: at most 2^-7 for
+# bf16, 2^-10 for fp16) bounds dbias's difference
+DBIAS_ROUNDING = {"torch.bfloat16": 2.0 ** -7, "torch.float16": 2.0 ** -10,
+                  "torch.float32": 0.0}
+
+
+def _bias_tensor(gen, layout, B, H, S, dtype, device):
+    import torch
+
+    shape = {"ss": (S, S), "hss": (H, S, S), "bhss": (B, H, S, S),
+             "b1ss": (B, 1, S, S), "1hss": (1, H, S, S),
+             "expanded": (1, H, S, S)}[layout]
+    bias = (2 * torch.randn(shape, generator=gen, device=device)).to(dtype)
+    return bias.expand(B, H, S, S) if layout == "expanded" else bias
+
+
+def _bias_case(gen, case, dtype, device):
+    """Inputs of one phase 5d case: the flash inputs, the bias and the
+    key mask (``af2_pad``: every row's residues past AF2_LIVE padded)."""
+    import torch
+
+    name, B, H, KV, S, hd, causal, mask_kind, layout, bias_dtype = case
+    x = _flash_case(gen, B, H, KV, S, hd, causal,
+                    None if mask_kind == "af2_pad" else mask_kind, False,
+                    dtype, device)
+    if mask_kind == "af2_pad":
+        x["mask"] = torch.ones((B, S), dtype=torch.bool, device=device)
+        x["mask"][:, AF2_LIVE:] = False
+    x["bias"] = _bias_tensor(gen, layout, B, H, S,
+                             getattr(torch, bias_dtype.split(".")[1]), device)
+    return x
+
+
+def phase_flash_bias_kernels(device="cuda", cases=FLASH_BIAS_CASES,
+                             fp32_cases=FLASH_CASES, dtypes=None,
+                             iters=50) -> dict:
+    """The three flash kernels with the bias operand against their plain
+    versions on every case, in bf16, fp16 and fp32, each fed the plain
+    forward's lse and delta; dq twice, once as the kernels read the bias
+    and once with dbias, the bias expanded to (B, H, S, S) where it is
+    broadcast (as a learned one reaches the kernels); dbias exactly 0
+    above a causal diagonal. Then the fp32 kernels without a bias on phase
+    5's cases. On the card, timed at the first two cases' shapes and the
+    fp32 kernels at GPT-2 1.5B's (phase 5's first case)."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    dtypes = dtypes or (torch.bfloat16, torch.float16, torch.float32)
+    # max |kernel - plain| of each kernel's outputs, over the biased runs
+    # (every dtype) and over the fp32 runs without a bias
+    worst = {v: dict.fromkeys(("flash_fwd", "flash_bwd_dq",
+                               "flash_bwd_dkv"), 0.0)
+             for v in ("bias", "fp32")}
+    for case in cases:
+        name, B, H, KV, S = case[:5]
+        causal = case[6]
+        for dtype in dtypes:
+            x = _bias_case(gen, case, dtype, device)
+            q, k, v, do, bias = x["q"], x["k"], x["v"], x["do"], x["bias"]
+            kw = dict(mask=x["mask"], causal=causal, bias=bias)
+            full = dict(kw, bias=fa.bias4(bias, B, H, S).expand(B, H, S, S))
+            o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
+            delta = fa.attention_delta(o_p, do)
+            dq_p, dbias_p = fa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta,
+                                                  grad_bias=True, **full)
+            dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta,
+                                                **kw)
+            o, lse = fa.flash_fwd(q, k, v, **kw)
+            dq = fa.flash_bwd_dq(q, k, v, do, lse_p, delta, **kw)
+            dq2, dbias = fa.flash_bwd_dq(q, k, v, do, lse_p, delta,
+                                         grad_bias=True, **full)
+            dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            live = lse_p > fa.BIG_NEG / 2
+            lse_err = (lse - lse_p).abs()[live].max().item()
+            got = {"o": (o, o_p), "dq": (dq, dq_p), "dk": (dk, dk_p),
+                   "dv": (dv, dv_p), "dbias": (dbias, dbias_p)}
+            shares = {n: _share(a, b) for n, (a, b) in got.items()}
+            tol = FLASH_BIAS_TOL_SHARE[str(dtype)]
+            dbias_tol = max(tol, DBIAS_ROUNDING[case[9]])
+            finite = all(bool(torch.isfinite(a).all())
+                         for a, _ in got.values())
+            hidden_zero = not causal or bool((dbias.triu(1) == 0).all())
+            ok = finite and hidden_zero and torch.equal(dq, dq2) \
+                and dbias.dtype == bias.dtype and lse_err <= FLASH_LSE_ATOL \
+                and shares["dbias"] <= dbias_tol \
+                and all(v <= tol for n, v in shares.items() if n != "dbias")
+            log(f"[flash-bias] {name:18s} {str(dtype):15s} B{B} H{H} KV{KV} "
+                f"S{S} hd{case[5]} {case[8]} {case[9]} bias: " + ", ".join(
+                    f"{n} {v:.2e}" for n, v in shares.items())
+                + f" of max |plain| (tol {tol:g}, dbias {dbias_tol:g}); lse "
+                f"{lse_err:.1e}; dbias "
+                f"0 above the diagonal {hidden_zero} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash bias {name} {dtype}: {shares}, "
+                                     f"lse {lse_err}, finite {finite}, "
+                                     f"zeros {hidden_zero}")
+            for n, (a, b) in got.items():
+                k_name = _OUTPUT_OF[n]
+                worst["bias"][k_name] = max(
+                    worst["bias"][k_name],
+                    (a.float() - b.float()).abs().max().item())
+            del x, o, o_p, dq, dq2, dq_p, dk, dv, dk_p, dv_p, dbias, dbias_p
+    for case in fp32_cases:
+        name, shape = case[0], case[1:]
+        x = _flash_case(gen, *shape, torch.float32, device)
+        kw = dict(mask=x["mask"], alibi_slopes=x["slopes"], causal=x["causal"])
+        q, k, v, do = x["q"], x["k"], x["v"], x["do"]
+        o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
+        delta = fa.attention_delta(o_p, do)
+        got = {"o": (fa.flash_fwd(q, k, v, **kw)[0], o_p),
+               "dq": (fa.flash_bwd_dq(q, k, v, do, lse_p, delta, **kw),
+                      fa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw))}
+        dk_dv = zip(fa.flash_bwd_dkv(q, k, v, do, lse_p, delta, **kw),
+                    fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, **kw))
+        got.update(zip(("dk", "dv"), dk_dv))
+        shares = {n: _share(a, b) for n, (a, b) in got.items()}
+        ok = all(v <= FLASH_BIAS_TOL_SHARE["torch.float32"]
+                 for v in shares.values()) \
+            and all(bool(torch.isfinite(a).all()) for a, _ in got.values())
+        log(f"[flash-fp32] {name:20s} B{shape[0]} H{shape[1]} KV{shape[2]} "
+            f"S{shape[3]} hd{shape[4]}: " + ", ".join(
+                f"{n} {v:.2e}" for n, v in shares.items())
+            + f" of max |plain| (tol 1e-4) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash fp32 {name}: {shares}")
+        for n, (a, b) in got.items():
+            k_name = _OUTPUT_OF[n]
+            worst["fp32"][k_name] = max(
+                worst["fp32"][k_name],
+                (a.float() - b.float()).abs().max().item())
+        del x, got, dk_dv
+    result = {"max_abs_err": worst}
+    if device != "cuda":
+        return result
+    result["biased"] = {c[0]: _flash_bias_timing(gen, c, iters)
+                        for c in cases[:2]}
+    result["fp32"] = _flash_fp32_timing(gen, fp32_cases[0], iters)
+    return result
+
+
+# the kernel that writes each output
+_OUTPUT_OF = {"o": "flash_fwd", "dq": "flash_bwd_dq", "dbias": "flash_bwd_dq",
+              "dk": "flash_bwd_dkv", "dv": "flash_bwd_dkv"}
+
+
+def _library_ms(fwd, fwd_bwd, iters) -> tuple:
+    """Device ms of a library forward and of its autograd backward (the
+    pair's time less the forward's); 4 input sets in rotation."""
+    import torch
+
+    with torch.no_grad():
+        lib_f = device_ms(fwd, 4, iters)
+    return lib_f, device_ms(fwd_bwd, 4, iters) - lib_f
+
+
+def _flash_bias_timing(gen, case, iters) -> dict:
+    """Kernel, plain and bound of each flash kernel with the bias at one
+    case's shape, in the case's first dtype of phase 10 (bf16 for the AF2
+    rows, fp32 for the example), dq writing dbias as training does; the
+    library: SDPA with the bias (and the key mask, -inf on padded keys)
+    as one float attn_mask (B, H, S, S), its forward and its autograd
+    backward (dq, dk, dv and the mask's gradient), device-timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    name, B, H, KV, S, hd, causal = case[:7]
+    dtype = torch.bfloat16 if name.startswith("af2") else torch.float32
+    sets = []
+    for _ in range(4):
+        x = _bias_case(gen, case, dtype, "cuda")
+        full = fa.bias4(x["bias"], B, H, S).expand(B, H, S, S)
+        o, lse = fa.flash_attention_fwd_plain(x["q"], x["k"], x["v"],
+                                              mask=x["mask"], bias=x["bias"],
+                                              causal=causal)
+        x.update(full=full, o=o, lse=lse,
+                 delta=fa.attention_delta(o, x["do"]))
+        sets.append(x)
+    kw = lambda i: dict(mask=sets[i % 4]["mask"], causal=causal,  # noqa: E731
+                        bias=sets[i % 4]["bias"])
+    fkw = lambda i: dict(kw(i), bias=sets[i % 4]["full"])         # noqa: E731
+    args = lambda i: tuple(sets[i % 4][n] for n in "qkv")         # noqa: E731
+    bwd = lambda i: (*args(i), *(sets[i % 4][n]                   # noqa: E731
+                                 for n in ("do", "lse", "delta")))
+    calls = {"flash_fwd": (lambda i: fa.flash_fwd(*args(i), **kw(i)),
+                           lambda i: fa.flash_attention_fwd_plain(
+                               *args(i), **kw(i))),
+             "flash_bwd_dq": (lambda i: fa.flash_bwd_dq(
+                 *bwd(i), grad_bias=True, **fkw(i)),
+                 lambda i: fa.flash_bwd_dq_plain(*bwd(i), grad_bias=True,
+                                                 **fkw(i))),
+             "flash_bwd_dkv": (lambda i: fa.flash_bwd_dkv(*bwd(i), **kw(i)),
+                               lambda i: fa.flash_bwd_dkv_plain(
+                                   *bwd(i), **kw(i)))}
+    bias = sets[0]["bias"]
+    side = bias.numel() * bias.element_size() + (
+        B * S if sets[0]["mask"] is not None else 0)
+    bounds = flash_bound(B, H, KV, S, hd, causal, dtype.itemsize,
+                         side_bytes=side,
+                         dbias_bytes=B * H * S * S * bias.element_size(),
+                         dtype=str(dtype))
+    # the library's inputs: (B, H, S, hd) leaves and one float mask
+    leaves, gdo = [], []
+    for s in sets:
+        am = fa.bias4(s["bias"], B, H, S).float().expand(B, H, S, S)
+        if s["mask"] is not None:
+            am = am.masked_fill(~s["mask"][:, None, None, :], float("-inf"))
+        leaves.append((*(t.transpose(1, 2).contiguous().requires_grad_()
+                         for t in (s["q"], s["k"], s["v"])),
+                       am.to(dtype).contiguous().requires_grad_()))
+        gdo.append(s["do"].transpose(1, 2).contiguous())
+
+    def lib_fwd(i):
+        q, k, v, am = leaves[i % 4]
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=am,
+                                              is_causal=False)
+
+    def lib_fwd_bwd(i):
+        return torch.autograd.grad(lib_fwd(i), leaves[i % 4], gdo[i % 4])
+
+    lib_f, lib_b = _library_ms(lib_fwd, lib_fwd_bwd, iters)
+    library = {"flash_fwd": lib_f, "flash_bwd_dq": lib_b,
+               "flash_bwd_dkv": lib_b}
+    out = {}
+    for n, (kern, plain) in calls.items():
+        ms = device_ms(kern, 4, iters)
+        plain_ms = time_ms(plain, 3)
+        b = bounds[n]
+        out[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                      bound_by=b["bound_by"], library_ms=library[n])
+        log(f"[flash-bias] {n} {name} B{B} H{H} S{S} hd{hd} "
+            f"{'causal' if causal else 'full'} {dtype}, bias "
+            f"{tuple(bias.shape)} {bias.dtype}"
+            f"{', dbias (B, H, S, S)' if n == 'flash_bwd_dq' else ''}: "
+            f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
+            f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}: {b['bytes']} B, "
+            f"{b['ops']:.4g} flop), kernel at {b['bound_ms'] / ms:.1%} of the "
+            "bound")
+    bwd_ms = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkv"]["ms"]
+    log(f"[flash-bias] {name} library calls (device, not called by the "
+        f"port): SDPA with the float mask, forward {lib_f * 1e3:.2f} us vs "
+        f"flash_fwd {out['flash_fwd']['ms'] * 1e3:.2f} us; its autograd "
+        f"backward (dq, dk, dv, dmask) {lib_b * 1e3:.2f} us vs flash_bwd_dq"
+        f" + flash_bwd_dkv {bwd_ms * 1e3:.2f} us")
+    del sets, leaves, gdo
+    return out
+
+
+def _flash_fp32_timing(gen, case, iters) -> dict:
+    """The fp32 kernels without a bias at one case's shape against their
+    bound at 67 TFLOP/s, the plain versions and SDPA in fp32 (forward and
+    its autograd backward), all device-timed but the plain versions."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    name, B, H, KV, S, hd, causal = case[:7]
+    sets = []
+    for _ in range(4):
+        x = _flash_case(gen, B, H, KV, S, hd, causal, None, False,
+                        torch.float32, "cuda")
+        o, lse = fa.flash_attention_fwd_plain(x["q"], x["k"], x["v"],
+                                              causal=causal)
+        x.update(lse=lse, delta=fa.attention_delta(o, x["do"]))
+        sets.append(x)
+    args = lambda i: tuple(sets[i % 4][n] for n in "qkv")         # noqa: E731
+    bwd = lambda i: (*args(i), *(sets[i % 4][n]                   # noqa: E731
+                                 for n in ("do", "lse", "delta")))
+    calls = {"flash_fwd": (lambda i: fa.flash_fwd(*args(i), causal=causal),
+                           lambda i: fa.flash_attention_fwd_plain(
+                               *args(i), causal=causal)),
+             "flash_bwd_dq": (lambda i: fa.flash_bwd_dq(*bwd(i),
+                                                        causal=causal),
+                              lambda i: fa.flash_bwd_dq_plain(
+                                  *bwd(i), causal=causal)),
+             "flash_bwd_dkv": (lambda i: fa.flash_bwd_dkv(*bwd(i),
+                                                          causal=causal),
+                               lambda i: fa.flash_bwd_dkv_plain(
+                                   *bwd(i), causal=causal))}
+    bounds = flash_bound(B, H, KV, S, hd, causal, 4, dtype="torch.float32")
+    rep = lambda t: t.repeat_interleave(H // KV, 2) if KV != H else t  # noqa
+    leaves = [tuple(rep(t).transpose(1, 2).contiguous().requires_grad_()
+                    for t in args(i)) for i in range(4)]
+    gdo = [s["do"].transpose(1, 2).contiguous() for s in sets]
+
+    def lib_fwd(i):
+        return F.scaled_dot_product_attention(*leaves[i % 4],
+                                              is_causal=causal)
+
+    def lib_fwd_bwd(i):
+        return torch.autograd.grad(lib_fwd(i), leaves[i % 4], gdo[i % 4])
+
+    lib_f, lib_b = _library_ms(lib_fwd, lib_fwd_bwd, iters)
+    library = {"flash_fwd": lib_f, "flash_bwd_dq": lib_b,
+               "flash_bwd_dkv": lib_b}
+    out = {}
+    for n, (kern, plain) in calls.items():
+        ms = device_ms(kern, 4, iters)
+        plain_ms = time_ms(plain, 3)
+        b = bounds[n]
+        out[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                      bound_by=b["bound_by"], library_ms=library[n])
+        log(f"[flash-fp32] {n} {name} B{B} H{H} KV{KV} S{S} hd{hd} "
+            f"{'causal' if causal else 'full'} fp32: kernel {ms * 1e3:.2f} "
+            f"us, plain {plain_ms * 1e3:.2f} us, bound "
+            f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']} at 67 TFLOP/s "
+            f"fp32: {b['bytes']} B, {b['ops']:.4g} flop), kernel at "
+            f"{b['bound_ms'] / ms:.1%} of the bound")
+    bwd_ms = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkv"]["ms"]
+    log(f"[flash-fp32] {name} library calls (device, not called by the "
+        f"port): SDPA fp32 forward {lib_f * 1e3:.2f} us vs flash_fwd "
+        f"{out['flash_fwd']['ms'] * 1e3:.2f} us; its autograd backward "
+        f"{lib_b * 1e3:.2f} us vs flash_bwd_dq + flash_bwd_dkv "
+        f"{bwd_ms * 1e3:.2f} us")
+    del sets, leaves, gdo
+    return out
+
+
 # ------------------------------------------------------------------ phase 6
 # the slice's training config: examples/pretrain_gpt2.py's at micro 4,
 # gas 2 (its warm-up of 2000 steps keeps the first steps' lr at 2.7e-5 to
@@ -1669,33 +2059,45 @@ LONG_TRAIN_CONFIG = {**TRAIN_CONFIG, "train_batch_size": 2,
                      "train_micro_batch_size_per_gpu": 1}
 
 
-def _plain_flash_attention():
+def _plain_flash_attention(causal: bool = True,
+                           bias_is_constant: bool = True):
     """The flash attention Function with the plain versions on every
-    device: the reference the kernel path is held against."""
+    device: the reference the kernel path is held against. A bias reaches
+    it as :func:`flash_attention` hands it to the kernels (a learned
+    broadcast bias expanded at stride 0), and takes dbias when it needs
+    a gradient."""
     import torch
 
     from deepspeed_tpu_torch.ops import flash_attention as fa
 
     class Plain(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, q, k, v, mask, slopes):
+        def forward(ctx, q, k, v, mask, slopes, bias):
             o, lse = fa.flash_attention_fwd_plain(q, k, v, mask=mask,
-                                                  alibi_slopes=slopes)
-            ctx.save_for_backward(q, k, v, o, lse, mask, slopes)
+                                                  alibi_slopes=slopes,
+                                                  bias=bias, causal=causal)
+            ctx.save_for_backward(q, k, v, o, lse, mask, slopes, bias)
             return o
 
         @staticmethod
         def backward(ctx, do):
-            q, k, v, o, lse, mask, slopes = ctx.saved_tensors
+            q, k, v, o, lse, mask, slopes, bias = ctx.saved_tensors
             delta = fa.attention_delta(o, do)
-            kw = dict(mask=mask, alibi_slopes=slopes)
-            dq = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+            kw = dict(mask=mask, alibi_slopes=slopes, bias=bias,
+                      causal=causal)
+            dbias = None
+            if ctx.needs_input_grad[5]:
+                dq, dbias = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                  grad_bias=True, **kw)
+            else:
+                dq = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
             dk, dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
-            return dq, dk, dv, None, None
+            return dq, dk, dv, None, None, dbias
 
     def attn(q, k, v, *, mask=None, bias=None, alibi_slopes=None):
-        assert bias is None
-        return Plain.apply(q, k, v, mask, alibi_slopes)
+        if bias is not None:
+            bias = fa.bias_operand(bias, q, bias_is_constant)
+        return Plain.apply(q, k, v, mask, alibi_slopes, bias)
 
     attn.accepts_alibi_slopes = True
     return attn
@@ -2056,6 +2458,306 @@ def phase_long_train(cfg=None, *, seq=8192, check_layers=4, warmup=2,
         kernels=(sa.sparse_fwd, sa.sparse_bwd_dq, sa.sparse_bwd_dkv))
 
 
+# ------------------------------------------------------------------ phase 10
+# (a) examples/evoformer_science.py at its full size, its SGD and its seed;
+# (b) AlphaFold 2's MSA row-wise gated self-attention with pair bias (AF2
+# supplementary information, Algorithm 7: 8 heads of 32, c_m 256, the bias
+# a linear map of the LayerNorm'd pair representation, c_z 128) at the
+# initial training crop of 256 residues and 128 MSA clusters, the clusters
+# as the batch sharing one (1, 8, 256, 256) pair bias
+EVO_EXAMPLE = dict(B=4, S=256, H=8, hd=32, d_pair=8, steps=50, lr=0.05)
+AF2_MSA_ROW = dict(n_seq=128, n_res=256, c_m=256, c_z=128, H=8, hd=32,
+                   warmup=2, steps=5, lr=0.05)
+# the kernel path's losses against the plain path's, every step: fp32 both
+# sides (3xTF32 products, another summation order; ~1e-6 expected); bf16
+# phase 6's gate (TRAIN_LOSS_RTOL on the loss, TRAIN_GRAD_RTOL on every
+# grad leaf in norm on the first step's shared weights)
+EVO_FP32_LOSS_RTOL = 1e-4
+
+
+def _example_state(B, S, H, hd, d_pair, device):
+    """x, target and the trainable leaves of the example, drawn from
+    ``np.random.default_rng(0)`` in its order (x, pair, target, wq, wk,
+    wv, w_gate, w_bias) and moved to ``device`` as fp32."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    draw = lambda *shape: torch.from_numpy(                        # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(device)
+    x, pair, target = draw(B, S, H * hd), draw(B, S, S, d_pair), \
+        draw(B, S, H * hd)
+    params = {n: (torch.from_numpy(rng.standard_normal(shape) * 0.05)
+                  .float().to(device))
+              for n, shape in (("wq", (H * hd, H * hd)),
+                               ("wk", (H * hd, H * hd)),
+                               ("wv", (H * hd, H * hd)),
+                               ("w_gate", (H * hd, H * hd)),
+                               ("w_bias", (d_pair, H)))}
+    params["pair"] = pair
+    return x, target, params
+
+
+def _sgd_run(loss_fn, params, steps, lr, counters=()):
+    """``steps`` SGD steps on fp32 ``params`` (each forward casts them):
+    the losses, the first step's grads, the last step's |d pair| (``pair``
+    or ``z``) and the launches of ``counters`` over the steps (zeroed just
+    before the first)."""
+    import torch
+
+    leaves = {n: t.clone().requires_grad_() for n, t in params.items()}
+    for c in counters:
+        c.launches = 0
+    losses, first, last_pair = [], None, 0.0
+    for _ in range(steps):
+        loss = loss_fn(leaves)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        losses.append(loss.item())
+        g = dict(zip(leaves, grads))
+        first = first or {n: t.detach().clone() for n, t in g.items()}
+        last_pair = float(g["pair" if "pair" in g else "z"].norm())
+        with torch.no_grad():
+            for n, t in leaves.items():
+                t -= lr * g[n]
+    launches = {c.__name__: c.launches for c in counters}
+    return losses, first, last_pair, launches
+
+
+def phase_evoformer(device="cuda", example=None, af2=None,
+                    profile_steps=2) -> dict:
+    """Phase 10: the gated, pair-biased evoformer block trained through
+    ``ops.evoformer.evoformer_attention``, its pair representation through
+    the dq kernel's dbias. (a) the DS4Science example at its full size, 50
+    SGD steps in fp32 and then bf16, against the plain path (the plain
+    flash Function) on the same weights; (b) AlphaFold 2's MSA rows in
+    bf16. Every step launches each flash kernel exactly once; the loss
+    falls; d pair is not 0."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import evoformer as evo
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    ex = {**EVO_EXAMPLE, **(example or {})}
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    plain = _plain_flash_attention(causal=False, bias_is_constant=False)
+
+    def plain_evo(q, k, v, *, bias=None, gate=None, mask=None):
+        return plain(q, k, v, mask=mask, bias=bias) * torch.sigmoid(gate)
+
+    B, S, H, hd = ex["B"], ex["S"], ex["H"], ex["hd"]
+    x, target, params = _example_state(B, S, H, hd, ex["d_pair"], dev)
+    result = {"example": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        def loss_fn(p, attention):
+            w = {n: t.to(dtype) for n, t in p.items()}
+            xx = x.to(dtype)
+            q, k, v, gate = ((xx @ w[n]).reshape(B, S, H, hd)
+                             for n in ("wq", "wk", "wv", "w_gate"))
+            bias = torch.einsum("bstd,dh->bhst", w["pair"], w["w_bias"])
+            out = attention(q, k, v, bias=bias, gate=gate)
+            return ((out.reshape(B, S, H * hd).float() - target) ** 2).mean()
+
+        t0 = time.perf_counter()
+        got = _sgd_run(partial(loss_fn, attention=evo.evoformer_attention),
+                       params, ex["steps"], ex["lr"],
+                       counters if cuda else ())
+        if cuda:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / ex["steps"] * 1e3
+        ref = _sgd_run(partial(loss_fn, attention=plain_evo), params,
+                       ex["steps"], ex["lr"])
+        losses, first, dpair, launches = got
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref[0])]
+        grad_rel = {n: _rel_norm(first[n], ref[1][n]) for n in first}
+        want = {c.__name__: ex["steps"] for c in counters} if cuda else {}
+        tag = f"[evoformer example {str(dtype)[6:]}]"
+        log(f"{tag} B{B} S{S} H{H} hd{hd}, {ex['steps']} SGD steps at lr "
+            f"{ex['lr']}: losses " + ", ".join(
+                f"step {i} {losses[i]:.6f}" for i in range(0, ex["steps"], 10))
+            + f", final {losses[-1]:.6f}; plain path {ref[0][0]:.6f} -> "
+            f"{ref[0][-1]:.6f}; kernel vs plain loss max {max(rel):.2e} rel, "
+            f"first step's grads max {max(grad_rel.values()):.2e} rel "
+            f"({max(grad_rel, key=grad_rel.get)}); |d pair| at the last step "
+            f"{dpair:.3e}; launches {launches}; {ms:.2f} ms a step "
+            "(host clock, kernel path)")
+        if dtype == torch.float32:
+            close = max(rel) <= EVO_FP32_LOSS_RTOL
+        else:
+            close = max(rel) <= TRAIN_LOSS_RTOL \
+                and max(grad_rel.values()) <= TRAIN_GRAD_RTOL
+        ok = close and launches == want and losses[-1] < losses[0] \
+            and dpair > 0 and all(math.isfinite(v) for v in losses)
+        if not ok:
+            raise AssertionError(f"{tag} losses {losses} vs {ref[0]}, grads "
+                                 f"{grad_rel}, launches {launches}, d pair "
+                                 f"{dpair}")
+        result["example"][str(dtype)] = dict(
+            losses=losses, plain_losses=ref[0], loss_rel=max(rel),
+            grad_rel=max(grad_rel.values()), launches=launches, step_ms=ms)
+    _free_memory(dev)
+    result["af2"] = phase_af2_msa_row(device, af2, profile_steps)
+    return result
+
+
+def _layer_norm(x, scale, bias):
+    import torch.nn.functional as F
+
+    return F.layer_norm(x, (x.shape[-1],), scale, bias, eps=1e-5)
+
+
+def phase_af2_msa_row(device="cuda", af2=None, profile_steps=2) -> dict:
+    """Phase 10 (b): AlphaFold 2's MSA row-wise gated self-attention with
+    pair bias in bf16, fp32 master weights and SGD: m (n_seq, n_res, c_m)
+    LayerNorm'd and projected to q, k, v and the gate (n_seq, n_res, 8,
+    32); the bias a linear map of the LayerNorm'd pair representation z
+    (n_res, n_res, c_z), one (1, 8, n_res, n_res) shared by every row and
+    learned (its dbias summed over the rows); a (n_seq, n_res) key mask on
+    the padded residues; the loss an MSE over the live residues. First the
+    kernel path against the plain path on the first step; then the timed
+    steps with every flash count read; ms a step, peak memory, the kernels'
+    share of device time; the plain path's peak memory."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import evoformer as evo
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    a = {**AF2_MSA_ROW, **(af2 or {})}
+    n_seq, n_res, c_m, c_z, H, hd = (a[k] for k in ("n_seq", "n_res", "c_m",
+                                                    "c_z", "H", "hd"))
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    mk = lambda *shape, std=1.0: torch.randn(                      # noqa: E731
+        shape, generator=gen, device=dev) * std
+    m = mk(n_seq, n_res, c_m).bfloat16()
+    target = mk(n_seq, n_res, c_m)
+    live = min(AF2_LIVE, n_res - 1)
+    mask = torch.ones((n_seq, n_res), dtype=torch.bool, device=dev)
+    mask[:, live:] = False
+    params = {"ln_m_scale": torch.ones(c_m, device=dev),
+              "ln_m_bias": torch.zeros(c_m, device=dev),
+              "ln_z_scale": torch.ones(c_z, device=dev),
+              "ln_z_bias": torch.zeros(c_z, device=dev),
+              "b_g": torch.ones(H * hd, device=dev),
+              "w_b": mk(c_z, H, std=c_z ** -0.5),
+              "z": mk(n_res, n_res, c_z)}
+    for n in ("w_q", "w_k", "w_v", "w_g"):
+        params[n] = mk(c_m, H * hd, std=c_m ** -0.5)
+    params["w_o"] = mk(H * hd, c_m, std=(H * hd) ** -0.5)
+    plain = _plain_flash_attention(causal=False, bias_is_constant=False)
+
+    def plain_evo(q, k, v, *, bias=None, gate=None, mask=None):
+        return plain(q, k, v, mask=mask, bias=bias) * torch.sigmoid(gate)
+
+    def loss_fn(p, attention):
+        w = {n: t.bfloat16() for n, t in p.items()}
+        mm = _layer_norm(m, w["ln_m_scale"], w["ln_m_bias"])
+        q, k, v = ((mm @ w[n]).reshape(n_seq, n_res, H, hd)
+                   for n in ("w_q", "w_k", "w_v"))
+        gate = (mm @ w["w_g"] + w["b_g"]).reshape(n_seq, n_res, H, hd)
+        zz = _layer_norm(w["z"], w["ln_z_scale"], w["ln_z_bias"])
+        bias = torch.einsum("ijc,ch->hij", zz, w["w_b"])[None]
+        o = attention(q, k, v, bias=bias, gate=gate, mask=mask)
+        out = o.reshape(n_seq, n_res, H * hd) @ w["w_o"]
+        err = (out.float() - target) ** 2 * mask[..., None]
+        return err.sum() / (mask.sum() * c_m)
+
+    tag = f"[af2 msa row {n_seq}x{n_res} c_m {c_m} c_z {c_z} H{H} hd{hd}]"
+    # the kernel path against the plain path on the first step; the plain
+    # path's peak memory above what the state holds
+    base = _free_memory(dev)
+    ref = _sgd_run(partial(loss_fn, attention=plain_evo), params, 1, 0.0)
+    sync()
+    plain_peak = torch.cuda.max_memory_allocated() - base if cuda else 0
+    base = _free_memory(dev)
+    got = _sgd_run(partial(loss_fn, attention=evo.evoformer_attention),
+                   params, 1, 0.0)
+    sync()
+    kernel_peak1 = torch.cuda.max_memory_allocated() - base if cuda else 0
+    loss_rel = abs(got[0][0] - ref[0][0]) / abs(ref[0][0])
+    grad_rel = {n: _rel_norm(got[1][n], ref[1][n]) for n in got[1]}
+    # the pair LayerNorm's offset adds one constant to every score of a
+    # head, which no softmax row sees: its gradient is 0 in exact
+    # arithmetic and both paths give rounding noise (layers.bk of phase 6)
+    noise = grad_rel.pop("ln_z_bias")
+    worst = max(grad_rel, key=grad_rel.get)
+    log(f"{tag} kernel vs plain path, bf16, first step: loss {got[0][0]:.6f}"
+        f" vs {ref[0][0]:.6f} ({loss_rel:.2e} rel, tol {TRAIN_LOSS_RTOL}); "
+        f"grads ||Δ||/||plain|| max {grad_rel[worst]:.2e} at {worst} (tol "
+        f"{TRAIN_GRAD_RTOL}); dz {grad_rel['z']:.2e}; ln_z_bias (noise, not "
+        f"gated) {noise:.2e}, |grad| {float(got[1]['ln_z_bias'].norm()):.2e}"
+        f" against |dz| {float(got[1]['z'].norm()):.2e}; peak memory above "
+        f"the state: kernel path {kernel_peak1 / 2**30:.3f} GiB, plain path "
+        f"{plain_peak / 2**30:.3f} GiB")
+    if not (loss_rel <= TRAIN_LOSS_RTOL
+            and grad_rel[worst] <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"{tag} kernel vs plain: loss {loss_rel}, grads "
+                             f"{grad_rel}")
+    del ref, got
+    # the main path: warm-up, then the counted and timed steps
+    leaves = {n: t.clone().requires_grad_() for n, t in params.items()}
+
+    def step():
+        loss = loss_fn(leaves, evo.evoformer_attention)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        with torch.no_grad():
+            for t, g in zip(leaves.values(), grads):
+                t -= a["lr"] * g
+        return loss.item(), float(grads[list(leaves).index("z")].norm())
+
+    losses = [step()[0] for _ in range(a["warmup"])]
+    base = _free_memory(dev)
+    for c in counters:
+        c.launches = 0
+    step_s, dz = [], 0.0
+    for _ in range(a["steps"]):
+        sync()
+        t1 = time.perf_counter()
+        loss, dz = step()                 # a host read: synchronizes
+        step_s.append(time.perf_counter() - t1)
+        losses.append(loss)
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated() - base if cuda else 0
+    want = {c.__name__: a["steps"] for c in counters} if cuda else \
+        dict.fromkeys(launches, 0)
+    ms = sorted(step_s)[len(step_s) // 2] * 1e3
+    log(f"{tag} {a['warmup']} + {a['steps']} SGD steps at lr {a['lr']}: "
+        f"losses {[round(v, 6) for v in losses]}; launches {launches} (1 / 1"
+        f" / 1 a step); |dz| at the last step {dz:.3e}; step {ms:.2f} ms "
+        f"median (min {min(step_s) * 1e3:.2f}, max {max(step_s) * 1e3:.2f}); "
+        f"peak memory above the state {peak / 2**30:.3f} GiB")
+    if not (launches == want and losses[-1] < losses[0] and dz > 0
+            and all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"{tag} launches {launches}, losses {losses}, "
+                             f"dz {dz}")
+    result = dict(losses=losses, loss_rel=loss_rel, grad_rel=grad_rel[worst],
+                  launches=launches, step_ms=ms, peak_bytes=peak,
+                  plain_peak_bytes=plain_peak, shares={})
+    if cuda and profile_steps:
+        prof = profile_calls(lambda: [step() for _ in range(profile_steps)],
+                             profile_steps, "AF2 MSA-row steps")
+        if prof:
+            for c in counters:
+                kname = f"{c.__name__}_kernel"
+                us = sum(v for k, v in prof["by_name"].items()
+                         if f"{kname}<" in k or k.startswith(kname)
+                         or f"::{kname}(" in k)
+                result["shares"][kname] = us / prof["busy"]
+            result["busy_ms"] = prof["busy"] / profile_steps / 1e3
+            result["busy_share"] = prof["busy"] / prof["wall"]
+            log(f"{tag} the flash kernels' share of device time: "
+                + ", ".join(f"{k} {v:.1%}"
+                            for k, v in result["shares"].items())
+                + f" (device busy {result['busy_ms']:.2f} ms a step)")
+    del leaves
+    _free_memory(dev)
+    return result
+
+
 def remat_sweep(cfg=None, *, seq=1024, steps=3) -> dict:
     """Where the training step's host time goes: the step of GPT-2 1.5B
     under its default config (the fused xent head) under each remat policy
@@ -2101,6 +2803,34 @@ def remat_sweep(cfg=None, *, seq=1024, steps=3) -> dict:
     return out
 
 
+def flash_bias_rows(bias: dict, evo: dict) -> list:
+    """Phases 5d and 10's rows of the flash kernels: with the bias at the
+    AF2 rows' and the example's shapes (launches: phase 10's timed AF2
+    steps and the example's 50 fp32 steps), and in fp32 at GPT-2 1.5B's
+    shape (no main path runs fp32 without a bias: launches 0)."""
+    rows = []
+    for shape, times, variant, launches, source in (
+            ("af2_msa_row", bias["biased"]["af2_msa_row"], "bias",
+             evo["af2"]["launches"], "flash_attention.cu"),
+            ("evoformer_example", bias["biased"]["evoformer_example"], "bias",
+             evo["example"]["torch.float32"]["launches"],
+             "flash_attention_f32.cu"),
+            ("gpt2_1.5b fp32", bias["fp32"], "fp32", {},
+             "flash_attention_f32.cu")):
+        for name, line in (("flash_fwd", 43), ("flash_bwd_dq", 228),
+                           ("flash_bwd_dkv", 285)):
+            rows.append({"name": name, "shape": shape, "route": "cuda",
+                         "source": "deepspeed_tpu_torch/ops/csrc/" + source,
+                         "replaces": f"deepspeed_tpu/ops/flash_attention.py:"
+                                     f"{line}",
+                         "launches": launches.get(name, 0),
+                         "max_abs_err": bias["max_abs_err"][variant][name],
+                         **{k: times[name][k] for k in (
+                             "ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")}})
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -2127,6 +2857,7 @@ def main() -> int:
     flash = phase_flash_kernels()
     xent = phase_xent_kernels()
     sparse = phase_sparse_kernels()
+    bias = phase_flash_bias_kernels()
     sl = phase_slice()
     woq8 = phase_woq(llama2("7b"), bits=8)
     woq4 = phase_woq(opt("6.7b"), bits=4)
@@ -2155,6 +2886,7 @@ def main() -> int:
             f"config's {train['step_ms']:.1f} ms and "
             f"{train['peak_bytes'] / 2**30:.2f} GiB")
     long = phase_long_train()
+    evo = phase_evoformer()
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     src = "deepspeed_tpu_torch/ops/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2200,6 +2932,8 @@ def main() -> int:
                                     f"{line}",
                         "launches": long["launches"][name],
                         **{k: sparse[name][k] for k in keys}})
+    log("[flash-bias] " + json.dumps({"kernels": flash_bias_rows(bias,
+                                                                 evo)}))
     print(json.dumps({"kernels": kernels}))
     print(dev["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,12 @@
 Counterpart of ``deepspeed_tpu/ops/flash_attention.py``, whose Pallas
 kernels (``_fwd_kernel``, ``_make_bwd_dq_kernel``, ``_make_bwd_dkv_kernel``
 and their streamed long-sequence twins) become three CUDA kernels for
-Hopper in ``csrc/flash_attention.cu`` (its header says what bounds them and
-how they are laid out), built by ``ops/builder.py`` and called through
-ctypes. The kernels stream K/V (or Q/dO) through shared memory at any S,
-so one kernel stands for each TPU pair.
+Hopper in ``csrc/flash_attention.cuh`` (its header comment says what
+bounds them and how they are laid out), instantiated for bf16 / fp16 by
+``csrc/flash_attention.cu`` and for fp32 by ``csrc/flash_attention_f32.cu``,
+built by ``ops/builder.py`` and called through ctypes. The kernels stream
+K/V (or Q/dO) through shared memory at any S, so one kernel stands for
+each TPU pair.
 
 The wrappers :func:`flash_fwd`, :func:`flash_bwd_dq` and
 :func:`flash_bwd_dkv` launch their kernel for CUDA tensors and take the
@@ -16,9 +18,13 @@ they launch or raise. Each counts its launches in ``.launches``.
 :func:`make_flash_attention` is the ``attention_fn`` factory of
 ``TransformerLM``.
 
-On the card the kernels take bf16 and fp16 (fp32 accumulation) with head
-dims 16, 32, 64 and 128; fp32 inputs and other head dims raise. The CPU
-path takes any float dtype.
+On the card the kernels take bf16, fp16 and fp32 operands (fp32
+accumulation; fp32 products through 3xTF32, about fp32's accuracy) with
+head dims 16, 32, 64 and 128; other head dims raise. The additive score
+bias (``bias=``: (S, S), (H, S, S) or (B|1, H|1, S, S), fp32, bf16 or fp16
+whatever q's dtype) is read by all three kernels through its own strides,
+a broadcast dim at stride 0, and ``flash_bwd_dq`` writes its gradient for
+a full (B, H, S, S) bias. The CPU path takes any float dtype.
 """
 
 from __future__ import annotations
@@ -29,12 +35,15 @@ from typing import Optional
 
 import torch
 
-from ..utils.roadmap import later
 from . import builder
 
 BIG_NEG = -2.0 ** 30
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-_DTYPE_CODE = {torch.float16: 1, torch.bfloat16: 2}
+_DTYPE_CODE = {torch.bfloat16: 2, torch.float16: 1, torch.float32: 3}
+# the kernels that take 16-bit operands only (ops/sparse_attention.py)
+HALF_DTYPE_CODE = {torch.bfloat16: 2, torch.float16: 1}
+_DTYPE_NAME = {torch.bfloat16: "bf16", torch.float16: "fp16",
+               torch.float32: "fp32"}
 
 
 # ------------------------------------------------------------ plain versions
@@ -57,9 +66,23 @@ def _keep_mask(B, S, device, *, mask, causal, keep=None):
     return out
 
 
-def _scores(q, k, *, mask, alibi_slopes, causal, keep=None):
+def bias4(bias, B, H, S):
+    """``bias`` as a (B|1, H|1, S, S) view (no copy). Raises ValueError on
+    any other shape."""
+    if bias.ndim in (2, 3, 4):
+        b4 = bias[(None,) * (4 - bias.ndim)]
+        if tuple(b4.shape[2:]) == (S, S) and b4.shape[0] in (1, B) \
+                and b4.shape[1] in (1, H):
+            return b4
+    raise ValueError(f"bias must be (S, S), (H, S, S) or (B|1, H|1, S, S) "
+                     f"with B {B}, H {H}, S {S}; got {tuple(bias.shape)}")
+
+
+def _scores(q, k, *, mask, alibi_slopes, causal, keep=None, bias=None):
     """fp32 (B, H, S, S) scores as the kernels form them, masked positions
-    at BIG_NEG, and the keep mask. q: (B, S, H, hd); k: (B, S, KV, hd)."""
+    at BIG_NEG, and the keep mask. q: (B, S, H, hd); k: (B, S, KV, hd);
+    ``bias`` (S, S), (H, S, S) or (B|1, H|1, S, S), upcast and added
+    before ALiBi and the masks (JAX ``_masked_scores`` :114)."""
     B, S, H, hd = q.shape
     G = H // k.shape[2]
     kr = k.repeat_interleave(G, dim=2) if G > 1 else k
@@ -67,6 +90,8 @@ def _scores(q, k, *, mask, alibi_slopes, causal, keep=None):
     # of the upcast operands is the kernels' bf16 x bf16 -> fp32 dot
     s = torch.einsum("bshd,bthd->bhst", _acc(q), _acc(kr))
     s = s * (1.0 / math.sqrt(hd))
+    if bias is not None:
+        s = s + bias4(bias, B, H, S).to(s.device, s.dtype)
     if alibi_slopes is not None:
         pos = torch.arange(S, device=q.device)
         rel = (pos[None, :] - pos[:, None]).float()
@@ -76,16 +101,17 @@ def _scores(q, k, *, mask, alibi_slopes, causal, keep=None):
 
 
 def flash_attention_fwd_plain(q, k, v, *, mask=None, alibi_slopes=None,
-                              causal=True, keep=None):
+                              causal=True, keep=None, bias=None):
     """The forward kernel's function in plain tensor ops: masked scores at
     BIG_NEG with zero probability, p rounded to v's dtype before p·v,
     l clamped to 1e-30. Returns o (B, S, H, hd) in q's dtype and the fp32
     logsumexp (B, H, S). ``keep`` (S, S) bool is a further keep-mask (the
-    block-sparse plain versions pass their layout's)."""
+    block-sparse plain versions pass their layout's); ``bias`` an additive
+    score bias (:func:`bias4`'s shapes)."""
     G = q.shape[2] // k.shape[2]
     vr = v.repeat_interleave(G, dim=2) if G > 1 else v
     s, keep = _scores(q, k, mask=mask, alibi_slopes=alibi_slopes,
-                      causal=causal, keep=keep)
+                      causal=causal, keep=keep, bias=bias)
     m = s.amax(dim=-1, keepdim=True).clamp_min(BIG_NEG)
     p = torch.where(keep, torch.exp(s - m), 0.0)
     l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -96,36 +122,44 @@ def flash_attention_fwd_plain(q, k, v, *, mask=None, alibi_slopes=None,
 
 
 def _bwd_plain(q, k, v, do, lse, delta, *, mask, alibi_slopes, causal,
-               keep=None):
+               keep=None, bias=None):
     """(p, ds) (B, H, S, S) fp32, recomputed from the logsumexp."""
     G = q.shape[2] // k.shape[2]
     vr = v.repeat_interleave(G, dim=2) if G > 1 else v
     s, keep = _scores(q, k, mask=mask, alibi_slopes=alibi_slopes,
-                      causal=causal, keep=keep)
+                      causal=causal, keep=keep, bias=bias)
     p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
     dp = torch.einsum("bshd,bthd->bhst", _acc(do), _acc(vr))
     return p, p * (dp - delta[..., None])
 
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, mask=None,
-                       alibi_slopes=None, causal=True, keep=None):
-    """dq (B, S, H, hd): ds rounded to k's dtype before ds·k, scaled once."""
+                       alibi_slopes=None, causal=True, keep=None, bias=None,
+                       grad_bias=False):
+    """dq (B, S, H, hd): ds rounded to k's dtype before ds·k, scaled once.
+    With ``grad_bias`` also dbias = ds (B, H, S, S) in the bias's dtype
+    (JAX :270), 0 where the causal cut or the mask hides a position:
+    returns (dq, dbias)."""
     G = q.shape[2] // k.shape[2]
     kr = k.repeat_interleave(G, dim=2) if G > 1 else k
     _, ds = _bwd_plain(q, k, v, do, lse, delta, mask=mask,
-                       alibi_slopes=alibi_slopes, causal=causal, keep=keep)
+                       alibi_slopes=alibi_slopes, causal=causal, keep=keep,
+                       bias=bias)
     dq = torch.einsum("bhst,bthd->bshd", _acc(ds.to(k.dtype)), _acc(kr))
-    return (dq * (1.0 / math.sqrt(q.shape[-1]))).to(q.dtype)
+    dq = (dq * (1.0 / math.sqrt(q.shape[-1]))).to(q.dtype)
+    return (dq, ds.to(bias.dtype)) if grad_bias else dq
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, mask=None,
-                        alibi_slopes=None, causal=True, keep=None):
+                        alibi_slopes=None, causal=True, keep=None,
+                        bias=None):
     """(dk, dv) (B, S, KV, hd), each KV head summed over its query heads in
     fp32: p rounded to dO's dtype before pᵀ·dO, ds to q's before dsᵀ·q."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     p, ds = _bwd_plain(q, k, v, do, lse, delta, mask=mask,
-                       alibi_slopes=alibi_slopes, causal=causal, keep=keep)
+                       alibi_slopes=alibi_slopes, causal=causal, keep=keep,
+                       bias=bias)
     dk = torch.einsum("bhst,bshd->bthd", _acc(ds.to(q.dtype)), _acc(q))
     dv = torch.einsum("bhst,bshd->bthd", _acc(p.to(do.dtype)), _acc(do))
     dk = dk.reshape(B, S, KV, H // KV, hd).sum(3) * (1.0 / math.sqrt(hd))
@@ -134,12 +168,16 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, mask=None,
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, mask=None,
-                              alibi_slopes=None, causal=True):
-    """dq, dk, dv from the forward's o and lse (delta = rowsum(dO·o))."""
+                              alibi_slopes=None, causal=True, bias=None,
+                              grad_bias=False):
+    """dq, dk, dv (and then dbias, with ``grad_bias``) from the forward's
+    o and lse (delta = rowsum(dO·o))."""
     delta = attention_delta(o, do)
-    kw = dict(mask=mask, alibi_slopes=alibi_slopes, causal=causal)
-    return (flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw),
-            *flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw))
+    kw = dict(mask=mask, alibi_slopes=alibi_slopes, causal=causal, bias=bias)
+    dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, grad_bias=grad_bias,
+                            **kw)
+    dkv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
+    return (dq[0], *dkv, dq[1]) if grad_bias else (dq, *dkv)
 
 
 def attention_delta(o, do):
@@ -149,24 +187,31 @@ def attention_delta(o, do):
 
 
 # ------------------------------------------------------------------ kernels
-def _lib():
-    lib = builder.load("flash_attention")
+def _lib(dtype):
+    """The kernels' library for q's dtype: ``csrc/flash_attention_f32.cu``
+    for fp32, ``csrc/flash_attention.cu`` for bf16 / fp16 (two sources of
+    one header, so that nvcc builds them side by side)."""
+    lib = builder.load("flash_attention_f32" if dtype == torch.float32
+                       else "flash_attention")
     if lib.dstpu_flash_fwd.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # pointers and the stream as c_void_p: without argtypes ctypes
-        # passes a Python int as a 32-bit C int and cuts the pointer
-        lib.dstpu_flash_fwd.argtypes = [P] * 7 + [I] * 7 + [F, P]
-        lib.dstpu_flash_bwd_dq.argtypes = [P] * 9 + [I] * 7 + [F, P]
-        lib.dstpu_flash_bwd_dkv.argtypes = [P] * 10 + [I] * 7 + [F, P]
+        # passes a Python int as a 32-bit C int and cuts the pointer; the
+        # bias strides as 64-bit ints
+        tail = [I] * 8 + [ctypes.c_longlong] * 2 + [F, P]
+        lib.dstpu_flash_fwd.argtypes = [P] * 8 + tail
+        lib.dstpu_flash_bwd_dq.argtypes = [P] * 11 + tail
+        lib.dstpu_flash_bwd_dkv.argtypes = [P] * 11 + tail
         for fn in (lib.dstpu_flash_fwd, lib.dstpu_flash_bwd_dq,
                    lib.dstpu_flash_bwd_dkv):
             fn.restype = I
     return lib
 
 
-def _check(name, q, k, v, do=None, *fp32):
+def _check(name, q, k, v, do=None, *fp32, codes=_DTYPE_CODE):
     """Raise on what the kernels do not take; returns (B, S, H, KV, hd).
-    q, k, v (and dO) share a dtype; ``fp32`` are lse and delta."""
+    q, k, v (and dO) share a dtype of ``codes``; ``fp32`` are lse and
+    delta."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     B, S, H, hd = q.shape
@@ -174,9 +219,10 @@ def _check(name, q, k, v, do=None, *fp32):
             or k.shape[3] != hd or H % k.shape[2]:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not fit k "
                          f"{tuple(k.shape)} / v {tuple(v.shape)}")
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"{name}: the CUDA kernels take bf16 or fp16, got "
-                         f"{q.dtype} (fp32 runs on the CPU path only)")
+    if q.dtype not in codes:
+        take = ", ".join(_DTYPE_NAME[d] for d in codes)
+        raise ValueError(f"{name}: the CUDA kernels take "
+                         f"{' or '.join(take.rsplit(', ', 1))}, got {q.dtype}")
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {hd} not in {KERNEL_HEAD_DIMS}")
     if q.device.index != torch.cuda.current_device():
@@ -213,6 +259,26 @@ def _side(mask, slopes, B, S, H, device):
     return m, s
 
 
+def _bias_arg(name, bias, B, H, S, device):
+    """The kernels' bias operand: (pointer, dtype code, batch stride, head
+    stride), a broadcast dim at stride 0; (None, 0, 0, 0) without one. The
+    bias is read where it lies, never copied or expanded."""
+    if bias is None:
+        return None, 0, 0, 0
+    b4 = bias4(bias, B, H, S)
+    if b4.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: the bias must be fp32, bf16 or fp16, got "
+                         f"{b4.dtype}")
+    if b4.device != device:
+        raise ValueError(f"{name}: the bias is on {b4.device}, q on {device}")
+    if S > 1 and (b4.stride(3) != 1 or b4.stride(2) != S):
+        raise ValueError(f"{name}: the bias must be contiguous in its last "
+                         f"two dims, got strides {tuple(b4.stride())}")
+    return (b4.data_ptr(), _DTYPE_CODE[b4.dtype],
+            b4.stride(0) if b4.shape[0] > 1 else 0,
+            b4.stride(1) if b4.shape[1] > 1 else 0)
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -222,22 +288,25 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def flash_fwd(q, k, v, *, mask=None, alibi_slopes=None, causal=True):
+def flash_fwd(q, k, v, *, mask=None, alibi_slopes=None, causal=True,
+              bias=None):
     """Forward: o (B, S, H, hd) and fp32 lse (B, H, S). q (B, S, H, hd),
     k/v (B, S, KV, hd) in the JAX layout; ``mask`` (B, S) key padding
-    ({0, 1}); ``alibi_slopes`` (H,)."""
+    ({0, 1}); ``alibi_slopes`` (H,); ``bias`` an additive score bias
+    ((S, S), (H, S, S) or (B|1, H|1, S, S))."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, mask=mask,
                                          alibi_slopes=alibi_slopes,
-                                         causal=causal)
+                                         causal=causal, bias=bias)
     B, S, H, KV, hd = _check("flash_fwd", q, k, v)
     m, s = _side(mask, alibi_slopes, B, S, H, q.device)
+    bp, bcode, sb, sh = _bias_arg("flash_fwd", bias, B, H, S, q.device)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    err = _lib().dstpu_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(m), _ptr(s),
+    err = _lib(q.dtype).dstpu_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(m), _ptr(s), bp,
         o.data_ptr(), lse.data_ptr(), B, S, H, KV, hd, int(causal),
-        _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd),
+        _DTYPE_CODE[q.dtype], bcode, sb, sh, 1.0 / math.sqrt(hd),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash_fwd")
     flash_fwd.launches += 1
@@ -245,38 +314,56 @@ def flash_fwd(q, k, v, *, mask=None, alibi_slopes=None, causal=True):
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, mask=None, alibi_slopes=None,
-                 causal=True):
-    """dq (B, S, H, hd) from dO, the forward's lse and delta (B, H, S)."""
+                 causal=True, bias=None, grad_bias=False):
+    """dq (B, S, H, hd) from dO, the forward's lse and delta (B, H, S).
+    With ``grad_bias`` (a full (B, H, S, S) bias, which may be a stride-0
+    expanded view) also dbias (B, H, S, S) in the bias's dtype: returns
+    (dq, dbias)."""
+    B, S, H = q.shape[:3]
+    if grad_bias and (bias is None
+                      or tuple(bias4(bias, B, H, S).shape[:2]) != (B, H)):
+        raise ValueError("flash_bwd_dq: grad_bias needs a full (B, H, S, S) "
+                         "bias")
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, mask=mask,
-                                  alibi_slopes=alibi_slopes, causal=causal)
+                                  alibi_slopes=alibi_slopes, causal=causal,
+                                  bias=bias, grad_bias=grad_bias)
     B, S, H, KV, hd = _check("flash_bwd_dq", q, k, v, do, lse, delta)
     m, s = _side(mask, alibi_slopes, B, S, H, q.device)
+    bp, bcode, sb, sh = _bias_arg("flash_bwd_dq", bias, B, H, S, q.device)
     dq = torch.empty_like(q)
-    err = _lib().dstpu_flash_bwd_dq(
+    # empty, not zeros: the kernel writes every element of dbias, zeros
+    # where the causal loop skips a key tile
+    dbias = torch.empty((B, H, S, S), dtype=bias.dtype, device=q.device) \
+        if grad_bias else None
+    err = _lib(q.dtype).dstpu_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), _ptr(m), _ptr(s), dq.data_ptr(),
-        B, S, H, KV, hd, int(causal), _DTYPE_CODE[q.dtype],
-        1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+        lse.data_ptr(), delta.data_ptr(), _ptr(m), _ptr(s), bp, dq.data_ptr(),
+        _ptr(dbias), B, S, H, KV, hd, int(causal), _DTYPE_CODE[q.dtype],
+        bcode, sb, sh, 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
-    return dq
+    return (dq, dbias) if grad_bias else dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, mask=None, alibi_slopes=None,
-                  causal=True):
+                  causal=True, bias=None):
     """(dk, dv) (B, S, KV, hd), summed over each KV head's query heads."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, mask=mask,
-                                   alibi_slopes=alibi_slopes, causal=causal)
+                                   alibi_slopes=alibi_slopes, causal=causal,
+                                   bias=bias)
     B, S, H, KV, hd = _check("flash_bwd_dkv", q, k, v, do, lse, delta)
     m, s = _side(mask, alibi_slopes, B, S, H, q.device)
+    bp, bcode, sb, sh = _bias_arg("flash_bwd_dkv", bias, B, H, S, q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _lib().dstpu_flash_bwd_dkv(
+    err = _lib(q.dtype).dstpu_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), _ptr(m), _ptr(s), dk.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(m), _ptr(s), bp, dk.data_ptr(),
         dv.data_ptr(), B, S, H, KV, hd, int(causal), _DTYPE_CODE[q.dtype],
-        1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+        bcode, sb, sh, 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
     return dk, dv
@@ -289,45 +376,84 @@ flash_bwd_dkv.launches = 0
 
 # ------------------------------------------------------------ autograd
 class _Flash(torch.autograd.Function):
-    """Forward saves o and the fp32 lse; backward runs dq then dk/dv."""
+    """Forward saves o and the fp32 lse; backward runs dq (with dbias when
+    the bias takes a gradient) then dk/dv."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, slopes, causal):
+    def forward(ctx, q, k, v, mask, slopes, bias, causal):
         o, lse = flash_fwd(q, k, v, mask=mask, alibi_slopes=slopes,
-                           causal=causal)
-        ctx.save_for_backward(q, k, v, o, lse, mask, slopes)
+                           causal=causal, bias=bias)
+        ctx.save_for_backward(q, k, v, o, lse, mask, slopes, bias)
         ctx.causal = causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse, mask, slopes = ctx.saved_tensors
+        q, k, v, o, lse, mask, slopes, bias = ctx.saved_tensors
         do = do.contiguous()
         delta = attention_delta(o, do)
-        kw = dict(mask=mask, alibi_slopes=slopes, causal=ctx.causal)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        kw = dict(mask=mask, alibi_slopes=slopes, causal=ctx.causal,
+                  bias=bias)
+        dbias = None
+        if ctx.needs_input_grad[5]:
+            dq, dbias = flash_bwd_dq(q, k, v, do, lse, delta, grad_bias=True,
+                                     **kw)
+        else:
+            dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, dbias, None
 
 
 def flash_attention(q, k, v, *, mask: Optional[torch.Tensor] = None,
                     alibi_slopes: Optional[torch.Tensor] = None,
                     causal: bool = True, block: int = 512,
-                    bias: Optional[torch.Tensor] = None):
+                    bias: Optional[torch.Tensor] = None,
+                    bias_is_constant: bool = False):
     """Fused attention, differentiable. q: (B, S, H, hd); k/v: (B, S, KV,
     hd); returns (B, S, H, hd). ``mask`` is a (B, S) key-padding mask and
     ``alibi_slopes`` (H,) per-head slopes whose ramp the kernels build
     themselves. ``block`` is the TPU tile size, kept for the signature:
     the CUDA kernels pick their own tiles and take any S. GQA's dk/dv come
-    out summed per group inside the dk/dv kernel."""
+    out summed per group inside the dk/dv kernel.
+
+    ``bias`` is an additive score bias, (S, S), (H, S, S) or (B|1, H|1, S,
+    S), in fp32, bf16 or fp16 whatever q's dtype; the kernels read it in
+    place. Its gradient follows the JAX function's by shape (:913-926):
+    a full (B, H, S, S) bias gets dbias from the dq kernel; a broadcast
+    one gets none with ``bias_is_constant=True`` and the summed cotangent
+    otherwise. ``bias`` and ``alibi_slopes`` exclude each other, as in
+    JAX."""
     del block
-    if bias is not None:
-        raise NotImplementedError(
-            "flash_attention: the additive bias operand and its dbias are "
-            f"not ported yet: {later(8)}; pass alibi_slopes for ALiBi")
+    if bias is not None and alibi_slopes is not None:
+        raise ValueError("pass either bias or alibi_slopes, not both")
     if q.device.type == "cuda":
         q, k, v = (t.contiguous() for t in (q, k, v))
-    return _Flash.apply(q, k, v, mask, alibi_slopes, causal)
+    if bias is not None:
+        bias = bias_operand(bias, q, bias_is_constant)
+    return _Flash.apply(q, k, v, mask, alibi_slopes, bias, causal)
+
+
+def bias_operand(bias, q, bias_is_constant: bool):
+    """The bias as :func:`flash_attention` hands it to the kernels: a
+    (B|1, H|1, S, S) view, contiguous in its last two dims on the card;
+    a broadcast one detached when constant, else expanded to (B, H, S, S)
+    at stride 0, so that the dq kernel writes a full dbias."""
+    B, S, H = q.shape[:3]
+    bias = bias4(bias, B, H, S)
+    if q.device.type == "cuda" and S > 1 \
+            and (bias.stride(3) != 1 or bias.stride(2) != S):
+        bias = bias.contiguous()          # at its own shape, not (B, H)
+    if tuple(bias.shape[:2]) == (B, H):
+        return bias
+    if bias_is_constant:
+        # JAX's stop_gradient (:917): the kernels read the broadcast at
+        # stride 0 and no gradient flows back to it
+        return bias.detach()
+    # JAX materializes the broadcast here (jnp.broadcast_to :921) so that
+    # its transpose sums dbias. The port does not: a stride-0 expanded view
+    # goes to the kernels, which read it in place, the dq kernel writes a
+    # full dbias, and autograd of expand sums it to the bias's shape.
+    return bias.expand(B, H, S, S)
 
 
 def make_flash_attention(block: int = 512, bias_is_constant: bool = True,
@@ -336,16 +462,18 @@ def make_flash_attention(block: int = 512, bias_is_constant: bool = True,
     factory's capability flags (``ops/flash_attention.py:935-957``).
     ``causal=False`` builds the bidirectional function an encoder
     (``TransformerConfig.causal=False``) needs; the model refuses a causal
-    one there."""
+    one there. ``bias_is_constant=True`` (the model path's default)
+    gives a broadcast bias no gradient; a caller training through a
+    broadcast bias builds the function with ``bias_is_constant=False``."""
 
     def attn(q, k, v, *, mask=None, bias=None, alibi_slopes=None):
         return flash_attention(q, k, v, mask=mask, bias=bias,
                                alibi_slopes=alibi_slopes, causal=causal,
-                               block=block)
+                               block=block, bias_is_constant=bias_is_constant)
 
-    # the bias operand raises until it is ported (queue 1 item 8): a caller
-    # routing an additive bias by this flag takes its dense path instead
-    attn.accepts_bias = False
+    # the model prefers slopes for ALiBi (models/transformer.py:422): the
+    # kernels build the ramp themselves and no (H, S, S) bias is formed
+    attn.accepts_bias = True
     attn.bias_is_constant = bias_is_constant
     attn.accepts_alibi_slopes = True
     attn.causal = causal

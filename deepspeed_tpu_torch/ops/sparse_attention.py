@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from . import builder
-from .flash_attention import (_DTYPE_CODE, _check, _raise_on,
+from .flash_attention import (HALF_DTYPE_CODE, _check, _raise_on,
                               attention_delta, flash_attention_fwd_plain,
                               flash_bwd_dkv_plain, flash_bwd_dq_plain)
 
@@ -303,7 +303,7 @@ def _launch_args(layout, q, k, lists_of):
     idx, cnt, order = lists_of
     return (idx.data_ptr(), cnt.data_ptr(), order.data_ptr(), idx.shape[1],
             B, S, H, k.shape[2], hd, layout.block, int(layout.causal),
-            _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd),
+            HALF_DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
@@ -312,7 +312,7 @@ def sparse_fwd(q, k, v, layout: SparseLayout):
     k/v (B, S, KV, hd) in the JAX layout."""
     if q.device.type == "cpu":
         return sparse_attention_fwd_plain(q, k, v, layout)
-    B, S, H, _, _ = _check("sparse_fwd", q, k, v)
+    B, S, H, _, _ = _check("sparse_fwd", q, k, v, codes=HALF_DTYPE_CODE)
     _check_layout("sparse_fwd", q, layout)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -329,7 +329,8 @@ def sparse_bwd_dq(q, k, v, do, lse, delta, layout: SparseLayout):
     """dq (B, S, H, hd) from dO, the forward's lse and delta (B, H, S)."""
     if q.device.type == "cpu":
         return sparse_bwd_dq_plain(q, k, v, do, lse, delta, layout)
-    _check("sparse_bwd_dq", q, k, v, do, lse, delta)
+    _check("sparse_bwd_dq", q, k, v, do, lse, delta,
+           codes=HALF_DTYPE_CODE)
     _check_layout("sparse_bwd_dq", q, layout)
     dq = torch.empty_like(q)
     err = _lib().dstpu_sparse_bwd_dq(
@@ -345,7 +346,8 @@ def sparse_bwd_dkv(q, k, v, do, lse, delta, layout: SparseLayout):
     """(dk, dv) (B, S, KV, hd), summed over each KV head's query heads."""
     if q.device.type == "cpu":
         return sparse_bwd_dkv_plain(q, k, v, do, lse, delta, layout)
-    _check("sparse_bwd_dkv", q, k, v, do, lse, delta)
+    _check("sparse_bwd_dkv", q, k, v, do, lse, delta,
+           codes=HALF_DTYPE_CODE)
     _check_layout("sparse_bwd_dkv", q, layout)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = _lib().dstpu_sparse_bwd_dkv(

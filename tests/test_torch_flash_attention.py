@@ -138,14 +138,27 @@ def test_plain_pieces_agree_with_the_autograd_function():
 
 
 def test_bias_raises_and_factory_flags():
-    q = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match=r"item 8 \(off the main"):
-        tfa.flash_attention(q, q, q, bias=torch.zeros(8, 8))
+    """The factory's function takes the bias (``accepts_bias``) and computes
+    with it; what no bias layout of the JAX function takes raises: an odd
+    bias shape, a bias beside ALiBi slopes, dbias of a broadcast bias."""
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.standard_normal((1, 8, 2, 16)).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal((2, 8, 8)).astype(np.float32))
     fn = tfa.make_flash_attention()
-    assert fn.bias_is_constant and fn.accepts_alibi_slopes
-    assert not fn.accepts_bias          # until the bias operand is ported
-    with pytest.raises(NotImplementedError, match="bias operand"):
-        fn(q, q, q, bias=torch.zeros(8, 8))
+    assert fn.accepts_bias and fn.bias_is_constant and fn.accepts_alibi_slopes
+    got = fn(q, q, q, bias=bias)
+    assert torch.equal(got, tfa.flash_attention(q, q, q, bias=bias))
+    assert not torch.allclose(got, fn(q, q, q))
+    for shape in ((8, 9), (3, 8, 8), (2, 2, 8, 8), (8,), (1, 1, 1, 8, 8)):
+        with pytest.raises(ValueError, match="bias must be"):
+            fn(q, q, q, bias=torch.zeros(shape))
+    with pytest.raises(ValueError, match="not both"):
+        tfa.flash_attention(q, q, q, bias=bias, alibi_slopes=torch.ones(2))
+    o, lse = tfa.flash_fwd(q, q, q, bias=bias)
+    delta = tfa.attention_delta(o, q)
+    with pytest.raises(ValueError, match=r"full \(B, H, S, S\)"):
+        tfa.flash_bwd_dq(q, q, q, q, lse, delta, bias=bias[0],
+                         grad_bias=True)
 
 
 def test_non_cpu_tensors_never_take_the_plain_path():
@@ -160,3 +173,181 @@ def test_non_cpu_tensors_never_take_the_plain_path():
     with pytest.raises(ValueError, match="unsupported device"):
         tfa.flash_bwd_dkv(q, q, q, q, None, None)
     assert tfa.flash_fwd.launches == before
+
+
+# ------------------------------------------------------------ bias operand
+# The bias cases of tests/unit/test_flash_attention.py:158-258: the JAX
+# kernels in interpret mode against the port's plain path on the same
+# numpy inputs, fp32, at that file's tolerances (rtol = atol): 3e-5 for
+# the forward, 1e-4 for the grads (both sides fp32; the kernels stream
+# 16-key blocks, the plain path takes one softmax over all keys).
+def _biased_inputs(B, S, H, hd, bias_shape, seed):
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal((B, S, H, hd)).astype(np.float32)
+               for _ in range(3))
+    bias = np.random.default_rng(seed).standard_normal(bias_shape)
+    return q, k, v, bias.astype(np.float32)
+
+
+def _jax_biased(q, k, v, bias, *, causal=True, mask=None, const=False,
+                wrt_bias=True):
+    """o and the grads of sum(o²) (q, k, v and, with ``wrt_bias``, bias)
+    of the JAX flash_attention in interpret mode."""
+    mask = None if mask is None else jnp.asarray(mask)
+
+    def f(qq, kk, vv, bb):
+        return jfa.flash_attention(qq, kk, vv, bias=bb, mask=mask,
+                                   causal=causal, bias_is_constant=const,
+                                   block=16, interpret=True)
+
+    args = [jnp.asarray(a) for a in (q, k, v, bias)]
+    o = f(*args)
+    grads = jax.grad(lambda *a: jnp.sum(jnp.square(f(*a))),
+                     argnums=(0, 1, 2, 3) if wrt_bias else (0, 1, 2))(*args)
+    return [np.asarray(t.astype(jnp.float32)) for t in (o, *grads)]
+
+
+def _torch_biased(q, k, v, bias, *, causal=True, mask=None, const=False,
+                  bias_dtype=torch.float32):
+    """The port's o and its grads of sum(o²): q, k, v, then the bias's
+    (None when no gradient reaches it)."""
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    bt = torch.from_numpy(bias).to(bias_dtype).requires_grad_()
+    mt = None if mask is None else torch.from_numpy(mask)
+    o = tfa.flash_attention(qt, kt, vt, bias=bt, mask=mt, causal=causal,
+                            bias_is_constant=const)
+    o.square().sum().backward()
+    return [t if t is None else t.detach().float().numpy()
+            for t in (o, qt.grad, kt.grad, vt.grad, bt.grad)]
+
+
+BIAS_LAYOUTS = {"hss": lambda B, H, S: (H, S, S),
+                "bhss": lambda B, H, S: (B, H, S, S),
+                "b1ss": lambda B, H, S: (B, 1, S, S),
+                "ss": lambda B, H, S: (S, S)}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("layout", list(BIAS_LAYOUTS))
+def test_biased_forward_matches_jax(layout, causal):
+    B, S, H, hd = 2, 64, 4, 32
+    q, k, v, bias = _biased_inputs(B, S, H, hd,
+                                   BIAS_LAYOUTS[layout](B, H, S), 7)
+    want = _jax_biased(q, k, v, bias, causal=causal)[0]
+    got = tfa.flash_fwd(*(torch.from_numpy(a) for a in (q, k, v)),
+                        bias=torch.from_numpy(bias), causal=causal)[0]
+    np.testing.assert_allclose(got.numpy(), want, rtol=3e-5, atol=3e-5)
+
+
+def test_biased_forward_with_mask_matches_jax():
+    B, S, H, hd = 2, 32, 4, 32
+    q, k, v, bias = _biased_inputs(B, S, H, hd, (H, S, S), 3)
+    mask = np.ones((B, S), np.float32)
+    mask[:, 24:] = 0.0
+    want = _jax_biased(q, k, v, bias, mask=mask)
+    got = _torch_biased(q, k, v, bias, mask=mask)
+    for name, g, w in zip(("o", "dq", "dk", "dv", "dbias"), got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+    np.testing.assert_allclose(got[0], want[0], rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_full_shape_bias_grads_match_jax(causal):
+    """dq, dk, dv and the in-kernel dbias of a full (B, H, S, S) bias."""
+    B, S, H, hd = 2, 32, 2, 16
+    q, k, v, bias = _biased_inputs(B, S, H, hd, (B, H, S, S), 5)
+    want = _jax_biased(q, k, v, bias, causal=causal)
+    got = _torch_biased(q, k, v, bias, causal=causal)
+    for name, g, w in zip(("o", "dq", "dk", "dv", "dbias"), got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+    if causal:                    # hidden by the causal cut: exactly 0
+        assert np.all(np.triu(got[4], 1) == 0)
+
+
+@pytest.mark.parametrize("const", [False, True])
+def test_broadcast_bias_grads_match_jax(const):
+    """An (H, S, S) bias: q/k/v grads in both modes; a learned one gets the
+    summed cotangent (JAX broadcasts it outside its kernel, the port reads
+    a stride-0 view), a constant one none (JAX's zero)."""
+    B, S, H, hd = 2, 32, 4, 16
+    q, k, v, bias = _biased_inputs(B, S, H, hd, (H, S, S), 9)
+    want = _jax_biased(q, k, v, bias, causal=True, const=const)
+    got = _torch_biased(q, k, v, bias, causal=True, const=const)
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+    if const:
+        assert got[4] is None and np.all(want[4] == 0)
+    else:
+        assert got[4].shape == (H, S, S)
+        np.testing.assert_allclose(got[4], want[4], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("bias_dtype,q_dtype", [("bfloat16", "float32"),
+                                                ("float32", "bfloat16")])
+def test_bias_dtype_independent_of_q(bias_dtype, q_dtype):
+    """The bias is upcast to fp32 inside the scores whatever q's dtype, and
+    dbias comes out in the bias's dtype. Both sides see the same rounded
+    values. Everything is held at this file's tolerance for q's dtype
+    (with bf16 q, o and dO = 2o round to bf16 on each side, and ds with
+    them), and a bf16 dbias of fp32 q within one bf16 rounding (2^-8) of
+    the JAX kernel's."""
+    B, S, H, hd = 2, 32, 2, 16
+    q, k, v, bias = _biased_inputs(B, S, H, hd, (B, H, S, S), 11)
+    def rnd(a, dt):               # the values dt holds, as fp32
+        return np.array(jnp.asarray(a, dt).astype(jnp.float32))
+
+    q, k, v = (rnd(a, q_dtype) for a in (q, k, v))
+    bias = rnd(bias, bias_dtype)
+    jq, jk, jv = (jnp.asarray(a, q_dtype) for a in (q, k, v))
+    jb = jnp.asarray(bias, bias_dtype)
+
+    def f(qq, kk, vv, bb):
+        return jfa.flash_attention(qq, kk, vv, bias=bb, block=16,
+                                   interpret=True)
+
+    loss = lambda *a: jnp.sum(jnp.square(f(*a).astype(jnp.float32)))  # noqa
+    want = [f(jq, jk, jv, jb),
+            *jax.grad(loss, argnums=(0, 1, 2, 3))(jq, jk, jv, jb)]
+    assert want[4].dtype == jnp.dtype(bias_dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, q_dtype))
+                  .requires_grad_() for a in (q, k, v))
+    tb = torch.from_numpy(bias).to(getattr(torch, bias_dtype)) \
+        .requires_grad_()
+    o = tfa.flash_attention(tq, tk, tv, bias=tb)
+    o.float().square().sum().backward()
+    got = (o, tq.grad, tk.grad, tv.grad, tb.grad)
+    assert tb.grad.dtype == getattr(torch, bias_dtype)
+    for name, g, w in zip(("o", "dq", "dk", "dv", "dbias"), got, want):
+        g, w = g.detach().float().numpy(), np.asarray(w.astype(jnp.float32))
+        share = np.abs(g - w).max() / np.abs(w).max()
+        tol = 2.0 ** -8 if name == "dbias" and bias_dtype == "bfloat16" \
+            else TOL[q_dtype]
+        assert share <= tol, (name, share)
+
+
+def test_plain_dbias_zero_where_hidden():
+    """The plain dq with ``grad_bias``: dbias = ds in the bias's dtype,
+    exactly 0 above the causal diagonal and on padded keys, and the same
+    function the autograd path's dbias is."""
+    B, S, H, hd = 2, 24, 2, 16
+    q, k, v, bias = (torch.from_numpy(a) for a in
+                     _biased_inputs(B, S, H, hd, (B, H, S, S), 13))
+    mask = torch.ones(B, S)
+    mask[1, -4:] = 0
+    do = torch.randn(B, S, H, hd, generator=torch.Generator().manual_seed(0))
+    bias16 = bias.half()
+    o, lse = tfa.flash_fwd(q, k, v, bias=bias16, mask=mask)
+    delta = tfa.attention_delta(o, do)
+    dq, dbias = tfa.flash_bwd_dq(q, k, v, do, lse, delta, bias=bias16,
+                                 mask=mask, grad_bias=True)
+    assert dbias.dtype == torch.float16 and dbias.shape == (B, H, S, S)
+    assert torch.all(dbias.float().triu(1) == 0)
+    assert torch.all(dbias[1, :, :, -4:] == 0)
+    assert torch.equal(dq, tfa.flash_bwd_dq(q, k, v, do, lse, delta,
+                                            bias=bias16, mask=mask))
+    *_, want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, mask=mask,
+                                             bias=bias16, grad_bias=True)
+    assert torch.equal(dbias, want)

@@ -257,9 +257,12 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
 def test_flash_kernels_refuse_what_they_do_not_take(cuda):
     from deepspeed_tpu_torch.ops import flash_attention as fa
 
-    q = torch.zeros(1, 64, 2, 64, device=cuda)
-    with pytest.raises(ValueError, match="bf16 or fp16"):
-        fa.flash_fwd(q, q, q)
+    # fp32 runs through the kernels (it raised before they took fp32)
+    q = torch.randn(1, 64, 2, 64, device=cuda)
+    o, lse = fa.flash_fwd(q, q, q)
+    assert _max_share(o, fa.flash_attention_fwd_plain(q, q, q)[0]) <= 1e-4
+    with pytest.raises(ValueError, match="bf16, fp16 or fp32"):
+        fa.flash_fwd(q.double(), q.double(), q.double())
     q = q.bfloat16()
     with pytest.raises(ValueError, match="head dim"):
         x = torch.zeros(1, 64, 2, 48, device=cuda, dtype=torch.bfloat16)
@@ -608,3 +611,246 @@ def test_training_step_through_the_kernels(cuda, cfg):
     assert float(m["loss"]) == pytest.approx(float(r["loss"]), rel=2e-2)
     assert float(m["grad_norm"]) == pytest.approx(float(r["grad_norm"]),
                                                   rel=2e-2)
+
+
+# ------------------------------------------------- flash: bias and fp32
+# (B, H, KV, S, hd, causal, mask kind, bias layout): every layout of the
+# bias, S past a tile (ragged), GQA, hd 16 and 128, the key masks; an
+# "expanded" bias is a (1, H, S, S) tensor expanded to (B, H, S, S), the
+# stride-0 view a learned broadcast bias reaches the kernels as
+BIAS_CASES = [
+    (2, 4, 2, 333, 64, True, None, "ss"),
+    (2, 4, 2, 333, 64, False, None, "hss"),
+    (2, 4, 4, 200, 32, True, "left_pad", "bhss"),
+    (2, 4, 4, 200, 32, False, "dead_row", "b1ss"),
+    (3, 8, 8, 256, 32, False, "left_pad", "1hss"),
+    (3, 8, 8, 256, 32, True, None, "expanded"),
+    (1, 4, 1, 130, 16, True, None, "bhss"),
+    (2, 2, 2, 96, 128, False, None, "bhss"),
+]
+# max |kernel - plain| / max |plain| of o, dq, dk, dv and dbias by q's
+# dtype: bf16 / fp16 a few ulps (phase 5's FLASH_SHARE); fp32 the 3xTF32
+# products (~2^-22 of each term) and __expf, summed in another order
+BIAS_SHARE = {torch.bfloat16: 2e-2, torch.float16: 1e-2, torch.float32: 1e-4}
+# dbias is rounded to the bias's dtype on both sides: where that dtype is
+# coarser than q's tolerance, one ulp of it (relative, at most 2^-7 for
+# bf16, 2^-10 for fp16) bounds the difference
+DBIAS_ROUNDING = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10,
+                  torch.float32: 0.0}
+
+
+def _bias_for(layout, B, H, S, dtype, cuda, seed=3):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    shape = {"ss": (S, S), "hss": (H, S, S), "bhss": (B, H, S, S),
+             "b1ss": (B, 1, S, S), "1hss": (1, H, S, S),
+             "expanded": (1, H, S, S)}[layout]
+    bias = (2 * torch.randn(shape, generator=g, device=cuda)).to(dtype)
+    return bias.expand(B, H, S, S) if layout == "expanded" else bias
+
+
+def _flash_bias_check(cuda, case, dtype, bias_dtype):
+    """The three kernels with the bias against their plain versions; dq
+    also with dbias, the bias expanded to (B, H, S, S) where it is
+    broadcast. Returns the kernels' dbias."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    B, H, KV, S, hd, causal, mask_kind, layout = case
+    q, k, v, do = _sparse_inputs(cuda, B, H, KV, S, hd, dtype)
+    bias = _bias_for(layout, B, H, S, bias_dtype, cuda)
+    mask = None
+    if mask_kind:
+        mask = torch.ones(B, S, dtype=torch.bool, device=cuda)
+        if mask_kind == "left_pad":
+            mask[-1, :3] = False
+        else:
+            mask[-1] = False
+    kw = dict(mask=mask, causal=causal, bias=bias)
+    o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    delta = fa.attention_delta(o_p, do)
+    full = fa.bias4(bias, B, H, S).expand(B, H, S, S)
+    dq_p, dbias_p = fa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta,
+                                          grad_bias=True,
+                                          **{**kw, "bias": full})
+    want = (o_p, dq_p, *fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta,
+                                               **kw), dbias_p)
+    fns = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    before = [f.launches for f in fns]
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_p, delta, **kw)
+    dq2, dbias = fa.flash_bwd_dq(q, k, v, do, lse_p, delta, grad_bias=True,
+                                 **{**kw, "bias": full})
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [before[0] + 1, before[1] + 2,
+                                         before[2] + 1]
+    assert torch.equal(dq, dq2)
+    assert dbias.dtype == bias_dtype and dbias.shape == (B, H, S, S)
+    for name, got, ref in zip(("o", "dq", "dk", "dv", "dbias"),
+                              (o, dq, dk, dv, dbias), want):
+        assert bool(torch.isfinite(got).all()), name
+        tol = BIAS_SHARE[dtype] if name != "dbias" else max(
+            BIAS_SHARE[dtype], DBIAS_ROUNDING[bias_dtype])
+        assert _max_share(got, ref) <= tol, name
+    live = lse_p > fa.BIG_NEG / 2
+    assert (lse - lse_p).abs()[live].max().item() <= 2e-3
+    return dbias
+
+
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16,
+                                        torch.float16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("case", BIAS_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_bias_kernels_match_plain(cuda, case, dtype, bias_dtype):
+    _flash_bias_check(cuda, case, dtype, bias_dtype)
+
+
+def test_flash_dbias_zero_above_the_diagonal(cuda):
+    """dbias is allocated empty: the kernel writes every element, exact
+    zeros where the causal loop skips a key tile and above the diagonal
+    inside the diagonal tile, over memory that held NaN."""
+    B, H, S = 2, 4, 333
+    junk = torch.full((B * H * S * S * 2,), float("nan"), device=cuda)
+    del junk                          # the allocator hands its block out again
+    dbias = _flash_bias_check(cuda, (B, H, H, S, 64, True, None, "bhss"),
+                              torch.bfloat16, torch.float32)
+    assert bool((dbias.triu(1) == 0).all())
+    assert not bool(dbias.tril().eq(0).all())
+
+
+@pytest.mark.parametrize("case", [c for c in FLASH_CASES if c[3] <= 2048])
+def test_flash_fp32_kernels_match_plain(cuda, case):
+    """fp32 q, k, v through all three kernels (3xTF32), no bias."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    B, H, KV, S, hd, causal, mask_kind, alibi = case
+    q, k, v, do = _sparse_inputs(cuda, B, H, KV, S, hd, torch.float32)
+    mask = None
+    if mask_kind:
+        mask = torch.ones(B, S, dtype=torch.bool, device=cuda)
+        mask[-1, :3] = False
+    kw = dict(mask=mask, causal=causal,
+              alibi_slopes=alibi_slopes(H, cuda) if alibi else None)
+    o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    delta = fa.attention_delta(o_p, do)
+    want = (o_p, fa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw),
+            *fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, **kw))
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    got = (o, fa.flash_bwd_dq(q, k, v, do, lse_p, delta, **kw),
+           *fa.flash_bwd_dkv(q, k, v, do, lse_p, delta, **kw))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and _max_share(g, w) <= 1e-4
+    live = lse_p > fa.BIG_NEG / 2
+    assert (lse - lse_p).abs()[live].max().item() <= 2e-3
+
+
+def test_flash_bias_refusals_and_the_other_kernels_fp32(cuda):
+    """An odd bias shape, a bias not contiguous in its last two dims or on
+    another device raises before any launch; the sparse and xent kernels
+    still refuse fp32 (ROADMAP.md section 3)."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops import xent as xe
+
+    q = torch.randn(2, 128, 4, 64, device=cuda, dtype=torch.bfloat16)
+    before = fa.flash_fwd.launches
+    for bad in (torch.zeros(128, 64, device=cuda),
+                torch.zeros(3, 4, 128, 128, device=cuda),
+                torch.zeros(2, 2, 128, 128, device=cuda)):
+        with pytest.raises(ValueError, match="bias must be"):
+            fa.flash_fwd(q, q, q, bias=bad)
+    with pytest.raises(ValueError, match="contiguous in its last two"):
+        fa.flash_fwd(q, q, q, bias=torch.zeros(128, 128, device=cuda).t())
+    with pytest.raises(ValueError, match="bias is on"):
+        fa.flash_fwd(q, q, q, bias=torch.zeros(128, 128))
+    with pytest.raises(ValueError, match="fp32, bf16 or fp16"):
+        fa.flash_fwd(q, q, q, bias=torch.zeros(128, 128, device=cuda,
+                                               dtype=torch.float64))
+    assert fa.flash_fwd.launches == before
+    # the autograd entry makes a transposed bias contiguous at its own shape
+    t = torch.randn(128, 128, device=cuda).t()
+    torch.testing.assert_close(fa.flash_attention(q, q, q, bias=t),
+                               fa.flash_attention(q, q, q,
+                                                  bias=t.contiguous()),
+                               rtol=0, atol=0)
+    layout = sa.sparse_layout(sa.FixedSparsityConfig(), 128, True, cuda)
+    with pytest.raises(ValueError, match="bf16 or fp16"):
+        sa.sparse_fwd(q.float(), q.float(), q.float(), layout)
+    x, w, b, tg, _ = _xent_operands(cuda, 8, 64, 32, True)
+    with pytest.raises(ValueError, match="bf16"):
+        xe.xent_fwd(x.float(), w.float(), None, tg)
+
+
+def test_fp32_model_trains_through_the_kernels(cuda):
+    """An fp32 TransformerLM with make_flash_attention() (the unfused head:
+    the xent kernels take bf16 only) trains on the card through the fp32
+    flash kernels, within phase 6's gate of the dense path."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    cfg = tiny_test(dtype=torch.float32, fused_xent=False)
+    conf = {"train_batch_size": 4, "gradient_accumulation_steps": 2,
+            "remat": {"enabled": True}, "gradient_clipping": 1.0,
+            "bf16": {"enabled": False},
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}}
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 64))
+    eng = dt.initialize(conf, dt.build_model(
+        cfg, attention_fn=dt.make_flash_attention()), seed=0)
+    dense = dt.initialize(conf, dt.build_model(cfg), seed=0)
+    fns = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for step in range(3):
+        before = [f.launches for f in fns]
+        m = eng.train_batch({"input_ids": ids})
+        n = cfg.n_layer * 2
+        assert [f.launches - b for f, b in zip(fns, before)] == [2 * n, n, n]
+        r = dense.train_batch({"input_ids": ids})
+        assert float(m["loss"]) == pytest.approx(float(r["loss"]), rel=1e-2)
+        assert float(m["grad_norm"]) == pytest.approx(float(r["grad_norm"]),
+                                                      rel=5e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_evoformer_block_through_the_kernels(cuda, dtype):
+    """The gated, pair-biased block of examples/evoformer_science.py at its
+    smoke size: one launch of each kernel a step, the pair representation's
+    gradient from the kernels' dbias against the dense path's."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops import evoformer as evo
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, hd = 2, 32, 4, 16
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((B, S, H * hd))).to(cuda, dtype)
+    pair = torch.from_numpy(rng.standard_normal((B, S, S, 8))).to(cuda)
+    w = {n: torch.from_numpy(rng.standard_normal(s) * 0.05).to(cuda)
+         for n, s in (("wq", (H * hd, H * hd)), ("wk", (H * hd, H * hd)),
+                      ("wv", (H * hd, H * hd)), ("wg", (H * hd, H * hd)),
+                      ("wb", (8, H)))}
+
+    def run(attention):
+        leaves = {n: t.float().requires_grad_() for n, t in w.items()}
+        p = pair.float().requires_grad_()
+        q, k, v, g = ((x @ leaves[n].to(dtype)).reshape(B, S, H, hd)
+                      for n in ("wq", "wk", "wv", "wg"))
+        bias = torch.einsum("bstd,dh->bhst", p, leaves["wb"]).to(dtype)
+        out = attention(q, k, v, bias=bias, gate=g)
+        loss = out.float().square().mean()
+        loss.backward()
+        return loss.item(), p.grad
+
+    def dense(q, k, v, *, bias, gate):
+        return evo.dense_biased_attention(q, k, v, bias) \
+            * torch.sigmoid(gate)
+
+    fns = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    before = [f.launches for f in fns]
+    loss, dpair = run(evo.evoformer_attention)
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 1]
+    loss_d, dpair_d = run(dense)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    assert loss == pytest.approx(loss_d, rel=tol / 5)
+    assert float(dpair.norm()) > 0
+    assert ((dpair - dpair_d).norm() / dpair_d.norm()).item() <= tol

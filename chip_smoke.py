@@ -7,7 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit; build every CUDA kernel of
    ``deepspeed_tpu_torch/ops/csrc`` (nvcc, sm_90a, one process per source,
-   all at once) and print nvcc's register / shared-memory lines;
+   all at once) and print nvcc's register / shared-memory lines; count the
+   wgmma and TMA instructions in the forward's SASS (cuobjdump) and print
+   its shared memory;
 2. kernels: each kernel (decode attention, the WOQ GEMMs ``woq_matmul``
    and ``woq_matmul_t``) against its plain PyTorch version on the card, at
    the main paths' shapes and the edge cases, within stated tolerances;
@@ -34,6 +36,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    fully masked rows, ALiBi, non-causal, odd S, hd 16/32); timed at the
    GPT-2 shape and at S 8192 beside the bound, the plain versions and the
    library calls (SDPA's forward; the aten flash backward for dq + dk/dv);
+   the forward alone at Llama-2-7B's, Llama-2-70B's GQA heads, BERT-large's
+   (under phase 8's key padding) and GPT-2's in fp16, beside SDPA's
+   forward; the host cost of a forward call and of its tensor maps;
 5b. xent kernels: the forward (its ``partials`` mode on each shard of a
    4-way hand split of a 50304-row vocab, combined by hand), dx and dW/db
    kernels against their plain versions in bf16 at GPT-2 1.5B's head shape
@@ -107,7 +112,11 @@ GPT-2 1.5B training step under each remat policy.
 
 Before them, a ``[flash-bias]`` line holds the JSON of phases 5d and 10's
 kernel rows (each flash kernel with the bias at phase 10's two shapes,
-and in fp32 at GPT-2 1.5B's).
+and in fp32 at GPT-2 1.5B's), and a ``[flash-fwd]`` line phase 5's
+forward-only timings, the host cost and the forward's SASS counts. The
+kernels line lists each flash kernel twice: at GPT-2 1.5B's shape (rows 2-4
+of PERF.md) and at S 8192, where it stands for the TPU's streamed kernel
+(rows 5-7).
 The last three lines of standard output are the kernels' JSON, then
 ``nvidia-smi``'s name and power limit of the card, then the device JSON.
 Without a CUDA device, or outside the repository, it exits 1 and prints
@@ -241,6 +250,8 @@ def _free_memory(dev) -> int:
 
 # ------------------------------------------------------------------ phase 1
 def phase_device() -> dict:
+    import ctypes
+
     import torch
 
     from deepspeed_tpu_torch.ops import builder
@@ -258,9 +269,33 @@ def phase_device() -> dict:
         log(f"[build] {name}: nvcc {info['seconds']:.2f} s -> {info['path']}")
         for line in info["log"].splitlines():
             if any(w in line for w in ("Function properties", "registers",
-                                       "spill")):
+                                       "spill", "Performance Loss")):
                 log(f"[build]   {line.strip()}")
-    return {"nvidia_smi": smi}
+    sass = fwd_sass_counts(built["flash_fwd_sm90"]["path"])
+    log(f"[build] flash_fwd_sm90: SASS instructions {sass} (HGMMA: wgmma, "
+        "UTMALDG: TMA loads)")
+    if not sass["HGMMA"] or not sass["UTMALDG"]:
+        raise AssertionError(f"flash_fwd_sm90 has no wgmma or TMA: {sass}")
+    smem = builder.load("flash_fwd_sm90").dstpu_flash_fwd_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
+    log("[build] flash_fwd_sm90: dynamic shared memory " + ", ".join(
+        f"hd {hd}{' bias' if bias else ''} {smem(hd, bias)} B"
+        for hd in (32, 64, 128) for bias in (0, 1)))
+    return {"nvidia_smi": smi, "flash_fwd_sass": sass}
+
+
+def fwd_sass_counts(path: str) -> dict:
+    """Counts of the wgmma (HGMMA), TMA load (UTMALDG) and register
+    reconfiguration (USETMAXREG) instructions in a library's SASS, read
+    with the toolkit's cuobjdump."""
+    import subprocess
+
+    from deepspeed_tpu_torch.ops import builder
+
+    tool = Path(builder.find_nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", path], capture_output=True,
+                         text=True, check=True).stdout
+    return {k: out.count(k) for k in ("HGMMA", "UTMALDG", "USETMAXREG")}
 
 
 # ------------------------------------------------------------------ phase 2
@@ -957,6 +992,8 @@ def _flash_case(gen, B, H, KV, S, hd, causal, mask_kind, alibi, dtype,
         mask = torch.ones((B, S), dtype=torch.bool, device=device)
         if mask_kind == "left_pad":        # rows 0-2 of batch 1: no live key
             mask[-1, :3] = False
+        elif mask_kind == "bert_pad":      # phase 8's: every fourth row
+            mask[1::4, 3 * S // 4:] = False  # padded past 3/4 of its length
         else:                              # batch 1 has no live key at all
             mask[-1] = False
             mask[0, S - 5:] = False
@@ -1058,7 +1095,93 @@ def phase_flash_kernels(device="cuda", cases=FLASH_CASES, dtypes=None,
     long = [c for c in cases if c[0].startswith("streamed")]
     if long:
         result["streamed"] = _flash_timing(gen, long[0], max(iters // 5, 5))
+    # flash_fwd alone at the presets' other shapes
+    result["fwd_shapes"] = {c[0]: _flash_fwd_timing(gen, c, iters)
+                            for c in FLASH_FWD_TIMED}
+    result["host"] = _flash_fwd_host_cost()
     return result
+
+
+# flash_fwd timed alone beside SDPA's forward, besides phase 5's first case
+# (GPT-2 1.5B, row 2) and S 8192 (row 5): (name, B, H, KV, S, hd, causal,
+# mask kind, dtype). Llama-2-7B's attention, Llama-2-70B's GQA heads,
+# BERT-large's under phase 8's key padding, GPT-2 1.5B's in fp16.
+FLASH_FWD_TIMED = (
+    ("llama2_7b", 1, 32, 32, 4096, 128, True, None, "torch.bfloat16"),
+    ("gqa_70b_heads", 1, 64, 8, 2048, 128, True, None, "torch.bfloat16"),
+    ("bert_large", 16, 16, 16, 512, 64, False, "bert_pad", "torch.bfloat16"),
+    ("gpt2_1.5b_fp16", 4, 25, 25, 1024, 64, True, None, "torch.float16"),
+)
+
+
+def _flash_fwd_timing(gen, case, iters) -> dict:
+    """flash_fwd alone at one shape in the case's dtype, with its key
+    mask: kernel, plain, bound and the library, SDPA's forward (the KV
+    heads repeated for GQA, the key mask as a boolean attn_mask), all
+    device-timed but the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    name, B, H, KV, S, hd, causal, mask_kind, dtype_name = case
+    dtype = getattr(torch, dtype_name.split(".")[1])
+    sets = [_flash_case(gen, B, H, KV, S, hd, causal, mask_kind, False, dtype,
+                        "cuda") for _ in range(4)]
+    args = lambda i: tuple(sets[i % 4][n] for n in "qkv")        # noqa: E731
+    kw = lambda i: dict(mask=sets[i % 4]["mask"], causal=causal)  # noqa: E731
+    ms = device_ms(lambda i: fa.flash_fwd(*args(i), **kw(i)), 4, iters)
+    plain_ms = time_ms(lambda i: fa.flash_attention_fwd_plain(*args(i),
+                                                              **kw(i)), 3)
+    b = flash_bound(B, H, KV, S, hd, causal, dtype.itemsize,
+                    side_bytes=B * S if mask_kind else 0,
+                    dtype=dtype_name)["flash_fwd"]
+    # the library's inputs: (B, H, S, hd), each KV head repeated for its
+    # query heads
+    tq = [tuple(t.repeat_interleave(H // t.shape[2], 2).transpose(1, 2)
+                .contiguous() for t in args(i)) for i in range(4)]
+    am = [None if s["mask"] is None else s["mask"][:, None, None, :]
+          for s in sets]
+    library_ms = device_ms(lambda i: F.scaled_dot_product_attention(
+        *tq[i % 4], attn_mask=am[i % 4], is_causal=causal), 4, iters)
+    log(f"[flash-fwd] {name} B{B} H{H} KV{KV} S{S} hd{hd} "
+        f"{'causal' if causal else 'full'}{', key mask' if mask_kind else ''}"
+        f" {dtype_name}: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} "
+        f"us, bound {b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}: "
+        f"{b['bytes']} B, {b['ops']:.4g} flop), kernel at "
+        f"{b['bound_ms'] / ms:.1%} of the bound; SDPA forward (device, not "
+        f"called by the port) {library_ms * 1e3:.2f} us")
+    del sets, tq, am
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"], library_ms=library_ms)
+
+
+def _flash_fwd_host_cost() -> dict:
+    """Host µs of one flash_fwd call (the wgmma forward, which encodes
+    three TMA tensor maps a call) and of one flash_bwd_dq call (no tensor
+    maps) at a shape too small for the device to set the pace, and the
+    encoder's own ns for the three maps at GPT-2 1.5B's shape."""
+    import ctypes
+
+    import torch
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = (torch.randn(1, 128, 1, 64, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_fwd(q, k, v)
+    delta = fa.attention_delta(o, do)
+    fwd_us = host_us(lambda: fa.flash_fwd(q, k, v))
+    dq_us = host_us(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta))
+    lib = fa._lib("flash_fwd_sm90")
+    enc = lib.dstpu_flash_fwd_encode_ns
+    enc.argtypes, enc.restype = [ctypes.c_int] * 6, ctypes.c_double
+    encode_ns = enc(4, 1024, 25, 25, 64, 20000)
+    log(f"[flash-fwd] host cost a call (B1 H1 S128 hd64): flash_fwd "
+        f"{fwd_us:.2f} us, flash_bwd_dq {dq_us:.2f} us; encoding the three "
+        f"tensor maps {encode_ns:.1f} ns")
+    return {"flash_fwd_us": fwd_us, "flash_bwd_dq_us": dq_us,
+            "encode_ns": encode_ns}
 
 
 def _flash_timing(gen, case, iters) -> dict:
@@ -2230,6 +2353,15 @@ XENT_KERNEL_NAMES = ("xent_fwd_kernel", "xent_fwd_merge_kernel",
                      "xent_bwd_kernel")
 
 
+def kernel_names(fns) -> tuple:
+    """The names under which the wrappers' kernels show in a profile:
+    ``<wrapper>_kernel``, and flash_fwd's wgmma kernel besides its
+    mma.sync one (fp32 and hd 16)."""
+    return tuple(n for fn in fns for n in (
+        (f"{fn.__name__}_kernel", "flash_fwd_sm90_kernel")
+        if fn.__name__ == "flash_fwd" else (f"{fn.__name__}_kernel",)))
+
+
 def phase_train(cfg=None, *, config=None, check="attention", check_layers=4,
                 seq=1024, warmup=3, steps=10, fall=0.5, device=None,
                 profile_steps=2, name="train", attention=None,
@@ -2421,8 +2553,7 @@ def phase_train(cfg=None, *, config=None, check="attention", check_layers=4,
                      for _ in range(profile_steps)], profile_steps,
             "training steps")
         if prof:
-            for kname in tuple(f"{c.__name__}_kernel"
-                               for c in flash + sparse) + XENT_KERNEL_NAMES:
+            for kname in kernel_names(flash + sparse) + XENT_KERNEL_NAMES:
                 us = sum(v for k, v in prof["by_name"].items()
                          if f"{kname}<" in k or k.startswith(kname)
                          or f"::{kname}(" in k)
@@ -2741,8 +2872,7 @@ def phase_af2_msa_row(device="cuda", af2=None, profile_steps=2) -> dict:
         prof = profile_calls(lambda: [step() for _ in range(profile_steps)],
                              profile_steps, "AF2 MSA-row steps")
         if prof:
-            for c in counters:
-                kname = f"{c.__name__}_kernel"
+            for kname in kernel_names(counters):
                 us = sum(v for k, v in prof["by_name"].items()
                          if f"{kname}<" in k or k.startswith(kname)
                          or f"::{kname}(" in k)
@@ -2811,7 +2941,7 @@ def flash_bias_rows(bias: dict, evo: dict) -> list:
     rows = []
     for shape, times, variant, launches, source in (
             ("af2_msa_row", bias["biased"]["af2_msa_row"], "bias",
-             evo["af2"]["launches"], "flash_attention.cu"),
+             evo["af2"]["launches"], None),
             ("evoformer_example", bias["biased"]["evoformer_example"], "bias",
              evo["example"]["torch.float32"]["launches"],
              "flash_attention_f32.cu"),
@@ -2819,8 +2949,11 @@ def flash_bias_rows(bias: dict, evo: dict) -> list:
              "flash_attention_f32.cu")):
         for name, line in (("flash_fwd", 43), ("flash_bwd_dq", 228),
                            ("flash_bwd_dkv", 285)):
+            # the bf16 rows: the wgmma forward, the mma.sync backward
+            src = source or ("flash_fwd_sm90.cu" if name == "flash_fwd"
+                             else "flash_attention.cu")
             rows.append({"name": name, "shape": shape, "route": "cuda",
-                         "source": "deepspeed_tpu_torch/ops/csrc/" + source,
+                         "source": "deepspeed_tpu_torch/ops/csrc/" + src,
                          "replaces": f"deepspeed_tpu/ops/flash_attention.py:"
                                      f"{line}",
                          "launches": launches.get(name, 0),
@@ -2907,16 +3040,24 @@ def main() -> int:
          "replaces": "deepspeed_tpu/ops/woq_matmul.py:130",
          "launches": woq4["launches"]["woq_matmul_t"],
          **{k: woq["woq_matmul_t"][k] for k in keys}}]
-    # launches: the GPT-2 1.5B training run's timed steps; each also
-    # stands for the TPU's streamed kernel of its row (checked at S 8192)
-    for name, line in (("flash_fwd", 43), ("flash_bwd_dq", 228),
-                       ("flash_bwd_dkv", 285)):
-        kernels.append({"name": name, "route": "cuda",
-                        "source": src + "flash_attention.cu",
-                        "replaces": f"deepspeed_tpu/ops/flash_attention.py:"
-                                    f"{line}",
-                        "launches": train["launches"][name],
-                        **{k: flash[name][k] for k in keys}})
+    # launches: the GPT-2 1.5B training run's timed steps; the same
+    # kernels stand for the TPU's streamed ones (rows 5-7), timed at S 8192
+    flash_src = {"flash_fwd": "flash_fwd_sm90.cu",
+                 "flash_bwd_dq": "flash_attention.cu",
+                 "flash_bwd_dkv": "flash_attention.cu"}
+    for name, line, streamed_line in (("flash_fwd", 43, 436),
+                                      ("flash_bwd_dq", 228, 533),
+                                      ("flash_bwd_dkv", 285, 581)):
+        for at, times in ((line, flash[name]),
+                          (streamed_line, {**flash["streamed"][name],
+                                           "max_abs_err": flash[name][
+                                               "max_abs_err"]})):
+            kernels.append({"name": name, "route": "cuda",
+                            "source": src + flash_src[name],
+                            "replaces": "deepspeed_tpu/ops/flash_attention"
+                                        f".py:{at}",
+                            "launches": train["launches"][name],
+                            **{k: times[k] for k in keys}})
     # launches: the same run (GPT-2 1.5B under its default config)
     for name, line in (("xent_fwd", 49), ("xent_dx", 110), ("xent_dw", 128)):
         kernels.append({"name": name, "route": "cuda", "source": src + "xent.cu",
@@ -2934,6 +3075,9 @@ def main() -> int:
                         **{k: sparse[name][k] for k in keys}})
     log("[flash-bias] " + json.dumps({"kernels": flash_bias_rows(bias,
                                                                  evo)}))
+    log("[flash-fwd] " + json.dumps({
+        "shapes": flash["fwd_shapes"], "host": flash["host"],
+        "sass": dev["flash_fwd_sass"]}))
     print(json.dumps({"kernels": kernels}))
     print(dev["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

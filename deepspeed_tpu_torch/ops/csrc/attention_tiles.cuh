@@ -3,7 +3,9 @@
 // fp16 operands and fp32 accumulation, fragments through ldmatrix from
 // shared tiles whose rows are padded by 16 bytes (HD + 8 elements, so the
 // fragment loads are free of bank conflicts), cp.async group helpers and
-// the quad reductions of a C fragment's row.
+// the quad reductions of a C fragment's row. flash_fwd_sm90.cu takes the
+// packing, the quad reductions and BIG_NEG (a wgmma accumulator fragment
+// has the C fragment's layout, warp by warp).
 //
 // A warp owns 16 rows of its block's tile and multiplies them against a
 // 64-row tile of the other operand: gemm_rows forms the (16, 64) score tile

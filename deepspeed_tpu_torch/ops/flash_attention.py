@@ -2,13 +2,16 @@
 
 Counterpart of ``deepspeed_tpu/ops/flash_attention.py``, whose Pallas
 kernels (``_fwd_kernel``, ``_make_bwd_dq_kernel``, ``_make_bwd_dkv_kernel``
-and their streamed long-sequence twins) become three CUDA kernels for
-Hopper in ``csrc/flash_attention.cuh`` (its header comment says what
-bounds them and how they are laid out), instantiated for bf16 / fp16 by
-``csrc/flash_attention.cu`` and for fp32 by ``csrc/flash_attention_f32.cu``,
-built by ``ops/builder.py`` and called through ctypes. The kernels stream
-K/V (or Q/dO) through shared memory at any S, so one kernel stands for
-each TPU pair.
+and their streamed long-sequence twins) become CUDA kernels for Hopper,
+built by ``ops/builder.py`` and called through ctypes. The forward for
+bf16 / fp16 at hd 32-128 is ``csrc/flash_fwd_sm90.cu`` (wgmma, TMA, warp
+specialisation); the backward kernels, the fp32 forward and the 16-bit hd
+16 one are the mma.sync kernels of ``csrc/flash_attention.cuh``,
+instantiated for bf16 / fp16 by ``csrc/flash_attention.cu`` and for fp32 by
+``csrc/flash_attention_f32.cu`` (each source's header comment says what
+bounds its kernels and how they are laid out). :data:`FWD_LIBRARY` routes
+the forward. The kernels stream K/V (or Q/dO) through shared memory at any
+S, so one kernel stands for each TPU pair.
 
 The wrappers :func:`flash_fwd`, :func:`flash_bwd_dq` and
 :func:`flash_bwd_dkv` launch their kernel for CUDA tensors and take the
@@ -187,23 +190,41 @@ def attention_delta(o, do):
 
 
 # ------------------------------------------------------------------ kernels
-def _lib(dtype):
-    """The kernels' library for q's dtype: ``csrc/flash_attention_f32.cu``
-    for fp32, ``csrc/flash_attention.cu`` for bf16 / fp16 (two sources of
-    one header, so that nvcc builds them side by side)."""
-    lib = builder.load("flash_attention_f32" if dtype == torch.float32
-                       else "flash_attention")
-    if lib.dstpu_flash_fwd.argtypes is None:
+# The library whose kernel serves flash_fwd, by (q's dtype, head dim): the
+# wgmma / TMA forward of ``csrc/flash_fwd_sm90.cu`` for 16-bit operands at
+# hd 32-128; the mma.sync forward of ``csrc/flash_attention.cuh`` for 16-bit
+# hd 16 (``flash_attention.cu``) and for fp32 (``flash_attention_f32.cu``).
+# A fixed table: the route never depends on a failure.
+FWD_LIBRARY = {
+    **{(d, hd): "flash_fwd_sm90" for d in HALF_DTYPE_CODE
+       for hd in (32, 64, 128)},
+    **{(d, 16): "flash_attention" for d in HALF_DTYPE_CODE},
+    **{(torch.float32, hd): "flash_attention_f32" for hd in KERNEL_HEAD_DIMS},
+}
+
+
+def _bwd_library(dtype):
+    """The backward kernels' library: ``csrc/flash_attention_f32.cu`` for
+    fp32, ``csrc/flash_attention.cu`` for bf16 / fp16 (two sources of one
+    header, so that nvcc builds them side by side)."""
+    return "flash_attention_f32" if dtype == torch.float32 \
+        else "flash_attention"
+
+
+def _lib(name):
+    """The loaded library ``csrc/<name>.cu``, its functions typed."""
+    lib = builder.load(name)
+    fns = [getattr(lib, f) for f in ("dstpu_flash_fwd", "dstpu_flash_bwd_dq",
+                                     "dstpu_flash_bwd_dkv") if hasattr(lib, f)]
+    if fns[0].argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # pointers and the stream as c_void_p: without argtypes ctypes
         # passes a Python int as a 32-bit C int and cuts the pointer; the
         # bias strides as 64-bit ints
         tail = [I] * 8 + [ctypes.c_longlong] * 2 + [F, P]
-        lib.dstpu_flash_fwd.argtypes = [P] * 8 + tail
-        lib.dstpu_flash_bwd_dq.argtypes = [P] * 11 + tail
-        lib.dstpu_flash_bwd_dkv.argtypes = [P] * 11 + tail
-        for fn in (lib.dstpu_flash_fwd, lib.dstpu_flash_bwd_dq,
-                   lib.dstpu_flash_bwd_dkv):
+        for fn in fns:
+            fn.argtypes = [P] * (8 if fn.__name__ == "dstpu_flash_fwd"
+                                 else 11) + tail
             fn.restype = I
     return lib
 
@@ -303,7 +324,7 @@ def flash_fwd(q, k, v, *, mask=None, alibi_slopes=None, causal=True,
     bp, bcode, sb, sh = _bias_arg("flash_fwd", bias, B, H, S, q.device)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    err = _lib(q.dtype).dstpu_flash_fwd(
+    err = _lib(FWD_LIBRARY[q.dtype, hd]).dstpu_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(m), _ptr(s), bp,
         o.data_ptr(), lse.data_ptr(), B, S, H, KV, hd, int(causal),
         _DTYPE_CODE[q.dtype], bcode, sb, sh, 1.0 / math.sqrt(hd),
@@ -336,7 +357,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, mask=None, alibi_slopes=None,
     # where the causal loop skips a key tile
     dbias = torch.empty((B, H, S, S), dtype=bias.dtype, device=q.device) \
         if grad_bias else None
-    err = _lib(q.dtype).dstpu_flash_bwd_dq(
+    err = _lib(_bwd_library(q.dtype)).dstpu_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(m), _ptr(s), bp, dq.data_ptr(),
         _ptr(dbias), B, S, H, KV, hd, int(causal), _DTYPE_CODE[q.dtype],
@@ -358,7 +379,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, mask=None, alibi_slopes=None,
     m, s = _side(mask, alibi_slopes, B, S, H, q.device)
     bp, bcode, sb, sh = _bias_arg("flash_bwd_dkv", bias, B, H, S, q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _lib(q.dtype).dstpu_flash_bwd_dkv(
+    err = _lib(_bwd_library(q.dtype)).dstpu_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(m), _ptr(s), bp, dk.data_ptr(),
         dv.data_ptr(), B, S, H, KV, hd, int(causal), _DTYPE_CODE[q.dtype],

@@ -42,6 +42,11 @@ CASES = {
     "alibi": (2, 32, 4, 4, 16, True, None, True, 16),
     "alibi_mask_gqa": (2, 32, 4, 2, 16, True, "left_pad", True, 16),
     "odd_S_dense_in_jax": (2, 40, 4, 2, 16, True, None, False, 16),
+    # the head dims of the wgmma forward on the card, whose oracle there is
+    # this plain path
+    "hd32_mask_alibi": (2, 48, 4, 4, 32, True, "left_pad", True, 16),
+    "hd64_causal": (2, 64, 2, 2, 64, True, None, False, 16),
+    "hd128_full_gqa": (1, 32, 4, 2, 128, False, None, False, 16),
 }
 
 
@@ -173,6 +178,46 @@ def test_non_cpu_tensors_never_take_the_plain_path():
     with pytest.raises(ValueError, match="unsupported device"):
         tfa.flash_bwd_dkv(q, q, q, q, None, None)
     assert tfa.flash_fwd.launches == before
+
+
+# ------------------------------------------------------------ routing
+# which library's kernel serves flash_fwd on the card, by (q's dtype, hd)
+FWD_ROUTES = {
+    **{(d, hd): "flash_fwd_sm90" for d in (torch.bfloat16, torch.float16)
+       for hd in (32, 64, 128)},
+    (torch.bfloat16, 16): "flash_attention",
+    (torch.float16, 16): "flash_attention",
+    **{(torch.float32, hd): "flash_attention_f32" for hd in (16, 32, 64, 128)},
+}
+
+
+@pytest.mark.parametrize("route", list(FWD_ROUTES),
+                         ids=lambda r: f"{str(r[0])[6:]}-hd{r[1]}")
+def test_forward_routes_by_dtype_and_head_dim(route):
+    """16-bit operands at hd 32-128 take the wgmma / TMA forward; hd 16
+    and fp32 stay on the mma.sync kernels; a fixed table, no fallback."""
+    assert tfa.FWD_LIBRARY[route] == FWD_ROUTES[route]
+
+
+def test_forward_table_covers_what_the_wrapper_takes():
+    """Every (dtype, head dim) the wrapper accepts has exactly one route,
+    each to a source the builder compiles, and only the mma.sync sources
+    export the backward kernels."""
+    from deepspeed_tpu_torch.ops import builder
+
+    taken = {(d, hd) for d in (torch.bfloat16, torch.float16, torch.float32)
+             for hd in tfa.KERNEL_HEAD_DIMS}
+    assert set(tfa.FWD_LIBRARY) == taken
+    assert "flash_fwd_sm90" in builder.sources()
+    for name in set(tfa.FWD_LIBRARY.values()):
+        assert name in builder.sources()
+    text = {n: (builder.CSRC / f"{n}.cu").read_text()
+            for n in set(tfa.FWD_LIBRARY.values())}
+    assert 'extern "C" int dstpu_flash_fwd(' in text["flash_fwd_sm90"]
+    assert "dstpu_flash_bwd" not in text["flash_fwd_sm90"]
+    cuh = (builder.CSRC / "flash_attention.cuh").read_text()
+    assert '#include "flash_attention.cuh"' in text["flash_attention"]
+    assert 'extern "C" int dstpu_flash_bwd_dq(' in cuh
 
 
 # ------------------------------------------------------------ bias operand

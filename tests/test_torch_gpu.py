@@ -271,6 +271,97 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda):
         fa.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)
 
 
+# ------------------------------------------------- the wgmma forward
+# (B, H, KV, S, hd, causal, mask kind, alibi): the head dims the wgmma / TMA
+# forward (csrc/flash_fwd_sm90.cu) serves, causal and full, S off its
+# 128-row tiles (77, 100, 333, 1000), key masks with fully masked rows
+# ("dead_row": a whole batch row; "left_pad": three queries of the last
+# one see no key when causal), GQA 8:1 and 64:8, ALiBi
+FWD_CASES = [
+    (2, 4, 4, 77, 32, True, None, False),
+    (2, 4, 2, 100, 64, False, None, False),
+    (1, 4, 4, 333, 128, True, None, False),
+    (2, 4, 4, 1000, 64, True, None, False),
+    (2, 4, 4, 333, 128, False, "dead_row", False),
+    (2, 8, 1, 256, 64, True, "left_pad", False),
+    (1, 64, 8, 512, 128, True, None, False),
+    (2, 8, 8, 333, 32, False, "left_pad", True),
+    (2, 8, 8, 1000, 128, True, None, True),
+    (1, 4, 1, 77, 32, True, "left_pad", True),
+    (3, 4, 4, 100, 32, False, "dead_row", False),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", FWD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_wgmma_forward_matches_plain(cuda, case, dtype):
+    """The wgmma forward against the plain one: o within phase 5's share,
+    lse within 2e-3 on rows with a live key, o exactly 0 and lse finite on
+    rows without; then the backward kernels, fed its o and lse, against the
+    plain backward."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    B, H, KV, S, hd, causal, mask_kind, alibi = case
+    assert fa.FWD_LIBRARY[dtype, hd] == "flash_fwd_sm90"
+    q, k, v, do = _sparse_inputs(cuda, B, H, KV, S, hd, dtype)
+    mask = None
+    if mask_kind:
+        mask = torch.ones(B, S, dtype=torch.bool, device=cuda)
+        if mask_kind == "left_pad":
+            mask[-1, :3] = False
+        else:
+            mask[-1] = False
+    kw = dict(mask=mask, causal=causal,
+              alibi_slopes=alibi_slopes(H, cuda) if alibi else None)
+    o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    before = fa.flash_fwd.launches
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches == before + 1
+    assert o.dtype == dtype and bool(torch.isfinite(o).all())
+    assert bool(torch.isfinite(lse).all())
+    assert _max_share(o, o_p) <= FLASH_SHARE[dtype]
+    live = lse_p > fa.BIG_NEG / 2
+    assert (lse - lse_p).abs()[live].max().item() <= 2e-3
+    if not bool(live.all()):
+        assert bool((o.transpose(1, 2)[~live] == 0).all())
+    delta, delta_p = fa.attention_delta(o, do), fa.attention_delta(o_p, do)
+    got = (fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+           *fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    want = (fa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta_p, **kw),
+            *fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta_p, **kw))
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert _max_share(g, w) <= FLASH_SHARE[dtype]
+
+
+def test_wgmma_forward_refuses_and_routes(cuda):
+    """The forward's routes: 16-bit hd 32-128 to the wgmma library, hd 16
+    and fp32 to the mma.sync ones; an odd head dim or a misaligned operand
+    raises before any launch."""
+    from deepspeed_tpu_torch.ops import builder
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    assert hasattr(builder.load("flash_fwd_sm90"), "dstpu_flash_fwd")
+    assert not hasattr(builder.load("flash_fwd_sm90"), "dstpu_flash_bwd_dq")
+    for dtype, hd in ((torch.bfloat16, 16), (torch.float16, 16),
+                      (torch.float32, 64), (torch.bfloat16, 128)):
+        q = torch.randn(1, 70, 2, hd, device=cuda).to(dtype)
+        o, _ = fa.flash_fwd(q, q, q)
+        tol = 1e-4 if dtype == torch.float32 else FLASH_SHARE[dtype]
+        assert _max_share(o, fa.flash_attention_fwd_plain(q, q, q)[0]) <= tol
+    before = fa.flash_fwd.launches
+    x = torch.zeros(1, 64, 2, 96, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_fwd(x, x, x)
+    buf = torch.zeros(2 * 64 * 2 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+    odd = buf[1:].view(2, 64, 2, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_fwd(odd, odd, odd)
+    assert fa.flash_fwd.launches == before
+
+
 # ------------------------------------------------------------- sparse attention
 # (B, H, KV, S, hd, causal, config class, fields): chip_smoke.py phase 5c's
 # cases at smaller sizes: the default Fixed layout, each layout, blocks 16,

@@ -88,8 +88,8 @@ def test_library_path_keys_on_the_source():
     assert path.parent == builder.BUILD_DIR
     assert path.name.startswith("libdecode_attention-")
     assert builder.sources() == ["decode_attention", "flash_attention",
-                                 "flash_attention_f32", "sparse_attention",
-                                 "woq_matmul", "xent"]
+                                 "flash_attention_f32", "flash_fwd_sm90",
+                                 "sparse_attention", "woq_matmul", "xent"]
 
 
 def test_inference_config_ports_and_refuses():

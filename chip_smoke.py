@@ -8,8 +8,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: the card's name and power limit; build every CUDA kernel of
    ``deepspeed_tpu_torch/ops/csrc`` (nvcc, sm_90a, one process per source,
    all at once) and print nvcc's register / shared-memory lines; count the
-   wgmma and TMA instructions in the forward's SASS (cuobjdump) and print
-   its shared memory;
+   wgmma and TMA instructions in the SASS (cuobjdump) of the wgmma
+   forward's and backward pair's libraries (each > 0) and the kernels of
+   theirs that spill or have a warpgroup wait injected by ptxas (none),
+   and print their shared memory;
 2. kernels: each kernel (decode attention, the WOQ GEMMs ``woq_matmul``
    and ``woq_matmul_t``) against its plain PyTorch version on the card, at
    the main paths' shapes and the edge cases, within stated tolerances;
@@ -33,12 +35,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    versions in bf16 and fp16 at GPT-2 1.5B's attention shape, Llama-2-7B's
    (hd 128, S 4096), Llama-2-70B's GQA heads, S 8192 (where the TPU
    switches to its streamed kernels) and edge cases (padding masks with
-   fully masked rows, ALiBi, non-causal, odd S, hd 16/32); timed at the
-   GPT-2 shape and at S 8192 beside the bound, the plain versions and the
-   library calls (SDPA's forward; the aten flash backward for dq + dk/dv);
-   the forward alone at Llama-2-7B's, Llama-2-70B's GQA heads, BERT-large's
-   (under phase 8's key padding) and GPT-2's in fp16, beside SDPA's
-   forward; the host cost of a forward call and of its tensor maps;
+   fully masked rows, ALiBi, non-causal, odd S, hd 16/32), dq exactly 0 on
+   rows with no live key and dk/dv exactly 0 on masked keys; then at the
+   GPT-2 shape, at S 8192 and at Llama-2-7B's, Llama-2-70B's GQA heads,
+   BERT-large's (under phase 8's key padding) and GPT-2's in fp16, each
+   kernel checked the same way once more and timed beside the bound, the
+   plain versions and the library calls (SDPA's forward; the aten flash
+   backward for dq + dk/dv, masked SDPA's autograd backward under the key
+   padding); the host cost of a call of each wrapper and of the forward's
+   tensor maps;
 5b. xent kernels: the forward (its ``partials`` mode on each shard of a
    4-way hand split of a 50304-row vocab, combined by hand), dx and dW/db
    kernels against their plain versions in bf16 at GPT-2 1.5B's head shape
@@ -112,9 +117,10 @@ GPT-2 1.5B training step under each remat policy.
 
 Before them, a ``[flash-bias]`` line holds the JSON of phases 5d and 10's
 kernel rows (each flash kernel with the bias at phase 10's two shapes,
-and in fp32 at GPT-2 1.5B's), and a ``[flash-fwd]`` line phase 5's
-forward-only timings, the host cost and the forward's SASS counts. The
-kernels line lists each flash kernel twice: at GPT-2 1.5B's shape (rows 2-4
+and in fp32 at GPT-2 1.5B's), a ``[flash-fwd]`` line phase 5's forward
+timings at its other shapes, the host costs and the forward's SASS counts,
+and a ``[flash-bwd]`` line the backward pair's timings at the same shapes
+and the SASS counts of its two libraries. The kernels line lists each flash kernel twice: at GPT-2 1.5B's shape (rows 2-4
 of PERF.md) and at S 8192, where it stands for the TPU's streamed kernel
 (rows 5-7).
 The last three lines of standard output are the kernels' JSON, then
@@ -271,20 +277,46 @@ def phase_device() -> dict:
             if any(w in line for w in ("Function properties", "registers",
                                        "spill", "Performance Loss")):
                 log(f"[build]   {line.strip()}")
-    sass = fwd_sass_counts(built["flash_fwd_sm90"]["path"])
-    log(f"[build] flash_fwd_sm90: SASS instructions {sass} (HGMMA: wgmma, "
-        "UTMALDG: TMA loads)")
-    if not sass["HGMMA"] or not sass["UTMALDG"]:
-        raise AssertionError(f"flash_fwd_sm90 has no wgmma or TMA: {sass}")
+    sass = {}
+    for lib in ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90"):
+        sass[lib] = sass_counts(built[lib]["path"])
+        fit = ptxas_fit(built[lib]["log"])
+        log(f"[build] {lib}: SASS instructions {sass[lib]} (HGMMA: wgmma, "
+            f"UTMALDG: TMA loads); ptxas: {fit['kernels']} kernels, "
+            f"{fit['spilling']} spilling, {fit['injected_waits']} injected "
+            "warpgroup waits (C7517 / C7519)")
+        if not sass[lib]["HGMMA"] or not sass[lib]["UTMALDG"]:
+            raise AssertionError(f"{lib} has no wgmma or TMA: {sass[lib]}")
+        if not fit["kernels"] or fit["spilling"] or fit["injected_waits"]:
+            raise AssertionError(f"{lib}: ptxas reports {fit}")
     smem = builder.load("flash_fwd_sm90").dstpu_flash_fwd_smem_bytes
     smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
     log("[build] flash_fwd_sm90: dynamic shared memory " + ", ".join(
         f"hd {hd}{' bias' if bias else ''} {smem(hd, bias)} B"
         for hd in (32, 64, 128) for bias in (0, 1)))
-    return {"nvidia_smi": smi, "flash_fwd_sass": sass}
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        smem = getattr(builder.load(f"{kernel}_sm90"),
+                       f"dstpu_{kernel}_smem_bytes")
+        smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+        log(f"[build] {kernel}_sm90: dynamic shared memory " + ", ".join(
+            f"hd {hd} {smem(hd)} B" for hd in (32, 64, 128)))
+    return {"nvidia_smi": smi, "flash_sass": sass}
 
 
-def fwd_sass_counts(path: str) -> dict:
+def ptxas_fit(build_log: str) -> dict:
+    """From nvcc's ``-Xptxas -v`` output: the kernels it reports, those
+    that spill, and the warpgroup waits it injected into wgmma sequences
+    (C7517 / C7519), each of which serializes the products."""
+    import re
+
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        build_log)
+    return {"kernels": len(spills),
+            "spilling": sum(1 for st, ld in spills if int(st) or int(ld)),
+            "injected_waits": len(re.findall(r"\(C751[79]\)", build_log))}
+
+
+def sass_counts(path: str) -> dict:
     """Counts of the wgmma (HGMMA), TMA load (UTMALDG) and register
     reconfiguration (USETMAXREG) instructions in a library's SASS, read
     with the toolkit's cuobjdump."""
@@ -1031,82 +1063,102 @@ def flash_bound(B, H, KV, S, hd, causal, esize, *, side_bytes=0,
     return out
 
 
-def phase_flash_kernels(device="cuda", cases=FLASH_CASES, dtypes=None,
-                        iters=50) -> dict:
-    """The three flash kernels against their plain versions on every case,
-    in bf16 and fp16, each kernel fed the plain forward's lse and delta;
-    on the card, timed at the first (the slice's) shape and at S 8192."""
+def _flash_check(tag, x, dtype) -> dict:
+    """flash_fwd, flash_bwd_dq and flash_bwd_dkv against their plain
+    versions on one input set ``x`` (``_flash_case``), each backward kernel
+    fed the plain forward's lse and delta: o, dq, dk and dv within
+    FLASH_TOL_SHARE of max |plain|, lse within FLASH_LSE_ATOL on rows with
+    a live key, dq exactly 0 on rows without one and dk, dv exactly 0 on
+    masked keys. Raises past them; returns each kernel's max |Δ|."""
     import torch
 
     from deepspeed_tpu_torch.ops import flash_attention as fa
 
+    kw = dict(mask=x["mask"], alibi_slopes=x["slopes"], causal=x["causal"])
+    q, k, v, do, mask = x["q"], x["k"], x["v"], x["do"], x["mask"]
+    o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = fa.attention_delta(o_p, do)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_p, delta, **kw)
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, **kw)
+    if q.is_cuda:
+        torch.cuda.synchronize()
+    live = lse_p > fa.BIG_NEG / 2
+    lse_err = (lse - lse_p).abs()[live].max().item()
+    shares = {"o": _share(o, o_p), "dq": _share(dq, dq_p),
+              "dk": _share(dk, dk_p), "dv": _share(dv, dv_p)}
+    # dq's (B, S, H, hd) rows whose (B, H, S) lse has no live key; dk and
+    # dv on masked keys
+    zeros = [dq.transpose(1, 2)[~live]]
+    if mask is not None:
+        zeros += [dk[~mask], dv[~mask]]
+    exact = not any(bool(t.any()) for t in zeros)
+    tol = FLASH_TOL_SHARE.get(str(dtype), 1e-5)
+    finite = all(bool(torch.isfinite(t).all()) for t in (o, lse, dq, dk, dv))
+    ok = finite and exact and lse_err <= FLASH_LSE_ATOL and all(
+        s <= tol for s in shares.values())
+    log(f"[flash] {tag} {str(dtype):15s}: " + ", ".join(
+        f"{n} {s:.2e}" for n, s in shares.items())
+        + f" of max |plain| (tol {tol:g}); lse {lse_err:.1e} (tol "
+        f"{FLASH_LSE_ATOL:g}); dq 0 on dead rows, dk/dv 0 on masked keys: "
+        f"{exact} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash {tag} {dtype}: {shares}, lse {lse_err}, "
+                             f"finite {finite}, exact zeros {exact}")
+    worst = dict.fromkeys(FLASH_NAMES, 0.0)
+    for n, a, b in (("flash_fwd", o, o_p), ("flash_bwd_dq", dq, dq_p),
+                    ("flash_bwd_dkv", dk, dk_p), ("flash_bwd_dkv", dv, dv_p)):
+        worst[n] = max(worst[n], (a.float() - b.float()).abs().max().item())
+    return worst
+
+
+FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def phase_flash_kernels(device="cuda", cases=FLASH_CASES, dtypes=None,
+                        iters=50) -> dict:
+    """The three flash kernels against their plain versions on every case,
+    in bf16 and fp16; on the card, checked again and timed at the first
+    (the slice's) shape, at S 8192 and at FLASH_TIMED's shapes."""
+    import torch
+
     gen = torch.Generator(device=device).manual_seed(5)
     dtypes = dtypes or (torch.bfloat16, torch.float16)
-    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-    worst = dict.fromkeys(names, 0.0)
+    worst = dict.fromkeys(FLASH_NAMES, 0.0)
     for case in cases:
         name, shape = case[0], case[1:]
         for dtype in dtypes:
             x = _flash_case(gen, *shape, dtype, device)
-            kw = dict(mask=x["mask"], alibi_slopes=x["slopes"],
-                      causal=x["causal"])
-            q, k, v, do = x["q"], x["k"], x["v"], x["do"]
-            o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
-            o, lse = fa.flash_fwd(q, k, v, **kw)
-            delta = fa.attention_delta(o_p, do)
-            dq = fa.flash_bwd_dq(q, k, v, do, lse_p, delta, **kw)
-            dq_p = fa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw)
-            dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
-            dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta,
-                                                **kw)
-            if device == "cuda":
-                torch.cuda.synchronize()
-            live = lse_p > fa.BIG_NEG / 2
-            lse_err = (lse - lse_p).abs()[live].max().item()
-            shares = {"o": _share(o, o_p), "dq": _share(dq, dq_p),
-                      "dk": _share(dk, dk_p), "dv": _share(dv, dv_p)}
-            tol = FLASH_TOL_SHARE.get(str(dtype), 1e-5)
-            finite = all(bool(torch.isfinite(t).all()) for t in
-                         (o, lse, dq, dk, dv))
-            ok = finite and lse_err <= FLASH_LSE_ATOL and all(
-                s <= tol for s in shares.values())
-            log(f"[flash] {name:20s} {str(dtype):15s} B{shape[0]} H{shape[1]}"
-                f" KV{shape[2]} S{shape[3]} hd{shape[4]}: " + ", ".join(
-                    f"{n} {s:.2e}" for n, s in shares.items())
-                + f" of max |plain| (tol {tol:g}); lse {lse_err:.1e} (tol "
-                f"{FLASH_LSE_ATOL:g}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"flash {name} {dtype}: {shares}, lse "
-                                     f"{lse_err}, finite {finite}")
-            for n, a, b in (("flash_fwd", o, o_p), ("flash_bwd_dq", dq, dq_p),
-                            ("flash_bwd_dkv", dk, dk_p),
-                            ("flash_bwd_dkv", dv, dv_p)):
-                worst[n] = max(worst[n],
-                               (a.float() - b.float()).abs().max().item())
-            del x, o, o_p, dq, dq_p, dk, dv, dk_p, dv_p
-    result = {n: {"max_abs_err": worst[n]} for n in names}
+            tag = (f"{name:20s} B{shape[0]} H{shape[1]} KV{shape[2]} "
+                   f"S{shape[3]} hd{shape[4]}")
+            errs = _flash_check(tag, x, dtype)
+            for n in FLASH_NAMES:
+                worst[n] = max(worst[n], errs[n])
+            del x
     if device != "cuda":
-        return result
-
+        return {n: {"max_abs_err": worst[n]} for n in FLASH_NAMES}
     main = _flash_timing(gen, cases[0], iters)
-    for n in names:
-        result[n].update(main[n])
     # the TPU's streamed regime (rows 5-7): the same kernels at S 8192
-    long = [c for c in cases if c[0].startswith("streamed")]
-    if long:
-        result["streamed"] = _flash_timing(gen, long[0], max(iters // 5, 5))
-    # flash_fwd alone at the presets' other shapes
-    result["fwd_shapes"] = {c[0]: _flash_fwd_timing(gen, c, iters)
-                            for c in FLASH_FWD_TIMED}
-    result["host"] = _flash_fwd_host_cost()
+    long = next(c for c in cases if c[0].startswith("streamed"))
+    streamed = _flash_timing(gen, long, max(iters // 5, 5))
+    # the presets' other shapes, BERT-large's on the main path (phase 8)
+    shapes = {c[0]: _flash_timing(gen, c[:8], iters, dtype=c[8])
+              for c in FLASH_TIMED}
+    for times in (main, streamed, *shapes.values()):
+        for n in FLASH_NAMES:
+            worst[n] = max(worst[n], times[n]["max_abs_err"])
+    result = {n: {**main[n], "max_abs_err": worst[n]} for n in FLASH_NAMES}
+    result.update(streamed=streamed, shapes=shapes, host=_flash_host_cost())
     return result
 
 
-# flash_fwd timed alone beside SDPA's forward, besides phase 5's first case
-# (GPT-2 1.5B, row 2) and S 8192 (row 5): (name, B, H, KV, S, hd, causal,
+# The flash kernels checked and timed besides phase 5's first case (GPT-2
+# 1.5B, rows 2-4) and S 8192 (rows 5-7): (name, B, H, KV, S, hd, causal,
 # mask kind, dtype). Llama-2-7B's attention, Llama-2-70B's GQA heads,
 # BERT-large's under phase 8's key padding, GPT-2 1.5B's in fp16.
-FLASH_FWD_TIMED = (
+FLASH_TIMED = (
     ("llama2_7b", 1, 32, 32, 4096, 128, True, None, "torch.bfloat16"),
     ("gqa_70b_heads", 1, 64, 8, 2048, 128, True, None, "torch.bfloat16"),
     ("bert_large", 16, 16, 16, 512, 64, False, "bert_pad", "torch.bfloat16"),
@@ -1114,53 +1166,12 @@ FLASH_FWD_TIMED = (
 )
 
 
-def _flash_fwd_timing(gen, case, iters) -> dict:
-    """flash_fwd alone at one shape in the case's dtype, with its key
-    mask: kernel, plain, bound and the library, SDPA's forward (the KV
-    heads repeated for GQA, the key mask as a boolean attn_mask), all
-    device-timed but the plain version."""
-    import torch
-    import torch.nn.functional as F
-
-    from deepspeed_tpu_torch.ops import flash_attention as fa
-
-    name, B, H, KV, S, hd, causal, mask_kind, dtype_name = case
-    dtype = getattr(torch, dtype_name.split(".")[1])
-    sets = [_flash_case(gen, B, H, KV, S, hd, causal, mask_kind, False, dtype,
-                        "cuda") for _ in range(4)]
-    args = lambda i: tuple(sets[i % 4][n] for n in "qkv")        # noqa: E731
-    kw = lambda i: dict(mask=sets[i % 4]["mask"], causal=causal)  # noqa: E731
-    ms = device_ms(lambda i: fa.flash_fwd(*args(i), **kw(i)), 4, iters)
-    plain_ms = time_ms(lambda i: fa.flash_attention_fwd_plain(*args(i),
-                                                              **kw(i)), 3)
-    b = flash_bound(B, H, KV, S, hd, causal, dtype.itemsize,
-                    side_bytes=B * S if mask_kind else 0,
-                    dtype=dtype_name)["flash_fwd"]
-    # the library's inputs: (B, H, S, hd), each KV head repeated for its
-    # query heads
-    tq = [tuple(t.repeat_interleave(H // t.shape[2], 2).transpose(1, 2)
-                .contiguous() for t in args(i)) for i in range(4)]
-    am = [None if s["mask"] is None else s["mask"][:, None, None, :]
-          for s in sets]
-    library_ms = device_ms(lambda i: F.scaled_dot_product_attention(
-        *tq[i % 4], attn_mask=am[i % 4], is_causal=causal), 4, iters)
-    log(f"[flash-fwd] {name} B{B} H{H} KV{KV} S{S} hd{hd} "
-        f"{'causal' if causal else 'full'}{', key mask' if mask_kind else ''}"
-        f" {dtype_name}: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} "
-        f"us, bound {b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}: "
-        f"{b['bytes']} B, {b['ops']:.4g} flop), kernel at "
-        f"{b['bound_ms'] / ms:.1%} of the bound; SDPA forward (device, not "
-        f"called by the port) {library_ms * 1e3:.2f} us")
-    del sets, tq, am
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
-                bound_by=b["bound_by"], library_ms=library_ms)
-
-
-def _flash_fwd_host_cost() -> dict:
-    """Host µs of one flash_fwd call (the wgmma forward, which encodes
-    three TMA tensor maps a call) and of one flash_bwd_dq call (no tensor
-    maps) at a shape too small for the device to set the pace, and the
-    encoder's own ns for the three maps at GPT-2 1.5B's shape."""
+def _flash_host_cost() -> dict:
+    """Host µs of one call of each flash wrapper on its wgmma kernel (the
+    forward encodes three TMA tensor maps a call, dq and dk/dv four each)
+    at a shape too small for the device to set the pace, then of one call
+    issued while the device is busy, and the encoder's own ns for the
+    forward's three maps at GPT-2 1.5B's shape."""
     import ctypes
 
     import torch
@@ -1171,99 +1182,138 @@ def _flash_fwd_host_cost() -> dict:
                                dtype=torch.bfloat16) for _ in range(4))
     o, lse = fa.flash_fwd(q, k, v)
     delta = fa.attention_delta(o, do)
-    fwd_us = host_us(lambda: fa.flash_fwd(q, k, v))
-    dq_us = host_us(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta))
-    lib = fa._lib("flash_fwd_sm90")
-    enc = lib.dstpu_flash_fwd_encode_ns
+    us = {"flash_fwd_us": host_us(lambda: fa.flash_fwd(q, k, v)),
+          "flash_bwd_dq_us": host_us(
+              lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta)),
+          "flash_bwd_dkv_us": host_us(
+              lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta))}
+    enc = fa._lib("flash_fwd_sm90").dstpu_flash_fwd_encode_ns
     enc.argtypes, enc.restype = [ctypes.c_int] * 6, ctypes.c_double
-    encode_ns = enc(4, 1024, 25, 25, 64, 20000)
-    log(f"[flash-fwd] host cost a call (B1 H1 S128 hd64): flash_fwd "
-        f"{fwd_us:.2f} us, flash_bwd_dq {dq_us:.2f} us; encoding the three "
-        f"tensor maps {encode_ns:.1f} ns")
-    return {"flash_fwd_us": fwd_us, "flash_bwd_dq_us": dq_us,
-            "encode_ns": encode_ns}
+    us["encode_ns"] = enc(4, 1024, 25, 25, 64, 20000)
+
+    def queued(fn):
+        # host µs of a call issued behind ~50 ms of queued device work
+        # (a spin kernel): a call that waits on the device shows it here
+        ts = []
+        for _ in range(5):
+            torch.cuda._sleep(100_000_000)
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+        return sorted(ts)[2] * 1e6
+
+    us["queued_us"] = {
+        "flash_fwd": queued(lambda: fa.flash_fwd(q, k, v)),
+        "flash_bwd_dq": queued(lambda: fa.flash_bwd_dq(q, k, v, do, lse,
+                                                       delta)),
+        "flash_bwd_dkv": queued(lambda: fa.flash_bwd_dkv(q, k, v, do, lse,
+                                                         delta))}
+    log(f"[flash] host cost a call (B1 H1 S128 hd64): flash_fwd "
+        f"{us['flash_fwd_us']:.2f} us, flash_bwd_dq "
+        f"{us['flash_bwd_dq_us']:.2f} us, flash_bwd_dkv "
+        f"{us['flash_bwd_dkv_us']:.2f} us; behind ~50 ms of queued device "
+        "work " + ", ".join(f"{n} {t:.2f} us"
+                            for n, t in us["queued_us"].items())
+        + f"; encoding the forward's three tensor maps {us['encode_ns']:.1f} "
+        "ns")
+    return us
 
 
-def _flash_timing(gen, case, iters) -> dict:
-    """Kernel, plain and bound of each flash kernel at one case's shape in
-    bf16 (device time, 4 input sets in rotation past the 50 MB L2), with
-    the library calls the port never makes as yardsticks, device-timed
-    too: SDPA's forward for ``flash_fwd``, and for the backward pair
-    ``aten._scaled_dot_product_flash_attention_backward``, one call that
-    computes dq, dk and dv from the same (dO, q, k, v, o, lse)."""
+def _flash_timing(gen, case, iters, dtype="torch.bfloat16") -> dict:
+    """Each flash kernel at one case's shape, key mask and dtype, first
+    held against its plain version (``_flash_check``), then timed beside
+    its plain version and bound (device time, 4 input sets in rotation
+    past the 50 MB L2; the backward fed the plain forward's lse and delta),
+    with the library calls the port never makes as yardsticks, device-timed
+    too: SDPA's forward for ``flash_fwd`` (the KV heads repeated for GQA, a
+    key mask as a boolean ``attn_mask``), and for the backward pair the
+    aten flash backward, one call that computes dq, dk and dv from the same
+    (dO, q, k, v, o, lse), or under a key mask, which it does not take,
+    masked SDPA's autograd backward."""
     import torch
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops import flash_attention as fa
 
-    name, B, H, KV, S, hd, causal = case[:7]
-    dtype, device = torch.bfloat16, "cuda"
-    sets = []
-    for _ in range(4):
-        x = _flash_case(gen, B, H, KV, S, hd, causal, None, False, dtype,
-                        device)
+    name, B, H, KV, S, hd, causal, mask_kind = case[:8]
+    dtype = getattr(torch, dtype.split(".")[1])
+    tag = (f"{name} B{B} H{H} KV{KV} S{S} hd{hd} "
+           f"{'causal' if causal else 'full'}"
+           f"{', key mask' if mask_kind else ''}")
+    sets = [_flash_case(gen, B, H, KV, S, hd, causal, mask_kind, False, dtype,
+                        "cuda") for _ in range(4)]
+    errs = _flash_check(tag, sets[0], dtype)
+    for x in sets:
         o, lse = fa.flash_attention_fwd_plain(x["q"], x["k"], x["v"],
-                                              causal=causal)
-        x.update(o=o, lse=lse, delta=fa.attention_delta(o, x["do"]))
-        sets.append(x)
-    args = lambda i: (sets[i % 4]["q"], sets[i % 4]["k"],        # noqa: E731
-                      sets[i % 4]["v"])
-    bwd = lambda i: (*args(i), sets[i % 4]["do"], sets[i % 4]["lse"],  # noqa
-                     sets[i % 4]["delta"])
-    calls = {"flash_fwd": (lambda i: fa.flash_fwd(*args(i), causal=causal),
-                           lambda i: fa.flash_attention_fwd_plain(
-                               *args(i), causal=causal)),
-             "flash_bwd_dq": (lambda i: fa.flash_bwd_dq(*bwd(i),
-                                                        causal=causal),
-                              lambda i: fa.flash_bwd_dq_plain(
-                                  *bwd(i), causal=causal)),
-             "flash_bwd_dkv": (lambda i: fa.flash_bwd_dkv(*bwd(i),
-                                                          causal=causal),
-                               lambda i: fa.flash_bwd_dkv_plain(
-                                   *bwd(i), causal=causal))}
-    bounds = flash_bound(B, H, KV, S, hd, causal, 2)
-    # GQA: SDPA takes the KV heads repeated (enable_gqa needs a newer torch)
-    rep = lambda t: t.repeat_interleave(H // KV, 2) if KV != H else t  # noqa
-    tq = [tuple(rep(t).transpose(1, 2).contiguous() for t in args(i))
-          for i in range(4)]
-    sdpa_fwd = device_ms(lambda i: F.scaled_dot_product_attention(
-        *tq[i % 4], is_causal=causal), 4, iters)
-    # the flash backward's own inputs: its forward's o and lse per set
-    aten = torch.ops.aten
-    fw = [aten._scaled_dot_product_flash_attention(
-        *tq[i], 0.0, causal, False) for i in range(4)]
+                                              mask=x["mask"], causal=causal)
+        x.update(lse=lse, delta=fa.attention_delta(o, x["do"]))
+    fwd = lambda i: tuple(sets[i % 4][n] for n in "qkv")        # noqa: E731
+    bwd = lambda i: tuple(sets[i % 4][n] for n in (             # noqa: E731
+        "q", "k", "v", "do", "lse", "delta"))
+    kw = lambda i: dict(mask=sets[i % 4]["mask"], causal=causal)  # noqa
+    calls = {"flash_fwd": (fa.flash_fwd, fa.flash_attention_fwd_plain, fwd),
+             "flash_bwd_dq": (fa.flash_bwd_dq, fa.flash_bwd_dq_plain, bwd),
+             "flash_bwd_dkv": (fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, bwd)}
+    bounds = flash_bound(B, H, KV, S, hd, causal, dtype.itemsize,
+                         side_bytes=B * S if mask_kind else 0,
+                         dtype=str(dtype))
+    # the library's inputs: (B, H, S, hd), each KV head repeated for its
+    # query heads (enable_gqa needs a newer torch); leaves for autograd
+    # under a key mask
+    tq = [tuple(t.repeat_interleave(H // t.shape[2], 2).transpose(1, 2)
+                .contiguous().requires_grad_(mask_kind is not None)
+                for t in fwd(i)) for i in range(4)]
     gdo = [s["do"].transpose(1, 2).contiguous() for s in sets]
+    am = [None if s["mask"] is None else s["mask"][:, None, None, :]
+          for s in sets]
 
-    def sdpa_bwd(i):
-        t, f = tq[i % 4], fw[i % 4]
-        return aten._scaled_dot_product_flash_attention_backward(
-            gdo[i % 4], *t, f[0], f[1], f[2], f[3], f[4], f[5], 0.0, causal,
-            f[6], f[7])
+    def lib_fwd(i):
+        return F.scaled_dot_product_attention(
+            *tq[i % 4], attn_mask=am[i % 4], is_causal=causal)
 
-    library = {"flash_fwd": sdpa_fwd}
-    library["flash_bwd_dq"] = library["flash_bwd_dkv"] = device_ms(
-        sdpa_bwd, 4, iters)
+    if mask_kind is None:
+        sdpa_fwd = device_ms(lib_fwd, 4, iters)
+        aten = torch.ops.aten
+        fw = [aten._scaled_dot_product_flash_attention(*tq[i], 0.0, causal,
+                                                       False)
+              for i in range(4)]
+
+        def lib_bwd(i):
+            f = fw[i % 4]
+            return aten._scaled_dot_product_flash_attention_backward(
+                gdo[i % 4], *tq[i % 4], f[0], f[1], f[2], f[3], f[4], f[5],
+                0.0, causal, f[6], f[7])
+
+        sdpa_bwd = device_ms(lib_bwd, 4, iters)
+        what = "the aten flash backward (dq, dk and dv in one call)"
+    else:
+        sdpa_fwd, sdpa_bwd = _library_ms(
+            lib_fwd, lambda i: torch.autograd.grad(lib_fwd(i), tq[i % 4],
+                                                   gdo[i % 4]), iters)
+        what = "masked SDPA's autograd backward"
+    library = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_bwd,
+               "flash_bwd_dkv": sdpa_bwd}
     out = {}
-    for n, (kern, plain) in calls.items():
-        ms = device_ms(kern, 4, iters)
-        plain_ms = time_ms(plain, max(iters // 10, 3))
+    for n, (kern, plain, args) in calls.items():
+        ms = device_ms(lambda i: kern(*args(i), **kw(i)), 4, iters)
+        plain_ms = time_ms(lambda i: plain(*args(i), **kw(i)),
+                           max(iters // 10, 3))
         b = bounds[n]
         out[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
-                      bound_by=b["bound_by"], library_ms=library[n])
-        log(f"[flash] {n} {name} B{B} H{H} KV{KV} S{S} hd{hd} causal bf16: "
-            f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
-            f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}: {b['bytes']} B, "
-            f"{b['ops']:.4g} flop), kernel at {b['bound_ms'] / ms:.1%} of the "
-            "bound")
-    bwd = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkv"]["ms"]
-    log(f"[flash] {name} library calls (device, not called by the port): "
-        f"SDPA forward {sdpa_fwd * 1e3:.2f} us vs flash_fwd "
-        f"{out['flash_fwd']['ms'] * 1e3:.2f} us; the aten flash backward "
-        f"(dq, dk and dv in one call) {library['flash_bwd_dq'] * 1e3:.2f} us "
-        f"vs flash_bwd_dq + flash_bwd_dkv {bwd * 1e3:.2f} us; forward + "
-        f"backward {(sdpa_fwd + library['flash_bwd_dq']) * 1e3:.2f} us vs "
-        f"{(out['flash_fwd']['ms'] + bwd) * 1e3:.2f} us")
-    del sets, tq, fw, gdo
+                      bound_by=b["bound_by"], library_ms=library[n],
+                      max_abs_err=errs[n])
+        log(f"[flash] {n} {tag} {dtype}: kernel {ms * 1e3:.2f} us, plain "
+            f"{plain_ms * 1e3:.2f} us, bound {b['bound_ms'] * 1e3:.2f} us "
+            f"({b['bound_by']}: {b['bytes']} B, {b['ops']:.4g} flop), kernel "
+            f"at {b['bound_ms'] / ms:.1%} of the bound")
+    pair = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkv"]["ms"]
+    log(f"[flash] {tag} {dtype} library calls (device, not called by the "
+        f"port): SDPA forward {sdpa_fwd * 1e3:.2f} us vs flash_fwd "
+        f"{out['flash_fwd']['ms'] * 1e3:.2f} us; {what} "
+        f"{sdpa_bwd * 1e3:.2f} us vs flash_bwd_dq + flash_bwd_dkv "
+        f"{pair * 1e3:.2f} us ({pair / sdpa_bwd:.2f}x)")
+    del sets, tq, gdo
     return out
 
 
@@ -2355,11 +2405,13 @@ XENT_KERNEL_NAMES = ("xent_fwd_kernel", "xent_fwd_merge_kernel",
 
 def kernel_names(fns) -> tuple:
     """The names under which the wrappers' kernels show in a profile:
-    ``<wrapper>_kernel``, and flash_fwd's wgmma kernel besides its
-    mma.sync one (fp32 and hd 16)."""
+    ``<wrapper>_kernel``, and for the three flash kernels their wgmma
+    kernel ``<wrapper>_sm90_kernel`` besides the mma.sync one (fp32 and hd
+    16)."""
     return tuple(n for fn in fns for n in (
-        (f"{fn.__name__}_kernel", "flash_fwd_sm90_kernel")
-        if fn.__name__ == "flash_fwd" else (f"{fn.__name__}_kernel",)))
+        (f"{fn.__name__}_kernel", f"{fn.__name__}_sm90_kernel")
+        if fn.__name__ in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        else (f"{fn.__name__}_kernel",)))
 
 
 def phase_train(cfg=None, *, config=None, check="attention", check_layers=4,
@@ -2832,42 +2884,49 @@ def phase_af2_msa_row(device="cuda", af2=None, profile_steps=2) -> dict:
     # the main path: warm-up, then the counted and timed steps
     leaves = {n: t.clone().requires_grad_() for n, t in params.items()}
 
+    issued = []                           # host clock at the last launch
+
     def step():
         loss = loss_fn(leaves, evo.evoformer_attention)
         grads = torch.autograd.grad(loss, list(leaves.values()))
         with torch.no_grad():
             for t, g in zip(leaves.values(), grads):
                 t -= a["lr"] * g
+        issued.append(time.perf_counter())
         return loss.item(), float(grads[list(leaves).index("z")].norm())
 
     losses = [step()[0] for _ in range(a["warmup"])]
     base = _free_memory(dev)
     for c in counters:
         c.launches = 0
-    step_s, dz = [], 0.0
+    step_s, issue_s, dz = [], [], 0.0
     for _ in range(a["steps"]):
         sync()
         t1 = time.perf_counter()
         loss, dz = step()                 # a host read: synchronizes
         step_s.append(time.perf_counter() - t1)
+        issue_s.append(issued[-1] - t1)
         losses.append(loss)
     launches = {c.__name__: c.launches for c in counters}
     peak = torch.cuda.max_memory_allocated() - base if cuda else 0
     want = {c.__name__: a["steps"] for c in counters} if cuda else \
         dict.fromkeys(launches, 0)
     ms = sorted(step_s)[len(step_s) // 2] * 1e3
+    issue_ms = sorted(issue_s)[len(issue_s) // 2] * 1e3
     log(f"{tag} {a['warmup']} + {a['steps']} SGD steps at lr {a['lr']}: "
         f"losses {[round(v, 6) for v in losses]}; launches {launches} (1 / 1"
         f" / 1 a step); |dz| at the last step {dz:.3e}; step {ms:.2f} ms "
-        f"median (min {min(step_s) * 1e3:.2f}, max {max(step_s) * 1e3:.2f}); "
-        f"peak memory above the state {peak / 2**30:.3f} GiB")
+        f"median (min {min(step_s) * 1e3:.2f}, max {max(step_s) * 1e3:.2f}), "
+        f"of which the host issues its launches in {issue_ms:.2f} ms median, "
+        f"then waits on the device; peak memory above the state "
+        f"{peak / 2**30:.3f} GiB")
     if not (launches == want and losses[-1] < losses[0] and dz > 0
             and all(math.isfinite(v) for v in losses)):
         raise AssertionError(f"{tag} launches {launches}, losses {losses}, "
                              f"dz {dz}")
     result = dict(losses=losses, loss_rel=loss_rel, grad_rel=grad_rel[worst],
-                  launches=launches, step_ms=ms, peak_bytes=peak,
-                  plain_peak_bytes=plain_peak, shares={})
+                  launches=launches, step_ms=ms, issue_ms=issue_ms,
+                  peak_bytes=peak, plain_peak_bytes=plain_peak, shares={})
     if cuda and profile_steps:
         prof = profile_calls(lambda: [step() for _ in range(profile_steps)],
                              profile_steps, "AF2 MSA-row steps")
@@ -2938,22 +2997,22 @@ def flash_bias_rows(bias: dict, evo: dict) -> list:
     AF2 rows' and the example's shapes (launches: phase 10's timed AF2
     steps and the example's 50 fp32 steps), and in fp32 at GPT-2 1.5B's
     shape (no main path runs fp32 without a bias: launches 0)."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.flash_attention import library
+
     rows = []
-    for shape, times, variant, launches, source in (
+    for shape, times, variant, launches, dtype, hd in (
             ("af2_msa_row", bias["biased"]["af2_msa_row"], "bias",
-             evo["af2"]["launches"], None),
+             evo["af2"]["launches"], torch.bfloat16, 32),
             ("evoformer_example", bias["biased"]["evoformer_example"], "bias",
-             evo["example"]["torch.float32"]["launches"],
-             "flash_attention_f32.cu"),
-            ("gpt2_1.5b fp32", bias["fp32"], "fp32", {},
-             "flash_attention_f32.cu")):
+             evo["example"]["torch.float32"]["launches"], torch.float32, 32),
+            ("gpt2_1.5b fp32", bias["fp32"], "fp32", {}, torch.float32, 64)):
         for name, line in (("flash_fwd", 43), ("flash_bwd_dq", 228),
                            ("flash_bwd_dkv", 285)):
-            # the bf16 rows: the wgmma forward, the mma.sync backward
-            src = source or ("flash_fwd_sm90.cu" if name == "flash_fwd"
-                             else "flash_attention.cu")
             rows.append({"name": name, "shape": shape, "route": "cuda",
-                         "source": "deepspeed_tpu_torch/ops/csrc/" + src,
+                         "source": "deepspeed_tpu_torch/ops/csrc/"
+                                   + library(name, dtype, hd) + ".cu",
                          "replaces": f"deepspeed_tpu/ops/flash_attention.py:"
                                      f"{line}",
                          "launches": launches.get(name, 0),
@@ -2982,6 +3041,7 @@ def main() -> int:
               f"this script ({e})", file=sys.stderr)
         return 1
     from deepspeed_tpu_torch.models import bert, gpt2, llama2, opt
+    from deepspeed_tpu_torch.ops.flash_attention import library
 
     t0 = time.perf_counter()
     dev = phase_device()
@@ -3042,9 +3102,6 @@ def main() -> int:
          **{k: woq["woq_matmul_t"][k] for k in keys}}]
     # launches: the GPT-2 1.5B training run's timed steps; the same
     # kernels stand for the TPU's streamed ones (rows 5-7), timed at S 8192
-    flash_src = {"flash_fwd": "flash_fwd_sm90.cu",
-                 "flash_bwd_dq": "flash_attention.cu",
-                 "flash_bwd_dkv": "flash_attention.cu"}
     for name, line, streamed_line in (("flash_fwd", 43, 436),
                                       ("flash_bwd_dq", 228, 533),
                                       ("flash_bwd_dkv", 285, 581)):
@@ -3053,7 +3110,8 @@ def main() -> int:
                                            "max_abs_err": flash[name][
                                                "max_abs_err"]})):
             kernels.append({"name": name, "route": "cuda",
-                            "source": src + flash_src[name],
+                            "source": src + library(name, torch.bfloat16,
+                                                    64) + ".cu",
                             "replaces": "deepspeed_tpu/ops/flash_attention"
                                         f".py:{at}",
                             "launches": train["launches"][name],
@@ -3075,9 +3133,15 @@ def main() -> int:
                         **{k: sparse[name][k] for k in keys}})
     log("[flash-bias] " + json.dumps({"kernels": flash_bias_rows(bias,
                                                                  evo)}))
+    shapes = flash["shapes"]
     log("[flash-fwd] " + json.dumps({
-        "shapes": flash["fwd_shapes"], "host": flash["host"],
-        "sass": dev["flash_fwd_sass"]}))
+        "shapes": {c: t["flash_fwd"] for c, t in shapes.items()},
+        "host": flash["host"], "sass": dev["flash_sass"]["flash_fwd_sm90"]}))
+    log("[flash-bwd] " + json.dumps({
+        "shapes": {c: {n: t[n] for n in ("flash_bwd_dq", "flash_bwd_dkv")}
+                   for c, t in shapes.items()},
+        "sass": {k: v for k, v in dev["flash_sass"].items()
+                 if k != "flash_fwd_sm90"}}))
     print(json.dumps({"kernels": kernels}))
     print(dev["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

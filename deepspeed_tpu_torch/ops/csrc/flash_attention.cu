@@ -1,7 +1,7 @@
-// Flash attention's bf16 / fp16 mma.sync kernels, with and without the
-// additive bias: dq and dk/dv at every head dim, the forward at hd 16 only
-// (at hd 32-128 it is flash_fwd_sm90.cu's). The kernels, what they replace
-// and how they are laid out: flash_attention.cuh.
+// Flash attention's bf16 / fp16 mma.sync kernels at hd 16, with and
+// without the additive bias: the forward, dq and dk/dv (at hd 32-128 they
+// are flash_fwd_sm90.cu's and flash_bwd_sm90.cuh's). The kernels, what they
+// replace and how they are laid out: flash_attention.cuh.
 
 #include "flash_attention.cuh"
 

@@ -1,14 +1,17 @@
-// Flash attention backward on Hopper (sm_90a), and the forward for fp32 and
-// for 16-bit hd 16: bf16 / fp16 operands on tensor cores through mma.sync
+// Flash attention on Hopper (sm_90a) for fp32 and for 16-bit hd 16, forward
+// and backward: bf16 / fp16 operands on tensor cores through mma.sync
 // m16n8k16 with fp32 accumulation, fp32 operands through 3xTF32 mma.sync
-// m16n8k8; an optional additive score bias, and its gradient. The forward
-// for bf16 / fp16 at hd 32-128 is flash_fwd_sm90.cu's (wgmma, TMA, warp
-// specialisation); ops/flash_attention.py routes each forward by (dtype,
-// hd) through a fixed table.
+// m16n8k8; an optional additive score bias, and its gradient. For bf16 /
+// fp16 at hd 32-128 the forward is flash_fwd_sm90.cu's and the backward
+// pair flash_bwd_sm90.cuh's (built by flash_bwd_dq_sm90.cu and
+// flash_bwd_dkv_sm90.cu: wgmma, TMA, warp specialisation);
+// ops/flash_attention.py routes each launch by (kernel, dtype, hd) through
+// fixed tables.
 //
-// Replaces the TPU kernels of deepspeed_tpu/ops/flash_attention.py:
+// Replaces the TPU kernels of deepspeed_tpu/ops/flash_attention.py, for
+// fp32 and 16-bit hd 16:
 //   flash_fwd     <- _fwd_kernel (:43) and, past the TPU's VMEM budget,
-//                    _fwd_kernel_streamed (:436), for fp32 and 16-bit hd 16;
+//                    _fwd_kernel_streamed (:436);
 //   flash_bwd_dq  <- _make_bwd_dq_kernel (:228) / _make_bwd_dq_kernel_streamed
 //                    (:533), dbias included;
 //   flash_bwd_dkv <- _make_bwd_dkv_kernel (:285) /
@@ -57,8 +60,9 @@
 // hd 64 the forward is bound by bytes, dq and dk/dv by operations; a full
 // (B, H, S, S) bias at hd 32 makes all three bound by bytes.
 //
-// Design, simple first (the 16-bit forward has since moved to
-// flash_fwd_sm90.cu, which takes wgmma, TMA and warp specialisation): one
+// Design, simple first (the 16-bit kernels at hd 32-128 have since moved to
+// flash_fwd_sm90.cu and flash_bwd_sm90.cuh, which take wgmma, TMA and warp
+// specialisation): one
 // block of 4 warps per (query tile of 64 rows, head, batch) for the forward
 // and dq, per (key tile of 64, KV head, batch) for dk/dv; each warp owns 16
 // rows. The block's own tile and each streamed 64-row tile are staged in
@@ -79,19 +83,19 @@
 // past S is zero-filled and masked. exp is the fast __expf (ex2.approx, ~2
 // ulp of fp32). The streamed tiles are double buffered: cp.async copies the
 // next tile while the current one is computed. The bias is a template
-// flag, so the kernels without it keep their code. TMA, warp
-// specialisation and wgmma for the backward are later work.
+// flag, so the kernels without it keep their code. fp32 and hd 16 still
+// wait for the wgmma redesign (ROADMAP.md queue 2).
 //
 // Two sources include this header, so that nvcc builds them side by side:
-// flash_attention.cu instantiates the bf16 / fp16 kernels (36, with and
-// without the bias: dq and dk/dv at hd 16-128, the forward at hd 16 only)
-// and flash_attention_f32.cu the fp32 ones (24); each becomes its own
-// library with the C interface below.
+// flash_attention.cu instantiates the bf16 / fp16 kernels at hd 16 (12:
+// forward, dq and dk/dv, with and without the bias) and
+// flash_attention_f32.cu the fp32 ones at hd 16-128 (24); each becomes its
+// own library with the C interface below.
 //
 // C interface (ctypes): each function returns cudaGetLastError() after its
 // launch, or cudaErrorInvalidValue for what it does not take (a dtype its
-// library does not instantiate, hd not in {16, 32, 64, 128}, a 16-bit
-// forward at hd 32-128).
+// library does not instantiate, hd not in {16, 32, 64, 128}, 16-bit
+// operands at hd 32-128).
 
 #pragma once
 
@@ -731,26 +735,28 @@ struct Args {
   cudaStream_t stream;
 };
 
-// the forwards this header builds: fp32 at every head dim, 16-bit operands
-// at hd 16 only
+// the kernels this header builds: fp32 at every head dim, 16-bit operands
+// at hd 16 only (the 16-bit forward and backward at hd 32-128 are
+// flash_fwd_sm90.cu's and flash_bwd_sm90.cuh's)
 template <typename T, int HD>
-constexpr bool fwd_here() {
+constexpr bool here() {
   return std::is_same_v<T, float> || HD == 16;
 }
 
 template <typename T, int HD, bool BIAS>
 cudaError_t launch(int which, const Args& a) {
-  constexpr int LD = row_len<T, HD>();
-  const dim3 block(kThreads);
-  const int tiles = (a.S + kTile - 1) / kTile;
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
-  cudaError_t err;
-  if (which == 0) {
-    // the 16-bit forward at hd 32-128 is flash_fwd_sm90.cu's: not built here
-    if constexpr (fwd_here<T, HD>()) {
+  if constexpr (!here<T, HD>()) {
+    return cudaErrorInvalidValue;
+  } else {
+    constexpr int LD = row_len<T, HD>();
+    const dim3 block(kThreads);
+    const int tiles = (a.S + kTile - 1) / kTile;
+    const T* q = static_cast<const T*>(a.q);
+    const T* k = static_cast<const T*>(a.k);
+    const T* v = static_cast<const T*>(a.v);
+    const T* dout = static_cast<const T*>(a.dout);
+    cudaError_t err;
+    if (which == 0) {
       const size_t smem =
           5 * kTile * LD * sizeof(T) + scratch_bytes<T, BIAS>();
       auto fn = flash_fwd_kernel<T, HD, BIAS>;
@@ -760,32 +766,30 @@ cudaError_t launch(int which, const Args& a) {
       fn<<<dim3(tiles, a.H, a.B), block, smem, a.stream>>>(
           q, k, v, a.mask, a.slopes, a.bias, static_cast<T*>(a.o), a.lse_out,
           a.S, a.H, a.KV, a.causal, a.scale);
+    } else if (which == 1) {
+      const size_t smem =
+          6 * kTile * LD * sizeof(T) + scratch_bytes<T, BIAS>();
+      auto fn = flash_bwd_dq_kernel<T, HD, BIAS>;
+      err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+      fn<<<dim3(tiles, a.H, a.B), block, smem, a.stream>>>(
+          q, k, v, dout, a.lse_in, a.delta, a.mask, a.slopes, a.bias,
+          static_cast<T*>(a.o), a.dbias, a.S, a.H, a.KV, a.causal, a.scale);
     } else {
-      return cudaErrorInvalidValue;
+      const size_t smem = 6 * kTile * LD * sizeof(T) +
+                          4 * kTile * sizeof(float) + scratch_bytes<T, BIAS>();
+      auto fn = flash_bwd_dkv_kernel<T, HD, BIAS>;
+      err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+      fn<<<dim3(tiles, a.KV, a.B), block, smem, a.stream>>>(
+          q, k, v, dout, a.lse_in, a.delta, a.mask, a.slopes, a.bias,
+          static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.S, a.H, a.KV,
+          a.causal, a.scale);
     }
-  } else if (which == 1) {
-    const size_t smem =
-        6 * kTile * LD * sizeof(T) + scratch_bytes<T, BIAS>();
-    auto fn = flash_bwd_dq_kernel<T, HD, BIAS>;
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    fn<<<dim3(tiles, a.H, a.B), block, smem, a.stream>>>(
-        q, k, v, dout, a.lse_in, a.delta, a.mask, a.slopes, a.bias,
-        static_cast<T*>(a.o), a.dbias, a.S, a.H, a.KV, a.causal, a.scale);
-  } else {
-    const size_t smem = 6 * kTile * LD * sizeof(T) +
-                        4 * kTile * sizeof(float) + scratch_bytes<T, BIAS>();
-    auto fn = flash_bwd_dkv_kernel<T, HD, BIAS>;
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    fn<<<dim3(tiles, a.KV, a.B), block, smem, a.stream>>>(
-        q, k, v, dout, a.lse_in, a.delta, a.mask, a.slopes, a.bias,
-        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.S, a.H, a.KV, a.causal,
-        a.scale);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <typename T, int HD>

@@ -3,15 +3,17 @@
 Counterpart of ``deepspeed_tpu/ops/flash_attention.py``, whose Pallas
 kernels (``_fwd_kernel``, ``_make_bwd_dq_kernel``, ``_make_bwd_dkv_kernel``
 and their streamed long-sequence twins) become CUDA kernels for Hopper,
-built by ``ops/builder.py`` and called through ctypes. The forward for
-bf16 / fp16 at hd 32-128 is ``csrc/flash_fwd_sm90.cu`` (wgmma, TMA, warp
-specialisation); the backward kernels, the fp32 forward and the 16-bit hd
-16 one are the mma.sync kernels of ``csrc/flash_attention.cuh``,
-instantiated for bf16 / fp16 by ``csrc/flash_attention.cu`` and for fp32 by
-``csrc/flash_attention_f32.cu`` (each source's header comment says what
-bounds its kernels and how they are laid out). :data:`FWD_LIBRARY` routes
-the forward. The kernels stream K/V (or Q/dO) through shared memory at any
-S, so one kernel stands for each TPU pair.
+built by ``ops/builder.py`` and called through ctypes. For bf16 / fp16 at
+hd 32-128 the forward is ``csrc/flash_fwd_sm90.cu`` and the backward pair
+``csrc/flash_bwd_dq_sm90.cu`` / ``csrc/flash_bwd_dkv_sm90.cu`` (wgmma, TMA,
+warp specialisation; the pair's kernels in ``csrc/flash_bwd_sm90.cuh``);
+fp32 and the 16-bit hd 16 ones are the mma.sync kernels of
+``csrc/flash_attention.cuh``, instantiated for bf16 / fp16 hd 16 by
+``csrc/flash_attention.cu`` and for fp32 by ``csrc/flash_attention_f32.cu``
+(each source's header comment says what bounds its kernels and how they
+are laid out). :func:`library` routes every launch. The kernels stream
+K/V (or Q/dO) through shared memory at any S, so one kernel stands for
+each TPU pair.
 
 The wrappers :func:`flash_fwd`, :func:`flash_bwd_dq` and
 :func:`flash_bwd_dkv` launch their kernel for CUDA tensors and take the
@@ -190,25 +192,17 @@ def attention_delta(o, do):
 
 
 # ------------------------------------------------------------------ kernels
-# The library whose kernel serves flash_fwd, by (q's dtype, head dim): the
-# wgmma / TMA forward of ``csrc/flash_fwd_sm90.cu`` for 16-bit operands at
-# hd 32-128; the mma.sync forward of ``csrc/flash_attention.cuh`` for 16-bit
-# hd 16 (``flash_attention.cu``) and for fp32 (``flash_attention_f32.cu``).
-# A fixed table: the route never depends on a failure.
-FWD_LIBRARY = {
-    **{(d, hd): "flash_fwd_sm90" for d in HALF_DTYPE_CODE
-       for hd in (32, 64, 128)},
-    **{(d, 16): "flash_attention" for d in HALF_DTYPE_CODE},
-    **{(torch.float32, hd): "flash_attention_f32" for hd in KERNEL_HEAD_DIMS},
-}
-
-
-def _bwd_library(dtype):
-    """The backward kernels' library: ``csrc/flash_attention_f32.cu`` for
-    fp32, ``csrc/flash_attention.cu`` for bf16 / fp16 (two sources of one
-    header, so that nvcc builds them side by side)."""
-    return "flash_attention_f32" if dtype == torch.float32 \
-        else "flash_attention"
+def library(kernel: str, dtype, hd: int) -> str:
+    """The library whose kernel serves a launch of ``kernel`` (``flash_fwd``,
+    ``flash_bwd_dq`` or ``flash_bwd_dkv``) for q's dtype and head dim: the
+    wgmma / TMA kernels of ``csrc/<kernel>_sm90.cu`` (one library each) for
+    16-bit operands at hd 32-128; the mma.sync kernels of
+    ``csrc/flash_attention.cuh`` for 16-bit hd 16 (``flash_attention.cu``)
+    and for fp32 (``flash_attention_f32.cu``). Fixed: a route never depends
+    on a failure."""
+    if dtype == torch.float32:
+        return "flash_attention_f32"
+    return "flash_attention" if hd == 16 else f"{kernel}_sm90"
 
 
 def _lib(name):
@@ -324,7 +318,7 @@ def flash_fwd(q, k, v, *, mask=None, alibi_slopes=None, causal=True,
     bp, bcode, sb, sh = _bias_arg("flash_fwd", bias, B, H, S, q.device)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    err = _lib(FWD_LIBRARY[q.dtype, hd]).dstpu_flash_fwd(
+    err = _lib(library("flash_fwd", q.dtype, hd)).dstpu_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(m), _ptr(s), bp,
         o.data_ptr(), lse.data_ptr(), B, S, H, KV, hd, int(causal),
         _DTYPE_CODE[q.dtype], bcode, sb, sh, 1.0 / math.sqrt(hd),
@@ -357,7 +351,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, mask=None, alibi_slopes=None,
     # where the causal loop skips a key tile
     dbias = torch.empty((B, H, S, S), dtype=bias.dtype, device=q.device) \
         if grad_bias else None
-    err = _lib(_bwd_library(q.dtype)).dstpu_flash_bwd_dq(
+    err = _lib(library("flash_bwd_dq", q.dtype, hd)).dstpu_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(m), _ptr(s), bp, dq.data_ptr(),
         _ptr(dbias), B, S, H, KV, hd, int(causal), _DTYPE_CODE[q.dtype],
@@ -379,7 +373,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, mask=None, alibi_slopes=None,
     m, s = _side(mask, alibi_slopes, B, S, H, q.device)
     bp, bcode, sb, sh = _bias_arg("flash_bwd_dkv", bias, B, H, S, q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _lib(_bwd_library(q.dtype)).dstpu_flash_bwd_dkv(
+    err = _lib(library("flash_bwd_dkv", q.dtype, hd)).dstpu_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(m), _ptr(s), bp, dk.data_ptr(),
         dv.data_ptr(), B, S, H, KV, hd, int(causal), _DTYPE_CODE[q.dtype],

@@ -195,29 +195,99 @@ FWD_ROUTES = {
                          ids=lambda r: f"{str(r[0])[6:]}-hd{r[1]}")
 def test_forward_routes_by_dtype_and_head_dim(route):
     """16-bit operands at hd 32-128 take the wgmma / TMA forward; hd 16
-    and fp32 stay on the mma.sync kernels; a fixed table, no fallback."""
-    assert tfa.FWD_LIBRARY[route] == FWD_ROUTES[route]
+    and fp32 stay on the mma.sync kernels; fixed, no fallback."""
+    assert tfa.library("flash_fwd", *route) == FWD_ROUTES[route]
 
 
 def test_forward_table_covers_what_the_wrapper_takes():
-    """Every (dtype, head dim) the wrapper accepts has exactly one route,
-    each to a source the builder compiles, and only the mma.sync sources
-    export the backward kernels."""
+    """Every (dtype, head dim) the wrapper accepts routes to a source the
+    builder compiles, and only the mma.sync sources export the backward
+    kernels."""
     from deepspeed_tpu_torch.ops import builder
 
     taken = {(d, hd) for d in (torch.bfloat16, torch.float16, torch.float32)
              for hd in tfa.KERNEL_HEAD_DIMS}
-    assert set(tfa.FWD_LIBRARY) == taken
-    assert "flash_fwd_sm90" in builder.sources()
-    for name in set(tfa.FWD_LIBRARY.values()):
-        assert name in builder.sources()
-    text = {n: (builder.CSRC / f"{n}.cu").read_text()
-            for n in set(tfa.FWD_LIBRARY.values())}
+    assert set(FWD_ROUTES) == taken
+    names = {tfa.library("flash_fwd", *r) for r in taken}
+    assert names == {"flash_fwd_sm90", "flash_attention",
+                     "flash_attention_f32"}
+    assert names <= set(builder.sources())
+    text = {n: (builder.CSRC / f"{n}.cu").read_text() for n in names}
     assert 'extern "C" int dstpu_flash_fwd(' in text["flash_fwd_sm90"]
     assert "dstpu_flash_bwd" not in text["flash_fwd_sm90"]
     cuh = (builder.CSRC / "flash_attention.cuh").read_text()
     assert '#include "flash_attention.cuh"' in text["flash_attention"]
     assert 'extern "C" int dstpu_flash_bwd_dq(' in cuh
+
+
+# the three regions of (q's dtype, hd) the backward wrappers accept, and
+# the library each takes, by kernel
+_BWD = ("flash_bwd_dq", "flash_bwd_dkv")
+BWD_REGIONS = {
+    "wgmma": ([(d, hd) for d in (torch.bfloat16, torch.float16)
+               for hd in (32, 64, 128)], "{}_sm90"),
+    "half_hd16": ([(torch.bfloat16, 16), (torch.float16, 16)],
+                  "flash_attention"),
+    "fp32": ([(torch.float32, hd) for hd in (16, 32, 64, 128)],
+             "flash_attention_f32"),
+}
+
+
+@pytest.mark.parametrize("region", list(BWD_REGIONS))
+@pytest.mark.parametrize("kernel", _BWD)
+def test_backward_routes_by_kernel_dtype_and_head_dim(kernel, region):
+    """16-bit operands at hd 32-128 take the wgmma / TMA dq and dk/dv
+    kernels, one library each; hd 16 and fp32 stay on the mma.sync
+    kernels; fixed, no fallback."""
+    pairs, name = BWD_REGIONS[region]
+    for dtype, hd in pairs:
+        assert tfa.library(kernel, dtype, hd) == name.format(kernel)
+
+
+def test_backward_table_covers_what_the_wrappers_take():
+    """The regions cover exactly what the backward wrappers accept, each
+    route a source ``ops/builder.py`` compiles; each wgmma source exports
+    only its own kernel, and the 16-bit mma.sync build leaves hd 32-128 to
+    them."""
+    from deepspeed_tpu_torch.ops import builder
+
+    pairs = [p for region, _ in BWD_REGIONS.values() for p in region]
+    assert sorted(pairs, key=str) == sorted(
+        ((d, hd) for d in (torch.bfloat16, torch.float16, torch.float32)
+         for hd in tfa.KERNEL_HEAD_DIMS), key=str)
+    for k in _BWD:
+        assert {tfa.library(k, *p) for p in pairs} <= set(builder.sources())
+        text = (builder.CSRC / f"{k}_sm90.cu").read_text()
+        assert '#include "flash_bwd_sm90.cuh"' in text
+        assert f'extern "C" int dstpu_{k}(' in text
+        other, = set(_BWD) - {k}
+        assert f"dstpu_{other}(" not in text
+    cuh = (builder.CSRC / "flash_attention.cuh").read_text()
+    assert "if constexpr (!here<T, HD>())" in cuh
+    assert "return std::is_same_v<T, float> || HD == 16;" in cuh
+
+
+def test_profile_names_cover_the_wgmma_kernels():
+    """chip_smoke.py reads each flash kernel's share of a profile under its
+    mma.sync and its wgmma kernel's names; each wgmma name is a kernel of
+    its source, so a share cannot read 0 for want of a name."""
+    import importlib.util
+    import re
+    from pathlib import Path
+
+    from deepspeed_tpu_torch.ops import builder
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    fns = (tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkv)
+    names = smoke.kernel_names(fns)
+    assert names == tuple(n for f in fns for n in (
+        f"{f.__name__}_kernel", f"{f.__name__}_sm90_kernel"))
+    text = "".join(p.read_text() for p in builder.CSRC.glob("*.cu*"))
+    for n in names:
+        assert re.search(rf"__global__[^;{{]*\b{n}\(", text), n
 
 
 # ------------------------------------------------------------ bias operand

@@ -303,7 +303,7 @@ def test_wgmma_forward_matches_plain(cuda, case, dtype):
     from deepspeed_tpu_torch.ops import flash_attention as fa
 
     B, H, KV, S, hd, causal, mask_kind, alibi = case
-    assert fa.FWD_LIBRARY[dtype, hd] == "flash_fwd_sm90"
+    assert fa.library("flash_fwd", dtype, hd) == "flash_fwd_sm90"
     q, k, v, do = _sparse_inputs(cuda, B, H, KV, S, hd, dtype)
     mask = None
     if mask_kind:
@@ -361,6 +361,134 @@ def test_wgmma_forward_refuses_and_routes(cuda):
         fa.flash_fwd(odd, odd, odd)
     assert fa.flash_fwd.launches == before
 
+
+
+# ------------------------------------------------- the wgmma backward
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", FWD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_wgmma_backward_matches_plain(cuda, case, dtype):
+    """The wgmma dq and dk/dv kernels (csrc/flash_bwd_dq_sm90.cu,
+    csrc/flash_bwd_dkv_sm90.cu) against the plain backward, fed the plain
+    forward's lse and delta: each output within phase 5's share, dq exactly
+    0 on rows without a live key and dk, dv exactly 0 on masked keys."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    B, H, KV, S, hd, causal, mask_kind, alibi = case
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert fa.library(kernel, dtype, hd) == f"{kernel}_sm90"
+    q, k, v, do = _sparse_inputs(cuda, B, H, KV, S, hd, dtype)
+    mask = None
+    if mask_kind:
+        mask = torch.ones(B, S, dtype=torch.bool, device=cuda)
+        if mask_kind == "left_pad":
+            mask[-1, :3] = False
+        else:
+            mask[-1] = False
+    kw = dict(mask=mask, causal=causal,
+              alibi_slopes=alibi_slopes(H, cuda) if alibi else None)
+    o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    delta = fa.attention_delta(o_p, do)
+    before = [fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches]
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_p, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
+    torch.cuda.synchronize()
+    assert [fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches] == [
+        before[0] + 1, before[1] + 1]
+    want = (fa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw),
+            *fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, **kw))
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        assert _max_share(got, ref) <= FLASH_SHARE[dtype]
+    live = lse_p > fa.BIG_NEG / 2
+    if not bool(live.all()):
+        assert bool((dq.transpose(1, 2)[~live] == 0).all())
+    if mask is not None:
+        assert bool((dk[~mask] == 0).all()) and bool((dv[~mask] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout", ["ss", "hss", "bhss", "b1ss", "1hss",
+                                    "expanded"])
+def test_wgmma_backward_bias_layouts(cuda, layout, dtype):
+    """Every bias layout through the wgmma pair at hd 128 and 32, causal,
+    S off the tiles: dbias within one rounding of its dtype and exactly 0
+    above the diagonal."""
+    for case, bias_dtype in (((2, 4, 2, 200, 128, True, None, layout), dtype),
+                             ((2, 4, 4, 333, 32, True, "left_pad", layout),
+                              torch.float32)):
+        dbias = _flash_bias_check(cuda, case, dtype, bias_dtype)
+        assert bool((dbias.triu(1) == 0).all())
+
+
+def test_wgmma_backward_is_deterministic(cuda):
+    """No atomics: two runs of the pair give the same bits, with and
+    without dbias, GQA and causal."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _sparse_inputs(cuda, 2, 8, 2, 1000, 128, torch.bfloat16)
+    o, lse = fa.flash_fwd(q, k, v)
+    delta = fa.attention_delta(o, do)
+    bias = torch.randn(2, 8, 1000, 1000, device=cuda, dtype=torch.bfloat16)
+    runs = [(fa.flash_bwd_dq(q, k, v, do, lse, delta),
+             *fa.flash_bwd_dkv(q, k, v, do, lse, delta),
+             *fa.flash_bwd_dq(q, k, v, do, lse, delta, bias=bias,
+                              grad_bias=True))
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_wgmma_backward_refuses_and_routes(cuda):
+    """The backward's routes: 16-bit hd 32-128 to the two wgmma libraries,
+    each exporting only its own kernel; hd 16 and fp32 to the mma.sync
+    ones, whose 16-bit build refuses hd 32-128; an odd head dim or a
+    misaligned operand raises before any launch."""
+    import ctypes
+
+    from deepspeed_tpu_torch.ops import builder
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    dq_lib, dkv_lib = (builder.load(n) for n in ("flash_bwd_dq_sm90",
+                                                 "flash_bwd_dkv_sm90"))
+    assert hasattr(dq_lib, "dstpu_flash_bwd_dq")
+    assert not hasattr(dq_lib, "dstpu_flash_bwd_dkv")
+    assert hasattr(dkv_lib, "dstpu_flash_bwd_dkv")
+    assert not hasattr(dkv_lib, "dstpu_flash_bwd_dq")
+    # the mma.sync bf16 / fp16 library no longer builds hd 32-128
+    x = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    lib = fa._lib("flash_attention")
+    P = ctypes.c_void_p
+    err = lib.dstpu_flash_bwd_dq(
+        *(P(t.data_ptr()) for t in (x, x, x, x, lse, lse)), None, None,
+        None, P(x.data_ptr()), None, 1, 64, 2, 2, 64, 1, 2, 0, 0, 0, 0.125,
+        P(torch.cuda.current_stream().cuda_stream))
+    assert err != 0
+    for dtype, hd in ((torch.bfloat16, 16), (torch.float16, 16),
+                      (torch.float32, 64), (torch.bfloat16, 128),
+                      (torch.float16, 32)):
+        q = torch.randn(1, 70, 2, hd, device=cuda).to(dtype)
+        o, lse = fa.flash_attention_fwd_plain(q, q, q)
+        delta = fa.attention_delta(o, q)
+        tol = 1e-4 if dtype == torch.float32 else FLASH_SHARE[dtype]
+        got = (fa.flash_bwd_dq(q, q, q, q, lse, delta),
+               *fa.flash_bwd_dkv(q, q, q, q, lse, delta))
+        want = (fa.flash_bwd_dq_plain(q, q, q, q, lse, delta),
+                *fa.flash_bwd_dkv_plain(q, q, q, q, lse, delta))
+        for g, w in zip(got, want):
+            assert _max_share(g, w) <= tol
+    before = [fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches]
+    x = torch.zeros(1, 64, 2, 96, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_bwd_dq(x, x, x, x, lse, lse)
+    buf = torch.zeros(2 * 64 * 2 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+    odd = buf[1:].view(2, 64, 2, 64)
+    lse = torch.zeros(2, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_bwd_dkv(odd, odd, odd, odd, lse, lse)
+    assert [fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches] == before
 
 # ------------------------------------------------------------- sparse attention
 # (B, H, KV, S, hd, causal, config class, fields): chip_smoke.py phase 5c's

@@ -14,11 +14,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    and print their shared memory;
 2. kernels: each kernel (decode attention, the WOQ GEMMs ``woq_matmul``
    and ``woq_matmul_t``) against its plain PyTorch version on the card, at
-   the main paths' shapes and the edge cases, within stated tolerances;
-   then timed on L2-cold inputs (device time: calls captured in a CUDA
-   graph, replays timed with CUDA events) beside the plain version (eager
-   calls), the PyTorch library call that computes the same function
-   (device time) and the bound;
+   the main paths' shapes and the edge cases, within stated tolerances
+   (decode attention also at its split plan's edges, with all rows empty,
+   one 32768-position row, hd 40 / 256 and fp32 GQA, rows with L = 0
+   exactly 0 and two calls bit-identical; ``woq_matmul_t`` in fp16 and at
+   M 1 / 8 / 17 on both routes, each line naming its route); then timed on
+   L2-cold inputs (device time: calls captured in a CUDA graph, replays
+   timed with CUDA events) beside the plain version (eager calls), the
+   PyTorch library call that computes the same function (device time),
+   the bound and the host cost of a call: decode attention at Llama-2-7B's
+   shape, Llama-2-70B's GQA heads and a B 16 / cache 4096 serving shape
+   with ragged lengths (a ``[decode-attn]`` JSON line each);
 3. slice: ``init_inference(...).generate`` on Llama-2-7B at full width in
    bf16 with seeded random weights (4 prompts x 512 tokens, 128 new
    tokens, greedy), with the kernel's launch count read around that one
@@ -28,7 +34,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    True})`` on Llama-2-7B in int8 (untied head: ``woq_matmul``) and on
    OPT-6.7B in int4 (tied head: ``woq_matmul_t``), both at full width and
    depth, group 128, with every kernel's launch count read around one
-   ``generate``; the kernel path's logits teacher-forced against the
+   ``generate`` (the tied head's ``woq_matmul_t`` route printed, and gated
+   to the tensor-core route on the card); the kernel path's logits
+   teacher-forced against the
    per-use dequantization path on the same quantized weights (gated) and
    against the bf16 engine (logged);
 5. flash kernels: the forward, dq and dk/dv kernels against their plain
@@ -348,16 +356,102 @@ def _case(gen, *, B=4, H=32, KV=32, hd=128, S=640, dtype=None,
     return q, ck, cv, length, slopes
 
 
-def phase_kernels(device="cuda", main_shape=None, iters=200) -> dict:
-    """Kernel vs plain on every case; timings at the main path's shape."""
+# decode attention's timed shapes: (name, B, H, KV, hd, S, lengths); a
+# tuple of lengths is taken as given, an int n draws n lengths from a seed
+# in 512 .. S (the serving engine's ragged rows)
+DECODE_TIMED = (("main", 4, 32, 32, 128, 640, (600, 589, 611, 597)),
+                ("gqa_70b", 4, 64, 8, 128, 640, (600, 589, 611, 597)),
+                ("serving", 16, 32, 32, 128, 4096, 16))
+
+
+def _decode_bound(B, H, KV, hd, lengths, esize, dtype) -> tuple:
+    """(bound ms, "bytes" | "operations", bytes, flops) of one call: each
+    live K / V row, q and out once; 4 hd flops a live position and head."""
+    live = sum(lengths)
+    nbytes = live * KV * hd * esize * 2 + 2 * B * H * hd * esize + 4 * B
+    ops = live * H * hd * 4
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def _decode_timing(gen, name, B, H, KV, hd, S, lengths, iters) -> dict:
+    """Kernel (device time, input sets rotated past 200 MB so every launch
+    finds its cache outside the 50 MB L2), plain, masked SDPA and the
+    bound at one shape; the kernel first checked against its plain version
+    on each set; the host cost of a call."""
     import torch
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops import decode_attention as da
 
+    if isinstance(lengths, int):
+        rng = torch.Generator().manual_seed(9)
+        lengths = tuple(torch.randint(512, S + 1, (lengths,),
+                                      generator=rng).tolist())
+    set_bytes = B * KV * S * hd * 2 * 2
+    n = max(2, -(-200 * 2**20 // set_bytes))
+    sets = [_case(gen, B=B, H=H, KV=KV, hd=hd, S=S, lengths=lengths)
+            for _ in range(n)]
+    for q, ck, cv, length, _ in sets:
+        err = (da.decode_attention(q, ck, cv, length).float()
+               - da.decode_attention_plain(q, ck, cv, length).float()
+               ).abs().max().item()
+        if not (math.isfinite(err) and err <= TOL["torch.bfloat16"]):
+            raise AssertionError(f"decode_attention {name}: max abs err {err}")
+    masks = [(torch.arange(S, device="cuda")[None, :]
+              < st[3][:, None])[:, None, None, :] for st in sets]
+    kernel_ms = device_ms(lambda i: da.decode_attention(*sets[i % n][:4]), n,
+                          iters)
+    plain_ms = time_ms(lambda i: da.decode_attention_plain(*sets[i % n][:4]),
+                       max(iters // 20, 5))
+    sdpa_ms = device_ms(lambda i: F.scaled_dot_product_attention(
+        sets[i % n][0].transpose(1, 2), sets[i % n][1], sets[i % n][2],
+        attn_mask=masks[i % n], enable_gqa=KV != H), n, iters)
+    q, ck, cv, length, _ = sets[0]
+    # the host's cost of a call where it exceeds the device's (at the
+    # serving shape the device's time would show instead)
+    host = (host_us(lambda: da.decode_attention(q, ck, cv, length))
+            if name == "main" else None)
+    bound_ms, bound_by, nbytes, ops = _decode_bound(
+        B, H, KV, hd, lengths, q.element_size(), str(q.dtype))
+    plan = da.split_plan(B, H, KV, S, hd, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    r = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": sdpa_ms,
+         "bound_ms": bound_ms, "bound_by": bound_by, "host_us": host,
+         "shape": dict(B=B, H=H, KV=KV, hd=hd, S=S, lengths=list(lengths)),
+         "plan": plan}
+    log(f"[decode-attn] {name}: " + json.dumps(r))
+    log(f"[kernel] decode_attention {name} B{B} H{H} KV{KV} hd{hd} S{S}: "
+        f"kernel {kernel_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+        f"sdpa {sdpa_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+        f"({bound_by}: {nbytes} B, {ops} flop), kernel at "
+        f"{bound_ms / kernel_ms:.1%} of the bound, {kernel_ms / sdpa_ms:.2f}x"
+        f" SDPA; host {host} us a call; {plan['nsplit']} splits of "
+        f"{plan['chunk']}")
+    del sets, masks
+    return r
+
+
+def phase_kernels(device="cuda", main_shape=None, iters=200,
+                  timed=DECODE_TIMED, long_S=32768) -> dict:
+    """Decode attention's kernel vs plain on every case (rows with L = 0
+    exactly 0; two calls bit-identical); timings at ``timed``'s shapes."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import decode_attention as da
+
     gen = torch.Generator(device=device).manual_seed(0)
     main = dict(main_shape or {})
+    B = main.get("B", 4)
     S = main.get("S", 640)
+    hd = main.get("hd", 128)
+    sms = (torch.cuda.get_device_properties(0).multi_processor_count
+           if device == "cuda" else 132)
+    c = da.split_plan(B, main.get("H", 32), main.get("KV", 32), S, hd,
+                      sms)["chunk"]
+    edge = tuple(min(x, S) for x in (c, c + 1, 2 * c, 2 * c + 1))
     cases = {
         "main": {},
         "gqa": dict(KV=8),
@@ -368,61 +462,50 @@ def phase_kernels(device="cuda", main_shape=None, iters=200) -> dict:
         "alibi_gqa": dict(KV=8, alibi=True),
         "fp32": dict(dtype=torch.float32),
         "fp16": dict(dtype=torch.float16, KV=4),
+        "split_edges": dict(lengths=edge),
+        "all_empty": dict(lengths=(0,) * B),
+        "long_b1": dict(B=1, S=long_S, lengths=(long_S - 7,)),
+        "hd40": dict(hd=40),
+        "hd256": dict(hd=256, H=8, KV=8),
+        "fp32_gqa": dict(dtype=torch.float32, KV=8),
     }
     errs = {}
     for name, over in cases.items():
         q, ck, cv, length, slopes = _case(gen, device=device,
                                           **{**main, **over})
         got = da.decode_attention(q, ck, cv, length, alibi_slopes=slopes)
+        again = da.decode_attention(q, ck, cv, length, alibi_slopes=slopes)
         want = da.decode_attention_plain(q, ck, cv, length,
                                          alibi_slopes=slopes)
         if device == "cuda":
             torch.cuda.synchronize()
-        err =(got.float() - want.float()).abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
         tol = TOL[str(q.dtype)]
-        ok = math.isfinite(err) and err <= tol
+        lens = torch.as_tensor(length).reshape(-1).expand(q.shape[0])
+        zero_rows = got[lens.to(got.device) == 0]
+        exact = bool((zero_rows == 0).all())
+        same = torch.equal(got, again)
+        ok = math.isfinite(err) and err <= tol and exact and same
         log(f"[kernel] decode_attention {name:13s} {str(q.dtype):15s} "
-            f"max_abs_err {err:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+            f"B{q.shape[0]} H{q.shape[2]} KV{ck.shape[1]} hd{q.shape[3]} "
+            f"S{ck.shape[2]} max_abs_err {err:.3e} (tol {tol:g}), L = 0 rows "
+            f"exactly 0 {exact}, two calls bit-identical {same} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"decode_attention {name}: max abs err "
-                                 f"{err} > {tol}")
+                                 f"{err} (tol {tol}), zero rows exact "
+                                 f"{exact}, repeatable {same}")
         errs[name] = err
+        del q, ck, cv, got, again, want
     result = {"max_abs_err": errs["main"]}
     if device != "cuda":
         return result
 
-    # timings at the main path's shape; 4 input sets in rotation (>150 MB)
-    # so every launch finds its K/V outside the 50 MB L2, as a decode step
-    # does after the other layers' weights went through
-    sets = [_case(gen, **main) for _ in range(4)]
-    q, ck, cv, length, _ = sets[0]
-    B, _, H, hd = q.shape
-    KV = ck.shape[1]
-    L = length.to(torch.int64)
-    masks = [(torch.arange(ck.shape[2], device=device)[None, :]
-              < s[3][:, None])[:, None, None, :] for s in sets]
-    kernel_ms = device_ms(lambda i: da.decode_attention(*sets[i % 4][:4]),
-                          4, iters)
-    plain_ms = time_ms(lambda i: da.decode_attention_plain(*sets[i % 4][:4]),
-                       max(iters // 10, 5))
-    sdpa_ms = device_ms(lambda i: F.scaled_dot_product_attention(
-        sets[i % 4][0].transpose(1, 2), sets[i % 4][1], sets[i % 4][2],
-        attn_mask=masks[i % 4], enable_gqa=KV != H), 4, iters)
-    esize = q.element_size()
-    live = int(L.sum())
-    nbytes = live * KV * hd * esize * 2 + 2 * q.numel() * esize + 4 * B
-    ops = live * H * hd * 4
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[str(q.dtype)] * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"[kernel] decode_attention B{B} H{H} KV{KV} hd{hd} S{ck.shape[2]} "
-        f"lengths {L.tolist()} {q.dtype}: kernel {kernel_ms * 1e3:.2f} us, "
-        f"plain {plain_ms * 1e3:.2f} us, sdpa {sdpa_ms * 1e3:.2f} us, "
-        f"bound {bound_ms * 1e3:.2f} us ({bound_by}: {nbytes} B, {ops} "
-        f"flop), kernel at {bound_ms / kernel_ms:.1%} of the bound")
-    result.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=sdpa_ms,
-                  bound_ms=bound_ms, bound_by=bound_by)
+    shapes = {t[0]: _decode_timing(gen, *t, iters) for t in timed}
+    result.update({k: shapes["main"][k] for k in
+                   ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "host_us")})
+    result["shapes"] = shapes
     return result
 
 
@@ -451,6 +534,15 @@ WOQ_EDGES = (
     ("mmt", 17, 4096, 1024, 128, 4, "bfloat16", "float32"),
     ("mmt", 4, 2048, 512, 128, 4, "float32", None),
     ("mmt", 4, 1001, 256, 128, 8, "bfloat16", None),     # odd V: G = 1
+    # the tensor-core route: M 1 / 8 / 17 and fp16 x at the OPT head;
+    # ragged K keeps the CUDA-core route
+    ("mmt", 1, 50272, 4096, 128, 4, "bfloat16", "float32"),
+    ("mmt", 8, 50272, 4096, 128, 4, "bfloat16", "float32"),
+    ("mmt", 17, 50272, 4096, 128, 8, "bfloat16", "float32"),
+    ("mmt", 4, 50272, 4096, 128, 4, "float16", "float32"),
+    ("mmt", 4, 32000, 4096, 128, 8, "float16", None),
+    ("mmt", 8, 32000, 4096, 128, 4, "float16", None),
+    ("mmt", 4, 2048, 130, 128, 8, "bfloat16", "float32"),
 )
 
 
@@ -476,6 +568,15 @@ def _woq_fns(kernel):
             else (wm.woq_matmul_t, wm.woq_matmul_t_plain))
 
 
+def _woq_route(kernel, x, rows, cols, group) -> str:
+    """`` (route mma)`` / `` (route simt)`` for x @ W.T, else ``""``."""
+    from deepspeed_tpu_torch.ops import woq_matmul as wm
+
+    if kernel != "mmt":
+        return ""
+    return f" (route {wm.woq_t_route(x.dtype, cols, rows, group)})"
+
+
 def _woq_check(gen, kernel, M, rows, cols, group, bits, xdtype, out, device):
     """Kernel vs plain on one case; returns (max abs err, share)."""
     import torch
@@ -492,7 +593,8 @@ def _woq_check(gen, kernel, M, rows, cols, group, bits, xdtype, out, device):
     share = err / max(want.float().abs().max().item(), 1e-30)
     tol = WOQ_TOL_SHARE[str(got.dtype)]
     ok = math.isfinite(err) and share <= tol
-    log(f"[kernel] {fn.__name__:12s} M{M} {rows}x{cols} g{qt.group_size} "
+    route = _woq_route(kernel, x, rows, cols, qt.group_size)
+    log(f"[kernel] {fn.__name__:12s}{route} M{M} {rows}x{cols} g{qt.group_size} "
         f"int{qt.bits} x {xdtype} out {got.dtype}: max_abs_err {err:.3e}, "
         f"{share:.2e} of max |out| (tol {tol:.2e}) {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -542,7 +644,8 @@ def _woq_timing(gen, kernel, M, rows, cols, group, bits, out, iters):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[str(x.dtype)] * 1e3
     bound_ms = max(t_bytes, t_ops)
-    log(f"[kernel] {fn.__name__:12s} M{M} {rows}x{cols} g{gs} int{bits} "
+    log(f"[kernel] {fn.__name__:12s}{_woq_route(kernel, x, rows, cols, gs)} "
+        f"M{M} {rows}x{cols} g{gs} int{bits} "
         f"out {out or 'bf16'}: kernel {kernel_ms * 1e3:.2f} us, plain "
         f"{plain_ms * 1e3:.2f} us, torch.matmul bf16 dense "
         f"{library_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
@@ -614,6 +717,16 @@ def phase_woq_kernels(device="cuda", iters=200, main=WOQ_MM_MAIN,
     log(f"[kernel] host cost per call, M {M} 4096x4096 int8: woq_matmul "
         f"{woq_host:.2f} us (two launches: product + split-K sum), "
         f"torch.matmul on the dense bf16 weight {mm_host:.2f} us")
+    # and of x @ W.T at the OPT-6.7B int4 head (fp32 out, as decode asks)
+    x, qt = _woq_case(gen, "mmt", M, 50272, 4096, 128, 4, "bfloat16", device)
+    t_host = host_us(lambda: wm.woq_matmul_t(
+        x, qt.q, qt.scale, group_size=qt.group_size, bits=4,
+        out_dtype=torch.float32), calls=500)
+    log(f"[kernel] host cost per call, M {M} OPT int4 head: woq_matmul_t "
+        f"{t_host:.2f} us (route "
+        f"{wm.woq_t_route(x.dtype, 4096, 50272, qt.group_size)})")
+    result["woq_matmul"]["host_us"] = woq_host
+    result["woq_matmul_t"]["host_us"] = t_host
     return result
 
 
@@ -868,6 +981,16 @@ def phase_woq(cfg, *, bits: int, group: int = 128, batch=4, prompt=512,
     if out.shape != (batch, max_new) or out.dtype != torch.long \
             or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError(f"bad generate output {out.shape} {out.dtype}")
+    route = None
+    if cfg.tie_embeddings:
+        table = engine.params["tok_embed"]
+        route = wm.woq_t_route(cfg.dtype, cfg.d_model, cfg.vocab_size,
+                               table.group_size)
+        log(f"{tag} the tied head ({cfg.vocab_size} x {cfg.d_model}, group "
+            f"{table.group_size}) runs woq_matmul_t on route {route}")
+        if on_card and route != "mma":
+            raise AssertionError(f"{tag} woq_matmul_t route {route}, want "
+                                 "the tensor-core route mma")
 
     # ---- TTFT and decode rate, the two halves timed apart ----
     step_kw = dict(sampler=greedy, flash_decode=engine.flash_decode)
@@ -896,7 +1019,7 @@ def phase_woq(cfg, *, bits: int, group: int = 128, batch=4, prompt=512,
                               steps=profile_steps)
         if prof:
             for name in ("woq_matmul_kernel", "woq_reduce_kernel",
-                         "woq_matmul_t_kernel"):
+                         "woq_matmul_t_kernel", "woq_matmul_t_mma_kernel"):
                 us = sum(v for k, v in prof["by_name"].items()
                          if f"{name}<" in k)
                 shares[name] = us / prof["busy"]
@@ -927,7 +1050,8 @@ def phase_woq(cfg, *, bits: int, group: int = 128, batch=4, prompt=512,
             "step_ms": dec / steps * 1e3, "decode_tok_s": batch * steps / dec,
             "peak_bytes": peak, "generate_s": wall, "quantized_bytes": qbytes,
             "decode_weight_bytes": dbytes, "gate_share": worst,
-            "vs_bf16_share": vs_bf16, "kernel_shares": shares}
+            "vs_bf16_share": vs_bf16, "kernel_shares": shares,
+            "head_route": route}
 
 
 def profile_decode(engine, cache, out, step_kw, steps: int = 4):

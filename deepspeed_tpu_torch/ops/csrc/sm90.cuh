@@ -1,5 +1,5 @@
-// The sm_90a building blocks of the Hopper attention kernels: mbarriers
-// (with a trap on a wait that never completes), TMA loads from tensor maps,
+// The sm_90a building blocks of the Hopper attention kernels (the
+// mbarriers come from bulk_copy.cuh): TMA loads from tensor maps,
 // the matrix descriptors of tiles in wgmma's swizzled layouts, wgmma with
 // fp32 accumulation (both operands from shared memory, or A from
 // registers), the bias fragment loads and the host's tensor map encoder.
@@ -16,6 +16,7 @@
 #include <cuda.h>        // CUtensorMap and its enums only: no -lcuda
 
 #include "attention_tiles.cuh"   // pack, quad_max, quad_sum, kBigNeg
+#include "bulk_copy.cuh"         // mbarriers, sm_count
 
 namespace {
 
@@ -30,50 +31,7 @@ template <int HD> constexpr int kRowB = kPC<HD> * 2;
 template <int HD> constexpr int kSbo = 8 * kRowB<HD>;
 
 // ------------------------------------------------------------ primitives
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// wait until the phase of parity `parity` has completed; a wait past 10 s
-// (a pipeline fault: the kernel takes milliseconds) traps, so the launch
-// fails with an error instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const uint64_t t0 = global_ns();
-  while (!mbar_try(bar, parity))
-    if (global_ns() - t0 > 10000000000ull) __trap();
-}
+// (smem_u32, the mbarriers and sm_count are bulk_copy.cuh's)
 
 // a box of the 4-D tensor map at coordinates (c0 .. c3), innermost first,
 // into shared memory; completes `bar`'s transaction bytes
@@ -671,23 +629,6 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* p, int dtype, int B,
             hd < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// the current device's SMs, asked once per device
-cudaError_t sm_count(int* count) {
-  static int counts[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 64)
-    return cudaDeviceGetAttribute(count, cudaDevAttrMultiProcessorCount, dev);
-  if (counts[dev] == 0) {
-    err = cudaDeviceGetAttribute(&counts[dev],
-                                 cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-  }
-  *count = counts[dev];
-  return cudaSuccess;
 }
 
 }  // namespace

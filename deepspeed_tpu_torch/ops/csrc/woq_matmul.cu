@@ -29,11 +29,44 @@
 //   merge through shared memory in warp order; with more than one split
 //   each block writes fp32 partials and a second kernel adds the splits in
 //   order. No atomics: the result does not change from run to run.
-// Design of dstpu_woq_matmul_t: one warp per ROWS rows of W (ROWS/2 packed
-// int4 rows, so a warp unpacks both rows of a byte); its lanes stride K
-// four elements at a time and a warp butterfly reduces each row's sum. x
-// and the scale rows are re-read by every warp through L1.
-// TMA, wgmma and a persistent split-K schedule are later work.
+//
+// dstpu_woq_matmul_t_mma, x @ W.T on the tensor cores, for bf16 / fp16 x
+// with K % 16 == 0 (ops/woq_matmul.py woq_t_route picks it). Per element
+// the old kernel spent ~9 instructions on the CUDA cores (bound by issue,
+// not bytes); this one dequantizes into mma.sync operands:
+// - persistent blocks walk 16-row tiles of W (16 int8 rows or 8 packed
+//   int4 rows); a producer warp streams each tile in stages of up to 1024
+//   k columns, one 1-D bulk copy (cp.async.bulk) per staged row into rows
+//   padded by 16 bytes (so the fragment reads are free of bank conflicts),
+//   into a ring of ~32 KB whose stages complete mbarriers; the consumers
+//   release a stage through a second mbarrier. Three blocks fit an SM (72
+//   registers a thread): the kernel waits on loads more than it issues, so
+//   warps count more than a deeper ring;
+// - x's rows (up to 8, zero beyond M: the n8 of one m16n8k16 product) are
+//   loaded once a block into shared memory, the scale row goes through L1;
+//   with G > 1 a tile lies inside one group (the route asks gs % 16 == 0);
+// - 8 consumer warps split each stage's k columns, 128 a warp; a lane owns
+//   16 contiguous k of two rows and turns each byte or nibble into fp32 by
+//   the exponent trick (prmt into 0x4B0000xx, one fsub: exactly the
+//   integer), multiplies by the fp32 scale and rounds to x's dtype with a
+//   packed cvt: the A operand, in the TPU kernel's rounding points. The k
+//   order inside a 16-k product is permuted the same way in A and B, and
+//   int4's rows are permuted so a lane's two rows are one packed byte; the
+//   epilogue undoes the row permutation;
+// - each warp keeps its tile's fp32 accumulators over all stages, in two
+//   chains of dependent products (one for each of a lane's two 16-k
+//   pieces); the 8 warps' sums are added in warp order through shared
+//   memory, so the result does not change from run to run.
+// On the H100 its copies do not set its time: whole-tile copies, rings of
+// 32-128 KB and 32-row tiles (half the x and scale loads an element) ran
+// no faster than this layout; dropping the dequantization's instructions
+// did.
+// dstpu_woq_matmul_t (the rest of woq_t_route: fp32 x, K not a multiple of
+// 16 or above 8192, 16-row tiles across scale groups): one warp per ROWS
+// rows of W (ROWS/2 packed int4 rows, so a warp unpacks both rows of a
+// byte); its lanes stride K four elements at a time and a warp butterfly
+// reduces each row's sum. x and the scale rows are re-read by every warp
+// through L1.
 //
 // C interface (ctypes): each entry returns cudaGetLastError() after its
 // launches, or cudaErrorInvalidValue for arguments it does not take.
@@ -42,6 +75,9 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attention_tiles.cuh"   // mma (m16n8k16), pack
+#include "bulk_copy.cuh"         // mbarriers, bulk copies, fit_smem
 
 namespace {
 
@@ -365,6 +401,266 @@ cudaError_t launch_matmul_t(const void* x, const int8_t* q,
   return cudaGetLastError();
 }
 
+// ----------------------------------------- x @ W.T on the tensor cores
+constexpr int kMmaWarps = 8;                       // consumer warps
+constexpr int kMmaThreads = (kMmaWarps + 1) * 32;  // and one producer warp
+constexpr int kSpan = 128;            // k columns of one mma_span
+constexpr int kStageK = kMmaWarps * kSpan;   // k columns of a stage
+constexpr int kRowPad = 16;           // bytes after each staged row
+constexpr int kRingBytes = 32 * 1024;   // with x's rows: 3 blocks an SM
+constexpr int kRedBytes = 2 * kMmaWarps * 128 * 4;
+constexpr int kMaxStages = 8;
+constexpr int kSmemLimit = 227 * 1024;
+
+__device__ __forceinline__ uint4 lds128(const unsigned char* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// the consumer warps' barrier (the producer warp never joins it)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kMmaWarps * 32) : "memory");
+}
+
+// byte i of x (an int8 with its sign bit flipped, or a nibble plus 8) as
+// the fp32 2^23 + byte, minus `offset`: exactly the signed integer
+template <int I>
+__device__ __forceinline__ float int_of(uint32_t x, float offset) {
+  return __fsub_rn(__int_as_float(__byte_perm(x, 0x4B000000u, 0x7540u + I)),
+                   offset);
+}
+
+// The A operand of one m16n8k16 product from a word of each of the lane's
+// two rows (bytes 0..3: k 4j .. 4j + 3 of the lane's piece): q * s in
+// fp32, rounded to TX, two values a cvt. a[0] / a[2]: row ra, a[1] / a[3]:
+// row rb, fragment columns (2t, 2t+1) / (2t+8, 2t+9) holding k bytes 0, 1 /
+// 2, 3. int8: ra, rb are the two rows' words (sign bits flipped); int4:
+// one packed word, ra its low nibbles and rb its high ones (plus 8).
+template <typename TX>
+__device__ __forceinline__ void dequant(uint32_t (&a)[4], uint32_t ra,
+                                        uint32_t rb, const float* s,
+                                        float offset) {
+  a[0] = pack(__fmul_rn(int_of<0>(ra, offset), s[0]),
+              __fmul_rn(int_of<1>(ra, offset), s[1]), TX());
+  a[1] = pack(__fmul_rn(int_of<0>(rb, offset), s[0]),
+              __fmul_rn(int_of<1>(rb, offset), s[1]), TX());
+  a[2] = pack(__fmul_rn(int_of<2>(ra, offset), s[2]),
+              __fmul_rn(int_of<3>(ra, offset), s[3]), TX());
+  a[3] = pack(__fmul_rn(int_of<2>(rb, offset), s[2]),
+              __fmul_rn(int_of<3>(rb, offset), s[3]), TX());
+}
+
+// One warp's span of a stage: kSpan k columns (from stage column kw) of the
+// 16-row tile, two 16-k pieces a lane, 4 products into each of acc[0] and
+// acc[1] (two chains of dependent products instead of one). sk: the scale
+// row at the stage's first column; xk: x's row there (rows past mt read
+// nothing). FULL: every piece lies inside the stage's kn columns (no
+// predicates). Staged rows are `pitch` = kc + 16 bytes apart, so a
+// quarter warp's 16-byte reads at (gid, 32 t + 16 c) hit 8 distinct banks.
+template <typename TX, int BITS, bool FULL>
+__device__ __forceinline__ void mma_span(float (&acc)[2][4],
+                                         const unsigned char* st, int pitch,
+                                         const float* sk,
+                                         const unsigned char* xk, bool xon,
+                                         int kw, int kn, int gid, int tig) {
+  constexpr float kOffset = BITS == 8 ? 8388736.0f : 8388616.0f;
+  float sc[2][16];
+  uint4 xa[2], xb[2], wa[2], wb[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int kk = kw + 32 * tig + 16 * c;   // this lane's 16 k (kn % 16 == 0)
+    const bool on = FULL || kk < kn;
+    const float4* sp = reinterpret_cast<const float4*>(sk + kk);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 v = on ? __ldg(sp + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+      sc[c][4 * i] = v.x, sc[c][4 * i + 1] = v.y;
+      sc[c][4 * i + 2] = v.z, sc[c][4 * i + 3] = v.w;
+    }
+    xa[c] = xb[c] = wa[c] = wb[c] = make_uint4(0, 0, 0, 0);
+    if (on && xon) {
+      xa[c] = lds128(xk + 2 * kk);
+      xb[c] = lds128(xk + 2 * kk + 16);
+    }
+    if (on) {
+      wa[c] = lds128(st + gid * pitch + kk);
+      if constexpr (BITS == 8) wb[c] = lds128(st + (gid + 8) * pitch + kk);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const uint32_t w[4] = {wa[c].x, wa[c].y, wa[c].z, wa[c].w};
+    const uint32_t w2[4] = {wb[c].x, wb[c].y, wb[c].z, wb[c].w};
+    const uint32_t bx[8] = {xa[c].x, xa[c].y, xa[c].z, xa[c].w,
+                            xb[c].x, xb[c].y, xb[c].z, xb[c].w};
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      uint32_t a[4];
+      if constexpr (BITS == 8)
+        dequant<TX>(a, w[jj] ^ 0x80808080u, w2[jj] ^ 0x80808080u,
+                    sc[c] + 4 * jj, kOffset);
+      else
+        dequant<TX>(a, (w[jj] & 0x0F0F0F0Fu) ^ 0x08080808u,
+                    ((w[jj] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u,
+                    sc[c] + 4 * jj, kOffset);
+      const uint32_t b[2] = {bx[2 * jj], bx[2 * jj + 1]};
+      mma(acc[c], a, b, TX());
+    }
+  }
+}
+
+// Shared memory: x's rows (xpitch = 2K + 16 bytes apart, xbytes in all),
+// the ring (stages of stage_bytes: R staged rows of kc columns, kc + 16
+// bytes apart, one bulk copy a row), two reduce buffers of 8 warps x 128
+// fp32. A stage holds k columns [k0, k0 + kc) of a tile.
+template <typename TX, typename TO, int BITS>
+__global__ void __launch_bounds__(kMmaThreads, 3)
+    woq_matmul_t_mma_kernel(const TX* __restrict__ x,
+                            const int8_t* __restrict__ q,
+                            const float* __restrict__ scale,
+                            TO* __restrict__ out, int M, int K, int V, int G,
+                            int gs, int kc, int stages, int stage_bytes,
+                            int xpitch, int xbytes) {
+  constexpr int R = BITS == 8 ? 16 : 8;   // staged rows of a 16-row tile
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m0 = blockIdx.y * 8, mt = min(8, M - m0);
+  const int ntiles = (V + 15) / 16, nkc = (K + kc - 1) / kc;
+  unsigned char* xs = smem;
+  unsigned char* ring = smem + xbytes;
+  float* red = reinterpret_cast<float*>(ring + (size_t)stages * stage_bytes);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), kMmaWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kMmaWarps) {                 // the producer
+    if (lane == 0) {
+      int s = 0, used = 0;                 // used: the ring went round once
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        const int v0 = t * 16;
+        const int rows = BITS == 8 ? min(16, V - v0) : min(8, (V - v0) / 2);
+        const int8_t* src = q + (size_t)(BITS == 8 ? v0 : v0 / 2) * K;
+        for (int j = 0; j < nkc; ++j) {
+          if (used) mbar_wait(smem_u32(&empty[s]), phase ^ 1);
+          const int k0 = j * kc, kn = min(kc, K - k0);
+          const uint32_t bar = smem_u32(&full[s]);
+          const uint32_t dst = smem_u32(ring + (size_t)s * stage_bytes);
+          mbar_expect_tx(bar, (uint32_t)(rows * kn));
+          for (int r = 0; r < rows; ++r)
+            bulk_load(dst + r * (kc + kRowPad), src + (size_t)r * K + k0, kn,
+                      bar);
+          if (++s == stages) {
+            s = 0;
+            phase ^= 1;
+            used = 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // x's rows m0 .. m0 + mt, 16 bytes a load
+  const int pieces = K / 8;
+  for (int i = threadIdx.x; i < mt * pieces; i += kMmaWarps * 32) {
+    const int r = i / pieces, c = i - r * pieces;
+    *reinterpret_cast<uint4*>(xs + r * xpitch + c * 16) =
+        __ldg(reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K) + c);
+  }
+  consumers_sync();
+
+  const int gid = lane >> 2, tig = lane & 3;
+  const unsigned char* xrow = xs + gid * xpitch;
+  int s = 0, nt = 0;
+  uint32_t phase = 0;
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x, ++nt) {
+    const int v0 = t * 16;
+    const float* srow = scale + (size_t)(G == 1 ? 0 : v0 / gs) * K;
+    float acc[2][4] = {};
+    for (int j = 0; j < nkc; ++j) {
+      const int k0 = j * kc, kn = min(kc, K - k0);
+      const unsigned char* st = ring + (size_t)s * stage_bytes;
+      mbar_wait(smem_u32(&full[s]), phase);
+      // warp w takes spans w, w + 8, ... of the stage's columns
+      for (int kw = warp * kSpan; kw < kn; kw += kMmaWarps * kSpan) {
+        if (kw + kSpan <= kn)
+          mma_span<TX, BITS, true>(acc, st, kc + kRowPad, srow + k0,
+                                   xrow + 2 * k0,
+                                   gid < mt, kw, kn, gid, tig);
+        else
+          mma_span<TX, BITS, false>(acc, st, kc + kRowPad, srow + k0,
+                                    xrow + 2 * k0,
+                                    gid < mt, kw, kn, gid, tig);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
+      if (++s == stages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    // the warps' sums in warp order; the C fragment holds (row gid, cols
+    // 2 tig, +1) and row gid + 8
+    float* rb = red + (nt & 1) * (kMmaWarps * 128);
+    *reinterpret_cast<float4*>(rb + warp * 128 + lane * 4) =
+        make_float4(acc[0][0] + acc[1][0], acc[0][1] + acc[1][1],
+                    acc[0][2] + acc[1][2], acc[0][3] + acc[1][3]);
+    consumers_sync();
+    if (threadIdx.x < 128) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kMmaWarps; ++w) sum += rb[w * 128 + threadIdx.x];
+      const int ln = threadIdx.x >> 2, i = threadIdx.x & 3;
+      const int row = (ln >> 2) + 8 * (i >> 1), n = 2 * (ln & 3) + (i & 1);
+      const int v = v0 + (BITS == 8 ? row : 2 * (row & 7) + (row >> 3));
+      if (v < V && n < mt) out[(size_t)(m0 + n) * V + v] = from_f32<TO>(sum);
+    }
+  }
+}
+
+template <typename TX, typename TO, int BITS>
+cudaError_t launch_matmul_t_mma(const void* x, const int8_t* q,
+                                const float* scale, void* out, int M, int K,
+                                int V, int gs, cudaStream_t st) {
+  constexpr auto fn = woq_matmul_t_mma_kernel<TX, TO, BITS>;
+  constexpr int R = BITS == 8 ? 16 : 8;
+  const int xpitch = 2 * K + 16;
+  const int xbytes = ((M < 8 ? M : 8) * xpitch + 127) / 128 * 128;
+  const int kc = K < kStageK ? K : kStageK;
+  const int stage_bytes = (R * (kc + kRowPad) + 127) / 128 * 128;
+  int stages = kRingBytes / stage_bytes;
+  stages = stages < 2 ? 2 : stages > kMaxStages ? kMaxStages : stages;
+  const int smem = xbytes + stages * stage_bytes + kRedBytes;
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  int per_sm = 0, sms = 0;
+  cudaError_t err = fit_smem<fn>(smem, kMmaThreads, &per_sm);
+  if (err == cudaSuccess) err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int ntiles = (V + 15) / 16;
+  const dim3 grid(ntiles < per_sm * sms ? ntiles : per_sm * sms,
+                  (M + 7) / 8);
+  fn<<<grid, kMmaThreads, smem, st>>>(
+      static_cast<const TX*>(x), q, scale, static_cast<TO*>(out), M, K, V,
+      V / gs, gs, kc, stages, stage_bytes, xpitch, xbytes);
+  return cudaGetLastError();
+}
+
+template <typename TX, typename TO>
+cudaError_t dispatch_matmul_t_mma(int bits, const void* x, const int8_t* q,
+                                  const float* scale, void* out, int M, int K,
+                                  int V, int gs, cudaStream_t st) {
+  if (bits == 8)
+    return launch_matmul_t_mma<TX, TO, 8>(x, q, scale, out, M, K, V, gs, st);
+  return launch_matmul_t_mma<TX, TO, 4>(x, q, scale, out, M, K, V, gs, st);
+}
+
 // MT * ROWS accumulators per lane, at most 64
 template <typename TX, typename TO, int BITS>
 cudaError_t dispatch_matmul_t_m(const void* x, const int8_t* q,
@@ -428,6 +724,41 @@ extern "C" int dstpu_woq_matmul(const void* x, const void* q,
   else if (x_dtype == 2 && out_dtype == 0)
     e = dispatch_matmul_bits<__nv_bfloat16, float>(bits, x, qq, ss, out, w,
                                                    M, K, N, gs, splits, st);
+  return static_cast<int>(e);
+}
+
+// x: (M, K) fp16 / bf16 (x_dtype 1 / 2), K % 16 == 0; q: (V, K) int8 or
+// (V/2, K) packed int4; scale: (G, K) fp32, G = V / gs, gs % 16 == 0 when
+// G > 1; out: (M, V) of out_dtype (x_dtype or 0). x, q and scale 16-byte
+// aligned.
+extern "C" int dstpu_woq_matmul_t_mma(const void* x, const void* q,
+                                      const void* scale, void* out, int M,
+                                      int K, int V, int gs, int bits,
+                                      int x_dtype, int out_dtype,
+                                      void* stream) {
+  const uintptr_t align = reinterpret_cast<uintptr_t>(x) |
+                          reinterpret_cast<uintptr_t>(q) |
+                          reinterpret_cast<uintptr_t>(scale);
+  if (bad_common(M, K, V, gs, bits, V) || (bits == 4 && V % 2 != 0) ||
+      K % 16 != 0 || (V / gs > 1 && gs % 16 != 0) || (align & 15) != 0 ||
+      M > 65535 * 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int8_t* qq = static_cast<const int8_t*>(q);
+  const float* ss = static_cast<const float*>(scale);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
+  if (x_dtype == 1 && out_dtype == 1)
+    e = dispatch_matmul_t_mma<__half, __half>(bits, x, qq, ss, out, M, K, V,
+                                              gs, st);
+  else if (x_dtype == 1 && out_dtype == 0)
+    e = dispatch_matmul_t_mma<__half, float>(bits, x, qq, ss, out, M, K, V,
+                                             gs, st);
+  else if (x_dtype == 2 && out_dtype == 2)
+    e = dispatch_matmul_t_mma<__nv_bfloat16, __nv_bfloat16>(
+        bits, x, qq, ss, out, M, K, V, gs, st);
+  else if (x_dtype == 2 && out_dtype == 0)
+    e = dispatch_matmul_t_mma<__nv_bfloat16, float>(bits, x, qq, ss, out, M,
+                                                    K, V, gs, st);
   return static_cast<int>(e);
 }
 

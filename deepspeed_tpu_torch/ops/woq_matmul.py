@@ -7,6 +7,9 @@ Counterpart of ``deepspeed_tpu/ops/woq_matmul.py``, whose Pallas kernels
 stream the quantized tiles through VMEM. Here both are CUDA C++ for
 Hopper, ``csrc/woq_matmul.cu`` (its header gives the bound and the
 design), built by ``ops/builder.py`` and called through ctypes.
+``x @ W.T`` has two kernels, chosen by the fixed :func:`woq_t_route`:
+the tensor-core one (bulk-copied W, dequantized into ``mma.sync``
+operands) for 16-bit x, and the CUDA-core one for the rest.
 
 Layout (``inference/quantization.py``): ``group_size`` consecutive rows of
 the weight's second-to-last dim share one fp32 scale row, so ``scale`` is
@@ -93,7 +96,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # pointers and the stream as c_void_p: without argtypes ctypes passes a
 # Python int as a 32-bit C int and cuts the pointer
 _ARGTYPES = {"dstpu_woq_matmul": [_P] * 5 + [_I] * 8 + [_P],
-             "dstpu_woq_matmul_t": [_P] * 4 + [_I] * 7 + [_P]}
+             "dstpu_woq_matmul_t": [_P] * 4 + [_I] * 7 + [_P],
+             "dstpu_woq_matmul_t_mma": [_P] * 4 + [_I] * 7 + [_P]}
 _loaded: dict = {}
 
 
@@ -198,6 +202,29 @@ def woq_matmul_t_plain(x, q, scale, *, group_size: int, bits: int = 8,
     return (x.float() @ w.T).to(out_dtype or x.dtype)
 
 
+MMA_MAX_K = 8192     # x's 8 rows in shared memory beside the ring
+MMA_TILE_ROWS = 16   # rows of W a tile of the tensor-core kernel holds
+
+
+def woq_t_route(x_dtype, K: int, V: int, group_size: int) -> str:
+    """The kernel that serves ``woq_matmul_t`` for x's dtype and the
+    table's shape: ``"mma"``, the tensor-core kernel
+    (``dstpu_woq_matmul_t_mma``), for fp16 / bf16 x whose rows are whole
+    16-byte pieces of the bulk copies (``K % 16 == 0``, K up to
+    MMA_MAX_K), whose 16-row tiles each lie in one scale group (one group,
+    or ``group_size % 16 == 0``); ``"simt"``, the CUDA-core kernel
+    (``dstpu_woq_matmul_t``), for the rest: fp32 x, a ragged K, a K whose x
+    rows do not fit beside the ring. Of the presets' decode heads (16-bit,
+    d_model a multiple of 16) only Bloom-176B's (d_model 14336) takes the
+    second. Fixed: a route never depends on a failure."""
+    if x_dtype not in (torch.float16, torch.bfloat16) or K % 16 \
+            or K > MMA_MAX_K:
+        return "simt"
+    if V // group_size > 1 and group_size % MMA_TILE_ROWS:
+        return "simt"
+    return "mma"
+
+
 def woq_matmul_t(x, q, scale, *, group_size: int, bits: int = 8,
                  out_dtype=None):
     """``x @ W.T`` with W stored quantized ``(V, K)`` — the tied embedding
@@ -207,7 +234,7 @@ def woq_matmul_t(x, q, scale, *, group_size: int, bits: int = 8,
     Returns (M, V) in ``out_dtype`` (x's dtype or fp32).
 
     CPU tensors take :func:`woq_matmul_t_plain`; CUDA tensors launch the
-    kernel or raise, as :func:`woq_matmul`."""
+    kernel :func:`woq_t_route` names, or raise, as :func:`woq_matmul`."""
     if x.device.type == "cpu":
         return woq_matmul_t_plain(x, q, scale, group_size=group_size,
                                   bits=bits, out_dtype=out_dtype)
@@ -220,7 +247,10 @@ def woq_matmul_t(x, q, scale, *, group_size: int, bits: int = 8,
     _check_cuda("woq_matmul_t", x, q, scale)
     out_dtype = _out_dtype("woq_matmul_t", x, out_dtype)
     out = torch.empty((M, V), dtype=out_dtype, device=x.device)
-    err = _kernel("dstpu_woq_matmul_t")(
+    entry = ("dstpu_woq_matmul_t_mma"
+             if woq_t_route(x.dtype, K, V, group_size) == "mma"
+             else "dstpu_woq_matmul_t")
+    err = _kernel(entry)(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K,
         V, group_size, bits, _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
         _stream(x))

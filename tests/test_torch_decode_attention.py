@@ -3,8 +3,10 @@
 The port's plain version (what its wrapper runs for CPU tensors, and what
 the CUDA kernel is held against on the card) against the JAX Pallas kernel
 in interpret mode and against the JAX dense ``_cache_attend``; and the
-port's dense ``_cache_attend`` against the JAX one. Inputs from numpy
-seeds. Tolerances: 2e-5 in fp32 (both sides fp32 online or plain softmax,
+port's dense ``_cache_attend`` against the JAX one; the kernel's split
+plan (shapes only, every position once, CUDA's grid limits) and a plain
+emulation of its split-K and in-order merge against the JAX kernel.
+Inputs from numpy seeds. Tolerances: 2e-5 in fp32 (both sides fp32 online or plain softmax,
 sums in another order); in bf16 2e-2, one bf16 rounding step of the
 outputs (|o| < 2) plus the score rounding of the dense path."""
 
@@ -127,3 +129,112 @@ def test_flash_gate_routes_one_token_steps_on_128_multiples(monkeypatch):
         _cache_attend(tq, tk, tv, S, flash_decode=True)
         assert bool(seen) == hit, (S, T)
         seen.clear()
+
+
+# ------------------------------------------------------- the split plan
+def split_reference(q, ck, cv, length, nsplit, chunk, alibi_slopes=None):
+    """The kernel's split-K in plain tensor ops: per split, an fp32 partial
+    (m, l, unnormalised acc) over its positions [s * chunk, (s + 1) * chunk)
+    below L; then the partials of the live splits (those that start below
+    L) merged in split order, as the last block of a (row, KV head) does."""
+    B, _, H, hd = q.shape
+    KV = ck.shape[1]
+    G = H // KV
+    L = torch.as_tensor(length).reshape(-1).expand(B).long()
+    qf = q[:, 0].double().reshape(B, KV, G, hd) / hd ** 0.5
+    out = torch.zeros(B, KV, G, hd, dtype=torch.float64)
+    for b in range(B):
+        parts = []
+        for s in range(nsplit):
+            lo, hi = s * chunk, min((s + 1) * chunk, int(L[b]))
+            if lo >= hi:
+                continue
+            sc = torch.einsum("kgd,ksd->kgs", qf[b], ck[b, :, lo:hi].double())
+            if alibi_slopes is not None:
+                pos = torch.arange(lo, hi, dtype=torch.float64)
+                sc = sc + alibi_slopes.double().reshape(KV, G, 1) \
+                    * (pos - (int(L[b]) - 1))
+            m = sc.amax(-1, keepdim=True)
+            p = torch.exp(sc - m)
+            parts.append((m, p.sum(-1, keepdim=True),
+                          torch.einsum("kgs,ksd->kgd", p,
+                                       cv[b, :, lo:hi].double())))
+        if not parts:
+            continue
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        den = sum(l * torch.exp(m - mx) for m, l, _ in parts)
+        num = sum(a * torch.exp(m - mx) for m, _, a in parts)
+        out[b] = num / den
+    return out.reshape(B, 1, H, hd).float()
+
+
+SM_COUNTS = (132, 114, 8)                 # H100 SXM, H100 PCIe, a small card
+
+
+@pytest.mark.parametrize("sms", SM_COUNTS)
+@pytest.mark.parametrize("B,H,KV,S,hd", [
+    (4, 32, 32, 640, 128),                 # Llama-2-7B decode, PERF.md row 1
+    (4, 64, 8, 640, 128),                  # Llama-2-70B's GQA heads
+    (16, 32, 32, 4096, 128),               # the serving shape
+    (1, 32, 32, 32768, 128),               # one long row: many splits
+    (64, 32, 32, 4096, 128), (2, 12, 4, 384, 256), (3, 8, 1, 100, 40),
+    (1, 1, 1, 1, 8), (4, 25, 25, 1024, 64), (1, 8, 8, 1 << 20, 128)])
+def test_split_plan_covers_the_cache_once_within_cuda_limits(sms, B, H, KV,
+                                                             S, hd):
+    plan = da.split_plan(B, H, KV, S, hd, sms)
+    chunk, nsplit, tile = plan["chunk"], plan["nsplit"], plan["tile"]
+    # the ranges [s * chunk, (s + 1) * chunk) cover [0, S) once, none empty
+    assert chunk % tile == 0 and chunk > 0
+    assert (nsplit - 1) * chunk < S <= nsplit * chunk
+    assert nsplit <= da.MAX_SPLITS
+    assert tile == 8 * 16 // da.lane_elements(hd)
+    G = H // KV
+    assert plan["gb"] in (1, 2, 4, 8) and plan["gb"] * da.lane_elements(hd) \
+        <= 32
+    assert plan["nch"] * plan["gb"] >= G > (plan["nch"] - 1) * plan["gb"]
+    # CUDA's grid: x < 2^31, y and z <= 65535
+    assert nsplit < 2 ** 31 and KV * plan["nch"] <= 65535 and B <= 65535
+    # about a block an SM where the cache allows it; long ranges split
+    pairs = B * KV * plan["nch"]
+    tiles = -(-S // tile)
+    assert nsplit * pairs >= min(da.BLOCKS_PER_SM * sms, pairs * tiles) // 2
+    assert chunk // tile <= max(da.MAX_TILES_PER_SPLIT,
+                                -(-tiles // da.MAX_SPLITS))
+
+
+def test_split_plan_reads_shapes_only(monkeypatch):
+    """The plan is a function of Python ints: it never reads a tensor, so
+    it never syncs with the card (the lengths stay there)."""
+    def refuse(*a, **k):
+        raise AssertionError("the split plan read a tensor")
+
+    for name in ("item", "tolist", "__int__", "__index__", "cpu", "numpy"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+    plan = da.split_plan(4, 32, 32, 640, 128, 132)
+    assert all(isinstance(v, int) for v in plan.values())
+    with pytest.raises(ValueError, match="65535"):
+        da.split_plan(70000, 32, 32, 640, 128, 132)
+
+
+@pytest.mark.parametrize("kv,alibi", [(4, False), (2, True), (1, False)])
+def test_split_k_and_in_order_merge_match_jax_kernel(kv, alibi):
+    """Split-K as the kernel runs it, on the plan's chunk: lengths on a
+    chunk edge and one past it, a row of one position, an empty row (0
+    exactly), splits past L that hold nothing; GQA / MQA and ALiBi."""
+    B, H, S, hd = 6, 4, 512, 32
+    plan = da.split_plan(B, H, kv, S, hd, 132)
+    c, nsplit = plan["chunk"], plan["nsplit"]
+    assert nsplit > 2
+    lengths = np.array([c, c + 1, 2 * c, 1, 0, S], np.int32)
+    (jq, jk, jv), (tq, tk, tv) = both(make(B=B, S=S, H=H, KV=kv, hd=hd))
+    slopes = alibi_slopes(H) if alibi else None
+    got = split_reference(tq, tk, tv, torch.from_numpy(lengths), nsplit, c,
+                          alibi_slopes=slopes)
+    want = jax_kernel(jq, jk, jv, jnp.asarray(lengths), interpret=True,
+                      alibi_slopes=jax_slopes(H) if alibi else None)
+    np.testing.assert_allclose(f32(got), f32(want), atol=FP32_TOL, rtol=0)
+    assert torch.equal(got[4], torch.zeros_like(got[4]))
+    plain = da.decode_attention_plain(tq, tk, tv, torch.from_numpy(lengths),
+                                      alibi_slopes=slopes)
+    np.testing.assert_allclose(f32(got), f32(plain), atol=FP32_TOL, rtol=0)

@@ -49,6 +49,45 @@ def test_kernel_matches_plain(cuda, dtype, H, KV, hd, alibi):
     assert torch.equal(got[3], torch.zeros_like(got[3]))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,KV,hd,S,edge", [
+    (4, 32, 32, 128, 640, "splits"),      # Llama-2-7B: lengths on split edges
+    (4, 64, 8, 128, 640, "splits"),       # Llama-2-70B's GQA heads
+    (4, 32, 32, 128, 640, "empty"),       # every row empty
+    (1, 32, 32, 128, 32768, "long"),      # one long row: many splits
+    (16, 32, 32, 128, 4096, "ragged"),    # the serving shape
+    (3, 8, 2, 40, 300, "splits"), (2, 8, 8, 256, 500, "splits")])
+def test_kernel_split_edges_and_repeatability(cuda, dtype, B, H, KV, hd, S,
+                                              edge):
+    """Split-K at the plan's own edges: lengths on a split boundary and one
+    past it, all rows empty (exactly 0), a long row over many splits,
+    ragged rows; two calls on the same inputs are bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, ck, cv = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+                 for shape in ((B, 1, H, hd), (B, KV, S, hd), (B, KV, S, hd)))
+    c = da.split_plan(B, H, KV, S, hd, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)["chunk"]
+    if edge == "splits":
+        lens = [min(x, S) for x in (c, c + 1, 2 * c - 1, 1)][:B] \
+            + [S] * max(0, B - 4)
+    elif edge == "ragged":
+        lens = torch.randint(512, S + 1, (B,), generator=g,
+                             device=cuda).tolist()
+    else:
+        lens = [0 if edge == "empty" else S - 3] * B
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = da.decode_attention(q, ck, cv, lengths)
+    again = da.decode_attention(q, ck, cv, lengths)
+    want = da.decode_attention_plain(q, ck, cv, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert torch.equal(got[b], torch.zeros_like(got[b]))
+
+
 def test_kernel_scalar_length_and_refusals(cuda):
     g = torch.Generator(device=cuda).manual_seed(1)
     q = torch.randn(2, 1, 8, 64, generator=g, device=cuda)
@@ -131,10 +170,11 @@ def test_woq_matmul_kernel_matches_plain(cuda, bits, M, K, N, out, xdtype):
 
 
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("M", [1, 4, 17])
+@pytest.mark.parametrize("M", [1, 4, 8, 17])
 @pytest.mark.parametrize("V,K,group", [(50272, 4096, 128), (32000, 4096, 128),
                                        (1002, 256, 64), (2048, 130, 128)])
-@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32,
+                                    torch.float16])
 def test_woq_matmul_t_kernel_matches_plain(cuda, bits, M, V, K, group, xdtype):
     from deepspeed_tpu_torch.ops import woq_matmul as wm
 
@@ -147,6 +187,27 @@ def test_woq_matmul_t_kernel_matches_plain(cuda, bits, M, V, K, group, xdtype):
     assert wm.woq_matmul_t.launches == before + 1
     torch.testing.assert_close(
         got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_woq_matmul_t_mma_route_out_dtype_and_repeatability(cuda, xdtype,
+                                                            bits):
+    """The tensor-core route in x's dtype out (one rounding of the output
+    on each side) and twice bit-identical (no atomics)."""
+    from deepspeed_tpu_torch.ops import woq_matmul as wm
+
+    x, qt = _woq_pair(cuda, "t", 4, 50272, 4096, 128, bits, xdtype)
+    assert wm.woq_t_route(xdtype, 4096, 50272, qt.group_size) == "mma"
+    kw = dict(group_size=qt.group_size, bits=qt.bits)
+    got = wm.woq_matmul_t(x, qt.q, qt.scale, **kw)
+    again = wm.woq_matmul_t(x, qt.q, qt.scale, **kw)
+    want = wm.woq_matmul_t_plain(x, qt.q, qt.scale, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == xdtype and torch.equal(got, again)
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=0,
+        atol=WOQ_SHARE[xdtype] * want.float().abs().max().item())
 
 
 def test_woq_kernels_refuse_what_they_do_not_take(cuda):

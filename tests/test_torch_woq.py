@@ -8,7 +8,9 @@ the CPU.
 - ``woq_matmul_plain`` / ``woq_matmul_t_plain`` against the Pallas kernels
   in interpret mode. fp32 results agree to 2e-5 of the output's max |value|
   (the same products, summed in another order); bf16 results to 2^-7 of it
-  (one rounding of the output on each side, a few ulp apart at most).
+  and fp16 ones to 2^-9 (one rounding of the output on each side, a few
+  ulp apart at most).
+- ``woq_t_route``: which shapes and dtypes take the tensor-core kernel.
 - Engines: greedy tokens identical to the JAX engine and fp32 decode logits
   within 1e-4 absolute, in both ``woq_kernel`` modes, each against the same
   JAX mode (kernel semantics vs per-use dequant). No leaf of these engines
@@ -37,6 +39,7 @@ from test_torch_model import make_pair  # a test module of this directory
 LOGIT_ATOL = 1e-4
 FP32_SHARE = 2e-5
 BF16_SHARE = 2.0 ** -7
+FP16_SHARE = 2.0 ** -9
 
 # group sizes per engine case: tiny_test at 32 (every weight multi-group);
 # llama2 tiny at 64 (w_out's 688 rows degrade to one group); OPT tiny at
@@ -174,12 +177,14 @@ def test_woq_matmul_plain_matches_the_pallas_kernel(bits, xdtype, M, K, N,
 
 
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("xdtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("M", [1, 4, 5])
 @pytest.mark.parametrize("V,K,gs", [(512, 128, 128), (250, 128, 128)])
 def test_woq_matmul_t_plain_matches_the_pallas_kernel(bits, xdtype, M, V, K,
                                                       gs):
-    """Multi-group and G = 1 (250 rows, not divisible by 128) tables."""
+    """Multi-group and G = 1 (250 rows, not divisible by 128) tables; fp16
+    x (the tensor-core route's other dtype) rounds the dequantized table
+    to fp16 on both sides."""
     w, x = rand((V, K), seed=6, scale=0.02), rand((M, K), seed=7)
     jqt = jquantize(jnp.asarray(w), group_size=gs, bits=bits)
     tqt = tq.quantize(torch.from_numpy(w), gs, bits=bits)
@@ -192,8 +197,32 @@ def test_woq_matmul_t_plain_matches_the_pallas_kernel(bits, xdtype, M, V, K,
                                tqt.scale, group_size=tqt.group_size,
                                bits=tqt.bits, out_dtype=out and torch.float32)
         assert got.shape == (M, V)
-        _close(got, want, FP32_SHARE if got.dtype == torch.float32
-               else BF16_SHARE)
+        _close(got, want, {torch.float32: FP32_SHARE,
+                           torch.bfloat16: BF16_SHARE,
+                           torch.float16: FP16_SHARE}[got.dtype])
+
+
+@pytest.mark.parametrize("xdtype,K,V,gs,route", [
+    (torch.bfloat16, 4096, 50272, 50272, "mma"),   # OPT-6.7B head: G = 1
+    (torch.bfloat16, 4096, 32000, 128, "mma"),     # table_32000: G = 250
+    (torch.float16, 4096, 50272, 50272, "mma"),
+    (torch.bfloat16, 1600, 50257, 50257, "mma"),   # GPT-2 1.5B's table
+    (torch.bfloat16, 2560, 250880, 128, "mma"),    # Bloom's table
+    (torch.bfloat16, 8192, 32000, 128, "mma"),
+    (torch.bfloat16, 8208, 32000, 128, "simt"),    # x beyond shared memory
+    (torch.float32, 4096, 50272, 50272, "simt"),   # fp32 x
+    (torch.bfloat16, 130, 2048, 128, "simt"),      # ragged K
+    (torch.bfloat16, 136, 2048, 128, "simt"),
+    (torch.bfloat16, 256, 1024, 8, "simt"),        # 16-row tiles span groups
+    (torch.bfloat16, 256, 1024, 24, "simt"),
+    (torch.bfloat16, 256, 1024, 16, "mma"),
+    (torch.bfloat16, 256, 1001, 1001, "mma"),      # odd V: one group
+])
+def test_woq_t_route(xdtype, K, V, gs, route):
+    """The fixed route of ``woq_matmul_t``: the tensor-core kernel for
+    16-bit x whose rows split into 16-byte copies, 16-row tiles in one
+    group."""
+    assert twm.woq_t_route(xdtype, K, V, gs) == route
 
 
 def test_woq_dot_modes_match_jax_dispatch():

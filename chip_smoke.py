@@ -11,20 +11,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    wgmma and TMA instructions in the SASS (cuobjdump) of the wgmma
    forward's and backward pair's libraries (each > 0) and the kernels of
    theirs that spill or have a warpgroup wait injected by ptxas (none),
-   and print their shared memory;
+   and print their shared memory; the same for the tensor-core ``x @ W``
+   kernels of ``woq_matmul.cu`` (mma.sync and TMA loads in their SASS, no
+   spill, no injected wait);
 2. kernels: each kernel (decode attention, the WOQ GEMMs ``woq_matmul``
    and ``woq_matmul_t``) against its plain PyTorch version on the card, at
    the main paths' shapes and the edge cases, within stated tolerances
    (decode attention also at its split plan's edges, with all rows empty,
    one 32768-position row, hd 40 / 256 and fp32 GQA, rows with L = 0
-   exactly 0 and two calls bit-identical; ``woq_matmul_t`` in fp16 and at
-   M 1 / 8 / 17 on both routes, each line naming its route); then timed on
+   exactly 0 and two calls bit-identical; both WOQ GEMMs in fp16 and at
+   M 1 / 8 / 16 / 17 on both routes, each line naming its route, two calls
+   bit-identical); then timed on
    L2-cold inputs (device time: calls captured in a CUDA graph, replays
    timed with CUDA events) beside the plain version (eager calls), the
    PyTorch library call that computes the same function (device time),
    the bound and the host cost of a call: decode attention at Llama-2-7B's
    shape, Llama-2-70B's GQA heads and a B 16 / cache 4096 serving shape
-   with ragged lengths (a ``[decode-attn]`` JSON line each);
+   with ragged lengths (a ``[decode-attn]`` JSON line each), and
+   ``woq_matmul`` at every x @ W shape of Llama-2-7B and OPT-6.7B in int8
+   and int4 with the layer sums and the host cost of a call (a
+   ``[woq-mm]`` JSON line);
 3. slice: ``init_inference(...).generate`` on Llama-2-7B at full width in
    bf16 with seeded random weights (4 prompts x 512 tokens, 128 new
    tokens, greedy), with the kernel's launch count read around that one
@@ -34,8 +40,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    True})`` on Llama-2-7B in int8 (untied head: ``woq_matmul``) and on
    OPT-6.7B in int4 (tied head: ``woq_matmul_t``), both at full width and
    depth, group 128, with every kernel's launch count read around one
-   ``generate`` (the tied head's ``woq_matmul_t`` route printed, and gated
-   to the tensor-core route on the card); the kernel path's logits
+   ``generate`` (the routes of every quantized decode projection's
+   ``woq_matmul`` and of the tied head's ``woq_matmul_t`` printed, and
+   gated to the tensor-core routes on the card); the kernel path's logits
    teacher-forced against the
    per-use dequantization path on the same quantized weights (gated) and
    against the bf16 engine (logged);
@@ -120,8 +127,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    steps with ms a step, peak memory against the plain path's and the
    kernels' share of device time. Launches exactly 1 / 1 / 1 a step.
 
-``remat_sweep()`` is a one-off measurement outside the phases: the default
-GPT-2 1.5B training step under each remat policy.
+``remat_sweep()`` and ``woq_probe()`` are one-off measurements outside the
+phases: the default GPT-2 1.5B training step under each remat policy, and
+the tensor-core ``x @ W`` under each ring depth and blocks an SM.
 
 Before them, a ``[flash-bias]`` line holds the JSON of phases 5d and 10's
 kernel rows (each flash kernel with the bias at phase 10's two shapes,
@@ -297,6 +305,24 @@ def phase_device() -> dict:
             raise AssertionError(f"{lib} has no wgmma or TMA: {sass[lib]}")
         if not fit["kernels"] or fit["spilling"] or fit["injected_waits"]:
             raise AssertionError(f"{lib}: ptxas reports {fit}")
+    # the tensor-core x @ W: mma.sync and TMA in its SASS, no spill, no
+    # injected wait in its library
+    woq = kernel_sass(built["woq_matmul"]["path"], "woq_matmul_mma_kernel")
+    fit = ptxas_kernels(built["woq_matmul"]["log"], "woq_matmul_mma_kernel")
+    waits = ptxas_fit(built["woq_matmul"]["log"])["injected_waits"]
+    log(f"[build] woq_matmul_mma_kernel: {woq['kernels']} kernels, SASS "
+        f"instructions {woq['counts']} (HMMA: mma.sync, UTMALDG / UBLKCP: "
+        f"TMA / bulk loads); ptxas: {len(fit)} kernels, registers "
+        f"{sorted({f['registers'] for f in fit.values()})}, "
+        f"{sum(1 for f in fit.values() if f['spill'])} spilling, {waits} "
+        "injected warpgroup waits (C7517 / C7519)")
+    if not woq["kernels"] or not woq["counts"]["HMMA"] or not (
+            woq["counts"]["UTMALDG"] or woq["counts"]["UBLKCP"]):
+        raise AssertionError(f"woq_matmul_mma_kernel has no mma.sync or TMA "
+                             f"load: {woq}")
+    if not fit or any(f["spill"] for f in fit.values()) or waits:
+        raise AssertionError(f"woq_matmul_mma_kernel: ptxas reports {fit}, "
+                             f"{waits} injected waits")
     smem = builder.load("flash_fwd_sm90").dstpu_flash_fwd_smem_bytes
     smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
     log("[build] flash_fwd_sm90: dynamic shared memory " + ", ".join(
@@ -308,7 +334,7 @@ def phase_device() -> dict:
         smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
         log(f"[build] {kernel}_sm90: dynamic shared memory " + ", ".join(
             f"hd {hd} {smem(hd)} B" for hd in (32, 64, 128)))
-    return {"nvidia_smi": smi, "flash_sass": sass}
+    return {"nvidia_smi": smi, "flash_sass": sass, "woq_sass": woq["counts"]}
 
 
 def ptxas_fit(build_log: str) -> dict:
@@ -322,6 +348,55 @@ def ptxas_fit(build_log: str) -> dict:
     return {"kernels": len(spills),
             "spilling": sum(1 for st, ld in spills if int(st) or int(ld)),
             "injected_waits": len(re.findall(r"\(C751[79]\)", build_log))}
+
+
+def ptxas_kernels(build_log: str, name: str) -> dict:
+    """From nvcc's ``-Xptxas -v`` output: each kernel whose mangled name
+    holds ``name``, with its registers and its spill bytes (stores +
+    loads)."""
+    import re
+
+    found, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1) if name in m.group(1) else None
+            if cur:
+                found[cur] = {"registers": 0, "spill": 0}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            found[cur]["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found[cur]["registers"] = int(m.group(1))
+            cur = None
+    return found
+
+
+def kernel_sass(path: str, name: str) -> dict:
+    """Counts of the mma.sync (HMMA), TMA load (UTMALDG) and bulk copy
+    (UBLKCP) instructions in the SASS of a library's kernels whose mangled
+    names hold ``name`` (cuobjdump), and how many such kernels there are."""
+    import subprocess
+
+    from deepspeed_tpu_torch.ops import builder
+
+    tool = Path(builder.find_nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", path], capture_output=True,
+                         text=True, check=True).stdout
+    counts = dict.fromkeys(("HMMA", "UTMALDG", "UBLKCP"), 0)
+    kernels = 0
+    for part in out.split("Function : ")[1:]:
+        if name not in part.split("\n", 1)[0]:
+            continue
+        kernels += 1
+        for k in counts:
+            counts[k] += part.count(k)
+    return {"kernels": kernels, "counts": counts}
 
 
 def sass_counts(path: str) -> dict:
@@ -516,8 +591,8 @@ WOQ_MM_MAIN = (("wqkv", 4096, 12288, 1, None), ("wo", 4096, 4096, 1, None),
                ("w_in/w_gate", 4096, 11008, 2, None),
                ("w_out", 11008, 4096, 1, None),
                ("lm_head", 4096, 32000, 0, "float32"))
-# OPT-6.7B's own x @ W shapes (d_ff 16384; wqkv and wo are Llama's):
-# checked, not timed
+# OPT-6.7B's own x @ W shapes (d_ff 16384; wqkv and wo are Llama's), once
+# per OPT layer each
 WOQ_MM_OPT = (("w_in", 4096, 16384, 1, None), ("w_out", 16384, 4096, 1, None))
 # (name, V, K, group) of x @ W.T, fp32 out: the OPT-6.7B tied head (50272
 # rows: one group) and a multi-group table
@@ -526,6 +601,15 @@ WOQ_T_MAIN = (("opt_head", 50272, 4096, 128), ("table_32000", 32000, 4096, 128))
 WOQ_EDGES = (
     ("mm", 1, 4096, 4096, 128, 8, "bfloat16", None),
     ("mm", 17, 4096, 4096, 128, 4, "bfloat16", None),
+    # the tensor-core route: M 8 / 16 / 17, fp16 x, fp32 out, one group of
+    # 1600 rows split over K (GPT-2 1.5B's d_model)
+    ("mm", 8, 4096, 11008, 128, 4, "float16", None),
+    ("mm", 16, 4096, 4096, 128, 8, "bfloat16", None),
+    ("mm", 17, 11008, 4096, 128, 8, "float16", "float32"),
+    ("mm", 4, 4096, 32000, 128, 4, "float16", "float32"),
+    ("mm", 4, 1600, 4800, 128, 8, "bfloat16", None),
+    ("mm", 12, 1600, 6400, 128, 4, "bfloat16", "float32"),
+    # the CUDA-core route: fp32 x, a group of 1000 rows, a ragged N
     ("mm", 4, 1024, 1024, 128, 8, "float32", None),
     ("mm", 4, 1000, 512, 128, 8, "bfloat16", None),     # K degrades: G = 1
     ("mm", 4, 1000, 512, 128, 4, "bfloat16", None),     # int4, G = 1
@@ -569,16 +653,18 @@ def _woq_fns(kernel):
 
 
 def _woq_route(kernel, x, rows, cols, group) -> str:
-    """`` (route mma)`` / `` (route simt)`` for x @ W.T, else ``""``."""
+    """The route of the call: ``woq_route`` for x @ W, ``woq_t_route`` for
+    x @ W.T (``"mma"`` or ``"simt"``)."""
     from deepspeed_tpu_torch.ops import woq_matmul as wm
 
-    if kernel != "mmt":
-        return ""
-    return f" (route {wm.woq_t_route(x.dtype, cols, rows, group)})"
+    if kernel == "mm":
+        return wm.woq_route(x.dtype, x.shape[0], rows, cols, group)
+    return wm.woq_t_route(x.dtype, cols, rows, group)
 
 
 def _woq_check(gen, kernel, M, rows, cols, group, bits, xdtype, out, device):
-    """Kernel vs plain on one case; returns (max abs err, share)."""
+    """Kernel vs plain on one case, and a second call bit-identical;
+    returns (max abs err, share)."""
     import torch
 
     x, qt = _woq_case(gen, kernel, M, rows, cols, group, bits, xdtype, device)
@@ -586,20 +672,23 @@ def _woq_check(gen, kernel, M, rows, cols, group, bits, xdtype, out, device):
     kw = dict(group_size=qt.group_size, bits=qt.bits,
               out_dtype=out and getattr(torch, out))
     got = fn(x, qt.q, qt.scale, **kw)
+    again = fn(x, qt.q, qt.scale, **kw)
     want = plain(x, qt.q, qt.scale, **kw)
     if device == "cuda":
         torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     share = err / max(want.float().abs().max().item(), 1e-30)
     tol = WOQ_TOL_SHARE[str(got.dtype)]
-    ok = math.isfinite(err) and share <= tol
+    same = torch.equal(got, again)
+    ok = math.isfinite(err) and share <= tol and same
     route = _woq_route(kernel, x, rows, cols, qt.group_size)
-    log(f"[kernel] {fn.__name__:12s}{route} M{M} {rows}x{cols} g{qt.group_size} "
-        f"int{qt.bits} x {xdtype} out {got.dtype}: max_abs_err {err:.3e}, "
-        f"{share:.2e} of max |out| (tol {tol:.2e}) {'ok' if ok else 'FAIL'}")
+    log(f"[kernel] {fn.__name__:12s} (route {route}) M{M} {rows}x{cols} "
+        f"g{qt.group_size} int{qt.bits} x {xdtype} out {got.dtype}: "
+        f"max_abs_err {err:.3e}, {share:.2e} of max |out| (tol {tol:.2e}), "
+        f"repeat bit-identical {same} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{fn.__name__} M{M} {rows}x{cols} int{bits}: "
-                             f"share {share} > {tol}")
+                             f"share {share} > {tol} or repeat differs")
     return err, share
 
 
@@ -644,7 +733,8 @@ def _woq_timing(gen, kernel, M, rows, cols, group, bits, out, iters):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[str(x.dtype)] * 1e3
     bound_ms = max(t_bytes, t_ops)
-    log(f"[kernel] {fn.__name__:12s}{_woq_route(kernel, x, rows, cols, gs)} "
+    route = _woq_route(kernel, x, rows, cols, gs)
+    log(f"[kernel] {fn.__name__:12s} (route {route}) "
         f"M{M} {rows}x{cols} g{gs} int{bits} "
         f"out {out or 'bf16'}: kernel {kernel_ms * 1e3:.2f} us, plain "
         f"{plain_ms * 1e3:.2f} us, torch.matmul bf16 dense "
@@ -652,17 +742,32 @@ def _woq_timing(gen, kernel, M, rows, cols, group, bits, out, iters):
         f"({'bytes' if t_bytes >= t_ops else 'operations'}: {nbytes} B, "
         f"{ops} flop), kernel at {bound_ms / kernel_ms:.1%} of the bound")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "t_bytes": t_bytes, "t_ops": t_ops}
+            "bound_ms": bound_ms, "t_bytes": t_bytes, "t_ops": t_ops,
+            "route": route}
+
+
+WOQ_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes", "t_ops")
+
+
+def _layer_sum(parts) -> dict:
+    """The sum of (times, timing) pairs' numbers: one layer's projections."""
+    total = dict.fromkeys(WOQ_KEYS, 0.0)
+    for times, t in parts:
+        for k in WOQ_KEYS:
+            total[k] += times * t[k]
+    return total
 
 
 def phase_woq_kernels(device="cuda", iters=200, main=WOQ_MM_MAIN,
                       main_t=WOQ_T_MAIN, edges=WOQ_EDGES, M=4,
                       main_opt=WOQ_MM_OPT) -> dict:
     """Both WOQ kernels against their plain versions at the main shapes of
-    both models (int8 and int4) and the edge cases; on the card, timed at
-    the Llama-2-7B and head shapes. Returns the JSON numbers of each
-    kernel: ``woq_matmul`` summed over one Llama-2-7B int8 layer's
-    projections, ``woq_matmul_t`` at the OPT-6.7B int4 tied head."""
+    both models (int8 and int4) and the edge cases, each line naming its
+    route; on the card, every x @ W shape timed in int8 and int4 (a
+    ``[woq-mm]`` JSON line), the x @ W.T head shapes, and the host cost of
+    a call. Returns the JSON numbers of each kernel: ``woq_matmul`` summed
+    over one Llama-2-7B int8 layer's projections, ``woq_matmul_t`` at the
+    OPT-6.7B int4 tied head."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(2)
@@ -683,27 +788,37 @@ def phase_woq_kernels(device="cuda", iters=200, main=WOQ_MM_MAIN,
     if device != "cuda":
         return result
 
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes", "t_ops")
-    layer = dict.fromkeys(keys, 0.0)
+    shapes = {}
     for bits in (8, 4):
-        for name, K, N, per_layer, out in main:
-            t = _woq_timing(gen, "mm", M, K, N, 128, bits, out, iters)
-            if bits == 8:
-                for k in keys:
-                    layer[k] += per_layer * t[k]
+        for name, K, N, per_layer, out in main + tuple(
+                (f"opt_{n}",) + tuple(rest) for n, *rest in main_opt):
+            shapes[f"{name} int{bits}"] = _woq_timing(
+                gen, "mm", M, K, N, 128, bits, out, iters)
         for name, V, K, group in main_t:
             t = _woq_timing(gen, "mmt", M, V, K, group, bits, "float32",
                             iters)
             if bits == 4 and name == "opt_head":
                 head = t
+    llama = {b: _layer_sum((per, shapes[f"{name} int{b}"])
+                           for name, _, _, per, _ in main) for b in (8, 4)}
+    opt4 = _layer_sum([(1, shapes["wqkv int4"]), (1, shapes["wo int4"])]
+                      + [(1, shapes[f"opt_{n} int4"]) for n, *_ in main_opt])
+    layer = llama[8]
     for r, t in (("woq_matmul", layer), ("woq_matmul_t", head)):
-        result[r].update({k: t[k] for k in keys[:4]})
+        result[r].update({k: t[k] for k in WOQ_KEYS[:4]})
         result[r]["bound_by"] = ("bytes" if t["t_bytes"] >= t["t_ops"]
                                  else "operations")
-    log(f"[kernel] woq_matmul, one Llama-2-7B int8 layer (wqkv + wo + w_in "
-        f"+ w_gate + w_out, M {M}): kernel {layer['ms'] * 1e3:.2f} us, "
-        f"bound {layer['bound_ms'] * 1e3:.2f} us, torch.matmul bf16 dense "
-        f"{layer['library_ms'] * 1e3:.2f} us")
+    result["woq_matmul"]["route"] = shapes["wo int8"]["route"]
+    for label, t in (("one Llama-2-7B int8 layer (wqkv + wo + w_in + w_gate "
+                      "+ w_out)", llama[8]),
+                     ("one Llama-2-7B int4 layer", llama[4]),
+                     ("one OPT-6.7B int4 layer (wqkv + wo + w_in + w_out)",
+                      opt4)):
+        log(f"[kernel] woq_matmul, {label}, M {M}: kernel "
+            f"{t['ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f} us "
+            f"({t['bound_ms'] / t['ms']:.1%}), torch.matmul bf16 dense "
+            f"{t['library_ms'] * 1e3:.2f} us "
+            f"({t['ms'] / t['library_ms']:.2f}x)")
 
     # the host's cost of one call at the wo shape: the decode loop is eager
     from deepspeed_tpu_torch.ops import woq_matmul as wm
@@ -715,8 +830,9 @@ def phase_woq_kernels(device="cuda", iters=200, main=WOQ_MM_MAIN,
                                              group_size=qt.group_size))
     mm_host = host_us(lambda: torch.matmul(x, w))
     log(f"[kernel] host cost per call, M {M} 4096x4096 int8: woq_matmul "
-        f"{woq_host:.2f} us (two launches: product + split-K sum), "
-        f"torch.matmul on the dense bf16 weight {mm_host:.2f} us")
+        f"{woq_host:.2f} us (route "
+        f"{wm.woq_route(x.dtype, M, 4096, 4096, qt.group_size)}, one "
+        f"launch), torch.matmul on the dense bf16 weight {mm_host:.2f} us")
     # and of x @ W.T at the OPT-6.7B int4 head (fp32 out, as decode asks)
     x, qt = _woq_case(gen, "mmt", M, 50272, 4096, 128, 4, "bfloat16", device)
     t_host = host_us(lambda: wm.woq_matmul_t(
@@ -727,7 +843,73 @@ def phase_woq_kernels(device="cuda", iters=200, main=WOQ_MM_MAIN,
         f"{wm.woq_t_route(x.dtype, 4096, 50272, qt.group_size)})")
     result["woq_matmul"]["host_us"] = woq_host
     result["woq_matmul_t"]["host_us"] = t_host
+    log("[woq-mm] " + json.dumps({
+        "M": M, "shapes": {k: {n: v[n] for n in ("ms", "bound_ms",
+                                                  "library_ms", "plain_ms",
+                                                  "route")}
+                           for k, v in shapes.items()},
+        "layers": {"llama_int8": llama[8], "llama_int4": llama[4],
+                   "opt_int4": opt4},
+        "host_us": {"woq_matmul": woq_host, "torch_matmul": mm_host}}))
     return result
+
+
+def woq_probe(shapes=(("wo", 4096, 4096), ("wqkv", 4096, 12288)),
+              stages=(2, 3, 4), per_sm=(1, 2, 3), M=4, iters=400) -> list:
+    """A one-off measurement outside the phases: the tensor-core x @ W
+    (int8 and int4, bf16 x, M 4, group 128) under each ring depth (whole
+    int8 stages: q 16 KB + x 2 KB) and each plan's blocks an SM, device
+    time on L2-cold weights as phase 2 times it. Run: ``python3 -c
+    "import chip_smoke as c; c.woq_probe()"`` on the card."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import woq_matmul as wm
+
+    rows = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for name, K, N in shapes:
+        for bits in (8, 4):
+            x, qt = _woq_case(gen, "mm", M, K, N, 128, bits, "bfloat16",
+                              "cuda")
+            set_bytes = qt.q.numel() + qt.scale.numel() * 4
+            n = max(2, -(-200 * 2**20 // set_bytes))
+            sets = [(torch.randint(-128, 128, qt.q.shape, generator=gen,
+                                   device="cuda", dtype=torch.int8),
+                     torch.rand(qt.scale.shape, generator=gen,
+                                device="cuda") * 0.01) for _ in range(n)]
+            out = torch.empty((M, N), dtype=torch.bfloat16, device="cuda")
+            want = wm.woq_matmul_plain(x, *sets[0], group_size=128,
+                                       bits=bits)
+            stage = (16384 if bits == 8 else 8192) + 2048
+            for ns in stages:
+                for bps in per_sm:
+                    plan = wm.woq_split_plan(M, K, N, 128, sms,
+                                             blocks_per_sm=bps,
+                                             ring_bytes=ns * 18432)
+
+                    def call(i, plan=plan):
+                        err = wm._launch_mma(x, *sets[i % n], out, 128, bits,
+                                             plan)
+                        if err:
+                            raise RuntimeError(f"launch failed: {err}")
+
+                    call(0)
+                    torch.cuda.synchronize()
+                    share = ((out.float() - want.float()).abs().max()
+                             / want.float().abs().max()).item()
+                    if share > WOQ_TOL_SHARE["torch.bfloat16"]:
+                        raise AssertionError(f"probe {name} int{bits}: "
+                                             f"{share}")
+                    us = device_ms(call, n, iters) * 1e3
+                    row = {"shape": name, "bits": bits, "stages":
+                           (ns * 18432) // stage, "int8_stages": ns,
+                           "blocks_per_sm": bps, "blocks": plan["blocks"],
+                           "nsplit": plan["nsplit"], "us": us}
+                    rows.append(row)
+                    log(f"[woq-probe] {json.dumps(row)}")
+            del sets
+    return rows
 
 
 # ------------------------------------------------------------------ phase 3
@@ -981,6 +1163,23 @@ def phase_woq(cfg, *, bits: int, group: int = 128, batch=4, prompt=512,
     if out.shape != (batch, max_new) or out.dtype != torch.long \
             or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError(f"bad generate output {out.shape} {out.dtype}")
+    # every quantized x @ W of the decode step on woq_route's tensor-core
+    # route (the stacked layer leaves and an untied head)
+    from deepspeed_tpu_torch.inference.quantization import QuantizedTensor
+
+    mm_routes = {}
+    for name, leaf in engine.params.items():
+        if not isinstance(leaf, QuantizedTensor) or not (
+                name.startswith("layers.") or name == "lm_head"):
+            continue
+        K, N = leaf.shape[-2:]
+        mm_routes[name] = wm.woq_route(cfg.dtype, batch, K, N,
+                                       leaf.group_size)
+    log(f"{tag} woq_matmul routes of the decode projections (M {batch}): "
+        f"{mm_routes}")
+    if on_card and set(mm_routes.values()) != {"mma"}:
+        raise AssertionError(f"{tag} a decode projection is off the "
+                             f"tensor-core route: {mm_routes}")
     route = None
     if cfg.tie_embeddings:
         table = engine.params["tok_embed"]
@@ -1018,8 +1217,9 @@ def phase_woq(cfg, *, bits: int, group: int = 128, batch=4, prompt=512,
         prof = profile_decode(engine, _clone_cache(cache), out, step_kw,
                               steps=profile_steps)
         if prof:
-            for name in ("woq_matmul_kernel", "woq_reduce_kernel",
-                         "woq_matmul_t_kernel", "woq_matmul_t_mma_kernel"):
+            for name in ("woq_matmul_mma_kernel", "woq_matmul_kernel",
+                         "woq_reduce_kernel", "woq_matmul_t_kernel",
+                         "woq_matmul_t_mma_kernel"):
                 us = sum(v for k, v in prof["by_name"].items()
                          if f"{name}<" in k)
                 shares[name] = us / prof["busy"]
@@ -1051,7 +1251,7 @@ def phase_woq(cfg, *, bits: int, group: int = 128, batch=4, prompt=512,
             "peak_bytes": peak, "generate_s": wall, "quantized_bytes": qbytes,
             "decode_weight_bytes": dbytes, "gate_share": worst,
             "vs_bf16_share": vs_bf16, "kernel_shares": shares,
-            "head_route": route}
+            "head_route": route, "mm_routes": mm_routes}
 
 
 def profile_decode(engine, cache, out, step_kw, steps: int = 4):
@@ -3214,9 +3414,12 @@ def main() -> int:
          "replaces": "deepspeed_tpu/ops/decode_attention.py:41",
          "launches": sl["launches"], **{k: kern[k] for k in keys}},
         # launches: the Llama-2-7B int8 path (untied head)
+        # woq_route: the kernel of woq_matmul's fixed route the main path
+        # runs (every decode projection, phase 4's gate)
         {"name": "woq_matmul", "route": "cuda", "source": src + "woq_matmul.cu",
          "replaces": "deepspeed_tpu/ops/woq_matmul.py:62",
          "launches": woq8["launches"]["woq_matmul"],
+         "woq_route": woq["woq_matmul"]["route"],
          **{k: woq["woq_matmul"][k] for k in keys}},
         # launches: the OPT-6.7B int4 path (tied head)
         {"name": "woq_matmul_t", "route": "cuda",

@@ -1,9 +1,11 @@
 // The sm_90 copy primitives shared by the Hopper kernels: mbarriers (with a
 // trap on a wait that never completes), 1-D bulk copies from global to
 // shared memory that complete an mbarrier's transaction bytes (no tensor
-// map), and the launch helpers (the SM count, the dynamic shared memory
-// opt-in, resident blocks an SM). sm90.cuh (the wgmma attention kernels),
-// decode_attention.cu and woq_matmul.cu include it.
+// map), 2-D TMA loads from tensor maps and the host's tensor map encoder
+// (libcuda's, through the runtime: no -lcuda), and the launch helpers (the
+// SM count, the dynamic shared memory opt-in, resident blocks an SM).
+// sm90.cuh (the wgmma attention kernels), decode_attention.cu and
+// woq_matmul.cu include it.
 //
 // A bulk copy needs its shared and global addresses and its size to be
 // multiples of 16 bytes: one that is not stops the card with an illegal
@@ -12,6 +14,7 @@
 
 #pragma once
 
+#include <cuda.h>        // CUtensorMap and its enums only: no -lcuda
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -82,7 +85,46 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       : "memory");
 }
 
+// a box of the 2-D tensor map at coordinates (c0 inner, c1) into shared
+// memory; completes `bar`'s transaction bytes (the whole box: TMA fills
+// what lies outside the tensor with zeros)
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(bar)
+      : "memory");
+}
+
 // ------------------------------------------------------------ launch
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled through the runtime, looked up once
+inline EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
 // the current device's SMs, asked once per device
 cudaError_t sm_count(int* count) {
   static int counts[64] = {};

@@ -1,8 +1,9 @@
 // The sm_90a building blocks of the Hopper attention kernels (the
-// mbarriers come from bulk_copy.cuh): TMA loads from tensor maps,
-// the matrix descriptors of tiles in wgmma's swizzled layouts, wgmma with
-// fp32 accumulation (both operands from shared memory, or A from
-// registers), the bias fragment loads and the host's tensor map encoder.
+// mbarriers and the host's tensor map encoder come from bulk_copy.cuh): TMA
+// loads from 4-D tensor maps, the matrix descriptors of tiles in wgmma's
+// swizzled layouts, wgmma with fp32 accumulation (both operands from shared
+// memory, or A from registers), the bias fragment loads and the encoding of
+// the attention tensors' maps.
 // flash_fwd_sm90.cu (the forward) and flash_bwd_sm90.cuh (dq and dk/dv,
 // built by flash_bwd_dq_sm90.cu and flash_bwd_dkv_sm90.cu) include it; each
 // source becomes its own library, so nvcc builds them side by side.
@@ -13,10 +14,8 @@
 
 #pragma once
 
-#include <cuda.h>        // CUtensorMap and its enums only: no -lcuda
-
 #include "attention_tiles.cuh"   // pack, quad_max, quad_sum, kBigNeg
-#include "bulk_copy.cuh"         // mbarriers, sm_count
+#include "bulk_copy.cuh"         // mbarriers, sm_count, the map encoder
 
 namespace {
 
@@ -585,30 +584,7 @@ __device__ __forceinline__ void load_bias(float (&x)[NJ][4], int dtype,
 }
 
 // ------------------------------------------------------------ launch
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled through the runtime, looked up once
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
+// (EncodeTiled and encoder() are bulk_copy.cuh's)
 
 // the tensor map of a contiguous (B, S, heads, hd) 16-bit tensor as 4-D
 // (hd, heads, S, B), boxes of one head's `rows` rows by one panel

@@ -6,10 +6,13 @@ Counterpart of ``deepspeed_tpu/ops/woq_matmul.py``, whose Pallas kernels
 ``_matmul_t_kernel`` (``x @ W.T``, the tied head's ``(V, K)`` table)
 stream the quantized tiles through VMEM. Here both are CUDA C++ for
 Hopper, ``csrc/woq_matmul.cu`` (its header gives the bound and the
-design), built by ``ops/builder.py`` and called through ctypes.
-``x @ W.T`` has two kernels, chosen by the fixed :func:`woq_t_route`:
-the tensor-core one (bulk-copied W, dequantized into ``mma.sync``
-operands) for 16-bit x, and the CUDA-core one for the rest.
+design), built by ``ops/builder.py`` and called through ctypes. Each
+has two kernels, chosen by a fixed route of x's dtype and the shapes:
+a tensor-core one for 16-bit x (the weight's integers turned into
+``mma.sync`` operands) and a CUDA-core one for the rest.
+:func:`woq_route` routes ``x @ W`` (the tensor-core kernel streams W
+through a ring of TMA stages, split over K in one launch as
+:func:`woq_split_plan` says), :func:`woq_t_route` ``x @ W.T``.
 
 Layout (``inference/quantization.py``): ``group_size`` consecutive rows of
 the weight's second-to-last dim share one fp32 scale row, so ``scale`` is
@@ -96,6 +99,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # pointers and the stream as c_void_p: without argtypes ctypes passes a
 # Python int as a 32-bit C int and cuts the pointer
 _ARGTYPES = {"dstpu_woq_matmul": [_P] * 5 + [_I] * 8 + [_P],
+             "dstpu_woq_matmul_mma": [_P] * 6 + [_I] * 10 + [_P],
              "dstpu_woq_matmul_t": [_P] * 4 + [_I] * 7 + [_P],
              "dstpu_woq_matmul_t_mma": [_P] * 4 + [_I] * 7 + [_P]}
 _loaded: dict = {}
@@ -143,10 +147,120 @@ def _out_dtype(name: str, x, out_dtype):
 
 
 def woq_splits(G: int) -> int:
-    """Blocks that share one column tile's groups (split-K): each block
-    gives its 8 warps one group each, so a tile's G groups spread over
-    ceil(G / 8) blocks whose fp32 partials a second pass sums in order."""
+    """Blocks that share one column tile's groups in the CUDA-core kernel
+    (split-K): each block gives its 8 warps one group each, so a tile's G
+    groups spread over ceil(G / 8) blocks whose fp32 partials a second
+    pass sums in order."""
     return -(-G // WARPS)
+
+
+MMA_TILE_N = 128        # columns of a tensor-core unit (one TMA box row)
+MMA_STAGE_K = 128       # k rows of a ring stage
+MMA_ROWS = 16           # rows of x a block takes (two n8 tiles)
+# the split plan: at most this many blocks an SM (all resident at once:
+# ptxas fits 3 blocks of 288 threads an SM), k ranges of at least this
+# many rows (each block's fixed cost, its first copies' latency and the
+# partials' merge, is paid once); the ring's shared memory a block: two
+# int8 stages (q 16 KB + x 2 KB each), three int4 ones. On the H100 a ring
+# of 2 int8 stages ran as fast as or faster than 4 at wo and wqkv
+# (PERF.md, PR 10)
+BLOCKS_PER_SM = 3
+MIN_SPLIT_ROWS = 512
+RING_BYTES = 36 * 1024
+GRID_YZ_MAX = 65535
+
+
+def woq_route(x_dtype, M: int, K: int, N: int, group_size: int) -> str:
+    """The kernel that serves ``woq_matmul`` for x's dtype and the
+    weight's shape: ``"mma"``, the tensor-core kernel
+    (``dstpu_woq_matmul_mma``), for fp16 / bf16 x when q's rows are whole
+    16-byte pieces of the tensor maps (``N % 16 == 0``) and every group's
+    rows are whole 16-row steps (``group_size % 16 == 0``, or one group
+    with ``K % 16 == 0``); ``"simt"``, the CUDA-core kernel
+    (``dstpu_woq_matmul``), for the rest: fp32 x, a ragged N, groups such
+    as 1000 rows. Every preset's decode projections and Llama's head take
+    ``"mma"`` in bf16 / fp16 (GPT-2 1.5B's d_model 1600 as one group of
+    1600 rows at group 128). Any M. Fixed: a route never depends on a
+    failure."""
+    del M                                  # every M: 16-row blocks
+    if x_dtype not in (torch.float16, torch.bfloat16) or N % 16 or K % 16:
+        return "simt"
+    if K // group_size > 1 and group_size % 16:
+        return "simt"
+    return "mma"
+
+
+def woq_split_plan(M: int, K: int, N: int, group_size: int, sms: int,
+                   blocks_per_sm: int = BLOCKS_PER_SM,
+                   ring_bytes: int = RING_BYTES) -> dict:
+    """How the tensor-core kernel splits x @ W, from shapes alone. A unit
+    is ``MMA_TILE_N`` columns x a k range x ``MMA_ROWS`` rows of x; the k
+    ranges are whole groups (whole 128-row chunks for one group) of at
+    least ``MIN_SPLIT_ROWS`` rows, as many as keep the grid within
+    ``blocks_per_sm`` blocks an SM (so every block is resident at once and
+    they end together): ``nsplit`` ranges of ``kchunk`` rows covering [0,
+    K) in order. With ``nsplit > 1`` the kernel needs a ``(nsplit, M, N)``
+    fp32 workspace and one ticket per (column tile, row block). Raises if
+    the grid exceeds CUDA's limits."""
+    G = K // group_size
+    chunk = group_size if G > 1 else MMA_STAGE_K
+    nchunks = -(-K // chunk)
+    tiles = -(-N // MMA_TILE_N)
+    mtiles = -(-M // MMA_ROWS)
+    fit = max(1, blocks_per_sm * sms // (tiles * mtiles))
+    per = max(-(-nchunks // min(nchunks, fit)), -(-MIN_SPLIT_ROWS // chunk))
+    nsplit = -(-nchunks // per)
+    if nsplit > GRID_YZ_MAX or mtiles > GRID_YZ_MAX:
+        raise ValueError(f"woq_matmul: grid ({tiles}, {nsplit}, {mtiles}) "
+                         "exceeds CUDA's 65535 in y or z")
+    return {"tiles": tiles, "mtiles": mtiles, "nsplit": nsplit,
+            "kchunk": per * chunk, "blocks": tiles * nsplit * mtiles,
+            "ws_floats": nsplit * M * N if nsplit > 1 else 0,
+            "tickets": tiles * mtiles if nsplit > 1 else 0,
+            "ring_bytes": ring_bytes}
+
+
+_plans: dict = {}
+_sms: dict = {}
+_workspace: dict = {}
+
+
+def _plan(M, K, N, group_size, device) -> dict:
+    key = (M, K, N, group_size, device.index)
+    plan = _plans.get(key)
+    if plan is None:
+        sms = _sms.get(device.index)
+        if sms is None:
+            sms = _sms[device.index] = torch.cuda.get_device_properties(
+                device).multi_processor_count
+        plan = _plans[key] = woq_split_plan(M, K, N, group_size, sms)
+    return plan
+
+
+def _scratch(device, floats: int, tickets: int):
+    """The partials' fp32 workspace and the zeroed int32 tickets, cached
+    per device and grown when a call needs more. Each call leaves the
+    tickets zero; calls on one device run in stream order."""
+    ws, tk = _workspace.get(device.index, (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(max(floats, 1), dtype=torch.float32, device=device)
+    if tk is None or tk.numel() < tickets:
+        tk = torch.zeros(max(tickets, 1), dtype=torch.int32, device=device)
+    _workspace[device.index] = (ws, tk)
+    return ws, tk
+
+
+def _launch_mma(x, q, scale, out, group_size: int, bits: int,
+                plan: dict) -> int:
+    """One launch of the tensor-core kernel under ``plan`` (checked
+    arguments); returns the C entry's CUDA error code."""
+    M, K = x.shape
+    ws, tk = _scratch(x.device, plan["ws_floats"], plan["tickets"])
+    return _kernel("dstpu_woq_matmul_mma")(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), tk.data_ptr(), M, K, out.shape[1], group_size, bits,
+        _DTYPE_CODE[x.dtype], _DTYPE_CODE[out.dtype], plan["kchunk"],
+        plan["nsplit"], plan["ring_bytes"], _stream(x))
 
 
 def woq_matmul(x, q, scale, *, group_size: int, bits: int = 8,
@@ -157,8 +271,9 @@ def woq_matmul(x, q, scale, *, group_size: int, bits: int = 8,
     accumulation.
 
     CPU tensors take :func:`woq_matmul_plain`; CUDA tensors launch the
-    kernel, which needs x/q/scale contiguous, on the current device, x in
-    fp32/fp16/bf16 — anything else raises."""
+    kernel :func:`woq_route` names, once a call, which needs x/q/scale
+    contiguous, on the current device, x in fp32/fp16/bf16 — anything
+    else raises."""
     if x.device.type == "cpu":
         return woq_matmul_plain(x, q, scale, group_size=group_size,
                                 bits=bits, out_dtype=out_dtype)
@@ -170,13 +285,18 @@ def woq_matmul(x, q, scale, *, group_size: int, bits: int = 8,
     _check_cuda("woq_matmul", x, q, scale)
     out_dtype = _out_dtype("woq_matmul", x, out_dtype)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    splits = woq_splits(G)
-    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
-    err = _kernel("dstpu_woq_matmul")(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        ws.data_ptr() if ws is not None else None, M, K, N, group_size, bits,
-        _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], splits, _stream(x))
+    if woq_route(x.dtype, M, K, N, group_size) == "mma":
+        err = _launch_mma(x, q, scale, out, group_size, bits,
+                          _plan(M, K, N, group_size, x.device))
+    else:
+        splits = woq_splits(G)
+        ws = (torch.empty((splits, M, N), dtype=torch.float32,
+                          device=x.device) if splits > 1 else None)
+        err = _kernel("dstpu_woq_matmul")(
+            x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None, M, K, N, group_size,
+            bits, _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], splits,
+            _stream(x))
     if err != 0:
         raise RuntimeError(f"woq_matmul kernel launch failed: CUDA error {err}")
     woq_matmul.launches += 1

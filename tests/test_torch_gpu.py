@@ -210,6 +210,63 @@ def test_woq_matmul_t_mma_route_out_dtype_and_repeatability(cuda, xdtype,
         atol=WOQ_SHARE[xdtype] * want.float().abs().max().item())
 
 
+# x @ W's shapes on the tensor-core route: Llama-2-7B's decode projections
+# and head (fp32 out there), OPT-6.7B's w_in / w_out
+WOQ_MMA_SHAPES = [(4096, 12288), (4096, 4096), (4096, 11008), (11008, 4096),
+                  (4096, 32000), (4096, 16384), (16384, 4096)]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("out", [None, torch.float32])
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 17])
+@pytest.mark.parametrize("K,N", WOQ_MMA_SHAPES)
+def test_woq_matmul_mma_matches_plain(cuda, bits, xdtype, out, M, K, N):
+    """The tensor-core route against the plain version, one launch a
+    call, twice bit-identical (the split-K merge runs in split order)."""
+    from deepspeed_tpu_torch.ops import woq_matmul as wm
+
+    x, qt = _woq_pair(cuda, "mm", M, K, N, 128, bits, xdtype)
+    assert wm.woq_route(xdtype, M, K, N, qt.group_size) == "mma"
+    kw = dict(group_size=qt.group_size, bits=qt.bits, out_dtype=out)
+    before = wm.woq_matmul.launches
+    got = wm.woq_matmul(x, qt.q, qt.scale, **kw)
+    again = wm.woq_matmul(x, qt.q, qt.scale, **kw)
+    want = wm.woq_matmul_plain(x, qt.q, qt.scale, **kw)
+    torch.cuda.synchronize()
+    assert wm.woq_matmul.launches == before + 2
+    assert got.dtype == (out or xdtype) and got.shape == (M, N)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=0,
+        atol=WOQ_SHARE[got.dtype] * want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M,K,N,group,route", [
+    (4, 1600, 4800, 128, "mma"),      # GPT-2 1.5B: one group of 1600 rows
+    (17, 1600, 6400, 128, "mma"),
+    (4, 4096, 4096, 64, "mma"),       # two groups a stage
+    (4, 4096, 4096, 256, "mma"),      # two stages a group
+    (4, 1000, 512, 128, "simt"),      # one group of 1000 rows
+    (4, 256, 1001, 128, "simt"),      # ragged N
+    (4, 4096, 160, 128, "mma"),       # a ragged last column tile
+])
+def test_woq_matmul_routes_on_the_card(cuda, bits, M, K, N, group, route):
+    """Each call runs the route woq_route names, and both routes hold
+    against the plain version (bf16 x, fp32 out)."""
+    from deepspeed_tpu_torch.ops import woq_matmul as wm
+
+    x, qt = _woq_pair(cuda, "mm", M, K, N, group, bits, torch.bfloat16)
+    assert wm.woq_route(x.dtype, M, K, N, qt.group_size) == route
+    kw = dict(group_size=qt.group_size, bits=qt.bits, out_dtype=torch.float32)
+    got = wm.woq_matmul(x, qt.q, qt.scale, **kw)
+    want = wm.woq_matmul_plain(x, qt.q, qt.scale, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
 def test_woq_kernels_refuse_what_they_do_not_take(cuda):
     from deepspeed_tpu_torch.ops import woq_matmul as wm
 

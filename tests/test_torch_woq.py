@@ -10,7 +10,9 @@ the CPU.
   (the same products, summed in another order); bf16 results to 2^-7 of it
   and fp16 ones to 2^-9 (one rounding of the output on each side, a few
   ulp apart at most).
-- ``woq_t_route``: which shapes and dtypes take the tensor-core kernel.
+- ``woq_route`` / ``woq_t_route``: which shapes and dtypes take the
+  tensor-core kernels; ``woq_split_plan``: the k ranges of the tensor-core
+  ``x @ W`` cover every group once, in order, and fill the card.
 - Engines: greedy tokens identical to the JAX engine and fp32 decode logits
   within 1e-4 absolute, in both ``woq_kernel`` modes, each against the same
   JAX mode (kernel semantics vs per-use dequant). No leaf of these engines
@@ -31,7 +33,8 @@ from deepspeed_tpu.inference import quantization as jq
 from deepspeed_tpu.ops import woq_matmul as jwm
 from deepspeed_tpu_torch.inference import decode
 from deepspeed_tpu_torch.inference import quantization as tq
-from deepspeed_tpu_torch.models import params_from_jax
+from deepspeed_tpu_torch.models import (bloom, gpt2, llama2, opt,
+                                        params_from_jax)
 from deepspeed_tpu_torch.ops import woq_matmul as twm
 
 from test_torch_model import make_pair  # a test module of this directory
@@ -223,6 +226,108 @@ def test_woq_t_route(xdtype, K, V, gs, route):
     16-bit x whose rows split into 16-byte copies, 16-row tiles in one
     group."""
     assert twm.woq_t_route(xdtype, K, V, gs) == route
+
+
+# every preset the decode path serves, at full width
+PRESETS = {f"{fam.__name__}_{size}": fam(size) for fam, sizes in (
+    (gpt2, ("125m", "350m", "774m", "1.5b")), (llama2, ("7b", "13b", "70b")),
+    (opt, ("125m", "1.3b", "6.7b", "13b")), (bloom, ("560m", "7b", "176b")))
+    for size in sizes}
+
+
+def decode_projections(cfg):
+    """(name, K, N) of every x @ W of a decode step, the untied head's
+    included, as the engine fuses them."""
+    d, hd = cfg.d_model, cfg.head_dim
+    shapes = [("wqkv", d, (cfg.n_head + 2 * cfg.kv_heads) * hd),
+              ("wo", cfg.n_head * hd, d), ("w_in", d, cfg.ffn_dim),
+              ("w_out", cfg.ffn_dim, d)]
+    if cfg.is_glu:
+        shapes.append(("w_gate", d, cfg.ffn_dim))
+    if not cfg.tie_embeddings:
+        shapes.append(("lm_head", d, cfg.vocab_size))
+    return shapes
+
+
+@pytest.mark.parametrize("name", sorted(PRESETS))
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float16])
+def test_every_preset_decode_projection_takes_the_mma_route(name, xdtype):
+    """At group 128 (a K it does not divide is one group, as ``quantize``
+    makes it), every decode projection of every preset runs the
+    tensor-core ``x @ W``, at serving's batch sizes too."""
+    for proj, K, N in decode_projections(PRESETS[name]):
+        gs = 128 if K % 128 == 0 else K
+        for M in (1, 4, 16, 64):
+            assert twm.woq_route(xdtype, M, K, N, gs) == "mma", (proj, K, N)
+
+
+@pytest.mark.parametrize("xdtype,K,N,gs,route", [
+    (torch.bfloat16, 4096, 12288, 128, "mma"),     # Llama-2-7B wqkv
+    (torch.float16, 11008, 4096, 128, "mma"),
+    (torch.bfloat16, 4096, 32000, 128, "mma"),     # Llama's untied head
+    (torch.bfloat16, 1600, 4800, 1600, "mma"),     # one group: K % 16
+    (torch.bfloat16, 4096, 4096, 16, "mma"),
+    (torch.bfloat16, 4096, 4096, 48, "mma"),
+    (torch.float32, 4096, 4096, 128, "simt"),      # fp32 x
+    (torch.bfloat16, 256, 1001, 128, "simt"),      # ragged N
+    (torch.bfloat16, 256, 1000, 128, "simt"),      # N % 16 == 8
+    (torch.bfloat16, 1000, 512, 1000, "simt"),     # a group of 1000 rows
+    (torch.bfloat16, 1024, 512, 8, "simt"),        # groups off the k16 steps
+    (torch.bfloat16, 1024, 512, 24, "simt"),
+])
+def test_woq_route(xdtype, K, N, gs, route):
+    """The fixed route of ``woq_matmul``: the tensor-core kernel for 16-bit
+    x whose q rows split into 16-byte boxes and whose groups are whole
+    16-row steps; any M."""
+    for M in (1, 4, 17):
+        assert twm.woq_route(xdtype, M, K, N, gs) == route
+
+
+# the x @ W shapes of the decode main paths: Llama-2-7B (and its head),
+# OPT-6.7B's MLP
+MAIN_MM = [(4096, 12288, 128), (4096, 4096, 128), (4096, 11008, 128),
+           (11008, 4096, 128), (4096, 32000, 128), (4096, 16384, 128),
+           (16384, 4096, 128)]
+
+
+@pytest.mark.parametrize("K,N,gs", MAIN_MM + [
+    (1600, 4800, 1600), (6400, 1600, 128),     # GPT-2 1.5B: one group of 1600
+    (256, 384, 64), (96, 200, 96), (4096, 4096, 256)])
+@pytest.mark.parametrize("M", [1, 4, 16, 17])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_woq_split_plan_covers_every_group_once(K, N, gs, M, sms):
+    """The splits' k ranges tile [0, K) in order; each holds whole groups
+    (whole 128-row chunks for one group), so the group scale folds in
+    once; the workspace holds (nsplit, M, N) fp32 partials and one ticket
+    per (column tile, 16-row block); every block is resident at once."""
+    plan = twm.woq_split_plan(M, K, N, gs, sms)
+    G = K // gs
+    chunk = gs if G > 1 else twm.MMA_STAGE_K
+    assert plan["kchunk"] % chunk == 0 and plan["kchunk"] % 16 == 0
+    ranges = [(s * plan["kchunk"], min(K, (s + 1) * plan["kchunk"]))
+              for s in range(plan["nsplit"])]
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    assert all(a < b for a, b in ranges)
+    assert all(b == c for (_, b), (c, _) in zip(ranges, ranges[1:]))
+    if G > 1:
+        groups = [g for a, b in ranges for g in range(a // gs, b // gs)]
+        assert groups == list(range(G))
+    tiles, mtiles = -(-N // 128), -(-M // 16)
+    assert (plan["tiles"], plan["mtiles"]) == (tiles, mtiles)
+    assert plan["blocks"] == tiles * plan["nsplit"] * mtiles
+    assert plan["blocks"] <= max(twm.BLOCKS_PER_SM * sms, tiles * mtiles)
+    split = plan["nsplit"] > 1
+    assert plan["ws_floats"] == (plan["nsplit"] * M * N if split else 0)
+    assert plan["tickets"] == (tiles * mtiles if split else 0)
+
+
+@pytest.mark.parametrize("K,N,gs", MAIN_MM)
+def test_woq_split_plan_fills_the_card_at_the_main_shapes(K, N, gs):
+    """At decode's batch of 4 on 132 SMs, every main-path shape launches
+    about two blocks an SM or more (wo: 8 ranges of 512 rows; Llama's
+    head: 250 column tiles, one range each), all resident at once."""
+    plan = twm.woq_split_plan(4, K, N, gs, 132)
+    assert 1.8 * 132 <= plan["blocks"] <= twm.BLOCKS_PER_SM * 132
 
 
 def test_woq_dot_modes_match_jax_dispatch():

@@ -9,9 +9,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``deepspeed_tpu_torch/ops/csrc`` (nvcc, sm_90a, one process per source,
    all at once) and print nvcc's register / shared-memory lines; count the
    wgmma and TMA instructions in the SASS (cuobjdump) of the wgmma
-   forward's and backward pair's libraries (each > 0) and the kernels of
-   theirs that spill or have a warpgroup wait injected by ptxas (none),
-   and print their shared memory; the same for the tensor-core ``x @ W``
+   flash forward's and backward pair's libraries and of the xent
+   backward's (each > 0) and the kernels of theirs that spill or have a
+   warpgroup wait injected by ptxas (none), and print their shared
+   memory; the same for the tensor-core ``x @ W``
    kernels of ``woq_matmul.cu`` (mma.sync and TMA loads in their SASS, no
    spill, no injected wait);
 2. kernels: each kernel (decode attention, the WOQ GEMMs ``woq_matmul``
@@ -60,14 +61,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    padding); the host cost of a call of each wrapper and of the forward's
    tensor maps;
 5b. xent kernels: the forward (its ``partials`` mode on each shard of a
-   4-way hand split of a 50304-row vocab, combined by hand), dx and dW/db
-   kernels against their plain versions in bf16 at GPT-2 1.5B's head shape
-   (T 4092, V 50257, d 1600), BERT-large's (T 8192, V 30522, d 1024, with
-   the bias) and the edges (nothing divides, one token, d 2304 and 6144; a
-   target in the last valid column, targets outside the vocab, rows with
-   g = 0);
-   timed at the GPT-2 shape beside the bound, the plain versions and the
-   library (``F.cross_entropy`` of ``F.linear`` and its autograd backward);
+   4-way hand split of a 50304-row vocab, combined by hand) and the
+   backward call (dx, dW and db) against their plain versions in bf16 at
+   GPT-2 1.5B's head shape (T 4092, V 50257, d 1600), BERT-large's (T 8192,
+   V 30522, d 1024, with the bias), GPT-2 1.5B's at 8191 tokens and the
+   edges (nothing divides, one token, d 2304 and 6144; a target in the
+   last valid column, targets outside the vocab, rows with g = 0; the
+   backward called twice, bit-identical); the forward timed at the GPT-2
+   shape, the backward at all three heads, beside the bound, the plain
+   versions and the library (``F.cross_entropy`` of ``F.linear`` and its
+   autograd backward), with its host cost, its launch kinds' shares and
+   its device time at vocab chunks of 1024, 2048, 4096 and 8192 rows
+   (GPT-2 and BERT; an ``[xent-bwd]`` JSON line a shape);
 5c. sparse kernels: the block-sparse forward, dq and dk/dv kernels against
    their plain versions in bf16 and fp16 at the slice's shape (B 1, H 25,
    S 8192, hd 64, the default Fixed layout, causal), each of the five
@@ -101,8 +106,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    head with ``fused_xent=None``: the fused xent kernels on the card), the
    same entry points, 3 + 10 steps; first, at 4 layers, the fused head's
    loss and grads against the unfused head's on the same weights and
-   batch, and each head timed alone; launches exact (xent 2 / 2 / 2 per
-   optimizer step at gas 2, flash as in phase 6);
+   batch, and each head timed alone; launches exact (``xent_fwd`` /
+   ``xent_bwd`` 2 / 2 per optimizer step at gas 2, flash as in phase 6);
 8. training, BERT-large's MLM objective in the Hugging Face layout
    (``post_ln``, ``embed_norm``, ``mlm_transform``, ``lm_head_bias``), 24
    layers, micro-batch 16 x 512, bidirectional flash attention under a
@@ -113,7 +118,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    FixedSparsityConfig())`` through ``initialize(LONG_TRAIN_CONFIG, ...)``
    (micro-batch 1 x gas 2): at 4 layers the kernel path against the plain
    sparse path, then 2 + 5 steps at full depth; launches exact (sparse 192
-   / 96 / 96 per optimizer step, flash 0, xent 2 / 2 / 2);
+   / 96 / 96 per optimizer step, flash 0, xent 2 / 2);
 10. the evoformer block: ``ops.evoformer.evoformer_attention`` (the flash
    kernels with a learned pair bias, its dbias from the dq kernel, gated
    by sigmoid) trained by SGD. (a) ``examples/evoformer_science.py`` at
@@ -294,7 +299,8 @@ def phase_device() -> dict:
                                        "spill", "Performance Loss")):
                 log(f"[build]   {line.strip()}")
     sass = {}
-    for lib in ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90"):
+    for lib in ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90",
+                "xent_bwd_sm90"):
         sass[lib] = sass_counts(built[lib]["path"])
         fit = ptxas_fit(built[lib]["log"])
         log(f"[build] {lib}: SASS instructions {sass[lib]} (HGMMA: wgmma, "
@@ -334,7 +340,12 @@ def phase_device() -> dict:
         smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
         log(f"[build] {kernel}_sm90: dynamic shared memory " + ", ".join(
             f"hd {hd} {smem(hd)} B" for hd in (32, 64, 128)))
-    return {"nvidia_smi": smi, "flash_sass": sass, "woq_sass": woq["counts"]}
+    smem = builder.load("xent_bwd_sm90").dstpu_xent_bwd_smem_bytes
+    smem.argtypes, smem.restype = [], ctypes.c_int
+    log(f"[build] xent_bwd_sm90: dynamic shared memory {smem()} B")
+    xent_sass = sass.pop("xent_bwd_sm90")
+    return {"nvidia_smi": smi, "flash_sass": sass, "woq_sass": woq["counts"],
+            "xent_sass": xent_sass}
 
 
 def ptxas_fit(build_log: str) -> dict:
@@ -1643,17 +1654,23 @@ def _flash_timing(gen, case, iters, dtype="torch.bfloat16") -> dict:
 
 # ------------------------------------------------------- phase 5b, xent
 # (name, T, V, d, bias): GPT-2 1.5B's head (micro-batch 4 x 1023 shifted
-# tokens), BERT-large's MLM head (16 x 512 tokens, decoder bias), then the
-# edges: nothing divides a tile, one token, a d that two clusters of the
-# backward share unevenly (blocks past d), the widest eligible d
+# tokens), BERT-large's MLM head (16 x 512 tokens, decoder bias), GPT-2
+# 1.5B's at 8191 tokens (phase 9's micro-batch of 1 x 8192), then the
+# edges: nothing divides a tile, one token, a d past a 128-column tile, the
+# widest eligible d
 XENT_CASES = (
     ("gpt2_1.5b", 4092, 50257, 1600, False),
     ("bert_large", 8192, 30522, 1024, True),
+    ("gpt2_1.5b_8192", 8191, 50257, 1600, False),
     ("ragged", 77, 1000, 64, True),
     ("one_token", 1, 1000, 64, False),
     ("d_2304", 300, 3000, 2304, True),
     ("d_6144", 256, 2000, 6144, True),
 )
+# the backward is timed at the main paths' three heads; the vocab chunk is
+# probed at the first two
+XENT_TIMED = ("gpt2_1.5b", "bert_large", "gpt2_1.5b_8192")
+XENT_VC_PROBE = (1024, 2048, 4096, 8192)
 # kernel vs plain as shares of max |plain|. nll, lse and db are fp32 sums of
 # the same bf16 products in another order, with __expf (ex2.approx, ~2 ulp)
 # in the kernels; dx and dW are bf16: dl is rounded to bf16 before both
@@ -1685,14 +1702,17 @@ def _xent_case(gen, T, V, d, bias, dtype, device):
 
 
 def xent_bound(T, V, d, bias: bool) -> dict:
-    """Least time of each kernel on an H100: 2 T V d FLOPs for the
-    forward, 4 T V d for dx and for dW (one recompute of the logits and
-    one product) at 989 TFLOP/s, against each input read and each output
-    written once at 3.35 TB/s."""
+    """Least time of the forward and of the backward call on an H100, each
+    input read and each output written once at 3.35 TB/s against the
+    products at 989 TFLOP/s: 2 T V d FLOPs for the forward; for the
+    backward (dx, dW and db) one recompute of the logits and two products,
+    6 T V d. ``old_ops`` is the count of the pair of kernels before the
+    backward formed each logits tile once (4 T V d for dx and again for
+    dW), kept so the earlier rows can be read."""
     base = 2 * (T * d + V * d) + (2 * V if bias else 0) + 4 * T
     work = {"xent_fwd": (2 * T * V * d, base + 8 * T),
-            "xent_dx": (4 * T * V * d, base + 8 * T + 2 * T * d),
-            "xent_dw": (4 * T * V * d, base + 8 * T + 2 * V * d + 4 * V)}
+            "xent_bwd": (6 * T * V * d,
+                         base + 8 * T + 2 * T * d + 2 * V * d + 4 * V)}
     out = {}
     for name, (ops, nbytes) in work.items():
         t_ops = ops / PEAK_OPS_PER_S["torch.bfloat16"] * 1e3
@@ -1700,16 +1720,23 @@ def xent_bound(T, V, d, bias: bool) -> dict:
         out[name] = {"bound_ms": max(t_ops, t_bytes), "ops": ops,
                      "bytes": nbytes, "bound_by": "bytes" if t_bytes >= t_ops
                      else "operations"}
+    out["xent_bwd"]["old_ops"] = 8 * T * V * d
     return out
 
 
 def phase_xent_kernels(device="cuda", cases=XENT_CASES, dtype=None,
-                       tp_vocab=XENT_TP_VOCAB, iters=20) -> dict:
-    """The three xent kernels against their plain versions on every case
-    (the backward kernels fed the plain forward's lse), the ``partials``
-    mode on each shard of a hand split of the vocab, combined by hand and
-    held against the full forward; on the card, timed at the first (GPT-2
-    1.5B's) shape beside the bound, the plain versions and the library."""
+                       tp_vocab=XENT_TP_VOCAB, iters=20,
+                       timed=XENT_TIMED, vc_probe=XENT_VC_PROBE) -> dict:
+    """The forward and the backward call against their plain versions on
+    every case (the backward fed the plain forward's lse; called twice, bit
+    for bit the same), the ``partials`` mode on each shard of a hand split
+    of the vocab, combined by hand and held against the full forward; on
+    the card, the forward timed at the first (GPT-2 1.5B's) shape and the
+    backward at the ``timed`` shapes beside the bound, the plain version
+    and the library, with its launch kinds' shares and the ``vc_probe``
+    chunk widths. Rows ``xent_dx`` and ``xent_dw`` of the result both stand
+    for the one backward call (TPU kernels #11-#12): dx's worst error and
+    dW / db's, the same times."""
     import torch
 
     from deepspeed_tpu_torch.ops import xent as xe
@@ -1724,9 +1751,11 @@ def phase_xent_kernels(device="cuda", cases=XENT_CASES, dtype=None,
         nll_p, lse_p = xe.xent_fwd_plain(x, w, b, t)
         dx_p, dw_p, db_p = xe.xent_bwd_plain(x, w, b, t, lse_p, g)
         nll, lse = xe.xent_fwd(x, w, b, t)
-        dx = xe.xent_dx(x, w, b, t, lse_p, g)
-        dw, db = xe.xent_dw(x, w, b, t, lse_p, g)
+        dx, dw, db = xe.xent_bwd(x, w, b, t, lse_p, g)
+        again = xe.xent_bwd(x, w, b, t, lse_p, g)
         sync()
+        same = all(bool(torch.equal(a, r)) for a, r in zip((dx, dw, db),
+                                                           again))
         pairs = {"nll": (nll, nll_p), "lse": (lse, lse_p), "dx": (dx, dx_p),
                  "dw": (dw, dw_p), "db": (db, db_p)}
         shares = {k: _share(a, r) for k, (a, r) in pairs.items()}
@@ -1735,22 +1764,23 @@ def phase_xent_kernels(device="cuda", cases=XENT_CASES, dtype=None,
         # below 0 leaves nll = lse
         exact = not bool(dx[::7].any()) and (
             T <= 2 or bool((nll[1:3] == lse[1:3]).all()))
-        ok = finite and exact and all(shares[k] <= XENT_TOL_SHARE[k]
-                                      for k in shares)
-        log(f"[xent] {name:11s} T{T} V{V} d{d} bias {bias} {dtype}: "
+        ok = finite and exact and same and all(
+            shares[k] <= XENT_TOL_SHARE[k] for k in shares)
+        log(f"[xent] {name:14s} T{T} V{V} d{d} bias {bias} {dtype}: "
             + ", ".join(f"{k} {v:.2e}" for k, v in shares.items())
             + f" of max |plain| (tol {XENT_TOL_SHARE}); g=0 rows and "
-            f"out-of-vocab targets exact {exact} {'ok' if ok else 'FAIL'}")
+            f"out-of-vocab targets exact {exact}, repeat bit-identical "
+            f"{same} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"xent {name}: {shares}, finite {finite}, "
-                                 f"exact {exact}")
+                                 f"exact {exact}, repeat {same}")
         for n, keys in (("xent_fwd", ("nll", "lse")), ("xent_dx", ("dx",)),
                         ("xent_dw", ("dw", "db"))):
             for k in keys:
                 a, r = pairs[k]
                 worst[n] = max(worst[n],
                                (a.float() - r.float()).abs().max().item())
-        del x, w, b, dx, dw, dx_p, dw_p, pairs
+        del x, w, b, dx, dw, dx_p, dw_p, pairs, again
 
     # partials: each shard of the hand split, then the combine of
     # ``_fwd_tp`` (max, sum-exp, sum) against the full forward
@@ -1793,38 +1823,40 @@ def phase_xent_kernels(device="cuda", cases=XENT_CASES, dtype=None,
     result = {n: {"max_abs_err": worst[n]} for n in names}
     if device != "cuda":
         return result
-    timing = _xent_timing(gen, cases[0], iters)
-    for n in names:
-        result[n].update(timing[n])
+    by_name = {c[0]: c for c in cases}
+    result["xent_fwd"].update(_xent_fwd_timing(gen, cases[0], iters))
+    result["shapes"] = {n: _xent_bwd_timing(gen, by_name[n], iters,
+                                            vc_probe if i < 2 else ())
+                        for i, n in enumerate(timed)}
+    first = result["shapes"][timed[0]]
+    for n in ("xent_dx", "xent_dw"):
+        result[n].update({k: first[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     return result
 
 
-def _xent_timing(gen, case, iters) -> dict:
-    """Kernel, plain and bound of each xent kernel at one case's shape in
-    bf16 (device time, 2 operand sets in rotation: one table alone passes
-    the 50 MB L2), with the library calls the port never makes, device-timed
-    too: ``F.cross_entropy(F.linear(x, w, b).float(), t)`` for the forward,
-    and its autograd backward (forward + backward captured together, minus
-    the forward) against ``xent_dx`` + ``xent_dw`` together."""
+def _xent_sets(gen, case, k=2):
+    """``k`` operand sets of a case in bf16 on the card with the plain
+    forward's lse (one table alone passes the 50 MB L2)."""
     import torch
-    import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops import xent as xe
 
-    name, T, V, d, bias = case
+    _, T, V, d, bias = case
     sets = []
-    for _ in range(2):
+    for _ in range(k):
         x, w, b, t, g = _xent_case(gen, T, V, d, bias, torch.bfloat16, "cuda")
         lse = xe.xent_fwd_plain(x, w, b, t)[1]
         sets.append((x, w, b, t, lse, g))
-    fw = lambda i: sets[i % 2][:4]                               # noqa: E731
-    calls = {"xent_fwd": lambda i: xe.xent_fwd(*fw(i)),
-             "xent_dx": lambda i: xe.xent_dx(*sets[i % 2]),
-             "xent_dw": lambda i: xe.xent_dw(*sets[i % 2])}
-    plain = {"xent_fwd": lambda i: xe.xent_fwd_plain(*fw(i)),
-             "xent_dx": lambda i: xe.xent_bwd_plain(*sets[i % 2])}
-    plain_ms = {k: time_ms(f, max(iters // 10, 3)) for k, f in plain.items()}
-    plain_ms["xent_dw"] = plain_ms["xent_dx"]   # one call computes both
+    return sets
+
+
+def _xent_library(sets, V):
+    """The library calls the port never makes, device-timed: ``F.
+    cross_entropy(F.linear(x, w, b).float(), t)`` and its autograd backward
+    (forward + backward captured together, minus the forward)."""
+    import torch
+    import torch.nn.functional as F
 
     leaves = [tuple(a.detach().clone().requires_grad_() if a is not None
                     else None for a in s[:3]) for s in sets]
@@ -1840,28 +1872,81 @@ def _xent_timing(gen, case, iters) -> dict:
         return torch.autograd.grad(lib_fwd(i), a, sets[i % 2][5])
 
     with torch.no_grad():
-        lib_f = device_ms(lib_fwd, 2, iters)
-    lib_b = device_ms(lib_fwd_bwd, 2, iters) - lib_f
-    library = {"xent_fwd": lib_f, "xent_dx": lib_b, "xent_dw": lib_b}
-    bounds = xent_bound(T, V, d, bias)
-    out = {}
-    for n, kern in calls.items():
-        ms = device_ms(kern, 2, iters)
-        b = bounds[n]
-        out[n] = dict(ms=ms, plain_ms=plain_ms[n], bound_ms=b["bound_ms"],
-                      bound_by=b["bound_by"], library_ms=library[n])
-        log(f"[xent] {n} {name} T{T} V{V} d{d} bf16: kernel {ms * 1e3:.2f} us,"
-            f" plain {plain_ms[n] * 1e3:.2f} us, bound "
-            f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}: {b['bytes']} B, "
-            f"{b['ops']:.4g} flop), kernel at {b['bound_ms'] / ms:.1%} of the "
-            "bound")
-    log(f"[xent] {name} library calls (device, not called by the port): "
-        f"F.cross_entropy(F.linear(x, w).float()) forward {lib_f * 1e3:.2f} "
-        f"us vs xent_fwd {out['xent_fwd']['ms'] * 1e3:.2f} us; its autograd "
-        f"backward (dx and dW in one pass) {lib_b * 1e3:.2f} us vs xent_dx + "
-        f"xent_dw {(out['xent_dx']['ms'] + out['xent_dw']['ms']) * 1e3:.2f} "
-        "us; plain backward = one xent_bwd_plain call for dx, dW and db")
-    del sets, leaves
+        lib_f = device_ms(lib_fwd, 2, 20)
+    return lib_f, device_ms(lib_fwd_bwd, 2, 20) - lib_f
+
+
+def _xent_fwd_timing(gen, case, iters) -> dict:
+    """The forward at one case's shape: kernel, plain, bound and the
+    library's forward."""
+    from deepspeed_tpu_torch.ops import xent as xe
+
+    name, T, V, d, bias = case
+    sets = _xent_sets(gen, case)
+    ms = device_ms(lambda i: xe.xent_fwd(*sets[i % 2][:4]), 2, iters)
+    plain = time_ms(lambda i: xe.xent_fwd_plain(*sets[i % 2][:4]),
+                    max(iters // 10, 3))
+    lib_f, _ = _xent_library(sets, V)
+    b = xent_bound(T, V, d, bias)["xent_fwd"]
+    log(f"[xent] xent_fwd {name} T{T} V{V} d{d} bf16: kernel {ms * 1e3:.2f} "
+        f"us, plain {plain * 1e3:.2f} us, bound {b['bound_ms'] * 1e3:.2f} us "
+        f"({b['bound_by']}: {b['bytes']} B, {b['ops']:.4g} flop), kernel at "
+        f"{b['bound_ms'] / ms:.1%} of the bound; F.cross_entropy(F.linear(x, "
+        f"w).float()) forward {lib_f * 1e3:.2f} us (device, not called by the "
+        "port)")
+    return dict(ms=ms, plain_ms=plain, bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"], library_ms=lib_f)
+
+
+def _xent_bwd_timing(gen, case, iters, vc_probe=()) -> dict:
+    """The backward call at one case's shape: device time (CUDA graph
+    replays), the plain version (eager), the library's autograd backward,
+    the bound (6 T V d; the old pair's 8 T V d beside it), the host cost of
+    a call, each launch kind's share of the call's device time (profiler)
+    and the call's device time at each ``vc_probe`` chunk width. Prints one
+    ``[xent-bwd]`` JSON line."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import xent as xe
+
+    name, T, V, d, bias = case
+    sets = _xent_sets(gen, case)
+    plan = xe.xent_bwd_plan(T, V, d, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    ms = device_ms(lambda i: xe.xent_bwd(*sets[i % 2]), 2, iters)
+    plain = time_ms(lambda i: xe.xent_bwd_plain(*sets[i % 2]), 3)
+    _, lib_b = _xent_library(sets, V)
+    host = host_us(lambda: xe.xent_bwd(*sets[0]), calls=8)
+    prof = profile_calls(lambda: [xe.xent_bwd(*sets[i % 2])
+                                  for i in range(4)], 4, f"xent_bwd {name}")
+    kinds = {}
+    if prof:
+        for k in ("xent_dl_kernel", "xent_prod_kernel"):
+            kinds[k] = sum(v for n, v in prof["by_name"].items()
+                           if k in n) / prof["busy"]
+    probe = {vc: device_ms(lambda i, vc=vc: xe.xent_bwd(*sets[i % 2], vc=vc),
+                           2, iters) for vc in vc_probe}
+    b = xent_bound(T, V, d, bias)["xent_bwd"]
+    old = b["old_ops"] / PEAK_OPS_PER_S["torch.bfloat16"] * 1e3
+    out = dict(ms=ms, plain_ms=plain, bound_ms=b["bound_ms"],
+               bound_by=b["bound_by"], library_ms=lib_b, host_us=host,
+               launches_per_call=plan["launches"], vc=plan["vc"],
+               kind_shares=kinds, vc_probe_ms={str(k): v
+                                               for k, v in probe.items()},
+               old_bound_ms=old, ops=b["ops"], bytes=b["bytes"])
+    log(f"[xent] xent_bwd {name} T{T} V{V} d{d} bias {bias} bf16: "
+        f"{ms * 1e3:.2f} us a call ({plan['launches']} launches, vc "
+        f"{plan['vc']}), plain {plain * 1e3:.2f} us, bound "
+        f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}: 6 T V d = "
+        f"{b['ops']:.4g} flop, {b['bytes']} B; the old pair's 8 T V d: "
+        f"{old * 1e3:.2f} us), at {b['bound_ms'] / ms:.1%} of the bound; "
+        f"library autograd backward {lib_b * 1e3:.2f} us ({ms / lib_b:.2f}x);"
+        f" host {host:.1f} us a call; launch kinds "
+        + ", ".join(f"{k} {v:.1%}" for k, v in kinds.items())
+        + "; vc probe " + ", ".join(f"{k}: {v * 1e3:.2f} us"
+                                    for k, v in probe.items()))
+    log("[xent-bwd] " + json.dumps({name: out}))
+    del sets
     return out
 
 
@@ -2724,7 +2809,7 @@ def _head_alone(model, master, batch, dtype, iters: int = 3) -> dict:
 
 
 XENT_KERNEL_NAMES = ("xent_fwd_kernel", "xent_fwd_merge_kernel",
-                     "xent_bwd_kernel")
+                     "xent_dl_kernel", "xent_prod_kernel")
 
 
 def kernel_names(fns) -> tuple:
@@ -2775,7 +2860,7 @@ def phase_train(cfg=None, *, config=None, check="attention", check_layers=4,
     kw = {} if device is None else {"device": device}
     flash = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
     sparse = (sa.sparse_fwd, sa.sparse_bwd_dq, sa.sparse_bwd_dkv)
-    xent = (xe.xent_fwd, xe.xent_dx, xe.xent_dw)
+    xent = (xe.xent_fwd, xe.xent_bwd)
     kernels = kernels or flash
     micro = config["train_micro_batch_size_per_gpu"]
     gas = config["gradient_accumulation_steps"]
@@ -2888,7 +2973,7 @@ def phase_train(cfg=None, *, config=None, check="attention", check_layers=4,
     fwd, dq, dkv = (c.__name__ for c in kernels)
     want.update({fwd: 2 * per_step * steps,         # remat reruns the forward
                  dq: per_step * steps, dkv: per_step * steps,
-                 "xent_fwd": head, "xent_dx": head, "xent_dw": head})
+                 "xent_fwd": head, "xent_bwd": head})
     if got != want:
         raise AssertionError(f"{tag} launches {got}, want {want}")
     if not all(math.isfinite(x) for x in losses):
@@ -2908,8 +2993,9 @@ def phase_train(cfg=None, *, config=None, check="attention", check_layers=4,
     log(f"{tag} launches over {steps} steps {got} (per step: {fwd} "
         f"{2 * per_step} = {cfg.n_layer} layers x gas {gas} x 2, the "
         f"checkpoint reruns the forward in the backward; {dq} = {dkv} = "
-        f"{per_step}; each xent kernel {gas if fused else 0}: the head sits "
-        "outside the layer checkpoints; the other attention kernels 0)")
+        f"{per_step}; xent_fwd and xent_bwd {gas if fused else 0} each: the "
+        "head sits outside the layer checkpoints; the other attention "
+        "kernels 0)")
     log(f"{tag} losses {[round(x, 4) for x in losses]}: initial {first:.4f}"
         f", mean of the {steps} timed steps {mean:.4f} (gate < {fall} of the "
         "initial)")
@@ -3444,10 +3530,17 @@ def main() -> int:
                             "launches": train["launches"][name],
                             **{k: times[k] for k in keys}})
     # launches: the same run (GPT-2 1.5B under its default config)
-    for name, line in (("xent_fwd", 49), ("xent_dx", 110), ("xent_dw", 128)):
-        kernels.append({"name": name, "route": "cuda", "source": src + "xent.cu",
+    # the backward's one call (xent_bwd) computes kernels #11 and #12: both
+    # rows carry its launches and its times
+    for name, line, source, wrapper in (
+            ("xent_fwd", 49, "xent.cu", "xent_fwd"),
+            ("xent_dx", 110, "xent_bwd_sm90.cu", "xent_bwd"),
+            ("xent_dw", 128, "xent_bwd_sm90.cu", "xent_bwd")):
+        kernels.append({"name": name, "route": "cuda", "source": src + source,
                         "replaces": f"deepspeed_tpu/ops/xent.py:{line}",
-                        "launches": train["launches"][name],
+                        "launches": train["launches"][wrapper],
+                        **({"call": "xent_bwd"} if wrapper == "xent_bwd"
+                           else {}),
                         **{k: xent[name][k] for k in keys}})
     # launches: phase 9 (GPT-2 1.5B at 8192 tokens, the Fixed layout)
     for name, line in (("sparse_fwd", 184), ("sparse_bwd_dq", 223),
@@ -3469,6 +3562,7 @@ def main() -> int:
                    for c, t in shapes.items()},
         "sass": {k: v for k, v in dev["flash_sass"].items()
                  if k != "flash_fwd_sm90"}}))
+    log("[xent-bwd] " + json.dumps({"sass": dev["xent_sass"]}))
     print(json.dumps({"kernels": kernels}))
     print(dev["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

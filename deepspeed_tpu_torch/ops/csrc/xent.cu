@@ -1,94 +1,58 @@
-// Fused softmax cross-entropy over the unembedding on Hopper (sm_90a): bf16
-// operands, fp32 accumulation, tensor cores through wgmma (m64nNk16, both
-// operands read from shared memory).
+// The forward of the fused softmax cross-entropy over the unembedding on
+// Hopper (sm_90a): bf16 operands, fp32 accumulation, tensor cores through
+// wgmma (m64n256k16, both operands read from shared memory).
 //
-// Replaces the TPU kernels of deepspeed_tpu/ops/xent.py:
-//   xent_fwd <- _fwd_kernel (:49), its `partials` mode included;
-//   xent_dx  <- _dx_kernel (:110);
-//   xent_dw  <- _dw_kernel (:128), which also emits db.
+// Replaces the TPU kernel of deepspeed_tpu/ops/xent.py:
+//   xent_fwd <- _fwd_kernel (:49), its `partials` mode included.
+// The backward (dx, dW and db in one call) is xent_bwd_sm90.cu.
 //
-// Function (the rounding points of the Pallas kernels): x is (T, d), W is
+// Function (the rounding points of the Pallas kernel): x is (T, d), W is
 // (V, d) in the embedding table's layout, bias (V,) in x's dtype or null,
 // targets (T,) int32.
 //   logits = x . W^T in fp32 from the bf16 operands, plus float(bias);
 //   columns >= V count as BIG_NEG = -1e30: probability 0, never a target;
-//   forward: m = max, s = sum exp(logits - m), tgt = the target's logit or 0
-//   when the target lies outside [0, V); nll = m + log(s) - tgt and lse =
-//   m + log(s); with `partials` the outputs are tgt and m + log(max(s,
-//   1e-30)), the shard-local pair a vocab-sharded caller combines.
-//   backward: p = exp(logits - lse) from the saved lse, dl = (p - onehot) *
-//   g in fp32; dl rounded to bf16 before dx = dl . W and dW = dl^T . x (fp32
-//   accumulation, bf16 out); db = sum over tokens of the unrounded fp32 dl.
-//   A row with g = 0 contributes exactly 0.
+//   m = max, s = sum exp(logits - m), tgt = the target's logit or 0 when the
+//   target lies outside [0, V); nll = m + log(s) - tgt and lse = m + log(s);
+//   with `partials` the outputs are tgt and m + log(max(s, 1e-30)), the
+//   shard-local pair a vocab-sharded caller combines.
 // No (T, V) tensor reaches device memory; no atomics, so results repeat bit
 // for bit.
 //
-// Bound (GPT-2 1.5B's head: T 4092, V 50257, d 1600): the products' FLOPs at
-// 989 TFLOP/s, 2 T V d for the forward and 4 T V d for dx and for dW (one
-// recompute of the logits and one product), far above the bytes of x and W
-// read once at 3.35 TB/s: all three are bound by operations. chip_smoke.py
-// prints both terms for each call it times.
+// Bound (GPT-2 1.5B's head: T 4092, V 50257, d 1600): the product's 2 T V d
+// FLOPs at 989 TFLOP/s, far above the bytes of x and W read once at 3.35
+// TB/s: bound by operations. chip_smoke.py prints both terms for each call
+// it times.
 //
-// Design. Every kernel is built from one step: a block of two warpgroups
-// forms a 128 x BN tile of R . C^T for two row-major operands R, C, each
+// Design. A block of two warpgroups forms a 128 x 256 tile of x . W^T, each
 // warpgroup 64 rows of it, with the long contraction d streamed through
 // shared memory in chunks of 64: cp.async into 4 stages of tiles in wgmma's
 // 128-byte swizzle, three chunks in flight. Loads past an operand's rows or
 // past d are zero-filled, so T, V and d need not divide anything, d % 16 ==
 // 0 aside. What limits the step is the operands' way from L2 to shared
-// memory, so the forward takes the widest tile (BN 256: 85 flop a byte).
-//   forward: R = x, C = W. The grid is (token tiles, vocab splits); each
-//   thread keeps its own running (m, s, tgt) over the columns it sees, the
-//   block merges them once per row at the end, and a second small kernel
-//   merges the splits in order and writes the outputs.
-//   dx: R = x, C = W. The TPU kernel keeps a (tokens, d) fp32 accumulator in
-//   VMEM across its sequential vocab grid; a (128, 1600) fp32 tile does not
-//   fit one SM's registers or shared memory, but it fits a thread block
-//   cluster's. A cluster of up to 8 blocks owns a token tile and each block a
-//   d chunk of 256 columns, accumulated in its registers (128 a thread). The
-//   blocks share the logits work: each forms every 8th logits tile (BN 64)
-//   over the whole of d and writes dl as bf16 to its shared memory, already
-//   in the layout of a wgmma A operand; after a cluster barrier all blocks
-//   copy all dl tiles over distributed shared memory, the next tile's copy
-//   in flight behind the current tile's product, and accumulate dl . W[tile,
-//   own chunk] (B read MN-major, as W lies). Each logits tile is formed once
-//   for d <= 2048 (one cluster spans d), ceil(d / 2048) times beyond.
-//   dW: the same kernel transposed, R = W, C = x: a cluster owns a vocab
-//   tile, walks the token tiles and accumulates dl^T . x[tile, chunk]; the
-//   row sums of dl, added over the cluster in rank order, give db.
-// TMA with multicast inside the cluster (every block of a cluster loads the
-// same R tile now) and a wider logits tile in the backward are later work.
+// memory, so the tile is wgmma's widest (85 flop a byte). The grid is (token
+// tiles, vocab splits); each thread keeps its own running (m, s, tgt) over
+// the columns it sees, the block merges them once per row at the end, and a
+// second small kernel merges the splits in order and writes the outputs.
 //
-// C interface (ctypes): each function returns cudaGetLastError() after its
+// C interface (ctypes): dstpu_xent_fwd returns cudaGetLastError() after its
 // launches, or cudaErrorInvalidValue for what it does not take.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-namespace cg = cooperative_groups;
 typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 256;  // 8 warps: two warpgroups of 64 tile rows each
 constexpr int kBM = 128;       // rows of a logits tile
-constexpr int kBNF = 256;      // columns of the forward's logits tile
-constexpr int kBN = 64;        //   and of the backward's: the k of its product
-constexpr int kDC = 256;       // d chunk of a backward block: wgmma's widest n
+constexpr int kBNF = 256;      // columns of a logits tile
 constexpr int kKC = 64;        // contraction chunk staged in shared memory
 constexpr int kRowB = kKC * 2; // bytes of an operand tile's row: one 128-byte
                                //   swizzle row
-constexpr int kPanelB = kBN * kRowB;  // bytes of a 64 x 64 panel
 constexpr int kNS = 4;         // stages of the operands' pipeline
 constexpr float kBigNeg = -1e30f;  // BIG_NEG of the JAX kernels
-
-// two floats rounded to bf16, the lower index in the low half
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -124,27 +88,6 @@ __device__ __forceinline__ void load_operand(unsigned char* sm,
   }
 }
 
-// rows [r0, r0 + 64) x columns [c0, c0 + 256) of a row-major (n, d) matrix
-// as the MN-major B operand of a product over its rows: 4 panels of 64
-// columns, each 64 rows of 128 bytes in the 128-byte swizzle. Rows >= n and
-// columns >= d are zero-filled.
-__device__ __forceinline__ void load_panels(unsigned char* sm,
-                                            const bf16* __restrict__ g, int r0,
-                                            int n, int c0, int d) {
-  const int r = threadIdx.x >> 5, c = threadIdx.x & 31;
-  const bool cin = c0 + c * 8 < d;
-  const bf16* src = g + (size_t)(r0 + r) * d + c0 + c * 8;
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(sm)) +
-                       (c >> 3) * kPanelB + r * kRowB + (((c & 7) ^ r) << 4);
-#pragma unroll
-  for (int i = 0; i < kBN / 8; ++i) {
-    const bool valid = cin && r0 + r + i * 8 < n;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(dst + i * 8 * kRowB), "l"(src + (size_t)i * 8 * d),
-                    "r"(valid ? 16 : 0));
-  }
-}
-
 // the shared-memory matrix descriptor of a K-major operand tile in the
 // 128-byte swizzle: start address, leading offset 16 (unused by this
 // layout), 1024 bytes between groups of 8 rows, each in units of 16 bytes
@@ -154,29 +97,30 @@ __device__ __forceinline__ uint64_t operand_desc(const unsigned char* p) {
          (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
 }
 
-// the descriptor of an MN-major operand tile (k rows of 64 columns, 128
-// bytes, swizzled alike; 8 k rows make 1024 bytes): panels of 64 columns lie
-// `panel` bytes apart
-__device__ __forceinline__ uint64_t operand_desc_mn(const unsigned char* p,
-                                                    uint32_t panel) {
-  const uint64_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return ((a & 0x3FFFF) >> 4) | (uint64_t{panel >> 4} << 16) |
-         (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
-}
-
-// s += A . B^T for a warpgroup: A 64 rows x 16 k, B 64 rows x 16 k, both
-// read from shared memory through their descriptors. The trailing operands:
-// accumulate into s, A and B unnegated, A as stored, B as stored or (last
-// 1) transposed.
-__device__ __forceinline__ void wgmma_k16(float (&s)[8][4], uint64_t da,
+// s += A . B^T for a warpgroup: A 64 rows x 16 k, B 256 rows x 16 k, both
+// read from shared memory through their descriptors (K-major). The trailing
+// operands: accumulate into s, A and B unnegated, neither transposed.
+__device__ __forceinline__ void wgmma_k16(float (&s)[32][4], uint64_t da,
                                           uint64_t db) {
   asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, 1, 1, 1, 0, 0;\n"
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, 1, 1, 1, 0, 0;\n"
       : "+f"(s[0][0]), "+f"(s[0][1]), "+f"(s[0][2]), "+f"(s[0][3]),
         "+f"(s[1][0]), "+f"(s[1][1]), "+f"(s[1][2]), "+f"(s[1][3]),
         "+f"(s[2][0]), "+f"(s[2][1]), "+f"(s[2][2]), "+f"(s[2][3]),
@@ -184,121 +128,32 @@ __device__ __forceinline__ void wgmma_k16(float (&s)[8][4], uint64_t da,
         "+f"(s[4][0]), "+f"(s[4][1]), "+f"(s[4][2]), "+f"(s[4][3]),
         "+f"(s[5][0]), "+f"(s[5][1]), "+f"(s[5][2]), "+f"(s[5][3]),
         "+f"(s[6][0]), "+f"(s[6][1]), "+f"(s[6][2]), "+f"(s[6][3]),
-        "+f"(s[7][0]), "+f"(s[7][1]), "+f"(s[7][2]), "+f"(s[7][3])
+        "+f"(s[7][0]), "+f"(s[7][1]), "+f"(s[7][2]), "+f"(s[7][3]),
+        "+f"(s[8][0]), "+f"(s[8][1]), "+f"(s[8][2]), "+f"(s[8][3]),
+        "+f"(s[9][0]), "+f"(s[9][1]), "+f"(s[9][2]), "+f"(s[9][3]),
+        "+f"(s[10][0]), "+f"(s[10][1]), "+f"(s[10][2]), "+f"(s[10][3]),
+        "+f"(s[11][0]), "+f"(s[11][1]), "+f"(s[11][2]), "+f"(s[11][3]),
+        "+f"(s[12][0]), "+f"(s[12][1]), "+f"(s[12][2]), "+f"(s[12][3]),
+        "+f"(s[13][0]), "+f"(s[13][1]), "+f"(s[13][2]), "+f"(s[13][3]),
+        "+f"(s[14][0]), "+f"(s[14][1]), "+f"(s[14][2]), "+f"(s[14][3]),
+        "+f"(s[15][0]), "+f"(s[15][1]), "+f"(s[15][2]), "+f"(s[15][3]),
+        "+f"(s[16][0]), "+f"(s[16][1]), "+f"(s[16][2]), "+f"(s[16][3]),
+        "+f"(s[17][0]), "+f"(s[17][1]), "+f"(s[17][2]), "+f"(s[17][3]),
+        "+f"(s[18][0]), "+f"(s[18][1]), "+f"(s[18][2]), "+f"(s[18][3]),
+        "+f"(s[19][0]), "+f"(s[19][1]), "+f"(s[19][2]), "+f"(s[19][3]),
+        "+f"(s[20][0]), "+f"(s[20][1]), "+f"(s[20][2]), "+f"(s[20][3]),
+        "+f"(s[21][0]), "+f"(s[21][1]), "+f"(s[21][2]), "+f"(s[21][3]),
+        "+f"(s[22][0]), "+f"(s[22][1]), "+f"(s[22][2]), "+f"(s[22][3]),
+        "+f"(s[23][0]), "+f"(s[23][1]), "+f"(s[23][2]), "+f"(s[23][3]),
+        "+f"(s[24][0]), "+f"(s[24][1]), "+f"(s[24][2]), "+f"(s[24][3]),
+        "+f"(s[25][0]), "+f"(s[25][1]), "+f"(s[25][2]), "+f"(s[25][3]),
+        "+f"(s[26][0]), "+f"(s[26][1]), "+f"(s[26][2]), "+f"(s[26][3]),
+        "+f"(s[27][0]), "+f"(s[27][1]), "+f"(s[27][2]), "+f"(s[27][3]),
+        "+f"(s[28][0]), "+f"(s[28][1]), "+f"(s[28][2]), "+f"(s[28][3]),
+        "+f"(s[29][0]), "+f"(s[29][1]), "+f"(s[29][2]), "+f"(s[29][3]),
+        "+f"(s[30][0]), "+f"(s[30][1]), "+f"(s[30][2]), "+f"(s[30][3]),
+        "+f"(s[31][0]), "+f"(s[31][1]), "+f"(s[31][2]), "+f"(s[31][3])
       : "l"(da), "l"(db));
-}
-
-// the same for 256 columns: B 256 rows x 16 k, or with TNSP 16 k rows x 256
-// columns (an MN-major tile)
-template <bool TNSP = false>
-__device__ __forceinline__ void wgmma_k16(float (&s)[32][4], uint64_t da,
-                                          uint64_t db) {
-  if (TNSP)
-    asm volatile(
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, "
-        "%72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, "
-        "%88, %89, %90, %91, %92, %93, %94, %95, "
-        "%96, %97, %98, %99, %100, %101, %102, %103, "
-        "%104, %105, %106, %107, %108, %109, %110, %111, "
-        "%112, %113, %114, %115, %116, %117, %118, %119, "
-        "%120, %121, %122, %123, %124, %125, %126, %127}, "
-        "%128, %129, 1, 1, 1, 0, 1;\n"
-        : "+f"(s[0][0]), "+f"(s[0][1]), "+f"(s[0][2]), "+f"(s[0][3]),
-          "+f"(s[1][0]), "+f"(s[1][1]), "+f"(s[1][2]), "+f"(s[1][3]),
-          "+f"(s[2][0]), "+f"(s[2][1]), "+f"(s[2][2]), "+f"(s[2][3]),
-          "+f"(s[3][0]), "+f"(s[3][1]), "+f"(s[3][2]), "+f"(s[3][3]),
-          "+f"(s[4][0]), "+f"(s[4][1]), "+f"(s[4][2]), "+f"(s[4][3]),
-          "+f"(s[5][0]), "+f"(s[5][1]), "+f"(s[5][2]), "+f"(s[5][3]),
-          "+f"(s[6][0]), "+f"(s[6][1]), "+f"(s[6][2]), "+f"(s[6][3]),
-          "+f"(s[7][0]), "+f"(s[7][1]), "+f"(s[7][2]), "+f"(s[7][3]),
-          "+f"(s[8][0]), "+f"(s[8][1]), "+f"(s[8][2]), "+f"(s[8][3]),
-          "+f"(s[9][0]), "+f"(s[9][1]), "+f"(s[9][2]), "+f"(s[9][3]),
-          "+f"(s[10][0]), "+f"(s[10][1]), "+f"(s[10][2]), "+f"(s[10][3]),
-          "+f"(s[11][0]), "+f"(s[11][1]), "+f"(s[11][2]), "+f"(s[11][3]),
-          "+f"(s[12][0]), "+f"(s[12][1]), "+f"(s[12][2]), "+f"(s[12][3]),
-          "+f"(s[13][0]), "+f"(s[13][1]), "+f"(s[13][2]), "+f"(s[13][3]),
-          "+f"(s[14][0]), "+f"(s[14][1]), "+f"(s[14][2]), "+f"(s[14][3]),
-          "+f"(s[15][0]), "+f"(s[15][1]), "+f"(s[15][2]), "+f"(s[15][3]),
-          "+f"(s[16][0]), "+f"(s[16][1]), "+f"(s[16][2]), "+f"(s[16][3]),
-          "+f"(s[17][0]), "+f"(s[17][1]), "+f"(s[17][2]), "+f"(s[17][3]),
-          "+f"(s[18][0]), "+f"(s[18][1]), "+f"(s[18][2]), "+f"(s[18][3]),
-          "+f"(s[19][0]), "+f"(s[19][1]), "+f"(s[19][2]), "+f"(s[19][3]),
-          "+f"(s[20][0]), "+f"(s[20][1]), "+f"(s[20][2]), "+f"(s[20][3]),
-          "+f"(s[21][0]), "+f"(s[21][1]), "+f"(s[21][2]), "+f"(s[21][3]),
-          "+f"(s[22][0]), "+f"(s[22][1]), "+f"(s[22][2]), "+f"(s[22][3]),
-          "+f"(s[23][0]), "+f"(s[23][1]), "+f"(s[23][2]), "+f"(s[23][3]),
-          "+f"(s[24][0]), "+f"(s[24][1]), "+f"(s[24][2]), "+f"(s[24][3]),
-          "+f"(s[25][0]), "+f"(s[25][1]), "+f"(s[25][2]), "+f"(s[25][3]),
-          "+f"(s[26][0]), "+f"(s[26][1]), "+f"(s[26][2]), "+f"(s[26][3]),
-          "+f"(s[27][0]), "+f"(s[27][1]), "+f"(s[27][2]), "+f"(s[27][3]),
-          "+f"(s[28][0]), "+f"(s[28][1]), "+f"(s[28][2]), "+f"(s[28][3]),
-          "+f"(s[29][0]), "+f"(s[29][1]), "+f"(s[29][2]), "+f"(s[29][3]),
-          "+f"(s[30][0]), "+f"(s[30][1]), "+f"(s[30][2]), "+f"(s[30][3]),
-          "+f"(s[31][0]), "+f"(s[31][1]), "+f"(s[31][2]), "+f"(s[31][3])
-        : "l"(da), "l"(db));
-  else
-    asm volatile(
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, "
-        "%72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, "
-        "%88, %89, %90, %91, %92, %93, %94, %95, "
-        "%96, %97, %98, %99, %100, %101, %102, %103, "
-        "%104, %105, %106, %107, %108, %109, %110, %111, "
-        "%112, %113, %114, %115, %116, %117, %118, %119, "
-        "%120, %121, %122, %123, %124, %125, %126, %127}, "
-        "%128, %129, 1, 1, 1, 0, 0;\n"
-        : "+f"(s[0][0]), "+f"(s[0][1]), "+f"(s[0][2]), "+f"(s[0][3]),
-          "+f"(s[1][0]), "+f"(s[1][1]), "+f"(s[1][2]), "+f"(s[1][3]),
-          "+f"(s[2][0]), "+f"(s[2][1]), "+f"(s[2][2]), "+f"(s[2][3]),
-          "+f"(s[3][0]), "+f"(s[3][1]), "+f"(s[3][2]), "+f"(s[3][3]),
-          "+f"(s[4][0]), "+f"(s[4][1]), "+f"(s[4][2]), "+f"(s[4][3]),
-          "+f"(s[5][0]), "+f"(s[5][1]), "+f"(s[5][2]), "+f"(s[5][3]),
-          "+f"(s[6][0]), "+f"(s[6][1]), "+f"(s[6][2]), "+f"(s[6][3]),
-          "+f"(s[7][0]), "+f"(s[7][1]), "+f"(s[7][2]), "+f"(s[7][3]),
-          "+f"(s[8][0]), "+f"(s[8][1]), "+f"(s[8][2]), "+f"(s[8][3]),
-          "+f"(s[9][0]), "+f"(s[9][1]), "+f"(s[9][2]), "+f"(s[9][3]),
-          "+f"(s[10][0]), "+f"(s[10][1]), "+f"(s[10][2]), "+f"(s[10][3]),
-          "+f"(s[11][0]), "+f"(s[11][1]), "+f"(s[11][2]), "+f"(s[11][3]),
-          "+f"(s[12][0]), "+f"(s[12][1]), "+f"(s[12][2]), "+f"(s[12][3]),
-          "+f"(s[13][0]), "+f"(s[13][1]), "+f"(s[13][2]), "+f"(s[13][3]),
-          "+f"(s[14][0]), "+f"(s[14][1]), "+f"(s[14][2]), "+f"(s[14][3]),
-          "+f"(s[15][0]), "+f"(s[15][1]), "+f"(s[15][2]), "+f"(s[15][3]),
-          "+f"(s[16][0]), "+f"(s[16][1]), "+f"(s[16][2]), "+f"(s[16][3]),
-          "+f"(s[17][0]), "+f"(s[17][1]), "+f"(s[17][2]), "+f"(s[17][3]),
-          "+f"(s[18][0]), "+f"(s[18][1]), "+f"(s[18][2]), "+f"(s[18][3]),
-          "+f"(s[19][0]), "+f"(s[19][1]), "+f"(s[19][2]), "+f"(s[19][3]),
-          "+f"(s[20][0]), "+f"(s[20][1]), "+f"(s[20][2]), "+f"(s[20][3]),
-          "+f"(s[21][0]), "+f"(s[21][1]), "+f"(s[21][2]), "+f"(s[21][3]),
-          "+f"(s[22][0]), "+f"(s[22][1]), "+f"(s[22][2]), "+f"(s[22][3]),
-          "+f"(s[23][0]), "+f"(s[23][1]), "+f"(s[23][2]), "+f"(s[23][3]),
-          "+f"(s[24][0]), "+f"(s[24][1]), "+f"(s[24][2]), "+f"(s[24][3]),
-          "+f"(s[25][0]), "+f"(s[25][1]), "+f"(s[25][2]), "+f"(s[25][3]),
-          "+f"(s[26][0]), "+f"(s[26][1]), "+f"(s[26][2]), "+f"(s[26][3]),
-          "+f"(s[27][0]), "+f"(s[27][1]), "+f"(s[27][2]), "+f"(s[27][3]),
-          "+f"(s[28][0]), "+f"(s[28][1]), "+f"(s[28][2]), "+f"(s[28][3]),
-          "+f"(s[29][0]), "+f"(s[29][1]), "+f"(s[29][2]), "+f"(s[29][3]),
-          "+f"(s[30][0]), "+f"(s[30][1]), "+f"(s[30][2]), "+f"(s[30][3]),
-          "+f"(s[31][0]), "+f"(s[31][1]), "+f"(s[31][2]), "+f"(s[31][3])
-        : "l"(da), "l"(db));
 }
 
 // s[j][e] = sum over d of R[r0 + row][.] * C[c0 + col][.] for the thread's
@@ -306,9 +161,8 @@ __device__ __forceinline__ void wgmma_k16(float (&s)[32][4], uint64_t da,
 // rows with wgmma m64nBNk16, and the thread of warp w (0-3 within the
 // group), lane 4 g + t holds rows 16 w + g (e = 0, 1) and + 8 (e = 2, 3),
 // columns 8 j + 2 t + (e & 1). Both operands stream through kNS stages of
-// swizzled tiles, kNS - 1 chunks in flight and one block barrier a chunk;
-// copies the caller issued and has not committed join the first chunk's
-// group. Ends with a barrier: the stages are free.
+// swizzled tiles, kNS - 1 chunks in flight and one block barrier a chunk.
+// Ends with a barrier: the stages are free.
 template <int BN>
 __device__ __forceinline__ void logits_tile(
     float (&s)[BN / 8][4], const bf16* __restrict__ rowop, int r0, int nR,
@@ -356,11 +210,6 @@ __device__ __forceinline__ void logits_tile(
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
   }
   cp_async_wait_sync<0>();  // only empty groups are left; the stages are free
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // ------------------------------------------------------------------ forward
@@ -473,250 +322,8 @@ __global__ void xent_fwd_merge_kernel(const float* __restrict__ part,
   }
 }
 
-// ----------------------------------------------------------------- backward
-// TRANS false: dx. rows are tokens (R = x), columns vocab (C = W), out (T, d).
-// TRANS true: dW. rows are vocab (R = W), columns tokens (C = x), out (V, d),
-// and the first block of each row tile writes db (V,) fp32.
-//
-// A thread block cluster of cs blocks along the grid's y owns one row tile;
-// block `rank` of it owns the d chunk blockIdx.y (a block whose chunk starts
-// past d only helps with the logits). Each round covers cs column tiles:
-// block `rank` forms the logits tile of column tile round * cs + rank over
-// the whole of d and leaves dl as bf16 in its shared memory; after a cluster
-// barrier every block walks the round's cs dl tiles, each copied over
-// distributed shared memory into one of two local buffers while the tensor
-// cores work on the tile before, and accumulates dl . C[tile, its d chunk].
-// The block's own dl tile has two buffers as well, so one cluster barrier a
-// round is enough: a block overwrites a buffer only after the barrier of the
-// round between, which every reader of that buffer has passed.
-template <bool TRANS>
-__global__ void __launch_bounds__(kThreads)
-    xent_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                    const bf16* __restrict__ bias, const int* __restrict__ tgt,
-                    const float* __restrict__ lse, const float* __restrict__ gout,
-                    bf16* __restrict__ out, float* __restrict__ db, int T, int V,
-                    int d) {
-  constexpr int kStages = kNS * (kBM + kBN) * kRowB, kCopB = 4 * kPanelB,
-                kDlB = kBM * kRowB;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int cs = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  extern __shared__ __align__(1024) unsigned char smem[];
-  unsigned char* sCop = smem + kStages;    // 2 x C[tile, d chunk], in panels
-  unsigned char* sD = sCop + 2 * kCopB;    // 2 x this block's dl tile
-  unsigned char* sP = sD + 2 * kDlB;       // 2 x a dl tile copied here
-  float* red = reinterpret_cast<float*>(sP + 2 * kDlB);   // (kBM)
-  const bf16* rowop = TRANS ? w : x;
-  const bf16* colop = TRANS ? x : w;
-  const int nR = TRANS ? V : T, nC = TRANS ? T : V;
-  const int r0 = blockIdx.x * kBM, d0 = blockIdx.y * kDC;
-  const bool owner = d0 < d;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, wg = warp >> 2;
-  const int lrow = warp * 16;      // the thread's rows: lrow + g, + 8
-
-  // what this thread's rows bring: a token's target, lse and g, or a vocab
-  // row's bias
-  int tg_r[2];
-  float lse_r[2], g_r[2], b_r[2], rsum[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r0 + lrow + g + 8 * h;
-    const bool in = row < nR;
-    tg_r[h] = !TRANS && in ? tgt[row] : -1;
-    lse_r[h] = !TRANS && in ? lse[row] : 0.f;
-    g_r[h] = !TRANS && in ? gout[row] : 0.f;
-    b_r[h] = TRANS && in && bias != nullptr ? __bfloat162float(bias[row]) : 0.f;
-    rsum[h] = 0.f;
-  }
-  // the thread's part of out[row tile, d chunk]: rows as above, columns
-  // 8 n + 2 t + (e & 1)
-  float acc[kDC / 8][4];
-#pragma unroll
-  for (int n = 0; n < kDC / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int ntiles = (nC + kBN - 1) / kBN;
-  const int rounds = (ntiles + cs - 1) / cs;
-  for (int it = 0; it < rounds; ++it) {
-    const int c0 = (it * cs + rank) * kBN;
-    unsigned char* sDb = sD + (it & 1) * kDlB;
-    // the first product's operand rides in the first stage's copy group
-    if (owner) load_panels(sCop, colop, it * cs * kBN, nC, d0, d);
-    if (c0 < nC) {
-      float s[8][4];
-      logits_tile<kBN>(s, rowop, r0, nR, colop, c0, nC, d, smem);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        // what this thread's two columns of n-tile j bring
-        int tg_c[2];
-        float lse_c[2], g_c[2], b_c[2];
-#pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          const int col = c0 + j * 8 + 2 * t + b;
-          const bool in = col < nC;
-          tg_c[b] = TRANS && in ? tgt[col] : -1;
-          lse_c[b] = TRANS && in ? lse[col] : 0.f;
-          g_c[b] = TRANS && in ? gout[col] : 0.f;
-          b_c[b] = !TRANS && in && bias != nullptr ? __bfloat162float(bias[col])
-                                                   : 0.f;
-        }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int lr = lrow + g + 8 * h, row = r0 + lr;
-          float dl[2];
-#pragma unroll
-          for (int b = 0; b < 2; ++b) {
-            const int col = c0 + j * 8 + 2 * t + b;
-            const int v = TRANS ? row : col;
-            const bool live = row < nR && col < nC;
-            const float logit = s[j][2 * h + b] + (TRANS ? b_r[h] : b_c[b]);
-            const float p = __expf(logit - (TRANS ? lse_c[b] : lse_r[h]));
-            const float one = v == (TRANS ? tg_c[b] : tg_r[h]) ? 1.f : 0.f;
-            dl[b] = live ? (p - one) * (TRANS ? g_c[b] : g_r[h]) : 0.f;
-          }
-          if (TRANS) rsum[h] += dl[0] + dl[1];
-          // dl as the K-major A operand of the product: chunk j of row lr
-          *reinterpret_cast<uint32_t*>(sDb + lr * kRowB + ((j ^ (lr & 7)) << 4) +
-                                       4 * t) = pack(dl[0], dl[1]);
-        }
-      }
-    } else {
-      cp_async_commit();  // no column tile is left for this block this round
-    }
-    cluster.sync();  // the round's dl tiles are whole in every block
-    if (owner) {
-      // walk the round's dl tiles in rank order; tile q + 1 and its panels
-      // are fetched while the tensor cores work on tile q
-      const int q1 = min(cs, ntiles - it * cs);
-      uint4 pre[kDlB / (kThreads * 16)];
-      const auto fetch = [&](int q) {   // a dl tile over distributed memory
-        const unsigned char* src = cluster.map_shared_rank(sDb, q);
-#pragma unroll
-        for (int i = 0; i < kDlB / (kThreads * 16); ++i)
-          pre[i] = *reinterpret_cast<const uint4*>(
-              src + (i * kThreads + threadIdx.x) * 16);
-      };
-      const auto keep = [&](int q) {
-#pragma unroll
-        for (int i = 0; i < kDlB / (kThreads * 16); ++i)
-          *reinterpret_cast<uint4*>(sP + (q & 1) * kDlB +
-                                    (i * kThreads + threadIdx.x) * 16) = pre[i];
-      };
-      fetch(0);
-      keep(0);
-      for (int q = 0; q < q1; ++q) {
-        // tile q's panels have landed; they and the copied dl tile are made
-        // visible to the tensor cores' reads; every warp is done with tile
-        // q - 1, whose buffers the next fetches overwrite
-        asm volatile("cp.async.wait_group 0;\n" ::);
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        __syncthreads();
-        if (q + 1 < q1) {
-          load_panels(sCop + ((q + 1) & 1) * kCopB, colop,
-                      (it * cs + q + 1) * kBN, nC, d0, d);
-          fetch(q + 1);
-        }
-        cp_async_commit();
-        // acc += dl[this warpgroup's 64 rows, 64] . C[tile rows, d chunk]
-        const unsigned char* sA = sP + (q & 1) * kDlB + wg * 64 * kRowB;
-        const unsigned char* sB = sCop + (q & 1) * kCopB;
-        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-        for (int kk = 0; kk < kBN; kk += 16)
-          wgmma_k16<true>(acc, operand_desc(sA + kk * 2),
-                          operand_desc_mn(sB + kk * kRowB, kPanelB));
-        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-        if (q + 1 < q1) keep(q + 1);
-      }
-      __syncthreads();  // the panels are consumed before the next round's copy
-    }
-  }
-
-  if (owner) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r0 + lrow + g + 8 * h;
-      if (row >= nR) continue;
-#pragma unroll
-      for (int n = 0; n < kDC / 8; ++n) {
-        const int col = d0 + n * 8 + 2 * t;
-        if (col < d)
-          *reinterpret_cast<uint32_t*>(out + (size_t)row * d + col) =
-              pack(acc[n][2 * h], acc[n][2 * h + 1]);
-      }
-    }
-  }
-  if (TRANS) {
-    // db: each row's fp32 sum over its 4 lanes, then over the cluster's
-    // blocks in rank order
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float q = quad_sum(rsum[h]);
-      if (t == 0) red[lrow + g + 8 * h] = q;
-    }
-  }
-  cluster.sync();  // no block leaves while a neighbour reads its memory
-  if (TRANS) {
-    if (blockIdx.y == 0)
-      for (int i = threadIdx.x; i < kBM; i += kThreads) {
-        float sum = 0.f;
-        for (int q = 0; q < cs; ++q)
-          sum += cluster.map_shared_rank(red, q)[i];
-        if (r0 + i < V) db[r0 + i] = sum;
-      }
-    cluster.sync();
-  }
-}
-
-// clusters along d: the fewest groups of at most 8 blocks whose chunks of DC
-// cover d, so each group forms every logits tile once; the size rounded up
-// to a power of two, a block past d helping with the logits only (an H100
-// seats 15 clusters of 7 or of 8 of these blocks, so 8 keeps more SMs busy)
-inline int cluster_size(int d, int DC, int* groups) {
-  const int chunks = (d + DC - 1) / DC;
-  *groups = (chunks + 7) / 8;
-  const int per = (chunks + *groups - 1) / *groups;
-  int cs = 1;
-  while (cs < per) cs *= 2;
-  return cs;
-}
-
-template <bool TRANS>
-cudaError_t launch_bwd(const bf16* x, const bf16* w, const bf16* bias,
-                       const int* tgt, const float* lse, const float* g,
-                       bf16* out, float* db, int T, int V, int d,
-                       cudaStream_t stream) {
-  constexpr int BM = kBM, DC = kDC;
-  const size_t smem = kNS * (BM + kBN) * kRowB + 2 * 4 * kPanelB +
-                      4 * BM * kRowB + BM * sizeof(float);
-  auto fn = xent_bwd_kernel<TRANS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int groups;
-  const int cs = cluster_size(d, DC, &groups);
-  const int rows = TRANS ? V : T;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((rows + BM - 1) / BM, groups * cs);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = cs;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, fn, x, w, bias, tgt, lse, g, out, db, T, V, d);
-  return err != cudaSuccess ? err : cudaGetLastError();
-}
-
 bool shapes_ok(int T, int V, int d) {
-  return T > 0 && V > 0 && d > 0 && d % 16 == 0 && (d + kDC - 1) / kDC <= 65535;
+  return T > 0 && V > 0 && d > 0 && d % 16 == 0;
 }
 
 }  // namespace
@@ -751,27 +358,4 @@ extern "C" int dstpu_xent_fwd(const void* x, const void* w, const void* bias,
   xent_fwd_merge_kernel<<<(T + 255) / 256, 256, 0, st>>>(part, out0, out1, T,
                                                          nsplit, partials);
   return static_cast<int>(cudaGetLastError());
-}
-
-// lse, g (T,) fp32; dx (T, d) bf16.
-extern "C" int dstpu_xent_dx(const void* x, const void* w, const void* bias,
-                             const int* tgt, const float* lse, const float* g,
-                             void* dx, int T, int V, int d, void* stream) {
-  if (!shapes_ok(T, V, d)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_bwd<false>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(bias), tgt, lse, g, static_cast<bf16*>(dx),
-      nullptr, T, V, d, static_cast<cudaStream_t>(stream)));
-}
-
-// dw (V, d) bf16; db (V,) fp32 (always written).
-extern "C" int dstpu_xent_dw(const void* x, const void* w, const void* bias,
-                             const int* tgt, const float* lse, const float* g,
-                             void* dw, float* db, int T, int V, int d,
-                             void* stream) {
-  if (!shapes_ok(T, V, d)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_bwd<true>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(bias), tgt, lse, g, static_cast<bf16*>(dw), db,
-      T, V, d, static_cast<cudaStream_t>(stream)));
 }

@@ -1,18 +1,20 @@
 """Fused softmax cross-entropy over the unembedding.
 
 Counterpart of ``deepspeed_tpu/ops/xent.py``, whose Pallas kernels
-(``_fwd_kernel``, ``_dx_kernel``, ``_dw_kernel``) become three CUDA
-kernels for Hopper in ``csrc/xent.cu`` (its header says what bounds them
-and how they are laid out), built by ``ops/builder.py`` and called through
-ctypes. No ``(T, V)`` logits tensor reaches device memory: the forward
-emits the per-token NLL and logsumexp only, the backward recomputes the
-logits tile by tile from the saved logsumexp.
+(``_fwd_kernel``, ``_dx_kernel``, ``_dw_kernel``) become CUDA kernels for
+Hopper: the forward in ``csrc/xent.cu``, the backward (dx, dW and db in
+one call, each logits tile formed once) in ``csrc/xent_bwd_sm90.cu``
+(each header says what bounds it and how it is laid out), built by
+``ops/builder.py`` and called through ctypes. No ``(T, V)`` logits tensor
+reaches device memory: the forward emits the per-token NLL and logsumexp
+only, the backward recomputes the logits chunk by chunk of the vocabulary
+from the saved logsumexp.
 
-The wrappers :func:`xent_fwd`, :func:`xent_dx` and :func:`xent_dw` launch
-their kernel for CUDA tensors and take the plain PyTorch versions beside
-them for CPU tensors only; on a CUDA tensor they launch or raise. Each
-counts its launches in ``.launches``. :func:`fused_token_nll` wraps them in
-one ``torch.autograd.Function``.
+The wrappers :func:`xent_fwd` and :func:`xent_bwd` launch their kernels
+for CUDA tensors and take the plain PyTorch versions beside them for CPU
+tensors only; on a CUDA tensor they launch or raise. Each counts its calls
+in ``.launches``. :func:`fused_token_nll` wraps them in one
+``torch.autograd.Function``.
 
 On the card the kernels take bf16 with ``d % 16 == 0``; fp32 and fp16
 operands raise there (fp16 never reaches them: :func:`fused_xent_eligible`).
@@ -37,6 +39,13 @@ from . import builder
 _TILE_ELEM_BUDGET = (256 + 512) * 2048
 _MIN_TILE = 128
 _FWD_ROWS, _FWD_COLS = 128, 256       # the forward's tile (csrc/xent.cu)
+# the backward's tiles (csrc/xent_bwd_sm90.cu): (a) 256 tokens x 128 vocab
+# rows, (b) 256 rows x 128 columns of d
+_BWD_ROWS, _BWD_COLS = 256, 128
+# the backward's vocab chunk: of 1024-8192 rows the widest was the fastest
+# at GPT-2 1.5B's and the 8191-token heads on an H100, within 1% of it at
+# BERT-large's (PERF.md §6)
+BWD_VC = 8192
 
 
 def fused_xent_eligible_d(d: int) -> bool:
@@ -88,7 +97,7 @@ def xent_fwd_plain(x, w, bias, targets, partials: bool = False):
 
 
 def xent_bwd_plain(x, w, bias, targets, lse, g):
-    """Both backward kernels' function: ``(dx, dw, db)`` with dx in x's
+    """The backward kernels' function: ``(dx, dw, db)`` with dx in x's
     dtype, dw in w's and db ``(V,)`` fp32. ``dl = (exp(logits - lse) -
     onehot) * g`` in fp32 is rounded to w's dtype before both products
     (fp32 accumulation); db sums the unrounded dl."""
@@ -101,18 +110,60 @@ def xent_bwd_plain(x, w, bias, targets, lse, g):
     return dx, dw, dl.sum(dim=0)
 
 
+def xent_bwd_plan(T: int, V: int, d: int, sms: int,
+                  vc: Optional[int] = None) -> dict:
+    """How the backward walks the vocabulary, from shapes alone: chunks of
+    ``vc`` rows (default :data:`BWD_VC`, a multiple of 256, cut to V
+    rounded up to 256 and to T * vc < 2^31), two launches each: (a) the
+    chunk's dl, ``tiles_dl`` tiles of 256 tokens x 128 vocab rows; (b) its
+    dW and dx products, ``tiles_prod`` tiles of 256 rows x 128 columns of
+    d. Each launch runs ``min(tiles, sms)`` persistent blocks. The scratch it needs does not
+    grow with V: ``dl`` (T, vc) bf16, ``dbpart`` (ceil(T / 256), vc) fp32
+    and, with more than one chunk, ``dxacc`` (T, d) fp32; sizes in
+    elements, and their sum in ``scratch_bytes``."""
+    vc = BWD_VC if vc is None else vc
+    if vc <= 0 or vc % _BWD_ROWS:
+        raise ValueError(f"xent_bwd: the chunk must be a positive multiple "
+                         f"of {_BWD_ROWS}, got {vc}")
+    # the dl scratch's offsets are 32-bit: T * vc < 2^31
+    fit = (2 ** 31 - 1) // T // _BWD_ROWS * _BWD_ROWS
+    if not fit:
+        raise ValueError(f"xent_bwd: T {T} passes the dl scratch's 32-bit "
+                         "offsets")
+    vc = min(vc, -(-V // _BWD_ROWS) * _BWD_ROWS, fit)
+    chunks = [(v0, min(vc, V - v0)) for v0 in range(0, V, vc)]
+    ntt, ndt = -(-T // _BWD_ROWS), -(-d // _BWD_COLS)
+    tiles_dl = [ntt * -(-vw // _BWD_COLS) for _, vw in chunks]
+    tiles_prod = [(-(-vw // _BWD_ROWS) + ntt) * ndt for _, vw in chunks]
+    dl, dbpart = T * vc, ntt * vc
+    dxacc = T * d if len(chunks) > 1 else 0
+    return {"vc": vc, "chunks": chunks, "launches": 2 * len(chunks),
+            "tiles_dl": tiles_dl, "tiles_prod": tiles_prod,
+            "blocks_dl": [min(t, sms) for t in tiles_dl],
+            "blocks_prod": [min(t, sms) for t in tiles_prod],
+            "dl": dl, "dbpart": dbpart, "dxacc": dxacc,
+            "scratch_bytes": 2 * dl + 4 * dbpart + 4 * dxacc}
+
+
 # ------------------------------------------------------------------ kernels
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
 def _lib():
     lib = builder.load("xent")
     if lib.dstpu_xent_fwd.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
         # pointers and the stream as c_void_p: without argtypes ctypes
         # passes a Python int as a 32-bit C int and cuts the pointer
-        lib.dstpu_xent_fwd.argtypes = [P] * 7 + [I] * 5 + [P]
-        lib.dstpu_xent_dx.argtypes = [P] * 7 + [I] * 3 + [P]
-        lib.dstpu_xent_dw.argtypes = [P] * 8 + [I] * 3 + [P]
-        for fn in (lib.dstpu_xent_fwd, lib.dstpu_xent_dx, lib.dstpu_xent_dw):
-            fn.restype = I
+        lib.dstpu_xent_fwd.argtypes = [_P] * 7 + [_I] * 5 + [_P]
+        lib.dstpu_xent_fwd.restype = _I
+    return lib
+
+
+def _bwd_lib():
+    lib = builder.load("xent_bwd_sm90")
+    if lib.dstpu_xent_bwd.argtypes is None:
+        lib.dstpu_xent_bwd.argtypes = [_P] * 13 + [_I] * 4 + [_P]
+        lib.dstpu_xent_bwd.restype = _I
     return lib
 
 
@@ -198,47 +249,76 @@ def xent_fwd(x, w, bias, targets, partials: bool = False):
     return out0, out1
 
 
-def xent_dx(x, w, bias, targets, lse, g):
-    """dx ``(T, d)`` in x's dtype from the saved lse and the cotangent g,
-    both ``(T,)`` fp32."""
-    if x.device.type == "cpu":
-        return xent_bwd_plain(x, w, bias, targets, lse, g)[0]
-    T, V, d, bias, targets = _check("xent_dx", x, w, bias, targets, lse, g)
-    dx = torch.empty_like(x)
-    err = _lib().dstpu_xent_dx(
-        x.data_ptr(), w.data_ptr(), _ptr(bias), targets.data_ptr(),
-        lse.data_ptr(), g.data_ptr(), dx.data_ptr(), T, V, d,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(err, "xent_dx")
-    xent_dx.launches += 1
-    return dx
+_plans: dict = {}
+_sms: dict = {}
+_scratch: dict = {}
 
 
-def xent_dw(x, w, bias, targets, lse, g):
-    """``(dw, db)``: dw ``(V, d)`` in w's dtype, db ``(V,)`` fp32."""
+def _bwd_plan(T, V, d, device, vc) -> dict:
+    key = (T, V, d, vc, device.index)
+    plan = _plans.get(key)
+    if plan is None:
+        sms = _sms.get(device.index)
+        if sms is None:
+            sms = _sms[device.index] = torch.cuda.get_device_properties(
+                device).multi_processor_count
+        plan = _plans[key] = xent_bwd_plan(T, V, d, sms, vc)
+    return plan
+
+
+def _bwd_scratch(device, plan: dict):
+    """The backward's scratch (dl bf16, db partials and the dx buffer
+    fp32, flat; the kernels' int32 tile counter, zeroed once: every launch
+    leaves it 0), cached per device and grown when a call needs more.
+    Calls on one device run in stream order, so one set serves them all."""
+    have = _scratch.get(device.index, {})
+    if "ctr" not in have:
+        have["ctr"] = torch.zeros(1, dtype=torch.int32, device=device)
+    out = []
+    for name, dtype in (("dl", torch.bfloat16), ("dbpart", torch.float32),
+                        ("dxacc", torch.float32)):
+        t = have.get(name)
+        if plan[name] and (t is None or t.numel() < plan[name]):
+            t = torch.empty(plan[name], dtype=dtype, device=device)
+        have[name] = t
+        out.append(t if plan[name] else None)
+    _scratch[device.index] = have
+    return out + [have["ctr"]]
+
+
+def xent_bwd(x, w, bias, targets, lse, g, vc: Optional[int] = None):
+    """The backward in one call: ``(dx, dw, db)``, dx ``(T, d)`` in x's
+    dtype, dw ``(V, d)`` in w's, db ``(V,)`` fp32, from the saved lse and
+    the cotangent g, both ``(T,)`` fp32. On the card the vocabulary is
+    walked in chunks of ``vc`` rows (default :data:`BWD_VC`), two launches
+    each (:func:`xent_bwd_plan`); ``.launches`` counts the calls. One
+    kernel pair takes every shape the wrapper accepts."""
     if x.device.type == "cpu":
-        return xent_bwd_plain(x, w, bias, targets, lse, g)[1:]
-    T, V, d, bias, targets = _check("xent_dw", x, w, bias, targets, lse, g)
-    dw = torch.empty_like(w)
+        return xent_bwd_plain(x, w, bias, targets, lse, g)
+    T, V, d, bias, targets = _check("xent_bwd", x, w, bias, targets, lse, g)
+    plan = _bwd_plan(T, V, d, x.device, vc)
+    dl, dbpart, dxacc, ctr = _bwd_scratch(x.device, plan)
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
     db = torch.empty((V,), dtype=torch.float32, device=x.device)
-    err = _lib().dstpu_xent_dw(
+    err = _bwd_lib().dstpu_xent_bwd(
         x.data_ptr(), w.data_ptr(), _ptr(bias), targets.data_ptr(),
-        lse.data_ptr(), g.data_ptr(), dw.data_ptr(), db.data_ptr(), T, V, d,
+        lse.data_ptr(), g.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+        db.data_ptr(), dl.data_ptr(), dbpart.data_ptr(), _ptr(dxacc),
+        ctr.data_ptr(), T, V, d, plan["vc"],
         torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(err, "xent_dw")
-    xent_dw.launches += 1
-    return dw, db
+    _raise_on(err, "xent_bwd")
+    xent_bwd.launches += 1
+    return dx, dw, db
 
 
 xent_fwd.launches = 0
-xent_dx.launches = 0
-xent_dw.launches = 0
+xent_bwd.launches = 0
 
 
 # ------------------------------------------------------------ autograd
 class _FusedNLL(torch.autograd.Function):
-    """Forward saves the operands and the fp32 lse; backward runs dx then
-    dW/db against it."""
+    """Forward saves the operands and the fp32 lse; backward runs dx, dW
+    and db against it in one call."""
 
     @staticmethod
     def forward(ctx, x, w, bias, targets):
@@ -249,12 +329,8 @@ class _FusedNLL(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, bias, targets, lse = ctx.saved_tensors
-        g = g.float().contiguous()
-        if x.device.type == "cpu":           # one pass of the plain version
-            dx, dw, db = xent_bwd_plain(x, w, bias, targets, lse, g)
-        else:
-            dx = xent_dx(x, w, bias, targets, lse, g)
-            dw, db = xent_dw(x, w, bias, targets, lse, g)
+        dx, dw, db = xent_bwd(x, w, bias, targets, lse,
+                              g.float().contiguous())
         dbias = None if bias is None else db.to(bias.dtype)
         return dx, dw, dbias, None
 

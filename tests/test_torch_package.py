@@ -90,7 +90,8 @@ def test_library_path_keys_on_the_source():
     assert builder.sources() == ["decode_attention", "flash_attention",
                                  "flash_attention_f32", "flash_bwd_dkv_sm90",
                                  "flash_bwd_dq_sm90", "flash_fwd_sm90",
-                                 "sparse_attention", "woq_matmul", "xent"]
+                                 "sparse_attention", "woq_matmul", "xent",
+                                 "xent_bwd_sm90"]
 
 
 def test_inference_config_ports_and_refuses():

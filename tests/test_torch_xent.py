@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu.ops import xent as jx
+from deepspeed_tpu_torch.models import presets
 from deepspeed_tpu_torch.ops import xent as tx
 
 TOL = {"float32": dict(nll=1e-5, grad=1e-5, db=1e-5),
@@ -112,7 +113,7 @@ def test_fp32_db_of_the_dw_wrapper_is_unrounded():
     args = [torch.as_tensor(a).bfloat16() for a in (x, w, b)]
     tt, gt = torch.as_tensor(t), torch.as_tensor(g)
     _, lse = tx.xent_fwd(*args, tt)
-    dw, db = tx.xent_dw(*args, tt, lse, gt)
+    _, dw, db = tx.xent_bwd(*args, tt, lse, gt)
     jlse = jx._fwd(*(jnp.asarray(a, jnp.bfloat16) for a in (x, w, b)),
                    jnp.asarray(t), BLOCK, BLOCK, True)[1]
     _, _, jdb = jx._bwd_kernels(*(jnp.asarray(a, jnp.bfloat16)
@@ -205,7 +206,7 @@ def test_function_matches_autograd_of_the_unfused_loss(bias):
 
 def test_no_grad_forward_and_cpu_launch_counts():
     x, w, b, t, g = operands(20, 300, 32, "float32", True)
-    before = (tx.xent_fwd.launches, tx.xent_dx.launches, tx.xent_dw.launches)
+    before = (tx.xent_fwd.launches, tx.xent_bwd.launches)
     args = [torch.as_tensor(a) for a in (x, w, b)]
     with torch.no_grad():
         nll = tx.fused_token_nll(*args, torch.as_tensor(t))
@@ -213,10 +214,8 @@ def test_no_grad_forward_and_cpu_launch_counts():
                            reduction="none")
     torch.testing.assert_close(nll, want, atol=1e-5, rtol=0)
     _, lse = tx.xent_fwd(*args, torch.as_tensor(t))
-    tx.xent_dx(*args, torch.as_tensor(t), lse, torch.as_tensor(g))
-    tx.xent_dw(*args, torch.as_tensor(t), lse, torch.as_tensor(g))
-    assert (tx.xent_fwd.launches, tx.xent_dx.launches,
-            tx.xent_dw.launches) == before
+    tx.xent_bwd(*args, torch.as_tensor(t), lse, torch.as_tensor(g))
+    assert (tx.xent_fwd.launches, tx.xent_bwd.launches) == before
 
 
 # dtypes and widths of tests/test_torch_train.py's XENT_CASES, plus the edges
@@ -250,3 +249,82 @@ def test_forward_splits_cover_the_vocab_with_no_empty_split(T, V):
     assert 1 <= n <= tiles and (n - 1) * per < tiles <= n * per
     # one wave: the blocks fit the SMs unless the token tiles alone pass them
     assert n == 1 or n * -(-T // tx._FWD_ROWS) <= 132
+
+
+# (T, V, d): every preset's head the fused path takes (d <= 6144) at 1 and
+# at 4096 tokens, chip_smoke.py's XENT_CASES, and GPT-2 1.5B at 8191 tokens
+# (phase 9)
+_PRESET_HEADS = sorted({(cfg.vocab_size, cfg.d_model) for cfg in (
+    *(presets.gpt2(s) for s in ("125m", "350m", "774m", "1.5b")),
+    *(presets.llama2(s) for s in ("tiny", "7b", "13b")),
+    *(presets.bert(s) for s in ("tiny", "base", "large")),
+    *(presets.opt(s) for s in ("tiny", "125m", "1.3b", "6.7b", "13b")),
+    *(presets.bloom(s) for s in ("tiny", "560m", "7b")), presets.tiny_test())
+    if tx.fused_xent_eligible_d(cfg.d_model)})
+BWD_PLAN_SHAPES = sorted(
+    {(T, V, d) for V, d in _PRESET_HEADS for T in (1, 4096)}
+    | {(4092, 50257, 1600), (8192, 30522, 1024), (77, 1000, 64),
+       (1, 1000, 64), (300, 3000, 2304), (256, 2000, 6144),
+       (8191, 50257, 1600)})
+
+
+@pytest.mark.parametrize("vc", [None, 1024, 4096])
+@pytest.mark.parametrize("T,V,d", BWD_PLAN_SHAPES)
+def test_bwd_plan_covers_the_vocab_once_in_order(T, V, d, vc):
+    """The backward's chunks cover [0, V) exactly once and in order, each a
+    multiple of 64 wide but the last (the dl scratch's row pitch stays
+    16-byte aligned and its TMA boxes whole); two launches a chunk; the
+    tiles and blocks of each launch; the scratch sizes."""
+    plan = tx.xent_bwd_plan(T, V, d, sms=132, vc=vc)
+    vc_ = plan["vc"]
+    assert vc_ % 256 == 0 and vc_ <= (vc or tx.BWD_VC)
+    assert vc_ == min(vc or tx.BWD_VC, -(-V // 256) * 256)
+    nxt = 0
+    for v0, vw in plan["chunks"]:
+        assert v0 == nxt and 0 < vw <= vc_
+        assert vw == vc_ or v0 + vw == V          # only the last is short
+        nxt = v0 + vw
+    assert nxt == V
+    n = len(plan["chunks"])
+    assert n == -(-V // vc_) and plan["launches"] == 2 * n
+    ntt, ndt = -(-T // 256), -(-d // 128)
+    assert plan["tiles_dl"] == [ntt * -(-vw // 128)
+                                for _, vw in plan["chunks"]]
+    assert plan["tiles_prod"] == [(-(-vw // 256) + ntt) * ndt
+                                  for _, vw in plan["chunks"]]
+    assert plan["blocks_dl"] == [min(t, 132) for t in plan["tiles_dl"]]
+    assert plan["blocks_prod"] == [min(t, 132) for t in plan["tiles_prod"]]
+    assert plan["dl"] == T * vc_ and plan["dbpart"] == ntt * vc_
+    assert plan["dxacc"] == (T * d if n > 1 else 0)
+    assert plan["scratch_bytes"] == (2 * plan["dl"] + 4 * plan["dbpart"]
+                                     + 4 * plan["dxacc"])
+
+
+@pytest.mark.parametrize("T,d", [(1, 64), (4092, 1600), (8192, 1024),
+                                 (8191, 1600)])
+def test_bwd_plan_scratch_does_not_grow_with_the_vocab(T, d):
+    """Past one chunk the scratch is the same at any V; below it, smaller."""
+    sizes = {V: tx.xent_bwd_plan(T, V, d, sms=132)["scratch_bytes"]
+             for V in (1000, 30522, 50257, 250880, 10 ** 6)}
+    assert sizes[30522] == sizes[50257] == sizes[250880] == sizes[10 ** 6]
+    assert sizes[1000] < sizes[50257]
+    assert sizes[50257] == (2 * T * tx.BWD_VC + 4 * -(-T // 256) * tx.BWD_VC
+                            + 4 * T * d)
+
+
+@pytest.mark.parametrize("vc", [0, 100, 300, -256])
+def test_bwd_plan_refuses_a_chunk_off_256(vc):
+    with pytest.raises(ValueError, match="multiple of 256"):
+        tx.xent_bwd_plan(77, 1000, 64, sms=132, vc=vc)
+
+
+@pytest.mark.parametrize("T", [2 ** 20, 3 * 10 ** 6, 2 ** 23 - 1])
+def test_bwd_plan_keeps_the_scratch_offsets_32_bit(T):
+    """The dl scratch's element offsets are 32-bit in the kernel: the
+    chunk shrinks (by whole 256s) until T * vc < 2^31; past 2^23 tokens no
+    chunk fits and the plan refuses."""
+    plan = tx.xent_bwd_plan(T, 50257, 1600, sms=132)
+    assert plan["vc"] % 256 == 0 and T * plan["vc"] < 2 ** 31
+    assert plan["vc"] == min(tx.BWD_VC, (2 ** 31 - 1) // T // 256 * 256)
+    with pytest.raises(ValueError, match="32-bit"):
+        tx.xent_bwd_plan(2 ** 23, 50257, 1600, sms=132)

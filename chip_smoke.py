@@ -9,10 +9,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``deepspeed_tpu_torch/ops/csrc`` (nvcc, sm_90a, one process per source,
    all at once) and print nvcc's register / shared-memory lines; count the
    wgmma and TMA instructions in the SASS (cuobjdump) of the wgmma
-   flash forward's and backward pair's libraries and of the xent
-   backward's (each > 0) and the kernels of theirs that spill or have a
-   warpgroup wait injected by ptxas (none), and print their shared
-   memory; the same for the tensor-core ``x @ W``
+   flash forward's and backward pair's libraries (bf16 / fp16, and the
+   fp32 pair's 3xTF32 ones) and of the xent backward's (each > 0) and the
+   kernels of theirs that spill, have a warpgroup wait injected or their
+   wgmma serialized by ptxas (none), and print their shared memory (the
+   fp32 pair's held to
+   ``flash_bwd_f32_plan``); the same for the tensor-core ``x @ W``
    kernels of ``woq_matmul.cu`` (mma.sync and TMA loads in their SASS, no
    spill, no injected wait);
 2. kernels: each kernel (decode attention, the WOQ GEMMs ``woq_matmul``
@@ -89,11 +91,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    S, S), (B, 1, S, S), (1, H, S, S) and a (1, H, S, S) bias expanded at
    stride 0), bias dtypes other than q's, masks, GQA / MQA, hd 16-128,
    ragged S, dbias exactly 0 above a causal diagonal; the fp32 kernels
-   without a bias on phase 5's cases; timed at phase 10's two shapes
+   without a bias on phase 5's cases and on S 2048-8192 at hd 32 / 64
+   (GQA group 8 among them); timed at phase 10's two shapes
    (AlphaFold 2's MSA rows in bf16, the DS4Science example in fp32) beside
    the bound, the plain versions and SDPA with the bias as a float
    attn_mask (forward and its autograd backward), and in fp32 at GPT-2
-   1.5B's shape beside SDPA in fp32;
+   1.5B's shape beside SDPA in fp32; fp32 work is bounded as 3xTF32 on
+   the tensor cores (three tf32 products at 495 TFLOP/s), the CUDA cores'
+   67 TFLOP/s line printed beside;
 6. training, the unfused reference: GPT-2 1.5B at full width and depth with
    ``fused_xent=False`` through ``initialize(TRAIN_CONFIG, build_model(cfg,
    attention_fn=make_flash_attention())).train_batch``; first the kernel
@@ -125,7 +130,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    its full size (B 4, S 256, H 8, hd 32, a full (B, H, S, S) bias
    projected from the pair representation) from its seeded weights, 50
    steps at lr 0.05 in fp32 (losses within 1e-4 of the plain path's at
-   every step) and in bf16 (phase 6's gate); (b) AlphaFold 2's MSA
+   every step; its device time a step and the flash kernels' shares under
+   the profiler) and in bf16 (phase 6's gate); (b) AlphaFold 2's MSA
    row-wise gated self-attention with pair bias at 128 clusters x 256
    residues in bf16, one (1, 8, 256, 256) bias shared by the rows, a key
    mask on padded residues: first step against the plain path, then 2 + 5
@@ -141,9 +147,11 @@ kernel rows (each flash kernel with the bias at phase 10's two shapes,
 and in fp32 at GPT-2 1.5B's), a ``[flash-fwd]`` line phase 5's forward
 timings at its other shapes, the host costs and the forward's SASS counts,
 and a ``[flash-bwd]`` line the backward pair's timings at the same shapes
-and the SASS counts of its two libraries. The kernels line lists each flash kernel twice: at GPT-2 1.5B's shape (rows 2-4
+and the SASS counts of its four libraries. The kernels line lists each flash kernel twice: at GPT-2 1.5B's shape (rows 2-4
 of PERF.md) and at S 8192, where it stands for the TPU's streamed kernel
-(rows 5-7).
+(rows 5-7), and the fp32 backward pair's 3xTF32 kernels
+(``flash_bwd_dq_f32``, ``flash_bwd_dkv_f32``) at the DS4Science example's
+shape with phase 10a's launches.
 The last three lines of standard output are the kernels' JSON, then
 ``nvidia-smi``'s name and power limit of the card, then the device JSON.
 Without a CUDA device, or outside the repository, it exits 1 and prints
@@ -162,6 +170,10 @@ from pathlib import Path
 PEAK_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
 PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float16": 989e12,
                   "torch.float32": 67e12}
+# fp32 products as 3xTF32 on the tensor cores: three tf32 products (495
+# TFLOP/s dense) per fp32 product, the least time the card takes for the
+# flash kernels' fp32 work (67 TFLOP/s is the CUDA cores')
+TF32X3_OPS_PER_S = 495e12 / 3
 TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2, "torch.float16": 2e-2}
 # kernel path vs dense path fp32 logits, teacher-forced, as a share of the
 # dense logits' max |value|: the dense path rounds scores and probabilities
@@ -282,6 +294,8 @@ def phase_device() -> dict:
     import torch
 
     from deepspeed_tpu_torch.ops import builder
+    from deepspeed_tpu_torch.ops.flash_attention import (F32_WGMMA_HEAD_DIMS,
+                                                         flash_bwd_f32_plan)
     from deepspeed_tpu_torch.platform.device import device_report
 
     rep = device_report()
@@ -300,13 +314,14 @@ def phase_device() -> dict:
                 log(f"[build]   {line.strip()}")
     sass = {}
     for lib in ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90",
+                "flash_bwd_dq_f32_sm90", "flash_bwd_dkv_f32_sm90",
                 "xent_bwd_sm90"):
         sass[lib] = sass_counts(built[lib]["path"])
         fit = ptxas_fit(built[lib]["log"])
         log(f"[build] {lib}: SASS instructions {sass[lib]} (HGMMA: wgmma, "
             f"UTMALDG: TMA loads); ptxas: {fit['kernels']} kernels, "
             f"{fit['spilling']} spilling, {fit['injected_waits']} injected "
-            "warpgroup waits (C7517 / C7519)")
+            "warpgroup waits or serialized wgmma (C7517 / C7519 / C7511)")
         if not sass[lib]["HGMMA"] or not sass[lib]["UTMALDG"]:
             raise AssertionError(f"{lib} has no wgmma or TMA: {sass[lib]}")
         if not fit["kernels"] or fit["spilling"] or fit["injected_waits"]:
@@ -321,7 +336,8 @@ def phase_device() -> dict:
         f"TMA / bulk loads); ptxas: {len(fit)} kernels, registers "
         f"{sorted({f['registers'] for f in fit.values()})}, "
         f"{sum(1 for f in fit.values() if f['spill'])} spilling, {waits} "
-        "injected warpgroup waits (C7517 / C7519)")
+        "injected warpgroup waits or serialized wgmma (C7517 / C7519 / "
+        "C7511)")
     if not woq["kernels"] or not woq["counts"]["HMMA"] or not (
             woq["counts"]["UTMALDG"] or woq["counts"]["UBLKCP"]):
         raise AssertionError(f"woq_matmul_mma_kernel has no mma.sync or TMA "
@@ -340,6 +356,19 @@ def phase_device() -> dict:
         smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
         log(f"[build] {kernel}_sm90: dynamic shared memory " + ", ".join(
             f"hd {hd} {smem(hd)} B" for hd in (32, 64, 128)))
+        # the fp32 pair's shared memory is the plan's
+        smem = getattr(builder.load(f"{kernel}_f32_sm90"),
+                       f"dstpu_{kernel}_smem_bytes")
+        smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+        plans = {hd: flash_bwd_f32_plan(kernel, hd)
+                 for hd in F32_WGMMA_HEAD_DIMS}
+        log(f"[build] {kernel}_f32_sm90: dynamic shared memory " + ", ".join(
+            f"hd {hd} {smem(hd)} B ({p['stages']} + {p['t_stages']} slots "
+            f"of {p['step']} rows, units of {p['unit']})"
+            for hd, p in plans.items()))
+        if any(smem(hd) != p["smem_bytes"] for hd, p in plans.items()):
+            raise AssertionError(f"{kernel}_f32_sm90's shared memory is not "
+                                 f"flash_bwd_f32_plan's: {plans}")
     smem = builder.load("xent_bwd_sm90").dstpu_xent_bwd_smem_bytes
     smem.argtypes, smem.restype = [], ctypes.c_int
     log(f"[build] xent_bwd_sm90: dynamic shared memory {smem()} B")
@@ -351,14 +380,15 @@ def phase_device() -> dict:
 def ptxas_fit(build_log: str) -> dict:
     """From nvcc's ``-Xptxas -v`` output: the kernels it reports, those
     that spill, and the warpgroup waits it injected into wgmma sequences
-    (C7517 / C7519), each of which serializes the products."""
+    (C7517 / C7519) or the wgmma sequences it serialized for want of
+    registers (C7511), each of which serializes the products."""
     import re
 
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                         build_log)
     return {"kernels": len(spills),
             "spilling": sum(1 for st, ld in spills if int(st) or int(ld)),
-            "injected_waits": len(re.findall(r"\(C751[79]\)", build_log))}
+            "injected_waits": len(re.findall(r"\(C751[179]\)", build_log))}
 
 
 def ptxas_kernels(build_log: str, name: str) -> dict:
@@ -1335,6 +1365,17 @@ FLASH_CASES = (
     ("hd32_gqa_alibi_mask", 1, 4, 1, 77, 32, True, "left_pad", True),
     ("hd16_noncausal", 2, 4, 4, 100, 16, False, None, False),
 )
+# phase 5d's fp32 cases beyond phase 5's: the longest sums a dk/dv unit of
+# the 3xTF32 wgmma pair runs (G * S / 32 steps of 32 queries), at hd 64
+# and 32, causal and not, GQA group 8. ALiBi only causal: without the cut
+# its slope 0.5 lifts scores to ~S / 2, where fp32's own rounding of a
+# score (2^-11 at 4096) moves p by more than the 1e-4 gate
+FLASH_F32_LONG_CASES = (
+    ("f32_hd64_4096", 1, 8, 8, 4096, 64, True, None, False),
+    ("f32_hd64_8192", 1, 4, 4, 8192, 64, False, None, False),
+    ("f32_hd64_gqa8_2048", 1, 16, 2, 2048, 64, True, None, False),
+    ("f32_hd32_gqa8_8192", 1, 8, 1, 8192, 32, True, "left_pad", True),
+)
 # kernel vs plain, max |Δ| / max |plain| of o, dq, dk, dv: the same
 # function; the kernels' online softmax rounds p to the storage dtype
 # against a running max, the plain version against the row max, and fp32
@@ -1376,11 +1417,14 @@ def _share(got, want) -> float:
 def flash_bound(B, H, KV, S, hd, causal, esize, *, side_bytes=0,
                 dbias_bytes=0, dtype="torch.bfloat16") -> dict:
     """Least time of each kernel on an H100: FLOPs (fwd 2, dq 3, dk/dv 4
-    products of 2·B·H·S²·hd, halved when causal) at the peak rate of the
-    operands' type (989 TFLOP/s bf16 / fp16, 67 fp32) against each input
-    read and each output written once at 3.35 TB/s: ``side_bytes`` (the
-    bias as stored and the (B, S) key mask) in each kernel, ``dbias_bytes``
-    as dq writes them."""
+    products of 2·B·H·S²·hd, halved when causal) at the tensor cores' rate
+    for the operands' type (989 TFLOP/s bf16 / fp16; fp32 as 3xTF32, three
+    tf32 products at 495 TFLOP/s: 165) against each input read and each
+    output written once at 3.35 TB/s: ``side_bytes`` (the bias as stored
+    and the (B, S) key mask) in each kernel, ``dbias_bytes`` as dq writes
+    them. For fp32 ``cuda_core_ms`` is the same work at the CUDA cores'
+    67 TFLOP/s, printed beside the bound: fp32 work off the tensor cores
+    could not beat it."""
     prod = 2 * B * H * S * S * hd / (2 if causal else 1)
     qb, kvb, rowb = B * S * H * hd * esize, B * S * KV * hd * esize, B * H * S * 4
     work = {"flash_fwd": (2 * prod, 2 * qb + 2 * kvb + rowb + side_bytes),
@@ -1388,13 +1432,18 @@ def flash_bound(B, H, KV, S, hd, causal, esize, *, side_bytes=0,
                              + side_bytes + dbias_bytes),
             "flash_bwd_dkv": (4 * prod, 2 * qb + 4 * kvb + 2 * rowb
                               + side_bytes)}
+    rate = TF32X3_OPS_PER_S if dtype == "torch.float32" \
+        else PEAK_OPS_PER_S[dtype]
     out = {}
     for name, (ops, nbytes) in work.items():
-        t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+        t_ops = ops / rate * 1e3
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         out[name] = {"bound_ms": max(t_ops, t_bytes), "ops": ops,
                      "bytes": nbytes, "bound_by": "bytes" if t_bytes >= t_ops
                      else "operations"}
+        if dtype == "torch.float32":
+            out[name]["cuda_core_ms"] = max(
+                ops / PEAK_OPS_PER_S[dtype] * 1e3, t_bytes)
     return out
 
 
@@ -2314,7 +2363,8 @@ def _bias_case(gen, case, dtype, device):
 
 
 def phase_flash_bias_kernels(device="cuda", cases=FLASH_BIAS_CASES,
-                             fp32_cases=FLASH_CASES, dtypes=None,
+                             fp32_cases=FLASH_CASES + FLASH_F32_LONG_CASES,
+                             dtypes=None,
                              iters=50) -> dict:
     """The three flash kernels with the bias operand against their plain
     versions on every case, in bf16, fp16 and fp32, each fed the plain
@@ -2322,8 +2372,9 @@ def phase_flash_bias_kernels(device="cuda", cases=FLASH_BIAS_CASES,
     and once with dbias, the bias expanded to (B, H, S, S) where it is
     broadcast (as a learned one reaches the kernels); dbias exactly 0
     above a causal diagonal. Then the fp32 kernels without a bias on phase
-    5's cases. On the card, timed at the first two cases' shapes and the
-    fp32 kernels at GPT-2 1.5B's (phase 5's first case)."""
+    5's cases and on FLASH_F32_LONG_CASES. On the card, timed at the first
+    two cases' shapes and the fp32 kernels at GPT-2 1.5B's (phase 5's
+    first case)."""
     import torch
 
     from deepspeed_tpu_torch.ops import flash_attention as fa
@@ -2331,10 +2382,21 @@ def phase_flash_bias_kernels(device="cuda", cases=FLASH_BIAS_CASES,
     gen = torch.Generator(device=device).manual_seed(6)
     dtypes = dtypes or (torch.bfloat16, torch.float16, torch.float32)
     # max |kernel - plain| of each kernel's outputs, over the biased runs
-    # (every dtype) and over the fp32 runs without a bias
+    # (every dtype), over the fp32 runs without a bias and over the fp32
+    # runs (both) that the 3xTF32 wgmma pair served
     worst = {v: dict.fromkeys(("flash_fwd", "flash_bwd_dq",
                                "flash_bwd_dkv"), 0.0)
-             for v in ("bias", "fp32")}
+             for v in ("bias", "fp32", "fp32_wgmma")}
+
+    def note(variant, outputs, dtype, hd):
+        for n, (a, b) in outputs.items():
+            k_name = _OUTPUT_OF[n]
+            err = (a.float() - b.float()).abs().max().item()
+            worst[variant][k_name] = max(worst[variant][k_name], err)
+            if dtype == torch.float32 and k_name != "flash_fwd" and \
+                    fa.library(k_name, dtype, hd).endswith("_f32_sm90"):
+                worst["fp32_wgmma"][k_name] = max(
+                    worst["fp32_wgmma"][k_name], err)
     for case in cases:
         name, B, H, KV, S = case[:5]
         causal = case[6]
@@ -2381,11 +2443,7 @@ def phase_flash_bias_kernels(device="cuda", cases=FLASH_BIAS_CASES,
                 raise AssertionError(f"flash bias {name} {dtype}: {shares}, "
                                      f"lse {lse_err}, finite {finite}, "
                                      f"zeros {hidden_zero}")
-            for n, (a, b) in got.items():
-                k_name = _OUTPUT_OF[n]
-                worst["bias"][k_name] = max(
-                    worst["bias"][k_name],
-                    (a.float() - b.float()).abs().max().item())
+            note("bias", got, dtype, case[5])
             del x, o, o_p, dq, dq2, dq_p, dk, dv, dk_p, dv_p, dbias, dbias_p
     for case in fp32_cases:
         name, shape = case[0], case[1:]
@@ -2410,11 +2468,7 @@ def phase_flash_bias_kernels(device="cuda", cases=FLASH_BIAS_CASES,
             + f" of max |plain| (tol 1e-4) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash fp32 {name}: {shares}")
-        for n, (a, b) in got.items():
-            k_name = _OUTPUT_OF[n]
-            worst["fp32"][k_name] = max(
-                worst["fp32"][k_name],
-                (a.float() - b.float()).abs().max().item())
+        note("fp32", got, torch.float32, shape[4])
         del x, got, dk_dv
     result = {"max_abs_err": worst}
     if device != "cuda":
@@ -2516,6 +2570,8 @@ def _flash_bias_timing(gen, case, iters) -> dict:
         b = bounds[n]
         out[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
                       bound_by=b["bound_by"], library_ms=library[n])
+        if "cuda_core_ms" in b:
+            out[n]["cuda_core_bound_ms"] = b["cuda_core_ms"]
         log(f"[flash-bias] {n} {name} B{B} H{H} S{S} hd{hd} "
             f"{'causal' if causal else 'full'} {dtype}, bias "
             f"{tuple(bias.shape)} {bias.dtype}"
@@ -2523,7 +2579,9 @@ def _flash_bias_timing(gen, case, iters) -> dict:
             f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
             f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}: {b['bytes']} B, "
             f"{b['ops']:.4g} flop), kernel at {b['bound_ms'] / ms:.1%} of the "
-            "bound")
+            "bound" + (f"; at the CUDA cores' 67 TFLOP/s "
+                       f"{b['cuda_core_ms'] * 1e3:.2f} us"
+                       if "cuda_core_ms" in b else ""))
     bwd_ms = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkv"]["ms"]
     log(f"[flash-bias] {name} library calls (device, not called by the "
         f"port): SDPA with the float mask, forward {lib_f * 1e3:.2f} us vs "
@@ -2536,8 +2594,9 @@ def _flash_bias_timing(gen, case, iters) -> dict:
 
 def _flash_fp32_timing(gen, case, iters) -> dict:
     """The fp32 kernels without a bias at one case's shape against their
-    bound at 67 TFLOP/s, the plain versions and SDPA in fp32 (forward and
-    its autograd backward), all device-timed but the plain versions."""
+    3xTF32 bound (the 67 TFLOP/s CUDA-core line beside it), the plain
+    versions and SDPA in fp32 (forward and its autograd backward), all
+    device-timed but the plain versions."""
     import torch
     import torch.nn.functional as F
 
@@ -2588,13 +2647,16 @@ def _flash_fp32_timing(gen, case, iters) -> dict:
         plain_ms = time_ms(plain, 3)
         b = bounds[n]
         out[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
-                      bound_by=b["bound_by"], library_ms=library[n])
+                      bound_by=b["bound_by"], library_ms=library[n],
+                      cuda_core_bound_ms=b["cuda_core_ms"])
         log(f"[flash-fp32] {n} {name} B{B} H{H} KV{KV} S{S} hd{hd} "
-            f"{'causal' if causal else 'full'} fp32: kernel {ms * 1e3:.2f} "
+            f"{'causal' if causal else 'full'} fp32 "
+            f"({fa.library(n, torch.float32, hd)}): kernel {ms * 1e3:.2f} "
             f"us, plain {plain_ms * 1e3:.2f} us, bound "
-            f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']} at 67 TFLOP/s "
-            f"fp32: {b['bytes']} B, {b['ops']:.4g} flop), kernel at "
-            f"{b['bound_ms'] / ms:.1%} of the bound")
+            f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']} as 3xTF32 at 495 "
+            f"TFLOP/s: {b['bytes']} B, {b['ops']:.4g} flop), kernel at "
+            f"{b['bound_ms'] / ms:.1%} of the bound; at the CUDA cores' 67 "
+            f"TFLOP/s {b['cuda_core_ms'] * 1e3:.2f} us")
     bwd_ms = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkv"]["ms"]
     log(f"[flash-fp32] {name} library calls (device, not called by the "
         f"port): SDPA fp32 forward {lib_f * 1e3:.2f} us vs flash_fwd "
@@ -2815,12 +2877,18 @@ XENT_KERNEL_NAMES = ("xent_fwd_kernel", "xent_fwd_merge_kernel",
 def kernel_names(fns) -> tuple:
     """The names under which the wrappers' kernels show in a profile:
     ``<wrapper>_kernel``, and for the three flash kernels their wgmma
-    kernel ``<wrapper>_sm90_kernel`` besides the mma.sync one (fp32 and hd
-    16)."""
-    return tuple(n for fn in fns for n in (
-        (f"{fn.__name__}_kernel", f"{fn.__name__}_sm90_kernel")
-        if fn.__name__ in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-        else (f"{fn.__name__}_kernel",)))
+    kernel ``<wrapper>_sm90_kernel`` besides the mma.sync one (hd 16 and
+    the rest of fp32), for the backward pair also the fp32 wgmma kernel
+    ``<wrapper>_f32_sm90_kernel``."""
+    def names(fn):
+        n = fn.__name__
+        if n == "flash_fwd":
+            return f"{n}_kernel", f"{n}_sm90_kernel"
+        if n in ("flash_bwd_dq", "flash_bwd_dkv"):
+            return f"{n}_kernel", f"{n}_sm90_kernel", f"{n}_f32_sm90_kernel"
+        return f"{n}_kernel",
+
+    return tuple(n for fn in fns for n in names(fn))
 
 
 def phase_train(cfg=None, *, config=None, check="attention", check_layers=4,
@@ -3189,9 +3257,39 @@ def phase_evoformer(device="cuda", example=None, af2=None,
         result["example"][str(dtype)] = dict(
             losses=losses, plain_losses=ref[0], loss_rel=max(rel),
             grad_rel=max(grad_rel.values()), launches=launches, step_ms=ms)
+        if cuda and profile_steps and dtype == torch.float32:
+            result["example"][str(dtype)].update(_example_profile(
+                partial(loss_fn, attention=evo.evoformer_attention), params,
+                counters, profile_steps, tag))
     _free_memory(dev)
     result["af2"] = phase_af2_msa_row(device, af2, profile_steps)
     return result
+
+
+def _example_profile(loss_fn, params, counters, steps, tag) -> dict:
+    """Device time of the example's steps (loss and grads, as _sgd_run
+    takes them) under the profiler, and each flash kernel's share of it
+    by its kernels' names."""
+    import torch
+
+    leaves = {n: t.clone().requires_grad_() for n, t in params.items()}
+
+    def step():
+        torch.autograd.grad(loss_fn(leaves), list(leaves.values()))
+
+    step()
+    prof = profile_calls(lambda: [step() for _ in range(steps)], steps, tag)
+    if not prof:
+        return {}
+    shares = {k: sum(v for n, v in prof["by_name"].items()
+                     if f"{k}<" in n or n.startswith(k) or f"::{k}(" in n)
+              / prof["busy"] for k in kernel_names(counters)}
+    out = {"busy_ms": prof["busy"] / steps / 1e3,
+           "busy_share": prof["busy"] / prof["wall"], "shares": shares}
+    log(f"{tag} device busy {out['busy_ms']:.3f} ms a step "
+        f"({out['busy_share']:.1%} of the wall); the flash kernels' share: "
+        + ", ".join(f"{k} {v:.1%}" for k, v in shares.items() if v))
+    return out
 
 
 def _layer_norm(x, scale, bias):
@@ -3429,7 +3527,8 @@ def flash_bias_rows(bias: dict, evo: dict) -> list:
                          "max_abs_err": bias["max_abs_err"][variant][name],
                          **{k: times[name][k] for k in (
                              "ms", "plain_ms", "bound_ms", "bound_by",
-                             "library_ms")}})
+                             "library_ms", "cuda_core_bound_ms")
+                            if k in times[name]}})
     return rows
 
 
@@ -3551,6 +3650,19 @@ def main() -> int:
                                     f"{line}",
                         "launches": long["launches"][name],
                         **{k: sparse[name][k] for k in keys}})
+    # the fp32 backward pair's 3xTF32 wgmma kernels: timed at the
+    # DS4Science example's shape, launches from its 50 fp32 steps (phase 10a)
+    fp32_launches = evo["example"]["torch.float32"]["launches"]
+    for name, line in (("flash_bwd_dq", 228), ("flash_bwd_dkv", 285)):
+        times = bias["biased"]["evoformer_example"][name]
+        kernels.append({"name": f"{name}_f32", "route": "cuda",
+                        "source": src + library(name, torch.float32, 32)
+                        + ".cu",
+                        "replaces": f"deepspeed_tpu/ops/flash_attention.py:"
+                                    f"{line}",
+                        "launches": fp32_launches[name],
+                        "max_abs_err": bias["max_abs_err"]["fp32_wgmma"][name],
+                        **{k: times[k] for k in keys if k != "max_abs_err"}})
     log("[flash-bias] " + json.dumps({"kernels": flash_bias_rows(bias,
                                                                  evo)}))
     shapes = flash["shapes"]

@@ -7,6 +7,9 @@ built by ``ops/builder.py`` and called through ctypes. For bf16 / fp16 at
 hd 32-128 the forward is ``csrc/flash_fwd_sm90.cu`` and the backward pair
 ``csrc/flash_bwd_dq_sm90.cu`` / ``csrc/flash_bwd_dkv_sm90.cu`` (wgmma, TMA,
 warp specialisation; the pair's kernels in ``csrc/flash_bwd_sm90.cuh``);
+for fp32 at hd 32 and 64 the backward pair is
+``csrc/flash_bwd_dq_f32_sm90.cu`` / ``csrc/flash_bwd_dkv_f32_sm90.cu``
+(3xTF32 on wgmma, kernels in ``csrc/flash_bwd_f32_sm90.cuh``); the rest of
 fp32 and the 16-bit hd 16 ones are the mma.sync kernels of
 ``csrc/flash_attention.cuh``, instantiated for bf16 / fp16 hd 16 by
 ``csrc/flash_attention.cu`` and for fp32 by ``csrc/flash_attention_f32.cu``
@@ -192,17 +195,55 @@ def attention_delta(o, do):
 
 
 # ------------------------------------------------------------------ kernels
+# the head dims whose fp32 backward pair runs on the 3xTF32 wgmma kernels
+# (csrc/flash_bwd_f32_sm90.cuh); at hd 128 no stage fits beside the unit
+F32_WGMMA_HEAD_DIMS = (32, 64)
+
+
 def library(kernel: str, dtype, hd: int) -> str:
     """The library whose kernel serves a launch of ``kernel`` (``flash_fwd``,
     ``flash_bwd_dq`` or ``flash_bwd_dkv``) for q's dtype and head dim: the
     wgmma / TMA kernels of ``csrc/<kernel>_sm90.cu`` (one library each) for
-    16-bit operands at hd 32-128; the mma.sync kernels of
+    16-bit operands at hd 32-128 and of ``csrc/<kernel>_f32_sm90.cu`` (3xTF32)
+    for the fp32 backward pair at hd 32 and 64; the mma.sync kernels of
     ``csrc/flash_attention.cuh`` for 16-bit hd 16 (``flash_attention.cu``)
-    and for fp32 (``flash_attention_f32.cu``). Fixed: a route never depends
-    on a failure."""
+    and for the rest of fp32 (``flash_attention_f32.cu``). Fixed: a route
+    never depends on a failure."""
     if dtype == torch.float32:
+        if kernel != "flash_fwd" and hd in F32_WGMMA_HEAD_DIMS:
+            return f"{kernel}_f32_sm90"
         return "flash_attention_f32"
     return "flash_attention" if hd == 16 else f"{kernel}_sm90"
+
+
+def flash_bwd_f32_plan(kernel: str, hd: int) -> dict:
+    """The tiles of the fp32 wgmma ``kernel`` (``flash_bwd_dq`` or
+    ``flash_bwd_dkv``) at head dim ``hd``, as ``csrc/flash_bwd_f32_sm90.cuh``
+    builds them: ``unit`` rows (queries for dq, keys for dk/dv; one consumer
+    warpgroup's wgmma m64), ``step`` rows of a streamed tile, ``stages``
+    slots of the ring of natural halves and ``t_stages`` of the ring of
+    transposed halves, and the block's dynamic shared memory in
+    ``smem_bytes``. A unit holds two fp32 tiles (hi and lo) of each of its
+    two operands; a natural slot four streamed tiles (dq: K and V, dk/dv: Q
+    and dO, each TMA's tile and its lo; dk/dv also the step's lse and
+    delta), a transposed slot the transposed hi and lo of dq's K or of
+    dk/dv's Q and dO; then 1024 bytes of alignment slack and the barriers
+    (three for the unit, three a natural slot, two a transposed one)."""
+    if hd not in F32_WGMMA_HEAD_DIMS or kernel not in ("flash_bwd_dq",
+                                                       "flash_bwd_dkv"):
+        raise ValueError(f"no fp32 wgmma {kernel} at hd {hd}")
+    unit, step, t_stages = 64, 32, 2
+    unit_tile, step_tile = unit * hd * 4, step * hd * 4
+    if kernel == "flash_bwd_dq":
+        stages = 8 if hd == 32 else 4
+        nat, trans = 4 * step_tile, 2 * step_tile
+    else:
+        stages = 8 if hd == 32 else 3
+        nat, trans = 4 * step_tile + 2 * step * 4, 4 * step_tile
+    smem = (1024 + 4 * unit_tile + stages * nat + t_stages * trans
+            + 8 * (3 + 3 * stages + 2 * t_stages))
+    return {"unit": unit, "step": step, "stages": stages,
+            "t_stages": t_stages, "smem_bytes": smem}
 
 
 def _lib(name):

@@ -228,8 +228,10 @@ BWD_REGIONS = {
                for hd in (32, 64, 128)], "{}_sm90"),
     "half_hd16": ([(torch.bfloat16, 16), (torch.float16, 16)],
                   "flash_attention"),
-    "fp32": ([(torch.float32, hd) for hd in (16, 32, 64, 128)],
+    "fp32": ([(torch.float32, hd) for hd in (16, 128)],
              "flash_attention_f32"),
+    "fp32_wgmma": ([(torch.float32, hd) for hd in (32, 64)],
+                   "{}_f32_sm90"),
 }
 
 
@@ -237,8 +239,9 @@ BWD_REGIONS = {
 @pytest.mark.parametrize("kernel", _BWD)
 def test_backward_routes_by_kernel_dtype_and_head_dim(kernel, region):
     """16-bit operands at hd 32-128 take the wgmma / TMA dq and dk/dv
-    kernels, one library each; hd 16 and fp32 stay on the mma.sync
-    kernels; fixed, no fallback."""
+    kernels, one library each, and fp32 at hd 32 and 64 their 3xTF32
+    twins; hd 16 and fp32 at hd 16 and 128 stay on the mma.sync kernels;
+    fixed, no fallback."""
     pairs, name = BWD_REGIONS[region]
     for dtype, hd in pairs:
         assert tfa.library(kernel, dtype, hd) == name.format(kernel)
@@ -246,9 +249,10 @@ def test_backward_routes_by_kernel_dtype_and_head_dim(kernel, region):
 
 def test_backward_table_covers_what_the_wrappers_take():
     """The regions cover exactly what the backward wrappers accept, each
-    route a source ``ops/builder.py`` compiles; each wgmma source exports
-    only its own kernel, and the 16-bit mma.sync build leaves hd 32-128 to
-    them."""
+    route a source ``ops/builder.py`` compiles; each wgmma source (16-bit
+    and fp32) exports only its own kernel, and the mma.sync build leaves
+    them their regions: the backward at 16-bit hd 32-128 and fp32 hd 32
+    and 64."""
     from deepspeed_tpu_torch.ops import builder
 
     pairs = [p for region, _ in BWD_REGIONS.values() for p in region]
@@ -257,20 +261,107 @@ def test_backward_table_covers_what_the_wrappers_take():
          for hd in tfa.KERNEL_HEAD_DIMS), key=str)
     for k in _BWD:
         assert {tfa.library(k, *p) for p in pairs} <= set(builder.sources())
-        text = (builder.CSRC / f"{k}_sm90.cu").read_text()
-        assert '#include "flash_bwd_sm90.cuh"' in text
-        assert f'extern "C" int dstpu_{k}(' in text
         other, = set(_BWD) - {k}
-        assert f"dstpu_{other}(" not in text
+        for src, header in ((f"{k}_sm90", "flash_bwd_sm90.cuh"),
+                            (f"{k}_f32_sm90", "flash_bwd_f32_sm90.cuh")):
+            text = (builder.CSRC / f"{src}.cu").read_text()
+            assert f'#include "{header}"' in text
+            assert f'extern "C" int dstpu_{k}(' in text
+            assert f"dstpu_{other}(" not in text
     cuh = (builder.CSRC / "flash_attention.cuh").read_text()
-    assert "if constexpr (!here<T, HD>())" in cuh
-    assert "return std::is_same_v<T, float> || HD == 16;" in cuh
+    assert "if constexpr (!here<T, HD, false>())" in cuh
+    assert "else if constexpr (!here<T, HD, true>())" in cuh
+    assert ("return HD == 16 || (std::is_same_v<T, float> && "
+            "(!BWD || HD == 128));") in cuh
+    assert tuple(hd for hd in tfa.KERNEL_HEAD_DIMS if tfa.library(
+        "flash_bwd_dq", torch.float32, hd) != "flash_attention_f32") \
+        == tfa.F32_WGMMA_HEAD_DIMS
+
+
+# the shared memory a block of the card may take: 227 KiB
+SMEM_LIMIT = 232448
+
+
+@pytest.mark.parametrize("hd", tfa.F32_WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("kernel", _BWD)
+def test_f32_plan_fits_and_matches_the_header(kernel, hd):
+    """``flash_bwd_f32_plan`` fits a block's 227 KiB at every routed head
+    dim, and its rows, stages and shared memory are the ones the header's
+    constants give (read from the source: the card's library reports the
+    same bytes in the gpu tests)."""
+    import re
+
+    from deepspeed_tpu_torch.ops import builder
+
+    plan = tfa.flash_bwd_f32_plan(kernel, hd)
+    assert plan["smem_bytes"] <= SMEM_LIMIT
+    cuh = (builder.CSRC / "flash_bwd_f32_sm90.cuh").read_text()
+    const = lambda n: int(re.search(  # noqa: E731
+        rf"constexpr int {n} = (\d+);", cuh).group(1))
+    assert (plan["unit"], plan["step"]) == (const("kFUnit"), const("kFStep"))
+    name = "kDqF32Stages" if kernel == "flash_bwd_dq" else "kDkvF32Stages"
+    at32, other = re.search(
+        rf"constexpr int {name} = HD == 32 \? (\d+) : (\d+);", cuh).groups()
+    assert plan["stages"] == int(at32 if hd == 32 else other)
+    assert plan["t_stages"] == const("kF32TStages")
+    unit, step = plan["unit"] * hd * 4, plan["step"] * hd * 4
+    t_tiles, rows = (2, 0) if kernel == "flash_bwd_dq" else (4, 2 * 32 * 4)
+    ns, nt = plan["stages"], plan["t_stages"]
+    assert plan["smem_bytes"] == 1024 + 4 * unit + ns * (4 * step + rows) \
+        + nt * t_tiles * step + 8 * (3 + 3 * ns + 2 * nt)
+    fn = "dq_f32_smem_bytes" if kernel == "flash_bwd_dq" \
+        else "dkv_f32_smem_bytes"
+    assert f"constexpr int {fn}()" in cuh
+    with pytest.raises(ValueError, match="no fp32 wgmma"):
+        tfa.flash_bwd_f32_plan(kernel, 128)
+
+
+def _tf32(x, rounded):
+    """fp32 ``x`` with its low 13 mantissa bits cleared (a tf32 value),
+    truncated or rounded to nearest with ties away from zero as
+    ``cvt.rna.tf32.f32`` does (1 << 12 added to the magnitude bits)."""
+    bits = x.view(torch.int32)
+    if rounded:
+        bits = bits + 4096
+    return (bits & -8192).view(torch.float32)
+
+
+@pytest.mark.parametrize("rounded", [False, True],
+                         ids=["truncated_hi", "rounded_hi"])
+@pytest.mark.parametrize("m,k,n", [(256, 64, 256), (256, 1024, 64)])
+def test_3xtf32_emulation_keeps_fp32_accuracy(m, k, n, rounded):
+    """Why the fp32 kernels' 1e-4 gate holds and one tf32 product would
+    not: with x = hi + lo, both tf32, hi.hi + hi.lo + lo.hi (each tf32
+    product exact, summed in fp64, rounded to fp32 once) is within 2e-6 of
+    the fp64 product as a share of its max |value|, a single hi.hi product
+    at least 1e-4 away. The kernels' split is the truncated one: the
+    tensor cores read a raw fp32 value as its truncated high part and the
+    exact remainder as its truncated low part (~4x the rounded split's
+    error, well inside the gate)."""
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    want = a.double() @ b.double()
+
+    def parts(x):
+        hi = _tf32(x, rounded)
+        return hi.double(), _tf32(x - hi, rounded).double()
+
+    (ah, al), (bh, bl) = parts(a), parts(b)
+    three = (al @ bh + ah @ bl + ah @ bh).float().double()
+    one = (ah @ bh).float().double()
+    top = want.abs().max().item()
+    err3 = (three - want).abs().max().item() / top
+    err1 = (one - want).abs().max().item() / top
+    assert err3 <= 2e-6, err3
+    assert err1 >= 1e-4, err1
 
 
 def test_profile_names_cover_the_wgmma_kernels():
     """chip_smoke.py reads each flash kernel's share of a profile under its
-    mma.sync and its wgmma kernel's names; each wgmma name is a kernel of
-    its source, so a share cannot read 0 for want of a name."""
+    mma.sync and its wgmma kernels' names (the backward pair's fp32 ones
+    too); each wgmma name is a kernel of its source, so a share cannot
+    read 0 for want of a name."""
     import importlib.util
     import re
     from pathlib import Path
@@ -284,7 +375,9 @@ def test_profile_names_cover_the_wgmma_kernels():
     fns = (tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkv)
     names = smoke.kernel_names(fns)
     assert names == tuple(n for f in fns for n in (
-        f"{f.__name__}_kernel", f"{f.__name__}_sm90_kernel"))
+        f"{f.__name__}_kernel", f"{f.__name__}_sm90_kernel",
+        *((f"{f.__name__}_f32_sm90_kernel",) if f is not tfa.flash_fwd
+          else ())))
     text = "".join(p.read_text() for p in builder.CSRC.glob("*.cu*"))
     for n in names:
         assert re.search(rf"__global__[^;{{]*\b{n}\(", text), n

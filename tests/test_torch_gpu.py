@@ -559,8 +559,9 @@ def test_wgmma_backward_is_deterministic(cuda):
 
 def test_wgmma_backward_refuses_and_routes(cuda):
     """The backward's routes: 16-bit hd 32-128 to the two wgmma libraries,
-    each exporting only its own kernel; hd 16 and fp32 to the mma.sync
-    ones, whose 16-bit build refuses hd 32-128; an odd head dim or a
+    each exporting only its own kernel; hd 16 to the mma.sync ones, whose
+    16-bit build refuses hd 32-128 (fp32: test_f32_backward_plan_and_routes);
+    an odd head dim or a
     misaligned operand raises before any launch."""
     import ctypes
 
@@ -607,6 +608,124 @@ def test_wgmma_backward_refuses_and_routes(cuda):
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_bwd_dkv(odd, odd, odd, odd, lse, lse)
     assert [fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches] == before
+
+# ------------------------------------------- the fp32 wgmma backward
+F32_SHARE = 1e-4      # 3xTF32 products (~2^-22 of each term), ex2, sums in
+                      # another order: phase 5d's fp32 gate
+
+
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16,
+                                        torch.float16])
+@pytest.mark.parametrize("layout", ["ss", "hss", "bhss", "b1ss", "1hss",
+                                    "expanded"])
+def test_f32_backward_bias_layouts(cuda, layout, bias_dtype):
+    """Every bias layout and bias dtype through the fp32 wgmma pair at hd
+    64 and 32, causal and not, S off the tiles, a key mask: dbias within
+    one rounding of its dtype, exactly 0 above a causal diagonal, and two
+    calls with dbias bit-identical."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    for case in ((2, 4, 2, 200, 64, True, None, layout),
+                 (2, 4, 4, 333, 32, False, "left_pad", layout),
+                 (2, 4, 4, 77, 32, True, "dead_row", layout)):
+        B, H, KV, S, hd, causal = case[:6]
+        assert fa.library("flash_bwd_dq", torch.float32, hd) \
+            == "flash_bwd_dq_f32_sm90"
+        dbias = _flash_bias_check(cuda, case, torch.float32, bias_dtype)
+        if causal:
+            assert bool((dbias.triu(1) == 0).all())
+        q, k, v, do = _sparse_inputs(cuda, B, H, KV, S, hd, torch.float32)
+        bias = fa.bias4(_bias_for(layout, B, H, S, bias_dtype, cuda),
+                        B, H, S).expand(B, H, S, S)
+        o, lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                              bias=bias)
+        delta = fa.attention_delta(o, do)
+        a, b = (fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal,
+                                bias=bias, grad_bias=True) for _ in range(2))
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_f32_backward_plan_and_routes(cuda):
+    """Each fp32 wgmma library exports only its own kernel, takes the
+    shared memory flash_bwd_f32_plan() gives, and refuses 16-bit operands
+    and the head dims it does not build; fp32 hd 16 and 128 keep the
+    mma.sync kernels."""
+    import ctypes
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    for kernel, other in (("flash_bwd_dq", "flash_bwd_dkv"),
+                          ("flash_bwd_dkv", "flash_bwd_dq")):
+        lib = fa._lib(f"{kernel}_f32_sm90")
+        assert hasattr(lib, f"dstpu_{kernel}")
+        assert not hasattr(lib, f"dstpu_{other}")
+        smem = getattr(lib, f"dstpu_{kernel}_smem_bytes")
+        smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+        for hd in (32, 64):
+            assert smem(hd) == fa.flash_bwd_f32_plan(kernel, hd)["smem_bytes"]
+        assert smem(128) == 0 and smem(16) == 0
+        # a bf16 call and an hd 128 call straight to the library: refused
+        x = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.bfloat16)
+        lse = torch.zeros(1, 2, 64, device=cuda)
+        P = ctypes.c_void_p
+        fn = getattr(lib, f"dstpu_{kernel}")
+        for dtype_code, hd in ((2, 64), (3, 128), (3, 16)):
+            err = fn(*(P(t.data_ptr()) for t in (x, x, x, x, lse, lse)), None,
+                     None, None, P(x.data_ptr()), None, 1, 64, 2, 2, hd, 1,
+                     dtype_code, 0, 0, 0, 0.125,
+                     P(torch.cuda.current_stream().cuda_stream))
+            assert err != 0
+        for hd in (16, 128):
+            assert fa.library(kernel, torch.float32, hd) \
+                == "flash_attention_f32"
+
+
+def _probe(cuda, which, a, b):
+    import ctypes
+
+    from deepspeed_tpu_torch.ops import builder
+
+    fn = builder.load("flash_bwd_dq_f32_sm90").dstpu_flash_bwd_f32_probe
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    d = torch.empty(64, 32, device=cuda)
+    assert fn(which, a.data_ptr(), b.data_ptr(), d.data_ptr(),
+              torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    return d
+
+
+def test_tf32_wgmma_reads_the_top_19_bits(cuda):
+    """Design point 1's check, which the fp32 kernels rely on: one wgmma
+    product from raw fp32 tiles has the bits of the same product from
+    tiles whose low 13 bits are cleared, so the tensor cores truncate a
+    tf32 operand and TMA's raw tile serves as its own high part. The
+    masked product is the fp64 one of the masked operands to fp32's
+    rounding."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    a = torch.randn(64, 32, generator=g, device=cuda)
+    b = torch.randn(32, 32, generator=g, device=cuda)
+    cut = lambda x: (x.view(torch.int32) & -8192).view(torch.float32)  # noqa
+    raw, masked = _probe(cuda, 0, a, b), _probe(cuda, 0, cut(a), cut(b))
+    assert torch.equal(raw, masked)
+    want = cut(a).double() @ cut(b).double().T
+    assert (masked.double() - want).abs().max().item() \
+        <= 1e-5 * want.abs().max().item()
+
+
+def test_tf32_fragment_order_and_pos(cuda):
+    """Design point 3's check: an accumulator-layout (64, 32) matrix taken
+    into A fragments in place (split_frags) times a tile transposed in
+    pos() order (transpose_step), 3xTF32, is the fp64 product to ~1e-6; a
+    wrong fragment order would mix columns and miss by O(1)."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    a = torch.randn(64, 32, generator=g, device=cuda)
+    b = torch.randn(32, 32, generator=g, device=cuda)
+    want = a.double() @ b.double()
+    got = _probe(cuda, 1, a, b)
+    assert (got.double() - want).abs().max().item() \
+        <= 2e-6 * want.abs().max().item()
+
 
 # ------------------------------------------------------------- sparse attention
 # (B, H, KV, S, hd, causal, config class, fields): chip_smoke.py phase 5c's
@@ -1088,17 +1207,42 @@ def test_flash_dbias_zero_above_the_diagonal(cuda):
     assert not bool(dbias.tril().eq(0).all())
 
 
-@pytest.mark.parametrize("case", [c for c in FLASH_CASES if c[3] <= 2048])
+# fp32 cases beyond FLASH_CASES and FWD_CASES: the longest sums a dk/dv
+# unit of the 3xTF32 wgmma pair runs, G * S / 32 steps (chip_smoke.py
+# FLASH_F32_LONG_CASES)
+F32_LONG_CASES = [
+    (1, 8, 8, 4096, 64, True, None, False),
+    (1, 4, 4, 8192, 64, False, None, False),
+    (1, 16, 2, 2048, 64, True, None, False),        # GQA group 8
+    (1, 8, 1, 8192, 32, True, "left_pad", True),
+]
+F32_CASES = list(dict.fromkeys([c for c in FLASH_CASES if c[3] <= 2048]
+                               + FWD_CASES + F32_LONG_CASES))
+
+
+@pytest.mark.parametrize("case", F32_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
 def test_flash_fp32_kernels_match_plain(cuda, case):
-    """fp32 q, k, v through all three kernels (3xTF32), no bias."""
+    """fp32 q, k, v through all three kernels (3xTF32), no bias, the
+    backward fed the plain forward's lse and delta: dq and dk/dv at hd 32
+    and 64 on the wgmma libraries, the rest on mma.sync (the route
+    checked); each output within 1e-4 of max |plain|, lse within 2e-3 on
+    live rows, dq exactly 0 on rows without a live key, dk and dv exactly 0
+    on masked keys, a second backward bit-identical."""
     from deepspeed_tpu_torch.ops import flash_attention as fa
 
     B, H, KV, S, hd, causal, mask_kind, alibi = case
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert fa.library(kernel, torch.float32, hd) == (
+            f"{kernel}_f32_sm90" if hd in (32, 64) else "flash_attention_f32")
     q, k, v, do = _sparse_inputs(cuda, B, H, KV, S, hd, torch.float32)
     mask = None
     if mask_kind:
         mask = torch.ones(B, S, dtype=torch.bool, device=cuda)
-        mask[-1, :3] = False
+        if mask_kind == "left_pad":
+            mask[-1, :3] = False
+        else:
+            mask[-1] = False
     kw = dict(mask=mask, causal=causal,
               alibi_slopes=alibi_slopes(H, cuda) if alibi else None)
     o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
@@ -1106,12 +1250,25 @@ def test_flash_fp32_kernels_match_plain(cuda, case):
     want = (o_p, fa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw),
             *fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, **kw))
     o, lse = fa.flash_fwd(q, k, v, **kw)
-    got = (o, fa.flash_bwd_dq(q, k, v, do, lse_p, delta, **kw),
-           *fa.flash_bwd_dkv(q, k, v, do, lse_p, delta, **kw))
-    for g, w in zip(got, want):
-        assert g.dtype == torch.float32 and _max_share(g, w) <= 1e-4
+    before = [fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches]
+    runs = [(fa.flash_bwd_dq(q, k, v, do, lse_p, delta, **kw),
+             *fa.flash_bwd_dkv(q, k, v, do, lse_p, delta, **kw))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert [fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches] == [
+        before[0] + 2, before[1] + 2]
+    for g, w in zip((o, *runs[0]), want):
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+        assert _max_share(g, w) <= F32_SHARE
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
     live = lse_p > fa.BIG_NEG / 2
     assert (lse - lse_p).abs()[live].max().item() <= 2e-3
+    dq, dk, dv = runs[0]
+    if not bool(live.all()):
+        assert bool((dq.transpose(1, 2)[~live] == 0).all())
+    if mask is not None:
+        assert bool((dk[~mask] == 0).all()) and bool((dv[~mask] == 0).all())
 
 
 def test_flash_bias_refusals_and_the_other_kernels_fp32(cuda):

@@ -88,7 +88,10 @@ def test_library_path_keys_on_the_source():
     assert path.parent == builder.BUILD_DIR
     assert path.name.startswith("libdecode_attention-")
     assert builder.sources() == ["decode_attention", "flash_attention",
-                                 "flash_attention_f32", "flash_bwd_dkv_sm90",
+                                 "flash_attention_f32",
+                                 "flash_bwd_dkv_f32_sm90",
+                                 "flash_bwd_dkv_sm90",
+                                 "flash_bwd_dq_f32_sm90",
                                  "flash_bwd_dq_sm90", "flash_fwd_sm90",
                                  "sparse_attention", "woq_matmul", "xent",
                                  "xent_bwd_sm90"]

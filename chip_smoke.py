@@ -10,11 +10,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    all at once) and print nvcc's register / shared-memory lines; count the
    wgmma and TMA instructions in the SASS (cuobjdump) of the wgmma
    flash forward's and backward pair's libraries (bf16 / fp16, and the
-   fp32 pair's 3xTF32 ones) and of the xent backward's (each > 0) and the
-   kernels of theirs that spill, have a warpgroup wait injected or their
-   wgmma serialized by ptxas (none), and print their shared memory (the
-   fp32 pair's held to
-   ``flash_bwd_f32_plan``); the same for the tensor-core ``x @ W``
+   fp32 forward's and pair's 3xTF32 ones), of the sparse forward's and of
+   the xent backward's (each > 0) and the kernels of theirs that spill,
+   have a warpgroup wait injected or their wgmma serialized by ptxas
+   (none), and print their shared memory (the fp32 kernels' held to
+   ``flash_fwd_f32_plan`` and ``flash_bwd_f32_plan``, the sparse forward's
+   to ``sparse_fwd_plan``); the same for the tensor-core ``x @ W``
    kernels of ``woq_matmul.cu`` (mma.sync and TMA loads in their SASS, no
    spill, no injected wait);
 2. kernels: each kernel (decode attention, the WOQ GEMMs ``woq_matmul``
@@ -80,7 +81,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    S 8192, hd 64, the default Fixed layout, causal), each of the five
    layouts causal and not, blocks 16, 32 and 128, hd 128 and 16, GQA and
    MQA, one block, and a layout whose widest list is far wider than its
-   narrowest; the dense layout through them against the flash kernels;
+   narrowest (each line naming the forward's library: the wgmma one at
+   blocks 64 and 128, hd 32-128), the backward pair also fed the kernel
+   forward's lse, a second forward bit-identical; the dense layout through
+   them against the flash kernels;
    timed at the slice's shape beside the bound, the plain versions, SDPA
    under the expanded (S, S) boolean mask (forward and its autograd
    backward), the flash kernels on the dense causal problem and the sparse
@@ -90,9 +94,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    in bf16, fp16 and fp32 on every bias layout ((S, S), (H, S, S), (B, H,
    S, S), (B, 1, S, S), (1, H, S, S) and a (1, H, S, S) bias expanded at
    stride 0), bias dtypes other than q's, masks, GQA / MQA, hd 16-128,
-   ragged S, dbias exactly 0 above a causal diagonal; the fp32 kernels
-   without a bias on phase 5's cases and on S 2048-8192 at hd 32 / 64
-   (GQA group 8 among them); timed at phase 10's two shapes
+   ragged S, dbias exactly 0 above a causal diagonal, a second forward
+   bit-identical; the fp32 kernels without a bias on phase 5's cases and
+   on S 2048-8192 at hd 32 / 64 (GQA group 8 among them), o exactly 0 on
+   rows without a live key; timed at phase 10's two shapes
    (AlphaFold 2's MSA rows in bf16, the DS4Science example in fp32) beside
    the bound, the plain versions and SDPA with the bias as a float
    attn_mask (forward and its autograd backward), and in fp32 at GPT-2
@@ -149,9 +154,10 @@ timings at its other shapes, the host costs and the forward's SASS counts,
 and a ``[flash-bwd]`` line the backward pair's timings at the same shapes
 and the SASS counts of its four libraries. The kernels line lists each flash kernel twice: at GPT-2 1.5B's shape (rows 2-4
 of PERF.md) and at S 8192, where it stands for the TPU's streamed kernel
-(rows 5-7), and the fp32 backward pair's 3xTF32 kernels
-(``flash_bwd_dq_f32``, ``flash_bwd_dkv_f32``) at the DS4Science example's
-shape with phase 10a's launches.
+(rows 5-7), and the fp32 forward's and backward pair's 3xTF32 kernels
+(``flash_fwd_f32``, ``flash_bwd_dq_f32``, ``flash_bwd_dkv_f32``) at the
+DS4Science example's shape with phase 10a's launches; each sparse row names
+the library phase 9's launches run (the forward's wgmma one).
 The last three lines of standard output are the kernels' JSON, then
 ``nvidia-smi``'s name and power limit of the card, then the device JSON.
 Without a CUDA device, or outside the repository, it exits 1 and prints
@@ -294,8 +300,11 @@ def phase_device() -> dict:
     import torch
 
     from deepspeed_tpu_torch.ops import builder
-    from deepspeed_tpu_torch.ops.flash_attention import (F32_WGMMA_HEAD_DIMS,
-                                                         flash_bwd_f32_plan)
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        F32_FWD_WGMMA_HEAD_DIMS, F32_WGMMA_HEAD_DIMS, flash_bwd_f32_plan,
+        flash_fwd_f32_plan)
+    from deepspeed_tpu_torch.ops.sparse_attention import (WGMMA_FWD_HEAD_DIMS,
+                                                          sparse_fwd_plan)
     from deepspeed_tpu_torch.platform.device import device_report
 
     rep = device_report()
@@ -314,8 +323,8 @@ def phase_device() -> dict:
                 log(f"[build]   {line.strip()}")
     sass = {}
     for lib in ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90",
-                "flash_bwd_dq_f32_sm90", "flash_bwd_dkv_f32_sm90",
-                "xent_bwd_sm90"):
+                "flash_fwd_f32_sm90", "flash_bwd_dq_f32_sm90",
+                "flash_bwd_dkv_f32_sm90", "sparse_fwd_sm90", "xent_bwd_sm90"):
         sass[lib] = sass_counts(built[lib]["path"])
         fit = ptxas_fit(built[lib]["log"])
         log(f"[build] {lib}: SASS instructions {sass[lib]} (HGMMA: wgmma, "
@@ -369,6 +378,22 @@ def phase_device() -> dict:
         if any(smem(hd) != p["smem_bytes"] for hd, p in plans.items()):
             raise AssertionError(f"{kernel}_f32_sm90's shared memory is not "
                                  f"flash_bwd_f32_plan's: {plans}")
+    # the fp32 forward's and the sparse forward's shared memory are their
+    # plans'
+    for lib, fn, plan, dims in (
+            ("flash_fwd_f32_sm90", "dstpu_flash_fwd_f32_smem_bytes",
+             flash_fwd_f32_plan, F32_FWD_WGMMA_HEAD_DIMS),
+            ("sparse_fwd_sm90", "dstpu_sparse_fwd_smem_bytes",
+             sparse_fwd_plan, WGMMA_FWD_HEAD_DIMS)):
+        smem = getattr(builder.load(lib), fn)
+        smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+        plans = {hd: plan(hd) for hd in dims}
+        log(f"[build] {lib}: dynamic shared memory " + ", ".join(
+            f"hd {hd} {smem(hd)} B ({p['stages']} stages)"
+            for hd, p in plans.items()))
+        if any(smem(hd) != p["smem_bytes"] for hd, p in plans.items()):
+            raise AssertionError(f"{lib}'s shared memory is not its plan's: "
+                                 f"{plans}")
     smem = builder.load("xent_bwd_sm90").dstpu_xent_bwd_smem_bytes
     smem.argtypes, smem.restype = [], ctypes.c_int
     log(f"[build] xent_bwd_sm90: dynamic shared memory {smem()} B")
@@ -2136,6 +2161,7 @@ def phase_sparse_kernels(device="cuda", cases=SPARSE_CASES,
         cfg = _sparse_config(cls, fields)
         layout = sa.sparse_layout(cfg, S, causal, device)
         widths = layout.k_n.tolist()
+        route = sa.library("sparse_fwd", cfg.block, hd)
         for dtype in dtypes:
             q, k, v, do = _qkv_do(gen, B, H, KV, S, hd, dtype, device)
             o_p, lse_p = sa.sparse_attention_fwd_plain(q, k, v, layout)
@@ -2150,14 +2176,29 @@ def phase_sparse_kernels(device="cuda", cases=SPARSE_CASES,
                    "dq": sa.sparse_bwd_dq(q, k, v, do, lse_p, delta, layout)}
             got["dk"], got["dv"] = sa.sparse_bwd_dkv(q, k, v, do, lse_p,
                                                      delta, layout)
+            # the backward pair fed the kernel forward's o and lse, as
+            # training feeds it, against the plain backward of the plain
+            # forward's
+            delta_k = fa.attention_delta(o, do)
+            fed = {"dq": sa.sparse_bwd_dq(q, k, v, do, lse, delta_k, layout)}
+            fed["dk"], fed["dv"] = sa.sparse_bwd_dkv(q, k, v, do, lse,
+                                                     delta_k, layout)
+            o2, lse2 = sa.sparse_fwd(q, k, v, layout)
             if device == "cuda":
                 torch.cuda.synchronize()
-            note(_check_shares(
-                f"[sparse] {name:24s} {str(dtype):15s} B{B} H{H} KV{KV} S{S} "
-                f"hd{hd} block {cfg.block} {'causal' if causal else 'full'}, "
-                f"lists {min(widths)}-{max(widths)} wide", got, want, lse,
-                lse_p, dtype))
-            del q, k, v, do, o_p, lse_p, delta, want, got, o, lse
+            same = torch.equal(o2, o) and torch.equal(lse2, lse)
+            tag = (f"[sparse] {name:24s} {str(dtype):15s} B{B} H{H} KV{KV} "
+                   f"S{S} hd{hd} block {cfg.block} "
+                   f"{'causal' if causal else 'full'}, lists "
+                   f"{min(widths)}-{max(widths)} wide, forward on {route}")
+            note(_check_shares(tag, got, want, lse, lse_p, dtype))
+            _check_shares(tag + ", the backward fed its lse", {
+                "o": o, **fed}, want, lse, lse_p, dtype)
+            log(f"{tag}: a second forward bit-identical {same}")
+            if not same:
+                raise AssertionError(f"sparse_fwd {name} {dtype}: two calls "
+                                     "differ")
+            del q, k, v, do, o_p, lse_p, delta, want, got, o, lse, fed, o2
     # the dense layout is the function the flash kernels compute
     for name, B, H, KV, S, hd, causal in vs_flash:
         layout = sa.sparse_layout(sa.SparsityConfig(), S, causal, device)
@@ -2276,9 +2317,11 @@ def _sparse_timing(gen, case, iters) -> dict:
         out[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
                       bound_by=b["bound_by"], library_ms=library[n],
                       natural_order_ms=ms_nat, flash_dense_ms=flash_ms,
-                      flash_dense_bound_ms=fb["bound_ms"])
-        log(f"[sparse] {n} {name} B{B} H{H} KV{KV} S{S} hd{hd} block "
-            f"{cfg.block} {'causal' if causal else 'full'} bf16: kernel "
+                      flash_dense_bound_ms=fb["bound_ms"],
+                      library=sa.library(n, cfg.block, hd))
+        log(f"[sparse] {n} ({out[n]['library']}) {name} B{B} H{H} KV{KV} "
+            f"S{S} hd{hd} block {cfg.block} "
+            f"{'causal' if causal else 'full'} bf16: kernel "
             f"{ms * 1e3:.2f} us (natural block order {ms_nat * 1e3:.2f} us), "
             f"plain {plain_ms * 1e3:.2f} us, bound {b['bound_ms'] * 1e3:.2f} us"
             f" ({b['bound_by']}: {b['bytes']} B, {b['ops']:.4g} flop), kernel "
@@ -2383,7 +2426,7 @@ def phase_flash_bias_kernels(device="cuda", cases=FLASH_BIAS_CASES,
     dtypes = dtypes or (torch.bfloat16, torch.float16, torch.float32)
     # max |kernel - plain| of each kernel's outputs, over the biased runs
     # (every dtype), over the fp32 runs without a bias and over the fp32
-    # runs (both) that the 3xTF32 wgmma pair served
+    # runs (both) that the 3xTF32 wgmma kernels served
     worst = {v: dict.fromkeys(("flash_fwd", "flash_bwd_dq",
                                "flash_bwd_dkv"), 0.0)
              for v in ("bias", "fp32", "fp32_wgmma")}
@@ -2393,7 +2436,7 @@ def phase_flash_bias_kernels(device="cuda", cases=FLASH_BIAS_CASES,
             k_name = _OUTPUT_OF[n]
             err = (a.float() - b.float()).abs().max().item()
             worst[variant][k_name] = max(worst[variant][k_name], err)
-            if dtype == torch.float32 and k_name != "flash_fwd" and \
+            if dtype == torch.float32 and \
                     fa.library(k_name, dtype, hd).endswith("_f32_sm90"):
                 worst["fp32_wgmma"][k_name] = max(
                     worst["fp32_wgmma"][k_name], err)
@@ -2416,8 +2459,10 @@ def phase_flash_bias_kernels(device="cuda", cases=FLASH_BIAS_CASES,
             dq2, dbias = fa.flash_bwd_dq(q, k, v, do, lse_p, delta,
                                          grad_bias=True, **full)
             dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
+            o2, lse2 = fa.flash_fwd(q, k, v, **kw)
             if device == "cuda":
                 torch.cuda.synchronize()
+            same = torch.equal(o2, o) and torch.equal(lse2, lse)
             live = lse_p > fa.BIG_NEG / 2
             lse_err = (lse - lse_p).abs()[live].max().item()
             got = {"o": (o, o_p), "dq": (dq, dq_p), "dk": (dk, dk_p),
@@ -2428,7 +2473,7 @@ def phase_flash_bias_kernels(device="cuda", cases=FLASH_BIAS_CASES,
             finite = all(bool(torch.isfinite(a).all())
                          for a, _ in got.values())
             hidden_zero = not causal or bool((dbias.triu(1) == 0).all())
-            ok = finite and hidden_zero and torch.equal(dq, dq2) \
+            ok = finite and hidden_zero and torch.equal(dq, dq2) and same \
                 and dbias.dtype == bias.dtype and lse_err <= FLASH_LSE_ATOL \
                 and shares["dbias"] <= dbias_tol \
                 and all(v <= tol for n, v in shares.items() if n != "dbias")
@@ -2437,14 +2482,15 @@ def phase_flash_bias_kernels(device="cuda", cases=FLASH_BIAS_CASES,
                     f"{n} {v:.2e}" for n, v in shares.items())
                 + f" of max |plain| (tol {tol:g}, dbias {dbias_tol:g}); lse "
                 f"{lse_err:.1e}; dbias "
-                f"0 above the diagonal {hidden_zero} "
-                f"{'ok' if ok else 'FAIL'}")
+                f"0 above the diagonal {hidden_zero}; a second forward "
+                f"bit-identical {same} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"flash bias {name} {dtype}: {shares}, "
                                      f"lse {lse_err}, finite {finite}, "
-                                     f"zeros {hidden_zero}")
+                                     f"zeros {hidden_zero}, repeat {same}")
             note("bias", got, dtype, case[5])
             del x, o, o_p, dq, dq2, dq_p, dk, dv, dk_p, dv_p, dbias, dbias_p
+            del o2, lse2
     for case in fp32_cases:
         name, shape = case[0], case[1:]
         x = _flash_case(gen, *shape, torch.float32, device)
@@ -2452,22 +2498,37 @@ def phase_flash_bias_kernels(device="cuda", cases=FLASH_BIAS_CASES,
         q, k, v, do = x["q"], x["k"], x["v"], x["do"]
         o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
         delta = fa.attention_delta(o_p, do)
-        got = {"o": (fa.flash_fwd(q, k, v, **kw)[0], o_p),
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        got = {"o": (o, o_p),
                "dq": (fa.flash_bwd_dq(q, k, v, do, lse_p, delta, **kw),
                       fa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw))}
         dk_dv = zip(fa.flash_bwd_dkv(q, k, v, do, lse_p, delta, **kw),
                     fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, **kw))
         got.update(zip(("dk", "dv"), dk_dv))
+        o2, lse2 = fa.flash_fwd(q, k, v, **kw)
         shares = {n: _share(a, b) for n, (a, b) in got.items()}
+        # the forward: lse on live rows, o exactly 0 on rows without a live
+        # key, a second call bit-identical
+        live = lse_p > fa.BIG_NEG / 2
+        lse_err = (lse - lse_p).abs()[live].max().item()
+        dead_zero = bool((o.transpose(1, 2)[~live] == 0).all())
+        same = torch.equal(o2, o) and torch.equal(lse2, lse)
         ok = all(v <= FLASH_BIAS_TOL_SHARE["torch.float32"]
                  for v in shares.values()) \
-            and all(bool(torch.isfinite(a).all()) for a, _ in got.values())
+            and all(bool(torch.isfinite(a).all()) for a, _ in got.values()) \
+            and bool(torch.isfinite(lse).all()) \
+            and lse_err <= FLASH_LSE_ATOL and dead_zero and same
         log(f"[flash-fp32] {name:20s} B{shape[0]} H{shape[1]} KV{shape[2]} "
-            f"S{shape[3]} hd{shape[4]}: " + ", ".join(
-                f"{n} {v:.2e}" for n, v in shares.items())
-            + f" of max |plain| (tol 1e-4) {'ok' if ok else 'FAIL'}")
+            f"S{shape[3]} hd{shape[4]} (forward on "
+            f"{fa.library('flash_fwd', torch.float32, shape[4])}): "
+            + ", ".join(f"{n} {v:.2e}" for n, v in shares.items())
+            + f" of max |plain| (tol 1e-4); lse {lse_err:.1e}; "
+            f"{int((~live).sum())} dead rows, o 0 there {dead_zero}; a second"
+            f" forward bit-identical {same} {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"flash fp32 {name}: {shares}")
+            raise AssertionError(f"flash fp32 {name}: {shares}, lse "
+                                 f"{lse_err}, dead rows 0 {dead_zero}, "
+                                 f"repeat {same}")
         note("fp32", got, torch.float32, shape[4])
         del x, got, dk_dv
     result = {"max_abs_err": worst}
@@ -2877,15 +2938,17 @@ XENT_KERNEL_NAMES = ("xent_fwd_kernel", "xent_fwd_merge_kernel",
 def kernel_names(fns) -> tuple:
     """The names under which the wrappers' kernels show in a profile:
     ``<wrapper>_kernel``, and for the three flash kernels their wgmma
-    kernel ``<wrapper>_sm90_kernel`` besides the mma.sync one (hd 16 and
-    the rest of fp32), for the backward pair also the fp32 wgmma kernel
-    ``<wrapper>_f32_sm90_kernel``."""
+    kernel ``<wrapper>_sm90_kernel`` and fp32 wgmma kernel
+    ``<wrapper>_f32_sm90_kernel`` besides the mma.sync one (hd 16 and the
+    rest of fp32), for the sparse forward its wgmma kernel
+    ``sparse_fwd_sm90_kernel`` besides the mma.sync one (blocks 16 and 32,
+    hd 16)."""
     def names(fn):
         n = fn.__name__
-        if n == "flash_fwd":
-            return f"{n}_kernel", f"{n}_sm90_kernel"
-        if n in ("flash_bwd_dq", "flash_bwd_dkv"):
+        if n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             return f"{n}_kernel", f"{n}_sm90_kernel", f"{n}_f32_sm90_kernel"
+        if n == "sparse_fwd":
+            return f"{n}_kernel", f"{n}_sm90_kernel"
         return f"{n}_kernel",
 
     return tuple(n for fn in fns for n in names(fn))
@@ -3551,6 +3614,8 @@ def main() -> int:
         return 1
     from deepspeed_tpu_torch.models import bert, gpt2, llama2, opt
     from deepspeed_tpu_torch.ops.flash_attention import library
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        library as sparse_library
 
     t0 = time.perf_counter()
     dev = phase_device()
@@ -3641,19 +3706,22 @@ def main() -> int:
                         **({"call": "xent_bwd"} if wrapper == "xent_bwd"
                            else {}),
                         **{k: xent[name][k] for k in keys}})
-    # launches: phase 9 (GPT-2 1.5B at 8192 tokens, the Fixed layout)
+    # launches: phase 9 (GPT-2 1.5B at 8192 tokens, the Fixed layout:
+    # block 64, hd 64, whose forward runs on the wgmma library)
     for name, line in (("sparse_fwd", 184), ("sparse_bwd_dq", 223),
                        ("sparse_bwd_dkv", 252)):
         kernels.append({"name": name, "route": "cuda",
-                        "source": src + "sparse_attention.cu",
+                        "source": src + sparse_library(name, 64, 64) + ".cu",
                         "replaces": f"deepspeed_tpu/ops/sparse_attention.py:"
                                     f"{line}",
                         "launches": long["launches"][name],
                         **{k: sparse[name][k] for k in keys}})
-    # the fp32 backward pair's 3xTF32 wgmma kernels: timed at the
-    # DS4Science example's shape, launches from its 50 fp32 steps (phase 10a)
+    # the fp32 forward's and backward pair's 3xTF32 wgmma kernels: timed at
+    # the DS4Science example's shape, launches from its 50 fp32 steps
+    # (phase 10a)
     fp32_launches = evo["example"]["torch.float32"]["launches"]
-    for name, line in (("flash_bwd_dq", 228), ("flash_bwd_dkv", 285)):
+    for name, line in (("flash_fwd", 43), ("flash_bwd_dq", 228),
+                       ("flash_bwd_dkv", 285)):
         times = bias["biased"]["evoformer_example"][name]
         kernels.append({"name": f"{name}_f32", "route": "cuda",
                         "source": src + library(name, torch.float32, 32)
@@ -3666,14 +3734,16 @@ def main() -> int:
     log("[flash-bias] " + json.dumps({"kernels": flash_bias_rows(bias,
                                                                  evo)}))
     shapes = flash["shapes"]
+    sass = dev["flash_sass"]
+    fwd_libs = ("flash_fwd_sm90", "flash_fwd_f32_sm90")
     log("[flash-fwd] " + json.dumps({
         "shapes": {c: t["flash_fwd"] for c, t in shapes.items()},
-        "host": flash["host"], "sass": dev["flash_sass"]["flash_fwd_sm90"]}))
+        "host": flash["host"], "sass": {k: sass[k] for k in fwd_libs}}))
     log("[flash-bwd] " + json.dumps({
         "shapes": {c: {n: t[n] for n in ("flash_bwd_dq", "flash_bwd_dkv")}
                    for c, t in shapes.items()},
-        "sass": {k: v for k, v in dev["flash_sass"].items()
-                 if k != "flash_fwd_sm90"}}))
+        "sass": {k: v for k, v in sass.items()
+                 if k.startswith("flash_bwd")}}))
     log("[xent-bwd] " + json.dumps({"sass": dev["xent_sass"]}))
     print(json.dumps({"kernels": kernels}))
     print(dev["nvidia_smi"])

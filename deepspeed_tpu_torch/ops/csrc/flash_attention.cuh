@@ -4,7 +4,9 @@
 // m16n8k8; an optional additive score bias, and its gradient. For bf16 /
 // fp16 at hd 32-128 the forward is flash_fwd_sm90.cu's and the backward
 // pair flash_bwd_sm90.cuh's (built by flash_bwd_dq_sm90.cu and
-// flash_bwd_dkv_sm90.cu: wgmma, TMA, warp specialisation);
+// flash_bwd_dkv_sm90.cu: wgmma, TMA, warp specialisation); for fp32 the
+// forward at hd 32-128 is flash_fwd_f32_sm90.cu's and the backward pair at
+// hd 32 and 64 flash_bwd_f32_sm90.cuh's (3xTF32 on wgmma);
 // ops/flash_attention.py routes each launch by (kernel, dtype, hd) through
 // fixed tables.
 //
@@ -83,21 +85,22 @@
 // past S is zero-filled and masked. exp is the fast __expf (ex2.approx, ~2
 // ulp of fp32). The streamed tiles are double buffered: cp.async copies the
 // next tile while the current one is computed. The bias is a template
-// flag, so the kernels without it keep their code. The fp32 forward, the
-// fp32 backward at hd 16 and 128 and hd 16 still wait for the wgmma
-// redesign (ROADMAP.md queue 2).
+// flag, so the kernels without it keep their code. The fp32 backward at hd
+// 16 and 128 and hd 16 still wait for the wgmma redesign (ROADMAP.md queue
+// 2).
 //
 // Two sources include this header, so that nvcc builds them side by side:
 // flash_attention.cu instantiates the bf16 / fp16 kernels at hd 16 (12:
 // forward, dq and dk/dv, with and without the bias) and
-// flash_attention_f32.cu the fp32 ones (16: the forward at hd 16-128, dq
-// and dk/dv at hd 16 and 128); each becomes its own library with the C
+// flash_attention_f32.cu the fp32 ones (10: the forward at hd 16, dq and
+// dk/dv at hd 16 and 128); each becomes its own library with the C
 // interface below.
 //
 // C interface (ctypes): each function returns cudaGetLastError() after its
 // launch, or cudaErrorInvalidValue for what it does not take (a dtype its
 // library does not instantiate, hd not in {16, 32, 64, 128}, 16-bit
-// operands at hd 32-128, the fp32 backward at hd 32 and 64).
+// operands at hd 32-128, the fp32 forward at hd 32-128 and the fp32
+// backward at hd 32 and 64).
 
 #pragma once
 
@@ -737,19 +740,20 @@ struct Args {
   cudaStream_t stream;
 };
 
-// the kernels this header builds: at hd 16 all of them; the fp32 forward
-// at every head dim and the fp32 backward (BWD) at hd 128 (the 16-bit
-// forward and backward at hd 32-128 are flash_fwd_sm90.cu's and
-// flash_bwd_sm90.cuh's, the fp32 backward at hd 32 and 64
+// the kernels this header builds: at hd 16 all of them, and the fp32
+// backward (BWD) at hd 128 (the 16-bit forward and backward at hd 32-128
+// are flash_fwd_sm90.cu's and flash_bwd_sm90.cuh's, the fp32 forward at hd
+// 32-128 flash_fwd_f32_sm90.cu's, the fp32 backward at hd 32 and 64
 // flash_bwd_f32_sm90.cuh's)
 template <typename T, int HD, bool BWD>
 constexpr bool here() {
-  return HD == 16 || (std::is_same_v<T, float> && (!BWD || HD == 128));
+  return HD == 16 || (std::is_same_v<T, float> && BWD && HD == 128);
 }
 
 template <typename T, int HD, bool BIAS>
 cudaError_t launch(int which, const Args& a) {
-  if constexpr (!here<T, HD, false>()) {
+  // the backward's instances include the forward's
+  if constexpr (!here<T, HD, true>()) {
     return cudaErrorInvalidValue;
   } else {
     constexpr int LD = row_len<T, HD>();
@@ -761,17 +765,19 @@ cudaError_t launch(int which, const Args& a) {
     const T* dout = static_cast<const T*>(a.dout);
     cudaError_t err;
     if (which == 0) {
-      const size_t smem =
-          5 * kTile * LD * sizeof(T) + scratch_bytes<T, BIAS>();
-      auto fn = flash_fwd_kernel<T, HD, BIAS>;
-      err = cudaFuncSetAttribute(
-          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return err;
-      fn<<<dim3(tiles, a.H, a.B), block, smem, a.stream>>>(
-          q, k, v, a.mask, a.slopes, a.bias, static_cast<T*>(a.o), a.lse_out,
-          a.S, a.H, a.KV, a.causal, a.scale);
-    } else if constexpr (!here<T, HD, true>()) {
-      return cudaErrorInvalidValue;
+      if constexpr (!here<T, HD, false>()) {
+        return cudaErrorInvalidValue;
+      } else {
+        const size_t smem =
+            5 * kTile * LD * sizeof(T) + scratch_bytes<T, BIAS>();
+        auto fn = flash_fwd_kernel<T, HD, BIAS>;
+        err = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+        fn<<<dim3(tiles, a.H, a.B), block, smem, a.stream>>>(
+            q, k, v, a.mask, a.slopes, a.bias, static_cast<T*>(a.o),
+            a.lse_out, a.S, a.H, a.KV, a.causal, a.scale);
+      }
     } else if (which == 1) {
       const size_t smem =
           6 * kTile * LD * sizeof(T) + scratch_bytes<T, BIAS>();

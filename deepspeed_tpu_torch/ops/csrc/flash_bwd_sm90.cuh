@@ -137,62 +137,12 @@ constexpr int dkv_smem_bytes() {
          8 * (2 + 2 * kStages<HD>);
 }
 
-// the pass-balanced order of the units: pass k's unit of block c is k *
-// gridDim.x + c, or + gridDim.x - 1 - c for odd k
-__device__ __forceinline__ int unit_of(int k) {
-  return k * (int)gridDim.x +
-         (k & 1 ? (int)gridDim.x - 1 - (int)blockIdx.x : (int)blockIdx.x);
-}
-
 __device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
 __device__ __forceinline__ void from_f32(__half* p, float x) {
   *p = __float2half(x);
 }
 __device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
-}
-__device__ __forceinline__ void store_pair(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store_pair(__half* p, float a, float b) {
-  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
-}
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a,
-                                           float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// sc[j][e] = sc[j][e] * scale + the bias at [row e >> 1][key k0 + 8 j + 2 t
-// + (e & 1)] upcast to fp32 (0 outside S): bias_frag's elements, each pair
-// added where it is loaded, so that no fragment of bias values is held
-// (dq's consumers at hd 128 have no registers for one). PAIRS reads two
-// adjacent keys at once (S even and p aligned to a pair); one row's loads
-// are in flight at a time.
-template <typename B, bool PAIRS, int NJ>
-__device__ __forceinline__ void add_bias(float (&sc)[NJ][4],
-                                         const B* __restrict__ p,
-                                         const int (&row)[2], int k0, int t,
-                                         int S, float scale) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool rin = row[r] < S;
-    const B* pr = p + (size_t)(rin ? row[r] : 0) * S;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = k0 + 8 * j + 2 * t;
-      float2 v = make_float2(0.f, 0.f);
-      if constexpr (PAIRS) {
-        if (rin && c < S)
-          v = to_f32(*reinterpret_cast<const typename Pair<B>::type*>(pr + c));
-      } else {
-        if (rin && c < S) v.x = to_f32(pr[c]);
-        if (rin && c + 1 < S) v.y = to_f32(pr[c + 1]);
-      }
-      sc[j][2 * r] = sc[j][2 * r] * scale + v.x;
-      sc[j][2 * r + 1] = sc[j][2 * r + 1] * scale + v.y;
-    }
-    asm volatile("" ::: "memory");
-  }
 }
 
 // x[j][e] = the bias at [query q0 + 8 j + 2 t + (e & 1)][key key[e >> 1]]
@@ -963,14 +913,6 @@ bool bwd_args_ok(const BwdArgs& a) {
          (a.dtype == 1 || a.dtype == 2) &&
          (a.bias.p == nullptr || (a.bias.dtype >= 1 && a.bias.dtype <= 3)) &&
          (a.dbias == nullptr || a.bias.p != nullptr);
-}
-
-// persistent blocks: one an SM, no more than there are units
-cudaError_t persistent_blocks(long long units, int* blocks) {
-  int sms = 0;
-  const cudaError_t err = sm_count(&sms);
-  *blocks = (int)(units < sms ? units : sms);
-  return err;
 }
 
 template <typename T, int HD, bool BIAS>

@@ -4,9 +4,10 @@
 // swizzled layouts, wgmma with fp32 accumulation (both operands from shared
 // memory, or A from registers), the bias fragment loads and the encoding of
 // the attention tensors' maps.
-// flash_fwd_sm90.cu (the forward) and flash_bwd_sm90.cuh (dq and dk/dv,
-// built by flash_bwd_dq_sm90.cu and flash_bwd_dkv_sm90.cu) include it; each
-// source becomes its own library, so nvcc builds them side by side.
+// flash_fwd_sm90.cu (the forward), flash_bwd_sm90.cuh (dq and dk/dv, built
+// by flash_bwd_dq_sm90.cu and flash_bwd_dkv_sm90.cu), tf32_sm90.cuh (the
+// fp32 kernels' pieces) and sparse_fwd_sm90.cu include it; each source
+// becomes its own library, so nvcc builds them side by side.
 //
 // Tiles come in as panels of kPC<HD> columns (64, or hd 32's 32): rows of
 // 128 bytes in the 128-byte swizzle, hd 32's rows of 64 bytes in the
@@ -366,6 +367,70 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+__device__ __forceinline__ void wgmma_ss(float (&d)[16][4], uint64_t da,
+                                         uint64_t db, int accumulate,
+                                         __nv_bfloat16) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[16][4], uint64_t da,
+                                         uint64_t db, int accumulate,
+                                         __half) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[4][4],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int accumulate, __nv_bfloat16) {
@@ -504,6 +569,34 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+// ------------------------------------------------------------ the units
+// the pass-balanced order of the units: pass k's unit of block c is k *
+// gridDim.x + c, or + gridDim.x - 1 - c for odd k
+__device__ __forceinline__ int unit_of(int k) {
+  return k * (int)gridDim.x +
+         (k & 1 ? (int)gridDim.x - 1 - (int)blockIdx.x : (int)blockIdx.x);
+}
+
+// persistent blocks: one an SM, no more than there are units
+cudaError_t persistent_blocks(long long units, int* blocks) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  *blocks = (int)(units < sms ? units : sms);
+  return err;
+}
+
+// an adjacent pair of outputs, rounded to the output's type
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a,
+                                           float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 // ------------------------------------------------------------ bias
 struct Bias {
   const void* p;
@@ -581,6 +674,39 @@ __device__ __forceinline__ void load_bias(float (&x)[NJ][4], int dtype,
     as(__half());
   else
     as(float());
+}
+
+// sc[j][e] = sc[j][e] * scale + the bias at [row e >> 1][key k0 + 8 j + 2 t
+// + (e & 1)] upcast to fp32 (0 outside S): bias_frag's elements, each pair
+// added where it is loaded, so that no fragment of bias values is held
+// (the consumers of the 16-bit dq and of the fp32 forward have no registers
+// for one at hd 128). PAIRS reads two adjacent keys at once (S even and p
+// aligned to a pair); one row's loads are in flight at a time.
+template <typename B, bool PAIRS, int NJ>
+__device__ __forceinline__ void add_bias(float (&sc)[NJ][4],
+                                         const B* __restrict__ p,
+                                         const int (&row)[2], int k0, int t,
+                                         int S, float scale) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool rin = row[r] < S;
+    const B* pr = p + (size_t)(rin ? row[r] : 0) * S;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = k0 + 8 * j + 2 * t;
+      float2 v = make_float2(0.f, 0.f);
+      if constexpr (PAIRS) {
+        if (rin && c < S)
+          v = to_f32(*reinterpret_cast<const typename Pair<B>::type*>(pr + c));
+      } else {
+        if (rin && c < S) v.x = to_f32(pr[c]);
+        if (rin && c + 1 < S) v.y = to_f32(pr[c + 1]);
+      }
+      sc[j][2 * r] = sc[j][2 * r] * scale + v.x;
+      sc[j][2 * r + 1] = sc[j][2 * r + 1] * scale + v.y;
+    }
+    asm volatile("" ::: "memory");
+  }
 }
 
 // ------------------------------------------------------------ launch

@@ -7,10 +7,12 @@ built by ``ops/builder.py`` and called through ctypes. For bf16 / fp16 at
 hd 32-128 the forward is ``csrc/flash_fwd_sm90.cu`` and the backward pair
 ``csrc/flash_bwd_dq_sm90.cu`` / ``csrc/flash_bwd_dkv_sm90.cu`` (wgmma, TMA,
 warp specialisation; the pair's kernels in ``csrc/flash_bwd_sm90.cuh``);
-for fp32 at hd 32 and 64 the backward pair is
-``csrc/flash_bwd_dq_f32_sm90.cu`` / ``csrc/flash_bwd_dkv_f32_sm90.cu``
-(3xTF32 on wgmma, kernels in ``csrc/flash_bwd_f32_sm90.cuh``); the rest of
-fp32 and the 16-bit hd 16 ones are the mma.sync kernels of
+for fp32 the forward at hd 32-128 is ``csrc/flash_fwd_f32_sm90.cu`` and
+the backward pair at hd 32 and 64 ``csrc/flash_bwd_dq_f32_sm90.cu`` /
+``csrc/flash_bwd_dkv_f32_sm90.cu`` (3xTF32 on wgmma, the pair's kernels in
+``csrc/flash_bwd_f32_sm90.cuh``, the fp32 pieces all three share in
+``csrc/tf32_sm90.cuh``); the rest of fp32 and the 16-bit hd 16 ones are
+the mma.sync kernels of
 ``csrc/flash_attention.cuh``, instantiated for bf16 / fp16 hd 16 by
 ``csrc/flash_attention.cu`` and for fp32 by ``csrc/flash_attention_f32.cu``
 (each source's header comment says what bounds its kernels and how they
@@ -198,6 +200,9 @@ def attention_delta(o, do):
 # the head dims whose fp32 backward pair runs on the 3xTF32 wgmma kernels
 # (csrc/flash_bwd_f32_sm90.cuh); at hd 128 no stage fits beside the unit
 F32_WGMMA_HEAD_DIMS = (32, 64)
+# the head dims whose fp32 forward runs on its 3xTF32 wgmma kernel
+# (csrc/flash_fwd_f32_sm90.cu); at hd 128 two slots of each ring fit
+F32_FWD_WGMMA_HEAD_DIMS = (32, 64, 128)
 
 
 def library(kernel: str, dtype, hd: int) -> str:
@@ -205,14 +210,15 @@ def library(kernel: str, dtype, hd: int) -> str:
     ``flash_bwd_dq`` or ``flash_bwd_dkv``) for q's dtype and head dim: the
     wgmma / TMA kernels of ``csrc/<kernel>_sm90.cu`` (one library each) for
     16-bit operands at hd 32-128 and of ``csrc/<kernel>_f32_sm90.cu`` (3xTF32)
-    for the fp32 backward pair at hd 32 and 64; the mma.sync kernels of
-    ``csrc/flash_attention.cuh`` for 16-bit hd 16 (``flash_attention.cu``)
-    and for the rest of fp32 (``flash_attention_f32.cu``). Fixed: a route
-    never depends on a failure."""
+    for the fp32 forward at hd 32-128 and the fp32 backward pair at hd 32
+    and 64; the mma.sync kernels of ``csrc/flash_attention.cuh`` for 16-bit
+    hd 16 (``flash_attention.cu``) and for the rest of fp32
+    (``flash_attention_f32.cu``). Fixed: a route never depends on a
+    failure."""
     if dtype == torch.float32:
-        if kernel != "flash_fwd" and hd in F32_WGMMA_HEAD_DIMS:
-            return f"{kernel}_f32_sm90"
-        return "flash_attention_f32"
+        wgmma = F32_FWD_WGMMA_HEAD_DIMS if kernel == "flash_fwd" \
+            else F32_WGMMA_HEAD_DIMS
+        return f"{kernel}_f32_sm90" if hd in wgmma else "flash_attention_f32"
     return "flash_attention" if hd == 16 else f"{kernel}_sm90"
 
 
@@ -245,6 +251,28 @@ def flash_bwd_f32_plan(kernel: str, hd: int) -> dict:
     return {"unit": unit, "step": step, "stages": stages,
             "t_stages": t_stages, "smem_bytes": smem}
 
+
+
+def flash_fwd_f32_plan(hd: int) -> dict:
+    """The tiles of the fp32 wgmma forward at head dim ``hd``, as
+    ``csrc/flash_fwd_f32_sm90.cu`` builds them: ``unit`` query rows (the
+    consumer warpgroup's wgmma m64), ``step`` keys a streamed tile,
+    ``stages`` slots of the ring of natural halves (K as TMA wrote it, its
+    lo tile, V as TMA wrote it) and ``t_stages`` of the ring of transposed
+    halves (V's transposed hi and lo), and the block's dynamic shared memory
+    in ``smem_bytes``: Q's two tiles (hi, lo), the slots, 1024 bytes of
+    alignment slack and the barriers (three for the unit, three a natural
+    slot, two a transposed one). At hd 128 two slots of each ring fit in
+    227 KiB; other head dims raise."""
+    if hd not in F32_FWD_WGMMA_HEAD_DIMS:
+        raise ValueError(f"no fp32 wgmma flash_fwd at hd {hd}")
+    unit, step, t_stages = 64, 32, 2
+    stages = {32: 8, 64: 4, 128: 2}[hd]
+    unit_tile, step_tile = unit * hd * 4, step * hd * 4
+    smem = (1024 + 2 * unit_tile + stages * 3 * step_tile
+            + t_stages * 2 * step_tile + 8 * (3 + 3 * stages + 2 * t_stages))
+    return {"unit": unit, "step": step, "stages": stages,
+            "t_stages": t_stages, "smem_bytes": smem}
 
 def _lib(name):
     """The loaded library ``csrc/<name>.cu``, its functions typed."""

@@ -8,9 +8,14 @@ layouts and CSR lists agree bit for bit (BigBird draws its random blocks
 from ``np.random.default_rng(seed)`` as JAX does).
 
 The Pallas kernels ``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel``
-become three CUDA kernels for Hopper in ``csrc/sparse_attention.cu`` (its
-header says what bounds them and how they walk the lists), built by
-``ops/builder.py`` and called through ctypes. The wrappers
+become CUDA kernels for Hopper, built by ``ops/builder.py`` and called
+through ctypes: the forward at blocks 64 and 128, hd 32-128 is
+``csrc/sparse_fwd_sm90.cu`` (wgmma, TMA producer warps walking the lists,
+persistent blocks widest list first); the forward elsewhere and the
+backward pair are the mma.sync kernels of ``csrc/sparse_attention.cu``
+(each source's header says what bounds its kernels and how they walk the
+lists). :func:`library` routes every launch by a fixed table. The
+wrappers
 :func:`sparse_fwd`, :func:`sparse_bwd_dq` and :func:`sparse_bwd_dkv` launch
 their kernel for CUDA tensors and take the plain PyTorch versions beside
 them for CPU tensors only; on a CUDA tensor they launch or raise. Each
@@ -270,17 +275,87 @@ def sparse_bwd_dkv_plain(q, k, v, do, lse, delta, layout: SparseLayout):
 
 
 # ------------------------------------------------------------------ kernels
-def _lib():
-    lib = builder.load("sparse_attention")
-    if lib.dstpu_sparse_fwd.argtypes is None:
+# the (block, hd) the wgmma forward takes (csrc/sparse_fwd_sm90.cu)
+WGMMA_FWD_BLOCKS = (64, 128)
+WGMMA_FWD_HEAD_DIMS = (32, 64, 128)
+
+
+def library(kernel: str, block: int, hd: int) -> str:
+    """The library whose kernel serves a launch of ``kernel``
+    (``sparse_fwd``, ``sparse_bwd_dq`` or ``sparse_bwd_dkv``) at a layout
+    block and head dim: the wgmma forward of ``csrc/sparse_fwd_sm90.cu`` at
+    blocks 64 and 128, hd 32-128; the mma.sync kernels of
+    ``csrc/sparse_attention.cu`` for the forward elsewhere and for the
+    backward pair. Fixed: a route never depends on a failure."""
+    if kernel == "sparse_fwd" and block in WGMMA_FWD_BLOCKS \
+            and hd in WGMMA_FWD_HEAD_DIMS:
+        return "sparse_fwd_sm90"
+    return "sparse_attention"
+
+
+def sparse_fwd_plan(hd: int) -> dict:
+    """The tiles of the wgmma forward at head dim ``hd``, as
+    ``csrc/sparse_fwd_sm90.cu`` builds them: ``pipes`` pipelines a block
+    (a producer warp and a consumer warpgroup each), units of ``rows``
+    query rows, tiles of ``keys`` keys (64-key chunks, two a tile but at hd
+    128), ``stages`` K and V stages a pipeline, and the block's dynamic
+    shared memory in ``smem_bytes``: per pipeline Q and the K and V rings
+    (16-bit tiles) and its barriers (Q full and empty, four a stage), plus
+    1024 bytes of alignment slack."""
+    if hd not in WGMMA_FWD_HEAD_DIMS:
+        raise ValueError(f"no wgmma sparse_fwd at hd {hd}")
+    pipes, rows = 2, 64
+    keys, stages = (64 if hd == 128 else 128), (4 if hd == 32 else 3)
+    q_tile, tile = rows * hd * 2, keys * hd * 2
+    smem = 1024 + pipes * (q_tile + 2 * stages * tile
+                           + 8 * (2 + 4 * stages))
+    return {"pipes": pipes, "rows": rows, "keys": keys, "stages": stages,
+            "smem_bytes": smem}
+
+
+def sparse_fwd_units(layout: SparseLayout, B: int, H: int,
+                     blocks: int) -> list:
+    """The wgmma forward's schedule, as ``csrc/sparse_fwd_sm90.cu`` walks
+    it over ``blocks`` persistent blocks of two pipelines: for each
+    pipeline, its units in order, each a tuple (b, h, q-block, part) of 64
+    query rows. Units are numbered rank-major (the rank in the layout's
+    ``q_order``: widest list first), then part, b and h; pass k gives
+    pipeline p unit k * P + p, or k * P + P - 1 - p on odd passes (P the
+    pipelines)."""
+    parts = layout.block // 64
+    order = layout.q_order.tolist()
+    nunits = len(order) * parts * B * H
+    npipes = 2 * blocks
+    out = []
+    for me in range(npipes):
+        units, k = [], 0
+        while True:
+            u = k * npipes + (npipes - 1 - me if k & 1 else me)
+            if u >= nunits:
+                break
+            hb, rest = u % (H * B), u // (H * B)
+            units.append((hb // H, hb % H, order[rest // parts],
+                          rest % parts))
+            k += 1
+        out.append(units)
+    return out
+
+
+def _lib(name):
+    """The loaded library ``csrc/<name>.cu``, its functions typed."""
+    lib = builder.load(name)
+    fns = [getattr(lib, f) for f in ("dstpu_sparse_fwd",
+                                     "dstpu_sparse_bwd_dq",
+                                     "dstpu_sparse_bwd_dkv")
+           if hasattr(lib, f)]
+    if fns[0].argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # pointers and the stream as c_void_p: without argtypes ctypes
         # passes a Python int as a 32-bit C int and cuts the pointer
-        lib.dstpu_sparse_fwd.argtypes = [P] * 8 + [I] * 9 + [F, P]
-        lib.dstpu_sparse_bwd_dq.argtypes = [P] * 10 + [I] * 9 + [F, P]
-        lib.dstpu_sparse_bwd_dkv.argtypes = [P] * 11 + [I] * 9 + [F, P]
-        for fn in (lib.dstpu_sparse_fwd, lib.dstpu_sparse_bwd_dq,
-                   lib.dstpu_sparse_bwd_dkv):
+        pointers = {"dstpu_sparse_fwd": 8, "dstpu_sparse_bwd_dq": 10,
+                    "dstpu_sparse_bwd_dkv": 11}
+        for fn in fns:
+            fn.argtypes = [P] * pointers[fn.__name__] + [I] * 9 + [F, P]
             fn.restype = I
     return lib
 
@@ -316,7 +391,8 @@ def sparse_fwd(q, k, v, layout: SparseLayout):
     _check_layout("sparse_fwd", q, layout)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    err = _lib().dstpu_sparse_fwd(
+    err = _lib(library("sparse_fwd", layout.block,
+                       q.shape[3])).dstpu_sparse_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), *_launch_args(
             layout, q, k, (layout.k_idx, layout.k_n, layout.q_order)))
@@ -333,7 +409,7 @@ def sparse_bwd_dq(q, k, v, do, lse, delta, layout: SparseLayout):
            codes=HALF_DTYPE_CODE)
     _check_layout("sparse_bwd_dq", q, layout)
     dq = torch.empty_like(q)
-    err = _lib().dstpu_sparse_bwd_dq(
+    err = _lib("sparse_attention").dstpu_sparse_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_launch_args(
             layout, q, k, (layout.k_idx, layout.k_n, layout.q_order)))
@@ -350,7 +426,7 @@ def sparse_bwd_dkv(q, k, v, do, lse, delta, layout: SparseLayout):
            codes=HALF_DTYPE_CODE)
     _check_layout("sparse_bwd_dkv", q, layout)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _lib().dstpu_sparse_bwd_dkv(
+    err = _lib("sparse_attention").dstpu_sparse_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *_launch_args(layout, q, k,

@@ -187,34 +187,39 @@ FWD_ROUTES = {
        for hd in (32, 64, 128)},
     (torch.bfloat16, 16): "flash_attention",
     (torch.float16, 16): "flash_attention",
-    **{(torch.float32, hd): "flash_attention_f32" for hd in (16, 32, 64, 128)},
+    (torch.float32, 16): "flash_attention_f32",
+    **{(torch.float32, hd): "flash_fwd_f32_sm90" for hd in (32, 64, 128)},
 }
 
 
 @pytest.mark.parametrize("route", list(FWD_ROUTES),
                          ids=lambda r: f"{str(r[0])[6:]}-hd{r[1]}")
 def test_forward_routes_by_dtype_and_head_dim(route):
-    """16-bit operands at hd 32-128 take the wgmma / TMA forward; hd 16
-    and fp32 stay on the mma.sync kernels; fixed, no fallback."""
+    """16-bit operands at hd 32-128 take the wgmma / TMA forward, fp32 at
+    hd 32-128 its 3xTF32 twin; hd 16 stays on the mma.sync kernels; fixed,
+    no fallback."""
     assert tfa.library("flash_fwd", *route) == FWD_ROUTES[route]
 
 
 def test_forward_table_covers_what_the_wrapper_takes():
     """Every (dtype, head dim) the wrapper accepts routes to a source the
     builder compiles, and only the mma.sync sources export the backward
-    kernels."""
+    kernels: each wgmma forward source exports the forward alone, the fp32
+    one over the fp32 pieces of ``tf32_sm90.cuh``."""
     from deepspeed_tpu_torch.ops import builder
 
     taken = {(d, hd) for d in (torch.bfloat16, torch.float16, torch.float32)
              for hd in tfa.KERNEL_HEAD_DIMS}
     assert set(FWD_ROUTES) == taken
     names = {tfa.library("flash_fwd", *r) for r in taken}
-    assert names == {"flash_fwd_sm90", "flash_attention",
-                     "flash_attention_f32"}
+    assert names == {"flash_fwd_sm90", "flash_fwd_f32_sm90",
+                     "flash_attention", "flash_attention_f32"}
     assert names <= set(builder.sources())
     text = {n: (builder.CSRC / f"{n}.cu").read_text() for n in names}
-    assert 'extern "C" int dstpu_flash_fwd(' in text["flash_fwd_sm90"]
-    assert "dstpu_flash_bwd" not in text["flash_fwd_sm90"]
+    for wgmma in ("flash_fwd_sm90", "flash_fwd_f32_sm90"):
+        assert 'extern "C" int dstpu_flash_fwd(' in text[wgmma]
+        assert "dstpu_flash_bwd" not in text[wgmma]
+    assert '#include "tf32_sm90.cuh"' in text["flash_fwd_f32_sm90"]
     cuh = (builder.CSRC / "flash_attention.cuh").read_text()
     assert '#include "flash_attention.cuh"' in text["flash_attention"]
     assert 'extern "C" int dstpu_flash_bwd_dq(' in cuh
@@ -269,10 +274,10 @@ def test_backward_table_covers_what_the_wrappers_take():
             assert f'extern "C" int dstpu_{k}(' in text
             assert f"dstpu_{other}(" not in text
     cuh = (builder.CSRC / "flash_attention.cuh").read_text()
+    assert "if constexpr (!here<T, HD, true>())" in cuh
     assert "if constexpr (!here<T, HD, false>())" in cuh
-    assert "else if constexpr (!here<T, HD, true>())" in cuh
-    assert ("return HD == 16 || (std::is_same_v<T, float> && "
-            "(!BWD || HD == 128));") in cuh
+    assert ("return HD == 16 || (std::is_same_v<T, float> && BWD && "
+            "HD == 128);") in cuh
     assert tuple(hd for hd in tfa.KERNEL_HEAD_DIMS if tfa.library(
         "flash_bwd_dq", torch.float32, hd) != "flash_attention_f32") \
         == tfa.F32_WGMMA_HEAD_DIMS
@@ -295,7 +300,10 @@ def test_f32_plan_fits_and_matches_the_header(kernel, hd):
 
     plan = tfa.flash_bwd_f32_plan(kernel, hd)
     assert plan["smem_bytes"] <= SMEM_LIMIT
-    cuh = (builder.CSRC / "flash_bwd_f32_sm90.cuh").read_text()
+    # the pair's own ring depths, and the geometry it shares with the fp32
+    # forward
+    cuh = "".join((builder.CSRC / n).read_text()
+                  for n in ("flash_bwd_f32_sm90.cuh", "tf32_sm90.cuh"))
     const = lambda n: int(re.search(  # noqa: E731
         rf"constexpr int {n} = (\d+);", cuh).group(1))
     assert (plan["unit"], plan["step"]) == (const("kFUnit"), const("kFStep"))
@@ -314,6 +322,39 @@ def test_f32_plan_fits_and_matches_the_header(kernel, hd):
     assert f"constexpr int {fn}()" in cuh
     with pytest.raises(ValueError, match="no fp32 wgmma"):
         tfa.flash_bwd_f32_plan(kernel, 128)
+
+
+@pytest.mark.parametrize("hd", tfa.F32_FWD_WGMMA_HEAD_DIMS)
+def test_f32_fwd_plan_fits_and_matches_the_header(hd):
+    """``flash_fwd_f32_plan`` fits a block's 227 KiB at every routed head
+    dim (hd 128 with two slots of each ring), and its rows, stages and
+    shared memory are the ones the source's constants give (read from the
+    source: the card's library reports the same bytes in the gpu tests
+    and in chip_smoke.py's phase 1)."""
+    import re
+
+    from deepspeed_tpu_torch.ops import builder
+
+    plan = tfa.flash_fwd_f32_plan(hd)
+    assert plan["smem_bytes"] <= SMEM_LIMIT
+    src = "".join((builder.CSRC / n).read_text()
+                  for n in ("flash_fwd_f32_sm90.cu", "tf32_sm90.cuh"))
+    const = lambda n: int(re.search(  # noqa: E731
+        rf"constexpr int {n} = (\d+);", src).group(1))
+    assert (plan["unit"], plan["step"]) == (const("kFUnit"), const("kFStep"))
+    assert plan["t_stages"] == const("kF32TStages")
+    at32, at64, other = re.search(
+        r"constexpr int kFwdF32Stages = HD == 32 \? (\d+) : HD == 64 \? "
+        r"(\d+) : (\d+);", src).groups()
+    assert plan["stages"] == int({32: at32, 64: at64}.get(hd, other))
+    unit, step = plan["unit"] * hd * 4, plan["step"] * hd * 4
+    ns, nt = plan["stages"], plan["t_stages"]
+    assert ns >= 2 and nt >= 2
+    assert plan["smem_bytes"] == 1024 + 2 * unit + ns * 3 * step \
+        + nt * 2 * step + 8 * (3 + 3 * ns + 2 * nt)
+    assert "constexpr int fwd_f32_smem_bytes()" in src
+    with pytest.raises(ValueError, match="no fp32 wgmma"):
+        tfa.flash_fwd_f32_plan(16)
 
 
 def _tf32(x, rounded):
@@ -359,9 +400,9 @@ def test_3xtf32_emulation_keeps_fp32_accuracy(m, k, n, rounded):
 
 def test_profile_names_cover_the_wgmma_kernels():
     """chip_smoke.py reads each flash kernel's share of a profile under its
-    mma.sync and its wgmma kernels' names (the backward pair's fp32 ones
-    too); each wgmma name is a kernel of its source, so a share cannot
-    read 0 for want of a name."""
+    mma.sync and its wgmma kernels' names (the fp32 ones too), and the
+    sparse forward's under both of its kernels' names; each name is a
+    kernel of a source, so a share cannot read 0 for want of a name."""
     import importlib.util
     import re
     from pathlib import Path
@@ -376,8 +417,15 @@ def test_profile_names_cover_the_wgmma_kernels():
     names = smoke.kernel_names(fns)
     assert names == tuple(n for f in fns for n in (
         f"{f.__name__}_kernel", f"{f.__name__}_sm90_kernel",
-        *((f"{f.__name__}_f32_sm90_kernel",) if f is not tfa.flash_fwd
-          else ())))
+        f"{f.__name__}_f32_sm90_kernel"))
+    # the sparse forward's wgmma kernel beside its mma.sync one
+    from deepspeed_tpu_torch.ops import sparse_attention as tsa
+
+    sparse = (tsa.sparse_fwd, tsa.sparse_bwd_dq, tsa.sparse_bwd_dkv)
+    assert smoke.kernel_names(sparse) == (
+        "sparse_fwd_kernel", "sparse_fwd_sm90_kernel",
+        "sparse_bwd_dq_kernel", "sparse_bwd_dkv_kernel")
+    names = names + smoke.kernel_names(sparse)
     text = "".join(p.read_text() for p in builder.CSRC.glob("*.cu*"))
     for n in names:
         assert re.search(rf"__global__[^;{{]*\b{n}\(", text), n

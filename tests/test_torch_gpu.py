@@ -680,6 +680,78 @@ def test_f32_backward_plan_and_routes(cuda):
                 == "flash_attention_f32"
 
 
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16,
+                                        torch.float16])
+@pytest.mark.parametrize("layout", ["ss", "hss", "bhss", "b1ss", "1hss",
+                                    "expanded"])
+def test_f32_forward_bias_layouts(cuda, layout, bias_dtype):
+    """Every bias layout and bias dtype through the fp32 wgmma forward at hd
+    32, 64 and 128, causal and not, S off the tiles, GQA, key masks with
+    fully masked rows: o within 1e-4 of max |plain|, lse within 2e-3 on
+    live rows, o exactly 0 and lse finite on the dead rows, and a second
+    call bit-identical."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    for B, H, KV, S, hd, causal, mask_kind in (
+            (2, 4, 2, 200, 64, True, None),
+            (2, 4, 4, 333, 32, False, "left_pad"),
+            (2, 4, 4, 77, 32, True, "dead_row"),
+            (2, 4, 2, 150, 128, False, "dead_row")):
+        assert fa.library("flash_fwd", torch.float32, hd) \
+            == "flash_fwd_f32_sm90"
+        q, k, v, _ = _sparse_inputs(cuda, B, H, KV, S, hd, torch.float32)
+        bias = _bias_for(layout, B, H, S, bias_dtype, cuda)
+        mask = None
+        if mask_kind:
+            mask = torch.ones(B, S, dtype=torch.bool, device=cuda)
+            if mask_kind == "left_pad":
+                mask[-1, :3] = False
+            else:
+                mask[-1] = False
+        kw = dict(mask=mask, causal=causal, bias=bias)
+        o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(o).all())
+        assert bool(torch.isfinite(lse).all())
+        assert _max_share(o, o_p) <= F32_SHARE
+        live = lse_p > fa.BIG_NEG / 2
+        assert (lse - lse_p).abs()[live].max().item() <= 2e-3
+        if not bool(live.all()):
+            assert bool((o.transpose(1, 2)[~live] == 0).all())
+        o2, lse2 = fa.flash_fwd(q, k, v, **kw)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def test_f32_forward_plan_and_routes(cuda):
+    """The fp32 wgmma forward's library exports the forward alone, takes
+    the shared memory flash_fwd_f32_plan() gives and refuses 16-bit
+    operands and hd 16, which keeps the mma.sync kernel."""
+    import ctypes
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    lib = fa._lib("flash_fwd_f32_sm90")
+    assert hasattr(lib, "dstpu_flash_fwd")
+    assert not hasattr(lib, "dstpu_flash_bwd_dq")
+    smem = lib.dstpu_flash_fwd_f32_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    for hd in (32, 64, 128):
+        assert smem(hd) == fa.flash_fwd_f32_plan(hd)["smem_bytes"]
+    assert smem(16) == 0
+    x = torch.zeros(1, 64, 2, 64, device=cuda)
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    P = ctypes.c_void_p
+    for dtype_code, hd in ((2, 64), (3, 16)):
+        err = lib.dstpu_flash_fwd(*(P(t.data_ptr()) for t in (x, x, x)), None,
+                                  None, None, P(x.data_ptr()),
+                                  P(lse.data_ptr()), 1, 64, 2, 2, hd, 1,
+                                  dtype_code, 0, 0, 0, 0.125,
+                                  P(torch.cuda.current_stream().cuda_stream))
+        assert err != 0
+    assert fa.library("flash_fwd", torch.float32, 16) == "flash_attention_f32"
+
+
 def _probe(cuda, which, a, b):
     import ctypes
 
@@ -776,6 +848,9 @@ def test_sparse_kernels_match_plain(cuda, case, dtype):
 
     B, H, KV, S, hd, causal, cls, fields = case
     layout = sa.sparse_layout(getattr(sa, cls)(**fields), S, causal, cuda)
+    assert sa.library("sparse_fwd", layout.block, hd) == (
+        "sparse_fwd_sm90" if layout.block in (64, 128) and hd >= 32
+        else "sparse_attention")
     q, k, v, do = _sparse_inputs(cuda, B, H, KV, S, hd, dtype)
     o_p, lse_p = sa.sparse_attention_fwd_plain(q, k, v, layout)
     delta = fa.attention_delta(o_p, do)
@@ -793,9 +868,18 @@ def test_sparse_kernels_match_plain(cuda, case, dtype):
         assert _max_share(got, ref) <= FLASH_SHARE[dtype]
     assert (lse - lse_p).abs().max().item() <= 2e-3
     # no atomics: a second launch repeats the first bit for bit
-    assert torch.equal(sa.sparse_fwd(q, k, v, layout)[0], o)
+    o2, lse2 = sa.sparse_fwd(q, k, v, layout)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
     assert torch.equal(sa.sparse_bwd_dkv(q, k, v, do, lse_p, delta,
                                          layout)[0], dk)
+    # the backward pair fed the kernel forward's o and lse, as training
+    # feeds it
+    delta_k = fa.attention_delta(o, do)
+    got = (sa.sparse_bwd_dq(q, k, v, do, lse, delta_k, layout),
+           *sa.sparse_bwd_dkv(q, k, v, do, lse, delta_k, layout))
+    for g, ref in zip(got, want[1:]):
+        assert bool(torch.isfinite(g).all())
+        assert _max_share(g, ref) <= FLASH_SHARE[dtype]
 
 
 @pytest.mark.parametrize("case", [(1, 25, 25, 1024, 64, True),
@@ -817,6 +901,47 @@ def test_sparse_dense_layout_equals_the_flash_kernels(cuda, case):
     for g, w in zip(got, want):
         assert _max_share(g, w) <= FLASH_SHARE[torch.bfloat16]
     assert (lse - lse_f).abs().max().item() <= 2e-3
+
+
+def test_sparse_wgmma_forward_plan_and_routes(cuda):
+    """The wgmma forward's library exports the forward alone, takes the
+    shared memory sparse_fwd_plan() gives and refuses blocks 16 and 32, hd
+    16 and fp32 straight to the library; blocks 16 and 32 route to the
+    mma.sync library, and every route gives the plain version's o."""
+    import ctypes
+
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    lib = sa._lib("sparse_fwd_sm90")
+    assert hasattr(lib, "dstpu_sparse_fwd")
+    assert not hasattr(lib, "dstpu_sparse_bwd_dq")
+    smem = lib.dstpu_sparse_fwd_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    for hd in (32, 64, 128):
+        assert smem(hd) == sa.sparse_fwd_plan(hd)["smem_bytes"]
+    assert smem(16) == 0
+    P = ctypes.c_void_p
+    for block, hd, dtype_code in ((32, 64, 2), (16, 64, 2), (64, 16, 2),
+                                  (64, 64, 3)):
+        layout = sa.sparse_layout(sa.FixedSparsityConfig(block=block), 256,
+                                  True, cuda)
+        x = torch.zeros(1, 256, 2, hd, device=cuda, dtype=torch.bfloat16)
+        lse = torch.zeros(1, 2, 256, device=cuda)
+        err = lib.dstpu_sparse_fwd(
+            *(P(t.data_ptr()) for t in (x, x, x, x, lse, layout.k_idx,
+                                        layout.k_n, layout.q_order)),
+            layout.k_idx.shape[1], 1, 256, 2, 2, hd, block, 1, dtype_code,
+            0.125, P(torch.cuda.current_stream().cuda_stream))
+        assert err != 0
+    for block in (16, 32, 64, 128):
+        layout = sa.sparse_layout(sa.FixedSparsityConfig(block=block), 512,
+                                  True, cuda)
+        want = "sparse_fwd_sm90" if block >= 64 else "sparse_attention"
+        assert sa.library("sparse_fwd", block, 64) == want
+        q, k, v, _ = _sparse_inputs(cuda, 1, 4, 2, 512, 64, torch.bfloat16)
+        o, _ = sa.sparse_fwd(q, k, v, layout)
+        o_p, _ = sa.sparse_attention_fwd_plain(q, k, v, layout)
+        assert _max_share(o, o_p) <= FLASH_SHARE[torch.bfloat16]
 
 
 def test_sparse_kernels_refuse_what_they_do_not_take(cuda):
@@ -1224,17 +1349,20 @@ F32_CASES = list(dict.fromkeys([c for c in FLASH_CASES if c[3] <= 2048]
                          ids=lambda c: "-".join(map(str, c)))
 def test_flash_fp32_kernels_match_plain(cuda, case):
     """fp32 q, k, v through all three kernels (3xTF32), no bias, the
-    backward fed the plain forward's lse and delta: dq and dk/dv at hd 32
-    and 64 on the wgmma libraries, the rest on mma.sync (the route
-    checked); each output within 1e-4 of max |plain|, lse within 2e-3 on
-    live rows, dq exactly 0 on rows without a live key, dk and dv exactly 0
-    on masked keys, a second backward bit-identical."""
+    backward fed the plain forward's lse and delta: the forward at hd
+    32-128 and dq and dk/dv at hd 32 and 64 on the wgmma libraries, the
+    rest on mma.sync (the route checked); each output within 1e-4 of max
+    |plain|, lse within 2e-3 on live rows, o and dq exactly 0 on rows
+    without a live key, dk and dv exactly 0 on masked keys, a second
+    forward and a second backward bit-identical."""
     from deepspeed_tpu_torch.ops import flash_attention as fa
 
     B, H, KV, S, hd, causal, mask_kind, alibi = case
     for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert fa.library(kernel, torch.float32, hd) == (
             f"{kernel}_f32_sm90" if hd in (32, 64) else "flash_attention_f32")
+    assert fa.library("flash_fwd", torch.float32, hd) == (
+        "flash_fwd_f32_sm90" if hd in (32, 64, 128) else "flash_attention_f32")
     q, k, v, do = _sparse_inputs(cuda, B, H, KV, S, hd, torch.float32)
     mask = None
     if mask_kind:
@@ -1267,8 +1395,12 @@ def test_flash_fp32_kernels_match_plain(cuda, case):
     dq, dk, dv = runs[0]
     if not bool(live.all()):
         assert bool((dq.transpose(1, 2)[~live] == 0).all())
+        assert bool((o.transpose(1, 2)[~live] == 0).all())
+        assert bool(torch.isfinite(lse).all())
     if mask is not None:
         assert bool((dk[~mask] == 0).all()) and bool((dv[~mask] == 0).all())
+    o2, lse2 = fa.flash_fwd(q, k, v, **kw)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
 
 
 def test_flash_bias_refusals_and_the_other_kernels_fp32(cuda):

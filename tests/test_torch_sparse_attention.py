@@ -249,6 +249,79 @@ def test_fn_carries_no_capability_flag():
         assert not hasattr(fn, flag)
 
 
+# which library's kernel serves each sparse launch on the card, by (block,
+# hd): the wgmma forward at blocks 64 and 128, hd 32-128, mma.sync else
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("block", tsa.KERNEL_BLOCKS)
+def test_routes_by_block_and_head_dim(block, hd):
+    """Fixed, no fallback: only the forward moves to the wgmma library, and
+    each route is a source ``ops/builder.py`` compiles that exports the
+    kernel's function (the wgmma source only the forward's)."""
+    from deepspeed_tpu_torch.ops import builder
+
+    wgmma = block in (64, 128) and hd in (32, 64, 128)
+    assert tsa.library("sparse_fwd", block, hd) == (
+        "sparse_fwd_sm90" if wgmma else "sparse_attention")
+    for kernel in ("sparse_bwd_dq", "sparse_bwd_dkv"):
+        assert tsa.library(kernel, block, hd) == "sparse_attention"
+    for kernel in ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv"):
+        name = tsa.library(kernel, block, hd)
+        assert name in builder.sources()
+        text = (builder.CSRC / f"{name}.cu").read_text()
+        assert f'extern "C" int dstpu_{kernel}(' in text
+    text = (builder.CSRC / "sparse_fwd_sm90.cu").read_text()
+    assert "dstpu_sparse_bwd" not in text
+    if wgmma:
+        plan = tsa.sparse_fwd_plan(hd)
+        assert plan["smem_bytes"] <= 232448
+        # the source's constants: 64-row units and chunks, two pipelines,
+        # tiles of two chunks but at hd 128, 4 stages at hd 32 and 3 above
+        assert "constexpr int kSRows = 64;" in text
+        assert "constexpr int kPipes = 2;" in text
+        assert "kSKeys = HD == 128 ? 64 : 128;" in text
+        assert "kSparseStages = HD == 32 ? 4 : 3;" in text
+        assert (plan["rows"], plan["pipes"]) == (64, 2)
+        assert plan["keys"] == (64 if hd == 128 else 128)
+        assert plan["stages"] == (4 if hd == 32 else 3)
+        q_tile, tile = 64 * hd * 2, plan["keys"] * hd * 2
+        ns = plan["stages"]
+        assert plan["smem_bytes"] == 1024 + 2 * (
+            q_tile + 2 * ns * tile + 8 * (2 + 4 * ns))
+    if hd not in (32, 64, 128):
+        with pytest.raises(ValueError, match="no wgmma"):
+            tsa.sparse_fwd_plan(hd)
+
+
+# the wgmma forward's schedule: every (b, h, q-block, part) once, widest
+# list first, over the five layouts, causal and not, blocks 64 and 128
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("cls", ["SparsityConfig", "FixedSparsityConfig",
+                                 "VariableSparsityConfig",
+                                 "BigBirdSparsityConfig",
+                                 "BSLongformerSparsityConfig"])
+def test_wgmma_forward_schedule_covers_every_unit_widest_first(cls, causal):
+    for block, S, B, H, blocks in ((64, 1024, 2, 3, 7), (128, 2048, 1, 5, 4),
+                                   (64, 8192, 1, 25, 132)):
+        layout = tsa.sparse_layout(getattr(tsa, cls)(block=block), S, causal,
+                                   "cpu")
+        pipes = tsa.sparse_fwd_units(layout, B, H, blocks)
+        assert len(pipes) == 2 * blocks
+        units = [u for p in pipes for u in p]
+        parts = block // 64
+        want = {(b, h, iq, part) for b in range(B) for h in range(H)
+                for iq in range(S // block) for part in range(parts)}
+        assert len(units) == len(want) and set(units) == want
+        width = layout.k_n.tolist()
+        # pass k's units, pipeline by pipeline, run no wider than pass
+        # k - 1's: the widest lists start first
+        for p in pipes:
+            w = [width[iq] for _, _, iq, _ in p]
+            assert w == sorted(w, reverse=True)
+        first = [width[p[0][2]] for p in pipes if p]
+        assert min(first) >= max(width[iq] for p in pipes
+                                 for _, _, iq, _ in p[1:])
+
+
 def test_non_cpu_tensors_never_take_the_plain_path():
     """A tensor off the CPU launches a kernel or raises: here (no card) a
     meta tensor is refused, and no launch is counted."""

@@ -10,12 +10,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    all at once) and print nvcc's register / shared-memory lines; count the
    wgmma and TMA instructions in the SASS (cuobjdump) of the wgmma
    flash forward's and backward pair's libraries (bf16 / fp16, and the
-   fp32 forward's and pair's 3xTF32 ones), of the sparse forward's and of
-   the xent backward's (each > 0) and the kernels of theirs that spill,
-   have a warpgroup wait injected or their wgmma serialized by ptxas
-   (none), and print their shared memory (the fp32 kernels' held to
-   ``flash_fwd_f32_plan`` and ``flash_bwd_f32_plan``, the sparse forward's
-   to ``sparse_fwd_plan``); the same for the tensor-core ``x @ W``
+   fp32 forward's and pair's 3xTF32 ones), of the sparse forward's and
+   backward pair's and of the xent backward's (each > 0) and the kernels of
+   theirs that spill, have a warpgroup wait injected or their wgmma
+   serialized by ptxas (none), and print their shared memory (the fp32
+   kernels' held to ``flash_fwd_f32_plan`` and ``flash_bwd_f32_plan``, the
+   sparse forward's to ``sparse_fwd_plan``, the sparse backward pair's to
+   ``sparse_bwd_plan``); the same for the tensor-core ``x @ W``
    kernels of ``woq_matmul.cu`` (mma.sync and TMA loads in their SASS, no
    spill, no injected wait);
 2. kernels: each kernel (decode attention, the WOQ GEMMs ``woq_matmul``
@@ -79,16 +80,19 @@ Phases, in order; any failure raises and the script exits non-zero:
 5c. sparse kernels: the block-sparse forward, dq and dk/dv kernels against
    their plain versions in bf16 and fp16 at the slice's shape (B 1, H 25,
    S 8192, hd 64, the default Fixed layout, causal), each of the five
-   layouts causal and not, blocks 16, 32 and 128, hd 128 and 16, GQA and
-   MQA, one block, and a layout whose widest list is far wider than its
-   narrowest (each line naming the forward's library: the wgmma one at
-   blocks 64 and 128, hd 32-128), the backward pair also fed the kernel
-   forward's lse, a second forward bit-identical; the dense layout through
-   them against the flash kernels;
+   layouts causal and not, blocks 16, 32 and 128, hd 128, 32 and 16, GQA
+   and MQA, one block, a layout whose widest list is far wider than its
+   narrowest and one whose last k-block no q-block keeps (each line naming
+   the three kernels' libraries: the wgmma ones at blocks 64 and 128, hd
+   32-128), the backward pair also fed the kernel forward's lse, a second
+   forward and a second backward bit-identical, dk = dv = 0 exactly on the
+   k-blocks no q-block keeps; the dense layout through them against the
+   flash kernels;
    timed at the slice's shape beside the bound, the plain versions, SDPA
    under the expanded (S, S) boolean mask (forward and its autograd
-   backward), the flash kernels on the dense causal problem and the sparse
-   kernels in natural block order;
+   backward), the flash kernels on the dense causal problem, the sparse
+   kernels in natural block order and the ``mma.sync`` backward pair in
+   turns with the wgmma one;
 5d. flash kernels with the bias operand and in fp32: the forward, dq
    (with and without dbias) and dk/dv kernels against their plain versions
    in bf16, fp16 and fp32 on every bias layout ((S, S), (H, S, S), (B, H,
@@ -157,7 +161,7 @@ of PERF.md) and at S 8192, where it stands for the TPU's streamed kernel
 (rows 5-7), and the fp32 forward's and backward pair's 3xTF32 kernels
 (``flash_fwd_f32``, ``flash_bwd_dq_f32``, ``flash_bwd_dkv_f32``) at the
 DS4Science example's shape with phase 10a's launches; each sparse row names
-the library phase 9's launches run (the forward's wgmma one).
+the library phase 9's launches run (the wgmma ones).
 The last three lines of standard output are the kernels' JSON, then
 ``nvidia-smi``'s name and power limit of the card, then the device JSON.
 Without a CUDA device, or outside the repository, it exits 1 and prints
@@ -304,6 +308,7 @@ def phase_device() -> dict:
         F32_FWD_WGMMA_HEAD_DIMS, F32_WGMMA_HEAD_DIMS, flash_bwd_f32_plan,
         flash_fwd_f32_plan)
     from deepspeed_tpu_torch.ops.sparse_attention import (WGMMA_FWD_HEAD_DIMS,
+                                                          sparse_bwd_plan,
                                                           sparse_fwd_plan)
     from deepspeed_tpu_torch.platform.device import device_report
 
@@ -324,13 +329,15 @@ def phase_device() -> dict:
     sass = {}
     for lib in ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90",
                 "flash_fwd_f32_sm90", "flash_bwd_dq_f32_sm90",
-                "flash_bwd_dkv_f32_sm90", "sparse_fwd_sm90", "xent_bwd_sm90"):
+                "flash_bwd_dkv_f32_sm90", "sparse_fwd_sm90",
+                "sparse_bwd_dq_sm90", "sparse_bwd_dkv_sm90", "xent_bwd_sm90"):
         sass[lib] = sass_counts(built[lib]["path"])
         fit = ptxas_fit(built[lib]["log"])
         log(f"[build] {lib}: SASS instructions {sass[lib]} (HGMMA: wgmma, "
             f"UTMALDG: TMA loads); ptxas: {fit['kernels']} kernels, "
             f"{fit['spilling']} spilling, {fit['injected_waits']} injected "
-            "warpgroup waits or serialized wgmma (C7517 / C7519 / C7511)")
+            "warpgroup waits or serialized wgmma (C7517 / C7519 / C7511 / "
+            "C7512)")
         if not sass[lib]["HGMMA"] or not sass[lib]["UTMALDG"]:
             raise AssertionError(f"{lib} has no wgmma or TMA: {sass[lib]}")
         if not fit["kernels"] or fit["spilling"] or fit["injected_waits"]:
@@ -346,7 +353,7 @@ def phase_device() -> dict:
         f"{sorted({f['registers'] for f in fit.values()})}, "
         f"{sum(1 for f in fit.values() if f['spill'])} spilling, {waits} "
         "injected warpgroup waits or serialized wgmma (C7517 / C7519 / "
-        "C7511)")
+        "C7511 / C7512)")
     if not woq["kernels"] or not woq["counts"]["HMMA"] or not (
             woq["counts"]["UTMALDG"] or woq["counts"]["UBLKCP"]):
         raise AssertionError(f"woq_matmul_mma_kernel has no mma.sync or TMA "
@@ -378,13 +385,18 @@ def phase_device() -> dict:
         if any(smem(hd) != p["smem_bytes"] for hd, p in plans.items()):
             raise AssertionError(f"{kernel}_f32_sm90's shared memory is not "
                                  f"flash_bwd_f32_plan's: {plans}")
-    # the fp32 forward's and the sparse forward's shared memory are their
+    # the fp32 forward's and the sparse kernels' shared memory are their
     # plans'
     for lib, fn, plan, dims in (
             ("flash_fwd_f32_sm90", "dstpu_flash_fwd_f32_smem_bytes",
              flash_fwd_f32_plan, F32_FWD_WGMMA_HEAD_DIMS),
             ("sparse_fwd_sm90", "dstpu_sparse_fwd_smem_bytes",
-             sparse_fwd_plan, WGMMA_FWD_HEAD_DIMS)):
+             sparse_fwd_plan, WGMMA_FWD_HEAD_DIMS),
+            ("sparse_bwd_dq_sm90", "dstpu_sparse_bwd_dq_smem_bytes",
+             partial(sparse_bwd_plan, "sparse_bwd_dq"), WGMMA_FWD_HEAD_DIMS),
+            ("sparse_bwd_dkv_sm90", "dstpu_sparse_bwd_dkv_smem_bytes",
+             partial(sparse_bwd_plan, "sparse_bwd_dkv"),
+             WGMMA_FWD_HEAD_DIMS)):
         smem = getattr(builder.load(lib), fn)
         smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
         plans = {hd: plan(hd) for hd in dims}
@@ -405,15 +417,17 @@ def phase_device() -> dict:
 def ptxas_fit(build_log: str) -> dict:
     """From nvcc's ``-Xptxas -v`` output: the kernels it reports, those
     that spill, and the warpgroup waits it injected into wgmma sequences
-    (C7517 / C7519) or the wgmma sequences it serialized for want of
-    registers (C7511), each of which serializes the products."""
+    (C7517 / C7519) or the wgmma sequences it serialized (C7511: an A
+    fragment in accumulator registers; C7512: too few registers), each of
+    which serializes the products."""
     import re
 
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                         build_log)
     return {"kernels": len(spills),
             "spilling": sum(1 for st, ld in spills if int(st) or int(ld)),
-            "injected_waits": len(re.findall(r"\(C751[179]\)", build_log))}
+            "injected_waits": len(re.findall(r"\(C751[1279]\)",
+                                             build_log))}
 
 
 def ptxas_kernels(build_log: str, name: str) -> dict:
@@ -2031,7 +2045,9 @@ def _xent_bwd_timing(gen, case, iters, vc_probe=()) -> dict:
 # blocks 16, 32 and 128; hd 128 and 16; GQA and MQA; one block (S ==
 # block); a layout whose global row keeps every block and whose other rows
 # keep one or two without block 0, so a kernel that read its lists past
-# k_n / q_n (whose padding is 0, a valid index) would add block 0
+# k_n / q_n (whose padding is 0, a valid index) would add block 0; hd 32 at
+# blocks 64 and 128 (the wgmma kernels' narrowest tiles, GQA); and a layout
+# whose last k-block no q-block keeps (dk = dv = 0 there, exactly)
 SPARSE_CASES = (
     ("gpt2_1.5b_8192", 1, 25, 25, 8192, 64, True, "FixedSparsityConfig", {}),
     ("dense", 2, 4, 4, 1024, 64, True, "SparsityConfig", {}),
@@ -2070,6 +2086,11 @@ SPARSE_CASES = (
     ("wide_vs_narrow_full", 1, 4, 4, 1024, 64, False,
      "BSLongformerSparsityConfig",
      {"num_sliding_window_blocks": 1, "global_block_indices": (15,)}),
+    ("fixed_hd32", 1, 8, 8, 2048, 32, True, "FixedSparsityConfig", {}),
+    ("bigbird_gqa_hd32_block128_full", 1, 8, 2, 2048, 32, False,
+     "BigBirdSparsityConfig", {"block": 128}),
+    ("previous_block_empty_columns", 1, 4, 2, 1024, 64, True,
+     "PreviousBlockConfig", {}),
 )
 # the dense layout through the sparse kernels against the flash kernels on
 # the same inputs, (name, B, H, KV, S, hd, causal): the same function, so
@@ -2079,10 +2100,29 @@ SPARSE_VS_FLASH = (("dense_vs_flash", 1, 25, 25, 2048, 64, True),
 SPARSE_NAMES = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
 
 
+def _previous_block_layout(self, n: int):
+    """Block i keeps blocks 0 and i - 1 and not itself: under the causal
+    cut the last k-block's q-list is empty."""
+    import numpy as np
+
+    lay = np.zeros((n, n), bool)
+    lay[:, 0] = True
+    lay[np.arange(1, n), np.arange(n - 1)] = True
+    return lay
+
+
 def _sparse_config(cls: str, fields: dict):
+    """The sparse module's config class ``cls``, or ``PreviousBlockConfig``
+    (``_previous_block_layout``)."""
+    import dataclasses
+
     from deepspeed_tpu_torch.ops import sparse_attention as sa
 
-    return getattr(sa, cls)(**fields)
+    if cls != "PreviousBlockConfig":
+        return getattr(sa, cls)(**fields)
+    return dataclasses.make_dataclass(
+        cls, [], bases=(sa.SparsityConfig,), frozen=True,
+        namespace={"make_layout": _previous_block_layout})(**fields)
 
 
 def sparse_bound(layout, B, H, KV, hd, esize) -> dict:
@@ -2161,7 +2201,6 @@ def phase_sparse_kernels(device="cuda", cases=SPARSE_CASES,
         cfg = _sparse_config(cls, fields)
         layout = sa.sparse_layout(cfg, S, causal, device)
         widths = layout.k_n.tolist()
-        route = sa.library("sparse_fwd", cfg.block, hd)
         for dtype in dtypes:
             q, k, v, do = _qkv_do(gen, B, H, KV, S, hd, dtype, device)
             o_p, lse_p = sa.sparse_attention_fwd_plain(q, k, v, layout)
@@ -2184,21 +2223,38 @@ def phase_sparse_kernels(device="cuda", cases=SPARSE_CASES,
             fed["dk"], fed["dv"] = sa.sparse_bwd_dkv(q, k, v, do, lse,
                                                      delta_k, layout)
             o2, lse2 = sa.sparse_fwd(q, k, v, layout)
+            again = {"dq": sa.sparse_bwd_dq(q, k, v, do, lse_p, delta,
+                                            layout)}
+            again["dk"], again["dv"] = sa.sparse_bwd_dkv(q, k, v, do, lse_p,
+                                                         delta, layout)
             if device == "cuda":
                 torch.cuda.synchronize()
             same = torch.equal(o2, o) and torch.equal(lse2, lse)
+            same_bwd = all(torch.equal(again[n], got[n]) for n in again)
+            # the k-blocks that no q-block keeps: dk = dv = 0 exactly
+            empty = (layout.q_n == 0).nonzero().flatten().tolist()
+            rows = [p for jk in empty
+                    for p in range(jk * cfg.block, (jk + 1) * cfg.block)]
+            zeros = not any(bool(got[n][:, rows].any()) for n in ("dk", "dv"))
             tag = (f"[sparse] {name:24s} {str(dtype):15s} B{B} H{H} KV{KV} "
                    f"S{S} hd{hd} block {cfg.block} "
                    f"{'causal' if causal else 'full'}, lists "
-                   f"{min(widths)}-{max(widths)} wide, forward on {route}")
+                   f"{min(widths)}-{max(widths)} wide, on "
+                   + " / ".join(sa.library(n, cfg.block, hd)
+                                for n in SPARSE_NAMES))
             note(_check_shares(tag, got, want, lse, lse_p, dtype))
             _check_shares(tag + ", the backward fed its lse", {
                 "o": o, **fed}, want, lse, lse_p, dtype)
-            log(f"{tag}: a second forward bit-identical {same}")
-            if not same:
-                raise AssertionError(f"sparse_fwd {name} {dtype}: two calls "
-                                     "differ")
+            log(f"{tag}: a second forward bit-identical {same}, a second "
+                f"dq, dk, dv bit-identical {same_bwd}; {len(empty)} k-blocks "
+                f"kept by no q-block, their dk = dv = 0 {zeros}")
+            if not (same and same_bwd and zeros):
+                raise AssertionError(f"sparse {name} {dtype}: two calls "
+                                     f"differ (forward {same}, backward "
+                                     f"{same_bwd}) or dk / dv not 0 on "
+                                     f"k-blocks {empty}")
             del q, k, v, do, o_p, lse_p, delta, want, got, o, lse, fed, o2
+            del again
     # the dense layout is the function the flash kernels compute
     for name, B, H, KV, S, hd, causal in vs_flash:
         layout = sa.sparse_layout(sa.SparsityConfig(), S, causal, device)
@@ -2238,9 +2294,11 @@ def _sparse_timing(gen, case, iters) -> dict:
     yardsticks the port never calls, device-timed too: SDPA with the layout
     expanded to an (S, S) boolean mask (its forward, and its autograd
     backward against ``sparse_bwd_dq`` + ``sparse_bwd_dkv`` together), the
-    port's flash kernels on the dense causal problem at the same shape, and
-    the sparse kernels launched in natural block order instead of widest
-    list first."""
+    port's flash kernels on the dense causal problem at the same shape, the
+    sparse kernels launched in natural block order instead of widest list
+    first, and at blocks 64 / 128 the mma.sync backward pair of
+    ``sparse_attention.cu`` on the same inputs, timed in turns with the
+    wgmma pair (wgmma, mma.sync, mma.sync, wgmma)."""
     import dataclasses
 
     import torch
@@ -2277,6 +2335,11 @@ def _sparse_timing(gen, case, iters) -> dict:
                                                         causal=causal),
              "sparse_bwd_dkv": lambda i: fa.flash_bwd_dkv(*bwd(i),
                                                           causal=causal)}
+    # the mma.sync pair, called past the wrappers' route (no launch counted)
+    mma = {"sparse_bwd_dq": lambda i: sa._bwd_dq_on("sparse_attention",
+                                                    *bwd(i), layout),
+           "sparse_bwd_dkv": lambda i: sa._bwd_dkv_on("sparse_attention",
+                                                      *bwd(i), layout)}
     natural = dataclasses.replace(
         layout, q_order=torch.arange(S // cfg.block, dtype=torch.int32,
                                      device="cuda"),
@@ -2319,6 +2382,15 @@ def _sparse_timing(gen, case, iters) -> dict:
                       natural_order_ms=ms_nat, flash_dense_ms=flash_ms,
                       flash_dense_bound_ms=fb["bound_ms"],
                       library=sa.library(n, cfg.block, hd))
+        if n in mma and out[n]["library"] != "sparse_attention":
+            turns = [device_ms(f, 4, iters)
+                     for f in (lpt[n], mma[n], mma[n], lpt[n])]
+            out[n]["ab_ms"] = {"wgmma": [turns[0], turns[3]],
+                               "mma_sync": [turns[1], turns[2]]}
+            log(f"[sparse] {n} {name}: wgmma {turns[0] * 1e3:.2f} / "
+                f"{turns[3] * 1e3:.2f} us against the mma.sync kernel "
+                f"{turns[1] * 1e3:.2f} / {turns[2] * 1e3:.2f} us, in turns "
+                f"on the same inputs ({turns[1] / turns[0]:.2f}x)")
         log(f"[sparse] {n} ({out[n]['library']}) {name} B{B} H{H} KV{KV} "
             f"S{S} hd{hd} block {cfg.block} "
             f"{'causal' if causal else 'full'} bf16: kernel "
@@ -2940,14 +3012,14 @@ def kernel_names(fns) -> tuple:
     ``<wrapper>_kernel``, and for the three flash kernels their wgmma
     kernel ``<wrapper>_sm90_kernel`` and fp32 wgmma kernel
     ``<wrapper>_f32_sm90_kernel`` besides the mma.sync one (hd 16 and the
-    rest of fp32), for the sparse forward its wgmma kernel
-    ``sparse_fwd_sm90_kernel`` besides the mma.sync one (blocks 16 and 32,
+    rest of fp32), for the three sparse kernels their wgmma kernel
+    ``<wrapper>_sm90_kernel`` besides the mma.sync one (blocks 16 and 32,
     hd 16)."""
     def names(fn):
         n = fn.__name__
         if n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             return f"{n}_kernel", f"{n}_sm90_kernel", f"{n}_f32_sm90_kernel"
-        if n == "sparse_fwd":
+        if n in ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv"):
             return f"{n}_kernel", f"{n}_sm90_kernel"
         return f"{n}_kernel",
 

@@ -6,8 +6,10 @@
 // the attention tensors' maps.
 // flash_fwd_sm90.cu (the forward), flash_bwd_sm90.cuh (dq and dk/dv, built
 // by flash_bwd_dq_sm90.cu and flash_bwd_dkv_sm90.cu), tf32_sm90.cuh (the
-// fp32 kernels' pieces) and sparse_fwd_sm90.cu include it; each source
-// becomes its own library, so nvcc builds them side by side.
+// fp32 kernels' pieces), sparse_fwd_sm90.cu and sparse_bwd_sm90.cuh (the
+// sparse backward pair, built by sparse_bwd_dq_sm90.cu and
+// sparse_bwd_dkv_sm90.cu) include it; each source becomes its own library,
+// so nvcc builds them side by side.
 //
 // Tiles come in as panels of kPC<HD> columns (64, or hd 32's 32): rows of
 // 128 bytes in the 128-byte swizzle, hd 32's rows of 64 bytes in the

@@ -9,12 +9,15 @@ from ``np.random.default_rng(seed)`` as JAX does).
 
 The Pallas kernels ``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel``
 become CUDA kernels for Hopper, built by ``ops/builder.py`` and called
-through ctypes: the forward at blocks 64 and 128, hd 32-128 is
-``csrc/sparse_fwd_sm90.cu`` (wgmma, TMA producer warps walking the lists,
-persistent blocks widest list first); the forward elsewhere and the
-backward pair are the mma.sync kernels of ``csrc/sparse_attention.cu``
-(each source's header says what bounds its kernels and how they walk the
-lists). :func:`library` routes every launch by a fixed table. The
+through ctypes: at blocks 64 and 128, hd 32-128 the forward is
+``csrc/sparse_fwd_sm90.cu`` and the backward pair
+``csrc/sparse_bwd_dq_sm90.cu`` / ``csrc/sparse_bwd_dkv_sm90.cu`` (kernels in
+``csrc/sparse_bwd_sm90.cuh``): wgmma, TMA producer warps walking the lists,
+persistent blocks widest list first; blocks 16 and 32 and hd 16 take the
+mma.sync kernels of ``csrc/sparse_attention.cu`` (each source's header
+says what bounds its kernels and how they walk the lists). :func:`library`
+routes every launch by a fixed table; :func:`sparse_units` mirrors the
+wgmma kernels' schedule. The
 wrappers
 :func:`sparse_fwd`, :func:`sparse_bwd_dq` and :func:`sparse_bwd_dkv` launch
 their kernel for CUDA tensors and take the plain PyTorch versions beside
@@ -275,21 +278,24 @@ def sparse_bwd_dkv_plain(q, k, v, do, lse, delta, layout: SparseLayout):
 
 
 # ------------------------------------------------------------------ kernels
-# the (block, hd) the wgmma forward takes (csrc/sparse_fwd_sm90.cu)
+# the (block, hd) the wgmma kernels take, the forward
+# (csrc/sparse_fwd_sm90.cu) and the backward pair (csrc/sparse_bwd_sm90.cuh)
 WGMMA_FWD_BLOCKS = (64, 128)
 WGMMA_FWD_HEAD_DIMS = (32, 64, 128)
+SPARSE_KERNELS = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
 
 
 def library(kernel: str, block: int, hd: int) -> str:
     """The library whose kernel serves a launch of ``kernel``
     (``sparse_fwd``, ``sparse_bwd_dq`` or ``sparse_bwd_dkv``) at a layout
-    block and head dim: the wgmma forward of ``csrc/sparse_fwd_sm90.cu`` at
+    block and head dim: the wgmma kernel ``csrc/<kernel>_sm90.cu`` at
     blocks 64 and 128, hd 32-128; the mma.sync kernels of
-    ``csrc/sparse_attention.cu`` for the forward elsewhere and for the
-    backward pair. Fixed: a route never depends on a failure."""
-    if kernel == "sparse_fwd" and block in WGMMA_FWD_BLOCKS \
-            and hd in WGMMA_FWD_HEAD_DIMS:
-        return "sparse_fwd_sm90"
+    ``csrc/sparse_attention.cu`` elsewhere. Fixed: a route never depends on
+    a failure, and a failed wgmma launch raises."""
+    if kernel not in SPARSE_KERNELS:
+        raise ValueError(f"no sparse kernel {kernel!r}")
+    if block in WGMMA_FWD_BLOCKS and hd in WGMMA_FWD_HEAD_DIMS:
+        return f"{kernel}_sm90"
     return "sparse_attention"
 
 
@@ -313,18 +319,51 @@ def sparse_fwd_plan(hd: int) -> dict:
             "smem_bytes": smem}
 
 
-def sparse_fwd_units(layout: SparseLayout, B: int, H: int,
-                     blocks: int) -> list:
-    """The wgmma forward's schedule, as ``csrc/sparse_fwd_sm90.cu`` walks
-    it over ``blocks`` persistent blocks of two pipelines: for each
-    pipeline, its units in order, each a tuple (b, h, q-block, part) of 64
-    query rows. Units are numbered rank-major (the rank in the layout's
-    ``q_order``: widest list first), then part, b and h; pass k gives
-    pipeline p unit k * P + p, or k * P + P - 1 - p on odd passes (P the
+def sparse_bwd_plan(kernel: str, hd: int) -> dict:
+    """The tiles of the wgmma backward kernel ``kernel`` (``sparse_bwd_dq``
+    or ``sparse_bwd_dkv``) at head dim ``hd``, as
+    ``csrc/sparse_bwd_sm90.cuh`` builds them: ``pipes`` pipelines a block,
+    units and streamed chunks of ``rows`` rows, ``stages`` stages a
+    pipeline's ring, and the block's dynamic shared memory in
+    ``smem_bytes``: per pipeline the unit's two 16-bit tiles (dq: Q and dO;
+    dk/dv: K and V) and a ring of two tiles a stage (dq: K and V; dk/dv: Q
+    and dO, with 512 bytes of lse and delta rows), and its barriers (dq:
+    two, four a stage; dk/dv: two, two a stage), plus 1024 bytes of
+    alignment slack."""
+    if kernel not in ("sparse_bwd_dq", "sparse_bwd_dkv"):
+        raise ValueError(f"no wgmma backward kernel {kernel!r}")
+    if hd not in WGMMA_FWD_HEAD_DIMS:
+        raise ValueError(f"no wgmma {kernel} at hd {hd}")
+    pipes, rows = 2, 64
+    tile = rows * hd * 2
+    if kernel == "sparse_bwd_dq":
+        stages = {32: 8, 64: 6, 128: 2}[hd]
+        pipe = 2 * tile + 2 * stages * tile + 8 * (2 + 4 * stages)
+    else:
+        stages = {32: 8, 64: 5, 128: 2}[hd]
+        pipe = 2 * tile + stages * (2 * tile + 512) + 8 * (2 + 2 * stages)
+    return {"pipes": pipes, "rows": rows, "stages": stages,
+            "smem_bytes": 1024 + pipes * pipe}
+
+
+def sparse_units(layout: SparseLayout, B: int, heads: int, blocks: int,
+                 kernel: str = "sparse_fwd") -> list:
+    """The schedule of a wgmma sparse kernel, as ``csrc/sparse_fwd_sm90.cu``
+    and ``csrc/sparse_bwd_sm90.cuh`` walk it over ``blocks`` persistent
+    blocks of two pipelines: for each pipeline, its units in order, each a
+    tuple (b, head, layout block, part) of 64 rows. The forward and dq
+    walk query blocks over the query heads (``heads`` = H) in the layout's
+    ``q_order``, dk/dv key blocks over the KV heads (``heads`` = KV) in its
+    ``k_order``: widest list first. Units are numbered rank-major (the
+    rank in that order), then part, b and head; pass k gives pipeline p
+    unit k * P + p, or k * P + P - 1 - p on odd passes (P the
     pipelines)."""
+    if kernel not in SPARSE_KERNELS:
+        raise ValueError(f"no sparse kernel {kernel!r}")
     parts = layout.block // 64
-    order = layout.q_order.tolist()
-    nunits = len(order) * parts * B * H
+    order = (layout.k_order if kernel == "sparse_bwd_dkv"
+             else layout.q_order).tolist()
+    nunits = len(order) * parts * B * heads
     npipes = 2 * blocks
     out = []
     for me in range(npipes):
@@ -333,12 +372,34 @@ def sparse_fwd_units(layout: SparseLayout, B: int, H: int,
             u = k * npipes + (npipes - 1 - me if k & 1 else me)
             if u >= nunits:
                 break
-            hb, rest = u % (H * B), u // (H * B)
-            units.append((hb // H, hb % H, order[rest // parts],
+            hb, rest = u % (heads * B), u // (heads * B)
+            units.append((hb // heads, hb % heads, order[rest // parts],
                           rest % parts))
             k += 1
         out.append(units)
     return out
+
+
+def sparse_unit_chunks(layout: SparseLayout, kernel: str, block: int,
+                       part: int) -> int:
+    """The 64-row chunks of the other operand that a wgmma kernel's unit
+    (part ``part`` of layout block ``block``) walks, one head's worth:
+    every chunk of its list's entries, less the one that lies wholly on
+    the hidden side of a causal diagonal 128-block (dq and the forward: the
+    diagonal's upper key chunk for the first half; dk/dv: its first query
+    chunk for the second half). dk/dv walks this for each query head of
+    its group."""
+    parts = layout.block // 64
+    dkv = kernel == "sparse_bwd_dkv"
+    idx, cnt = (layout.q_idx, layout.q_n) if dkv else (layout.k_idx,
+                                                      layout.k_n)
+    n = int(cnt[block])
+    if n == 0:
+        return 0
+    diag = int(idx[block, 0 if dkv else n - 1]) == block
+    skip = layout.causal and parts == 2 and diag and part == (1 if dkv
+                                                              else 0)
+    return n * parts - int(skip)
 
 
 def _lib(name):
@@ -374,6 +435,8 @@ def _check_layout(name, q, layout: SparseLayout):
 
 
 def _launch_args(layout, q, k, lists_of):
+    """The lists, shapes, dtype, scale and stream of a launch: the common
+    tail of every sparse kernel's arguments."""
     B, S, H, hd = q.shape
     idx, cnt, order = lists_of
     return (idx.data_ptr(), cnt.data_ptr(), order.data_ptr(), idx.shape[1],
@@ -408,12 +471,8 @@ def sparse_bwd_dq(q, k, v, do, lse, delta, layout: SparseLayout):
     _check("sparse_bwd_dq", q, k, v, do, lse, delta,
            codes=HALF_DTYPE_CODE)
     _check_layout("sparse_bwd_dq", q, layout)
-    dq = torch.empty_like(q)
-    err = _lib("sparse_attention").dstpu_sparse_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_launch_args(
-            layout, q, k, (layout.k_idx, layout.k_n, layout.q_order)))
-    _raise_on(err, "sparse_bwd_dq")
+    dq = _bwd_dq_on(library("sparse_bwd_dq", layout.block, q.shape[3]),
+                    q, k, v, do, lse, delta, layout)
     sparse_bwd_dq.launches += 1
     return dq
 
@@ -425,14 +484,34 @@ def sparse_bwd_dkv(q, k, v, do, lse, delta, layout: SparseLayout):
     _check("sparse_bwd_dkv", q, k, v, do, lse, delta,
            codes=HALF_DTYPE_CODE)
     _check_layout("sparse_bwd_dkv", q, layout)
+    dk, dv = _bwd_dkv_on(library("sparse_bwd_dkv", layout.block, q.shape[3]),
+                         q, k, v, do, lse, delta, layout)
+    sparse_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def _bwd_dq_on(lib, q, k, v, do, lse, delta, layout):
+    """dq from library ``lib``'s kernel on checked CUDA operands (the
+    wrapper's route; chip_smoke.py and the card tests also name the
+    mma.sync library here, to hold the two kernels against each other)."""
+    dq = torch.empty_like(q)
+    err = _lib(lib).dstpu_sparse_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_launch_args(
+            layout, q, k, (layout.k_idx, layout.k_n, layout.q_order)))
+    _raise_on(err, "sparse_bwd_dq")
+    return dq
+
+
+def _bwd_dkv_on(lib, q, k, v, do, lse, delta, layout):
+    """(dk, dv) from library ``lib``'s kernel, as :func:`_bwd_dq_on`."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _lib("sparse_attention").dstpu_sparse_bwd_dkv(
+    err = _lib(lib).dstpu_sparse_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *_launch_args(layout, q, k,
                       (layout.q_idx, layout.q_n, layout.k_order)))
     _raise_on(err, "sparse_bwd_dkv")
-    sparse_bwd_dkv.launches += 1
     return dk, dv
 
 

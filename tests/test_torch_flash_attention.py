@@ -400,8 +400,8 @@ def test_3xtf32_emulation_keeps_fp32_accuracy(m, k, n, rounded):
 
 def test_profile_names_cover_the_wgmma_kernels():
     """chip_smoke.py reads each flash kernel's share of a profile under its
-    mma.sync and its wgmma kernels' names (the fp32 ones too), and the
-    sparse forward's under both of its kernels' names; each name is a
+    mma.sync and its wgmma kernels' names (the fp32 ones too), and each
+    sparse kernel's under both of its kernels' names; each name is a
     kernel of a source, so a share cannot read 0 for want of a name."""
     import importlib.util
     import re
@@ -418,13 +418,14 @@ def test_profile_names_cover_the_wgmma_kernels():
     assert names == tuple(n for f in fns for n in (
         f"{f.__name__}_kernel", f"{f.__name__}_sm90_kernel",
         f"{f.__name__}_f32_sm90_kernel"))
-    # the sparse forward's wgmma kernel beside its mma.sync one
+    # each sparse kernel's wgmma kernel beside its mma.sync one
     from deepspeed_tpu_torch.ops import sparse_attention as tsa
 
     sparse = (tsa.sparse_fwd, tsa.sparse_bwd_dq, tsa.sparse_bwd_dkv)
     assert smoke.kernel_names(sparse) == (
         "sparse_fwd_kernel", "sparse_fwd_sm90_kernel",
-        "sparse_bwd_dq_kernel", "sparse_bwd_dkv_kernel")
+        "sparse_bwd_dq_kernel", "sparse_bwd_dq_sm90_kernel",
+        "sparse_bwd_dkv_kernel", "sparse_bwd_dkv_sm90_kernel")
     names = names + smoke.kernel_names(sparse)
     text = "".join(p.read_text() for p in builder.CSRC.glob("*.cu*"))
     for n in names:

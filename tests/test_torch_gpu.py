@@ -802,9 +802,10 @@ def test_tf32_fragment_order_and_pos(cuda):
 # ------------------------------------------------------------- sparse attention
 # (B, H, KV, S, hd, causal, config class, fields): chip_smoke.py phase 5c's
 # cases at smaller sizes: the default Fixed layout, each layout, blocks 16,
-# 32 and 128, hd 128 and 16, GQA / MQA, one block, and a layout whose
+# 32 and 128, hd 128, 32 and 16, GQA / MQA, one block, a layout whose
 # narrow lists leave out block 0 (a kernel reading its lists past k_n /
-# q_n would add block 0, their padding)
+# q_n would add block 0, their padding), and one whose last k-block no
+# q-block keeps (its dk and dv must come out exactly 0)
 SPARSE_CASES = [
     (1, 25, 25, 2048, 64, True, "FixedSparsityConfig", {}),
     (2, 4, 4, 1024, 64, False, "FixedSparsityConfig", {}),
@@ -822,7 +823,41 @@ SPARSE_CASES = [
      {"num_sliding_window_blocks": 1, "global_block_indices": (15,)}),
     (1, 4, 4, 1024, 64, False, "BSLongformerSparsityConfig",
      {"num_sliding_window_blocks": 1, "global_block_indices": (15,)}),
+    (1, 8, 8, 1024, 32, True, "FixedSparsityConfig", {}),
+    (1, 8, 2, 1024, 32, False, "BigBirdSparsityConfig", {"block": 128}),
+    (1, 4, 2, 1024, 64, True, "PreviousBlockConfig", {}),
+    (1, 4, 4, 1024, 128, True, "PreviousBlockConfig", {"block": 128}),
 ]
+
+
+def _sparse_config(sa, cls, fields):
+    """The config class ``cls`` of the sparse module, or
+    ``PreviousBlockConfig``: block i keeps blocks 0 and i - 1 and not
+    itself, so under the causal cut the last k-block has an empty q-list."""
+    import dataclasses
+
+    if cls != "PreviousBlockConfig":
+        return getattr(sa, cls)(**fields)
+
+    @dataclasses.dataclass(frozen=True)
+    class PreviousBlockConfig(sa.SparsityConfig):
+        def make_layout(self, n):
+            import numpy as np
+
+            lay = np.zeros((n, n), bool)
+            lay[:, 0] = True
+            for i in range(1, n):
+                lay[i, i - 1] = True
+            return lay
+
+    return PreviousBlockConfig(**fields)
+
+
+def _empty_key_rows(layout):
+    """The key positions of the k-blocks whose q-list is empty."""
+    empty = (layout.q_n == 0).nonzero().flatten().tolist()
+    return [p for jk in empty
+            for p in range(jk * layout.block, (jk + 1) * layout.block)]
 
 
 def _sparse_inputs(cuda, B, H, KV, S, hd, dtype, seed=0):
@@ -847,10 +882,12 @@ def test_sparse_kernels_match_plain(cuda, case, dtype):
     from deepspeed_tpu_torch.ops import sparse_attention as sa
 
     B, H, KV, S, hd, causal, cls, fields = case
-    layout = sa.sparse_layout(getattr(sa, cls)(**fields), S, causal, cuda)
-    assert sa.library("sparse_fwd", layout.block, hd) == (
-        "sparse_fwd_sm90" if layout.block in (64, 128) and hd >= 32
-        else "sparse_attention")
+    layout = sa.sparse_layout(_sparse_config(sa, cls, fields), S, causal,
+                              cuda)
+    for kernel in ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv"):
+        assert sa.library(kernel, layout.block, hd) == (
+            f"{kernel}_sm90" if layout.block in (64, 128) and hd >= 32
+            else "sparse_attention")
     q, k, v, do = _sparse_inputs(cuda, B, H, KV, S, hd, dtype)
     o_p, lse_p = sa.sparse_attention_fwd_plain(q, k, v, layout)
     delta = fa.attention_delta(o_p, do)
@@ -870,8 +907,15 @@ def test_sparse_kernels_match_plain(cuda, case, dtype):
     # no atomics: a second launch repeats the first bit for bit
     o2, lse2 = sa.sparse_fwd(q, k, v, layout)
     assert torch.equal(o2, o) and torch.equal(lse2, lse)
-    assert torch.equal(sa.sparse_bwd_dkv(q, k, v, do, lse_p, delta,
-                                         layout)[0], dk)
+    assert torch.equal(sa.sparse_bwd_dq(q, k, v, do, lse_p, delta, layout),
+                       dq)
+    dk2, dv2 = sa.sparse_bwd_dkv(q, k, v, do, lse_p, delta, layout)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+    # k-blocks that no q-block keeps: dk = dv = 0 exactly
+    rows = _empty_key_rows(layout)
+    assert (cls == "PreviousBlockConfig") == bool(rows)
+    for t in (dk, dv):
+        assert not t[:, rows].any()
     # the backward pair fed the kernel forward's o and lse, as training
     # feeds it
     delta_k = fa.attention_delta(o, do)
@@ -942,6 +986,81 @@ def test_sparse_wgmma_forward_plan_and_routes(cuda):
         o, _ = sa.sparse_fwd(q, k, v, layout)
         o_p, _ = sa.sparse_attention_fwd_plain(q, k, v, layout)
         assert _max_share(o, o_p) <= FLASH_SHARE[torch.bfloat16]
+
+
+def test_sparse_wgmma_backward_plan_and_routes(cuda):
+    """The wgmma backward pair's libraries each export their kernel's
+    function alone, take the shared memory sparse_bwd_plan() gives and
+    refuse blocks 16 and 32, hd 16 and fp32 straight to the library."""
+    import ctypes
+
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    P = ctypes.c_void_p
+    for kernel in ("sparse_bwd_dq", "sparse_bwd_dkv"):
+        lib = sa._lib(f"{kernel}_sm90")
+        others = {"sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv"} - {kernel}
+        assert hasattr(lib, f"dstpu_{kernel}")
+        assert not any(hasattr(lib, f"dstpu_{o}") for o in others)
+        smem = getattr(lib, f"dstpu_{kernel}_smem_bytes")
+        smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+        for hd in (32, 64, 128):
+            assert smem(hd) == sa.sparse_bwd_plan(kernel, hd)["smem_bytes"]
+            assert smem(hd) <= 232448
+        assert smem(16) == 0
+        for block, hd, dtype_code in ((32, 64, 2), (16, 64, 2), (64, 16, 2),
+                                      (64, 64, 3)):
+            layout = sa.sparse_layout(sa.FixedSparsityConfig(block=block),
+                                      256, True, cuda)
+            x = torch.zeros(1, 256, 2, hd, device=cuda, dtype=torch.bfloat16)
+            rows = torch.zeros(1, 2, 256, device=cuda)
+            outs = (x,) if kernel == "sparse_bwd_dq" else (x, x)
+            idx, cnt, order = ((layout.k_idx, layout.k_n, layout.q_order)
+                               if kernel == "sparse_bwd_dq" else
+                               (layout.q_idx, layout.q_n, layout.k_order))
+            err = getattr(lib, f"dstpu_{kernel}")(
+                *(P(t.data_ptr()) for t in (x, x, x, x, rows, rows, *outs,
+                                            idx, cnt, order)),
+                idx.shape[1], 1, 256, 2, 2, hd, block, 1, dtype_code, 0.125,
+                P(torch.cuda.current_stream().cuda_stream))
+            assert err != 0
+
+
+# (B, H, KV, S, hd, causal, config class, fields): the wgmma backward pair
+# against the mma.sync pair of sparse_attention.cu on the same inputs, at
+# blocks 64 and 128, hd 32-128, GQA, causal and not
+AB_CASES = [
+    (1, 25, 25, 2048, 64, True, "FixedSparsityConfig", {}),
+    (1, 8, 2, 1024, 32, True, "FixedSparsityConfig", {"block": 128}),
+    (2, 4, 4, 1024, 128, False, "BigBirdSparsityConfig", {}),
+    (1, 4, 4, 1024, 64, True, "BSLongformerSparsityConfig",
+     {"num_sliding_window_blocks": 1, "global_block_indices": (15,)}),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", AB_CASES,
+                         ids=lambda c: "-".join(map(str, c[:7])))
+def test_sparse_wgmma_backward_matches_the_mma_sync_pair(cuda, case, dtype):
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    B, H, KV, S, hd, causal, cls, fields = case
+    layout = sa.sparse_layout(getattr(sa, cls)(**fields), S, causal, cuda)
+    q, k, v, do = _sparse_inputs(cuda, B, H, KV, S, hd, dtype, seed=2)
+    o, lse = sa.sparse_fwd(q, k, v, layout)
+    delta = fa.attention_delta(o, do)
+    args = (q, k, v, do, lse, delta, layout)
+    new = (sa._bwd_dq_on(sa.library("sparse_bwd_dq", layout.block, hd),
+                         *args),
+           *sa._bwd_dkv_on(sa.library("sparse_bwd_dkv", layout.block, hd),
+                           *args))
+    old = (sa._bwd_dq_on("sparse_attention", *args),
+           *sa._bwd_dkv_on("sparse_attention", *args))
+    torch.cuda.synchronize()
+    for n, a, b in zip(("dq", "dk", "dv"), new, old):
+        assert bool(torch.isfinite(a).all()), n
+        assert _max_share(a, b) <= FLASH_SHARE[dtype], n
 
 
 def test_sparse_kernels_refuse_what_they_do_not_take(cuda):

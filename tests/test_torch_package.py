@@ -94,7 +94,8 @@ def test_library_path_keys_on_the_source():
                                  "flash_bwd_dq_f32_sm90",
                                  "flash_bwd_dq_sm90",
                                  "flash_fwd_f32_sm90", "flash_fwd_sm90",
-                                 "sparse_attention", "sparse_fwd_sm90",
+                                 "sparse_attention", "sparse_bwd_dkv_sm90",
+                                 "sparse_bwd_dq_sm90", "sparse_fwd_sm90",
                                  "woq_matmul", "xent", "xent_bwd_sm90"]
 
 

@@ -250,27 +250,31 @@ def test_fn_carries_no_capability_flag():
 
 
 # which library's kernel serves each sparse launch on the card, by (block,
-# hd): the wgmma forward at blocks 64 and 128, hd 32-128, mma.sync else
+# hd): the wgmma kernels at blocks 64 and 128, hd 32-128, mma.sync else
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
 @pytest.mark.parametrize("block", tsa.KERNEL_BLOCKS)
 def test_routes_by_block_and_head_dim(block, hd):
-    """Fixed, no fallback: only the forward moves to the wgmma library, and
-    each route is a source ``ops/builder.py`` compiles that exports the
-    kernel's function (the wgmma source only the forward's)."""
+    """Fixed, no fallback: the forward and the backward pair move to their
+    wgmma libraries together, and each route is a source
+    ``ops/builder.py`` compiles that exports the kernel's function (each
+    wgmma source its own kernel's alone)."""
     from deepspeed_tpu_torch.ops import builder
 
     wgmma = block in (64, 128) and hd in (32, 64, 128)
-    assert tsa.library("sparse_fwd", block, hd) == (
-        "sparse_fwd_sm90" if wgmma else "sparse_attention")
-    for kernel in ("sparse_bwd_dq", "sparse_bwd_dkv"):
-        assert tsa.library(kernel, block, hd) == "sparse_attention"
-    for kernel in ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv"):
+    kernels = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
+    for kernel in kernels:
+        assert tsa.library(kernel, block, hd) == (
+            f"{kernel}_sm90" if wgmma else "sparse_attention")
         name = tsa.library(kernel, block, hd)
         assert name in builder.sources()
         text = (builder.CSRC / f"{name}.cu").read_text()
         assert f'extern "C" int dstpu_{kernel}(' in text
+        text = (builder.CSRC / f"{kernel}_sm90.cu").read_text()
+        for other in set(kernels) - {kernel}:
+            assert f"dstpu_{other}(" not in text
+    with pytest.raises(ValueError, match="no sparse kernel"):
+        tsa.library("sparse_bwd", block, hd)
     text = (builder.CSRC / "sparse_fwd_sm90.cu").read_text()
-    assert "dstpu_sparse_bwd" not in text
     if wgmma:
         plan = tsa.sparse_fwd_plan(hd)
         assert plan["smem_bytes"] <= 232448
@@ -304,7 +308,7 @@ def test_wgmma_forward_schedule_covers_every_unit_widest_first(cls, causal):
                                    (64, 8192, 1, 25, 132)):
         layout = tsa.sparse_layout(getattr(tsa, cls)(block=block), S, causal,
                                    "cpu")
-        pipes = tsa.sparse_fwd_units(layout, B, H, blocks)
+        pipes = tsa.sparse_units(layout, B, H, blocks)
         assert len(pipes) == 2 * blocks
         units = [u for p in pipes for u in p]
         parts = block // 64
@@ -320,6 +324,101 @@ def test_wgmma_forward_schedule_covers_every_unit_widest_first(cls, causal):
         first = [width[p[0][2]] for p in pipes if p]
         assert min(first) >= max(width[iq] for p in pipes
                                  for _, _, iq, _ in p[1:])
+
+
+# the wgmma backward pair's tiles: sparse_bwd_plan() against the constants
+# of csrc/sparse_bwd_sm90.cuh, read from its text
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("kernel", ["sparse_bwd_dq", "sparse_bwd_dkv"])
+def test_wgmma_backward_plan_matches_the_header(kernel, hd):
+    from deepspeed_tpu_torch.ops import builder
+
+    text = (builder.CSRC / "sparse_bwd_sm90.cuh").read_text()
+    assert "constexpr int kBRows = 64;" in text
+    assert "constexpr int kBPipes = 2;" in text
+    assert "constexpr int kRowsB = 2 * kBRows * 4;" in text
+    name = "kDqStages" if kernel == "sparse_bwd_dq" else "kDkvStages"
+    m = re.search(rf"constexpr int {name} = HD == 32 \? (\d+) : "
+                  rf"HD == 64 \? (\d+) : (\d+);", text)
+    stages = dict(zip((32, 64, 128), map(int, m.groups())))
+    plan = tsa.sparse_bwd_plan(kernel, hd)
+    assert (plan["pipes"], plan["rows"]) == (2, 64)
+    assert plan["stages"] == stages[hd]
+    tile, ns = 64 * hd * 2, plan["stages"]
+    if kernel == "sparse_bwd_dq":
+        assert "2 * kBTileB<HD> + 2 * kDqStages<HD> * kBTileB<HD>" in text
+        assert "kDqBars = 8 * (2 + 4 * kDqStages<HD>)" in text
+        pipe = 2 * tile + 2 * ns * tile + 8 * (2 + 4 * ns)
+    else:
+        assert "2 * kBTileB<HD> + 2 * kDkvStages<HD> * kBTileB<HD>" in text
+        assert "kDkvRowsB = kDkvStages<HD> * kRowsB" in text
+        assert "kDkvBars = 8 * (2 + 2 * kDkvStages<HD>)" in text
+        pipe = 2 * tile + ns * (2 * tile + 512) + 8 * (2 + 2 * ns)
+    assert plan["smem_bytes"] == 1024 + 2 * pipe <= 232448
+    # the most stages that fit, at most 8
+    more = 2 * (2 * tile + (512 if kernel == "sparse_bwd_dkv" else 0)
+                + 8 * (4 if kernel == "sparse_bwd_dq" else 2))
+    assert ns == 8 or plan["smem_bytes"] + more > 232448
+    for bad in (16, 48):
+        with pytest.raises(ValueError, match="no wgmma"):
+            tsa.sparse_bwd_plan(kernel, bad)
+    with pytest.raises(ValueError, match="no wgmma backward"):
+        tsa.sparse_bwd_plan("sparse_fwd", hd)
+
+
+# the wgmma backward pair's schedule: dq walks every (b, h, q-block, part),
+# dk/dv every (b, KV head, k-block, part) once, widest list first, over
+# the five layouts, causal and not, blocks 64 and 128
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("cls", ["SparsityConfig", "FixedSparsityConfig",
+                                 "VariableSparsityConfig",
+                                 "BigBirdSparsityConfig",
+                                 "BSLongformerSparsityConfig"])
+@pytest.mark.parametrize("kernel", ["sparse_bwd_dq", "sparse_bwd_dkv"])
+def test_wgmma_backward_schedule_covers_every_unit_widest_first(kernel, cls,
+                                                                causal):
+    for block, S, B, heads, blocks in ((64, 1024, 2, 3, 7),
+                                       (128, 2048, 1, 5, 4),
+                                       (64, 8192, 1, 25, 132)):
+        layout = tsa.sparse_layout(getattr(tsa, cls)(block=block), S, causal,
+                                   "cpu")
+        pipes = tsa.sparse_units(layout, B, heads, blocks, kernel)
+        assert len(pipes) == 2 * blocks
+        units = [u for p in pipes for u in p]
+        parts = block // 64
+        want = {(b, h, i, part) for b in range(B) for h in range(heads)
+                for i in range(S // block) for part in range(parts)}
+        assert len(units) == len(want) and set(units) == want
+        width = (layout.q_n if kernel == "sparse_bwd_dkv"
+                 else layout.k_n).tolist()
+        for p in pipes:
+            w = [width[i] for _, _, i, _ in p]
+            assert w == sorted(w, reverse=True)
+        first = [width[p[0][2]] for p in pipes if p]
+        assert min(first) >= max(width[i] for p in pipes
+                                 for _, _, i, _ in p[1:])
+        # a unit walks its list's chunks, less the hidden half of a causal
+        # diagonal 128-block, and at least one (dq: every q-block keeps one)
+        for b, h, i, part in units[:64]:
+            n = width[i]
+            chunks = tsa.sparse_unit_chunks(layout, kernel, i, part)
+            assert n * parts - 1 <= chunks <= n * parts
+            assert chunks > 0 or kernel == "sparse_bwd_dkv"
+
+
+@pytest.mark.parametrize("kernel", ["sparse_bwd_dq", "sparse_bwd_dkv"])
+def test_phase9_pipelines_balance_without_splitting_lists(kernel):
+    """At phase 9's shape (B 1, H 25, S 8192, the Fixed layout, 132 blocks
+    of two pipelines) the busiest pipeline walks within 5% of the mean
+    list steps: the wgmma backward pair splits no list over blocks and so
+    keeps one writer a row and no partial sums."""
+    layout = tsa.sparse_layout(tsa.FixedSparsityConfig(), 8192, True, "cpu")
+    pipes = tsa.sparse_units(layout, 1, 25, 132, kernel)
+    steps = [sum(tsa.sparse_unit_chunks(layout, kernel, i, part)
+                 for _, _, i, part in p) for p in pipes]
+    assert sum(steps) == 25 * int(layout.k_n.sum())
+    mean = sum(steps) / len(steps)
+    assert max(steps) <= 1.05 * mean, (max(steps), mean)
 
 
 def test_non_cpu_tensors_never_take_the_plain_path():

@@ -26,7 +26,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    one 32768-position row, hd 40 / 256 and fp32 GQA, rows with L = 0
    exactly 0 and two calls bit-identical; both WOQ GEMMs in fp16 and at
    M 1 / 8 / 16 / 17 on both routes, each line naming its route, two calls
-   bit-identical); then timed on
+   bit-identical; both kernels at phase 11's slot step: decode attention at
+   B 8, cache 1024 with ragged rows and idle ones past the cache, and
+   ``woq_matmul`` int8 at M 8 on every Llama-2-7B projection and the
+   head); then timed on
    L2-cold inputs (device time: calls captured in a CUDA graph, replays
    timed with CUDA events) beside the plain version (eager calls), the
    PyTorch library call that computes the same function (device time),
@@ -145,7 +148,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    residues in bf16, one (1, 8, 256, 256) bias shared by the rows, a key
    mask on padded residues: first step against the plain path, then 2 + 5
    steps with ms a step, peak memory against the plain path's and the
-   kernels' share of device time. Launches exactly 1 / 1 / 1 a step.
+   kernels' share of device time. Launches exactly 1 / 1 / 1 a step;
+11. serving: ``ServingEngine(init_inference(...), SERVING)`` on Llama-2-7B
+   at full width and depth, 8 slots of 1024 positions, prefill chunks of
+   256, greedy, (a) in bf16 with 32 requests and (b) in int8 WOQ with 16,
+   prompts of 16-768 tokens and 16-128 new ones from seed 0, all submitted
+   at t = 0, then ``drain()``; every request OK in full, one CUDA graph
+   capture of the slot step (its recorded launches: decode attention
+   ``n_layer``, ``woq_matmul`` 161 in int8; a profiled window of replays
+   shows each of them launched on the device at every replay, by the
+   kernel's name), every served token
+   within 5% of max |logit| of its row's maximum in one dense
+   teacher-forced forward, the replay and the eager slot step from the
+   same state giving the same tokens; tokens/s, TTFT, TPOT, the graphed
+   and the eager slot step's ms, the device's busy share over serving
+   iterations, peak memory and solo ``generate`` parity recorded (a
+   ``[serve]`` JSON line each).
 
 ``remat_sweep()`` and ``woq_probe()`` are one-off measurements outside the
 phases: the default GPT-2 1.5B training step under each remat policy, and
@@ -161,7 +179,11 @@ of PERF.md) and at S 8192, where it stands for the TPU's streamed kernel
 (rows 5-7), and the fp32 forward's and backward pair's 3xTF32 kernels
 (``flash_fwd_f32``, ``flash_bwd_dq_f32``, ``flash_bwd_dkv_f32``) at the
 DS4Science example's shape with phase 10a's launches; each sparse row names
-the library phase 9's launches run (the wgmma ones).
+the library phase 9's launches run (the wgmma ones). The decode-attention
+and ``woq_matmul`` rows also carry ``serving_launches``: phase 11's device
+launches (11a's and 11b's), from the counts the run took: the wrappers'
+count over the path less the capture's (the eager warm-up step), plus the
+capture's count times the graph's replays.
 The last three lines of standard output are the kernels' JSON, then
 ``nvidia-smi``'s name and power limit of the card, then the device JSON.
 Without a CUDA device, or outside the repository, it exits 1 and prints
@@ -607,6 +629,11 @@ def phase_kernels(device="cuda", main_shape=None, iters=200,
     c = da.split_plan(B, main.get("H", 32), main.get("KV", 32), S, hd,
                       sms)["chunk"]
     edge = tuple(min(x, S) for x in (c, c + 1, 2 * c, 2 * c + 1))
+    # phase 11's slot step: ragged rows, a full one and idle ones whose
+    # length has grown past the cache (the kernel clamps it to S)
+    slots, max_len = SERVING["slots"], SERVING["max_len"]
+    serve_lengths = tuple((1 + 131 * i) % max_len for i in range(slots - 3)) \
+        + (max_len - 1, max_len, max_len + 476)
     cases = {
         "main": {},
         "gqa": dict(KV=8),
@@ -623,6 +650,8 @@ def phase_kernels(device="cuda", main_shape=None, iters=200,
         "hd40": dict(hd=40),
         "hd256": dict(hd=256, H=8, KV=8),
         "fp32_gqa": dict(dtype=torch.float32, KV=8),
+        "serving": dict(B=slots, S=max_len, H=32, KV=32, hd=128,
+                        lengths=serve_lengths),
     }
     errs = {}
     for name, over in cases.items():
@@ -863,6 +892,11 @@ def phase_woq_kernels(device="cuda", iters=200, main=WOQ_MM_MAIN,
             errs["mmt"] = max(errs["mmt"], e)
     for case in edges:
         _woq_check(gen, *case, device)
+    # phase 11's int8 slot step: M = the slots, every Llama-2-7B projection
+    # and the head (fp32 out)
+    for _, K, N, _, out in main:
+        _woq_check(gen, "mm", SERVING["slots"], K, N, 128, 8, "bfloat16", out,
+                   device)
     result = {"woq_matmul": {"max_abs_err": errs["mm"]},
               "woq_matmul_t": {"max_abs_err": errs["mmt"]}}
     if device != "cuda":
@@ -3590,6 +3624,328 @@ def phase_af2_msa_row(device="cuda", af2=None, profile_steps=2) -> dict:
     return result
 
 
+# ----------------------------------------------------------------- phase 11
+SERVING = {"slots": 8, "max_len": 1024, "prefill_chunk": 256, "greedy": True}
+# the stream: prompts uniform in [16, 768] tokens, max_new in [16, 128], all
+# submitted at t = 0 (seed 0); 32 requests in bf16, 16 in int8
+SERVE_PROMPT = (16, 768)
+SERVE_NEW = (16, 128)
+SERVE_KERNELS = {"decode_attention": "decode_attention_kernel",
+                 "woq_matmul": "woq_matmul_mma_kernel"}
+
+
+def _serve_stream(vocab: int, n: int, seed: int = 0, prompt=SERVE_PROMPT,
+                  new=SERVE_NEW) -> list:
+    """(prompt ids, max_new, request seed) for ``n`` requests."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(prompt[0], prompt[1] + 1, n)
+    news = rng.integers(new[0], new[1] + 1, n)
+    return [(rng.integers(0, vocab, int(P)).astype(np.int32), int(N), i)
+            for i, (P, N) in enumerate(zip(lens, news))]
+
+
+def _slot_marks(st):
+    """What a slot step changes besides the KV it writes at each slot's
+    ``length``, which a rerun from the same marks overwrites: the slots'
+    lengths, tokens and done flags."""
+    return st.cache.length.clone(), st.tok.clone(), st.done.clone()
+
+
+def _slot_reset(st, marks) -> None:
+    import torch
+
+    with torch.inference_mode():     # the state's tensors are inference's
+        for t, m in zip((st.cache.length, st.tok, st.done), marks):
+            t.copy_(m)
+
+
+def _profile_counts(fn) -> dict:
+    """torch.profiler around one call of ``fn``: launches of each device
+    kernel by name, the device's busy µs and the host wall µs."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    counts, busy = {}, 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            counts[e.name] = counts.get(e.name, 0) + 1
+            busy += e.time_range.elapsed_us()
+    return {"counts": counts, "busy_us": busy, "wall_us": wall_us}
+
+
+def _kernel_launches(counts: dict, kernel: str) -> int:
+    """Launches of a templated kernel, whatever its namespace and template
+    arguments (the profiler names ``void (anonymous namespace)::k<...>``)."""
+    return sum(v for k, v in counts.items() if f"{kernel}<" in k)
+
+
+def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
+                prompt=SERVE_PROMPT, new=SERVE_NEW, device=None,
+                solo_checks=4, lab_prompt=512, lab_new=256, timed_steps=8,
+                profile_steps=4) -> dict:
+    """Phase 11: ``ServingEngine(init_inference(...), SERVING)`` serving a
+    seeded stream at full width and depth (bf16, or int8 WOQ with
+    ``bits=8``), all requests submitted at t = 0, then ``drain()``. The
+    kernel counts are zeroed before a one-request warm-up (whose first
+    decode step is the eager warm-up and the graph's capture) and read
+    after the drain. Gates: every request OK with ``max_new`` tokens;
+    ``captures == 1``; the capture recorded ``n_layer`` decode-attention
+    launches (and 161 ``woq_matmul`` in int8); a profiled window of
+    replays shows those kernels launched on the device, ``n_layer`` (and
+    161) a replay, by name; every served token within
+    LOGIT_TOL_SHARE of its row's maximum in one dense teacher-forced
+    forward; the graphed and the eager slot step give the same tokens from
+    the same state. Recorded: tokens/s, TTFT, TPOT, both step times, the
+    device's busy share over serving iterations, peak memory, solo
+    ``generate`` parity, and the path's device launches, from the counts
+    taken: the wrappers' (the eager warm-up step and the capture) less the
+    capture's, plus the capture's times the graph's replays."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.inference.decode import (forward_with_cache,
+                                                      init_cache)
+    from deepspeed_tpu_torch.models import build_model, llama2
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    from deepspeed_tpu_torch.ops import woq_matmul as wm
+    from deepspeed_tpu_torch.resilience.guards import RequestStatus
+
+    cfg = cfg or llama2("7b")
+    serving = dict(serving or SERVING)
+    dev = torch.device(device or "cuda")
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    tag = f"[serve {cfg.n_layer}L d{cfg.d_model} " + \
+        (f"int{bits}]" if bits else f"{str(cfg.dtype)[6:]}]")
+    t_phase = time.perf_counter()
+    _free_memory(dev)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    conf = {"dtype": str(cfg.dtype).removeprefix("torch.")}
+    if bits:
+        conf.update(quantize=True, quant_bits=bits, quant_group_size=128)
+    kw = {} if device is None else {"device": device}
+    engine = dt.init_inference(model, model.init(gen, device=dev,
+                                                 dtype=cfg.dtype), conf, **kw)
+    sync()
+    srv = dt.ServingEngine(engine, serving)
+    stream = _serve_stream(cfg.vocab_size, requests, prompt=prompt, new=new)
+    log(f"{tag} ServingEngine {serving}, flash_decode {engine.flash_decode}, "
+        f"woq_kernel {getattr(engine.model, 'woq_kernel', None)}; "
+        f"{requests} requests, prompts {min(len(p) for p, _, _ in stream)}-"
+        f"{max(len(p) for p, _, _ in stream)}, max_new "
+        f"{min(n for _, n, _ in stream)}-{max(n for _, n, _ in stream)}")
+
+    # ---- the path, counted: warm-up request (eager step + capture), then
+    # the stream from t = 0 to the end of the drain ----
+    counters = (da.decode_attention, wm.woq_matmul, wm.woq_matmul_t)
+    resident = _free_memory(dev)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    srv.serve_batch([stream[0][0][:32]], 4)
+    sync()
+    warm_s = time.perf_counter() - t0
+    srv.stats.reset()
+    rids = [srv.submit(p, n, seed=s) for p, n, s in stream]
+    t0 = time.perf_counter()
+    done = srv.drain()
+    sync()
+    drain_s = time.perf_counter() - t0
+    counted = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    snap = srv.stats.snapshot()
+    replays = srv.graph.replays if srv.graph else 0
+    captured = dict(srv.graph.captured_launches) if srv.graph else {}
+    bad = [(r, done[r].status.value, len(done[r].tokens)) for r, (_, n, _)
+           in zip(rids, stream) if done[r].status is not RequestStatus.OK
+           or len(done[r].tokens) != n]
+    if bad:
+        raise AssertionError(f"{tag} requests not served in full: {bad}")
+    tokens = sum(n for _, n, _ in stream)
+    per_step = {"decode_attention": cfg.n_layer if engine.flash_decode else 0,
+                "woq_matmul": ((5 if cfg.is_glu else 4) * cfg.n_layer
+                               + (not cfg.tie_embeddings))
+                if bits and engine.model.woq_kernel else 0,
+                "woq_matmul_t": 0}
+    log(f"{tag} {requests} requests, {tokens} tokens in {drain_s:.3f} s: "
+        f"{tokens / drain_s:.1f} tok/s; TTFT p50 "
+        f"{snap['ttft_s']['p50'] * 1e3:.1f} ms p99 "
+        f"{snap['ttft_s']['p99'] * 1e3:.1f} ms; TPOT p50 "
+        f"{snap['tpot_s']['p50'] * 1e3:.2f} ms p99 "
+        f"{snap['tpot_s']['p99'] * 1e3:.2f} ms; {snap['iterations']} "
+        f"iterations ({snap['prefill_chunks']} with a prefill chunk, "
+        f"{snap['decode_steps']} decode steps); slot "
+        f"occupancy {snap['slot_occupancy_avg']:.3f}; warm-up request "
+        f"{warm_s:.2f} s; peak memory {peak / 2**30:.2f} GiB "
+        f"({resident / 2**30:.2f} GiB resident before)")
+    # on the device: the eager warm-up step's launches (the wrappers'
+    # count less the capture's), then the captured ones at every replay
+    launches = {k: v - captured.get(k, 0) + captured.get(k, 0) * replays
+                for k, v in counted.items()}
+    log(f"{tag} captures {srv.captures}; the wrappers' counts over the path "
+        f"{counted} (the warm-up's eager step and the capture; the "
+        f"{replays} replays run the captured launches {captured} without "
+        f"the wrappers): device launches {launches}")
+    if cuda:
+        if srv.captures != 1:
+            raise AssertionError(f"{tag} captures {srv.captures}, want 1")
+        want = {k: 2 * v for k, v in per_step.items()}
+        want_captured = {k: v for k, v in per_step.items() if v}
+        if counted != want or captured != want_captured:
+            raise AssertionError(f"{tag} wrapper counts {counted} (want "
+                                 f"{want}), captured {captured} (want "
+                                 f"{want_captured})")
+
+    # ---- teacher-forced: prompt + served tokens through one dense
+    # forward, fp32 logits ----
+    worst, exact, total = 0.0, 0, 0
+    with torch.inference_mode():
+        for (p, n, _), rid in zip(stream, rids):
+            toks = done[rid].tokens
+            ids = torch.as_tensor(np.concatenate([p, toks[:-1]]),
+                                  dtype=torch.long, device=dev)[None]
+            lg, _ = forward_with_cache(
+                engine.model, engine.params, ids,
+                init_cache(cfg, 1, ids.shape[1], cfg.dtype, device=dev),
+                materialize=engine.materialize)
+            rows = lg[0, len(p) - 1:]
+            served = torch.as_tensor(toks, device=dev)
+            top = rows.max(dim=-1).values
+            gap = (top - rows.gather(1, served[:, None])[:, 0]) \
+                / rows.abs().max(dim=-1).values
+            worst = max(worst, gap.max().item())
+            exact += int((rows.argmax(dim=-1) == served).sum())
+            total += len(toks)
+    log(f"{tag} teacher-forced (one dense forward a request, fp32 logits): "
+        f"worst served-token gap to its row's max {worst:.4f} of max |logit| "
+        f"(tol {LOGIT_TOL_SHARE}); served token == argmax for "
+        f"{exact}/{total} = {exact / total:.4f}")
+    if not worst <= LOGIT_TOL_SHARE:
+        raise AssertionError(f"{tag} a served token's logit is {worst:.4f} "
+                             f"of max |logit| below its row's maximum")
+
+    # ---- solo parity (recorded only): the shortest requests alone ----
+    solo = {}
+    for (p, n, s), rid in sorted(zip(stream, rids),
+                                 key=lambda x: x[0][1])[:solo_checks]:
+        alone = engine.generate(p[None], n, greedy=True, request_seeds=[s],
+                                cache_len=serving["max_len"])[0].cpu()
+        solo[rid] = float((alone == torch.as_tensor(
+            done[rid].tokens)).float().mean())
+    log(f"{tag} solo generate(request_seeds=[seed], cache_len="
+        f"{serving['max_len']}) parity by request: {solo} (recorded: M "
+        f"{serving['slots']} and M 1 GEMMs may part on a near tie)")
+
+    # ---- the lab: a full set of slots, the slot step graphed and eager
+    # from the same state, a profiled window ----
+    srv.end_drain()
+    lab = _serve_stream(cfg.vocab_size, serving["slots"], seed=1,
+                        prompt=(lab_prompt, lab_prompt),
+                        new=(lab_new, lab_new))
+    lab_rids = [srv.submit(p, n, seed=s) for p, n, s in lab]
+    while srv.sched.occupancy < serving["slots"]:
+        srv.step()
+    sync()
+    st = srv.state
+    marks = _slot_marks(st)
+    lg_g, _ = srv.slot_step(graphed=cuda)
+    lg_g, tok_g = lg_g.clone(), st.tok.clone()
+    _slot_reset(st, marks)
+    lg_e, _ = srv.slot_step(graphed=False)
+    diff = (lg_g - lg_e).abs().max().item()
+    same = bool(torch.equal(tok_g, st.tok))
+    log(f"{tag} graph vs eager slot step from the same state: tokens "
+        f"identical {same}, logits max |diff| {diff:.3e} (bit identity "
+        "expected, not gated)")
+    if not same:
+        raise AssertionError(f"{tag} the graphed and the eager slot step "
+                             "sampled different tokens")
+    times = {}
+    for graphed in (True, False, False, True) if cuda else (False,):
+        _slot_reset(st, marks)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(timed_steps):
+            srv.slot_step(graphed=graphed)
+        sync()
+        times.setdefault(graphed, []).append(
+            (time.perf_counter() - t0) / timed_steps * 1e3)
+    step_ms = {("graph" if g else "eager"): sum(v) / len(v)
+               for g, v in times.items()}
+    log(f"{tag} slot step ({serving['slots']} slots at length "
+        f"{int(marks[0].min())}-{int(marks[0].max())}), {timed_steps} "
+        f"steps in turns graph / eager / eager / graph: "
+        + ", ".join(f"{k} {v:.3f} ms ("
+                    + ", ".join(f"{x:.3f}" for x in times[k == "graph"])
+                    + ")" for k, v in step_ms.items()))
+    prof = profile = None
+    if cuda:
+        _slot_reset(st, marks)
+        prof = _profile_counts(lambda: [srv.slot_step(graphed=True)
+                                        for _ in range(profile_steps)])
+        seen = {k: _kernel_launches(prof["counts"], name)
+                for k, name in SERVE_KERNELS.items()}
+        want = {k: profile_steps * per_step[k] for k in SERVE_KERNELS}
+        log(f"{tag} profiled {profile_steps} replays: kernel launches {seen} "
+            f"(want {want}), device busy "
+            f"{prof['busy_us'] / profile_steps / 1e3:.3f} ms a replay")
+        if seen != want:
+            raise AssertionError(f"{tag} replays launched {seen}, want {want}")
+        _slot_reset(st, marks)
+        profile = _profile_counts(lambda: [srv.step()
+                                           for _ in range(profile_steps)])
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(timed_steps):
+            srv.step()
+        sync()
+        iteration_ms = (time.perf_counter() - t0) / timed_steps * 1e3
+        busy_ms = profile["busy_us"] / profile_steps / 1e3
+        busy = profile["busy_us"] / profile["wall_us"]
+        log(f"{tag} profiled {profile_steps} serving iterations ("
+            f"{serving['slots']} slots decoding): wall "
+            f"{profile['wall_us'] / profile_steps / 1e3:.3f} ms, device busy "
+            f"{busy_ms:.3f} ms an iteration = {busy:.1%} of the profiled wall"
+            f" (idle {1 - busy:.1%}); unprofiled, {timed_steps} iterations "
+            f"take {iteration_ms:.3f} ms each (the profiled busy ms over "
+            f"this unprofiled wall: {busy_ms / iteration_ms:.1%})")
+    for rid in lab_rids:
+        srv.cancel(rid)
+    if srv.captures != (1 if cuda else 0):
+        raise AssertionError(f"{tag} captures {srv.captures} after the lab")
+    wall = time.perf_counter() - t_phase
+    out = {"requests": requests, "tokens": tokens, "drain_s": drain_s,
+           "tok_s": tokens / drain_s,
+           "ttft_ms": {k: snap["ttft_s"][k] * 1e3 for k in ("p50", "p99")},
+           "tpot_ms": {k: snap["tpot_s"][k] * 1e3 for k in ("p50", "p99")},
+           "iterations": snap["iterations"], "replays": replays,
+           "captures": srv.captures, "wrapper_counts": counted,
+           "launches": launches,
+           "captured": captured, "step_ms": step_ms, "graph_vs_eager": diff,
+           "teacher_forced_gap": worst, "argmax_share": exact / total,
+           "solo_parity": solo, "peak_bytes": peak, "phase_s": wall}
+    if profile is not None:
+        out.update(busy_ms=busy_ms, iteration_ms=iteration_ms,
+                   profiled_iteration_ms=profile["wall_us"] / profile_steps
+                   / 1e3, replay_busy_ms=prof["busy_us"] / profile_steps / 1e3)
+    log(f"[serve] {json.dumps({'tag': tag, **out})}")
+    del srv, engine
+    _free_memory(dev)
+    return out
+
+
 def remat_sweep(cfg=None, *, seq=1024, steps=3) -> dict:
     """Where the training step's host time goes: the step of GPT-2 1.5B
     under its default config (the fused xent head) under each remat policy
@@ -3726,6 +4082,8 @@ def main() -> int:
             f"{train['peak_bytes'] / 2**30:.2f} GiB")
     long = phase_long_train()
     evo = phase_evoformer()
+    serve = phase_serve(llama2("7b"))
+    serve8 = phase_serve(llama2("7b"), bits=8, requests=16)
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     src = "deepspeed_tpu_torch/ops/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3734,13 +4092,16 @@ def main() -> int:
         {"name": "decode_attention", "route": "cuda",
          "source": src + "decode_attention.cu",
          "replaces": "deepspeed_tpu/ops/decode_attention.py:41",
-         "launches": sl["launches"], **{k: kern[k] for k in keys}},
+         "launches": sl["launches"],
+         "serving_launches": serve["launches"]["decode_attention"],
+         **{k: kern[k] for k in keys}},
         # launches: the Llama-2-7B int8 path (untied head)
         # woq_route: the kernel of woq_matmul's fixed route the main path
         # runs (every decode projection, phase 4's gate)
         {"name": "woq_matmul", "route": "cuda", "source": src + "woq_matmul.cu",
          "replaces": "deepspeed_tpu/ops/woq_matmul.py:62",
          "launches": woq8["launches"]["woq_matmul"],
+         "serving_launches": serve8["launches"]["woq_matmul"],
          "woq_route": woq["woq_matmul"]["route"],
          **{k: woq["woq_matmul"][k] for k in keys}},
         # launches: the OPT-6.7B int4 path (tied head)

@@ -3,16 +3,21 @@
 The JAX package ``deepspeed_tpu`` is the reference this package is held
 against; this package imports neither it nor JAX. It carries the
 single-card ``init_inference(...).generate(...)`` path (dense and
-weight-only-quantized) and the single-card training step,
+weight-only-quantized), the continuous-batching
+``ServingEngine(init_inference(...), {...})`` over contiguous KV slots, and
+the single-card training step,
 ``initialize(config, build_model(cfg, attention_fn=make_flash_attention()))
 .train_batch(batch)``; ROADMAP.md lists what follows.
 """
 
 from . import models
-from .inference import InferenceConfig, InferenceEngine, init_inference
+from .inference import (InferenceConfig, InferenceEngine, ServingConfig,
+                        init_inference)
 from .models import build_model
 from .ops.flash_attention import make_flash_attention
 from .runtime import Engine, initialize
+from .serving import ServingEngine
 
-__all__ = ["Engine", "InferenceConfig", "InferenceEngine", "build_model",
-           "init_inference", "initialize", "make_flash_attention", "models"]
+__all__ = ["Engine", "InferenceConfig", "InferenceEngine", "ServingConfig",
+           "ServingEngine", "build_model", "init_inference", "initialize",
+           "make_flash_attention", "models"]

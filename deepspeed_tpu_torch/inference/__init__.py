@@ -1,4 +1,5 @@
-from .config import InferenceConfig
+from .config import InferenceConfig, ServingConfig
 from .engine import InferenceEngine, init_inference
 
-__all__ = ["InferenceConfig", "InferenceEngine", "init_inference"]
+__all__ = ["InferenceConfig", "InferenceEngine", "ServingConfig",
+           "init_inference"]

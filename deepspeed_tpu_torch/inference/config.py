@@ -1,10 +1,12 @@
 """Inference config (counterpart of ``deepspeed_tpu/inference/config.py``).
 
 The port carries the single-card generate() path, dense or with int8/int4
-weight-only quantization (WOQ). The JAX config's other knobs are accepted
-at their defaults, so a JAX config ports as it is, and raise
-``NotImplementedError`` when set: each names the ROADMAP.md item (queue 1)
-that will port it. Unknown keys raise ``ValueError``.
+weight-only quantization (WOQ), and the continuous-batching
+``ServingEngine`` over contiguous slots (:class:`ServingConfig`). The JAX
+configs' other knobs are accepted at their defaults, so a JAX config ports
+as it is, and raise ``NotImplementedError`` when set: each names the
+ROADMAP.md item (queue 1) that will port it. Unknown keys raise
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -25,8 +27,86 @@ _LATER = {
     "tensor_parallel": (1, 4), "expert_parallel": (1, 4),
     "tp_comm_quant": (0, 4),
     "observability": (False, 7), "trace_ring_size": (256, 7),
-    "serving": (None, 2),
 }
+
+# ServingConfig keys of the JAX package not ported yet: (default, item)
+_SERVING_LATER = {
+    "page_size": (0, 2), "pool_pages": (0, 2), "prefix_sharing": (True, 2),
+    "kv_quant_bits": (0, 2),
+    "host_pool_bytes": (0, 6), "nvme_pool_bytes": (0, 6),
+    "nvme_path": (None, 6), "demote_ahead_idle_s": (0.0, 6),
+    "autoscale": (None, 6),
+    "speculation": (None, 5),
+    "spans": (False, 7), "spans_ring": (4096, 7), "flight_dir": (None, 7),
+    "flight_max_dumps": (8, 7), "slo": (None, 7), "workload": (None, 7),
+    "kvscope": (None, 7), "goodput": (False, 7), "capture": (False, 7),
+    "capture_ring": (4096, 7), "loadscope": (None, 7),
+    "tenantscope": (None, 7), "telemetry": (None, 7), "watchdog_s": (0.0, 7),
+    "chaos": (None, 8),
+}
+
+
+def _refuse_later(section: str, flat: dict, table: dict) -> None:
+    """Pop every key of ``table`` from ``flat``; raise naming its ROADMAP
+    item when it is set to anything but the JAX default."""
+    for key, (default, item) in table.items():
+        if key in flat and flat.pop(key) != default:
+            raise NotImplementedError(
+                f"{section} config {key!r} is not ported yet: {later(item)}")
+
+
+@dataclasses.dataclass
+class ServingConfig:
+    """Continuous-batching knobs of ``serving/engine.py`` (the JAX
+    package's ``ServingConfig``, contiguous slots)."""
+
+    slots: int = 8                  # persistent KV slots (the decode batch)
+    max_len: int = 256              # per-slot cache capacity; a request is
+                                    # admitted only if P + max_new <= max_len
+    prefill_chunk: int = 32         # prompts prefill in chunks of this many
+                                    # tokens (or a power-of-two bucket
+                                    # below), one chunk per iteration
+    max_queue: int = 0              # submit() backpressure; 0 = unbounded
+    # the engine-wide sampling policy; every request draws from its own
+    # generator, seeded from its request seed
+    temperature: float = 1.0
+    top_k: int = 0
+    top_p: float = 1.0
+    greedy: bool = False
+    # default per-request deadlines in seconds on the serving clock (0 =
+    # none; submit() takes per-request overrides): TTFT is submit -> first
+    # token, total is submit -> retirement; expiry retires with TIMEOUT
+    ttft_deadline_s: float = 0.0
+    total_deadline_s: float = 0.0
+
+    def __post_init__(self):
+        if self.slots < 1:
+            raise ValueError(f"serving needs >= 1 slot, got {self.slots}")
+        c = self.prefill_chunk
+        if c < 8 or (c & (c - 1)) != 0:
+            raise ValueError(
+                f"prefill_chunk must be a power of two >= 8 (the chunk "
+                f"bucket set), got {c}")
+        if self.max_len < c:
+            raise ValueError(f"max_len={self.max_len} < prefill_chunk={c}")
+        for knob in ("ttft_deadline_s", "total_deadline_s"):
+            if getattr(self, knob) < 0:
+                raise ValueError(f"{knob} must be >= 0, "
+                                 f"got {getattr(self, knob)}")
+
+    @classmethod
+    def from_any(cls, cfg: "ServingConfig | dict | None") -> "ServingConfig":
+        if cfg is None:
+            return cls()
+        if isinstance(cfg, cls):
+            return cfg
+        flat = dict(cfg)
+        _refuse_later("serving", flat, _SERVING_LATER)
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(flat) - known
+        if unknown:
+            raise ValueError(f"unknown serving config keys: {sorted(unknown)}")
+        return cls(**flat)
 
 
 @dataclasses.dataclass
@@ -57,6 +137,9 @@ class InferenceConfig:
     # Obsolete JAX knob, accepted with a warning: decode always keeps the
     # weights quantized.
     dequant_per_step: bool = False
+    # Continuous-batching knobs for serving.ServingEngine (ignored by
+    # generate()); None = ServingConfig's defaults.
+    serving: Optional[ServingConfig] = None
 
     def __post_init__(self):
         if self.dtype not in _DTYPES:
@@ -102,11 +185,9 @@ class InferenceConfig:
                 raise ValueError(f"unknown moe config keys: "
                                  f"{sorted(set(moe) - {'ep_size'})}")
             flat.setdefault("expert_parallel", int(moe.get("ep_size", 1)))
-        for key, (default, item) in _LATER.items():
-            if key in flat and flat.pop(key) != default:
-                raise NotImplementedError(
-                    f"inference config {key!r} is not ported yet: "
-                    f"{later(item)}")
+        _refuse_later("inference", flat, _LATER)
+        if flat.get("serving") is not None:
+            flat["serving"] = ServingConfig.from_any(flat["serving"])
         known = {f.name for f in dataclasses.fields(cls)}
         unknown = set(flat) - known
         if unknown:

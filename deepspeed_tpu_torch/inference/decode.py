@@ -1,7 +1,7 @@
 """Prefill + single-token decode over a contiguous KV cache.
 
 Counterpart of ``deepspeed_tpu/inference/decode.py`` (the contiguous path;
-the paged pool comes with the serving slice). The cache is a pair of
+the paged pool is ROADMAP.md queue 1 item 2(b)). The cache is a pair of
 ``(L, B, KV, max_len, hd)`` tensors, heads-major as in the JAX package, and
 attention over it masks the positions at or past the live length.
 
@@ -12,7 +12,15 @@ Differences from the JAX package, all forced by eager PyTorch:
 - the decode loop is a Python loop; the carry token and the eos flags stay
   on the device, so a step reads nothing back to the host;
 - the 1-token attention goes to the CUDA kernel of
-  ``ops/decode_attention.py`` instead of a Pallas one.
+  ``ops/decode_attention.py`` instead of a Pallas one;
+- a write past ``max_len`` (an idle serving slot, whose length keeps
+  growing as in the JAX package) lands on the last position, as XLA's
+  ``dynamic_update_slice`` clamps it, and a learned-position lookup past
+  the table reads its last row, as XLA's gather clamps it; live rows never
+  reach either;
+- :func:`decode_step` is :func:`decode_forward` then :func:`decode_sample`,
+  so the serving engine can replay the first half as a CUDA graph
+  (``serving/graph.py``) and sample eagerly after it.
 """
 
 from __future__ import annotations
@@ -122,9 +130,11 @@ def _qkv_proj(model, y, p):
 
 def _append(cache_k, cache_v, k, v, new_len):
     """Write the T new positions of every row, ``[new_len - T, new_len)``,
-    into one layer's cache IN PLACE. ``new_len`` is 0-d or (B,)."""
+    into one layer's cache IN PLACE. ``new_len`` is 0-d or (B,); positions
+    past the cache are clamped to its last one."""
     B, T = k.shape[:2]
-    pos = new_len.reshape(-1, 1) - T + torch.arange(T, device=k.device)
+    pos = (new_len.reshape(-1, 1) - T
+           + torch.arange(T, device=k.device)).clamp_(max=cache_k.shape[2] - 1)
     rows = torch.arange(B, device=k.device)[:, None]
     # (B, KV, S, hd) viewed as (B, S, KV, hd): [rows, pos] picks (B, T)
     cache_k.transpose(1, 2)[rows, pos] = k.to(cache_k.dtype)
@@ -157,6 +167,18 @@ def _layer_step(model, x, p, cache_k, cache_v, length, rope=None,
     x = x + o
     y2 = _norm(x, p["ln2_scale"], p.get("ln2_bias"), cfg.norm, cfg.norm_eps)
     return x + model._mlp_block(y2, p)
+
+
+_alibi: dict = {}
+
+
+def _alibi_slopes(n_head: int, device) -> torch.Tensor:
+    """The (H,) ALiBi slopes on ``device``, built once: a copy from host
+    memory each step could not be captured in a CUDA graph."""
+    key = (n_head, str(device))
+    if key not in _alibi:
+        _alibi[key] = alibi_slopes(n_head, device)
+    return _alibi[key]
 
 
 def _embed_rows(table, ids, dtype):
@@ -197,13 +219,17 @@ def _decode_head(model, params, x):
 
 def forward_with_cache(model, params, input_ids, cache: KVCache,
                        flash_decode: bool = False,
-                       last_token_head: bool = False, materialize=None):
+                       last_token_head: bool = False, last_index=None,
+                       materialize=None):
     """Run T tokens through all layers, appending to the cache in place.
 
     input_ids: (B, T): prefill (T = prompt length) and decode (T = 1)
     alike. Returns (fp32 logits (B, T, V), the cache with its new length).
     ``last_token_head=True`` computes the unembedding for the final
-    position only (the generation loop's prefill). ``materialize``: an
+    position only (the generation loop's prefill); ``last_index`` (an int)
+    names that position instead of T - 1 (the serving engine's
+    right-padded final prefill chunk ends its real tokens before the
+    chunk's end). ``materialize``: an
     optional ``params -> dense params`` function (``dequantize_params``),
     applied to the top-level leaves once and to each layer's leaves as the
     loop reaches it, so a quantized model runs dense with one layer's
@@ -221,7 +247,9 @@ def forward_with_cache(model, params, input_ids, cache: KVCache,
                  + torch.arange(T, device=dev)).expand(B, T)
     x = _embed_rows(params["tok_embed"], input_ids, cfg.dtype)
     if cfg.pos_embedding == "learned":
-        x = x + _embed_rows(params["pos_embed"], positions, cfg.dtype)
+        table = params["pos_embed"]
+        x = x + _embed_rows(table, positions.clamp(max=table.shape[0] - 1),
+                            cfg.dtype)
     if cfg.embed_norm:
         x = _norm(x, params["embed_ln_scale"], params.get("embed_ln_bias"),
                   cfg.norm, cfg.norm_eps)
@@ -230,13 +258,14 @@ def forward_with_cache(model, params, input_ids, cache: KVCache,
         rd = cfg.rotary_dim or cfg.head_dim
         rope = (*rope_tables(positions, cfg.rope_theta, rd), rd)
     elif cfg.pos_embedding == "alibi":
-        alibi = alibi_slopes(cfg.n_head, dev)
+        alibi = _alibi_slopes(cfg.n_head, dev)
     for i in range(cfg.n_layer):
         x = _layer_step(model, x, mat({k: w[i] for k, w in layers.items()}),
                         cache.k[i], cache.v[i], new_len, rope=rope,
                         flash_decode=flash_decode, alibi=alibi)
     if last_token_head:
-        x = x[:, -1:]
+        x = x[:, -1:] if last_index is None else \
+            x.narrow(1, int(last_index), 1)
     return _decode_head(model, params, x), KVCache(cache.k, cache.v, new_len)
 
 
@@ -285,17 +314,40 @@ def prefill_tokens(model, params, input_ids, rng, *, max_new: int, sampler,
     return GenCarry(tok=tok, cache=cache, rng=rng, done=done)
 
 
-def decode_step(model, params, carry: GenCarry, *, sampler, eos_token_id=None,
-                flash_decode: bool = False) -> GenCarry:
-    """ONE decode iteration: forward the carry token, sample the next."""
-    tok, cache, rng, done = carry
-    lg, cache = forward_with_cache(model, params, tok[:, None], cache,
-                                   flash_decode=flash_decode)
-    nxt = sampler(lg[:, 0], rng)
+def decode_forward(model, params, carry: GenCarry, *,
+                   flash_decode: bool = False):
+    """The device half of :func:`decode_step`: the carry token through
+    every layer. Returns (fp32 logits (B, 1, V), the cache at its new
+    length); the serving engine captures this half in a CUDA graph."""
+    return forward_with_cache(model, params, carry.tok[:, None], carry.cache,
+                              flash_decode=flash_decode)
+
+
+def decode_sample(carry: GenCarry, logits, cache: KVCache, *, sampler,
+                  eos_token_id=None) -> GenCarry:
+    """The sampling half of :func:`decode_step`: the next token from the
+    step's logits, eos forced on rows already done."""
+    nxt = sampler(logits[:, 0], carry.rng)
+    done = carry.done
     if eos_token_id is not None:
         nxt = torch.where(done, eos_token_id, nxt)
         done = done | (nxt == eos_token_id)
-    return GenCarry(nxt, cache, rng, done)
+    return GenCarry(nxt, cache, carry.rng, done)
+
+
+def finite_rows(logits) -> torch.Tensor:
+    """The logit guard: (B,) bool, row b's (B, T, V) logits all finite."""
+    return torch.isfinite(logits).flatten(1).all(dim=1)
+
+
+def decode_step(model, params, carry: GenCarry, *, sampler, eos_token_id=None,
+                flash_decode: bool = False) -> GenCarry:
+    """ONE decode iteration: forward the carry token, sample the next —
+    :func:`decode_forward`, then :func:`decode_sample`, the two halves the
+    serving engine's slot step runs apart."""
+    lg, cache = decode_forward(model, params, carry, flash_decode=flash_decode)
+    return decode_sample(carry, lg, cache, sampler=sampler,
+                         eos_token_id=eos_token_id)
 
 
 def decode_tokens(model, params, carry: GenCarry, *, steps: int, sampler,

@@ -6,7 +6,8 @@ the attention projections into one ``[wq | wk | wv]`` weight for the
 decode step, quantizes the matmul weights when the config asks for WOQ,
 and serves ``generate`` through ``inference/decode.py``. The JAX engine
 compiles one program per shape; this one runs eagerly, so there is no
-program cache (CUDA graphs are later work).
+program cache. The serving engine (``serving/engine.py``) captures its
+slot decode step as one CUDA graph; ``generate()`` runs eagerly.
 """
 
 from __future__ import annotations

@@ -24,6 +24,7 @@ import math
 import torch
 
 from . import builder
+from .registry import Workspace, counted
 
 BIG_NEG = -2.0 ** 30
 BLOCK = 128              # positions per online-softmax step of the plain version
@@ -138,7 +139,7 @@ def split_plan(B: int, H: int, KV: int, S: int, hd: int, sms: int) -> dict:
 
 _plans: dict = {}
 _sms: dict = {}
-_workspace: dict = {}
+_scratch = Workspace()
 
 
 def _plan(B, H, KV, S, hd, device) -> dict:
@@ -151,19 +152,6 @@ def _plan(B, H, KV, S, hd, device) -> dict:
                 device).multi_processor_count
         plan = _plans[key] = split_plan(B, H, KV, S, hd, sms)
     return plan
-
-
-def _scratch(device, floats: int, tickets: int):
-    """The partials' fp32 workspace and the zeroed int32 tickets, cached
-    per device and grown when a call needs more. Each call leaves the
-    tickets zero; calls on one device run in stream order."""
-    ws, tk = _workspace.get(device.index, (None, None))
-    if ws is None or ws.numel() < floats:
-        ws = torch.empty(max(floats, 1), dtype=torch.float32, device=device)
-    if tk is None or tk.numel() < tickets:
-        tk = torch.zeros(max(tickets, 1), dtype=torch.int32, device=device)
-    _workspace[device.index] = (ws, tk)
-    return ws, tk
 
 
 def _kernel():
@@ -179,6 +167,7 @@ def _kernel():
     return fn
 
 
+@counted
 def decode_attention(q, ck, cv, length, *, alibi_slopes=None):
     """q: (B, 1, H, hd) current-token queries; ck/cv: (B, KV, max_len, hd)
     one layer's cache; ``length`` scalar or (B,) live lengths (slots <
@@ -241,6 +230,3 @@ def decode_attention(q, ck, cv, length, *, alibi_slopes=None):
                            f"error {err}")
     decode_attention.launches += 1
     return out
-
-
-decode_attention.launches = 0

@@ -46,6 +46,7 @@ from typing import Optional
 import torch
 
 from . import builder
+from .registry import counted
 
 BIG_NEG = -2.0 ** 30
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
@@ -252,7 +253,6 @@ def flash_bwd_f32_plan(kernel: str, hd: int) -> dict:
             "t_stages": t_stages, "smem_bytes": smem}
 
 
-
 def flash_fwd_f32_plan(hd: int) -> dict:
     """The tiles of the fp32 wgmma forward at head dim ``hd``, as
     ``csrc/flash_fwd_f32_sm90.cu`` builds them: ``unit`` query rows (the
@@ -372,6 +372,7 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+@counted
 def flash_fwd(q, k, v, *, mask=None, alibi_slopes=None, causal=True,
               bias=None):
     """Forward: o (B, S, H, hd) and fp32 lse (B, H, S). q (B, S, H, hd),
@@ -397,6 +398,7 @@ def flash_fwd(q, k, v, *, mask=None, alibi_slopes=None, causal=True,
     return o, lse
 
 
+@counted
 def flash_bwd_dq(q, k, v, do, lse, delta, *, mask=None, alibi_slopes=None,
                  causal=True, bias=None, grad_bias=False):
     """dq (B, S, H, hd) from dO, the forward's lse and delta (B, H, S).
@@ -431,6 +433,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, mask=None, alibi_slopes=None,
     return (dq, dbias) if grad_bias else dq
 
 
+@counted
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, mask=None, alibi_slopes=None,
                   causal=True, bias=None):
     """(dk, dv) (B, S, KV, hd), summed over each KV head's query heads."""
@@ -451,11 +454,6 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, mask=None, alibi_slopes=None,
     _raise_on(err, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
     return dk, dv
-
-
-flash_fwd.launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
 
 
 # ------------------------------------------------------------ autograd

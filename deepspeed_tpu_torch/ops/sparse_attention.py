@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from . import builder
+from .registry import counted
 from .flash_attention import (HALF_DTYPE_CODE, _check, _raise_on,
                               attention_delta, flash_attention_fwd_plain,
                               flash_bwd_dkv_plain, flash_bwd_dq_plain)
@@ -445,6 +446,7 @@ def _launch_args(layout, q, k, lists_of):
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
+@counted
 def sparse_fwd(q, k, v, layout: SparseLayout):
     """Forward: o (B, S, H, hd) and fp32 lse (B, H, S). q (B, S, H, hd),
     k/v (B, S, KV, hd) in the JAX layout."""
@@ -464,6 +466,7 @@ def sparse_fwd(q, k, v, layout: SparseLayout):
     return o, lse
 
 
+@counted
 def sparse_bwd_dq(q, k, v, do, lse, delta, layout: SparseLayout):
     """dq (B, S, H, hd) from dO, the forward's lse and delta (B, H, S)."""
     if q.device.type == "cpu":
@@ -477,6 +480,7 @@ def sparse_bwd_dq(q, k, v, do, lse, delta, layout: SparseLayout):
     return dq
 
 
+@counted
 def sparse_bwd_dkv(q, k, v, do, lse, delta, layout: SparseLayout):
     """(dk, dv) (B, S, KV, hd), summed over each KV head's query heads."""
     if q.device.type == "cpu":
@@ -513,11 +517,6 @@ def _bwd_dkv_on(lib, q, k, v, do, lse, delta, layout):
                       (layout.q_idx, layout.q_n, layout.k_order)))
     _raise_on(err, "sparse_bwd_dkv")
     return dk, dv
-
-
-sparse_fwd.launches = 0
-sparse_bwd_dq.launches = 0
-sparse_bwd_dkv.launches = 0
 
 
 # ------------------------------------------------------------ autograd

@@ -32,6 +32,7 @@ import ctypes
 import torch
 
 from . import builder
+from .registry import Workspace, counted
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 WARPS = 8                  # warps per block of the x @ W kernel
@@ -222,7 +223,7 @@ def woq_split_plan(M: int, K: int, N: int, group_size: int, sms: int,
 
 _plans: dict = {}
 _sms: dict = {}
-_workspace: dict = {}
+_scratch = Workspace()
 
 
 def _plan(M, K, N, group_size, device) -> dict:
@@ -235,19 +236,6 @@ def _plan(M, K, N, group_size, device) -> dict:
                 device).multi_processor_count
         plan = _plans[key] = woq_split_plan(M, K, N, group_size, sms)
     return plan
-
-
-def _scratch(device, floats: int, tickets: int):
-    """The partials' fp32 workspace and the zeroed int32 tickets, cached
-    per device and grown when a call needs more. Each call leaves the
-    tickets zero; calls on one device run in stream order."""
-    ws, tk = _workspace.get(device.index, (None, None))
-    if ws is None or ws.numel() < floats:
-        ws = torch.empty(max(floats, 1), dtype=torch.float32, device=device)
-    if tk is None or tk.numel() < tickets:
-        tk = torch.zeros(max(tickets, 1), dtype=torch.int32, device=device)
-    _workspace[device.index] = (ws, tk)
-    return ws, tk
 
 
 def _launch_mma(x, q, scale, out, group_size: int, bits: int,
@@ -263,6 +251,7 @@ def _launch_mma(x, q, scale, out, group_size: int, bits: int,
         plan["nsplit"], plan["ring_bytes"], _stream(x))
 
 
+@counted
 def woq_matmul(x, q, scale, *, group_size: int, bits: int = 8,
                out_dtype=None):
     """``x @ W`` with W stored quantized ``(K, N)``. x: (M, K); q: (K, N)
@@ -301,9 +290,6 @@ def woq_matmul(x, q, scale, *, group_size: int, bits: int = 8,
         raise RuntimeError(f"woq_matmul kernel launch failed: CUDA error {err}")
     woq_matmul.launches += 1
     return out
-
-
-woq_matmul.launches = 0
 
 
 # ------------------------------------------------------ x @ W.T  (V, K)
@@ -345,6 +331,7 @@ def woq_t_route(x_dtype, K: int, V: int, group_size: int) -> str:
     return "mma"
 
 
+@counted
 def woq_matmul_t(x, q, scale, *, group_size: int, bits: int = 8,
                  out_dtype=None):
     """``x @ W.T`` with W stored quantized ``(V, K)`` — the tied embedding
@@ -379,6 +366,3 @@ def woq_matmul_t(x, q, scale, *, group_size: int, bits: int = 8,
                            f"{err}")
     woq_matmul_t.launches += 1
     return out
-
-
-woq_matmul_t.launches = 0

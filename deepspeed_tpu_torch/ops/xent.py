@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 
 from . import builder
+from .registry import counted
 
 # the TPU kernels' element budget for their (bt + bv) x d tiles and their
 # smallest tile (``ops/xent.py:186-187`` of the JAX package): kept as the
@@ -227,6 +228,7 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+@counted
 def xent_fwd(x, w, bias, targets, partials: bool = False):
     """Forward: fp32 ``(nll, lse)`` of ``softmax(x @ w.T + bias)`` per
     token, or with ``partials`` the shard-local ``(target logit,
@@ -286,6 +288,7 @@ def _bwd_scratch(device, plan: dict):
     return out + [have["ctr"]]
 
 
+@counted
 def xent_bwd(x, w, bias, targets, lse, g, vc: Optional[int] = None):
     """The backward in one call: ``(dx, dw, db)``, dx ``(T, d)`` in x's
     dtype, dw ``(V, d)`` in w's, db ``(V,)`` fp32, from the saved lse and
@@ -309,10 +312,6 @@ def xent_bwd(x, w, bias, targets, lse, g, vc: Optional[int] = None):
     _raise_on(err, "xent_bwd")
     xent_bwd.launches += 1
     return dx, dw, db
-
-
-xent_fwd.launches = 0
-xent_bwd.launches = 0
 
 
 # ------------------------------------------------------------ autograd

@@ -1,0 +1,44 @@
+"""Typed request outcomes callers can branch on (counterpart of
+``deepspeed_tpu/resilience/guards.py``, the serving half; the paged pool's
+``PagePoolExhausted`` comes with ROADMAP.md queue 1 item 2(b))."""
+
+from __future__ import annotations
+
+import enum
+
+
+class RequestStatus(enum.Enum):
+    """Outcome of a served request (``Request.status``).
+
+    ``OK``        — finished normally (eos or max_new reached);
+    ``NONFINITE`` — the per-row logit guard saw NaN/Inf in this request's
+                    logits and retired it (other slots are untouched);
+    ``TIMEOUT``   — a TTFT or total-wall deadline expired;
+    ``CANCELLED`` — ``cancel(rid)`` retired it;
+    ``SHED``      — rejected at admission (queue full / draining), the
+                    status carried by :class:`QueueFullError`;
+    ``REQUEUED``  — not terminal: ``requeue`` took the request back into
+                    the queue (``Request.attempts`` counts the moves); it
+                    finishes later with one of the statuses above.
+    """
+
+    OK = "ok"
+    NONFINITE = "nonfinite"
+    TIMEOUT = "timeout"
+    CANCELLED = "cancelled"
+    SHED = "shed"
+    REQUEUED = "requeued"
+
+
+class QueueFullError(RuntimeError):
+    """``submit()`` rejected a request: the queue is at capacity or the
+    engine is draining. Callers back off on ``.status`` / ``.queue_depth``
+    rather than on the message."""
+
+    status = RequestStatus.SHED
+
+    def __init__(self, message: str, queue_depth: int | None = None,
+                 max_queue: int | None = None):
+        super().__init__(message)
+        self.queue_depth = queue_depth
+        self.max_queue = max_queue

@@ -1,5 +1,5 @@
 """deepspeed_tpu_torch on the card: the CUDA kernels against their plain
-versions, and the generate path through them.
+versions, and the generate and serving paths through them.
 
 Marked ``gpu``; each test takes the ``cuda`` fixture, which skips when no
 card is present (decided at run time, never at import). Run on a card:
@@ -309,6 +309,118 @@ def test_woq_generate_through_the_kernels(cuda, cfg, bits):
     assert wm.woq_matmul.launches - before[0] == per_step * 9
     assert wm.woq_matmul_t.launches - before[1] == 9 * cfg.tie_embeddings
     assert torch.equal(got, want)
+
+
+# ------------------------------------------------------------- serving
+# (config, inference config): the slot step over decode attention in fp32,
+# over both kernels in bf16 int8 (Llama: RoPE, GQA), and under ALiBi
+SERVE_CASES = {
+    "tiny_test": (lambda: tiny_test(dtype=torch.float32, max_seq=128), {}),
+    "llama2_tiny_int8": (lambda: llama2("tiny", max_seq=256),
+                         {"quantize": True, "quant_bits": 8,
+                          "quant_group_size": 32}),
+    "bloom_tiny": (lambda: bloom("tiny", dtype=torch.float32,
+                                 vocab_size=1000), {}),
+}
+
+
+def _server(cuda, name, **serving):
+    make, conf = SERVE_CASES[name]
+    cfg = make()
+    model = dt.models.build_model(cfg)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = model.init(g, device=cuda, dtype=cfg.dtype)
+    eng = dt.init_inference(model, params, {
+        "dtype": str(cfg.dtype).removeprefix("torch."), **conf})
+    return eng, dt.ServingEngine(eng, {"slots": 3, "max_len": 128,
+                                       "prefill_chunk": 16, "greedy": True,
+                                       **serving})
+
+
+def _stream(vocab, shapes, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [(torch.randint(0, vocab, (P,), generator=g).numpy(), N, 10 + i)
+            for i, (P, N) in enumerate(shapes)]
+
+
+@pytest.mark.parametrize("name", list(SERVE_CASES))
+def test_slot_step_replay_equals_eager(cuda, name):
+    """Three live slots: the first decode step captured the slot step; a
+    replay and an eager step from the same state give the same tokens and
+    logits, and launch the kernels the capture recorded."""
+    from deepspeed_tpu_torch.ops import woq_matmul as wm
+
+    eng, srv = _server(cuda, name)
+    cfg = eng.model.cfg
+    for p, n, s in _stream(cfg.vocab_size, [(5, 60), (20, 60), (40, 60)]):
+        srv.submit(p, n, seed=s)
+    while srv.sched.occupancy < 3:
+        srv.step()
+    assert srv.captures == 1 and srv.graph.replays > 0
+    per_layer = 5 if cfg.is_glu else 4
+    woq = per_layer * cfg.n_layer + 1 if "int8" in name else 0
+    want = {"decode_attention": cfg.n_layer, "woq_matmul": woq}
+    assert srv.graph.captured_launches == {k: n for k, n in want.items()
+                                           if n}
+    st = srv.state
+    with torch.inference_mode():
+        marks = [t.clone() for t in (st.cache.length, st.tok, st.done)]
+        lg_g = srv.slot_step(graphed=True)[0].clone()
+        tok_g = st.tok.clone()
+        for t, m in zip((st.cache.length, st.tok, st.done), marks):
+            t.copy_(m)
+        before = (da.decode_attention.launches, wm.woq_matmul.launches)
+        lg_e = srv.slot_step(graphed=False)[0]
+        assert (da.decode_attention.launches - before[0],
+                wm.woq_matmul.launches - before[1]) == (cfg.n_layer, woq)
+        assert torch.equal(st.tok, tok_g)
+        torch.testing.assert_close(lg_g, lg_e, atol=1e-5, rtol=0)
+        assert torch.equal(st.cache.length, marks[0] + 1)
+    assert srv.captures == 1
+
+
+def test_captures_stay_one_over_a_stream(cuda):
+    """Inserts, retirements, and slots idling past max_len (requests one
+    at a time over three slots): one capture for the whole stream, and
+    every request's greedy tokens equal its solo generate() through the
+    same kernels (fp32)."""
+    eng, srv = _server(cuda, "tiny_test", max_len=128)
+    reqs = _stream(eng.model.cfg.vocab_size,
+                   [(9, 100), (30, 90), (4, 110), (60, 60), (17, 100)])
+    outs = []
+    for p, n, s in reqs:
+        outs += srv.serve_batch([p], [n], [s])
+    assert int(srv.state.cache.length.max()) > 128
+    outs += srv.serve_batch([p for p, _, _ in reqs], [n for _, n, _ in reqs],
+                            [s for _, _, s in reqs])
+    assert srv.captures == 1
+    for (p, n, s), got in zip(reqs + reqs, outs):
+        want = eng.generate(p[None], n, greedy=True, request_seeds=[s],
+                            cache_len=128)[0].cpu().numpy()
+        assert (got == want).all()
+
+
+def test_failed_capture_raises(cuda, monkeypatch):
+    """A slot step whose capture fails raises from step(); the engine
+    never falls back to the eager step, and no later step runs eager."""
+    eng, srv = _server(cuda, "tiny_test")
+    forward = srv._forward_slots
+
+    def uncapturable():
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("this slot step cannot be captured")
+        return forward()
+
+    monkeypatch.setattr(srv, "_forward_slots", uncapturable)
+    srv.submit(_stream(eng.model.cfg.vocab_size, [(8, 20)])[0][0], 20)
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        srv.step()
+    assert srv.captures == 0 and not srv.graph.captured
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        srv.step()
+    with pytest.raises(RuntimeError, match="no CUDA graph"):
+        srv.slot_step(graphed=True)
+    torch.cuda.synchronize()
 
 
 # ------------------------------------------------------------- flash attention

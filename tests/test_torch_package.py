@@ -119,9 +119,11 @@ def test_inference_config_ports_and_refuses():
                              ("moe", {"ep_size": 2}, "expert"),
                              ("tp_comm_quant", 8, "tensor"),
                              ("observability", True, "observability"),
-                             ("serving", {"slots": 4}, "ServingEngine")):
+                             ("serving", {"page_size": 16}, "ServingEngine")):
         with pytest.raises(NotImplementedError, match=item):
             InferenceConfig.from_any({key: value})
+    assert InferenceConfig.from_any({"serving": {"slots": 4}}).serving.slots \
+        == 4
     with pytest.raises(ValueError, match="unknown inference config keys"):
         InferenceConfig.from_any({"flash_decoed": True})
     with pytest.raises(ValueError, match="decode_chunk"):
@@ -250,8 +252,8 @@ def test_engine_refuses_tf32_matmuls_on_the_card(monkeypatch):
 
 def test_public_surface():
     assert {"init_inference", "InferenceEngine", "InferenceConfig",
-            "models", "initialize", "build_model",
-            "make_flash_attention"} <= set(dt.__all__)
+            "ServingEngine", "ServingConfig", "models", "initialize",
+            "build_model", "make_flash_attention"} <= set(dt.__all__)
     for name in ("gpt2", "llama2", "opt", "bloom", "bert", "tiny_test",
                  "build_model", "params_from_jax", "params_to_numpy",
                  "TransformerLM"):

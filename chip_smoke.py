@@ -29,7 +29,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    bit-identical; both kernels at phase 11's slot step: decode attention at
    B 8, cache 1024 with ragged rows and idle ones past the cache, and
    ``woq_matmul`` int8 at M 8 on every Llama-2-7B projection and the
-   head); then timed on
+   head; decode attention over the paged pool's gathered view, bf16 and
+   int8, bit for bit equal to it over a contiguous cache of the same
+   bytes, and the gather timed against its bound); then timed on
    L2-cold inputs (device time: calls captured in a CUDA graph, replays
    timed with CUDA events) beside the plain version (eager calls), the
    PyTorch library call that computes the same function (device time),
@@ -153,7 +155,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    at full width and depth, 8 slots of 1024 positions, prefill chunks of
    256, greedy, (a) in bf16 with 32 requests and (b) in int8 WOQ with 16,
    prompts of 16-768 tokens and 16-128 new ones from seed 0, all submitted
-   at t = 0, then ``drain()``; every request OK in full, one CUDA graph
+   at t = 0, then ``drain()``; then through the paged pool (``PAGED``:
+   pages of 16, 513 of them): (c) 11a's stream and (d) 11b's, their tokens
+   equal 11a's / 11b's exactly; (e) 32 requests on 4 system prompts of 512
+   tokens with two second turns (copy-on-write), served contiguous and
+   paged (a prefix hit rate > 0 and >= 2 copy-on-write copies); (f) the
+   first 16 of 11a's requests on 257 pages (evictions or defers > 0); (g)
+   the same 16 with int8 KV; every request OK in full, one CUDA graph
    capture of the slot step (its recorded launches: decode attention
    ``n_layer``, ``woq_matmul`` 161 in int8; a profiled window of replays
    shows each of them launched on the device at every replay, by the
@@ -163,11 +171,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    same state giving the same tokens; tokens/s, TTFT, TPOT, the graphed
    and the eager slot step's ms, the device's busy share over serving
    iterations, peak memory and solo ``generate`` parity recorded (a
-   ``[serve]`` JSON line each).
+   ``[serve]`` JSON line each; a ``[serve-paged]`` line sums up 11c-11g
+   with the pools' snapshots and bytes).
 
 ``remat_sweep()`` and ``woq_probe()`` are one-off measurements outside the
 phases: the default GPT-2 1.5B training step under each remat policy, and
-the tensor-core ``x @ W`` under each ring depth and blocks an SM.
+the tensor-core ``x @ W`` under each ring depth and blocks an SM. Those of
+the serving path are in ``serve_probes.py``.
 
 Before them, a ``[flash-bias]`` line holds the JSON of phases 5d and 10's
 kernel rows (each flash kernel with the bias at phase 10's two shapes,
@@ -183,7 +193,8 @@ the library phase 9's launches run (the wgmma ones). The decode-attention
 and ``woq_matmul`` rows also carry ``serving_launches``: phase 11's device
 launches (11a's and 11b's), from the counts the run took: the wrappers'
 count over the path less the capture's (the eager warm-up step), plus the
-capture's count times the graph's replays.
+capture's count times the graph's replays; ``paged_serving_launches`` the
+same for 11c-11g.
 The last three lines of standard output are the kernels' JSON, then
 ``nvidia-smi``'s name and power limit of the card, then the device JSON.
 Without a CUDA device, or outside the repository, it exits 1 and prints
@@ -611,6 +622,91 @@ def _decode_timing(gen, name, B, H, KV, hd, S, lengths, iters) -> dict:
     return r
 
 
+PAGE_SIZE = 16          # phase 11's paged streams
+
+
+def _paged_view_check(gen, slots, max_len, lengths, device, H=32, hd=128,
+                      ps=PAGE_SIZE, cfg_layers=32) -> dict:
+    """Decode attention over the paged pool's gathered view (``_paged_view``
+    at phase 11's slot step: 8 slots of 1024 in pages of 16, shuffled
+    tables, the last row on scratch) against decode attention over a
+    contiguous cache holding the same bytes, built page by page: bit for
+    bit, fp (bf16) and int8 (the view dequantized against the pages'
+    dequantized bytes). On the card the gather of one layer's K and V is
+    timed against its bound (``cfg_layers`` of them a slot step)."""
+    import torch
+
+    from deepspeed_tpu_torch.inference.decode import _paged_view
+    from deepspeed_tpu_torch.ops import decode_attention as da
+
+    n = max_len // ps
+    pages = 1 + slots * n
+    perm = torch.randperm(pages - 1, generator=torch.Generator().manual_seed(
+        5)) + 1
+    table = perm[:slots * n].reshape(slots, n).to(torch.int32)
+    table[-1] = 0                                     # an idle row: scratch
+    table = table.to(device)
+    mk = partial(torch.randn, generator=gen, device=device)
+    q = mk((slots, 1, H, hd)).to(torch.bfloat16)
+    length = torch.tensor(lengths, dtype=torch.int32, device=device)
+    out = {}
+    for kind in ("bf16", "int8"):
+        if kind == "bf16":
+            pk, pv = (mk((pages, H, ps, hd)).to(torch.bfloat16)
+                      for _ in range(2))
+            sk = sv = None
+            dense = (pk, pv)
+        else:
+            pk, pv = (torch.randint(-127, 128, (pages, H, ps, hd),
+                                    generator=gen, device=device,
+                                    dtype=torch.int8) for _ in range(2))
+            sk, sv = (torch.rand((pages, H, ps), generator=gen,
+                                 device=device) * 0.02 for _ in range(2))
+            dense = tuple((p.float() * s[..., None]).to(torch.bfloat16)
+                          for p, s in ((pk, sk), (pv, sv)))
+        ck = torch.empty((slots, H, max_len, hd), dtype=torch.bfloat16,
+                         device=device)
+        cv = torch.empty_like(ck)
+        for b in range(slots):
+            for j in range(n):
+                page = int(table[b, j])
+                ck[b, :, j * ps:(j + 1) * ps] = dense[0][page]
+                cv[b, :, j * ps:(j + 1) * ps] = dense[1][page]
+        vk = _paged_view(pk, sk, table, torch.bfloat16)
+        vv = _paged_view(pv, sv, table, torch.bfloat16)
+        got = da.decode_attention(q, vk, vv, length)
+        want = da.decode_attention(q, ck, cv, length)
+        same = torch.equal(vk, ck) and torch.equal(vv, cv) \
+            and torch.equal(got, want)
+        log(f"[kernel] decode_attention over the paged view ({kind} pool, "
+            f"{slots} slots of {max_len} in pages of {ps}, lengths "
+            f"{list(lengths)}): view == contiguous bytes and attention "
+            f"bit-identical {same} {'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"decode attention over the {kind} paged "
+                                 "view differs from the contiguous cache's")
+        out[kind] = same
+        if str(device).startswith("cuda"):
+            # the gather's cost a layer (K and V), device time, against its
+            # bound: the pages' bytes read (scales too) and the view written
+            ms = device_ms(lambda i: (_paged_view(pk, sk, table,
+                                                  torch.bfloat16),
+                                      _paged_view(pv, sv, table,
+                                                  torch.bfloat16)), 1, 200)
+            nbytes = 2 * (table.numel() * pk[0].nbytes
+                          + (0 if sk is None else table.numel() * sk[0].nbytes)
+                          + vk.nbytes)
+            bound = nbytes / PEAK_BYTES_PER_S * 1e3
+            out[f"{kind}_view_ms"] = ms
+            out[f"{kind}_view_bound_ms"] = bound
+            log(f"[kernel] the paged view's gather ({kind} pool), K and V of "
+                f"one layer: {ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us "
+                f"(bytes: {nbytes} B), {bound / ms:.1%} of it; "
+                f"x {cfg_layers} layers {ms * cfg_layers:.3f} ms a step")
+        del pk, pv, sk, sv, dense, ck, cv, vk, vv, got, want
+    return out
+
+
 def phase_kernels(device="cuda", main_shape=None, iters=200,
                   timed=DECODE_TIMED, long_S=32768) -> dict:
     """Decode attention's kernel vs plain on every case (rows with L = 0
@@ -681,7 +777,8 @@ def phase_kernels(device="cuda", main_shape=None, iters=200,
                                  f"{exact}, repeatable {same}")
         errs[name] = err
         del q, ck, cv, got, again, want
-    result = {"max_abs_err": errs["main"]}
+    result = {"max_abs_err": errs["main"], "paged": _paged_view_check(
+        gen, slots, max_len, serve_lengths, device)}
     if device != "cuda":
         return result
 
@@ -3646,6 +3743,82 @@ def _serve_stream(vocab: int, n: int, seed: int = 0, prompt=SERVE_PROMPT,
             for i, (P, N) in enumerate(zip(lens, news))]
 
 
+# 11c-11g: the paged pool under the same engine, pages of 16 positions;
+# 513 pages = 1 + 8 slots x 64, every slot coverable with no sharing
+PAGED = {**SERVING, "page_size": PAGE_SIZE, "pool_pages": 513}
+
+
+def _shared_stream(vocab: int, n: int = 32, seed: int = 3, systems: int = 4,
+                   system: int = 512, suffix=(16, 256),
+                   new=SERVE_NEW) -> list:
+    """11e: ``n`` requests, each one of ``systems`` system prompts of
+    ``system`` tokens and its own suffix, ``new`` tokens to generate; two
+    of them are the second turns of two others, extending them past a
+    partial block (the copy-on-write path), four places after them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    heads = [rng.integers(0, vocab, system).astype(np.int32)
+             for _ in range(systems)]
+    out = []
+    for i in range(n - 4):
+        tail = rng.integers(0, vocab, int(rng.integers(suffix[0],
+                                                       suffix[1] + 1)))
+        out.append(np.concatenate([heads[i % systems], tail]).astype(np.int32))
+    out = [(p, int(rng.integers(new[0], new[1] + 1))) for p in out]
+    for j, at in enumerate((2, 9)):
+        # turn 1 ends 5 (then 7) tokens into a page; turn 2 is turn 1 and
+        # 40 more tokens
+        t1 = np.concatenate([heads[j], rng.integers(
+            0, vocab, 37 + 2 * j)]).astype(np.int32)
+        t2 = np.concatenate([t1, rng.integers(0, vocab, 40)]).astype(np.int32)
+        out.insert(at, (t1, new[1]))
+        out.insert(at + 5, (t2, new[0]))
+    return [(p, nn, i) for i, (p, nn) in enumerate(out)]
+
+
+def _serve_engine(cfg, bits=None, device=None):
+    """Phase 11's InferenceEngine: ``cfg``'s model from a seed, bf16 or
+    int8 WOQ (``bits``)."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import build_model
+
+    dev = torch.device(device or "cuda")
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    conf = {"dtype": str(cfg.dtype).removeprefix("torch.")}
+    if bits:
+        conf.update(quantize=True, quant_bits=bits, quant_group_size=128)
+    kw = {} if device is None else {"device": device}
+    engine = dt.init_inference(model, model.init(gen, device=dev,
+                                                 dtype=cfg.dtype), conf, **kw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return engine
+
+
+def _step_bound(engine, lengths, kv_bits: int = 0) -> dict:
+    """The least time of one slot step: the weights it reads once (every
+    leaf but the token table, of which it reads a row a slot; a quantized
+    leaf's integers and scales) and the live KV it reads (``lengths``
+    positions a slot, K and V of every layer; int8 KV with its fp32 scale
+    a head), over the card's memory rate."""
+    from deepspeed_tpu_torch.inference.quantization import QuantizedTensor
+
+    cfg = engine.model.cfg
+    weights = sum((v.q.nbytes + v.scale.nbytes) if isinstance(
+        v, QuantizedTensor) else v.nbytes for k, v in engine.params.items()
+        if k != "tok_embed" or cfg.tie_embeddings)
+    per_token = 2 * cfg.n_layer * cfg.kv_heads * (
+        cfg.head_dim + 4 if kv_bits else
+        cfg.head_dim * engine.compute_dtype.itemsize)
+    kv = int(sum(lengths)) * per_token
+    return {"bound_ms": (weights + kv) / PEAK_BYTES_PER_S * 1e3,
+            "weight_bytes": weights, "kv_bytes": kv}
+
+
 def _slot_marks(st):
     """What a slot step changes besides the KV it writes at each slot's
     ``length``, which a rerun from the same marks overwrites: the slots'
@@ -3692,7 +3865,8 @@ def _kernel_launches(counts: dict, kernel: str) -> int:
 def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
                 prompt=SERVE_PROMPT, new=SERVE_NEW, device=None,
                 solo_checks=4, lab_prompt=512, lab_new=256, timed_steps=8,
-                profile_steps=4) -> dict:
+                profile_steps=4, engine=None, stream=None, name="",
+                want_tokens=None) -> dict:
     """Phase 11: ``ServingEngine(init_inference(...), SERVING)`` serving a
     seeded stream at full width and depth (bf16, or int8 WOQ with
     ``bits=8``), all requests submitted at t = 0, then ``drain()``. The
@@ -3709,14 +3883,22 @@ def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
     device's busy share over serving iterations, peak memory, solo
     ``generate`` parity, and the path's device launches, from the counts
     taken: the wrappers' (the eager warm-up step and the capture) less the
-    capture's, plus the capture's times the graph's replays."""
+    capture's, plus the capture's times the graph's replays.
+
+    ``engine``: phase 11's InferenceEngine for ``cfg`` and ``bits``
+    (``_serve_engine``), built here if None. ``stream``: the requests
+    (default: ``requests`` of ``_serve_stream``). ``serving`` with
+    ``page_size`` runs the paged pool (11c-11g): the pool's snapshot and
+    its bytes are recorded. ``want_tokens``: each request's tokens from
+    another run of the same stream, which the served tokens must equal
+    exactly (11c, 11d)."""
     import numpy as np
     import torch
 
     import deepspeed_tpu_torch as dt
     from deepspeed_tpu_torch.inference.decode import (forward_with_cache,
                                                       init_cache)
-    from deepspeed_tpu_torch.models import build_model, llama2
+    from deepspeed_tpu_torch.models import llama2
     from deepspeed_tpu_torch.ops import decode_attention as da
     from deepspeed_tpu_torch.ops import woq_matmul as wm
     from deepspeed_tpu_torch.resilience.guards import RequestStatus
@@ -3726,21 +3908,22 @@ def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
     dev = torch.device(device or "cuda")
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    tag = f"[serve {cfg.n_layer}L d{cfg.d_model} " + \
-        (f"int{bits}]" if bits else f"{str(cfg.dtype)[6:]}]")
+    paged = serving.get("page_size", 0) > 0
+    tag = f"[serve{' ' + name if name else ''} {cfg.n_layer}L " \
+        f"d{cfg.d_model} " + (f"int{bits}" if bits
+                               else f"{str(cfg.dtype)[6:]}") + \
+        (f" paged {serving['page_size']}" if paged else "") + \
+        (" kv-int8" if serving.get("kv_quant_bits") else "") + "]"
     t_phase = time.perf_counter()
     _free_memory(dev)
-    model = build_model(cfg)
-    gen = torch.Generator(device=dev).manual_seed(2024)
-    conf = {"dtype": str(cfg.dtype).removeprefix("torch.")}
-    if bits:
-        conf.update(quantize=True, quant_bits=bits, quant_group_size=128)
-    kw = {} if device is None else {"device": device}
-    engine = dt.init_inference(model, model.init(gen, device=dev,
-                                                 dtype=cfg.dtype), conf, **kw)
-    sync()
+    own_engine = engine is None
+    if own_engine:
+        engine = _serve_engine(cfg, bits, device)
     srv = dt.ServingEngine(engine, serving)
-    stream = _serve_stream(cfg.vocab_size, requests, prompt=prompt, new=new)
+    if stream is None:
+        stream = _serve_stream(cfg.vocab_size, requests, prompt=prompt,
+                               new=new)
+    requests = len(stream)
     log(f"{tag} ServingEngine {serving}, flash_decode {engine.flash_decode}, "
         f"woq_kernel {getattr(engine.model, 'woq_kernel', None)}; "
         f"{requests} requests, prompts {min(len(p) for p, _, _ in stream)}-"
@@ -3754,7 +3937,10 @@ def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
-    srv.serve_batch([stream[0][0][:32]], 4)
+    # the warm-up's prompt shares no block with the stream's: a prefix hit
+    # on the paged pool would change a request's chunk plan
+    srv.serve_batch([_serve_stream(cfg.vocab_size, 1, seed=99)[0][0][:32]],
+                    4)
     sync()
     warm_s = time.perf_counter() - t0
     srv.stats.reset()
@@ -3766,6 +3952,11 @@ def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
     counted = {c.__name__: c.launches for c in counters}
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     snap = srv.stats.snapshot()
+    pages = srv.pool.snapshot() if paged else None
+    kvc = srv.state.cache
+    kv_bytes = {k: getattr(kvc, k).nbytes for k in
+                ("k", "v", "k_scale", "v_scale", "page_table")
+                if getattr(kvc, k, None) is not None}
     replays = srv.graph.replays if srv.graph else 0
     captured = dict(srv.graph.captured_launches) if srv.graph else {}
     bad = [(r, done[r].status.value, len(done[r].tokens)) for r, (_, n, _)
@@ -3773,12 +3964,27 @@ def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
            or len(done[r].tokens) != n]
     if bad:
         raise AssertionError(f"{tag} requests not served in full: {bad}")
+    streamed = [list(done[r].tokens) for r in rids]
     tokens = sum(n for _, n, _ in stream)
+    exact_share = None
+    if want_tokens is not None:
+        same = sum(int(a == b) for g, w in zip(streamed, want_tokens)
+                   for a, b in zip(g, w))
+        exact_share = same / tokens
+        apart = [i for i, (g, w) in enumerate(zip(streamed, want_tokens))
+                 if g != w]
+    if pages is not None:
+        log(f"{tag} pool after the drain: {json.dumps(pages)}; pool bytes "
+            f"{json.dumps(kv_bytes)} = {sum(kv_bytes.values()) / 2**30:.3f}"
+            f" GiB")
     per_step = {"decode_attention": cfg.n_layer if engine.flash_decode else 0,
                 "woq_matmul": ((5 if cfg.is_glu else 4) * cfg.n_layer
                                + (not cfg.tie_embeddings))
                 if bits and engine.model.woq_kernel else 0,
                 "woq_matmul_t": 0}
+    if want_tokens is not None:
+        log(f"{tag} served tokens equal the reference run's: "
+            f"{exact_share:.4f} of {tokens}; requests apart {apart}")
     log(f"{tag} {requests} requests, {tokens} tokens in {drain_s:.3f} s: "
         f"{tokens / drain_s:.1f} tok/s; TTFT p50 "
         f"{snap['ttft_s']['p50'] * 1e3:.1f} ms p99 "
@@ -3836,6 +4042,10 @@ def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
         raise AssertionError(f"{tag} a served token's logit is {worst:.4f} "
                              f"of max |logit| below its row's maximum")
 
+    if want_tokens is not None and apart:
+        raise AssertionError(f"{tag} requests {apart} served other tokens "
+                             "than the reference run of the same stream")
+
     # ---- solo parity (recorded only): the shortest requests alone ----
     solo = {}
     for (p, n, s), rid in sorted(zip(stream, rids),
@@ -3855,8 +4065,13 @@ def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
                         prompt=(lab_prompt, lab_prompt),
                         new=(lab_new, lab_new))
     lab_rids = [srv.submit(p, n, seed=s) for p, n, s in lab]
-    while srv.sched.occupancy < serving["slots"]:
+    for _ in range(64 * serving["slots"]):
+        if srv.sched.occupancy == serving["slots"]:
+            break
         srv.step()
+    else:
+        raise AssertionError(f"{tag} the lab's {serving['slots']} requests "
+                             "did not all reach a slot")
     sync()
     st = srv.state
     marks = _slot_marks(st)
@@ -3884,12 +4099,18 @@ def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
             (time.perf_counter() - t0) / timed_steps * 1e3)
     step_ms = {("graph" if g else "eager"): sum(v) / len(v)
                for g, v in times.items()}
+    bound = _step_bound(engine, marks[0].tolist(),
+                        serving.get("kv_quant_bits", 0))
     log(f"{tag} slot step ({serving['slots']} slots at length "
         f"{int(marks[0].min())}-{int(marks[0].max())}), {timed_steps} "
         f"steps in turns graph / eager / eager / graph: "
         + ", ".join(f"{k} {v:.3f} ms ("
                     + ", ".join(f"{x:.3f}" for x in times[k == "graph"])
-                    + ")" for k, v in step_ms.items()))
+                    + ")" for k, v in step_ms.items())
+        + f"; bound {bound['bound_ms']:.3f} ms ({bound['weight_bytes']} B of "
+        f"weights, {bound['kv_bytes']} B of live KV), the graphed step at "
+        f"{bound['bound_ms'] / step_ms.get('graph', step_ms['eager']):.1%}"
+        " of it")
     prof = profile = None
     if cuda:
         _slot_reset(st, marks)
@@ -3926,24 +4147,120 @@ def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
     if srv.captures != (1 if cuda else 0):
         raise AssertionError(f"{tag} captures {srv.captures} after the lab")
     wall = time.perf_counter() - t_phase
-    out = {"requests": requests, "tokens": tokens, "drain_s": drain_s,
+    out = {"name": name, "serving": serving, "requests": requests,
+           "tokens": tokens, "drain_s": drain_s,
            "tok_s": tokens / drain_s,
            "ttft_ms": {k: snap["ttft_s"][k] * 1e3 for k in ("p50", "p99")},
            "tpot_ms": {k: snap["tpot_s"][k] * 1e3 for k in ("p50", "p99")},
            "iterations": snap["iterations"], "replays": replays,
            "captures": srv.captures, "wrapper_counts": counted,
            "launches": launches,
-           "captured": captured, "step_ms": step_ms, "graph_vs_eager": diff,
+           "captured": captured, "step_ms": step_ms, "step_bound": bound,
+           "graph_vs_eager": diff,
            "teacher_forced_gap": worst, "argmax_share": exact / total,
-           "solo_parity": solo, "peak_bytes": peak, "phase_s": wall}
+           "solo_parity": solo, "peak_bytes": peak, "phase_s": wall,
+           "kv_bytes": kv_bytes, "pages": pages, "exact_share": exact_share}
     if profile is not None:
         out.update(busy_ms=busy_ms, iteration_ms=iteration_ms,
                    profiled_iteration_ms=profile["wall_us"] / profile_steps
                    / 1e3, replay_busy_ms=prof["busy_us"] / profile_steps / 1e3)
     log(f"[serve] {json.dumps({'tag': tag, **out})}")
-    del srv, engine
+    del srv
+    if own_engine:
+        del engine
     _free_memory(dev)
-    return out
+    return {**out, "served": streamed}
+
+
+def phase_serve_all(cfg, *, device=None, requests=32, requests8=16,
+                    requests_fg=16, serving=SERVING, paged_serving=PAGED,
+                    shared=None, **kw) -> tuple:
+    """Phase 11's streams, each through ``phase_serve`` on one engine per
+    dtype: 11a bf16 contiguous; 11c the same stream paged (tokens equal
+    11a's); 11e the shared-prefix stream contiguous, then paged (gates:
+    prefix hit rate > 0, >= 2 copy-on-write copies; the exact share
+    against contiguous recorded); 11f the first ``requests_fg`` requests
+    of 11a's stream on a pool of half the pages (gates: evictions or
+    defers > 0; every request served); 11g the same requests with int8
+    KV; then 11b int8 WOQ contiguous and 11d the
+    same paged (tokens equal 11b's). Returns (11a, 11b, {name: paged
+    run})."""
+    import torch
+
+    dev = torch.device(device or "cuda")
+    run = partial(phase_serve, cfg, device=device, **kw)
+    _free_memory(dev)
+    eng = _serve_engine(cfg, None, device)
+    serve = run(engine=eng, name="11a", requests=requests, serving=serving)
+    paged = {"11c": run(engine=eng, name="11c", requests=requests,
+                        serving=paged_serving, solo_checks=0,
+                        want_tokens=serve["served"])}
+    shared = shared or _shared_stream(cfg.vocab_size)
+    flat = run(engine=eng, name="11e contiguous", stream=shared,
+               serving=serving, solo_checks=0)
+    paged["11e"] = run(engine=eng, name="11e", stream=shared,
+                       serving=paged_serving, solo_checks=0)
+    same = sum(int(a == b) for g, w in zip(paged["11e"]["served"],
+                                           flat["served"])
+               for a, b in zip(g, w))
+    paged["11e"]["exact_share_vs_contiguous"] = same / flat["tokens"]
+    paged["11e"]["contiguous"] = {k: flat[k] for k in (
+        "tok_s", "ttft_ms", "tpot_ms", "peak_bytes", "step_ms")}
+    pages = paged["11e"]["pages"]
+    log(f"[serve 11e] prefix hit rate {pages['prefix_hit_rate']:.4f}, "
+        f"prefill tokens saved {pages['prefill_tokens_saved']} of "
+        f"{pages['prompt_tokens']}, copy-on-write copies "
+        f"{pages['cow_copies']}; served tokens equal the contiguous run's: "
+        f"{same / flat['tokens']:.4f}; TTFT p50 "
+        f"{paged['11e']['ttft_ms']['p50']:.1f} ms paged, "
+        f"{flat['ttft_ms']['p50']:.1f} ms contiguous")
+    if not (pages["prefix_hit_rate"] > 0 and pages["cow_copies"] >= 2):
+        raise AssertionError(f"[serve 11e] pool {pages}: want a prefix hit "
+                             "rate > 0 and >= 2 copy-on-write copies")
+    del flat
+    head = _serve_stream(cfg.vocab_size, requests,
+                         prompt=kw.get("prompt", SERVE_PROMPT),
+                         new=kw.get("new", SERVE_NEW))[:requests_fg]
+    # half the pages: the lab's prompts halve too, so its slots all fit
+    paged["11f"] = run(engine=eng, name="11f", stream=head,
+                       serving={**paged_serving,
+                                "pool_pages": 1 + (paged_serving["pool_pages"]
+                                                   - 1) // 2},
+                       solo_checks=0,
+                       lab_prompt=kw.get("lab_prompt", 512) // 2)
+    pages = paged["11f"]["pages"]
+    if not (pages["evictions"] > 0 or pages["defers"] > 0):
+        raise AssertionError(f"[serve 11f] pool {pages}: no eviction and "
+                             "no defer under pressure")
+    paged["11g"] = run(engine=eng, name="11g", stream=head,
+                       serving={**paged_serving, "kv_quant_bits": 8},
+                       solo_checks=0)
+    for k in ("11f", "11g"):
+        r = paged[k]
+        r["exact_share_vs_11a"] = sum(
+            int(a == b) for g, w in zip(r["served"], serve["served"])
+            for a, b in zip(g, w)) / r["tokens"]
+        log(f"[serve {k}] served tokens equal 11a's: "
+            f"{r['exact_share_vs_11a']:.4f}")
+    del eng
+    _free_memory(dev)
+    eng = _serve_engine(cfg, 8, device)
+    serve8 = run(engine=eng, name="11b", bits=8, requests=requests8,
+                 serving=serving)
+    paged["11d"] = run(engine=eng, name="11d", bits=8, requests=requests8,
+                       serving=paged_serving, solo_checks=0,
+                       want_tokens=serve8["served"])
+    del eng
+    _free_memory(dev)
+    log("[serve-paged] " + json.dumps({k: {
+        x: r.get(x) for x in (
+            "tok_s", "ttft_ms", "tpot_ms", "step_ms", "step_bound",
+            "peak_bytes",
+            "kv_bytes", "pages", "exact_share", "exact_share_vs_11a",
+            "exact_share_vs_contiguous", "contiguous", "launches",
+            "replay_busy_ms", "teacher_forced_gap")}
+        for k, r in paged.items()}))
+    return serve, serve8, paged
 
 
 def remat_sweep(cfg=None, *, seq=1024, steps=3) -> dict:
@@ -4082,8 +4399,7 @@ def main() -> int:
             f"{train['peak_bytes'] / 2**30:.2f} GiB")
     long = phase_long_train()
     evo = phase_evoformer()
-    serve = phase_serve(llama2("7b"))
-    serve8 = phase_serve(llama2("7b"), bits=8, requests=16)
+    serve, serve8, paged = phase_serve_all(llama2("7b"))
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     src = "deepspeed_tpu_torch/ops/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -4094,6 +4410,8 @@ def main() -> int:
          "replaces": "deepspeed_tpu/ops/decode_attention.py:41",
          "launches": sl["launches"],
          "serving_launches": serve["launches"]["decode_attention"],
+         "paged_serving_launches": {
+             k: r["launches"]["decode_attention"] for k, r in paged.items()},
          **{k: kern[k] for k in keys}},
         # launches: the Llama-2-7B int8 path (untied head)
         # woq_route: the kernel of woq_matmul's fixed route the main path
@@ -4102,6 +4420,9 @@ def main() -> int:
          "replaces": "deepspeed_tpu/ops/woq_matmul.py:62",
          "launches": woq8["launches"]["woq_matmul"],
          "serving_launches": serve8["launches"]["woq_matmul"],
+         "paged_serving_launches": {
+             k: r["launches"]["woq_matmul"] for k, r in paged.items()
+             if r["launches"]["woq_matmul"]},
          "woq_route": woq["woq_matmul"]["route"],
          **{k: woq["woq_matmul"][k] for k in keys}},
         # launches: the OPT-6.7B int4 path (tied head)

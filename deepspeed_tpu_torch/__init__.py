@@ -4,7 +4,8 @@ The JAX package ``deepspeed_tpu`` is the reference this package is held
 against; this package imports neither it nor JAX. It carries the
 single-card ``init_inference(...).generate(...)`` path (dense and
 weight-only-quantized), the continuous-batching
-``ServingEngine(init_inference(...), {...})`` over contiguous KV slots, and
+``ServingEngine(init_inference(...), {...})`` over contiguous KV slots or
+the paged KV pool with radix prefix sharing and int8 KV, and
 the single-card training step,
 ``initialize(config, build_model(cfg, attention_fn=make_flash_attention()))
 .train_batch(batch)``; ROADMAP.md lists what follows.

@@ -2,7 +2,8 @@
 
 The port carries the single-card generate() path, dense or with int8/int4
 weight-only quantization (WOQ), and the continuous-batching
-``ServingEngine`` over contiguous slots (:class:`ServingConfig`). The JAX
+``ServingEngine`` over contiguous slots or the paged KV pool
+(:class:`ServingConfig`). The JAX
 configs' other knobs are accepted at their defaults, so a JAX config ports
 as it is, and raise ``NotImplementedError`` when set: each names the
 ROADMAP.md item (queue 1) that will port it. Unknown keys raise
@@ -31,8 +32,6 @@ _LATER = {
 
 # ServingConfig keys of the JAX package not ported yet: (default, item)
 _SERVING_LATER = {
-    "page_size": (0, 2), "pool_pages": (0, 2), "prefix_sharing": (True, 2),
-    "kv_quant_bits": (0, 2),
     "host_pool_bytes": (0, 6), "nvme_pool_bytes": (0, 6),
     "nvme_path": (None, 6), "demote_ahead_idle_s": (0.0, 6),
     "autoscale": (None, 6),
@@ -58,7 +57,7 @@ def _refuse_later(section: str, flat: dict, table: dict) -> None:
 @dataclasses.dataclass
 class ServingConfig:
     """Continuous-batching knobs of ``serving/engine.py`` (the JAX
-    package's ``ServingConfig``, contiguous slots)."""
+    package's ``ServingConfig``)."""
 
     slots: int = 8                  # persistent KV slots (the decode batch)
     max_len: int = 256              # per-slot cache capacity; a request is
@@ -78,6 +77,18 @@ class ServingConfig:
     # token, total is submit -> retirement; expiry retires with TIMEOUT
     ttft_deadline_s: float = 0.0
     total_deadline_s: float = 0.0
+    # paged KV cache (serving/pages.py): > 0 pools pages of this many
+    # positions shared by every slot through per-slot page tables, with
+    # radix-tree prefix sharing and copy-on-write; 0 keeps contiguous slots
+    page_size: int = 0
+    # pool pages, scratch page 0 included; 0 = 1 + slots * max_len /
+    # page_size (every slot coverable with no sharing). Fewer overcommit:
+    # admission defers on transient pressure and sheds a request that can
+    # never fit with a typed PagePoolExhausted
+    pool_pages: int = 0
+    prefix_sharing: bool = True
+    # 8 = int8 KV pool with per-token, per-head fp32 scales (paged only)
+    kv_quant_bits: int = 0
 
     def __post_init__(self):
         if self.slots < 1:
@@ -89,6 +100,24 @@ class ServingConfig:
                 f"bucket set), got {c}")
         if self.max_len < c:
             raise ValueError(f"max_len={self.max_len} < prefill_chunk={c}")
+        if self.page_size:
+            if self.page_size < 8 or self.max_len % self.page_size != 0:
+                raise ValueError(
+                    f"page_size must be >= 8 and divide max_len="
+                    f"{self.max_len}, got {self.page_size}")
+            if self.pool_pages == 0:
+                self.pool_pages = 1 + self.slots * (self.max_len
+                                                    // self.page_size)
+            elif self.pool_pages < 2:
+                raise ValueError(
+                    f"pool_pages={self.pool_pages} < 2 (one usable page "
+                    "+ the reserved scratch page)")
+        if self.kv_quant_bits not in (0, 8):
+            raise ValueError(f"kv_quant_bits must be 0 (off) or 8, "
+                             f"got {self.kv_quant_bits}")
+        if self.kv_quant_bits and not self.page_size:
+            raise ValueError("kv_quant_bits requires the paged KV cache "
+                             "(set serving.page_size)")
         for knob in ("ttft_deadline_s", "total_deadline_s"):
             if getattr(self, knob) < 0:
                 raise ValueError(f"{knob} must be >= 0, "

@@ -1,9 +1,13 @@
-"""Prefill + single-token decode over a contiguous KV cache.
+"""Prefill + single-token decode over a contiguous or a paged KV cache.
 
-Counterpart of ``deepspeed_tpu/inference/decode.py`` (the contiguous path;
-the paged pool is ROADMAP.md queue 1 item 2(b)). The cache is a pair of
-``(L, B, KV, max_len, hd)`` tensors, heads-major as in the JAX package, and
-attention over it masks the positions at or past the live length.
+Counterpart of ``deepspeed_tpu/inference/decode.py``. The contiguous cache
+is a pair of ``(L, B, KV, max_len, hd)`` tensors, heads-major as in the JAX
+package, and attention over it masks the positions at or past the live
+length. The paged cache (:class:`PagedKVCache`, the serving pool of
+``serving/pages.py``) holds ``(L, pages, KV, page_size, hd)`` pools and a
+per-slot page table; a step scatters its K/V through the table and
+gathers each slot's pages back into the contiguous view before attention,
+so the paged step runs the contiguous step's kernels on the same values.
 
 Differences from the JAX package, all forced by eager PyTorch:
 - the cache is written IN PLACE (``index_put_`` on the cache tensors): a
@@ -15,9 +19,12 @@ Differences from the JAX package, all forced by eager PyTorch:
   ``ops/decode_attention.py`` instead of a Pallas one;
 - a write past ``max_len`` (an idle serving slot, whose length keeps
   growing as in the JAX package) lands on the last position, as XLA's
-  ``dynamic_update_slice`` clamps it, and a learned-position lookup past
-  the table reads its last row, as XLA's gather clamps it; live rows never
-  reach either;
+  ``dynamic_update_slice`` clamps it (on the paged cache: on the table's
+  last entry, as the JAX package clips it), and a learned-position lookup
+  past the table reads its last row, as XLA's gather clamps it; live rows
+  never reach either;
+- the paged pools, their scales and the page table are written IN PLACE
+  too, so a CUDA graph of the slot step reads them by address;
 - :func:`decode_step` is :func:`decode_forward` then :func:`decode_sample`,
   so the serving engine can replay the first half as a CUDA graph
   (``serving/graph.py``) and sample eagerly after it.
@@ -28,6 +35,7 @@ from __future__ import annotations
 import math
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -49,9 +57,38 @@ class KVCache(NamedTuple):
                              # together) or (B,) per row
 
 
+class PagedKVCache(NamedTuple):
+    """The serving slots' page-pool KV state (``serving/pages.py``).
+
+    ``k`` / ``v`` are pools of fixed-size pages shared by every slot, in
+    the compute dtype, or int8 with ``kv_quant_bits=8``: then ``k_scale``
+    / ``v_scale`` hold one fp32 scale per token and head (None in fp).
+    Each slot maps its positions onto pool pages through its row of
+    ``page_table``; page 0 is scratch, where idle rows and shared entries
+    of an insert write. Every tensor is written in place."""
+
+    k: torch.Tensor                   # (L, pages, KV, page_size, hd)
+    v: torch.Tensor                   # (L, pages, KV, page_size, hd)
+    k_scale: Optional[torch.Tensor]   # (L, pages, KV, page_size) fp32
+    v_scale: Optional[torch.Tensor]   # (L, pages, KV, page_size) fp32
+    page_table: torch.Tensor          # (slots, pages_per_slot) int32
+    length: torch.Tensor              # (slots,) int32
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[3]
+
+
 def cache_layout(cfg: TransformerConfig, batch: int, max_len: int,
-                 dtype=None) -> tuple:
-    """(shape, dtype) of one K or V cache buffer."""
+                 dtype=None, *, page_size: int = 0, pages: int = 0) -> tuple:
+    """(shape, dtype) of one K or V cache buffer, the one source of the
+    shapes for ``init_cache``, the serving slots and the page pool.
+    ``page_size`` 0 is the contiguous ``(L, batch, KV, max_len, hd)``;
+    above 0 the pool ``(L, pages, KV, page_size, hd)``, whose page is a
+    position-contiguous tile of the contiguous layout."""
+    if page_size > 0:
+        return ((cfg.n_layer, pages, cfg.kv_heads, page_size, cfg.head_dim),
+                dtype or cfg.dtype)
     return ((cfg.n_layer, batch, cfg.kv_heads, max_len, cfg.head_dim),
             dtype or cfg.dtype)
 
@@ -141,12 +178,97 @@ def _append(cache_k, cache_v, k, v, new_len):
     cache_v.transpose(1, 2)[rows, pos] = v.to(cache_v.dtype)
 
 
+# int8 KV: max(amax, 1e-8) / 127 as the JAX engine's compiled quantize_kv
+# computes it: XLA folds the division by the constant into a product with
+# fp32(1 / 127)
+_KV_RECIPROCAL = float(np.float32(1) / np.float32(127))
+
+
+def quantize_kv(x, axis: int = -1):
+    """Symmetric int8 quantization of KV values, one fp32 scale per token
+    and head over ``axis`` (hd). Returns (int8 q, fp32 scale).
+    quantize(dequantize(quantize(x))) == quantize(x): the largest element
+    comes back as exactly +-127, which a hydrated shared prefix relies
+    on. ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=axis).clamp_min(1e-8) * _KV_RECIPROCAL
+    q = torch.clamp(torch.round(xf / scale.unsqueeze(axis)), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q, scale, dtype, axis: int = -1):
+    """Inverse of :func:`quantize_kv` at the point of use."""
+    return (q.float() * scale.unsqueeze(axis)).to(dtype)
+
+
+def _paged_append(ck, cv, ks, vs, k, v, page_table, new_len):
+    """Write T new tokens' K/V of every slot into one layer's pools IN
+    PLACE. ``ck`` / ``cv``: (pages, KV, page_size, hd); ``ks`` / ``vs``:
+    their (pages, KV, page_size) scales or None; ``k`` / ``v``: (B, T, KV,
+    hd); ``new_len``: the (B,) post-append lengths. Row b's token j lands
+    at position ``new_len[b] - T + j``, through its table row at (page,
+    offset); the page index clips to the row's last entry, as the JAX
+    package's does, so an idle row whose length ran past ``max_len``
+    writes only where its row points: scratch page 0, where duplicate
+    targets are harmless."""
+    B, T = k.shape[:2]
+    ps, n = ck.shape[2], page_table.shape[1]
+    pos = (new_len.reshape(-1, 1) - T
+           + torch.arange(T, device=k.device, dtype=new_len.dtype))
+    pid = torch.gather(page_table, 1, (pos // ps).clamp(0, n - 1).long())
+    off = (pos % ps).long()
+    pid = pid.long()
+    # (pages, KV, ps, hd) viewed as (pages, ps, KV, hd): [pid, off] picks
+    # (B, T), the values' leading dims
+    if ks is not None:
+        qk, sk = quantize_kv(k)
+        qv, sv = quantize_kv(v)
+        ck.transpose(1, 2)[pid, off] = qk
+        cv.transpose(1, 2)[pid, off] = qv
+        ks.transpose(1, 2)[pid, off] = sk
+        vs.transpose(1, 2)[pid, off] = sv
+    else:
+        ck.transpose(1, 2)[pid, off] = k.to(ck.dtype)
+        cv.transpose(1, 2)[pid, off] = v.to(cv.dtype)
+
+
+def _gather_pages(pool, page_table):
+    """``pool``'s (KV, ...) slab of each table entry, as (B, KV, n, ...):
+    ``out[b, h, j] = pool[page_table[b, j], h]``. A byte copy, moved in
+    8-byte words (a page slab of 8 or more positions is a whole number of
+    them), four to eight times fewer elements than the pool's dtype."""
+    B, n = page_table.shape
+    pages, KV = pool.shape[:2]
+    words = pool.reshape(pages, KV, -1).view(torch.int64)
+    heads = torch.arange(KV, device=pool.device)[None, :, None]
+    g = words[page_table.long()[:, None, :], heads]     # (B, KV, n, words)
+    return g.view(pool.dtype).reshape(B, KV, n, *pool.shape[2:])
+
+
+def _paged_view(cp, sp, page_table, dtype):
+    """One layer's pool pages gathered into the slots' contiguous view
+    (B, KV, pages_per_slot * page_size, hd): fp pools give the bytes a
+    contiguous cache would hold; int8 pools dequantize here (scales over
+    hd), as the JAX package does: the fp32 product, rounded once to
+    ``dtype``, in one pass."""
+    B, n = page_table.shape
+    ps, hd = cp.shape[2], cp.shape[3]
+    g = _gather_pages(cp, page_table).reshape(B, -1, n * ps, hd)
+    if sp is None:
+        return g
+    s = _gather_pages(sp, page_table).reshape(B, -1, n * ps, 1)
+    return torch.mul(g, s, out=torch.empty(g.shape, dtype=dtype,
+                                           device=g.device))
+
+
 def _layer_step(model, x, p, cache_k, cache_v, length, rope=None,
-                flash_decode: bool = False, alibi=None):
+                flash_decode: bool = False, alibi=None, paged=None):
     """One transformer layer over x: (B, T, d), appending its K/V to the
     layer's cache (in place) and attending over it. ``length`` is the
     post-append length; ``rope`` the (cos, sin, rotary_dim) of the step's
-    positions; ``alibi`` the (H,) slopes."""
+    positions; ``alibi`` the (H,) slopes. ``paged``: (page_table, k_scale,
+    v_scale) when ``cache_k`` / ``cache_v`` are one layer's pools; the
+    attention then reads the gathered view."""
     cfg = model.cfg
     B, T, _ = x.shape
     h, hd = cfg.n_head, cfg.head_dim
@@ -154,7 +276,13 @@ def _layer_step(model, x, p, cache_k, cache_v, length, rope=None,
     q, k, v = _qkv_proj(model, y, p)
     if rope is not None:
         q, k = _apply_rope(q, k, *rope)
-    _append(cache_k, cache_v, k, v, length)
+    if paged is not None:
+        table, ks, vs = paged
+        _paged_append(cache_k, cache_v, ks, vs, k, v, table, length)
+        cache_k = _paged_view(cache_k, ks, table, cfg.dtype)
+        cache_v = _paged_view(cache_v, vs, table, cfg.dtype)
+    else:
+        _append(cache_k, cache_v, k, v, length)
     o = _cache_attend(q, cache_k, cache_v, length, flash_decode=flash_decode,
                       alibi=alibi)
     o = model._maybe_bias(
@@ -217,7 +345,7 @@ def _decode_head(model, params, x):
     return logits
 
 
-def forward_with_cache(model, params, input_ids, cache: KVCache,
+def forward_with_cache(model, params, input_ids, cache,
                        flash_decode: bool = False,
                        last_token_head: bool = False, last_index=None,
                        materialize=None):
@@ -234,7 +362,9 @@ def forward_with_cache(model, params, input_ids, cache: KVCache,
     applied to the top-level leaves once and to each layer's leaves as the
     loop reaches it, so a quantized model runs dense with one layer's
     dense copy alive at a time — the values of the JAX package's
-    whole-tree ``materialize``."""
+    whole-tree ``materialize``. ``cache`` may be a :class:`PagedKVCache`
+    (the serving slot step): each layer then scatters through the page
+    table and attends over the gathered view."""
     cfg = model.cfg
     mat = materialize if materialize is not None else (lambda p: p)
     layers = layer_params(params)
@@ -259,14 +389,20 @@ def forward_with_cache(model, params, input_ids, cache: KVCache,
         rope = (*rope_tables(positions, cfg.rope_theta, rd), rd)
     elif cfg.pos_embedding == "alibi":
         alibi = _alibi_slopes(cfg.n_head, dev)
+    paged = isinstance(cache, PagedKVCache)
     for i in range(cfg.n_layer):
+        pg = None
+        if paged:
+            pg = (cache.page_table,
+                  *(None if s is None else s[i]
+                    for s in (cache.k_scale, cache.v_scale)))
         x = _layer_step(model, x, mat({k: w[i] for k, w in layers.items()}),
                         cache.k[i], cache.v[i], new_len, rope=rope,
-                        flash_decode=flash_decode, alibi=alibi)
+                        flash_decode=flash_decode, alibi=alibi, paged=pg)
     if last_token_head:
         x = x[:, -1:] if last_index is None else \
             x.narrow(1, int(last_index), 1)
-    return _decode_head(model, params, x), KVCache(cache.k, cache.v, new_len)
+    return _decode_head(model, params, x), cache._replace(length=new_len)
 
 
 class GenCarry(NamedTuple):

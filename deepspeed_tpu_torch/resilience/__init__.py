@@ -1,3 +1,3 @@
-from .guards import QueueFullError, RequestStatus
+from .guards import PagePoolExhausted, QueueFullError, RequestStatus
 
-__all__ = ["QueueFullError", "RequestStatus"]
+__all__ = ["PagePoolExhausted", "QueueFullError", "RequestStatus"]

@@ -1,6 +1,5 @@
 """Typed request outcomes callers can branch on (counterpart of
-``deepspeed_tpu/resilience/guards.py``, the serving half; the paged pool's
-``PagePoolExhausted`` comes with ROADMAP.md queue 1 item 2(b))."""
+``deepspeed_tpu/resilience/guards.py``, the serving half)."""
 
 from __future__ import annotations
 
@@ -42,3 +41,19 @@ class QueueFullError(RuntimeError):
         super().__init__(message)
         self.queue_depth = queue_depth
         self.max_queue = max_queue
+
+
+class PagePoolExhausted(QueueFullError):
+    """``submit()`` rejected a request the paged KV pool can never hold:
+    its worst-case page count (``ceil((prompt + max_new - 1) /
+    page_size)``, with no prefix sharing assumed, since shared pages can
+    be evicted from under a queued request) exceeds the pool's usable
+    pages. Status ``SHED``, like every admission refusal; a TRANSIENTLY
+    full pool never raises: the request waits at the queue head until a
+    retirement frees pages."""
+
+    def __init__(self, message: str, pages_needed: int | None = None,
+                 pages_usable: int | None = None):
+        super().__init__(message)
+        self.pages_needed = pages_needed
+        self.pages_usable = pages_usable

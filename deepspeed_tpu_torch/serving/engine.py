@@ -1,23 +1,32 @@
-"""ServingEngine: continuous batching over contiguous KV slots.
+"""ServingEngine: continuous batching over contiguous KV slots or the
+paged KV pool.
 
-Counterpart of ``deepspeed_tpu/serving/engine.py`` (the contiguous-slot
-engine; the paged pool, speculation, the fleet and the observability
-hooks are ROADMAP.md queue 1 items 2(b), 5, 6 and 7, and their config keys
-raise). The engine owns:
+Counterpart of ``deepspeed_tpu/serving/engine.py`` (speculation, the fleet
+and the observability hooks are ROADMAP.md queue 1 items 5, 6 and 7, and
+their config keys raise). The engine owns:
 
 - a slot state (``slots.py``): ONE persistent (L, slots, KV, max_len, hd)
   KV cache plus per-slot length / tok / done and a generator per slot,
-  advanced by one slot decode step whichever requests occupy it;
+  advanced by one slot decode step whichever requests occupy it; or, with
+  ``page_size`` > 0, the paged state (``pages.py``): (L, pages, KV,
+  page_size, hd) pools, int8 with ``kv_quant_bits`` 8, a (slots,
+  pages_per_slot) page table mirrored from the host's, and the host's
+  :class:`~.pages.PagePool` with its radix prefix tree;
 - a prefill lane: per-request chunked prefill, eager, one bucket-shaped
   chunk per iteration into a batch-1 cache of ``max_len``, so a long prompt
   never stalls the running requests for more than a chunk;
-- an insert that copies a finished prefill into its slot in place.
+- an insert that copies a finished prefill into its slot in place (paged:
+  scatters it into its private pages, after a shared prefix was hydrated
+  into the prefill cache at admission).
 
 On the card the forward half of the slot step is one CUDA graph
 (``graph.py``), captured once after an eager warm-up step and replayed
 every iteration; ``captures`` counts captures as the JAX engine's
 ``compiles`` counts its program builds, and stays at 1. Sampling runs
-eagerly after the replay, from each slot's own generator.
+eagerly after the replay, from each slot's own generator. The paged
+table is a static tensor of the state: ``_flush_table`` writes the host
+table into it with ``copy_`` on the replay's stream, never rebinding it,
+so the next replay reads the new rows.
 
 A request's tokens equal a solo ``generate(prompt[None], max_new,
 request_seeds=[seed], cache_len=max_len)`` with the same sampling knobs:
@@ -45,6 +54,7 @@ from ..resilience.guards import QueueFullError, RequestStatus
 from ..utils.logging import warning_once
 from ..utils.roadmap import later
 from .graph import SlotGraph
+from .pages import PagePool, hydrate_cache, init_paged_slots, insert_paged
 from .scheduler import Request, Scheduler
 from .slots import init_slots, insert_request
 
@@ -114,12 +124,28 @@ class ServingEngine:
                                 greedy=self.cfg.greedy)
         self.stats = ServingStats(registry=registry,
                                   **({"clock": clock} if clock else {}))
+        # the paged pool and the host's page table, mirrored into the
+        # state's table when it changes (a row seated at insert, cleared
+        # where the pages are released); page_size 0 builds none of it
+        self._paged = self.cfg.page_size > 0
+        self.pool: Optional[PagePool] = None
+        self._table = None
+        self._table_dirty = False
+        if self._paged:
+            self.pool = PagePool(self.cfg.pool_pages, self.cfg.page_size,
+                                 self.cfg.max_len,
+                                 registry=self.stats.registry,
+                                 prefix_sharing=self.cfg.prefix_sharing)
+            self._table = np.zeros(
+                (self.cfg.slots, self.pool.pages_per_slot), np.int32)
         self.sched = Scheduler(self.cfg.slots, self.cfg.max_len,
                                self.cfg.prefill_chunk,
                                max_queue=self.cfg.max_queue,
                                eos_token_id=self._eos, stats=self.stats,
                                ttft_deadline_s=self.cfg.ttft_deadline_s,
-                               total_deadline_s=self.cfg.total_deadline_s)
+                               total_deadline_s=self.cfg.total_deadline_s,
+                               pages=self.pool,
+                               on_release=self._clear_row)
         # finished requests awaiting pickup, BOUNDED (oldest evicted)
         self.results: OrderedDict[int, Request] = OrderedDict()
         self._max_results = _MAX_RESULTS
@@ -128,9 +154,16 @@ class ServingEngine:
         self._draining = False
         self._any_deadlines = False
         with torch.inference_mode():
-            self.state: GenCarry = init_slots(
-                mcfg, self.cfg.slots, self.cfg.max_len, engine.compute_dtype,
-                device=self.device)
+            if self._paged:
+                self.state: GenCarry = init_paged_slots(
+                    mcfg, self.cfg.slots, self.cfg.max_len,
+                    self.cfg.page_size, self.cfg.pool_pages,
+                    engine.compute_dtype, self.cfg.kv_quant_bits,
+                    device=self.device)
+            else:
+                self.state = init_slots(
+                    mcfg, self.cfg.slots, self.cfg.max_len,
+                    engine.compute_dtype, device=self.device)
         self._graph = SlotGraph() if self.device.type == "cuda" else None
 
     @property
@@ -142,6 +175,15 @@ class ServingEngine:
     @property
     def graph(self) -> Optional[SlotGraph]:
         return self._graph
+
+    def _flush_table(self) -> None:
+        """Write the host page table into the state's, if it changed: in
+        place, on the current stream, so the next replay (or eager step,
+        or insert) reads it. The tensor is never rebound: the graph reads
+        it by address."""
+        if self._table_dirty:
+            self.state.cache.page_table.copy_(torch.from_numpy(self._table))
+            self._table_dirty = False
 
     # -------------------------------------------------------- the slot step
     def _forward_slots(self):
@@ -265,12 +307,25 @@ class ServingEngine:
         # very iteration's admission
         if self._any_deadlines:
             finished += self._expire_deadlines()
+        if self._paged:
+            # rows cleared since the last flush (last iteration's
+            # retirements, a cancel, this sweep's deadlines) reach the
+            # device BEFORE their pages can be reused by this admission or
+            # written by this decode step
+            self._flush_table()
         if self._prefill is None:
             req = self.sched.pop_next()
             if req is not None:
                 cache = init_cache(self.model.cfg, 1, self.cfg.max_len,
                                    self.engine.compute_dtype,
                                    device=self.device)
+                alloc = req.page_alloc
+                if alloc is not None and alloc.hydrate_pages > 0:
+                    # prefix sharing: the shared pages (and a copy-on-write
+                    # source) into the prefill cache once; the chunk plan
+                    # then recomputes only the suffix
+                    hydrate_cache(self.state, cache, alloc.hydrate_row,
+                                  alloc.hydrate_pages)
                 self._prefill = (req, self.sched.plan(req), 0, cache,
                                  per_request_generators([req.seed],
                                                         self.device))
@@ -292,6 +347,16 @@ class ServingEngine:
         for req in finished:
             self._store_result(req)
         return finished
+
+    def _clear_row(self, req: Request) -> None:
+        """The scheduler released ``req``'s pages: its slot's table row
+        goes back to scratch at once, so no later flush can send a row
+        whose pages another request now owns. Only if the slot is EMPTY:
+        a request requeued after its slot was refilled must not clear the
+        successor's row."""
+        if req.slot >= 0 and self.sched.running.get(req.slot) is None:
+            self._table[req.slot] = 0
+            self._table_dirty = True
 
     def _store_result(self, req: Request) -> None:
         self.results[req.rid] = req
@@ -348,9 +413,18 @@ class ServingEngine:
         slot = self.sched.place(req, first_tok)
         length = torch.full((), ch.true_len, dtype=torch.int32,
                             device=self.device)
-        insert_request(self.state, slot,
-                       GenCarry(tok, KVCache(cache.k, cache.v, length), gens,
-                                done))
+        pf = GenCarry(tok, KVCache(cache.k, cache.v, length), gens, done)
+        if self._paged:
+            alloc = req.page_alloc
+            self._table[slot] = alloc.row
+            self._table_dirty = True
+            self._flush_table()
+            insert_paged(self.state, slot, pf, alloc.row, alloc.shared)
+            # the prompt's blocks are in the pool: index them for sharing
+            # and release the copy-on-write source's pin
+            self.pool.on_inserted(req.rid, req.prompt)
+        else:
+            insert_request(self.state, slot, pf)
         return []
 
     def begin_drain(self) -> None:
@@ -413,4 +487,7 @@ class ServingEngine:
         return [np.asarray(got[r].tokens, np.int32) for r in rids]
 
     def metrics_snapshot(self) -> dict:
-        return {"captures": self.captures, **self.stats.snapshot()}
+        out = {"captures": self.captures, **self.stats.snapshot()}
+        if self._paged:
+            out["pages"] = self.pool.snapshot()
+        return out

@@ -1,15 +1,17 @@
 """Host-side continuous-batching scheduler: queue, slots, chunk plans.
 
-Counterpart of ``deepspeed_tpu/serving/scheduler.py`` without its page,
-span and speculation branches (ROADMAP.md queue 1 items 2(b), 7 and 5):
-plain Python over numpy and floats, so it makes the same plans and the
-same admission and retirement order as the JAX package's, and runs under a
-fake clock with no device.
+Counterpart of ``deepspeed_tpu/serving/scheduler.py`` with its page
+branches, without its span and speculation ones (ROADMAP.md queue 1 items
+7 and 5): plain Python over numpy and floats, so it makes the same plans
+and the same admission and retirement order as the JAX package's, and
+runs under a fake clock with no device.
 
 Policy, per serving iteration (see ``ServingEngine.step``):
 
 1. admission — if a slot is free, no prefill is in flight, and the queue
-   is non-empty, the head request starts prefilling;
+   is non-empty, the head request starts prefilling (on the paged pool:
+   if the pool can cover its worst-case pages now; else it waits at the
+   head);
 2. chunked prefill — at most ONE prompt chunk runs per iteration, so a
    long prompt never stalls running requests' TPOT for more than a chunk;
 3. decode — every occupied slot advances one token;
@@ -24,12 +26,13 @@ from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
 from ..observability.tracing import ServingStats
 from ..resilience.guards import QueueFullError, RequestStatus
+from .pages import PageAllocation, PagePool
 
 _MIN_BUCKET = 8   # smallest residual-chunk bucket; below this, right-pad
 
@@ -67,20 +70,28 @@ def _pow2_ceil(n: int) -> int:
     return p
 
 
-def plan_chunks(prompt: np.ndarray, chunk: int) -> list:
+def plan_chunks(prompt: np.ndarray, chunk: int, skip: int = 0) -> list:
     """Split one prompt into bucket-shaped prefill chunks.
 
     Full ``chunk``-size chunks cover the head of the prompt; the residual
     runs as the smallest power-of-two bucket >= max(residual, 8), via
-    overlap when the prompt affords it, else right-padding."""
+    overlap when the prompt affords it, else right-padding.
+
+    ``skip`` (prefix sharing, ``pages.py``) drops the first ``skip``
+    tokens, whose KV is hydrated from shared pool pages. The chunks stay
+    in the same bucket set, and the final overlap bucket may rewind into
+    the hydrated region, rewriting the same KV."""
     prompt = np.asarray(prompt, np.int32).reshape(-1)
     P = len(prompt)
     if P < 1:
         raise ValueError("empty prompt")
-    k = (P - 1) // chunk                 # full chunks before the residual
-    r = P - k * chunk                    # residual, in (0, chunk]
-    plans = [ChunkPlan(start=i * chunk,
-                       ids=prompt[i * chunk:(i + 1) * chunk])
+    if not 0 <= skip < P:
+        raise ValueError(f"skip={skip} outside [0, {P})")
+    Q = P - skip                         # tokens actually recomputed
+    k = (Q - 1) // chunk                 # full chunks before the residual
+    r = Q - k * chunk                    # residual, in (0, chunk]
+    plans = [ChunkPlan(start=skip + i * chunk,
+                       ids=prompt[skip + i * chunk:skip + (i + 1) * chunk])
              for i in range(k)]
     b = max(_MIN_BUCKET, _pow2_ceil(r))
     if P >= b:        # overlap: recompute the last b prompt tokens
@@ -117,6 +128,7 @@ class Request:
     deadline_ttft: Optional[float] = None
     deadline_total: Optional[float] = None
     requeue_t: Optional[float] = None     # when ``requeue`` took it back
+    page_alloc: Optional[PageAllocation] = None   # the paged pool's plan
 
     @property
     def prompt_len(self) -> int:
@@ -139,19 +151,28 @@ class Scheduler:
     token already finished it), and reports every decode step through
     ``on_step`` — which appends tokens, retires rows at eos / max_new, and
     frees their slots. FIFO admission; retirement order is whatever the
-    tokens dictate.
+    tokens dictate. ``pages``: the paged pool (:class:`~.pages.PagePool`);
+    admission then takes the request's pages and every terminal path
+    releases them. None: contiguous slots. ``on_release(req)`` is called
+    wherever a request's pages are released, so the engine clears its
+    slot's table row at that moment.
     """
 
     def __init__(self, slots: int, max_len: int, prefill_chunk: int,
                  max_queue: int = 0, eos_token_id: Optional[int] = None,
                  stats: Optional[ServingStats] = None,
                  ttft_deadline_s: float = 0.0,
-                 total_deadline_s: float = 0.0):
+                 total_deadline_s: float = 0.0,
+                 pages: Optional[PagePool] = None,
+                 on_release: Optional[Callable[[Request], None]] = None):
         self.slots = slots
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
         self.max_queue = max_queue
         self.eos_token_id = eos_token_id
+        self.pages = pages
+        self.on_release = on_release
+        self._defer_key = None   # (rid, pool generation) of a failed admit
         self.stats = stats if stats is not None else ServingStats()
         self.ttft_deadline_s = float(ttft_deadline_s)
         self.total_deadline_s = float(total_deadline_s)
@@ -179,6 +200,14 @@ class Scheduler:
             raise QueueFullError(
                 f"serving queue full ({self.max_queue}); apply backpressure",
                 queue_depth=len(self.queue), max_queue=self.max_queue)
+        if self.pages is not None:
+            # typed PagePoolExhausted (status SHED) for a request the pool
+            # can NEVER hold; a transient shortage defers in pop_next
+            try:
+                self.pages.check_submit(len(prompt), int(max_new))
+            except QueueFullError:
+                self.stats.on_shed(len(self.queue))
+                raise
         req = Request(rid=self._next_rid, prompt=prompt, max_new=int(max_new),
                       seed=int(seed))
         self._next_rid += 1
@@ -196,10 +225,27 @@ class Scheduler:
 
     # ----------------------------------------------------------- admission
     def pop_next(self) -> Optional[Request]:
-        """Head-of-queue request to start prefilling, if a slot is free.
-        The engine keeps at most one prefill in flight."""
+        """Head-of-queue request to start prefilling, if a slot is free
+        and, on the paged pool, if the pool can cover its worst-case pages
+        now (a transient shortage leaves it at the head until a release
+        frees pages, so the pool never runs dry mid-decode). The engine
+        keeps at most one prefill in flight."""
         if not self.queue or not self.free:
             return None
+        if self.pages is not None:
+            head = self.queue[0]
+            # retry only once admission prospects changed: a failed
+            # try_admit re-runs the tree match and the eviction walk
+            key = (head.rid, self.pages.generation)
+            if key == self._defer_key:
+                return None
+            alloc = self.pages.try_admit(head.prompt, head.max_new,
+                                         head.rid)
+            if alloc is None:
+                self._defer_key = key
+                return None
+            self._defer_key = None
+            head.page_alloc = alloc
         req = self.queue.popleft()
         admit_t = self.stats.on_admit(len(self.queue), submit_t=req.submit_t)
         req.admit_t = admit_t
@@ -208,7 +254,17 @@ class Scheduler:
         return req
 
     def plan(self, req: Request) -> list:
-        return plan_chunks(req.prompt, self.prefill_chunk)
+        skip = req.page_alloc.skip if req.page_alloc is not None else 0
+        return plan_chunks(req.prompt, self.prefill_chunk, skip=skip)
+
+    def _release_pages(self, req: Request) -> None:
+        """Every terminal path comes here: drop the request's page refs
+        (shared pages stay for later sharing through their tree ref;
+        private pages free at once)."""
+        if self.pages is not None and req.page_alloc is not None:
+            self.pages.release(req.rid)
+            if self.on_release is not None:
+                self.on_release(req)
 
     def place(self, req: Request, first_tok: int) -> int:
         """Prefill finished: record the first token, occupy a slot."""
@@ -230,6 +286,8 @@ class Scheduler:
             raise ValueError(
                 f"requeued request {req.rid} (prompt {len(req.prompt)} + "
                 f"max_new {req.max_new}) exceeds max_len={self.max_len}")
+        self._release_pages(req)
+        req.page_alloc = None
         req.status = RequestStatus.REQUEUED
         req.attempts += 1
         req.tokens = []
@@ -250,6 +308,7 @@ class Scheduler:
         req.tokens.append(int(first_tok))
         req.finish_t = self.stats.on_retire(len(req.tokens),
                                             req.first_token_t)
+        self._release_pages(req)
         return req
 
     # -------------------------------------------------------------- decode
@@ -266,6 +325,7 @@ class Scheduler:
                                                     req.first_token_t)
                 del self.running[slot]
                 self.free.append(slot)
+                self._release_pages(req)
                 finished.append(req)
         return finished
 
@@ -283,6 +343,7 @@ class Scheduler:
         req.status = status
         req.error = error
         req.finish_t = self.stats.on_abort(status)
+        self._release_pages(req)
         return req
 
     def cancel(self, rid: int) -> Optional[Request]:

@@ -238,3 +238,17 @@ def test_split_k_and_in_order_merge_match_jax_kernel(kv, alibi):
     plain = da.decode_attention_plain(tq, tk, tv, torch.from_numpy(lengths),
                                       alibi_slopes=slopes)
     np.testing.assert_allclose(f32(got), f32(plain), atol=FP32_TOL, rtol=0)
+
+
+def test_split_plan_depends_on_the_batch_at_the_serving_shape():
+    """Why a served request's tokens may part from its solo generate() on
+    the card: at Llama-2-7B's heads and a 1024-position cache, the slot
+    step's batch of 8 streams each row in one range while a batch of 1
+    splits it in four, so the two sum a row's softmax in another order (a
+    last-bit difference, which a near tie of two logits can turn)."""
+    from deepspeed_tpu_torch.ops.decode_attention import split_plan
+
+    b8 = split_plan(8, 32, 32, 1024, 128, 132)
+    b1 = split_plan(1, 32, 32, 1024, 128, 132)
+    assert (b8["nsplit"], b8["chunk"]) == (1, 1024)
+    assert (b1["nsplit"], b1["chunk"]) == (4, 256)

@@ -423,6 +423,133 @@ def test_failed_capture_raises(cuda, monkeypatch):
     torch.cuda.synchronize()
 
 
+# ------------------------------------------------------------ paged serving
+PAGED = {"page_size": 16}
+
+
+def _shared_requests(vocab, seed=0):
+    """A stream with prefix hits and copy-on-write: two system prompts of
+    48 tokens, suffixes, and a second turn extending a first past a
+    partial page."""
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda n: torch.randint(0, vocab, (n,), generator=g).numpy()
+    import numpy as np
+    heads = [rnd(48), rnd(48)]
+    t1 = np.concatenate([heads[0], rnd(21)])
+    reqs = [np.concatenate([heads[i % 2], rnd(5 + 7 * i)]) for i in range(6)]
+    reqs[1:1] = [t1, np.concatenate([t1, rnd(19)])]
+    return [(p, 12 + 2 * i, 10 + i) for i, p in enumerate(reqs)]
+
+
+@pytest.mark.parametrize("kv_bits", [0, 8])
+def test_paged_captures_stay_one_over_hits_cow_and_evictions(cuda, kv_bits):
+    """A paged stream with prefix hits, copy-on-write and evictions (a
+    pool of half the pages a full set of slots needs), requests one at a
+    time and then all at once: one capture for the whole stream, every
+    request OK in full, the pool's pages all back after the drain."""
+    eng, srv = _server(cuda, "tiny_test", **PAGED, pool_pages=13,
+                       kv_quant_bits=kv_bits)
+    reqs = _shared_requests(eng.model.cfg.vocab_size)
+    outs = []
+    for p, n, s in reqs[:3]:
+        outs += srv.serve_batch([p], [n], [s])
+    outs += srv.serve_batch([p for p, _, _ in reqs], [n for _, n, _ in reqs],
+                            [s for _, _, s in reqs])
+    assert srv.captures == 1 and srv.graph.replays > 0
+    assert [len(o) for o in outs] == [n for _, n, _ in reqs[:3] + reqs]
+    snap = srv.metrics_snapshot()["pages"]
+    assert snap["prefix_hit_rate"] > 0 and snap["cow_copies"] >= 1
+    assert snap["evictions"] + snap["defers"] > 0
+    assert snap["live_requests"] == 0
+    assert snap["free_pages"] + snap["tree_held_pages"] == \
+        snap["usable_pages"]
+
+
+@pytest.mark.parametrize("name", ["tiny_test", "llama2_tiny_int8"])
+@pytest.mark.parametrize("kv_bits", [0, 8])
+def test_paged_slot_step_replay_equals_eager(cuda, name, kv_bits):
+    """Three live paged slots: a replay and an eager step from the same
+    state give bit-identical logits and tokens, and launch the kernels the
+    capture recorded; the paged tokens of a stream without prefix hits
+    equal the contiguous engine's."""
+    from deepspeed_tpu_torch.ops import woq_matmul as wm
+
+    eng, srv = _server(cuda, name, **PAGED, kv_quant_bits=kv_bits)
+    cfg = eng.model.cfg
+    stream = _stream(cfg.vocab_size, [(5, 60), (20, 60), (40, 60)])
+    for p, n, s in stream:
+        srv.submit(p, n, seed=s)
+    while srv.sched.occupancy < 3:
+        srv.step()
+    assert srv.captures == 1
+    per_layer = 5 if cfg.is_glu else 4
+    woq = per_layer * cfg.n_layer + 1 if "int8" in name else 0
+    want = {"decode_attention": cfg.n_layer, "woq_matmul": woq}
+    assert srv.graph.captured_launches == {k: n for k, n in want.items()
+                                           if n}
+    st = srv.state
+    with torch.inference_mode():
+        marks = [t.clone() for t in (st.cache.length, st.tok, st.done)]
+        lg_g = srv.slot_step(graphed=True)[0].clone()
+        tok_g = st.tok.clone()
+        for t, m in zip((st.cache.length, st.tok, st.done), marks):
+            t.copy_(m)
+        lg_e = srv.slot_step(graphed=False)[0]
+        assert torch.equal(st.tok, tok_g) and torch.equal(lg_g, lg_e)
+    if kv_bits:
+        return
+    _, flat = _server(cuda, name)
+    args = [[p for p, _, _ in stream], [n for _, n, _ in stream],
+            [s for _, _, s in stream]]
+    _, again = _server(cuda, name, **PAGED)
+    for a, b in zip(again.serve_batch(*args), flat.serve_batch(*args)):
+        assert (a == b).all()
+
+
+def test_paged_view_attention_equals_contiguous(cuda):
+    """Decode attention over the gathered view of shuffled pages equals
+    decode attention over a contiguous cache holding the same bytes, bit
+    for bit, bf16 and dequantized int8; an idle row on scratch and one
+    past the cache among them."""
+    import chip_smoke
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    got = chip_smoke._paged_view_check(gen, 4, 256,
+                                       (1, 130, 256, 300), cuda, H=8)
+    assert got["bf16"] is True and got["int8"] is True
+
+
+def test_paged_table_flush_reaches_the_next_replay(cuda):
+    """Clear a live slot's table row, flush, replay: the replay writes that
+    slot's token to scratch page 0 and none of its old pages change, while
+    the other slots write their own pages."""
+    eng, srv = _server(cuda, "tiny_test", **PAGED)
+    for p, n, s in _stream(eng.model.cfg.vocab_size,
+                           [(9, 60), (20, 60), (33, 60)]):
+        srv.submit(p, n, seed=s)
+    while srv.sched.occupancy < 3:
+        srv.step()
+    assert srv.captures == 1
+    st = srv.state
+    with torch.inference_mode():
+        old = srv._table[1].copy()
+        pages = torch.as_tensor(old[old > 0]).long().to(cuda)
+        before = st.cache.k[:, pages].clone()
+        scratch = st.cache.k[:, 0].clone()
+        other = int(srv._table[2][int(st.cache.length[2]) // 16])
+        other_before = st.cache.k[:, other].clone()
+        srv._table[1] = 0
+        srv._table_dirty = True
+        srv._flush_table()
+        assert int(st.cache.page_table[1].abs().sum()) == 0
+        srv.slot_step(graphed=True)
+        torch.cuda.synchronize()
+        assert torch.equal(st.cache.k[:, pages], before)
+        assert not torch.equal(st.cache.k[:, 0], scratch)
+        assert not torch.equal(st.cache.k[:, other], other_before)
+    assert srv.captures == 1
+
+
 # ------------------------------------------------------------- flash attention
 # (B, H, KV, S, hd, causal, mask kind, alibi): chip_smoke.py phase 5's cases
 FLASH_CASES = [

@@ -119,7 +119,7 @@ def test_inference_config_ports_and_refuses():
                              ("moe", {"ep_size": 2}, "expert"),
                              ("tp_comm_quant", 8, "tensor"),
                              ("observability", True, "observability"),
-                             ("serving", {"page_size": 16}, "ServingEngine")):
+                             ("serving", {"host_pool_bytes": 1}, "KV tiers")):
         with pytest.raises(NotImplementedError, match=item):
             InferenceConfig.from_any({key: value})
     assert InferenceConfig.from_any({"serving": {"slots": 4}}).serving.slots \

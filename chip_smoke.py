@@ -172,12 +172,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the eager slot step's ms, the device's busy share over serving
    iterations, peak memory and solo ``generate`` parity recorded (a
    ``[serve]`` JSON line each; a ``[serve-paged]`` line sums up 11c-11g
-   with the pools' snapshots and bytes).
+   with the pools' snapshots and bytes);
+12. checkpoint and resume: GPT-2 1.5B under ``TRAIN_CONFIG`` at full
+   width and depth (18.7 GB of master, mu and nu). Free disk and the
+   host's MemAvailable printed first; the tags live under
+   ``chiprun_out/phase12_ckpt``, removed at the end. Engine E1 takes 2
+   steps, ``save_checkpoint`` (sync, ``verify: "size"``), 2 more steps,
+   run twice from one state (bit-identical: the step repeats); a fresh E2
+   (another seed) ``load_checkpoint``s the tag and its 2 steps equal E1's
+   bit for bit (losses, grad norms, lr, every master / mu / nu leaf, step,
+   count, loss scale), with flash 192 / 96 / 96 and xent 2 / 2 launches a
+   step; E2 saves async, takes a step while the writer runs, commits; the
+   tag verifies and, loaded into E1, equals E2's state at the save. A
+   ``[ckpt]`` JSON line: the state bytes, the sync save's wall and GB/s
+   split into D2H, write + fsync and manifest, the async save's blocking
+   ms and commit seconds, the loads' seconds (host buffers' allocation,
+   read + copy) and GB/s, peak memory and free disk.
 
-``remat_sweep()`` and ``woq_probe()`` are one-off measurements outside the
-phases: the default GPT-2 1.5B training step under each remat policy, and
-the tensor-core ``x @ W`` under each ring depth and blocks an SM. Those of
-the serving path are in ``serve_probes.py``.
+``remat_sweep()``, ``woq_probe()`` and ``checkpoint_write_probe()`` are
+one-off measurements outside the phases: the default GPT-2 1.5B training
+step under each remat policy, the tensor-core ``x @ W`` under each ring
+depth and blocks an SM, and the checkpoint's three state files written
+with 1-16 threads a file. Those of the serving path are in
+``serve_probes.py``.
 
 Before them, a ``[flash-bias]`` line holds the JSON of phases 5d and 10's
 kernel rows (each flash kernel with the bias at phase 10's two shapes,
@@ -4263,6 +4280,292 @@ def phase_serve_all(cfg, *, device=None, requests=32, requests8=16,
     return serve, serve8, paged
 
 
+# ----------------------------------------------------------------- phase 12
+def _mem_available():
+    """MemAvailable of the host in bytes (None where /proc/meminfo is
+    missing)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
+def _state_groups(engine) -> dict:
+    return {"master": engine.master, "mu": engine.opt_state.mu,
+            "nu": engine.opt_state.nu}
+
+
+def _scalars_of(engine) -> tuple:
+    return (engine.step, engine.opt_state.count, engine.skipped_steps,
+            engine.global_steps, engine.loss_scale)
+
+
+def _state_diff(a: dict, b: dict) -> list:
+    """The (group, leaf) pairs whose tensors are not bit-identical."""
+    import torch
+
+    return [(g, k) for g in a for k in a[g]
+            if not torch.equal(a[g][k], b[g][k])]
+
+
+def _clone_state(engine) -> dict:
+    return {g: {k: t.clone() for k, t in d.items()}
+            for g, d in _state_groups(engine).items()}
+
+
+def phase_checkpoint(cfg=None, *, config=None, seq=1024, device=None,
+                     root=None) -> dict:
+    """Phase 12, checkpoint and resume on the main path: ``gpt2("1.5b")``
+    under ``TRAIN_CONFIG`` at full width and depth. (a) Engine E1 takes 2
+    steps, saves (sync, ``verify: "size"``), takes 2 more; those 2 steps
+    are first run twice from one state, to show the step repeats bit for
+    bit. (b) A fresh E2 (another seed) loads the tag and takes 2 steps:
+    losses, grad norms, lr and every master / mu / nu leaf bit-identical to
+    E1's, (c) with every layer's flash launches and the xent head's counted.
+    (d) E2 saves async, takes a step while the writer runs, then commits;
+    the tag verifies and, loaded into E1, equals E2's state at the save.
+    (e) a ``[ckpt]`` JSON line with the bytes, the phases' seconds and
+    rates, peak memory and free disk. The tags live under ``root``
+    (default ``chiprun_out/phase12_ckpt`` beside this script), removed at
+    the end whatever happens."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops import xent as xe
+    from deepspeed_tpu_torch.resilience import verify_tag
+    from deepspeed_tpu_torch.runtime import random_token_dataset
+
+    cfg = cfg or gpt2("1.5b")
+    config = config or TRAIN_CONFIG
+    dev = torch.device(device or "cuda")
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    kw = {} if device is None else {"device": device}
+    counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                sa.sparse_fwd, sa.sparse_bwd_dq, sa.sparse_bwd_dkv,
+                xe.xent_fwd, xe.xent_bwd)
+    gas = config["gradient_accumulation_steps"]
+    rows = config["train_micro_batch_size_per_gpu"] * gas
+    tag = f"[ckpt {cfg.n_layer}L d{cfg.d_model}]"
+    base = Path(root) if root else \
+        Path(__file__).resolve().parent / "chiprun_out" / "phase12_ckpt"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    disk = shutil.disk_usage(base)
+    mem = _mem_available()
+    log(f"{tag} free disk {disk.free / 1e9:.2f} GB of {disk.total / 1e9:.2f}"
+        f" at {base}; host MemAvailable "
+        f"{'?' if mem is None else f'{mem / 1e9:.2f}'} GB; the phase holds "
+        "two tags on the disk and one set of host buffers per engine")
+    # five batches of learnable rows, one per step, made once on the host
+    data = [_token_batch(random_token_dataset(rows, seq, cfg.vocab_size,
+                                              seed=40 + i, learnable=True))
+            for i in range(5)]
+
+    def engine(seed, async_save):
+        conf = {**config, "checkpoint": {"verify": "size",
+                                         "async_save": async_save}}
+        return dt.initialize(conf, dt.build_model(
+            cfg, attention_fn=dt.make_flash_attention()), seed=seed, **kw)
+
+    def steps(eng, batches):
+        out = []
+        for b in batches:
+            m = eng.train_batch(dict(b))
+            out.append((float(m["loss"]), float(m["grad_norm"]), m["lr"]))
+        return out
+
+    t_phase = time.perf_counter()
+    try:
+        _free_memory(dev)
+        # ---- (a) E1: 2 steps, the sync save, the next 2 steps twice ----
+        e1 = engine(1234, False)
+        first = steps(e1, data[:2])
+        t = time.perf_counter()
+        e1.save_checkpoint(str(base))
+        sync_wall = time.perf_counter() - t
+        save_t = dict(e1.last_checkpoint_timing)
+        state_bytes = save_t["bytes"]
+        sync_tag = f"global_step{e1.global_steps}"
+        if verify_tag(base / sync_tag, "size")[0] != "verified":
+            raise AssertionError(f"{tag} the sync tag does not verify")
+        # the step itself repeats bit for bit: run the next 2 steps from
+        # one state twice, the second run on a copy swapped into E1
+        at_save, scal = _clone_state(e1), _scalars_of(e1)
+        run_a = steps(e1, data[2:4])
+        final_a, scal_a = _state_groups(e1), _scalars_of(e1)
+        e1.master, e1.opt_state.mu, e1.opt_state.nu = (
+            at_save["master"], at_save["mu"], at_save["nu"])
+        (e1.step, e1.opt_state.count, e1.skipped_steps, e1.global_steps,
+         e1.loss_scale) = scal
+        run_b = steps(e1, data[2:4])
+        repeat_diff = _state_diff(final_a, _state_groups(e1))
+        if run_a != run_b or repeat_diff or scal_a != _scalars_of(e1):
+            raise AssertionError(
+                f"{tag} the step does not repeat bit for bit: {run_a} vs "
+                f"{run_b}; leaves {repeat_diff[:8]}")
+        del final_a, at_save
+        _free_memory(dev)
+        log(f"{tag} E1: steps 1-2 {first}; steps 3-4 run twice from one "
+            f"state, bit-identical: {run_a}")
+        # ---- (b) E2 (another seed) resumes from the sync tag ----
+        e2 = engine(4321, True)
+        t = time.perf_counter()
+        e2.load_checkpoint(str(base))
+        load_wall = time.perf_counter() - t
+        load_t = dict(e2.last_checkpoint_timing)
+        for c in counters:
+            c.launches = 0
+        resumed = steps(e2, data[2:4])
+        got = {c.__name__: c.launches for c in counters}
+        diff = _state_diff(_state_groups(e1), _state_groups(e2))
+        if resumed != run_a or diff or _scalars_of(e2) != _scalars_of(e1):
+            raise AssertionError(
+                f"{tag} resumed steps {resumed} vs unbroken {run_a}; leaves "
+                f"that differ {diff[:8]}; scalars {_scalars_of(e2)} vs "
+                f"{_scalars_of(e1)}")
+        # ---- (c) the resumed steps ran through the kernels ----
+        per_step = cfg.n_layer * gas if cuda else 0
+        head = gas if cuda and e2.model._fused_xent_active(
+            cuda, e2.compute_dtype) else 0
+        want = dict.fromkeys(got, 0)
+        want.update({"flash_fwd": 2 * per_step * 2, "flash_bwd_dq":
+                     per_step * 2, "flash_bwd_dkv": per_step * 2,
+                     "xent_fwd": head * 2, "xent_bwd": head * 2})
+        if got != want:
+            raise AssertionError(f"{tag} launches over the 2 resumed steps "
+                                 f"{got}, want {want}")
+        log(f"{tag} E2 resumed from {sync_tag}: steps 3-4 {resumed}, "
+            f"bit-identical to E1's (losses, grad norms, lr, every master / "
+            f"mu / nu leaf, step, count, loss scale); launches over the 2 "
+            f"steps {got}")
+        # ---- (d) the async save, raced by a step ----
+        held = _clone_state(e2)
+        held_scal = _scalars_of(e2)
+        t = time.perf_counter()
+        e2.save_checkpoint(str(base))
+        blocking = time.perf_counter() - t
+        async_tag = f"global_step{e2.global_steps}"
+        steps(e2, data[4:5])
+        racing = e2._pending_save is not None \
+            and e2._pending_save.thread.is_alive()
+        e2.wait_for_checkpoint()
+        commit = time.perf_counter() - t
+        async_t = dict(e2.last_checkpoint_timing)
+        if verify_tag(base / async_tag, "size")[0] != "verified" or \
+                (base / "latest").read_text() != async_tag:
+            raise AssertionError(f"{tag} the async tag is not committed")
+        t = time.perf_counter()
+        e1.load_checkpoint(str(base))
+        load2_wall = time.perf_counter() - t
+        load2_t = dict(e1.last_checkpoint_timing)
+        diff = _state_diff(held, _state_groups(e1))
+        if diff or _scalars_of(e1) != held_scal:
+            raise AssertionError(f"{tag} the async tag differs from E2's "
+                                 f"state at its save: {diff[:8]}")
+        log(f"{tag} async save of {async_tag}: blocked the loop "
+            f"{blocking * 1e3:.1f} ms, the step after it ran while the "
+            f"writer wrote: {racing}; committed after {commit:.2f} s; loaded"
+            " into E1 it equals E2's state at the save, bit for bit")
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        del held
+        gb = state_bytes / 1e9
+        out = {
+            "state_bytes": state_bytes, "tags": [sync_tag, async_tag],
+            "sync_save": {"wall_s": sync_wall, "gb_per_s": gb / sync_wall,
+                          "alloc_s": save_t["alloc_s"],
+                          "d2h_s": save_t["d2h_s"],
+                          "write_fsync_s": save_t["write_s"],
+                          "write_gb_per_s": gb / save_t["write_s"],
+                          "manifest_s": save_t["manifest_s"]},
+            "async_save": {"blocking_ms": blocking * 1e3,
+                           "commit_s": commit, "write_fsync_s":
+                           async_t.get("write_s"), "racing_step": racing},
+            "load": {"wall_s": load_wall, "gb_per_s": gb / load_wall,
+                     "alloc_s": load_t["alloc_s"],
+                     "read_copy_s": load_t["read_copy_s"],
+                     "read_copy_gb_per_s": gb / load_t["read_copy_s"]},
+            "load_async_tag": {"wall_s": load2_wall,
+                               "gb_per_s": gb / load2_wall,
+                               "alloc_s": load2_t["alloc_s"],
+                               "read_copy_s": load2_t["read_copy_s"]},
+            "peak_bytes": peak, "free_disk_bytes": disk.free,
+            "mem_available_bytes": mem, "launches": got,
+            "steps": {"first": first, "resumed": resumed},
+            "phase_s": time.perf_counter() - t_phase}
+        log("[ckpt] " + json.dumps(out))
+        del e1, e2
+        return out
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+        _free_memory(dev)
+
+
+def checkpoint_write_probe(threads=(1, 2, 4, 8), nbytes=6_229_000_000,
+                           root=None) -> dict:
+    """How fast the checkpoint's three state files (master, mu, nu of GPT-2
+    1.5B: ``nbytes`` each) reach the disk from pinned host buffers, written
+    at once with ``threads`` writer threads a file (``tensorfile.
+    write_file``), each set fsynced; then read back warm. A one-off
+    measurement, not a phase::
+
+        python3 -c "import chip_smoke as c; c.checkpoint_write_probe()"
+    """
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from deepspeed_tpu_torch.runtime.checkpoint import tensorfile as tf
+
+    base = Path(root) if root else \
+        Path(__file__).resolve().parent / "chiprun_out" / "write_probe"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    out = {}
+    try:
+        t = time.perf_counter()
+        bufs = [torch.zeros(nbytes, dtype=torch.uint8,
+                            pin_memory=torch.cuda.is_available())
+                for _ in range(3)]
+        out["alloc_s"] = time.perf_counter() - t
+        lay = tf.Layout.of({"x": (torch.uint8, (nbytes,))})
+        for n in threads:
+            t = time.perf_counter()
+            with ThreadPoolExecutor(3) as ex:
+                for f in [ex.submit(tf.write_file, base / f"{i}.safetensors",
+                                    lay, b, n) for i, b in enumerate(bufs)]:
+                    f.result()
+            w = time.perf_counter() - t
+            out[f"threads_{n}"] = {"write_s": w,
+                                   "gb_per_s": 3 * nbytes / 1e9 / w}
+            log(f"[ckpt-write] 3 files x {nbytes / 1e9:.2f} GB, {n} "
+                f"thread(s) a file: {w:.2f} s, {3 * nbytes / 1e9 / w:.2f} "
+                "GB/s")
+        t = time.perf_counter()
+        with ThreadPoolExecutor(3) as ex:
+            for f in [ex.submit(tf.read_data, base / f"{i}.safetensors",
+                                lay, b) for i, b in enumerate(bufs)]:
+                f.result()
+        r = time.perf_counter() - t
+        out["read_warm"] = {"read_s": r, "gb_per_s": 3 * nbytes / 1e9 / r}
+        log(f"[ckpt-write] read back (warm): {r:.2f} s, "
+            f"{3 * nbytes / 1e9 / r:.2f} GB/s")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
 def remat_sweep(cfg=None, *, seq=1024, steps=3) -> dict:
     """Where the training step's host time goes: the step of GPT-2 1.5B
     under its default config (the fused xent head) under each remat policy
@@ -4400,6 +4703,7 @@ def main() -> int:
     long = phase_long_train()
     evo = phase_evoformer()
     serve, serve8, paged = phase_serve_all(llama2("7b"))
+    phase_checkpoint()
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     src = "deepspeed_tpu_torch/ops/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -8,7 +8,9 @@ weight-only-quantized), the continuous-batching
 the paged KV pool with radix prefix sharing and int8 KV, and
 the single-card training step,
 ``initialize(config, build_model(cfg, attention_fn=make_flash_attention()))
-.train_batch(batch)``; ROADMAP.md lists what follows.
+.train_batch(batch)``, with crash-safe checkpoints
+(``save_checkpoint`` / ``load_checkpoint``, async saves, ``resilience.
+resume: "auto"``, the ``PreemptionGuard``); ROADMAP.md lists what follows.
 """
 
 from . import models
@@ -16,9 +18,11 @@ from .inference import (InferenceConfig, InferenceEngine, ServingConfig,
                         init_inference)
 from .models import build_model
 from .ops.flash_attention import make_flash_attention
+from .resilience import NonFiniteLossError, PreemptionGuard
 from .runtime import Engine, initialize
 from .serving import ServingEngine
 
-__all__ = ["Engine", "InferenceConfig", "InferenceEngine", "ServingConfig",
+__all__ = ["Engine", "InferenceConfig", "InferenceEngine",
+           "NonFiniteLossError", "PreemptionGuard", "ServingConfig",
            "ServingEngine", "build_model", "init_inference", "initialize",
            "make_flash_attention", "models"]

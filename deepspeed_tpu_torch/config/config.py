@@ -4,10 +4,11 @@ Plain dataclasses (the JAX package's config is pydantic, which the card's
 machine does not have) over the fields the single-card training step
 reads: the batch triple with its ``"auto"`` sentinel, ``optimizer``,
 ``scheduler``, ``bf16`` / ``fp16``, ``gradient_clipping``,
-``zero_optimization.stage``, ``remat``, ``data_types.grad_accum_dtype``
-and ``seed``. Every other key the JAX config accepts is taken at its JAX
-default and raises ``NotImplementedError`` when set to anything else,
-naming the ROADMAP.md item that ports it; unknown keys raise ``ValueError``.
+``zero_optimization.stage``, ``remat``, ``data_types.grad_accum_dtype``,
+``checkpoint``, ``resilience`` and ``seed``. Every other key the JAX
+config accepts is taken at its JAX default and raises
+``NotImplementedError`` when set to anything else, naming the ROADMAP.md
+item that ports it; unknown keys raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -49,11 +50,6 @@ _LATER_SECTIONS = {
                           prof_ops=[]), 7),
     "flops_profiler": (dict(enabled=False, profile_step=1, detailed=True,
                             output_file=None), 8),
-    "checkpoint": (dict(use_node_local_storage=False, tag_validation="warn",
-                        load_universal=False, async_save=False,
-                        verify="size", keep_last=0), 1),
-    "resilience": (dict(resume="none", resume_dir=None,
-                        max_consecutive_bad_steps=0), 8),
     "gradient_compression": (dict(enabled=False, type="int8", overlap=False,
                                   bucket_elems=0), 8),
     "moe": (dict(enabled=False, num_experts=1, top_k=2, capacity_factor=1.25,
@@ -179,8 +175,62 @@ class RematConfig:
             else None
 
 
+def _one_of(where: str, value, allowed: tuple) -> None:
+    if value not in allowed:
+        raise ValueError(f"config {where} must be one of {allowed}, got "
+                         f"{value!r}")
+
+
+@dataclasses.dataclass
+class CheckpointConfig:
+    """``save_checkpoint`` / ``load_checkpoint`` (JAX ``config.py:238``).
+
+    ``async_save`` snapshots the state into pinned host buffers and writes
+    on a thread; ``latest`` flips only once the write is durable
+    (``wait_for_checkpoint``, the next save or load). ``verify``: the
+    manifest level (``resilience/integrity.py``). ``keep_last``: prune to
+    the newest K tags after each commit (0 keeps all). ``tag_validation``
+    and ``load_universal`` have nothing to do at world size 1 (every tag is
+    whole tensors); ``use_node_local_storage`` is refused by the engine, as
+    by JAX's."""
+    use_node_local_storage: bool = False
+    tag_validation: str = "warn"
+    load_universal: bool = False
+    async_save: bool = False
+    verify: str = "size"
+    keep_last: int = 0
+
+    def __post_init__(self):
+        _one_of("checkpoint.tag_validation", self.tag_validation,
+                ("ignore", "warn", "fail"))
+        _one_of("checkpoint.verify", self.verify, ("off", "size", "checksum"))
+        if int(self.keep_last) < 0:
+            raise ValueError(f"config checkpoint.keep_last must be >= 0, got "
+                             f"{self.keep_last}")
+
+
+@dataclasses.dataclass
+class ResilienceConfig:
+    """Crash safety and the runaway guard (JAX ``config.py:258``).
+
+    ``resume: "auto"`` makes engine construction load the newest loadable
+    checkpoint under ``resume_dir`` (verified-manifest fallback included);
+    an empty or missing directory is a fresh run. ``max_consecutive_bad_
+    steps`` halts with ``NonFiniteLossError`` after K consecutive bad
+    optimizer steps (fp16 overflow skips, or a non-finite loss), evaluated
+    at each ``steps_per_print`` boundary (0 = off)."""
+    resume: str = "none"
+    resume_dir: Optional[str] = None
+    max_consecutive_bad_steps: int = 0
+
+    def __post_init__(self):
+        _one_of("resilience.resume", self.resume, ("none", "auto"))
+
+
 _DATACLASSES = {"optimizer": OptimizerConfig, "bf16": BF16Config,
-                "fp16": FP16Config, "remat": RematConfig}
+                "fp16": FP16Config, "remat": RematConfig,
+                "checkpoint": CheckpointConfig,
+                "resilience": ResilienceConfig}
 
 
 @dataclasses.dataclass
@@ -200,6 +250,10 @@ class Config:
     zero_stage: int = 0
     remat: RematConfig = dataclasses.field(default_factory=RematConfig)
     grad_accum_dtype: Optional[str] = None
+    checkpoint: CheckpointConfig = dataclasses.field(
+        default_factory=CheckpointConfig)
+    resilience: ResilienceConfig = dataclasses.field(
+        default_factory=ResilienceConfig)
 
     @classmethod
     def from_any(cls, cfg: "Config | dict | str | Path | None") -> "Config":
@@ -249,7 +303,15 @@ class Config:
             kw["scheduler"] = SchedulerConfig(**sched)
         for key, klass in _DATACLASSES.items():
             if key in flat:
-                kw[key] = klass(**flat.pop(key))
+                section = flat.pop(key)
+                if not isinstance(section, dict):
+                    raise ValueError(f"config {key} must be a dict")
+                unknown = set(section) - {f.name for f in
+                                          dataclasses.fields(klass)}
+                if unknown:
+                    raise ValueError(f"unknown config keys in {key}: "
+                                     f"{sorted(unknown)}")
+                kw[key] = klass(**section)
         known = {f.name for f in dataclasses.fields(cls)} - {"zero_stage",
                                                                "grad_accum_dtype"}
         unknown = set(flat) - known
@@ -270,6 +332,18 @@ class Config:
             raise ValueError(f"zero_optimization.stage must be 0-3, got "
                              f"{out.zero_stage}")
         return out
+
+    def to_dict(self) -> dict:
+        """The config in the JAX config dict's shape (what ``meta.json``
+        records); ``Config.from_any`` reads it back to an equal config."""
+        out = {f.name: getattr(self, f.name)
+               for f in dataclasses.fields(self)
+               if f.name not in ("zero_stage", "grad_accum_dtype")}
+        out = {k: dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
+               for k, v in out.items()}
+        out["zero_optimization"] = {"stage": self.zero_stage}
+        out["data_types"] = {"grad_accum_dtype": self.grad_accum_dtype}
+        return copy.deepcopy(out)
 
     def resolve_batch_sizes(self, dp_world_size: int) -> "Config":
         """Solve the train / micro / GAS triple (``config.py:516``)."""

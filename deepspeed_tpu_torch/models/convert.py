@@ -18,6 +18,12 @@ A JAX training engine's fp32 master tree (``engine.fp32_params()``) has
 the model's own tree layout and converts the same way, into the port
 engine's ``params=``; :func:`params_to_numpy` goes back, so that master
 params after N steps compare leaf by leaf.
+
+The whole training state crosses too: :func:`train_state_from_jax` puts a
+JAX ``TrainState`` (as numpy: master, moments, counts, loss scale) into a
+port engine, so a JAX run stopped at step k continues in the port; and
+:func:`read_fp32_safetensors` reads either package's converter output
+(``model_fp32.safetensors``) for ``initialize(params=)``.
 """
 
 from __future__ import annotations
@@ -95,6 +101,85 @@ def params_from_jax(tree: Mapping, cfg: TransformerConfig, *,
                              f"{want[name]}")
         out[name] = t.to(device)
     return out
+
+
+def _flat(tree: Mapping) -> dict:
+    """A JAX param-shaped tree (``layers`` nested) → port names, as torch
+    tensors; no shape check (moment placeholders are (0,))."""
+    flat = {}
+    for name, leaf in tree.items():
+        if name == "layers":
+            flat.update({LAYER_PREFIX + k: _to_torch(v)
+                         for k, v in leaf.items()})
+        else:
+            flat[name] = _to_torch(leaf)
+    return flat
+
+
+def _field(obj, name: str):
+    """A NamedTuple field or a dict key (orbax restores either)."""
+    return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
+
+
+def train_state_from_jax(state, engine, *, global_steps=None) -> None:
+    """Put a JAX ``TrainState`` (numpy leaves, or anything ``np.asarray``
+    reads: ``step``, ``master_params``, ``opt_state.mu / nu / count``,
+    ``loss_scale``, ``skipped_steps``) into a port ``Engine``, in place on
+    its device. ``global_steps`` defaults to ``step``. Raises on a missing,
+    unexpected or misshaped leaf (another model or optimizer)."""
+    from ..runtime.loss_scaler import LossScaleState   # runtime imports us
+
+    opt = _field(state, "opt_state")
+    groups = {"master_params": (_field(state, "master_params"),
+                                engine.master),
+              "mu": (_field(opt, "mu"), engine.opt_state.mu),
+              "nu": (_field(opt, "nu"), engine.opt_state.nu)}
+    for what, (tree, dst) in groups.items():
+        src = _flat(tree)
+        if set(src) != set(dst):
+            raise ValueError(f"train_state_from_jax: {what} missing "
+                             f"{sorted(set(dst) - set(src))}, unexpected "
+                             f"{sorted(set(src) - set(dst))}")
+        for k, t in dst.items():
+            if tuple(src[k].shape) != tuple(t.shape):
+                raise ValueError(f"train_state_from_jax: {what}/{k} has shape "
+                                 f"{tuple(src[k].shape)}, the engine holds "
+                                 f"{tuple(t.shape)}")
+        with torch.no_grad():
+            for k, t in dst.items():
+                t.copy_(src[k])
+    ls = _field(state, "loss_scale")
+    engine.step = int(np.asarray(_field(state, "step")))
+    engine.opt_state.count = int(np.asarray(_field(opt, "count")))
+    engine.skipped_steps = int(np.asarray(_field(state, "skipped_steps")))
+    engine.global_steps = engine.step if global_steps is None \
+        else int(global_steps)
+    engine.loss_scale = LossScaleState(
+        float(np.asarray(_field(ls, "scale"))),
+        int(np.asarray(_field(ls, "good_steps"))),
+        int(np.asarray(_field(ls, "hysteresis"))))
+    engine._skipped_total_prev = float(engine.skipped_steps)
+    engine._bad_step_streak = 0
+
+
+def read_fp32_safetensors(path, cfg: TransformerConfig) -> Params:
+    """``model_fp32.safetensors`` from either package's converter (keys
+    ``tok_embed``, ``layers/wq``, ...) → the port's fp32 state dict on the
+    CPU, for ``initialize(params=)``. Raises on a missing, unexpected,
+    misshaped or non-fp32 leaf."""
+    from ..runtime.checkpoint.tensorfile import load_tensors  # imports us
+
+    flat = {k.replace("/", "."): v for k, v in load_tensors(path).items()}
+    want = param_shapes(cfg)
+    if set(flat) != set(want):
+        raise ValueError(f"read_fp32_safetensors: missing "
+                         f"{sorted(set(want) - set(flat))}, unexpected "
+                         f"{sorted(set(flat) - set(want))}")
+    for k, t in flat.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != want[k]:
+            raise ValueError(f"read_fp32_safetensors: {k} is {t.dtype} "
+                             f"{tuple(t.shape)}, want float32 {want[k]}")
+    return flat
 
 
 def params_to_numpy(params: Params) -> dict:

@@ -1,5 +1,6 @@
-"""Typed request outcomes callers can branch on (counterpart of
-``deepspeed_tpu/resilience/guards.py``, the serving half)."""
+"""Typed outcomes callers can branch on (counterpart of
+``deepspeed_tpu/resilience/guards.py``): the serving request statuses and
+sheds, the training sentinel's halt and the checkpoint integrity error."""
 
 from __future__ import annotations
 
@@ -57,3 +58,29 @@ class PagePoolExhausted(QueueFullError):
         super().__init__(message)
         self.pages_needed = pages_needed
         self.pages_usable = pages_usable
+
+
+class NonFiniteLossError(RuntimeError):
+    """The training-side sentinel: raised after K consecutive bad optimizer
+    steps (fp16 overflow skips, or a non-finite loss at a report boundary)
+    so a collapsed run halts instead of burning the rest of its budget.
+    Carries the streak and the last loss for the post-mortem."""
+
+    def __init__(self, message: str, streak: int = 0,
+                 last_loss: float | None = None):
+        super().__init__(message)
+        self.streak = streak
+        self.last_loss = last_loss
+
+
+class CheckpointIntegrityError(RuntimeError):
+    """A checkpoint tag failed manifest verification (missing commit
+    marker, size or checksum mismatch) and no fallback was possible, or the
+    caller pinned that tag, where a silent fallback would be worse than
+    failing."""
+
+    def __init__(self, message: str, tag: str | None = None,
+                 reason: str | None = None):
+        super().__init__(message)
+        self.tag = tag
+        self.reason = reason

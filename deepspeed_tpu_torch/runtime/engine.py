@@ -15,6 +15,12 @@ samples, in the JAX step's order (``_train_step_impl``):
    and ``min(1, clip / (gnorm + 1e-6))``, the lr at the old step, the
    update (or a skip) and the loss-scale update.
 
+``save_checkpoint`` / ``load_checkpoint`` / ``wait_for_checkpoint`` write
+and restore the whole state (``runtime/checkpoint/engine.py``);
+``resilience.resume: "auto"`` restores the newest verified tag at
+construction, and ``resilience.max_consecutive_bad_steps`` halts a run
+whose steps keep failing (``NonFiniteLossError``).
+
 The JAX engine compiles all of that into one program over a device mesh;
 here it runs eagerly on one device. ZeRO stages 0-3 are accepted at world
 size 1, where the JAX partitioner keeps the whole state on the one rank; a
@@ -23,6 +29,7 @@ size 1, where the JAX partitioner keeps the whole state on the one rank; a
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -32,8 +39,11 @@ from ..config import Config
 from ..models.transformer import (LAYER_PREFIX, REMAT_POLICIES, Params,
                                   param_shapes)
 from ..platform.device import resolve_device
+from ..resilience import chaos
+from ..resilience.guards import NonFiniteLossError
 from ..utils.logging import log_dist
 from ..utils.roadmap import later
+from .checkpoint import engine as ckpt
 from .loss_scaler import grads_finite, init_loss_scale, update_loss_scale
 from .lr_schedules import build_schedule
 from .optimizers import ONEBIT_TYPES, build_optimizer
@@ -53,6 +63,11 @@ class Engine:
                 f"ported yet: {later(1)}")
         self.config = Config.from_any(config).resolve_batch_sizes(1)
         cfg = self.config
+        if cfg.checkpoint.use_node_local_storage:
+            raise ValueError(
+                "checkpoint.use_node_local_storage is not supported: a tag "
+                "holds whole tensors, written once for every rank; point "
+                "save_dir at local storage instead")
         self.model = model
         self.device = resolve_device(device)
         if self.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
@@ -86,12 +101,29 @@ class Engine:
         self.step = 0                 # the optimizer step (TrainState.step)
         self.skipped_steps = 0
         self.global_steps = 0
+        # checkpoints (runtime/checkpoint/engine.py): the host buffers, an
+        # async save in flight, the event the next update waits for
+        self._host_state = None
+        self._pending_save = None
+        self._snapshot_event = None
+        self._ckpt_stream = None
+        self.last_checkpoint_timing: dict = {}
+        # the non-finite sentinel and the chaos preemption step
+        self._max_bad_steps = int(cfg.resilience.max_consecutive_bad_steps
+                                  or 0)
+        self._bad_step_streak = 0
+        self._skipped_total_prev = 0.0
+        self._chaos_preempt = chaos.preempt_step()
         log_dist(f"engine: {self.param_count / 1e6:.1f}M params | zero stage "
                  f"{cfg.zero_stage} | {self.device} {self.compute_dtype} | "
                  f"micro={cfg.train_micro_batch_size_per_gpu} "
                  f"gas={cfg.gradient_accumulation_steps} "
                  f"global={cfg.train_batch_size} | remat "
                  f"{self.remat_policy}", ranks=[0])
+        # last: the engine is whole, so this is a user's load_checkpoint
+        # (verified-tag fallback included)
+        if cfg.resilience.resume == "auto":
+            ckpt.auto_resume(self, cfg.resilience.resume_dir)
 
     # ------------------------------------------------------------- state
     def _init_master(self, params: Optional[Params]) -> Params:
@@ -185,6 +217,12 @@ class Engine:
             for k in names:
                 grads[k].mul_(coef)
         lr = self.lr_schedule(self.step)
+        if self._snapshot_event is not None:
+            # an async save's copy of the state must end before the update
+            # writes the state in place
+            torch.cuda.current_stream(self.device).wait_event(
+                self._snapshot_event)
+            self._snapshot_event = None
         if finite:
             self.optimizer.update(self.master, self.opt_state, grads, lr)
         self.loss_scale = update_loss_scale(self.loss_scale, finite, cfg.fp16)
@@ -212,13 +250,18 @@ class Engine:
         shaped ``(gas, micro, ...)``. Returns ``loss`` and ``grad_norm`` as
         0-d device tensors (no synchronisation), ``lr``, ``loss_scale`` and
         ``skipped`` as host numbers."""
+        if self._chaos_preempt is not None \
+                and self.global_steps == self._chaos_preempt:
+            chaos.deliver_preemption()
         if not isinstance(next(iter(batch.values())), torch.Tensor):
             batch = self._make_global(batch)
         metrics = self._train_step(batch)
         self.global_steps += 1
         if self.global_steps % self.config.steps_per_print == 0:
-            log_dist(f"step={self.global_steps} loss="
-                     f"{float(metrics['loss']):.4f} lr={metrics['lr']:.3e} "
+            loss = float(metrics["loss"])
+            self._sentinel_at_boundary(loss)
+            log_dist(f"step={self.global_steps} loss={loss:.4f} "
+                     f"lr={metrics['lr']:.3e} "
                      f"gnorm={float(metrics['grad_norm']):.3f}", ranks=[0])
         return metrics
 
@@ -229,6 +272,54 @@ class Engine:
         with torch.no_grad():
             cp = {k: v.to(self.compute_dtype) for k, v in self.master.items()}
             return float(self.model.loss(cp, batch))
+
+    # ----------------------------------------------------------- resilience
+    def _note_bad_steps(self, bad: bool, window: int, last_loss: float) -> None:
+        """Non-finite sentinel: ``bad`` covers ``window`` consecutive
+        optimizer steps. K consecutive bad steps halt with a typed error:
+        a collapsed run (a loss-scale death spiral, NaN weights) must stop
+        burning budget, and its supervisor must see a typed cause."""
+        if not self._max_bad_steps:
+            return
+        self._bad_step_streak = self._bad_step_streak + window if bad else 0
+        if self._bad_step_streak >= self._max_bad_steps:
+            raise NonFiniteLossError(
+                f"halting: {self._bad_step_streak} consecutive bad optimizer "
+                f"steps (threshold {self._max_bad_steps}) — non-finite loss "
+                "or every step skipped on overflow; last loss "
+                f"{last_loss!r} at global step {self.global_steps}. Resume "
+                "from the last good checkpoint with a lower lr / higher "
+                "initial loss scale.",
+                streak=self._bad_step_streak, last_loss=last_loss)
+
+    def _sentinel_at_boundary(self, loss: float) -> None:
+        """At each ``steps_per_print`` boundary (where the loss is read
+        anyway): the window is bad if every step in it was skipped or the
+        loss is not finite."""
+        if not self._max_bad_steps:
+            return
+        window = int(self.config.steps_per_print)
+        skipped_total = float(self.skipped_steps)
+        all_skipped = (skipped_total - self._skipped_total_prev) >= window
+        self._skipped_total_prev = skipped_total
+        self._note_bad_steps(all_skipped or not math.isfinite(loss),
+                             window, loss)
+
+    # ----------------------------------------------------------- checkpoint
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None) -> str:
+        """Save the whole state under ``<save_dir>/<tag>`` (default
+        ``global_step<N>``), crash-safe; async under
+        ``checkpoint.async_save``."""
+        return ckpt.save_checkpoint(self, save_dir, tag)
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None) -> str:
+        """Restore the state from ``latest`` (verified, else the newest
+        verified tag) or from the pinned ``tag``."""
+        return ckpt.load_checkpoint(self, load_dir, tag)
+
+    def wait_for_checkpoint(self) -> None:
+        """Block until an async save is written, then commit it."""
+        ckpt.wait_for_checkpoint(self)
 
     @property
     def lr(self) -> float:

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 # item number -> the start of its bold title in ROADMAP.md, queue 1
 ITEMS = {
-    1: "multi-rank ZeRO and checkpoints",
+    1: "multi-rank ZeRO",
     2: "ServingEngine",
     3: "MoE",
     4: "tensor and expert parallelism",

@@ -9,12 +9,16 @@
   whole prefill, then slot steps at B 8 or decode steps at B 1), each
   path's top-two logit gap there against an fp32 forward's, decode
   attention's split at B 8 against B 1, and the chunked prefill against the
-  whole one layer by layer and op by op.
+  whole one layer by layer and op by op;
+- ``profile_count_probe()``: how often phase 11's profiled window of
+  graph replays misses a kernel record, traced from the window's start or
+  after a discarded warm-up replay, and where the missing record lies.
 
 Run on the card from the repository's root::
 
     python3 -c "import serve_probes as p; p.parity_probe()"
     python3 -c "import serve_probes as p; p.paged_view_probe()"
+    python3 -c "import serve_probes as p; p.profile_count_probe()"
 
 Each prints JSON lines tagged ``[paged-view]`` / ``[solo-parity ...]`` /
 ``[prefill-ops ...]``.
@@ -525,4 +529,110 @@ def parity_probe(cfg=None, *, bits=8, requests=16, checks=4,
     del lab, engine
     _free_memory(dev)
     log(f"[solo-parity] {json.dumps(out)}")
+    return out
+
+
+def _window_kernels(fn, warmup=None):
+    """The device kernels' names, in start order, of one torch.profiler
+    window around ``fn()``; with ``warmup``, tracing starts one step
+    earlier (the profiler's schedule ``warmup=1``, its records discarded)
+    around ``warmup()``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    got = {}
+
+    def ready(p):
+        got["events"] = [e for e in p.events()
+                         if e.device_type == DeviceType.CUDA]
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    if warmup is None:
+        with profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        ready(prof)
+    else:
+        with profile(activities=acts, on_trace_ready=ready,
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            warmup()
+            torch.cuda.synchronize()
+            prof.step()
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    events = sorted(got["events"], key=lambda e: e.time_range.start)
+    return [e.name for e in events]
+
+
+def profile_count_probe(cfg=None, *, bits=8, windows=30, replays=4):
+    """How often phase 11's profiled window of graph replays misses a
+    kernel record, and where: Llama-2-7B (int8 WOQ: phase 11b) with every
+    slot full and its slot step graphed; ``windows`` windows of
+    ``replays`` replays from the same state, (a) traced from the window's
+    start, as phase 11 does, and (b) after one traced warm-up replay whose
+    records the profiler discards. A window whose kernel list is shorter
+    than the longest one's names the kernels missing, their position and
+    replay. Prints a ``[profile-count]`` JSON line."""
+    import difflib
+
+    import torch
+
+    import chip_smoke as c
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import llama2
+
+    cfg = cfg or llama2("7b")
+    engine = _serve_engine(cfg, bits=bits)
+    srv = dt.ServingEngine(engine, SERVING)
+    lab = _serve_stream(cfg.vocab_size, SERVING["slots"], seed=1,
+                        prompt=(512, 512), new=(256, 256))
+    for p, n, s in lab:
+        srv.submit(p, n, seed=s)
+    for _ in range(64 * SERVING["slots"]):
+        if srv.sched.occupancy == SERVING["slots"] and srv.captures:
+            break
+        srv.step()
+    st = srv.state
+    marks = c._slot_marks(st)
+
+    def window():
+        c._slot_reset(st, marks)
+        for _ in range(replays):
+            srv.slot_step(graphed=True)
+
+    def warm():
+        c._slot_reset(st, marks)
+        srv.slot_step(graphed=True)
+
+    out = {}
+    for variant, wu in (("from_start", None), ("after_warmup", warm)):
+        runs = [_window_kernels(window, wu) for _ in range(windows)]
+        full = max(runs, key=len)
+        per = len(full) // replays
+        misses = []
+        for i, r in enumerate(runs):
+            if len(r) == len(full):
+                continue
+            sm = difflib.SequenceMatcher(a=full, b=r, autojunk=False)
+            for op, a0, a1, _, _ in sm.get_opcodes():
+                if op != "equal":
+                    misses.append({"window": i, "op": op, "at": a0,
+                                   "replay": a0 // per, "in_replay": a0 % per,
+                                   "names": full[a0:a1][:4]})
+        counts = [sum("woq_matmul_mma_kernel<" in n for n in r)
+                  for r in runs]
+        out[variant] = {"windows": windows, "kernels_full": len(full),
+                        "short_windows": sum(len(r) < len(full)
+                                             for r in runs),
+                        "woq_counts": sorted(set(counts)), "misses": misses}
+        log(f"[profile-count] {variant}: {out[variant]['short_windows']} of "
+            f"{windows} windows short of {len(full)} kernels; woq_matmul "
+            f"counts {out[variant]['woq_counts']}")
+    log("[profile-count] " + json.dumps(out))
+    del srv, engine
+    _free_memory(torch.device("cuda"))
     return out

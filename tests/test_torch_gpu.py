@@ -1827,6 +1827,56 @@ def test_fp32_model_trains_through_the_kernels(cuda):
                                                       rel=5e-2)
 
 
+@pytest.mark.parametrize("async_save", [False, True])
+def test_checkpoint_resume_on_the_card_is_bit_identical(cuda, tmp_path,
+                                                        async_save):
+    """A tiny bf16 model through the kernels: 2 steps, a save (sync, or
+    async with the next steps racing its writer), 2 more steps; a fresh
+    engine (another seed) loads the tag, holds exactly the state at the
+    save, and its 2 steps equal the first engine's bit for bit."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.runtime.checkpoint import engine as ckpt
+
+    cfg = tiny_test(dtype=torch.bfloat16)
+    conf = {"train_batch_size": 4, "gradient_accumulation_steps": 2,
+            "remat": {"enabled": True}, "gradient_clipping": 1.0,
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+            "checkpoint": {"async_save": async_save}}
+    rng = np.random.default_rng(0)
+    data = [{"input_ids": rng.integers(0, cfg.vocab_size, (4, 64))}
+            for _ in range(4)]
+
+    def engine(seed):
+        return dt.initialize(conf, dt.build_model(
+            cfg, attention_fn=dt.make_flash_attention()), seed=seed)
+
+    def record(m):
+        return float(m["loss"]), float(m["grad_norm"]), m["lr"]
+
+    a = engine(0)
+    for b in data[:2]:
+        a.train_batch(dict(b))
+    saved = {g: {k: t.clone() for k, t in d.items()}
+             for g, d in ckpt._groups(a).items()}
+    a.save_checkpoint(tmp_path)
+    assert a._host_state.data["master"].is_pinned()
+    want = [record(a.train_batch(dict(b))) for b in data[2:]]
+    a.wait_for_checkpoint()
+    b = engine(1)
+    b.load_checkpoint(tmp_path)
+    for g, d in ckpt._groups(b).items():
+        for k, t in d.items():
+            assert t.device.type == "cuda" and torch.equal(t, saved[g][k]), \
+                (g, k)
+    assert [record(b.train_batch(dict(x))) for x in data[2:]] == want
+    for g, d in ckpt._groups(b).items():
+        for k, t in d.items():
+            assert torch.equal(t, ckpt._groups(a)[g][k]), (g, k)
+    assert (b.step, b.opt_state.count, b.global_steps) \
+        == (a.step, a.opt_state.count, a.global_steps)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_evoformer_block_through_the_kernels(cuda, dtype):
     """The gated, pair-biased block of examples/evoformer_science.py at its

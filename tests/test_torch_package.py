@@ -30,11 +30,16 @@ def imported_modules(path: Path) -> set:
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Nor the packages the card's machine lacks (the checkpoints write
+    their own safetensors layout; orbax is the JAX package's store)."""
     assert len(PORT_FILES) > 10
+    assert ROOT / "deepspeed_tpu_torch/runtime/checkpoint/engine.py" \
+        in PORT_FILES
     bad = {}
     for path in PORT_FILES:
         hits = {m for m in imported_modules(path)
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "deepspeed_tpu")}
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "deepspeed_tpu",
+                                       "safetensors", "orbax")}
         if hits:
             bad[str(path.relative_to(ROOT))] = sorted(hits)
     assert bad == {}
@@ -166,7 +171,8 @@ def test_training_config_ports_and_refuses():
             ({"data_efficiency": {"curriculum_learning": {"enabled": True}}},
              "item 8"),
             ({"gradient_compression": {"enabled": True}}, "item 8"),
-            ({"checkpoint": {"async_save": True}}, "item 1"),
+            ({"zero_optimization": {"zero_quantized_weights": True}},
+             "item 1"),
             ({"monitor": {"enabled": True}}, "item 7"),
             ({"observability": {"spans": True}}, "item 7"),
             ({"elasticity": {"enabled": True}}, "item 8"),
@@ -177,7 +183,15 @@ def test_training_config_ports_and_refuses():
             ({"remat": {"enabled": True, "offload": True}}, "item 6")):
         with pytest.raises(NotImplementedError, match=item):
             Config.from_any(conf)
+    ported = Config.from_any({"checkpoint": {"async_save": True,
+                                             "verify": "checksum"},
+                              "resilience": {"resume": "auto",
+                                             "resume_dir": "ckpts"}})
+    assert ported.checkpoint.async_save and ported.resilience.resume == "auto"
     model = dt.build_model(tiny_test(dtype=torch.float32))
+    with pytest.raises(ValueError, match="use_node_local_storage"):
+        dt.initialize({"checkpoint": {"use_node_local_storage": True}}, model,
+                      device="cpu")
     for conf, item in (({"optimizer": {"type": "OneBitAdam"}}, "item 8"),
                        ({"remat": {"enabled": True,
                                    "policy": "offload_dots"}}, "item 6")):
@@ -253,8 +267,10 @@ def test_engine_refuses_tf32_matmuls_on_the_card(monkeypatch):
 def test_public_surface():
     assert {"init_inference", "InferenceEngine", "InferenceConfig",
             "ServingEngine", "ServingConfig", "models", "initialize",
-            "build_model", "make_flash_attention"} <= set(dt.__all__)
+            "build_model", "make_flash_attention", "PreemptionGuard",
+            "NonFiniteLossError"} <= set(dt.__all__)
     for name in ("gpt2", "llama2", "opt", "bloom", "bert", "tiny_test",
                  "build_model", "params_from_jax", "params_to_numpy",
+                 "train_state_from_jax", "read_fp32_safetensors",
                  "TransformerLM"):
         assert hasattr(dt.models, name)

@@ -187,7 +187,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``[ckpt]`` JSON line: the state bytes, the sync save's wall and GB/s
    split into D2H, write + fsync and manifest, the async save's blocking
    ms and commit seconds, the loads' seconds (host buffers' allocation,
-   read + copy) and GB/s, peak memory and free disk.
+   read + copy) and GB/s, peak memory and free disk;
+13. ZeRO over NCCL (``phase_zero``): GPT-2 1.5B under ``TRAIN_CONFIG`` at
+   full width and depth. (a) The engine with no process group takes 2
+   steps from one host copy of the initial state; its losses, grad norms
+   and every master / mu / nu leaf are kept on the host. (b) In a world of
+   one over NCCL (``init_distributed``), an engine at ZeRO stage 1, 2 and
+   3 in turn takes the same 2 steps from the same state: every loss, grad
+   norm and leaf bit-identical to (a), flash 192 / 96 / 96 and xent 2 / 2
+   launches a step, and the collectives of a profiled step counted by
+   kind (``c10d`` ops) against what the engine's layout issues (stage 3:
+   an all-gather and a reduce-scatter per cut leaf, layer and micro-batch,
+   and the gathers again in the backward), the NCCL kernels by name. A
+   ``[zero]`` JSON line: per stage the median step, device busy and idle
+   in the profiled step, the NCCL kernels' time, peak memory; the card.
 
 ``remat_sweep()``, ``woq_probe()`` and ``checkpoint_write_probe()`` are
 one-off measurements outside the phases: the default GPT-2 1.5B training
@@ -3746,6 +3759,8 @@ SERVE_PROMPT = (16, 768)
 SERVE_NEW = (16, 128)
 SERVE_KERNELS = {"decode_attention": "decode_attention_kernel",
                  "woq_matmul": "woq_matmul_mma_kernel"}
+# the quiet time held on each side of a counted profile (_profile_counts)
+PROFILE_MARGIN_S = 0.2
 
 
 def _serve_stream(vocab: int, n: int, seed: int = 0, prompt=SERVE_PROMPT,
@@ -3853,7 +3868,19 @@ def _slot_reset(st, marks) -> None:
 
 def _profile_counts(fn) -> dict:
     """torch.profiler around one call of ``fn``: launches of each device
-    kernel by name, the device's busy µs and the host wall µs."""
+    kernel by name, the device's busy µs and the host wall µs.
+
+    Kineto drops a device record whose converted time falls outside the
+    host's capture window, and a graph replay puts its first kernels on
+    the device within microseconds of the window's start (its last ones
+    as close to the end), so the window is held open ``PROFILE_MARGIN_S``
+    on each side of ``fn``: a record is then lost only to a clock skew
+    larger than that. The wall time is ``fn``'s alone. ``lead_us``: the
+    first device record's start less the first launch call's; ``tail_us``:
+    the end of the first device synchronize after the last launch call (the
+    one closing ``fn``, not the profiler's own at its exit) less the last
+    device record's end; each is >= 0 on clocks that agree (None where a
+    call is missing)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3861,16 +3888,32 @@ def _profile_counts(fn) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    counts, busy = {}, 0.0
+        time.sleep(PROFILE_MARGIN_S)
+    counts, busy, order, launch, synced = {}, 0.0, [], [], []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             counts[e.name] = counts.get(e.name, 0) + 1
             busy += e.time_range.elapsed_us()
-    return {"counts": counts, "busy_us": busy, "wall_us": wall_us}
+            order.append((e.time_range.start, e.time_range.end, e.name[:60]))
+        elif e.name in ("cudaGraphLaunch", "cudaLaunchKernel",
+                        "cudaLaunchKernelExC", "cudaMemcpyAsync"):
+            launch.append(e.time_range.start)
+        elif e.name == "cudaDeviceSynchronize":
+            synced.append((e.time_range.start, e.time_range.end))
+    order.sort()
+    closing = [end for start, end in synced
+               if launch and start >= max(launch)]
+    return {"counts": counts, "busy_us": busy, "wall_us": wall_us,
+            "ends": ([n for *_, n in order[:4]], [n for *_, n in order[-4:]]),
+            "lead_us": order[0][0] - min(launch) if order and launch
+            else None,
+            "tail_us": min(closing) - max(t for _, t, _ in order)
+            if order and closing else None}
 
 
 def _kernel_launches(counts: dict, kernel: str) -> int:
@@ -4138,9 +4181,14 @@ def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
         want = {k: profile_steps * per_step[k] for k in SERVE_KERNELS}
         log(f"{tag} profiled {profile_steps} replays: kernel launches {seen} "
             f"(want {want}), device busy "
-            f"{prof['busy_us'] / profile_steps / 1e3:.3f} ms a replay")
+            f"{prof['busy_us'] / profile_steps / 1e3:.3f} ms a replay; the "
+            f"window's first kernels {prof['ends'][0]}, lead "
+            f"{prof['lead_us']} µs, tail {prof['tail_us']} µs")
         if seen != want:
-            raise AssertionError(f"{tag} replays launched {seen}, want {want}")
+            raise AssertionError(f"{tag} replays launched {seen}, want {want}"
+                                 "; the window's first and last kernels "
+                                 f"{prof['ends']}, lead {prof['lead_us']} µs,"
+                                 f" tail {prof['tail_us']} µs")
         _slot_reset(st, marks)
         profile = _profile_counts(lambda: [srv.step()
                                            for _ in range(profile_steps)])
@@ -4511,6 +4559,264 @@ def phase_checkpoint(cfg=None, *, config=None, seq=1024, device=None,
         _free_memory(dev)
 
 
+def zero_collectives(engine) -> dict:
+    """The collectives one optimizer step of ``engine`` issues, by kind,
+    from its layout (``engine.plans``; a line of one rank in a larger world
+    issues none): what phase 13 holds a profiled step's ``c10d`` ops to."""
+    cfg, mesh, part = engine.config, engine.mesh, engine.partitioner
+    gas = int(cfg.gradient_accumulation_steps)
+    n = {"allgather": 0, "reduce_scatter": 0, "allreduce": 0}
+
+    def add(kind, axes, count=1):
+        if not mesh.solo(axes):
+            n[kind] += count
+
+    def gather(plan, axes, row_axes):
+        """A cast, or qwZ's int8 gather: the row max where the rows are
+        cut, the payload, the scales where they are cut too."""
+        last = plan.master.dim == len(plan.shape) - 1
+        if plan.qwz and last:
+            add("allreduce", row_axes)
+        add("allgather", axes)
+        if plan.qwz and not last:
+            add("allgather", axes)
+
+    add("allreduce", ("data", "zero", "expert"))              # the loss
+    add("allreduce", part.dp_axes)                           # the norm
+    if cfg.fp16.enabled:
+        add("allreduce", ("data", "zero", "expert"))          # finite
+    sizes = []
+    for k in sorted(engine.plans):
+        plan = engine.plans[k]
+        if plan.compute is not None:
+            if plan.hier:
+                gather(plan, ("data",), plan.master.axes)
+                add("reduce_scatter", ("data",))
+            elif part.mics:
+                add("allreduce", ("data",))
+            layers = plan.shape[0] if plan.layered else 1
+            # forward gathers, the backward's gathers again (every layer
+            # but the last is freed in the forward), the reduce-scatters
+            add("allgather", plan.compute.axes,
+                gas * (2 * layers - 1 if plan.layered else 1))
+            add("reduce_scatter", plan.compute.axes, gas * layers)
+            continue
+        if plan.master is not None:
+            gather(plan, plan.master.axes, plan.master.axes)
+        if plan.master is None or part.stage != 2:
+            add("allreduce", ("data", "zero", "expert"))
+            continue
+        sizes.append(int(math.prod(plan.shape)))
+        if part.mics:
+            add("allreduce", ("data",))
+    buckets, size = 0, 0
+    for k in sizes:
+        if buckets == 0 or size + k > \
+                cfg.zero_optimization.reduce_bucket_size:
+            buckets, size = buckets + 1, 0
+        size += k
+    add("reduce_scatter", part.dp_axes, buckets)
+    return {k: v for k, v in n.items() if v}
+
+
+def _collective_kind(name: str):
+    """A profiler event's collective kind: the ``c10d`` ops by name."""
+    if not name.startswith("c10d::"):
+        return None
+    for kind in ("reduce_scatter", "allgather", "allreduce"):
+        if kind in name:
+            return kind
+    return None
+
+
+def phase_zero(cfg=None, *, config=None, seq=1024, device=None, steps=2,
+               timed=2, stages=(1, 2, 3)) -> dict:
+    """Phase 13, ZeRO in a world of one over NCCL on the main path:
+    ``gpt2("1.5b")`` under ``TRAIN_CONFIG``. (a) The engine with no
+    process group (every leaf whole, no collective) takes ``steps`` steps
+    from one copy of the initial state; its losses, grad norms and a copy
+    of every master / mu / nu leaf are kept (on the device: 18.7 GB beside
+    an engine's ~33 GiB, compared there in milliseconds). (b) ``init_
+    distributed`` joins a world of one (NCCL; ``gloo`` with ``device=
+    "cpu"``), and an engine at each of ``stages`` takes the same steps
+    from the same state: everything bit-identical to (a) (every collective
+    over a group of one is a copy), each layer's flash and the head's xent
+    launches counted, then one profiled step (the ``c10d`` collectives by
+    kind against :func:`zero_collectives`, the NCCL kernels by name and
+    time, device busy and idle) and ``timed`` timed steps (median). A
+    ``[zero]`` JSON line; every engine is freed before the next."""
+    import os
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import xent as xe
+    from deepspeed_tpu_torch.platform.device import nvidia_smi_line
+    from deepspeed_tpu_torch.platform.distributed import (_free_port,
+                                                          init_distributed)
+    from deepspeed_tpu_torch.runtime import random_token_dataset
+
+    cfg = cfg or gpt2("1.5b")
+    config = config or TRAIN_CONFIG
+    dev = torch.device(device or "cuda")
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    kw = {} if device is None else {"device": device}
+    counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, xe.xent_fwd,
+                xe.xent_bwd)
+    gas = config["gradient_accumulation_steps"]
+    rows = config["train_micro_batch_size_per_gpu"] * gas
+    tag = f"[zero {cfg.n_layer}L d{cfg.d_model}]"
+    data = [_token_batch(random_token_dataset(rows, seq, cfg.vocab_size,
+                                              seed=60 + i, learnable=True))
+            for i in range(steps + 1 + timed)]
+    t_phase = time.perf_counter()
+    _free_memory(dev)
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    init = dt.build_model(cfg).init(gen, device=dev, dtype=torch.float32)
+
+    def engine(stage):
+        conf = {**config, "zero_optimization": {"stage": stage}}
+        return dt.initialize(conf, dt.build_model(
+            cfg, attention_fn=dt.make_flash_attention()), params=init, **kw)
+
+    def run(eng, batches):
+        out = []
+        for b in batches:
+            m = eng.train_batch(dict(b))
+            out.append((float(m["loss"]), float(m["grad_norm"]), m["lr"]))
+        return out
+
+    def state(eng):
+        return {g: {k: t.detach().clone() for k, t in d.items()}
+                for g, d in _state_groups(eng).items()}
+
+    def measure(eng):
+        """One profiled step, then ``timed`` timed ones (the state moves
+        on: the comparison is over)."""
+        with profile(activities=[ProfilerActivity.CPU]
+                     + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
+            sync()
+            t0 = time.perf_counter()
+            run(eng, data[steps:steps + 1])
+            sync()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kinds, nccl, busy = {}, {}, 0.0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                us = e.time_range.elapsed_us()
+                if "nccl" in e.name.lower():
+                    # ProcessGroupNCCL's device range of a collective
+                    # ("nccl:_all_gather_base"), or an NCCL kernel
+                    c, t = nccl.get(e.name, (0, 0.0))
+                    nccl[e.name] = (c + 1, t + us)
+                if not e.name.startswith("nccl:"):   # a range, not work
+                    busy += us
+            else:
+                kind = _collective_kind(e.name)
+                if kind:
+                    kinds[kind] = kinds.get(kind, 0) + 1
+        times = []
+        for b in data[steps + 1:]:
+            sync()
+            t0 = time.perf_counter()
+            run(eng, [b])
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return {"step_ms": statistics.median(times), "step_ms_all": times,
+                "profiled_wall_ms": wall_us / 1e3,
+                "busy_ms": busy / 1e3 if cuda else None,
+                "idle_share": 1 - busy / wall_us if cuda else None,
+                "nccl_ms": sum(t for k, (_, t) in nccl.items()
+                               if k.startswith("nccl:")) / 1e3,
+                "nccl_kernels": {k: {"count": c, "us": t}
+                                 for k, (c, t) in nccl.items()},
+                "collectives": kinds}
+
+    out = {"card": nvidia_smi_line() if cuda else None, "stages": {}}
+    try:
+        # ---- (a) the engine with no process group ----
+        if dist.is_initialized():
+            raise AssertionError(f"{tag} a process group is already up")
+        def peak(held):
+            """The engine's own peak bytes: above what the phase holds."""
+            return torch.cuda.max_memory_allocated() - held if cuda else 0
+
+        held = _free_memory(dev)
+        ref = engine(config["zero_optimization"]["stage"])
+        want = run(ref, data[:steps])
+        ref_peak = peak(held)
+        want_state = state(ref)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        held += sum(t.numel() * t.element_size()
+                    for d in want_state.values() for t in d.values())
+        out["reference"] = {"steps": want, **measure(ref)}
+        out["reference"]["peak_bytes"] = max(ref_peak, peak(held))
+        del ref
+        log(f"{tag} reference (no process group): steps {want}, "
+            f"{out['reference']['step_ms']:.1f} ms a step")
+        # ---- (b) a world of one over NCCL, stage by stage ----
+        os.environ.pop("WORLD_SIZE", None)
+        init_distributed(f"localhost:{_free_port()}", 1, 0, **kw)
+        for stage in stages:
+            held = _free_memory(dev)
+            eng = engine(stage)
+            for c in counters:
+                c.launches = 0
+            got = run(eng, data[:steps])
+            launches = {c.__name__: c.launches for c in counters}
+            diff = [(g, k) for g, d in _state_groups(eng).items()
+                    for k, t in d.items()
+                    if not torch.equal(t, want_state[g][k])]
+            if got != want or diff:
+                raise AssertionError(
+                    f"{tag} stage {stage} over a world of one: steps {got} vs "
+                    f"{want} with no process group; leaves that differ "
+                    f"{diff[:8]}")
+            per_step = cfg.n_layer * gas if cuda else 0
+            head = gas if cuda and eng.model._fused_xent_active(
+                cuda, eng.compute_dtype) else 0
+            expect = {"flash_fwd": 2 * per_step * steps, "flash_bwd_dq":
+                      per_step * steps, "flash_bwd_dkv": per_step * steps,
+                      "xent_fwd": head * steps, "xent_bwd": head * steps}
+            if launches != expect:
+                raise AssertionError(f"{tag} stage {stage}: launches "
+                                     f"{launches}, want {expect}")
+            m = measure(eng)
+            want_kinds = zero_collectives(eng)
+            if m["collectives"] != want_kinds:
+                raise AssertionError(
+                    f"{tag} stage {stage}: collectives of a step "
+                    f"{m['collectives']}, the layout issues {want_kinds}")
+            if cuda and not m["nccl_kernels"]:
+                raise AssertionError(f"{tag} stage {stage}: the profiler "
+                                     "shows no NCCL work on the device")
+            m["peak_bytes"] = peak(held)
+            m["launches"] = launches
+            m["gather_peak_layers"] = eng.gather_peak_layers
+            out["stages"][stage] = m
+            log(f"{tag} stage {stage}: bit-identical to the engine with no "
+                f"process group over {steps} steps; launches {launches}; "
+                f"collectives {m['collectives']}; step {m['step_ms']:.1f} ms"
+                f", NCCL {m['nccl_ms']:.2f} ms, peak "
+                f"{m['peak_bytes'] / 2**30:.2f} GiB")
+            del eng
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        _free_memory(dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("[zero] " + json.dumps(out))
+    return out
+
+
 def checkpoint_write_probe(threads=(1, 2, 4, 8), nbytes=6_229_000_000,
                            root=None) -> dict:
     """How fast the checkpoint's three state files (master, mu, nu of GPT-2
@@ -4704,6 +5010,7 @@ def main() -> int:
     evo = phase_evoformer()
     serve, serve8, paged = phase_serve_all(llama2("7b"))
     phase_checkpoint()
+    phase_zero()
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     src = "deepspeed_tpu_torch/ops/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -4,8 +4,9 @@ Plain dataclasses (the JAX package's config is pydantic, which the card's
 machine does not have) over the fields the single-card training step
 reads: the batch triple with its ``"auto"`` sentinel, ``optimizer``,
 ``scheduler``, ``bf16`` / ``fp16``, ``gradient_clipping``,
-``zero_optimization.stage``, ``remat``, ``data_types.grad_accum_dtype``,
-``checkpoint``, ``resilience`` and ``seed``. Every other key the JAX
+``zero_optimization`` (stages 0-3, hpZ, qwZ, MiCS), ``mesh.data`` /
+``mesh.zero``, ``remat``, ``data_types.grad_accum_dtype``, ``checkpoint``,
+``resilience`` and ``seed``. Every other key the JAX
 config accepts is taken at its JAX default and raises
 ``NotImplementedError`` when set to anything else, naming the ROADMAP.md
 item that ports it; unknown keys raise ``ValueError``.
@@ -82,23 +83,19 @@ _LATER_SECTIONS = {
 # top-level scalar keys: (JAX default, item)
 _LATER_KEYS = {"wall_clock_breakdown": (False, 7),
                "sparse_gradients": (False, 6)}
-# zero_optimization keys beyond ``stage``: (JAX default, item)
+# zero_optimization keys not ported: (JAX default, item). The int8
+# gradient path of zero_quantized_gradients is comm/compressed.py.
 _ZERO_LATER = {
-    "param_persistence_threshold": (10_000, 1),
-    "reduce_bucket_size": (500_000_000, 1),
-    "overlap_comm": (True, 1), "contiguous_gradients": (True, 1),
     "offload_optimizer": (dict(device="none", nvme_path=None, buffer_count=4,
                                pin_memory=True, pipeline_read=True,
                                pipeline_write=True), 6),
     "offload_param": (dict(device="none", nvme_path=None, buffer_count=4,
                            pin_memory=True, pipeline_read=True,
                            pipeline_write=True), 6),
-    "zero_hpz_partition_size": (1, 1), "zero_quantized_weights": (False, 1),
-    "zero_quantized_gradients": (False, 1), "mics_shard_size": (0, 1),
+    "zero_quantized_gradients": (False, 8),
 }
-# mesh axis -> item that brings a degree > 1 (data: multi-rank training)
-_MESH_LATER = {"data": 1, "zero": 1, "model": 4, "expert": 4, "pipe": 8,
-               "seq": 8}
+# mesh axis -> item that brings a degree > 1
+_MESH_LATER = {"model": 4, "expert": 4, "pipe": 8, "seq": 8}
 REMAT_POLICY_NAMES = ("none", "full", "dots_saveable", "save_nothing",
                       "save_names", "save_names_mlp", "offload_dots")
 
@@ -190,9 +187,10 @@ class CheckpointConfig:
     (``wait_for_checkpoint``, the next save or load). ``verify``: the
     manifest level (``resilience/integrity.py``). ``keep_last``: prune to
     the newest K tags after each commit (0 keeps all). ``tag_validation``
-    and ``load_universal`` have nothing to do at world size 1 (every tag is
-    whole tensors); ``use_node_local_storage`` is refused by the engine, as
-    by JAX's."""
+    compares the tag's hash across ranks before a save or load (``warn`` /
+    ``fail`` on every rank alike); ``load_universal`` has nothing to do
+    (every tag is whole tensors, which any world size reads);
+    ``use_node_local_storage`` is refused by the engine, as by JAX's."""
     use_node_local_storage: bool = False
     tag_validation: str = "warn"
     load_universal: bool = False
@@ -227,10 +225,62 @@ class ResilienceConfig:
         _one_of("resilience.resume", self.resume, ("none", "auto"))
 
 
+@dataclasses.dataclass
+class ZeroConfig:
+    """``zero_optimization`` (JAX ``config.py:83``). ``overlap_comm`` and
+    ``contiguous_gradients`` act only under gradient compression in JAX
+    (ROADMAP item 8(3)), so they change nothing here;
+    ``reduce_bucket_size`` sizes stage 2's flat reduce-scatter buffers (in
+    elements). ``zero_hpz_partition_size`` (hpZ) and ``mics_shard_size``
+    (MiCS) carve the mesh's ``zero`` sub-axis out of the data-parallel
+    degree; ``zero_quantized_weights`` (qwZ) needs hpZ."""
+    stage: int = 0
+    param_persistence_threshold: int = 10_000
+    reduce_bucket_size: int = 500_000_000
+    overlap_comm: bool = True
+    contiguous_gradients: bool = True
+    zero_hpz_partition_size: int = 1
+    zero_quantized_weights: bool = False
+    mics_shard_size: int = 0
+
+    def __post_init__(self):
+        self.stage = int(self.stage)
+        self.param_persistence_threshold = _sci_int(
+            self.param_persistence_threshold)
+        self.reduce_bucket_size = _sci_int(self.reduce_bucket_size)
+        if not 0 <= self.stage <= 3:
+            raise ValueError(f"zero_optimization.stage must be 0-3, got "
+                             f"{self.stage}")
+        if self.reduce_bucket_size < 1:
+            raise ValueError("zero_optimization.reduce_bucket_size must be "
+                             f">= 1, got {self.reduce_bucket_size}")
+
+
+@dataclasses.dataclass
+class MeshConfig:
+    """``mesh`` (JAX ``config.py:116``): parallelism degrees; ``data=-1``
+    takes the ranks the others leave. ``data`` is the whole data-parallel
+    degree; hpZ / MiCS carve ``zero`` out of it."""
+    data: int = -1
+    model: int = 1
+    pipe: int = 1
+    seq: int = 1
+    expert: int = 1
+    zero: int = 1
+
+    def __post_init__(self):
+        for axis, item in _MESH_LATER.items():
+            if int(getattr(self, axis)) != 1:
+                raise NotImplementedError(
+                    f"config mesh.{axis}={getattr(self, axis)} is not ported "
+                    f"yet: {later(item)}")
+
+
 _DATACLASSES = {"optimizer": OptimizerConfig, "bf16": BF16Config,
                 "fp16": FP16Config, "remat": RematConfig,
                 "checkpoint": CheckpointConfig,
-                "resilience": ResilienceConfig}
+                "resilience": ResilienceConfig, "mesh": MeshConfig,
+                "zero_optimization": ZeroConfig}
 
 
 @dataclasses.dataclass
@@ -247,7 +297,9 @@ class Config:
     scheduler: Optional[SchedulerConfig] = None
     bf16: BF16Config = dataclasses.field(default_factory=BF16Config)
     fp16: FP16Config = dataclasses.field(default_factory=FP16Config)
-    zero_stage: int = 0
+    zero_optimization: ZeroConfig = dataclasses.field(
+        default_factory=ZeroConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     remat: RematConfig = dataclasses.field(default_factory=RematConfig)
     grad_accum_dtype: Optional[str] = None
     checkpoint: CheckpointConfig = dataclasses.field(
@@ -277,23 +329,13 @@ class Config:
         zero = dict(flat.pop("zero_optimization", None) or {})
         if "cpu_offload" in zero:
             zero.setdefault("offload_optimizer", zero.pop("cpu_offload"))
-        if "stage" in zero:
-            kw["zero_stage"] = int(zero.pop("stage"))
-        for k, v in zero.items():
-            if k not in _ZERO_LATER:
-                raise ValueError(f"unknown zero_optimization key {k!r}")
-            default, item = _ZERO_LATER[k]
-            if k in ("param_persistence_threshold", "reduce_bucket_size"):
-                v = _sci_int(v)
-            _check_later(f"zero_optimization.{k}", v, default, item)
-        mesh = flat.pop("mesh", None) or {}
-        for axis, degree in mesh.items():
-            if axis not in _MESH_LATER:
-                raise ValueError(f"unknown mesh axis {axis!r}")
-            if int(degree) not in (1, -1 if axis == "data" else 1):
-                raise NotImplementedError(
-                    f"config mesh.{axis}={degree} is not ported yet: "
-                    f"{later(_MESH_LATER[axis])}")
+        for k in list(zero):
+            if k in _ZERO_LATER:
+                default, item = _ZERO_LATER[k]
+                _check_later(f"zero_optimization.{k}", zero.pop(k), default,
+                             item)
+        flat["zero_optimization"] = zero
+        flat["mesh"] = flat.pop("mesh", None) or {}
         dtypes = flat.pop("data_types", None) or {}
         if set(dtypes) - {"grad_accum_dtype"}:
             raise ValueError(f"unknown data_types keys: {sorted(dtypes)}")
@@ -312,8 +354,8 @@ class Config:
                     raise ValueError(f"unknown config keys in {key}: "
                                      f"{sorted(unknown)}")
                 kw[key] = klass(**section)
-        known = {f.name for f in dataclasses.fields(cls)} - {"zero_stage",
-                                                               "grad_accum_dtype"}
+        known = {f.name for f in dataclasses.fields(cls)} - {
+            "grad_accum_dtype"}
         unknown = set(flat) - known
         if unknown:
             raise ValueError(f"unknown config keys: {sorted(unknown)}")
@@ -328,9 +370,6 @@ class Config:
                                         "bfloat16", "fp16", "float16"):
             raise ValueError(f"unknown grad_accum_dtype "
                              f"{out.grad_accum_dtype!r}")
-        if not 0 <= out.zero_stage <= 3:
-            raise ValueError(f"zero_optimization.stage must be 0-3, got "
-                             f"{out.zero_stage}")
         return out
 
     def to_dict(self) -> dict:
@@ -338,10 +377,9 @@ class Config:
         records); ``Config.from_any`` reads it back to an equal config."""
         out = {f.name: getattr(self, f.name)
                for f in dataclasses.fields(self)
-               if f.name not in ("zero_stage", "grad_accum_dtype")}
+               if f.name != "grad_accum_dtype"}
         out = {k: dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
                for k, v in out.items()}
-        out["zero_optimization"] = {"stage": self.zero_stage}
         out["data_types"] = {"grad_accum_dtype": self.grad_accum_dtype}
         return copy.deepcopy(out)
 
@@ -383,6 +421,10 @@ class Config:
         return dataclasses.replace(self, train_batch_size=tb,
                                    train_micro_batch_size_per_gpu=mb,
                                    gradient_accumulation_steps=gas)
+
+    @property
+    def zero_stage(self) -> int:
+        return self.zero_optimization.stage
 
     @property
     def compute_dtype(self) -> torch.dtype:

@@ -125,7 +125,8 @@ def train_state_from_jax(state, engine, *, global_steps=None) -> None:
     """Put a JAX ``TrainState`` (numpy leaves, or anything ``np.asarray``
     reads: ``step``, ``master_params``, ``opt_state.mu / nu / count``,
     ``loss_scale``, ``skipped_steps``) into a port ``Engine``, in place on
-    its device. ``global_steps`` defaults to ``step``. Raises on a missing,
+    its device; under ZeRO each rank keeps its own shard of each whole
+    leaf. ``global_steps`` defaults to ``step``. Raises on a missing,
     unexpected or misshaped leaf (another model or optimizer)."""
     from ..runtime.loss_scaler import LossScaleState   # runtime imports us
 
@@ -140,14 +141,15 @@ def train_state_from_jax(state, engine, *, global_steps=None) -> None:
             raise ValueError(f"train_state_from_jax: {what} missing "
                              f"{sorted(set(dst) - set(src))}, unexpected "
                              f"{sorted(set(src) - set(dst))}")
+        part = {k: engine.shard_of(k, v) for k, v in src.items()}
         for k, t in dst.items():
-            if tuple(src[k].shape) != tuple(t.shape):
+            if tuple(part[k].shape) != tuple(t.shape):
                 raise ValueError(f"train_state_from_jax: {what}/{k} has shape "
                                  f"{tuple(src[k].shape)}, the engine holds "
                                  f"{tuple(t.shape)}")
         with torch.no_grad():
             for k, t in dst.items():
-                t.copy_(src[k])
+                t.copy_(part[k])
     ls = _field(state, "loss_scale")
     engine.step = int(np.asarray(_field(state, "step")))
     engine.opt_state.count = int(np.asarray(_field(opt, "count")))

@@ -172,6 +172,47 @@ def param_shapes(cfg: TransformerConfig) -> dict[str, tuple]:
     return shapes
 
 
+def param_specs(cfg: TransformerConfig) -> dict[str, tuple]:
+    """Name → the model's own sharding of each parameter, one tuple of mesh
+    axis names per dim (``transformer.py:458-512``, ``P(None, "model")`` as
+    ``((), ("model",))``): the tensor-parallel split the ZeRO partitioner
+    composes with."""
+    M, R = ("model",), ()
+    two_ln = not (cfg.parallel_residual and cfg.parallel_shared_ln)
+    layers = {"ln1_scale": (R, R), "wq": (R, R, M), "wk": (R, R, M),
+              "wv": (R, R, M), "wo": (R, M, R)}
+    if two_ln:
+        layers["ln2_scale"] = (R, R)
+    layers.update(w_in=(R, R, M), w_out=(R, M, R))
+    if cfg.is_glu:
+        layers["w_gate"] = (R, R, M)
+    if cfg.use_bias:
+        layers.update(ln1_bias=(R, R), bq=(R, M), bk=(R, M), bv=(R, M),
+                      bo=(R, R), b_in=(R, M), b_out=(R, R))
+        if two_ln:
+            layers["ln2_bias"] = (R, R)
+    specs = {"tok_embed": (M, R)}
+    if not cfg.post_ln:
+        specs["lnf_scale"] = (R,)
+    if cfg.pos_embedding == "learned":
+        specs["pos_embed"] = (R, R)
+    if cfg.use_bias and not cfg.post_ln:
+        specs["lnf_bias"] = (R,)
+    if cfg.mlm_transform:
+        specs.update(mlm_dense_w=(R, R), mlm_dense_b=(R,), mlm_ln_scale=(R,),
+                     mlm_ln_bias=(R,))
+    if cfg.embed_norm:
+        specs["embed_ln_scale"] = (R,)
+        if cfg.use_bias:
+            specs["embed_ln_bias"] = (R,)
+    if not cfg.tie_embeddings and cfg.objective != "feature":
+        specs["lm_head"] = (R, M)
+    if cfg.lm_head_bias:
+        specs["lm_head_bias"] = (M,)
+    specs.update({LAYER_PREFIX + k: s for k, s in layers.items()})
+    return specs
+
+
 def layer_params(params: Params) -> Params:
     """The stacked per-layer leaves, keyed without the ``layers.`` prefix."""
     n = len(LAYER_PREFIX)

@@ -16,6 +16,12 @@ incarnation resumes from the newest checkpoint:
             engine.save_checkpoint(ckpt_dir)
         if guard.preempted:          # cooperative path, if preferred
             break
+
+In a world of several ranks the commit is a collective, and a signal
+handler may interrupt a rank inside another collective; so there the
+handler only marks the guard, and the ranks agree at the start of the
+next ``train_batch`` (an all-reduce of the flag): if any rank was
+signalled, every rank commits (and exits) together.
 """
 
 from __future__ import annotations
@@ -58,28 +64,37 @@ class PreemptionGuard:
         self.save_dir = save_dir
         self.save_on_preempt = save_on_preempt
         self.preempted = False
+        self.committed = False      # a multi-rank world's agreed commit ran
         self._prev: dict = {}
 
     def install(self) -> "PreemptionGuard":
         """Register the handlers (main thread only, ``signal.signal``'s own
-        rule). Returns self."""
+        rule) and the guard with its engine. Returns self."""
         if threading.current_thread() is not threading.main_thread():
             raise RuntimeError("PreemptionGuard.install() must run on the "
                                "main thread (signal.signal requirement)")
         for sig in self.signals:
             self._prev[sig] = signal.signal(sig, self._handle)
+        self.engine._preempt_guard = self
         return self
 
     def uninstall(self) -> None:
         for sig, prev in self._prev.items():
             signal.signal(sig, prev)
         self._prev = {}
+        self.engine._preempt_guard = None
 
     def _handle(self, signum, frame) -> None:
         self.preempted = True
         log_dist(f"preemption: signal {signum} received — committing the "
                  "in-flight checkpoint before exit", ranks=[0],
                  level="WARNING")
+        if self.engine.mesh.world == 1:
+            self.commit()
+
+    def commit(self) -> None:
+        """The preempted run's epilogue: the extra save if asked, the
+        in-flight save committed, then the exit if asked."""
         if self.save_on_preempt:
             # an extra snapshot of the current state; its failure must not
             # stop the in-flight commit from being awaited

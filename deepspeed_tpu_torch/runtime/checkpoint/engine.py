@@ -29,6 +29,18 @@ async_save``) enqueues the copy on a side stream and returns; a writer
 thread waits for the copy, then writes; the next optimizer update waits
 for the copy too (the optimizers update the state in place), and
 ``wait_for_checkpoint``, the next save or the next load commits.
+
+In a world of several ranks (or one, with a process group) the files are
+the same, so any world size reads any tag. Each group file has one writer
+rank (master: rank 0, mu: rank 1, nu: rank 2, modulo the world), and a cut
+leaf is all-gathered to it one leaf at a time, so no rank holds the whole
+unsharded state on its device; the gathered copies are synchronous, and an
+async save's side stream carries only the whole leaves. Every rank checks
+the tag's hash against the others' first (``tag_validation``), the ranks
+agree on any write error, then rank 0 alone writes the manifest and flips
+``latest``. A load resolves its tag on rank 0 (``auto_resume`` too) and
+each rank reads only its own part of each leaf. Save, load and
+``wait_for_checkpoint`` are collectives: every rank calls them.
 """
 
 from __future__ import annotations
@@ -44,6 +56,8 @@ from typing import Optional
 
 import torch
 
+from ...comm import comm
+from ...platform.mesh import BATCH_AXES
 from ...resilience import chaos
 from ...resilience.guards import CheckpointIntegrityError
 from ...resilience.integrity import (MANIFEST, list_tags, newest_verified_tag,
@@ -51,7 +65,8 @@ from ...resilience.integrity import (MANIFEST, list_tags, newest_verified_tag,
 from ...utils.logging import log_dist, warning_once
 from ...utils.roadmap import later
 from ..loss_scaler import LossScaleState
-from .tensorfile import Layout, read_data, read_layout, write_file
+from .tensorfile import (Layout, read_data, read_entry, read_layout,
+                         write_file)
 
 GROUPS = ("master", "mu", "nu")
 SCALARS = "scalars.json"
@@ -67,6 +82,23 @@ def _groups(engine) -> dict:
             "nu": engine.opt_state.nu}
 
 
+def _writer(engine, group: str) -> bool:
+    """Whether this rank writes ``group``'s file."""
+    return GROUPS.index(group) % engine.mesh.world == engine.mesh.rank
+
+
+def _cut(engine, name: str, t: torch.Tensor):
+    """How this rank's part ``t`` of leaf ``name`` (the master or a moment)
+    is cut, None where it is whole (a (0,) placeholder moment is)."""
+    cut = engine.plans[name].master
+    return cut if cut is not None and t.numel() else None
+
+
+def _full_shape(engine, name: str, t: torch.Tensor) -> tuple:
+    return engine.plans[name].shape if _cut(engine, name, t) is not None \
+        else tuple(t.shape)
+
+
 def _scalars(engine) -> dict:
     ls = engine.loss_scale
     return {"step": int(engine.step), "count": int(engine.opt_state.count),
@@ -75,6 +107,33 @@ def _scalars(engine) -> dict:
             "loss_scale": {"scale": float(ls.scale),
                            "good_steps": int(ls.good_steps),
                            "hysteresis": int(ls.hysteresis)}}
+
+
+def _any_rank(engine, flag: bool) -> bool:
+    """True on every rank if ``flag`` is True on any (a collective)."""
+    if not engine.mesh.active:
+        return flag
+    t = torch.tensor([1.0 if flag else 0.0], device=engine.device)
+    return bool(comm.all_reduce(t, BATCH_AXES, "max", mesh=engine.mesh))
+
+
+def _on_rank0(engine, fn):
+    """``fn()`` on rank 0, its result (or its exception) on every rank."""
+    if not engine.mesh.active:
+        return fn()
+    import torch.distributed as dist
+
+    box = [None]
+    if engine.mesh.rank == 0:
+        try:
+            box[0] = (True, fn())
+        except Exception as e:         # re-raised on every rank below
+            box[0] = (False, e)
+    dist.broadcast_object_list(box, src=0)
+    ok, value = box[0]
+    if not ok:
+        raise value
+    return value
 
 
 def _write_json(path: Path, obj) -> None:
@@ -86,13 +145,12 @@ def _write_json(path: Path, obj) -> None:
 
 
 class HostState:
-    """The host copy of the engine's state: per group one uint8 buffer in
-    its file's data layout (pinned for a card engine), each leaf a view."""
+    """The host copy of the state this rank writes: per group one uint8
+    buffer in its file's data layout (pinned for a card engine), each leaf
+    a view. ``groups``: group -> leaf -> (dtype, whole shape)."""
 
     def __init__(self, groups: dict, pin: bool):
-        self.layouts = {g: Layout.of({k: (t.dtype, tuple(t.shape))
-                                      for k, t in d.items()})
-                        for g, d in groups.items()}
+        self.layouts = {g: Layout.of(specs) for g, specs in groups.items()}
         self.data = {g: torch.empty(lay.data_bytes, dtype=torch.uint8,
                                     pin_memory=pin)
                      for g, lay in self.layouts.items()}
@@ -104,50 +162,69 @@ class HostState:
         return sum(lay.file_bytes for lay in self.layouts.values())
 
 
+def _specs(engine, group: dict) -> dict:
+    return {k: (t.dtype, _full_shape(engine, k, t)) for k, t in group.items()}
+
+
 def host_state(engine) -> HostState:
-    """The engine's host buffers, allocated at its first save or load (the
-    state's shapes never change)."""
+    """The engine's host buffers for the groups this rank writes (every
+    group with no process group: loads use them too), allocated at its
+    first save or load (the state's shapes never change)."""
     if engine._host_state is None:
-        engine._host_state = HostState(_groups(engine),
-                                       pin=engine.device.type == "cuda")
+        engine._host_state = HostState(
+            {g: _specs(engine, d) for g, d in _groups(engine).items()
+             if _writer(engine, g)}, pin=engine.device.type == "cuda")
     return engine._host_state
 
 
 def _snapshot(engine, hs: HostState, stream=None):
-    """Copy the state into ``hs``: on ``stream`` (after the work already
-    enqueued) returning the event that marks the copy's end, or on the
+    """Copy the state into ``hs``: a cut leaf all-gathered (every rank
+    takes part) and copied by its writer on the current stream; a whole
+    leaf copied by its writer on ``stream`` (after the work already
+    enqueued), returning the event that marks the copies' end, or on the
     current stream, synchronized, returning None."""
     groups = _groups(engine)
     cuda = engine.device.type == "cuda"
+    current = torch.cuda.current_stream(engine.device) if cuda else None
+    if stream is not None:
+        stream.wait_stream(current)
+    for g, d in groups.items():
+        mine = g in hs.views
+        for k in sorted(d):
+            t = d[k].detach()
+            cut = _cut(engine, k, t)
+            if cut is not None:
+                full = comm.all_gather(t, cut.axes, cut.dim, mesh=engine.mesh)
+                if mine:
+                    hs.views[g][k].copy_(full, non_blocking=cuda)
+            elif mine and stream is not None:
+                with torch.cuda.stream(stream):
+                    t.record_stream(stream)
+                    hs.views[g][k].copy_(t, non_blocking=True)
+            elif mine:
+                hs.views[g][k].copy_(t, non_blocking=cuda)
     if stream is None:
-        for g, d in groups.items():
-            for k, t in d.items():
-                hs.views[g][k].copy_(t.detach(), non_blocking=cuda)
         if cuda:
             torch.cuda.synchronize(engine.device)
         return None
-    stream.wait_stream(torch.cuda.current_stream(engine.device))
-    with torch.cuda.stream(stream):
-        for g, d in groups.items():
-            for k, t in d.items():
-                t.record_stream(stream)
-                hs.views[g][k].copy_(t.detach(), non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(stream)
+    stream.wait_stream(current)
+    event = torch.cuda.Event()
+    event.record(stream)
     return event
 
 
-def _write_state(state_dir: Path, hs: HostState, scalars: dict) -> None:
-    """The group files (a thread each, each writing ``WRITE_THREADS``
-    ranges at once: the writes release the GIL) and the scalars, all
-    ``fsync``ed; the first error propagates."""
-    with ThreadPoolExecutor(max_workers=len(hs.layouts)) as ex:
+def _write_state(state_dir: Path, hs: HostState, scalars) -> None:
+    """This rank's group files (a thread each, each writing
+    ``WRITE_THREADS`` ranges at once: the writes release the GIL) and, on
+    rank 0, the scalars, all ``fsync``ed; the first error propagates."""
+    with ThreadPoolExecutor(max_workers=max(1, len(hs.layouts))) as ex:
         futures = [ex.submit(write_file, state_dir / f"{g}.safetensors",
                              hs.layouts[g], hs.data[g], WRITE_THREADS)
                    for g in hs.layouts]
         for f in futures:
             f.result()
-    _write_json(state_dir / SCALARS, scalars)
+    if scalars is not None:
+        _write_json(state_dir / SCALARS, scalars)
 
 
 def _model_config_dict(model):
@@ -170,24 +247,36 @@ def _model_config_dict(model):
 
 
 def _validate_tag(engine, tag: str) -> None:
-    """Cross-process tag consistency (JAX ``_validate_tag``): nothing to
-    compare at world size 1, the only world the engine runs."""
-    import torch.distributed as dist
+    """Cross-process tag consistency (JAX ``_validate_tag``): every rank
+    all-gathers every rank's hash of the tag, so all of them see a
+    mismatch and fail (``"fail"``) or warn together; none is left alone in
+    the save's collectives."""
+    import hashlib
 
-    if engine.config.checkpoint.tag_validation == "ignore":
+    mesh = engine.mesh
+    mode = engine.config.checkpoint.tag_validation
+    if mode == "ignore" or not mesh.active or mesh.world == 1:
         return
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(f"checkpoint tag validation across ranks "
-                                  f"is not ported yet: {later(1)}")
+    mine = int.from_bytes(hashlib.sha256(tag.encode()).digest()[:4], "big")
+    hashes = comm.all_gather(
+        torch.tensor([mine], dtype=torch.int64, device=engine.device),
+        BATCH_AXES, mesh=mesh)
+    if bool((hashes != hashes[0]).any()):
+        msg = (f"checkpoint tag {tag!r} differs across processes (hash "
+               "mismatch) — ranks would write inconsistent checkpoints")
+        if mode == "fail":
+            raise ValueError(msg)
+        log_dist(f"WARNING: {msg}")
 
 
 def _commit_tag(engine, base: Path, tag: str, global_steps: int) -> None:
     """The durable-commit epilogue, shared by the sync and async paths:
-    write the manifest (the commit marker), flip ``latest`` (atomically),
-    prune old tags. The kill points bracket the window the crash test
-    targets."""
+    rank 0 writes the manifest (the commit marker), flips ``latest``
+    (atomically) and prunes old tags. The kill points bracket the window
+    the crash test targets."""
     chaos.kill_point(chaos.KILL_AFTER_STATE_WRITE)
+    if engine.mesh.rank != 0:
+        return
     ck = engine.config.checkpoint
     write_manifest(base / tag, ck.verify,
                    extra={"global_steps": global_steps})
@@ -213,16 +302,18 @@ class _Pending:
 
 def wait_for_checkpoint(engine) -> None:
     """Block until an in-flight async save is written, then write its
-    manifest and flip ``latest``; a write error is raised here, and that
-    tag is never committed."""
+    manifest and flip ``latest``; a write error on any rank is raised here
+    on every rank, and that tag is never committed."""
     p = engine._pending_save
     if p is None:
         return
     p.thread.join()
     engine._pending_save = None
-    if p.error is not None:
-        raise RuntimeError(f"async checkpoint write of {p.tag!r} failed: "
-                           f"{p.error}") from p.error
+    if _any_rank(engine, p.error is not None):
+        raise RuntimeError(
+            f"async checkpoint write of {p.tag!r} failed: "
+            f"{p.error if p.error is not None else 'on another rank'}") \
+            from p.error
     t = time.perf_counter()
     _commit_tag(engine, p.base, p.tag, p.global_steps)
     engine.last_checkpoint_timing.update(
@@ -233,19 +324,22 @@ def wait_for_checkpoint(engine) -> None:
 def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None) -> str:
     """Save the whole training state under ``<save_dir>/<tag>`` (default
     ``global_step<N>``); returns the tag's path. ``engine.
-    last_checkpoint_timing`` holds its phases' seconds and bytes."""
+    last_checkpoint_timing`` holds its phases' seconds and this rank's
+    bytes."""
     tag = tag or f"global_step{engine.global_steps}"
     _validate_tag(engine, tag)
     base = Path(save_dir).absolute()
     path = base / tag
     is_async = bool(engine.config.checkpoint.async_save)
+    rank0 = engine.mesh.rank == 0
     wait_for_checkpoint(engine)            # one save in flight at a time
     t0 = time.perf_counter()
     hs = host_state(engine)
     t_alloc = time.perf_counter()
     scalars = _scalars(engine)
     (path / "state").mkdir(parents=True, exist_ok=True)
-    (path / MANIFEST).unlink(missing_ok=True)   # re-saving a tag uncommits it
+    if rank0:
+        (path / MANIFEST).unlink(missing_ok=True)   # re-saving uncommits
     stream = None
     if is_async and engine.device.type == "cuda":
         if engine._ckpt_stream is None:
@@ -254,20 +348,20 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None) -> str:
     event = _snapshot(engine, hs, stream)
     engine._snapshot_event = event
     t_copy = time.perf_counter()
-    meta = {
-        "tag": tag,
-        "global_steps": engine.global_steps,
-        "config": engine.config.to_dict(),
-        "param_count": engine.param_count,
-        "mesh": {"pipe": 1, "data": 1, "zero": 1, "expert": 1, "seq": 1,
-                 "model": 1},
-        # lets dstpu_torch_to_fp32 (and JAX's model_config_from_meta)
-        # rebuild the model config without the engine
-        "model_config": _model_config_dict(engine.model),
-        "layout": "device",
-        "format": FORMAT,
-    }
-    _write_json(path / "meta.json", meta)
+    if rank0:
+        _write_json(path / "meta.json", {
+            "tag": tag,
+            "global_steps": engine.global_steps,
+            "config": engine.config.to_dict(),
+            "param_count": engine.param_count,
+            "mesh": dict(engine.mesh.shape),
+            # lets dstpu_torch_to_fp32 (and JAX's model_config_from_meta)
+            # rebuild the model config without the engine
+            "model_config": _model_config_dict(engine.model),
+            "layout": "device",
+            "format": FORMAT,
+        })
+    mine = scalars if rank0 else None
     timing = {"bytes": hs.nbytes, "alloc_s": t_alloc - t0,
               "d2h_s": t_copy - t_alloc, "async": is_async}
     engine.last_checkpoint_timing = timing
@@ -279,7 +373,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None) -> str:
             try:
                 if event is not None:
                     event.synchronize()
-                _write_state(path / "state", hs, scalars)
+                _write_state(path / "state", hs, mine)
             except BaseException as e:     # re-raised by wait_for_checkpoint
                 pending.error = e
             pending.write_s = time.perf_counter() - t
@@ -291,7 +385,16 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None) -> str:
         timing["blocking_s"] = time.perf_counter() - t0
     else:
         t = time.perf_counter()
-        _write_state(path / "state", hs, scalars)
+        error = None
+        try:
+            _write_state(path / "state", hs, mine)
+        except Exception as e:             # every rank raises below
+            error = e
+        if _any_rank(engine, error is not None):
+            raise RuntimeError(
+                f"checkpoint write of {tag!r} failed: "
+                f"{error if error is not None else 'on another rank'}") \
+                from error
         t_write = time.perf_counter()
         _commit_tag(engine, base, tag, scalars["global_steps"])
         timing.update(write_s=t_write - t,
@@ -366,27 +469,29 @@ def _check_tag_format(path: Path, meta: dict) -> None:
 
 
 def _check_entries(path: Path, g: str, layout: Layout, want: dict) -> None:
+    """``want``: leaf -> (dtype, whole shape)."""
     got = set(layout.entries)
     if got != set(want):
         raise ValueError(f"checkpoint {path}: {g} has leaves missing "
                          f"{sorted(set(want) - got)}, unexpected "
                          f"{sorted(got - set(want))}")
-    for k, t in want.items():
+    for k, (dtype, shape) in want.items():
         e = layout.entries[k]
-        if e.dtype != t.dtype or e.shape != tuple(t.shape):
+        if e.dtype != dtype or e.shape != shape:
             raise ValueError(
                 f"checkpoint {path}: {g}/{k} is {e.dtype} {e.shape}, this "
-                f"engine holds {t.dtype} {tuple(t.shape)} (another model or "
+                f"engine holds {dtype} {shape} (another model or "
                 "optimizer?)")
 
 
 def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None) -> str:
     """Restore the whole training state from ``<load_dir>/<tag>`` (default:
-    what ``latest`` names, verified, with fallback) into the engine's
-    tensors in place; returns the tag's path."""
+    what ``latest`` names, verified, with fallback, as rank 0 resolves it)
+    into the engine's tensors in place, each rank its own part of each
+    leaf; returns the tag's path."""
     wait_for_checkpoint(engine)        # an in-flight save must commit first
     base = Path(load_dir).absolute()
-    tag = _resolve_verified_tag(engine, base, tag)
+    tag = _on_rank0(engine, lambda: _resolve_verified_tag(engine, base, tag))
     _validate_tag(engine, tag)
     path = base / tag
     meta_file = path / "meta.json"
@@ -395,24 +500,36 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None) -> str:
     t0 = time.perf_counter()
     groups = _groups(engine)
     layouts = {}
-    for g, want in groups.items():
+    for g, d in groups.items():
         layouts[g] = read_layout(path / "state" / f"{g}.safetensors")
-        _check_entries(path, g, layouts[g], want)
-    hs = host_state(engine)
-    t_alloc = time.perf_counter()
-    for g, lay in layouts.items():
-        if lay.header != hs.layouts[g].header:
-            raise ValueError(f"checkpoint {path}: state/{g}.safetensors is "
-                             "not laid out as this engine writes it")
+        _check_entries(path, g, layouts[g], _specs(engine, d))
     cuda = engine.device.type == "cuda"
-    with ThreadPoolExecutor(max_workers=len(GROUPS)) as ex:
-        futures = {g: ex.submit(read_data, path / "state" / f"{g}.safetensors",
-                                layouts[g], hs.data[g]) for g in GROUPS}
-        for g in GROUPS:                # each group's copy once it is read
-            futures[g].result()
-            with torch.no_grad():
-                for k, t in groups[g].items():
-                    t.copy_(hs.views[g][k], non_blocking=cuda)
+    if engine.mesh.active:
+        # one leaf at a time: its bytes, this rank's part, onto the device
+        t_alloc = time.perf_counter()
+        with torch.no_grad():
+            for g, d in groups.items():
+                for k, t in d.items():
+                    full = read_entry(path / "state" / f"{g}.safetensors",
+                                      layouts[g], k)
+                    t.copy_(full if _cut(engine, k, t) is None
+                            else engine.shard_of(k, full))
+    else:
+        hs = host_state(engine)
+        t_alloc = time.perf_counter()
+        for g, lay in layouts.items():
+            if lay.header != hs.layouts[g].header:
+                raise ValueError(f"checkpoint {path}: state/{g}.safetensors "
+                                 "is not laid out as this engine writes it")
+        with ThreadPoolExecutor(max_workers=len(GROUPS)) as ex:
+            futures = {g: ex.submit(read_data,
+                                    path / "state" / f"{g}.safetensors",
+                                    layouts[g], hs.data[g]) for g in GROUPS}
+            for g in GROUPS:            # each group's copy once it is read
+                futures[g].result()
+                with torch.no_grad():
+                    for k, t in groups[g].items():
+                        t.copy_(hs.views[g][k], non_blocking=cuda)
     if cuda:
         torch.cuda.synchronize(engine.device)
     s = json.loads((path / "state" / SCALARS).read_text())
@@ -443,13 +560,14 @@ def auto_resume(engine, load_dir: Optional[str]) -> Optional[str]:
     """``resilience.resume == "auto"``: restore the newest loadable
     checkpoint under ``load_dir`` if it holds any, else start fresh.
     Returns the restored path or None (fresh run), so a restart and a
-    first launch are the same construction."""
+    first launch are the same construction. Rank 0 decides for every
+    rank."""
     if not load_dir:
         raise ValueError(
             'resilience.resume == "auto" requires resilience.resume_dir '
             "(the directory save_checkpoint writes to)")
     base = Path(load_dir).absolute()
-    if not base.is_dir() or not list_tags(base):
+    if _on_rank0(engine, lambda: not base.is_dir() or not list_tags(base)):
         log_dist(f"auto-resume: no checkpoints in {base} — fresh run",
                  ranks=[0])
         return None

@@ -186,6 +186,22 @@ def read_data(path: Path | str, layout: Layout, data: torch.Tensor) -> None:
             off += k
 
 
+def read_entry(path: Path | str, layout: Layout, name: str) -> torch.Tensor:
+    """One tensor of ``path`` (its byte range only), as a CPU tensor."""
+    e = layout.entries[name]
+    data = torch.empty(e.end - e.begin, dtype=torch.uint8)
+    out = _as_bytes(data)
+    with open(path, "rb", buffering=0) as f:
+        f.seek(len(layout.header) + e.begin)
+        off = 0
+        while off < len(out):
+            k = f.readinto(out[off:off + _CHUNK])
+            if not k:
+                raise ValueError(f"tensorfile: {path} ended inside {name}")
+            off += k
+    return data.view(e.dtype).view(e.shape)
+
+
 def save_tensors(path: Path | str, tensors: Mapping[str, torch.Tensor],
                  metadata: Optional[dict] = None) -> int:
     """Write a dict of tensors (any device) to one file; returns its bytes."""

@@ -1,5 +1,4 @@
-"""Training engine for one card (counterpart of
-``deepspeed_tpu/runtime/engine.py``).
+"""Training engine (counterpart of ``deepspeed_tpu/runtime/engine.py``).
 
 ``initialize(config, model)`` returns an :class:`Engine` whose
 ``train_batch(batch)`` runs one optimizer step over ``train_batch_size``
@@ -9,22 +8,41 @@ samples, in the JAX step's order (``_train_step_impl``):
    tensors (one per layer for the stacked weights, so each layer's grad is
    its own tensor and nothing sums a whole stack per layer);
 2. gradient accumulation (``_gas_scan``): per micro-batch, backward of
-   ``loss * scale / gas``; the accumulator (``grad_accum_dtype``, default
-   fp32) is seeded from the first micro-batch's grads; the loss is summed;
-3. grads unscaled to fp32, the finite check (fp16 only), the global norm
-   and ``min(1, clip / (gnorm + 1e-6))``, the lr at the old step, the
-   update (or a skip) and the loss-scale update.
+   ``loss * scale / (gas * dp_world)``; the accumulator
+   (``grad_accum_dtype``, default fp32) is seeded from the first
+   micro-batch's grads; the loss is summed;
+3. grads reduced over the ranks, unscaled to fp32, the finite check (fp16
+   only), the global norm and ``min(1, clip / (gnorm + 1e-6))``, the lr at
+   the old step, the update (or a skip) and the loss-scale update.
+
+The JAX engine compiles all of that into one program over a device mesh
+and its ZeRO stage into sharding constraints (``runtime/zero/``). Here it
+runs eagerly, one process per device; in a ``torch.distributed`` world
+(``platform/distributed.py``) each ZeRO choice of ``runtime/zero/
+partitioning.py`` is an explicit collective over the mesh's process groups
+(``runtime/zero/shards.py``):
+
+- stage 0: grads all-reduced once a step;
+- stage 1: the master and moments cut over the partition group; grads
+  all-reduced, each rank updates its shard, the cast shards all-gathered;
+- stage 2: grads reduce-scattered into the master layout in flat buckets
+  of ``reduce_bucket_size`` elements;
+- stage 3: compute leaves cut too and gathered layer by layer on use, their
+  grads reduce-scattered as each layer's backward ends; leaves under
+  ``param_persistence_threshold`` stay whole;
+- hpZ: the compute shard spans ``zero`` and is built by one all-gather over
+  ``data`` after the update (int8 with qwZ); MiCS: the partition group is
+  ``zero`` and grads are all-reduced across ``data`` after it.
+
+With no process group the engine holds every leaf whole and runs no
+collective; in a world of one it runs them all over a group of one rank.
 
 ``save_checkpoint`` / ``load_checkpoint`` / ``wait_for_checkpoint`` write
-and restore the whole state (``runtime/checkpoint/engine.py``);
-``resilience.resume: "auto"`` restores the newest verified tag at
-construction, and ``resilience.max_consecutive_bad_steps`` halts a run
-whose steps keep failing (``NonFiniteLossError``).
-
-The JAX engine compiles all of that into one program over a device mesh;
-here it runs eagerly on one device. ZeRO stages 0-3 are accepted at world
-size 1, where the JAX partitioner keeps the whole state on the one rank; a
-``torch.distributed`` world above 1 raises.
+and restore the state, each leaf whole (``runtime/checkpoint/engine.py``),
+so any world size reads any tag; ``resilience.resume: "auto"`` restores the
+newest verified tag at construction, and ``resilience.
+max_consecutive_bad_steps`` halts a run whose steps keep failing
+(``NonFiniteLossError``).
 """
 
 from __future__ import annotations
@@ -35,10 +53,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..comm import comm
 from ..config import Config
 from ..models.transformer import (LAYER_PREFIX, REMAT_POLICIES, Params,
-                                  param_shapes)
+                                  param_shapes, param_specs)
 from ..platform.device import resolve_device
+from ..platform.mesh import BATCH_AXES, MeshSpec, build_mesh, dp_world_size
 from ..resilience import chaos
 from ..resilience.guards import NonFiniteLossError
 from ..utils.logging import log_dist
@@ -47,22 +67,55 @@ from .checkpoint import engine as ckpt
 from .loss_scaler import grads_finite, init_loss_scale, update_loss_scale
 from .lr_schedules import build_schedule
 from .optimizers import ONEBIT_TYPES, build_optimizer
+from .zero.partitioning import ZeroPartitioner, param_size, stacked_fn
+from .zero.shards import (Cut, GatherSet, LeafPlan, compute_shard,
+                          gather_compute, reduce_scatter_buckets, spec_cut)
+
+
+def mesh_spec(cfg: Config) -> MeshSpec:
+    """The mesh degrees with the ``zero`` sub-axis resolved from hpZ / MiCS
+    (JAX ``_mesh_spec``, ``engine.py:541-577``): ``mesh.data`` is the whole
+    data-parallel degree and the subgroup is carved out of it."""
+    zc, m = cfg.zero_optimization, cfg.mesh
+    hpz = int(zc.zero_hpz_partition_size)
+    mics = int(zc.mics_shard_size or 0)
+    if hpz > 1 and mics > 0 and hpz != mics:
+        raise ValueError(
+            f"zero_hpz_partition_size ({hpz}) and mics_shard_size ({mics}) "
+            "both set but disagree; they share the mesh 'zero' sub-axis")
+    mzero = int(m.zero or 1)
+    if mzero < 1:
+        raise ValueError(
+            "mesh.zero cannot be auto (-1): the hpZ/MiCS subgroup size must "
+            "be explicit (zero_hpz_partition_size / mics_shard_size)")
+    want = hpz if hpz > 1 else (mics if mics > 0 else 1)
+    if mzero > 1 and want > 1 and mzero != want:
+        raise ValueError(f"mesh.zero ({mzero}) conflicts with the configured "
+                         f"hpZ/MiCS subgroup size ({want})")
+    zsize = max(mzero, want)
+    if zc.zero_quantized_weights and hpz <= 1:
+        raise ValueError(
+            "zero_quantized_weights needs a cross-subgroup weight gather to "
+            "quantize: set zero_optimization.zero_hpz_partition_size > 1 "
+            "(under MiCS or a bare mesh.zero the master shard never spans "
+            "'data', so there is no gather to compress)")
+    data = m.data
+    if data != -1 and zsize > 1:
+        if data % zsize != 0:
+            raise ValueError(f"data-parallel degree {data} not divisible by "
+                             f"hpZ/MiCS subgroup size {zsize}")
+        data //= zsize
+    return MeshSpec(data=data, model=m.model, pipe=m.pipe, seq=m.seq,
+                    expert=m.expert, zero=zsize)
 
 
 class Engine:
-    """Owns the fp32 master state, the optimizer state and the step."""
+    """Owns this rank's fp32 master state, the optimizer state and the
+    step."""
 
     def __init__(self, config, model, seed: Optional[int] = None,
                  params: Optional[Params] = None, device=None):
-        import torch.distributed as dist
-
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "multi-rank training (runtime/zero/partitioning.py) is not "
-                f"ported yet: {later(1)}")
-        self.config = Config.from_any(config).resolve_batch_sizes(1)
-        cfg = self.config
+        cfg = Config.from_any(config)
         if cfg.checkpoint.use_node_local_storage:
             raise ValueError(
                 "checkpoint.use_node_local_storage is not supported: a tag "
@@ -74,13 +127,26 @@ class Engine:
             raise RuntimeError(
                 "Engine: torch.backends.cuda.matmul.allow_tf32 is True; fp32 "
                 "products would be TF32. Set it to False (PyTorch's default).")
+        self.mesh = build_mesh(mesh_spec(cfg))
+        if self.mesh.active:
+            import torch.distributed as dist
+
+            want = "nccl" if self.device.type == "cuda" else "gloo"
+            if dist.get_backend() != want:
+                raise ValueError(
+                    f"Engine: the process group runs {dist.get_backend()}, "
+                    f"and a {self.device.type} engine needs {want} "
+                    "(init_distributed(device=...) picks it)")
+        self.dp_world = dp_world_size(self.mesh)
+        self.config = cfg = cfg.resolve_batch_sizes(self.dp_world)
         self.seed = cfg.seed if seed is None else seed
         opt_type = cfg.optimizer.type.lower().replace("-", "_")
         if opt_type in ONEBIT_TYPES:
             raise NotImplementedError(
                 f"optimizer {cfg.optimizer.type!r} (1-bit, runtime/onebit.py)"
                 f" is not ported yet: {later(8)}")
-        self.optimizer = build_optimizer(opt_type, cfg.optimizer.params)
+        self.optimizer = build_optimizer(opt_type, cfg.optimizer.params,
+                                         norm=self._leaf_norm)
         base_lr = float(cfg.optimizer.params.get("lr", 1e-3))
         sched = cfg.scheduler
         self.lr_schedule = build_schedule(sched.type if sched else None,
@@ -94,13 +160,28 @@ class Engine:
                 f"to the host) is not ported yet: {later(6)}")
         self.compute_dtype = cfg.compute_dtype
         self.accum_dtype = cfg.accum_dtype
+        zc = cfg.zero_optimization
+        self.partitioner = ZeroPartitioner(
+            zc.stage, self.mesh.shape,
+            param_persistence_threshold=zc.param_persistence_threshold,
+            zero_hpz_partition_size=zc.zero_hpz_partition_size,
+            mics_shard_size=zc.mics_shard_size)
+        shapes = param_shapes(model.cfg)
+        specs, stacked = param_specs(model.cfg), stacked_fn(model.cfg.n_layer)
+        self.master_specs = self.partitioner.master_specs(specs, shapes,
+                                                          stacked)
+        self.compute_specs = self.partitioner.compute_specs(specs, shapes,
+                                                            stacked)
+        self.plans = {k: self._plan(k, tuple(s)) for k, s in shapes.items()}
+        self.param_count = sum(param_size(s) for s in shapes.values())
         self.master = self._init_master(params)
-        self.param_count = sum(p.numel() for p in self.master.values())
         self.opt_state = self.optimizer.init(self.master)
         self.loss_scale = init_loss_scale(cfg.fp16)
         self.step = 0                 # the optimizer step (TrainState.step)
         self.skipped_steps = 0
         self.global_steps = 0
+        # stage 3: the most layers gathered at once in the last step
+        self.gather_peak_layers = 0
         # checkpoints (runtime/checkpoint/engine.py): the host buffers, an
         # async save in flight, the event the next update waits for
         self._host_state = None
@@ -114,8 +195,10 @@ class Engine:
         self._bad_step_streak = 0
         self._skipped_total_prev = 0.0
         self._chaos_preempt = chaos.preempt_step()
+        self._preempt_guard = None    # resilience/preempt.py, when installed
         log_dist(f"engine: {self.param_count / 1e6:.1f}M params | zero stage "
-                 f"{cfg.zero_stage} | {self.device} {self.compute_dtype} | "
+                 f"{cfg.zero_stage} | mesh {self.mesh.shape} | {self.device} "
+                 f"{self.compute_dtype} | "
                  f"micro={cfg.train_micro_batch_size_per_gpu} "
                  f"gas={cfg.gradient_accumulation_steps} "
                  f"global={cfg.train_batch_size} | remat "
@@ -126,34 +209,105 @@ class Engine:
             ckpt.auto_resume(self, cfg.resilience.resume_dir)
 
     # ------------------------------------------------------------- state
+    def _plan(self, name: str, shape: tuple) -> LeafPlan:
+        """Where the leaf lives on this rank (``runtime/zero/shards.py``).
+        With a process group, a leaf the stage cuts is cut even where its
+        line is one rank (a world of one): a chunk of one, and every
+        collective runs."""
+        mesh, part = self.mesh, self.partitioner
+        layered = name.startswith(LAYER_PREFIX)
+        if not mesh.active:
+            return LeafPlan(name, shape, layered)
+
+        def cut(spec, axes, wanted):
+            c = spec_cut(spec, mesh)
+            if c is None and wanted and mesh.size(axes) == 1:
+                return Cut(1 if layered else 0, axes, 1, 0)
+            return c
+
+        master = cut(self.master_specs[name], part.dp_axes, part.stage >= 1)
+        compute = cut(self.compute_specs[name], part.compute_axes,
+                      part.stage >= 3 and param_size(shape) >= part.threshold)
+        hier = False
+        if compute is not None and compute != master:
+            hier = (part.hpz and master is not None
+                    and compute.dim == master.dim
+                    and master.axes == ("data", "zero")
+                    and compute.axes == ("zero",))
+            if not hier:
+                # hpZ's secondary layout that does not nest in the master's
+                # (another dim): the compute copy is held whole
+                compute = None
+        qwz = bool(self.config.zero_optimization.zero_quantized_weights
+                   and part.hpz and master is not None
+                   and "data" in master.axes)
+        return LeafPlan(name, shape, layered, master, compute, hier,
+                        mesh.shape["data"], qwz)
+
+    def shard_of(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's part (a view) of a whole ``name``-shaped tensor (the
+        master or a moment); anything else (a (0,) placeholder) as it is."""
+        plan = self.plans[name]
+        if plan.master is None or tuple(full.shape) != plan.shape:
+            return full
+        return plan.master.shard(full)
+
     def _init_master(self, params: Optional[Params]) -> Params:
-        """fp32 master on the device: ``model.init`` from a generator seeded
-        by ``seed`` (``_init_state``), or a copy of ``params``
-        (``_init_state_from``)."""
+        """fp32 master shards on the device: ``model.init`` from a generator
+        seeded by ``seed`` (``_init_state``), or a copy of ``params``
+        (``_init_state_from``); each rank keeps its own part."""
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(self.seed)
-            return self.model.init(gen, device=self.device,
+            full = self.model.init(gen, device=self.device,
                                    dtype=torch.float32)
+            return {k: v if self.plans[k].master is None else
+                    self.shard_of(k, v).clone(
+                        memory_format=torch.contiguous_format)
+                    for k, v in full.items()}
         want = param_shapes(self.model.cfg)
         if set(params) != set(want):
             raise ValueError(f"params: missing {sorted(set(want) - set(params))}"
                              f", unexpected {sorted(set(params) - set(want))}")
-        return {k: torch.as_tensor(v).to(self.device, torch.float32,
-                                         copy=True)
+        return {k: self.shard_of(k, torch.as_tensor(v)).to(
+                    self.device, torch.float32, copy=True).contiguous()
                 for k, v in params.items()}
 
     def fp32_params(self) -> Params:
-        """The fp32 master on the host (the JAX engine's ``fp32_params``)."""
-        return {k: v.detach().to("cpu", torch.float32, copy=True)
-                for k, v in self.master.items()}
+        """The whole fp32 master on the host (the JAX engine's
+        ``fp32_params``); a collective: every rank calls it."""
+        out = {}
+        for k, v in self.master.items():
+            cut = self.plans[k].master
+            if cut is not None:
+                v = comm.all_gather(v, cut.axes, cut.dim, mesh=self.mesh)
+            out[k] = v.detach().to("cpu", torch.float32, copy=True)
+        return out
+
+    def _leaf_norm(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The norm of the whole leaf ``name`` from this rank's part ``t``
+        (LAMB's trust ratio): a sum of squares all-reduced over the leaf's
+        line before the square root."""
+        cut = self.plans[name].master
+        if cut is None or cut.n == 1:
+            return t.norm()
+        sq = torch.sum(torch.square(t.float()))
+        return torch.sqrt(comm.all_reduce(sq, cut.axes, mesh=self.mesh))
 
     def _cast_compute(self):
-        """(params for ``model.loss``, their leaf tensors by name): the
-        master in the compute dtype; a stacked ``layers.*`` leaf becomes a
-        list of per-layer leaf tensors (views of one cast copy)."""
-        params, leaves = {}, {}
+        """(params for ``model.loss``, their leaf tensors by name, the
+        stage-3 compute shards): the master in the compute dtype, gathered
+        whole where the leaf's compute copy is whole; a stacked ``layers.*``
+        leaf becomes a list of per-layer leaf tensors (views of one copy).
+        A stage-3 cut leaf is its compute shard, gathered on use."""
+        params, leaves, shards = {}, {}, {}
         for k, p in self.master.items():
-            c = p.detach().to(self.compute_dtype, copy=True)
+            plan = self.plans[k]
+            if plan.compute is not None:
+                shards[k] = compute_shard(plan, p.detach(), self.mesh,
+                                          self.compute_dtype)
+                continue
+            c = gather_compute(plan, p.detach(), self.mesh,
+                               self.compute_dtype)
             if k.startswith(LAYER_PREFIX):
                 leaves[k] = [c[i].detach().requires_grad_()
                              for i in range(len(c))]
@@ -161,26 +315,39 @@ class Engine:
             else:
                 leaves[k] = [c.requires_grad_()]
                 params[k] = c
-        return params, leaves
+        return params, leaves, shards
 
     # -------------------------------------------------------------- step
     def _gas(self, batch: dict, scale: float):
-        """Accumulated grads (accumulation dtype, the master's shapes) and
-        the loss summed over micro-batches (``_gas_scan``)."""
+        """Accumulated grads (accumulation dtype; whole local sums, or for a
+        stage-3 cut leaf the shard reduce-scattered inside its compute
+        group) and this rank's part of the loss summed over micro-batches
+        (``_gas_scan``)."""
         gas = int(self.config.gradient_accumulation_steps)
-        params, leaves = self._cast_compute()
+        div = gas * self.dp_world
+        params, leaves, shards = self._cast_compute()
         acc, loss = {}, None
+        gs = None
+        if shards:
+            gs = GatherSet(self.mesh, self.device)
+            for k, sh in shards.items():
+                acc[k] = torch.empty(sh.shape, dtype=self.accum_dtype,
+                                     device=self.device)
         for i in range(gas):
             mb = {k: v[i] for k, v in batch.items()}
-            scaled = self.model.loss(params, mb,
-                                     remat_policy=self.remat_policy) \
-                * scale / gas
+            p = dict(params)
+            for k, sh in shards.items():
+                p[k] = gs.leaf(k, self.plans[k], sh, acc[k])
+            scaled = self.model.loss(p, mb, remat_policy=self.remat_policy) \
+                * scale / div
             scaled.backward()
+            if gs is not None:
+                gs.release_all()
             part = scaled.detach() / scale
             loss = part if loss is None else loss + part
             for k, ls in leaves.items():
                 if k not in acc:
-                    acc[k] = torch.empty(self.master[k].shape,
+                    acc[k] = torch.empty(self.plans[k].shape,
                                          dtype=self.accum_dtype,
                                          device=self.device)
                     ref = acc[k] if k.startswith(LAYER_PREFIX) else acc[k][None]
@@ -194,24 +361,84 @@ class Engine:
                             ref[j].add_(leaf.grad.to(self.accum_dtype))
                 for leaf in ls:
                     leaf.grad = None
+        if gs is not None:
+            for k in shards:
+                layers = range(self.plans[k].shape[0]) \
+                    if self.plans[k].layered else (None,)
+                for j in layers:
+                    if not gs.seeded(k, j):   # no grad reached it
+                        (acc[k] if j is None else acc[k][j]).zero_()
+            self.gather_peak_layers = gs.peak_layers
         return acc, loss
+
+    def _reduce_grads(self, acc: dict) -> dict:
+        """This rank's grads in the master layout, summed over the ranks:
+        all-reduced (whole masters, stages 0-1 and stage 3's whole compute
+        leaves, then cut), reduce-scattered in buckets (stage 2), or, for a
+        stage-3 cut leaf, finished across ``data`` (hpZ reduce-scatter,
+        MiCS all-reduce)."""
+        mesh, part = self.mesh, self.partitioner
+        if not mesh.active:
+            return acc
+        out, bucket = {}, []
+        for k in sorted(acc):
+            plan, g = self.plans[k], acc[k]
+            if plan.compute is not None:
+                if plan.hier:
+                    g = comm.reduce_scatter(g, ("data",), plan.master.dim,
+                                            mesh=mesh)
+                elif part.mics:
+                    comm.all_reduce(g, ("data",), mesh=mesh)
+                out[k] = g
+            elif plan.master is None or part.stage != 2:
+                comm.all_reduce(g, BATCH_AXES, mesh=mesh)
+                out[k] = g if plan.master is None \
+                    else plan.master.shard(g).contiguous()
+            else:
+                bucket.append((k, g, plan.master))
+        if bucket:
+            red = reduce_scatter_buckets(
+                bucket, part.dp_axes, mesh,
+                self.config.zero_optimization.reduce_bucket_size)
+            for k, g in red.items():
+                if part.mics:
+                    comm.all_reduce(g, ("data",), mesh=mesh)
+                out[k] = g
+        return out
+
+    def _global_norm(self, grads: dict, names: list) -> torch.Tensor:
+        """sqrt of the sum of squares over the elements each rank owns,
+        all-reduced over the partition group; a leaf whole on every rank is
+        counted by the group's first rank only."""
+        first = self.mesh.index(self.partitioner.dp_axes) == 0
+        total = None
+        for k in names:
+            if self.plans[k].master is None and not first:
+                continue
+            s = torch.sum(torch.square(grads[k]))
+            total = s if total is None else total + s
+        if total is None:
+            total = torch.zeros((), dtype=torch.float32, device=self.device)
+        comm.all_reduce(total, self.partitioner.dp_axes, mesh=self.mesh)
+        return torch.sqrt(total)
 
     def _train_step(self, batch: dict) -> dict:
         cfg = self.config
         scale = self.loss_scale.scale
         grads, loss = self._gas(batch, scale)
+        comm.all_reduce(loss, BATCH_AXES, mesh=self.mesh)
+        grads = self._reduce_grads(grads)
         names = sorted(grads)          # the JAX tree's leaf order
         for k in names:
             g = grads[k].float() if grads[k].dtype != torch.float32 \
                 else grads[k]
             grads[k] = g.div_(scale)
-        finite = bool(grads_finite(grads[k] for k in names)) \
-            if cfg.fp16.enabled else True
-        gnorm = None
-        for k in names:
-            s = torch.sum(torch.square(grads[k]))
-            gnorm = s if gnorm is None else gnorm + s
-        gnorm = torch.sqrt(gnorm)
+        finite = True
+        if cfg.fp16.enabled:
+            flag = grads_finite(grads[k] for k in names).float()
+            finite = bool(comm.all_reduce(flag, BATCH_AXES, "min",
+                                          mesh=self.mesh))
+        gnorm = self._global_norm(grads, names)
         if cfg.gradient_clipping and cfg.gradient_clipping > 0:
             coef = torch.clamp(cfg.gradient_clipping / (gnorm + 1e-6), max=1.0)
             for k in names:
@@ -232,27 +459,42 @@ class Engine:
                 "loss_scale": scale, "skipped": 0 if finite else 1}
 
     def _make_global(self, batch: dict, gas_dim: bool = True) -> dict:
-        """A host batch of ``gas × micro`` rows → device tensors shaped
-        ``(gas, micro, ...)`` (``(rows, ...)`` without ``gas_dim``)."""
+        """This rank's host batch of ``gas × micro`` rows → device tensors
+        shaped ``(gas, micro, ...)`` (``(rows, ...)`` without ``gas_dim``)."""
         gas = int(self.config.gradient_accumulation_steps)
+        rows = gas * int(self.config.train_micro_batch_size_per_gpu)
         out = {}
         for k, v in batch.items():
             t = torch.as_tensor(np.asarray(v)).to(self.device)
             if gas_dim:
+                if t.shape[0] != rows:
+                    raise ValueError(
+                        f"train_batch: {k} has {t.shape[0]} rows; this rank "
+                        f"takes gas x micro = {rows} (train_batch_size / "
+                        f"{self.dp_world} ranks)")
                 t = t.reshape((gas, t.shape[0] // gas) + tuple(t.shape[1:]))
             out[k] = t
         return out
 
     # ----------------------------------------------------------- public
     def train_batch(self, batch: dict) -> dict:
-        """One optimizer step. ``batch`` holds ``train_batch_size`` rows
-        (numpy or anything ``np.asarray`` reads), or device tensors already
-        shaped ``(gas, micro, ...)``. Returns ``loss`` and ``grad_norm`` as
-        0-d device tensors (no synchronisation), ``lr``, ``loss_scale`` and
-        ``skipped`` as host numbers."""
+        """One optimizer step. ``batch`` holds this rank's
+        ``train_batch_size / dp_world`` rows (numpy or anything
+        ``np.asarray`` reads), or device tensors already shaped ``(gas,
+        micro, ...)``. Returns ``loss`` (the mean over the ranks) and
+        ``grad_norm`` as 0-d device tensors (no synchronisation), ``lr``,
+        ``loss_scale`` and ``skipped`` as host numbers."""
         if self._chaos_preempt is not None \
                 and self.global_steps == self._chaos_preempt:
             chaos.deliver_preemption()
+        guard = self._preempt_guard
+        if guard is not None and self.mesh.world > 1 and not guard.committed:
+            # the ranks agree on a signal any of them took (the handler
+            # cannot run a collective); then all commit together, once
+            flag = torch.tensor([float(guard.preempted)], device=self.device)
+            if comm.all_reduce(flag, BATCH_AXES, "max", mesh=self.mesh):
+                guard.preempted = guard.committed = True
+                guard.commit()
         if not isinstance(next(iter(batch.values())), torch.Tensor):
             batch = self._make_global(batch)
         metrics = self._train_step(batch)
@@ -266,12 +508,26 @@ class Engine:
         return metrics
 
     def eval_batch(self, batch: dict) -> float:
-        """The loss of one batch of rows on the current master."""
+        """The loss of this rank's rows on the current master, averaged
+        over the ranks (a collective)."""
         if not isinstance(next(iter(batch.values())), torch.Tensor):
             batch = self._make_global(batch, gas_dim=False)
         with torch.no_grad():
-            cp = {k: v.to(self.compute_dtype) for k, v in self.master.items()}
-            return float(self.model.loss(cp, batch))
+            cp, gs = {}, None
+            for k, p in self.master.items():
+                plan = self.plans[k]
+                if plan.compute is None:
+                    cp[k] = gather_compute(plan, p, self.mesh,
+                                           self.compute_dtype)
+                    continue
+                gs = gs or GatherSet(self.mesh, self.device)
+                cp[k] = gs.leaf(k, plan, compute_shard(
+                    plan, p, self.mesh, self.compute_dtype), None)
+            loss = self.model.loss(cp, batch)
+            if gs is not None:
+                gs.release_all()
+            return float(comm.all_reduce(loss.float(), BATCH_AXES, "mean",
+                                         mesh=self.mesh))
 
     # ----------------------------------------------------------- resilience
     def _note_bad_steps(self, bad: bool, window: int, last_loss: float) -> None:

@@ -7,13 +7,14 @@ of operations: the bias correction from the incremented count, AdamW's
 decoupled decay added to the step before ``lr`` multiplies it. The JAX
 package has no kernel for them; here they are PyTorch ops, and ``update``
 writes the params and moments IN PLACE (a 1.5 B-parameter state has no
-room for a second copy) and returns the same dicts.
+room for a second copy) and returns the same dicts; under ZeRO the dicts
+hold this rank's shards.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -110,10 +111,16 @@ def lion(betas=(0.9, 0.99), weight_decay: float = 0.0) -> Optimizer:
 
 # --------------------------------------------------------------------- LAMB
 def lamb(betas=(0.9, 0.999), eps: float = 1e-6, weight_decay: float = 0.0,
-         min_trust: float = 0.01, max_trust: float = 10.0) -> Optimizer:
+         min_trust: float = 0.01, max_trust: float = 10.0,
+         norm: Optional[Callable] = None) -> Optimizer:
     """LAMB with a per-param trust ratio ``||p|| / ||u||`` clipped to
-    [min_trust, max_trust] (1 where either norm is 0)."""
+    [min_trust, max_trust] (1 where either norm is 0). The norms are of
+    whole leaves: ``norm(name, t)`` gives one from this rank's part of a
+    leaf cut over ranks (the engine all-reduces its sum of squares)."""
     b1, b2 = betas
+    if norm is None:
+        def norm(name, t):
+            return t.norm()
 
     def init(params):
         return OptState(_zeros(params), _zeros(params), 0)
@@ -126,7 +133,7 @@ def lamb(betas=(0.9, 0.999), eps: float = 1e-6, weight_decay: float = 0.0,
             m.mul_(b1).add_((1.0 - b1) * g)
             v.mul_(b2).add_((1.0 - b2) * g.square())
             u = (m / bc1) / ((v / bc2).sqrt() + eps) + weight_decay * p
-            w_norm, u_norm = p.norm(), u.norm()
+            w_norm, u_norm = norm(k, p), norm(k, u)
             trust = torch.where((w_norm > 0) & (u_norm > 0),
                                 (w_norm / u_norm).clamp(min_trust, max_trust),
                                 1.0)
@@ -183,8 +190,11 @@ ONEBIT_TYPES = ("onebit_adam", "onebit_lamb", "zero_one_adam", "onebitadam",
                 "onebitlamb", "zerooneadam")
 
 
-def build_optimizer(opt_type: str, params: dict) -> Optimizer:
-    """``optimizer.type`` → optimizer, as ``optimizers.py:212`` parses it."""
+def build_optimizer(opt_type: str, params: dict,
+                    norm: Optional[Callable] = None) -> Optimizer:
+    """``optimizer.type`` → optimizer, as ``optimizers.py:212`` parses it;
+    ``norm`` is LAMB's norm of a whole leaf from a rank's part (the
+    elementwise optimizers update parts as they are)."""
     t = opt_type.lower().replace("_", "").replace("-", "")
     p = dict(params)
     p.pop("lr", None)         # lr flows through the scheduler
@@ -196,7 +206,8 @@ def build_optimizer(opt_type: str, params: dict) -> Optimizer:
     if t in ("adamw", "fusedadam", "cpuadam"):
         return adam(betas=betas, eps=eps, weight_decay=wd, adamw=True)
     if t in ("lamb", "fusedlamb"):
-        return lamb(betas=(betas[0], betas[1]), eps=eps, weight_decay=wd)
+        return lamb(betas=(betas[0], betas[1]), eps=eps, weight_decay=wd,
+                    norm=norm)
     if t in ("lion", "fusedlion", "cpulion"):
         return lion(betas=(betas[0], betas[1]), weight_decay=wd)
     if t in ("adagrad", "cpuadagrad"):

@@ -11,8 +11,10 @@
   attention's split at B 8 against B 1, and the chunked prefill against the
   whole one layer by layer and op by op;
 - ``profile_count_probe()``: how often phase 11's profiled window of
-  graph replays misses a kernel record, traced from the window's start or
-  after a discarded warm-up replay, and where the missing record lies.
+  graph replays misses a kernel record, traced from the window's start,
+  after a discarded warm-up replay, or held open ``PROFILE_MARGIN_S`` on
+  each side as phase 11's gate holds it, and where the missing record
+  lies.
 
 Run on the card from the repository's root::
 
@@ -31,8 +33,8 @@ import json
 import math
 from functools import partial
 
-from chip_smoke import (PAGE_SIZE, SERVE_NEW, SERVE_PROMPT, SERVING,
-                        _free_memory, _serve_engine, _serve_stream,
+from chip_smoke import (PAGE_SIZE, PROFILE_MARGIN_S, SERVE_NEW, SERVE_PROMPT,
+                        SERVING, _free_memory, _serve_engine, _serve_stream,
                         device_ms, log)
 
 
@@ -532,11 +534,14 @@ def parity_probe(cfg=None, *, bits=8, requests=16, checks=4,
     return out
 
 
-def _window_kernels(fn, warmup=None):
+def _window_kernels(fn, warmup=None, margin=0.0):
     """The device kernels' names, in start order, of one torch.profiler
     window around ``fn()``; with ``warmup``, tracing starts one step
     earlier (the profiler's schedule ``warmup=1``, its records discarded)
-    around ``warmup()``."""
+    around ``warmup()``; else the window is held open ``margin`` seconds
+    on each side of ``fn()``."""
+    import time
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -551,8 +556,10 @@ def _window_kernels(fn, warmup=None):
     if warmup is None:
         with profile(activities=acts) as prof:
             torch.cuda.synchronize()
+            time.sleep(margin)
             fn()
             torch.cuda.synchronize()
+            time.sleep(margin)
         ready(prof)
     else:
         with profile(activities=acts, on_trace_ready=ready,
@@ -573,8 +580,9 @@ def profile_count_probe(cfg=None, *, bits=8, windows=30, replays=4):
     kernel record, and where: Llama-2-7B (int8 WOQ: phase 11b) with every
     slot full and its slot step graphed; ``windows`` windows of
     ``replays`` replays from the same state, (a) traced from the window's
-    start, as phase 11 does, and (b) after one traced warm-up replay whose
-    records the profiler discards. A window whose kernel list is shorter
+    start, (b) after one traced warm-up replay whose records the profiler
+    discards, and (c) held open ``PROFILE_MARGIN_S`` on each side, as
+    phase 11's gate holds it. A window whose kernel list is shorter
     than the longest one's names the kernels missing, their position and
     replay. Prints a ``[profile-count]`` JSON line."""
     import difflib
@@ -609,8 +617,10 @@ def profile_count_probe(cfg=None, *, bits=8, windows=30, replays=4):
         srv.slot_step(graphed=True)
 
     out = {}
-    for variant, wu in (("from_start", None), ("after_warmup", warm)):
-        runs = [_window_kernels(window, wu) for _ in range(windows)]
+    for variant, wu, margin in (("from_start", None, 0.0),
+                                ("after_warmup", warm, 0.0),
+                                ("margin", None, PROFILE_MARGIN_S)):
+        runs = [_window_kernels(window, wu, margin) for _ in range(windows)]
         full = max(runs, key=len)
         per = len(full) // replays
         misses = []

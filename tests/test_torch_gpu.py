@@ -1920,3 +1920,101 @@ def test_evoformer_block_through_the_kernels(cuda, dtype):
     assert loss == pytest.approx(loss_d, rel=tol / 5)
     assert float(dpair.norm()) > 0
     assert ((dpair - dpair_d).norm() / dpair_d.norm()).item() <= tol
+
+
+def _world_of_one():
+    """A world of one rank over NCCL (``init_distributed``)."""
+    from deepspeed_tpu_torch.platform.distributed import (_free_port,
+                                                          init_distributed)
+
+    return init_distributed(f"localhost:{_free_port()}", 1, 0)
+
+
+def test_comm_wrappers_over_nccl_match_their_cpu_results(cuda):
+    """Every collective of ``comm/comm.py`` over a world of one on the card:
+    a line of one rank reduces to the tensor itself, gathers and scatters
+    to it along any dim; the same calls with no process group (the CPU
+    results) return the same values."""
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.platform.mesh import build_mesh
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(6, 8, 4, generator=g)
+    none = build_mesh()
+    want = {"sum": comm.all_reduce(x.clone(), "data", mesh=none),
+            "gather1": comm.all_gather(x, "data", 1, mesh=none),
+            "scatter2": comm.reduce_scatter(x, "data", 2, mesh=none)}
+    _world_of_one()
+    try:
+        mesh = build_mesh()
+        assert mesh.active and mesh.world == 1 and not mesh.solo("data")
+        y = x.to(cuda)
+        for op in ("sum", "mean", "max", "min"):
+            got = comm.all_reduce(y.clone(), ("data", "zero"), op, mesh=mesh)
+            assert torch.equal(got.cpu(), want["sum"]), op
+        for dim in range(3):
+            assert torch.equal(comm.all_gather(y, "data", dim,
+                                               mesh=mesh).cpu(), x)
+            assert torch.equal(comm.reduce_scatter(y, "zero", dim,
+                                                   mesh=mesh).cpu(), x)
+        out = torch.empty_like(y)
+        comm.all_gather(y, "data", 1, mesh=mesh, out=out)
+        assert torch.equal(out.cpu(), want["gather1"])
+        assert torch.equal(comm.reduce_scatter(y, "data", 2, mesh=mesh)
+                           .cpu(), want["scatter2"])
+        q = torch.tensor([1, -2, 3], dtype=torch.int8, device=cuda)
+        assert torch.equal(comm.all_gather(q, "data", mesh=mesh), q)
+        assert torch.equal(comm.broadcast(y.clone(), "data", mesh=mesh), y)
+        comm.barrier(mesh=mesh)
+        assert (comm.get_world_size(mesh=mesh), comm.get_rank(mesh=mesh)) \
+            == (1, 0)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_stage3_gather_on_use_is_bit_identical_to_stage0(cuda, remat):
+    """A tiny bf16 model through the kernels, 2 steps: the engine with no
+    process group, then in a world of one over NCCL at stage 0 and at
+    stage 3 with every leaf cut (gathered layer by layer, its grads
+    reduce-scattered in the backward): losses, grad norms and every master
+    / mu / nu leaf bit-identical, at most two layers gathered at once."""
+    import numpy as np
+    import torch.distributed as dist
+
+    cfg = tiny_test(dtype=torch.bfloat16, n_layer=4)
+    rng = np.random.default_rng(0)
+    data = [{"input_ids": rng.integers(0, cfg.vocab_size, (4, 64))}
+            for _ in range(2)]
+    init = dt.build_model(cfg).init(torch.Generator(device=cuda)
+                                    .manual_seed(0), device=cuda,
+                                    dtype=torch.float32)
+
+    def run(stage):
+        conf = {"train_batch_size": 4, "gradient_accumulation_steps": 2,
+                "remat": {"enabled": remat}, "gradient_clipping": 1.0,
+                "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+                "zero_optimization": {"stage": stage,
+                                      "param_persistence_threshold": 0}}
+        e = dt.initialize(conf, dt.build_model(
+            cfg, attention_fn=dt.make_flash_attention()), params=init)
+        steps = [e.train_batch(dict(b)) for b in data]
+        return ([(float(m["loss"]), float(m["grad_norm"])) for m in steps],
+                {g: {k: t.clone() for k, t in d.items()} for g, d in (
+                    ("master", e.master), ("mu", e.opt_state.mu),
+                    ("nu", e.opt_state.nu))}, e.gather_peak_layers)
+
+    want, want_state, _ = run(0)
+    _world_of_one()
+    try:
+        for stage in (0, 3):
+            got, state, peak = run(stage)
+            assert got == want, stage
+            for g, d in state.items():
+                for k, t in d.items():
+                    assert torch.equal(t, want_state[g][k]), (stage, g, k)
+            assert peak == (2 if stage == 3 else 0)
+    finally:
+        dist.destroy_process_group()

@@ -171,18 +171,24 @@ def test_training_config_ports_and_refuses():
             ({"data_efficiency": {"curriculum_learning": {"enabled": True}}},
              "item 8"),
             ({"gradient_compression": {"enabled": True}}, "item 8"),
-            ({"zero_optimization": {"zero_quantized_weights": True}},
-             "item 1"),
+            ({"zero_optimization": {"zero_quantized_gradients": True}},
+             "item 8"),
             ({"monitor": {"enabled": True}}, "item 7"),
             ({"observability": {"spans": True}}, "item 7"),
             ({"elasticity": {"enabled": True}}, "item 8"),
             ({"moe": {"enabled": True}}, "item 3"),
             ({"mesh": {"model": 2}}, "item 4"),
-            ({"mesh": {"data": 2}}, "item 1"),
-            ({"zero_optimization": {"overlap_comm": False}}, "item 1"),
             ({"remat": {"enabled": True, "offload": True}}, "item 6")):
         with pytest.raises(NotImplementedError, match=item):
             Config.from_any(conf)
+    # multi-rank ZeRO (item 1) is ported: its keys parse
+    zero = Config.from_any({"zero_optimization": {
+        "stage": 3, "zero_quantized_weights": True,
+        "zero_hpz_partition_size": 2, "overlap_comm": False},
+        "mesh": {"data": 2}})
+    assert (zero.zero_stage, zero.mesh.data,
+            zero.zero_optimization.zero_quantized_weights,
+            zero.zero_optimization.overlap_comm) == (3, 2, True, False)
     ported = Config.from_any({"checkpoint": {"async_save": True,
                                              "verify": "checksum"},
                               "resilience": {"resume": "auto",

@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, in order (phase 14 runs second, right after phase 1); any failure
+raises and the script exits non-zero:
 
 1. device: the card's name and power limit; build every CUDA kernel of
    ``deepspeed_tpu_torch/ops/csrc`` (nvcc, sm_90a, one process per source,
@@ -200,7 +201,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    an all-gather and a reduce-scatter per cut leaf, layer and micro-batch,
    and the gathers again in the backward), the NCCL kernels by name. A
    ``[zero]`` JSON line: per stage the median step, device busy and idle
-   in the profiled step, the NCCL kernels' time, peak memory; the card.
+   in the profiled step, the NCCL kernels' time, peak memory; the card;
+14. MoE (``phase_moe``). (a) Mixtral-8x7B (``mixtral("8x7b",
+   moe_drop_tokens=False)``, 32 layers, 8 experts, top-2, GQA 32 / 8) at
+   full width and depth, int8 WOQ at group 128 (~48 GB: one card cannot
+   hold it in bf16), its weights drawn on the card layer by layer and
+   quantized into preallocated int8 stacks (``_moe_serve_engine``), served
+   by phase 11's ``ServingEngine`` (8 slots of 1024, chunks of 256) on
+   11b's 16 requests: phase 11's gates, the capture recording 32
+   decode-attention and 65 ``woq_matmul`` launches (the fused qkv and
+   ``wo`` a layer, the head; the expert banks dequantize at their point of
+   use), and the banks' dequantize timed; (b) ``mixtral("8x7b",
+   n_layer=2)`` trained at full width (bf16, AdamW, ZeRO 1, remat
+   ``dots_saveable``, micro 2 x gas 2 x 1024 tokens, the ``moe`` section):
+   phase 6's kernel-vs-plain gate at 2 layers with the tokens whose
+   routing differs between the two paths counted, the router fp32 in the
+   compute params, flash 8 / 4 / 4 launches a step, a falling loss. A
+   ``[moe]`` JSON line.
 
 ``remat_sweep()``, ``woq_probe()`` and ``checkpoint_write_probe()`` are
 one-off measurements outside the phases: the default GPT-2 1.5B training
@@ -224,7 +241,8 @@ and ``woq_matmul`` rows also carry ``serving_launches``: phase 11's device
 launches (11a's and 11b's), from the counts the run took: the wrappers'
 count over the path less the capture's (the eager warm-up step), plus the
 capture's count times the graph's replays; ``paged_serving_launches`` the
-same for 11c-11g.
+same for 11c-11g, ``mixtral_serving_launches`` for 14a; the flash rows
+carry ``mixtral_train_launches``, 14b's timed steps'.
 The last three lines of standard output are the kernels' JSON, then
 ``nvidia-smi``'s name and power limit of the card, then the device JSON.
 Without a CUDA device, or outside the repository, it exits 1 and prints
@@ -3080,11 +3098,76 @@ def _rel_norm(a, b) -> float:
 
 
 def _loss_and_grads(model, master, batch, dtype, remat):
-    params = {k: v.detach().to(dtype).requires_grad_()
-              for k, v in master.items()}
+    """The loss and every leaf's grad at the compute dtype; the leaves the
+    model keeps in fp32 (an MoE router) stay fp32, as the engine casts."""
+    keep = set(model.fp32_param_names())
+    params = {k: v.detach().to(_dtype_of(k, keep, dtype))
+              .requires_grad_() for k, v in master.items()}
     loss = model.loss(params, batch, remat_policy=remat)
     loss.backward()
     return loss.detach().float(), {k: v.grad for k, v in params.items()}
+
+
+def _dtype_of(name: str, keep: set, dtype):
+    """fp32 for a leaf the model keeps in fp32, else ``dtype``."""
+    import torch
+
+    return torch.float32 if name.rsplit(".", 1)[-1] in keep else dtype
+
+
+def _record_routes(model, log_to: list) -> None:
+    """Wrap ``model._mlp_block`` (an MoE block) so its first ``n_layer``
+    calls append (the top-k expert ids of every token in gating's pass
+    order, the router's dtype): the forward's layers, not remat's reruns
+    in the backward."""
+    import torch
+
+    inner = model._mlp_block
+    n, k = model.cfg.n_layer, model.cfg.moe_top_k
+
+    def block(y, p):
+        if len(log_to) < n:
+            with torch.no_grad():
+                logits = y.float() @ p["router"].float()
+                top = torch.topk(logits, k, dim=-1).indices
+            log_to.append((top, p["router"].dtype))
+        return inner(y, p)
+
+    model._mlp_block = block
+
+
+def _replay_routes(model, routes: list, flips: list) -> None:
+    """Wrap ``model._mlp_block`` so layer i (told apart by its router's
+    storage, so remat's reruns find theirs) routes as ``routes[i]`` (B, S,
+    k, in pass order) through ``topk_gating``'s ``choices``; ``flips[i]``
+    counts the tokens whose own top-k set differs (the first call a
+    layer)."""
+    import torch
+
+    from deepspeed_tpu_torch.models import moe as moe_module
+
+    inner, gating = model._mlp_block, moe_module.topk_gating
+    layer_of: dict = {}
+
+    def block(y, p):
+        i = layer_of.setdefault(p["router"].data_ptr(), len(layer_of))
+        chosen = routes[i]
+
+        def forced(logits, top_k, capacity):
+            if len(flips) == i:
+                with torch.no_grad():
+                    own = torch.topk(logits, top_k, dim=-1).indices.sort(-1)
+                    flips.append(int((own.values != chosen.sort(-1).values)
+                                     .any(-1).sum()))
+            return gating(logits, top_k, capacity, choices=chosen)
+
+        moe_module.topk_gating = forced
+        try:
+            return inner(y, p)
+        finally:
+            moe_module.topk_gating = gating
+
+    model._mlp_block = block
 
 
 def _token_batch(data) -> dict:
@@ -3261,7 +3344,16 @@ def phase_train(cfg=None, *, config=None, check="attention", check_layers=4,
         reference = dt.build_model(
             dataclasses.replace(small, fused_xent=False),
             attention_fn=attention())
+    moe = cfg.num_experts > 1
+    routes_k, flips = [], []
+    if moe:
+        # the reference routes as the path under test did (its own choices
+        # counted): one near tie moved by bf16 would shift every later
+        # token's capacity slot at two experts, and with them the drops
+        _record_routes(under_test, routes_k)
     lk, gk = _loss_and_grads(under_test, master, mb, cfg.dtype, remat)
+    if moe:
+        _replay_routes(reference, [r for r, _ in routes_k], flips)
     lp, gp = _loss_and_grads(reference, master, mb, cfg.dtype, remat)
     sync()
     loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
@@ -3276,6 +3368,12 @@ def phase_train(cfg=None, *, config=None, check="attention", check_layers=4,
         f"{TRAIN_GRAD_RTOL}), median "
         f"{sorted(grad_rel.values())[len(grad_rel) // 2]:.2e}; layers.bk "
         f"(noise, not gated) {bk}")
+    if moe:
+        tokens_routed = routes_k[0][0].shape[0] * routes_k[0][0].shape[1]
+        log(f"{tag} routing: the plain path took the kernel path's expert "
+            f"choices; tokens whose own top-{cfg.moe_top_k} set differs, by "
+            f"layer {flips} of {tokens_routed} (recorded, not gated: bf16 "
+            "attention outputs move near-tied router decisions)")
     if check == "head":
         log(f"{tag} head leaves: " + ", ".join(
             f"{k} {grad_rel[k]:.2e}" for k in sorted(grad_rel)
@@ -3315,8 +3413,20 @@ def phase_train(cfg=None, *, config=None, check="attention", check_layers=4,
         f"state {state_bytes / 2**30:.2f} GiB on {engine.device}; fused xent "
         f"head {fused}")
     losses = []
+    router_dtypes, routes_e = [], []
+    if moe:
+        # the first warm-up step's compute params: the router stays fp32
+        _record_routes(engine.model, routes_e)
     for i in range(warmup):
         losses.append(float(engine.train_batch(dict(data))["loss"]))
+        if moe and i == 0:
+            router_dtypes = sorted({str(d) for _, d in routes_e})
+            del engine.model._mlp_block          # the class's block again
+            log(f"{tag} the engine's compute params: router {router_dtypes}"
+                f", the expert banks {engine.compute_dtype}")
+            if router_dtypes != ["torch.float32"]:
+                raise AssertionError(f"{tag} the router reached the MoE "
+                                     f"block as {router_dtypes}, not fp32")
 
     # ---- the main path, counted and timed ----
     _free_memory(dev)
@@ -3372,7 +3482,8 @@ def phase_train(cfg=None, *, config=None, check="attention", check_layers=4,
               "tokens_per_s": tokens / step, "mfu": mfu, "peak_bytes": peak,
               "losses": losses, "loss_rel": loss_rel,
               "grad_rel": grad_rel[worst], "shares": {}, "heads": heads,
-              "gas": gas}
+              "gas": gas, "route_flips": flips,
+              "router_dtypes": router_dtypes}
     if cuda and profile_steps:
         prof = profile_calls(
             lambda: [engine.train_batch(dict(data))
@@ -3895,10 +4006,12 @@ def _profile_counts(fn) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
         time.sleep(PROFILE_MARGIN_S)
     counts, busy, order, launch, synced = {}, 0.0, [], [], []
+    dur: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             counts[e.name] = counts.get(e.name, 0) + 1
             busy += e.time_range.elapsed_us()
+            dur[e.name] = dur.get(e.name, 0.0) + e.time_range.elapsed_us()
             order.append((e.time_range.start, e.time_range.end, e.name[:60]))
         elif e.name in ("cudaGraphLaunch", "cudaLaunchKernel",
                         "cudaLaunchKernelExC", "cudaMemcpyAsync"):
@@ -3909,6 +4022,7 @@ def _profile_counts(fn) -> dict:
     closing = [end for start, end in synced
                if launch and start >= max(launch)]
     return {"counts": counts, "busy_us": busy, "wall_us": wall_us,
+            "us_by_name": dur, "names": [n for *_, n in order],
             "ends": ([n for *_, n in order[:4]], [n for *_, n in order[-4:]]),
             "lead_us": order[0][0] - min(launch) if order and launch
             else None,
@@ -3916,10 +4030,149 @@ def _profile_counts(fn) -> dict:
             if order and closing else None}
 
 
+def _missing_in_replays(names: list, replays: int) -> list:
+    """Where a window of ``replays`` identical graph replays lost device
+    records: each replay's records against the longest replay's, cut at
+    the first record's name; (replay, position, names missing, the two
+    records around them) for each gap."""
+    import difflib
+
+    head = names[0] if names else None
+    starts = [i for i, n in enumerate(names) if n == head]
+    cuts = [names[a:b] for a, b in zip(starts, starts[1:] + [len(names)])]
+    if len(cuts) != replays:
+        return [{"replays_found": len(cuts)}]
+    full = max(cuts, key=len)
+    out = []
+    for r, got in enumerate(cuts):
+        sm = difflib.SequenceMatcher(a=full, b=got, autojunk=False)
+        for op, a0, a1, _, _ in sm.get_opcodes():
+            if op != "equal":
+                out.append({"replay": r, "at": a0, "of": len(full),
+                            "missing": full[a0:a1][:3],
+                            "around": full[max(a0 - 1, 0):a1 + 1][:5]})
+    return out
+
+
 def _kernel_launches(counts: dict, kernel: str) -> int:
     """Launches of a templated kernel, whatever its namespace and template
     arguments (the profiler names ``void (anonymous namespace)::k<...>``)."""
     return sum(v for k, v in counts.items() if f"{kernel}<" in k)
+
+
+class _ServedRoutes:
+    """The routing an MoE engine's ``ServingEngine`` served: for each
+    request, the sorted top-k expert ids every layer gave each position
+    whose K/V its cache kept. The prefill chunks' come from their eager
+    MoE blocks (a final overlap chunk's overwrite the positions it
+    recomputes); the slot step's from a static (L, slots, k) buffer that
+    its MoE blocks write, in the CUDA graph too, read after every step
+    against the slots' requests and lengths. ``stop()`` restores the
+    engine's methods (the graph keeps writing the buffer)."""
+
+    def __init__(self, srv):
+        import torch
+
+        self.srv, model = srv, srv.model
+        cfg = model.cfg
+        self.L, self.k = cfg.n_layer, cfg.moe_top_k
+        self.max_len = srv.cfg.max_len
+        self.buf = torch.zeros((self.L, srv.cfg.slots, self.k),
+                               dtype=torch.long, device=srv.device)
+        self.routes: dict = {}
+        self._chunk: list = []
+        self._calls = 0
+        self.on = True
+        block, infer = model._mlp_block, model._mlp_block_infer
+        advance, step = srv._prefill_advance, srv.slot_step
+
+        def top(y, p):
+            logits = y.float() @ p["router"].float()
+            return torch.topk(logits, self.k, dim=-1).indices.sort(-1).values
+
+        def rec_block(y, p):                      # prefill chunks, T > 1
+            if self.on:
+                self._chunk.append(top(y, p)[0])
+            return block(y, p)
+
+        def rec_infer(y, p):                      # the slot step, T = 1
+            self.buf[self._calls % self.L].copy_(top(y, p)[:, 0])
+            self._calls += 1
+            return infer(y, p)
+
+        def rec_advance():
+            req, plan, idx = srv._prefill[:3]
+            ch = plan[idx]
+            self._chunk.clear()
+            out = advance()
+            if self.on:
+                n = ch.last_index + 1 if ch.final else len(ch.ids)
+                self._of(req.rid)[:, ch.start:ch.start + n] = torch.stack(
+                    self._chunk)[:, :n]
+            return out
+
+        def rec_step(graphed=None):
+            st = srv.state
+            lens = st.cache.length.clone()
+            running = dict(srv.sched.running)
+            out = step(graphed=graphed)
+            if self.on:
+                for slot, req in running.items():
+                    self._of(req.rid)[:, lens[slot]] = self.buf[:, slot]
+            return out
+
+        model._mlp_block, model._mlp_block_infer = rec_block, rec_infer
+        srv._prefill_advance, srv.slot_step = rec_advance, rec_step
+
+    def _of(self, rid):
+        import torch
+
+        if rid not in self.routes:
+            self.routes[rid] = torch.full((self.L, self.max_len, self.k), -1,
+                                          dtype=torch.long,
+                                          device=self.buf.device)
+        return self.routes[rid]
+
+    def stop(self) -> None:
+        self.on = False
+        for obj, names in ((self.srv.model, ("_mlp_block",
+                                             "_mlp_block_infer")),
+                           (self.srv, ("_prefill_advance", "slot_step"))):
+            for n in names:
+                delattr(obj, n)
+
+
+def _forced_gating(routes, stats: dict):
+    """``topk_gating`` with each layer's expert choices taken from
+    ``routes`` (L, T, k), one group of T tokens: for a reference forward
+    that routes as the served run did. Each choice the reference's own
+    argmax would not make is counted in ``stats`` with its margin: the
+    reference's k-th best router logit less the served expert's, over the
+    row's max |router logit|."""
+    import torch
+
+    from deepspeed_tpu_torch.models.moe import topk_gating
+
+    layer = {"i": 0}
+
+    def gating(logits, top_k, capacity):
+        forced = routes[layer["i"]][None, :logits.shape[-2]]    # (1, T, k)
+        layer["i"] += 1
+        own = torch.topk(logits, top_k, dim=-1)
+        differ = (own.indices.sort(-1).values != forced).any(-1)
+        low = torch.gather(logits, -1, forced).min(-1).values
+        margin = (own.values[..., -1] - low).clamp_min(0) \
+            / logits.abs().amax(-1)
+        stats["decisions"] = stats.get("decisions", 0) + differ.numel()
+        stats["flips"] = stats.get("flips", 0) + int(differ.sum())
+        stats["worst_margin"] = max(stats.get("worst_margin", 0.0),
+                                    float(margin.max()))
+        # the passes take the served experts in the order of their gates
+        order = torch.gather(logits, -1, forced).argsort(-1, descending=True)
+        return topk_gating(logits, top_k, capacity,
+                           choices=torch.gather(forced, -1, order))
+
+    return gating
 
 
 def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
@@ -3939,11 +4192,21 @@ def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
     161) a replay, by name; every served token within
     LOGIT_TOL_SHARE of its row's maximum in one dense teacher-forced
     forward; the graphed and the eager slot step give the same tokens from
-    the same state. Recorded: tokens/s, TTFT, TPOT, both step times, the
-    device's busy share over serving iterations, peak memory, solo
+    the same state. An MoE model's served routing is recorded
+    (``_ServedRoutes``) and the teacher-forced forward routes as it did
+    (``_forced_gating``), the choices its own router would not make
+    counted with their margins: one bf16 near tie changes an expert, and
+    random experts carry it far (PERF.md §6, PR 19).
+    Recorded: tokens/s, TTFT, TPOT, both step times, the
+    device's busy share over serving iterations, peak memory, the graph's
+    private memory pool (the reserved bytes its capture added), solo
     ``generate`` parity, and the path's device launches, from the counts
     taken: the wrappers' (the eager warm-up step and the capture) less the
-    capture's, plus the capture's times the graph's replays.
+    capture's, plus the capture's times the graph's replays. An MoE model
+    routes the slot step through its one-group dispatch, whose int8 expert
+    banks dequantize at their point of use: 2 ``woq_matmul`` a layer (the
+    fused qkv and ``wo``) then, and the banks' dequantize is timed alone
+    (CUDA events, one layer's three banks, times ``n_layer``).
 
     ``engine``: phase 11's InferenceEngine for ``cfg`` and ``bits``
     (``_serve_engine``), built here if None. ``stream``: the requests
@@ -3980,6 +4243,22 @@ def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
     if own_engine:
         engine = _serve_engine(cfg, bits, device)
     srv = dt.ServingEngine(engine, serving)
+    pool = {}
+    if srv.graph is not None:
+        capture = srv.graph.capture
+
+        def counted_capture(forward):
+            torch.cuda.synchronize()
+            # as the capture itself does first: the delta is its pool
+            torch.cuda.empty_cache()
+            r0 = torch.cuda.memory_reserved()
+            capture(forward)
+            torch.cuda.synchronize()
+            pool["bytes"] = torch.cuda.memory_reserved() - r0
+
+        srv.graph.capture = counted_capture
+    moe = cfg.num_experts > 1
+    served_routes = _ServedRoutes(srv) if moe else None
     if stream is None:
         stream = _serve_stream(cfg.vocab_size, requests, prompt=prompt,
                                new=new)
@@ -4011,6 +4290,8 @@ def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
     drain_s = time.perf_counter() - t0
     counted = {c.__name__: c.launches for c in counters}
     peak = torch.cuda.max_memory_allocated() if cuda else 0
+    if moe:
+        served_routes.stop()
     snap = srv.stats.snapshot()
     pages = srv.pool.snapshot() if paged else None
     kvc = srv.state.cache
@@ -4037,8 +4318,11 @@ def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
         log(f"{tag} pool after the drain: {json.dumps(pages)}; pool bytes "
             f"{json.dumps(kv_bytes)} = {sum(kv_bytes.values()) / 2**30:.3f}"
             f" GiB")
+    # woq_matmul a layer: the fused qkv, wo and the dense FFN's products; an
+    # MoE layer's banks dequantize instead (MoETransformerLM._bank)
+    per_layer = 2 if cfg.num_experts > 1 else (5 if cfg.is_glu else 4)
     per_step = {"decode_attention": cfg.n_layer if engine.flash_decode else 0,
-                "woq_matmul": ((5 if cfg.is_glu else 4) * cfg.n_layer
+                "woq_matmul": (per_layer * cfg.n_layer
                                + (not cfg.tie_embeddings))
                 if bits and engine.model.woq_kernel else 0,
                 "woq_matmul_t": 0}
@@ -4060,6 +4344,10 @@ def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
     # count less the capture's), then the captured ones at every replay
     launches = {k: v - captured.get(k, 0) + captured.get(k, 0) * replays
                 for k, v in counted.items()}
+    if pool:
+        log(f"{tag} the slot step's CUDA graph holds a private pool of "
+            f"{pool['bytes'] / 2**30:.3f} GiB (reserved bytes its capture "
+            "added)")
     log(f"{tag} captures {srv.captures}; the wrappers' counts over the path "
         f"{counted} (the warm-up's eager step and the capture; the "
         f"{replays} replays run the captured launches {captured} without "
@@ -4077,15 +4365,27 @@ def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
     # ---- teacher-forced: prompt + served tokens through one dense
     # forward, fp32 logits ----
     worst, exact, total = 0.0, 0, 0
+    route_stats: dict = {}
+    from deepspeed_tpu_torch.models import moe as moe_module
+    gating = moe_module.topk_gating
     with torch.inference_mode():
         for (p, n, _), rid in zip(stream, rids):
             toks = done[rid].tokens
             ids = torch.as_tensor(np.concatenate([p, toks[:-1]]),
                                   dtype=torch.long, device=dev)[None]
-            lg, _ = forward_with_cache(
-                engine.model, engine.params, ids,
-                init_cache(cfg, 1, ids.shape[1], cfg.dtype, device=dev),
-                materialize=engine.materialize)
+            if moe:
+                R = served_routes.routes[rid][:, :ids.shape[1]]
+                if bool((R < 0).any()):
+                    raise AssertionError(f"{tag} request {rid}: positions "
+                                         "with no served routing recorded")
+                moe_module.topk_gating = _forced_gating(R, route_stats)
+            try:
+                lg, _ = forward_with_cache(
+                    engine.model, engine.params, ids,
+                    init_cache(cfg, 1, ids.shape[1], cfg.dtype, device=dev),
+                    materialize=engine.materialize)
+            finally:
+                moe_module.topk_gating = gating
             rows = lg[0, len(p) - 1:]
             served = torch.as_tensor(toks, device=dev)
             top = rows.max(dim=-1).values
@@ -4098,6 +4398,15 @@ def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
         f"worst served-token gap to its row's max {worst:.4f} of max |logit| "
         f"(tol {LOGIT_TOL_SHARE}); served token == argmax for "
         f"{exact}/{total} = {exact / total:.4f}")
+    if moe:
+        log(f"{tag} routing: the teacher-forced forward took the served "
+            "expert sets; its own router differs on "
+            f"{route_stats['flips']} of {route_stats['decisions']} "
+            "(token, layer) decisions, the worst "
+            f"{route_stats['worst_margin']:.4f} of max |router logit| below "
+            "its k-th choice (recorded, not gated: bf16 moves near-tied "
+            "choices; the token gate holds the served path to the "
+            "reference given its routing)")
     if not worst <= LOGIT_TOL_SHARE:
         raise AssertionError(f"{tag} a served token's logit is {worst:.4f} "
                              f"of max |logit| below its row's maximum")
@@ -4188,7 +4497,12 @@ def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
             raise AssertionError(f"{tag} replays launched {seen}, want {want}"
                                  "; the window's first and last kernels "
                                  f"{prof['ends']}, lead {prof['lead_us']} µs,"
-                                 f" tail {prof['tail_us']} µs")
+                                 f" tail {prof['tail_us']} µs; records lost "
+                                 f"{_missing_in_replays(prof['names'], profile_steps)}")
+        top = sorted(prof["us_by_name"].items(), key=lambda kv: -kv[1])[:6]
+        log(f"{tag} a replay's kernels by device time: " + "; ".join(
+            f"{us / profile_steps / 1e3:.3f} ms {name[:90]}"
+            for name, us in top))
         _slot_reset(st, marks)
         profile = _profile_counts(lambda: [srv.step()
                                            for _ in range(profile_steps)])
@@ -4212,6 +4526,23 @@ def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
     if srv.captures != (1 if cuda else 0):
         raise AssertionError(f"{tag} captures {srv.captures} after the lab")
     wall = time.perf_counter() - t_phase
+    bank_ms = None
+    if cuda and cfg.num_experts > 1 and bits:
+        # the decode step's per-use dequantize of one layer's three banks,
+        # timed alone, times the layers: what a replay spends on it
+        from deepspeed_tpu_torch.models.transformer import layer_params
+
+        banks = [n for n in ("w_in", "w_gate", "w_out")
+                 if "layers." + n in engine.params]
+        p0 = {k: v[0] for k, v in layer_params(engine.params).items()
+              if k in banks}
+        with torch.inference_mode():
+            one = time_ms(lambda i: [engine.model._bank(p0, n, cfg.dtype)
+                                     for n in banks], 5)
+        bank_ms = one * cfg.n_layer
+        log(f"{tag} the expert banks' per-use dequantize: {one:.3f} ms a "
+            f"layer ({', '.join(banks)}; CUDA events, eager, alone), "
+            f"{bank_ms:.3f} ms for the {cfg.n_layer} layers of a slot step")
     out = {"name": name, "serving": serving, "requests": requests,
            "tokens": tokens, "drain_s": drain_s,
            "tok_s": tokens / drain_s,
@@ -4224,7 +4555,11 @@ def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
            "graph_vs_eager": diff,
            "teacher_forced_gap": worst, "argmax_share": exact / total,
            "solo_parity": solo, "peak_bytes": peak, "phase_s": wall,
-           "kv_bytes": kv_bytes, "pages": pages, "exact_share": exact_share}
+           "kv_bytes": kv_bytes, "pages": pages, "exact_share": exact_share,
+           "graph_pool_bytes": pool.get("bytes"), "bank_dequant_ms": bank_ms,
+           "route_flips": route_stats.get("flips"),
+           "route_decisions": route_stats.get("decisions"),
+           "route_worst_margin": route_stats.get("worst_margin")}
     if profile is not None:
         out.update(busy_ms=busy_ms, iteration_ms=iteration_ms,
                    profiled_iteration_ms=profile["wall_us"] / profile_steps
@@ -4949,6 +5284,147 @@ def flash_bias_rows(bias: dict, evo: dict) -> list:
     return rows
 
 
+# ----------------------------------------------------------------- phase 14
+# 14b: TRAIN_CONFIG at micro 2 x gas 2 x 1024 tokens with the moe section
+# (GShard training: capacity 1.25, drops on); a constant lr of 1e-3, as a
+# 2-layer untied trunk learns the repeated-token rows more slowly than
+# GPT-2 1.5B's 48 tied layers under phase 6's warm-up
+MOE_TRAIN_CONFIG = {**TRAIN_CONFIG, "train_batch_size": 4,
+                    "train_micro_batch_size_per_gpu": 2,
+                    "gradient_accumulation_steps": 2,
+                    "optimizer": {"type": "adamw",
+                                  "params": {"lr": 1e-3,
+                                             "weight_decay": 0.01}},
+                    "scheduler": None,
+                    "moe": {"enabled": True, "num_experts": 8}}
+
+
+def _moe_serve_engine(cfg, *, bits=8, group=128, device=None, seed=2024):
+    """14a's InferenceEngine over ``cfg``'s weights drawn on the card one
+    layer at a time (fp32 normals from a seeded generator at the init's
+    scales, rounded to ``cfg.dtype``), each weight the engine would
+    quantize quantized at once into preallocated int8 stacks, as the
+    engine quantizes it (``quantize``: one layer and one expert at a time).
+    The transient is one layer's leaf: a bf16 Mixtral-8x7B (93 GB) never
+    exists. The router stays fp32; norms are ones."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.inference.quantization import (
+        QuantizedTensor, _should_quantize, quantize)
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.models.transformer import _BIASES
+
+    dev = torch.device(device or "cuda")
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scales = model._init_scales()
+    keep = set(model.fp32_param_names())
+    params = {}
+    for name, shape in model.param_shapes().items():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf.endswith("_scale"):
+            params[name] = torch.ones(shape, dtype=cfg.dtype, device=dev)
+            continue
+        if leaf.endswith("_bias") or leaf in _BIASES:
+            params[name] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+            continue
+        scale = scales.get(name, 1.0 / math.sqrt(shape[-2]))
+        dtype = torch.float32 if leaf in keep else cfg.dtype
+
+        def draw(s, scale=scale, dtype=dtype):
+            t = torch.randn(s, generator=gen, device=dev)
+            return t.mul_(scale).to(dtype)
+
+        if leaf in keep or not _should_quantize(
+                leaf, torch.empty(shape, device="meta"), 4096):
+            params[name] = draw(shape)
+            continue
+        layered = name.startswith("layers.")
+        if not layered:
+            params[name] = quantize(draw(shape), group, bits)
+            continue
+        first = quantize(draw(shape[1:]), group, bits)
+        q = torch.empty((shape[0],) + tuple(first.q.shape), dtype=torch.int8,
+                        device=dev)
+        sc = torch.empty((shape[0],) + tuple(first.scale.shape),
+                         dtype=torch.float32, device=dev)
+        q[0].copy_(first.q)
+        sc[0].copy_(first.scale)
+        del first
+        for i in range(1, shape[0]):
+            qt = quantize(draw(shape[1:]), group, bits)
+            q[i].copy_(qt.q)
+            sc[i].copy_(qt.scale)
+            del qt
+        params[name] = QuantizedTensor(q, sc, group, bits)
+    kw = {} if device is None else {"device": device}
+    engine = dt.init_inference(
+        model, params, {"dtype": str(cfg.dtype).removeprefix("torch."),
+                        "quantize": True, "quant_bits": bits,
+                        "quant_group_size": group}, **kw)
+    del params
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return engine
+
+
+def phase_moe(serve_cfg=None, train_cfg=None, *, device=None, requests=16,
+              serving=None, train_config=None, train_seq=1024, warmup=2,
+              steps=4, **serve_kw) -> dict:
+    """Phase 14: (a) Mixtral-8x7B int8 served at full width and depth
+    (``phase_serve`` on ``_moe_serve_engine``, 11b's stream); (b) a 2-layer
+    full-width Mixtral trained (``phase_train`` under
+    ``MOE_TRAIN_CONFIG``). Each engine is freed before the next. Small
+    ``serve_cfg`` / ``train_cfg`` and ``device="cpu"`` rehearse it."""
+    import torch
+
+    from deepspeed_tpu_torch.inference.quantization import quantized_bytes
+    from deepspeed_tpu_torch.models import mixtral
+
+    dev = torch.device(device or "cuda")
+    t0 = time.perf_counter()
+    _free_memory(dev)
+    scfg = serve_cfg or mixtral("8x7b", moe_drop_tokens=False)
+    t1 = time.perf_counter()
+    engine = _moe_serve_engine(scfg, device=device)
+    build_s = time.perf_counter() - t1
+    wbytes = quantized_bytes(engine.params)
+    log(f"[serve 14a] Mixtral {scfg.n_layer}L d{scfg.d_model} E"
+        f"{scfg.num_experts} top-{scfg.moe_top_k} int8 built in {build_s:.1f}"
+        f" s: {wbytes / 2**30:.2f} GiB of weights and scales "
+        f"({scfg.param_count() / 1e9:.2f} B params, "
+        f"{scfg.param_count(active_only=True) / 1e9:.2f} B active a token); "
+        f"router {engine.params['layers.router'].dtype}")
+    serve = phase_serve(scfg, bits=8, requests=requests,
+                        serving=serving or SERVING, device=device,
+                        engine=engine, name="14a", solo_checks=0, **serve_kw)
+    del engine
+    _free_memory(dev)
+    tcfg = train_cfg or mixtral("8x7b", n_layer=2)
+    train_config = train_config or {**MOE_TRAIN_CONFIG, "moe": {
+        **MOE_TRAIN_CONFIG["moe"], "num_experts": tcfg.num_experts}}
+    train = phase_train(tcfg, config=train_config,
+                        check_layers=tcfg.n_layer, seq=train_seq,
+                        warmup=warmup, steps=steps, name="train 14b",
+                        device=device)
+    _free_memory(dev)
+    wall = time.perf_counter() - t0
+    line = {"serve": {k: serve.get(k) for k in (
+        "tok_s", "ttft_ms", "tpot_ms", "step_ms", "step_bound", "peak_bytes",
+        "launches", "captured", "captures", "replay_busy_ms",
+        "bank_dequant_ms", "graph_pool_bytes", "teacher_forced_gap",
+        "argmax_share", "graph_vs_eager", "busy_ms", "iteration_ms")},
+        "weight_bytes": wbytes, "build_s": build_s,
+        "train": {k: train.get(k) for k in (
+            "step_ms", "tokens_per_s", "mfu", "peak_bytes", "losses",
+            "loss_rel", "grad_rel", "launches", "route_flips",
+            "router_dtypes", "busy_share")},
+        "phase_s": wall}
+    log(f"[moe] {json.dumps(line)}")
+    return {"serve": serve, "train": train, "phase_s": wall}
+
+
 def main() -> int:
     try:
         import torch
@@ -4973,6 +5449,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     dev = phase_device()
+    # phase 14 second: after phases 2-13 had run in the process, its long
+    # profiled window lost one kernel record in two runs of two (ROADMAP.md
+    # §3), and never in a fresh one
+    moe = phase_moe()
     kern = phase_kernels()
     woq = phase_woq_kernels()
     flash = phase_flash_kernels()
@@ -5023,6 +5503,8 @@ def main() -> int:
          "serving_launches": serve["launches"]["decode_attention"],
          "paged_serving_launches": {
              k: r["launches"]["decode_attention"] for k, r in paged.items()},
+         "mixtral_serving_launches": moe["serve"]["launches"][
+             "decode_attention"],
          **{k: kern[k] for k in keys}},
         # launches: the Llama-2-7B int8 path (untied head)
         # woq_route: the kernel of woq_matmul's fixed route the main path
@@ -5034,6 +5516,7 @@ def main() -> int:
          "paged_serving_launches": {
              k: r["launches"]["woq_matmul"] for k, r in paged.items()
              if r["launches"]["woq_matmul"]},
+         "mixtral_serving_launches": moe["serve"]["launches"]["woq_matmul"],
          "woq_route": woq["woq_matmul"]["route"],
          **{k: woq["woq_matmul"][k] for k in keys}},
         # launches: the OPT-6.7B int4 path (tied head)
@@ -5057,6 +5540,8 @@ def main() -> int:
                             "replaces": "deepspeed_tpu/ops/flash_attention"
                                         f".py:{at}",
                             "launches": train["launches"][name],
+                            "mixtral_train_launches":
+                                moe["train"]["launches"][name],
                             **{k: times[k] for k in keys}})
     # launches: the same run (GPT-2 1.5B under its default config)
     # the backward's one call (xent_bwd) computes kernels #11 and #12: both

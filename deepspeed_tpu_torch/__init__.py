@@ -11,8 +11,9 @@ the training step,
 .train_batch(batch)``, on one device or, after ``init_distributed()``, one
 process per device under ZeRO stages 0-3 (hpZ, qwZ, MiCS), with crash-safe
 checkpoints (``save_checkpoint`` / ``load_checkpoint``, async saves,
-``resilience.resume: "auto"``, the ``PreemptionGuard``); ROADMAP.md lists
-what follows.
+``resilience.resume: "auto"``, the ``PreemptionGuard``). Dense and
+Mixture-of-Experts (``models.mixtral``) trunks take every one of these
+paths; ROADMAP.md lists what follows.
 """
 
 from . import models

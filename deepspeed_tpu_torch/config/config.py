@@ -6,7 +6,7 @@ reads: the batch triple with its ``"auto"`` sentinel, ``optimizer``,
 ``scheduler``, ``bf16`` / ``fp16``, ``gradient_clipping``,
 ``zero_optimization`` (stages 0-3, hpZ, qwZ, MiCS), ``mesh.data`` /
 ``mesh.zero``, ``remat``, ``data_types.grad_accum_dtype``, ``checkpoint``,
-``resilience`` and ``seed``. Every other key the JAX
+``resilience``, ``moe`` and ``seed``. Every other key the JAX
 config accepts is taken at its JAX default and raises
 ``NotImplementedError`` when set to anything else, naming the ROADMAP.md
 item that ports it; unknown keys raise ``ValueError``.
@@ -53,9 +53,6 @@ _LATER_SECTIONS = {
                             output_file=None), 8),
     "gradient_compression": (dict(enabled=False, type="int8", overlap=False,
                                   bucket_elems=0), 8),
-    "moe": (dict(enabled=False, num_experts=1, top_k=2, capacity_factor=1.25,
-                 eval_capacity_factor=2.0, min_capacity=4, drop_tokens=True,
-                 aux_loss_weight=0.01), 3),
     "data_efficiency": (dict(
         curriculum_learning=dict(
             enabled=False, min_difficulty=64, max_difficulty=1024,
@@ -257,6 +254,21 @@ class ZeroConfig:
 
 
 @dataclasses.dataclass
+class MoEConfig:
+    """``moe`` (JAX ``config.py:446``): with ``enabled``, the engine sets
+    the model's MoE knobs from these (``num_experts`` must be the model's
+    own). Expert parallelism is ``mesh.expert`` (ROADMAP item 4)."""
+    enabled: bool = False
+    num_experts: int = 1
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    eval_capacity_factor: float = 2.0
+    min_capacity: int = 4
+    drop_tokens: bool = True
+    aux_loss_weight: float = 0.01
+
+
+@dataclasses.dataclass
 class MeshConfig:
     """``mesh`` (JAX ``config.py:116``): parallelism degrees; ``data=-1``
     takes the ranks the others leave. ``data`` is the whole data-parallel
@@ -280,7 +292,7 @@ _DATACLASSES = {"optimizer": OptimizerConfig, "bf16": BF16Config,
                 "fp16": FP16Config, "remat": RematConfig,
                 "checkpoint": CheckpointConfig,
                 "resilience": ResilienceConfig, "mesh": MeshConfig,
-                "zero_optimization": ZeroConfig}
+                "zero_optimization": ZeroConfig, "moe": MoEConfig}
 
 
 @dataclasses.dataclass
@@ -306,6 +318,7 @@ class Config:
         default_factory=CheckpointConfig)
     resilience: ResilienceConfig = dataclasses.field(
         default_factory=ResilienceConfig)
+    moe: MoEConfig = dataclasses.field(default_factory=MoEConfig)
 
     @classmethod
     def from_any(cls, cfg: "Config | dict | str | Path | None") -> "Config":

@@ -288,13 +288,18 @@ def _layer_step(model, x, p, cache_k, cache_v, length, rope=None,
     o = model._maybe_bias(
         matmul_any(o.reshape(B, T, h * hd), p["wo"],
                    getattr(model, "woq_kernel", False)), p, "bo")
+    # an MoE trunk's T = 1 step routes the batch as one group with no drop
+    # (``_mlp_block_infer``); its prefill (T > 1) and dense trunks take the
+    # training MLP, as the JAX package's decode does
+    mlp = getattr(model, "_mlp_block_infer", None) if T == 1 else None
+    mlp = mlp or model._mlp_block
     if cfg.parallel_residual:
         y2 = y if cfg.parallel_shared_ln else _norm(
             x, p["ln2_scale"], p.get("ln2_bias"), cfg.norm, cfg.norm_eps)
-        return x + o + model._mlp_block(y2, p)
+        return x + o + mlp(y2, p)[0]
     x = x + o
     y2 = _norm(x, p["ln2_scale"], p.get("ln2_bias"), cfg.norm, cfg.norm_eps)
-    return x + model._mlp_block(y2, p)
+    return x + mlp(y2, p)[0]
 
 
 _alibi: dict = {}

@@ -1,10 +1,13 @@
 """InferenceEngine: single-card generation (counterpart of
 ``deepspeed_tpu/inference/engine.py``).
 
-The engine casts the state dict to the compute dtype on its device, fuses
-the attention projections into one ``[wq | wk | wv]`` weight for the
-decode step, quantizes the matmul weights when the config asks for WOQ,
-and serves ``generate`` through ``inference/decode.py``. The JAX engine
+The engine casts the state dict to the compute dtype on its device (the
+leaves the model names in ``fp32_param_names()``, an MoE router, stay as
+they are), fuses the attention projections into one ``[wq | wk | wv]``
+weight for the decode step, quantizes the matmul weights when the config
+asks for WOQ, and serves ``generate`` through ``inference/decode.py``. An
+MoE model serves on a copy flagged ``moe_eval_mode``: its prefill routes
+with the eval capacity factor. The JAX engine
 compiles one program per shape; this one runs eagerly, so there is no
 program cache. The serving engine (``serving/engine.py``) captures its
 slot decode step as one CUDA graph; ``generate()`` runs eagerly.
@@ -55,14 +58,22 @@ class InferenceEngine:
                 "Set it to False (PyTorch's default).")
         self.compute_dtype = cfg.compute_dtype
         self.model = model_with_dtype(model, self.compute_dtype)
+        if self.model.cfg.num_experts > 1:
+            # the prefill takes the training dispatch: route it with the
+            # eval capacity factor; flag a copy, not the caller's model
+            if self.model is model:
+                self.model = copy.copy(model)
+            self.model.moe_eval_mode = True
         self.flash_decode = cfg.flash_decode_resolved(self.device)
         prequantized = any(isinstance(v, QuantizedTensor)
                            for v in params.values())
         if prequantized and not cfg.quantize:
             raise ValueError("InferenceEngine: the params hold quantized "
                              "leaves; pass {'quantize': True} to serve them")
+        keep = set(self.model.fp32_param_names())
         cast = {k: v.to(self.device, self.compute_dtype)
                 if isinstance(v, torch.Tensor) and v.is_floating_point()
+                and k.rsplit(".", 1)[-1] not in keep
                 else v.to(self.device) for k, v in params.items()}
         self._fused = (self.model.cfg.objective == "clm"
                        and all(LAYER_PREFIX + n in cast for n in _QKV))

@@ -133,12 +133,16 @@ def quantize(w: torch.Tensor, group_size: int = 128,
 
 
 def dequantize(qt: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """The dense weight in ``dtype``: each integer times its group's scale
+    in fp32, rounded once to ``dtype`` (one ``torch.mul`` into a ``dtype``
+    output: no fp32 copy of the integers is made first)."""
     qv = _unpack_int4(qt.q) if qt.bits == 4 else qt.q
     K, N = qv.shape[-2], qv.shape[-1]
     G = K // qt.group_size
-    qf = qv.float().reshape(*qv.shape[:-2], G, qt.group_size, N)
-    out = qf * qt.scale[..., :, None, :]
-    return out.reshape(qv.shape).to(dtype)
+    grouped = qv.reshape(*qv.shape[:-2], G, qt.group_size, N)
+    out = torch.empty(grouped.shape, dtype=dtype, device=qv.device)
+    torch.mul(grouped, qt.scale[..., :, None, :], out=out)
+    return out.reshape(qv.shape)
 
 
 def dequant_rows(qt: QuantizedTensor, ids: torch.Tensor,

@@ -1,8 +1,11 @@
 from .convert import (params_from_jax, params_to_numpy,
                       read_fp32_safetensors, train_state_from_jax)
-from .presets import bert, bloom, build_model, gpt2, llama2, opt, tiny_test
+from .moe import MoETransformerLM
+from .presets import (bert, bloom, build_model, gpt2, llama2, mixtral, opt,
+                      tiny_test)
 from .transformer import TransformerConfig, TransformerLM
 
-__all__ = ["TransformerConfig", "TransformerLM", "bert", "bloom", "build_model",
-           "gpt2", "llama2", "opt", "params_from_jax", "params_to_numpy",
-           "read_fp32_safetensors", "tiny_test", "train_state_from_jax"]
+__all__ = ["MoETransformerLM", "TransformerConfig", "TransformerLM", "bert",
+           "bloom", "build_model", "gpt2", "llama2", "mixtral", "opt",
+           "params_from_jax", "params_to_numpy", "read_fp32_safetensors",
+           "tiny_test", "train_state_from_jax"]

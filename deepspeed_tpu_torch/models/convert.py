@@ -2,7 +2,9 @@
 
 The JAX tree (``deepspeed_tpu/models/transformer.py:392`` ``init``) is a
 nested dict: top-level leaves plus ``layers``, whose leaves carry a leading
-``(L, ...)`` scan dim (``:514`` ``stacked_fn``). The port's state dict is
+``(L, ...)`` scan dim (``:514`` ``stacked_fn``); an MoE tree's router and
+``(L, E, d, f)`` expert banks (``models/moe.py:230``) are layer leaves
+too, checked against ``param_shapes`` like the rest. The port's state dict is
 the same tree flattened with dots, in the same ``(in, out)`` layouts, so
 the conversion is a rename plus a dtype-preserving copy. The inference
 engine's fused serving layout (``wqkv`` / ``bqkv``, ``inference/

@@ -1,9 +1,10 @@
-"""Model-family presets (counterpart of ``deepspeed_tpu/models/presets.py``,
-dense decoders and the BERT encoder)."""
+"""Model-family presets (counterpart of ``deepspeed_tpu/models/presets.py``:
+dense decoders, the Mixtral MoE decoder and the BERT encoder)."""
 
 from __future__ import annotations
 
 from ..utils.roadmap import later
+from .moe import MoETransformerLM
 from .transformer import TransformerConfig, TransformerLM
 
 
@@ -28,6 +29,23 @@ def llama2(size: str = "7b", **overrides) -> TransformerConfig:
         "7b": dict(n_layer=32, n_head=32, d_model=4096, d_ff=11008),
         "13b": dict(n_layer=40, n_head=40, d_model=5120, d_ff=13824),
         "70b": dict(n_layer=80, n_head=64, n_kv_head=8, d_model=8192, d_ff=28672),
+    }
+    base = dict(vocab_size=32000, max_seq=4096, pos_embedding="rope",
+                norm="rmsnorm", activation="silu_glu", use_bias=False,
+                tie_embeddings=False)
+    base.update(table[size])
+    base.update(overrides)
+    return TransformerConfig(**base)
+
+
+def mixtral(size: str = "8x7b", **overrides) -> TransformerConfig:
+    """Mixtral: the Llama-2 trunk with an expert bank of ``num_experts``
+    SwiGLU experts a layer, ``moe_top_k`` routed per token."""
+    table = {
+        "tiny": dict(n_layer=4, n_head=8, n_kv_head=4, d_model=256, d_ff=512,
+                     num_experts=4, moe_top_k=2),
+        "8x7b": dict(n_layer=32, n_head=32, n_kv_head=8, d_model=4096,
+                     d_ff=14336, num_experts=8, moe_top_k=2),
     }
     base = dict(vocab_size=32000, max_seq=4096, pos_embedding="rope",
                 norm="rmsnorm", activation="silu_glu", use_bias=False,
@@ -96,11 +114,13 @@ def tiny_test(**overrides) -> TransformerConfig:
 
 
 def build_model(cfg: TransformerConfig, attention_fn=None) -> TransformerLM:
-    """Dense ``TransformerLM`` trunks only (``presets.py:119``);
-    ``attention_fn`` e.g. ``ops.flash_attention.make_flash_attention()``.
-    MoE and T5 trunks raise."""
+    """``TransformerLM``, or ``MoETransformerLM`` for ``num_experts > 1``
+    (``presets.py:119``); ``attention_fn`` e.g.
+    ``ops.flash_attention.make_flash_attention()``. T5 trunks raise."""
     if not isinstance(cfg, TransformerConfig):
         raise NotImplementedError(
             f"deepspeed_tpu_torch builds TransformerLM only, got "
             f"{type(cfg).__name__}: {later(8)}")
+    if cfg.num_experts > 1:
+        return MoETransformerLM(cfg, attention_fn=attention_fn)
     return TransformerLM(cfg, attention_fn=attention_fn)

@@ -94,20 +94,34 @@ class TransformerConfig:
     def flops_per_token(self) -> float:
         """Forward + backward model FLOPs per token (``transformer.py:116``
         of the JAX package, Megatron's convention): 6 × the non-embedding
-        parameters, the attention term 12·L·d·S and the unembedding 6·d·V."""
+        parameters a token uses (for MoE the ``moe_top_k`` routed experts,
+        not the whole bank), the attention term 12·L·d·S and the
+        unembedding 6·d·V."""
+        n_params = self.param_count(non_embedding=True, active_only=True)
         attn = 12 * self.n_layer * self.d_model * self.max_seq
         head = 0 if self.objective == "feature" \
             else 6 * self.d_model * self.vocab_size
-        return 6 * self.param_count(non_embedding=True) + attn + head
+        return 6 * n_params + attn + head
 
-    def param_count(self, non_embedding: bool = False) -> int:
+    def _ffn_params_per_layer(self, active_only: bool = False) -> int:
+        d, f, E = self.d_model, self.ffn_dim, self.num_experts
+        per_expert = d * f * (3 if self.is_glu else 2)
+        if E == 1:
+            return per_expert
+        mult = min(self.moe_top_k, E) if active_only else E
+        return d * E + mult * per_expert          # the router and the bank
+
+    def param_count(self, non_embedding: bool = False,
+                    active_only: bool = False) -> int:
         """The JAX package's count (``transformer.py:143``): the attention
-        and FFN matrices of every layer plus the embedding table (twice
-        when untied); norms and biases are not counted."""
+        and FFN matrices of every layer (an MoE layer's router and all its
+        experts, or with ``active_only`` its ``moe_top_k`` routed ones) plus
+        the embedding table (twice when untied); norms and biases are not
+        counted."""
         d, L = self.d_model, self.n_layer
         h, kv, hd = self.n_head, self.kv_heads, self.head_dim
         per_layer = d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d
-        per_layer += d * self.ffn_dim * (3 if self.is_glu else 2)
+        per_layer += self._ffn_params_per_layer(active_only=active_only)
         emb = self.vocab_size * d
         total = L * per_layer + (0 if non_embedding else emb)
         if not self.tie_embeddings and not non_embedding \
@@ -116,11 +130,9 @@ class TransformerConfig:
         return total
 
 
-# Switches the dense decoder port does not carry yet, with the ROADMAP.md
-# item (queue 1) that will port each.
-_LATER = (
-    (lambda c: c.num_experts > 1, "num_experts > 1 (models/moe.py)", 3),
-)
+# Switches of the config the port does not carry yet, as (predicate, what,
+# the ROADMAP.md queue 1 item that will port it); none today.
+_LATER: tuple = ()
 
 
 def check_supported(cfg: TransformerConfig) -> None:
@@ -131,25 +143,34 @@ def check_supported(cfg: TransformerConfig) -> None:
 
 
 def param_shapes(cfg: TransformerConfig) -> dict[str, tuple]:
-    """Name → shape of every parameter (``transformer.py:392-455``)."""
+    """Name → shape of every parameter (``transformer.py:392-455``); an MoE
+    trunk (``num_experts > 1``) has the expert bank of ``models/moe.py``
+    in place of the dense FFN."""
     d, f, L, V = cfg.d_model, cfg.ffn_dim, cfg.n_layer, cfg.vocab_size
     h, kv, hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
     two_ln = not (cfg.parallel_residual and cfg.parallel_shared_ln)
+    dense_ffn = cfg.num_experts == 1
     layers = {"ln1_scale": (L, d), "wq": (L, d, h * hd),
               "wk": (L, d, kv * hd), "wv": (L, d, kv * hd),
               "wo": (L, h * hd, d)}
     if two_ln:
         layers["ln2_scale"] = (L, d)
-    layers["w_in"] = (L, d, f)
-    layers["w_out"] = (L, f, d)
-    if cfg.is_glu:
-        layers["w_gate"] = (L, d, f)
+    if dense_ffn:
+        layers["w_in"] = (L, d, f)
+        layers["w_out"] = (L, f, d)
+        if cfg.is_glu:
+            layers["w_gate"] = (L, d, f)
     if cfg.use_bias:
         layers.update({"ln1_bias": (L, d), "bq": (L, h * hd),
-                       "bk": (L, kv * hd), "bv": (L, kv * hd), "bo": (L, d),
-                       "b_in": (L, f), "b_out": (L, d)})
+                       "bk": (L, kv * hd), "bv": (L, kv * hd), "bo": (L, d)})
         if two_ln:
             layers["ln2_bias"] = (L, d)
+        if dense_ffn:
+            layers.update(b_in=(L, f), b_out=(L, d))
+    if not dense_ffn:
+        from .moe import expert_shapes    # moe imports this module
+
+        layers.update(expert_shapes(cfg))
     shapes = {"tok_embed": (V, d)}
     if not cfg.post_ln:           # a post-LN trunk ends normalized
         shapes["lnf_scale"] = (d,)
@@ -179,18 +200,26 @@ def param_specs(cfg: TransformerConfig) -> dict[str, tuple]:
     composes with."""
     M, R = ("model",), ()
     two_ln = not (cfg.parallel_residual and cfg.parallel_shared_ln)
+    dense_ffn = cfg.num_experts == 1
     layers = {"ln1_scale": (R, R), "wq": (R, R, M), "wk": (R, R, M),
               "wv": (R, R, M), "wo": (R, M, R)}
     if two_ln:
         layers["ln2_scale"] = (R, R)
-    layers.update(w_in=(R, R, M), w_out=(R, M, R))
-    if cfg.is_glu:
-        layers["w_gate"] = (R, R, M)
+    if dense_ffn:
+        layers.update(w_in=(R, R, M), w_out=(R, M, R))
+        if cfg.is_glu:
+            layers["w_gate"] = (R, R, M)
     if cfg.use_bias:
         layers.update(ln1_bias=(R, R), bq=(R, M), bk=(R, M), bv=(R, M),
-                      bo=(R, R), b_in=(R, M), b_out=(R, R))
+                      bo=(R, R))
         if two_ln:
             layers["ln2_bias"] = (R, R)
+        if dense_ffn:
+            layers.update(b_in=(R, M), b_out=(R, R))
+    if not dense_ffn:
+        from .moe import expert_specs     # moe imports this module
+
+        layers.update(expert_specs(cfg))
     specs = {"tok_embed": (M, R)}
     if not cfg.post_ln:
         specs["lnf_scale"] = (R,)
@@ -375,9 +404,18 @@ def _checkpointed(fn, save_matmuls: bool = False):
 class TransformerLM(nn.Module):
     """init / apply over a :class:`TransformerConfig`."""
 
+    # an MoE trunk (models/moe.py) routes tokens to an expert bank; this
+    # dense class has no bank to route to
+    routes_experts = False
+
     def __init__(self, config: TransformerConfig, attention_fn=None):
         super().__init__()
         check_supported(config)
+        if (config.num_experts > 1) != self.routes_experts:
+            raise ValueError(
+                f"{type(self).__name__} cannot run num_experts="
+                f"{config.num_experts}: MoE configs take MoETransformerLM "
+                "(build_model picks the class)")
         if attention_fn is not None and not config.causal \
                 and getattr(attention_fn, "causal", True):
             raise ValueError(
@@ -407,14 +445,10 @@ class TransformerLM(nn.Module):
         1/sqrt(2·L·fan_in), embeddings and the untied head by 0.02; norm
         scales 1, biases 0). Each weight is drawn in fp32 on ``device``
         from ``generator`` (default: seed 0) and stored as ``dtype``."""
-        cfg = self.cfg
         device = torch.device(device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        L, d, f = cfg.n_layer, cfg.d_model, cfg.ffn_dim
-        special = {"tok_embed": 0.02, "pos_embed": 0.02, "lm_head": 0.02,
-                   LAYER_PREFIX + "wo": 1.0 / math.sqrt(2 * L * d),
-                   LAYER_PREFIX + "w_out": 1.0 / math.sqrt(2 * L * f)}
+        special = self._init_scales()
         params = {}
         for name, shape in self.param_shapes().items():
             leaf = name.rsplit(".", 1)[-1]
@@ -428,6 +462,18 @@ class TransformerLM(nn.Module):
                 t.mul_(scale)
             params[name] = t.to(dtype)
         return params
+
+    def _init_scales(self) -> dict:
+        """The weights whose init scale is not 1/sqrt(fan_in)."""
+        L, d, f = self.cfg.n_layer, self.cfg.d_model, self.cfg.ffn_dim
+        return {"tok_embed": 0.02, "pos_embed": 0.02, "lm_head": 0.02,
+                LAYER_PREFIX + "wo": 1.0 / math.sqrt(2 * L * d),
+                LAYER_PREFIX + "w_out": 1.0 / math.sqrt(2 * L * f)}
+
+    def fp32_param_names(self) -> tuple:
+        """Leaf names the engines keep in fp32 under a bf16 / fp16 compute
+        cast: none in a dense trunk (``MoETransformerLM``: the router)."""
+        return ()
 
     def load_params(self, params: Params) -> "TransformerLM":
         """Register ``params`` as this module's (frozen) parameters, under
@@ -492,7 +538,9 @@ class TransformerLM(nn.Module):
         return self._maybe_bias(self._proj(u, p, "w_out"), p, "b_out")
 
     def _mlp_block(self, y, p):
-        return self._mlp_post(self._mlp_pre(y, p), p)
+        """The FFN half: (out, aux loss). A dense block has no aux loss
+        (None); an MoE block returns its load-balancing loss."""
+        return self._mlp_post(self._mlp_pre(y, p), p), None
 
     def _ln(self, x, p, name):
         return _norm(x, p[f"{name}_scale"], p.get(f"{name}_bias"),
@@ -515,13 +563,13 @@ class TransformerLM(nn.Module):
 
     def _after_attention(self, x, o, p):
         res = self._residual(x, o, p)
-        return self._finish(res, self._mlp_block(self._mlp_input(x, res, p),
-                                                 p), p)
+        m, aux = self._mlp_block(self._mlp_input(x, res, p), p)
+        return self._finish(res, m, p), aux
 
     def _layer(self, x, p, positions, attn_mask):
         """Pre-LN ``x + attn(n1(x))`` then ``+ mlp(n2(.))``; the parallel
         block ``x + attn(n1(x)) + mlp(n(x))``; the post-LN (BERT) block with
-        its norms after each residual."""
+        its norms after each residual. Returns (x, the MLP's aux loss)."""
         o = self._attention_block(x, p, positions, attn_mask)
         return self._after_attention(x, o, p)
 
@@ -530,7 +578,9 @@ class TransformerLM(nn.Module):
         PyTorch has no named activations, so ``save_names`` and
         ``save_names_mlp`` cut the layer into checkpointed segments whose
         inputs are exactly the saved names: ``x -> attn_out``, then ``(x,
-        attn_out) -> out``, with a third cut at ``mlp_h``."""
+        attn_out) -> out``, with a third cut at ``mlp_h``. An MoE block
+        tags nothing inside its expert bank (as the JAX one), so there
+        ``save_names_mlp`` is ``save_names``."""
         if policy in (None, "none"):
             return self._layer
         if policy not in REMAT_POLICIES:
@@ -539,7 +589,7 @@ class TransformerLM(nn.Module):
         if not policy.startswith("save_names"):
             return _checkpointed(self._layer, policy == "dots_saveable")
         attn = _checkpointed(self._attention_block)
-        if policy == "save_names":
+        if policy == "save_names" or self.routes_experts:
             rest = _checkpointed(self._after_attention)
         else:
             pre = _checkpointed(lambda x, o, p: self._mlp_pre(
@@ -548,7 +598,7 @@ class TransformerLM(nn.Module):
                 self._residual(x, o, p), self._mlp_post(u, p), p))
 
             def rest(x, o, p):
-                return post(x, o, pre(x, o, p), p)
+                return post(x, o, pre(x, o, p), p), None
 
         def layer(x, p, positions, attn_mask):
             return rest(x, attn(x, p, positions, attn_mask), p)
@@ -605,30 +655,39 @@ class TransformerLM(nn.Module):
         return logits
 
     def _trunk(self, params: Params, input_ids, attn_mask, remat_policy):
-        """Embed + layer stack: (B, S) ids → (B, S, d) before the final
-        norm."""
+        """Embed + layer stack: (B, S) ids → ((B, S, d) before the final
+        norm, the layers' aux losses summed: None for a dense trunk)."""
         x, positions = self._embed(params, input_ids)
         layers = layer_params(params)
         layer = self._remat_layer(remat_policy)
+        aux = None
         for i in range(self.cfg.n_layer):
-            x = layer(x, {k: v[i] for k, v in layers.items()}, positions,
-                      attn_mask)
-        return x
+            x, a = layer(x, {k: v[i] for k, v in layers.items()}, positions,
+                         attn_mask)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return x, aux
 
     def apply(self, params: Params, input_ids, *, attn_mask=None,
-              remat_policy: Optional[str] = None):
+              remat_policy: Optional[str] = None, return_aux: bool = False):
         """(B, S) ids → (B, S, V) logits in the compute dtype, or (B, S, d)
-        final-norm hidden states for ``objective='feature'``.
+        final-norm hidden states for ``objective='feature'``; with
+        ``return_aux`` also the summed aux loss (0 for a dense trunk).
 
         A ``layers.<name>`` value is the stacked ``(L, ...)`` tensor or a
         sequence of L per-layer tensors (the training engine's leaves).
         ``remat_policy`` (:data:`REMAT_POLICIES`) runs each layer under
         ``torch.utils.checkpoint``, as the JAX trunk wraps its scan body in
         ``jax.checkpoint``."""
-        x = self._trunk(params, input_ids, attn_mask, remat_policy)
+        x, aux = self._trunk(params, input_ids, attn_mask, remat_policy)
         if self.cfg.objective == "feature":
-            return self._head_norm(params, x)
-        return self._head(params, x)
+            out = self._head_norm(params, x)
+        else:
+            out = self._head(params, x)
+        if return_aux:
+            return out, (aux if aux is not None else
+                         torch.zeros((), device=out.device))
+        return out
 
     # ----------------------------------------------------------------- loss
     def loss(self, params: Params, batch: dict, *,
@@ -636,7 +695,8 @@ class TransformerLM(nn.Module):
         """Objective-dependent cross-entropy, fp32, mean over the counted
         tokens (``transformer.py:781``): ``clm`` next-token over the
         (``loss_mask``-ed) positions, ``mlm`` ``batch['labels']`` at the
-        ``loss_mask`` positions. Where :meth:`_fused_xent_active` says so
+        ``loss_mask`` positions; an MoE trunk adds ``moe_aux_loss_weight``
+        × its summed aux loss. Where :meth:`_fused_xent_active` says so
         the head runs through the fused xent kernels and no logits are
         formed; the mask and the mean stay outside them."""
         cfg = self.cfg
@@ -649,24 +709,29 @@ class TransformerLM(nn.Module):
         attn_mask = batch.get("attention_mask")
         compute = getattr(params.get("tok_embed"), "dtype", None)
         if self._fused_xent_active(ids.device.type == "cuda", compute):
-            feats = self._pre_head(params, self._trunk(params, ids, attn_mask,
-                                                       remat_policy))
+            x, aux = self._trunk(params, ids, attn_mask, remat_policy)
+            feats = self._pre_head(params, x)
             if mlm:
                 nll = self._fused_nll(params, feats, batch["labels"])
             else:
                 nll = self._fused_nll(params, feats[:, :-1], ids[:, 1:])
         else:
-            logits = self.apply(params, ids, attn_mask=attn_mask,
-                                remat_policy=remat_policy)
+            logits, aux = self.apply(params, ids, attn_mask=attn_mask,
+                                     remat_policy=remat_policy,
+                                     return_aux=True)
             if mlm:
                 nll = token_nll(logits, batch["labels"])
             else:
                 nll = token_nll(logits[:, :-1], ids[:, 1:])
         mask = batch["loss_mask"] if mlm else batch.get("loss_mask")
         if mask is None:
-            return nll.mean()
-        mask = (mask if mlm else mask[:, 1:]).float()
-        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+            ce = nll.mean()
+        else:
+            mask = (mask if mlm else mask[:, 1:]).float()
+            ce = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+        if cfg.num_experts > 1:
+            ce = ce + cfg.moe_aux_loss_weight * aux
+        return ce
 
     def _fused_nll(self, params, feats, targets):
         """(B, S', d) features and (B, S') targets → (B, S') fp32 NLL

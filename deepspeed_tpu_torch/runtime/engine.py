@@ -37,6 +37,10 @@ partitioning.py`` is an explicit collective over the mesh's process groups
 With no process group the engine holds every leaf whole and runs no
 collective; in a world of one it runs them all over a group of one rank.
 
+The compute cast keeps the leaves the model names in
+``fp32_param_names()`` (an MoE router) in fp32, and the ``moe`` section
+sets an MoE model's knobs; the eval step routes with the eval capacity.
+
 ``save_checkpoint`` / ``load_checkpoint`` / ``wait_for_checkpoint`` write
 and restore the state, each leaf whole (``runtime/checkpoint/engine.py``),
 so any world size reads any tag; ``resilience.resume: "auto"`` restores the
@@ -47,6 +51,7 @@ max_consecutive_bad_steps`` halts a run whose steps keep failing
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -121,6 +126,20 @@ class Engine:
                 "checkpoint.use_node_local_storage is not supported: a tag "
                 "holds whole tensors, written once for every rank; point "
                 "save_dir at local storage instead")
+        mcfg = cfg.moe
+        if mcfg.enabled:
+            # the moe section overrides the model's MoE knobs
+            if model.cfg.num_experts != mcfg.num_experts:
+                raise ValueError(
+                    f"config.moe.num_experts={mcfg.num_experts} but the "
+                    f"model was built with {model.cfg.num_experts}")
+            model.cfg = dataclasses.replace(
+                model.cfg, moe_top_k=mcfg.top_k,
+                moe_capacity_factor=mcfg.capacity_factor,
+                moe_eval_capacity_factor=mcfg.eval_capacity_factor,
+                moe_min_capacity=mcfg.min_capacity,
+                moe_drop_tokens=mcfg.drop_tokens,
+                moe_aux_loss_weight=mcfg.aux_loss_weight)
         self.model = model
         self.device = resolve_device(device)
         if self.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
@@ -160,6 +179,7 @@ class Engine:
                 f"to the host) is not ported yet: {later(6)}")
         self.compute_dtype = cfg.compute_dtype
         self.accum_dtype = cfg.accum_dtype
+        self._fp32_names = frozenset(model.fp32_param_names())
         zc = cfg.zero_optimization
         self.partitioner = ZeroPartitioner(
             zc.stage, self.mesh.shape,
@@ -240,9 +260,19 @@ class Engine:
                 compute = None
         qwz = bool(self.config.zero_optimization.zero_quantized_weights
                    and part.hpz and master is not None
-                   and "data" in master.axes)
+                   and "data" in master.axes
+                   and not self._keeps_fp32(name))
         return LeafPlan(name, shape, layered, master, compute, hier,
                         mesh.shape["data"], qwz)
+
+    def _keeps_fp32(self, name: str) -> bool:
+        return name.rsplit(".", 1)[-1] in self._fp32_names
+
+    def _compute_dtype_of(self, name: str) -> torch.dtype:
+        """The compute copy's dtype: fp32 for the model's
+        ``fp32_param_names()`` leaves (which qwZ leaves alone too)."""
+        return torch.float32 if self._keeps_fp32(name) \
+            else self.compute_dtype
 
     def shard_of(self, name: str, full: torch.Tensor) -> torch.Tensor:
         """This rank's part (a view) of a whole ``name``-shaped tensor (the
@@ -302,12 +332,11 @@ class Engine:
         params, leaves, shards = {}, {}, {}
         for k, p in self.master.items():
             plan = self.plans[k]
+            dtype = self._compute_dtype_of(k)
             if plan.compute is not None:
-                shards[k] = compute_shard(plan, p.detach(), self.mesh,
-                                          self.compute_dtype)
+                shards[k] = compute_shard(plan, p.detach(), self.mesh, dtype)
                 continue
-            c = gather_compute(plan, p.detach(), self.mesh,
-                               self.compute_dtype)
+            c = gather_compute(plan, p.detach(), self.mesh, dtype)
             if k.startswith(LAYER_PREFIX):
                 leaves[k] = [c[i].detach().requires_grad_()
                              for i in range(len(c))]
@@ -509,25 +538,37 @@ class Engine:
 
     def eval_batch(self, batch: dict) -> float:
         """The loss of this rank's rows on the current master, averaged
-        over the ranks (a collective)."""
+        over the ranks (a collective); an MoE model routes with its eval
+        capacity factor here."""
         if not isinstance(next(iter(batch.values())), torch.Tensor):
             batch = self._make_global(batch, gas_dim=False)
         with torch.no_grad():
             cp, gs = {}, None
             for k, p in self.master.items():
                 plan = self.plans[k]
+                dtype = self._compute_dtype_of(k)
                 if plan.compute is None:
-                    cp[k] = gather_compute(plan, p, self.mesh,
-                                           self.compute_dtype)
+                    cp[k] = gather_compute(plan, p, self.mesh, dtype)
                     continue
                 gs = gs or GatherSet(self.mesh, self.device)
                 cp[k] = gs.leaf(k, plan, compute_shard(
-                    plan, p, self.mesh, self.compute_dtype), None)
-            loss = self.model.loss(cp, batch)
+                    plan, p, self.mesh, dtype), None)
+            loss = self._eval_loss(cp, batch)
             if gs is not None:
                 gs.release_all()
             return float(comm.all_reduce(loss.float(), BATCH_AXES, "mean",
                                          mesh=self.mesh))
+
+    def _eval_loss(self, params, batch):
+        """``model.loss`` with an MoE model's eval capacity; the flag is
+        restored however the loss ends."""
+        if self.model.cfg.num_experts <= 1:
+            return self.model.loss(params, batch)
+        self.model.moe_eval_mode = True
+        try:
+            return self.model.loss(params, batch)
+        finally:
+            self.model.moe_eval_mode = False
 
     # ----------------------------------------------------------- resilience
     def _note_bad_steps(self, bad: bool, window: int, last_loss: float) -> None:

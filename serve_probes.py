@@ -146,7 +146,7 @@ def _layer_ops(model, x, p, ck, cv, length, rope):
     r["x1"] = x1 = x + a
     r["y2"] = y2 = dec._norm(x1, p["ln2_scale"], p.get("ln2_bias"), cfg.norm,
                              cfg.norm_eps)
-    r["m"] = m = model._mlp_block(y2, p)
+    r["m"] = m = model._mlp_block(y2, p)[0]
     r["out"] = x1 + m
     return r
 
@@ -265,7 +265,7 @@ def _prefill_ops(engine, prompt, chunk, max_len, dev) -> dict:
                 o.reshape(1, T, -1), p["wo"],
                 getattr(model, "woq_kernel", False)), p, "bo")[0, :m]
         for start, T, m, y2 in pieces(w["y2"]):
-            got["m"][start:start + m] = model._mlp_block(y2, p)[0, :m]
+            got["m"][start:start + m] = model._mlp_block(y2, p)[0][0, :m]
         for k, t in got.items():
             iso[k].append(_ulps(t, w[k]))
     out["isolated"] = {k: {"layers_differ": sum(u["differ"] > 0 for u in us),
@@ -575,16 +575,20 @@ def _window_kernels(fn, warmup=None, margin=0.0):
     return [e.name for e in events]
 
 
-def profile_count_probe(cfg=None, *, bits=8, windows=30, replays=4):
+def profile_count_probe(cfg=None, *, bits=8, windows=30, replays=4,
+                        engine=None, variants=("from_start", "after_warmup",
+                                               "margin")):
     """How often phase 11's profiled window of graph replays misses a
-    kernel record, and where: Llama-2-7B (int8 WOQ: phase 11b) with every
-    slot full and its slot step graphed; ``windows`` windows of
-    ``replays`` replays from the same state, (a) traced from the window's
-    start, (b) after one traced warm-up replay whose records the profiler
-    discards, and (c) held open ``PROFILE_MARGIN_S`` on each side, as
-    phase 11's gate holds it. A window whose kernel list is shorter
-    than the longest one's names the kernels missing, their position and
-    replay. Prints a ``[profile-count]`` JSON line."""
+    kernel record, and where: Llama-2-7B (int8 WOQ: phase 11b), or
+    ``engine`` (e.g. ``chip_smoke._moe_serve_engine(mixtral("8x7b",
+    moe_drop_tokens=False))``, phase 14a's), with every slot full and its
+    slot step graphed; ``windows`` windows of ``replays`` replays from the
+    same state, (a) traced from the window's start, (b) after one traced
+    warm-up replay whose records the profiler discards, and (c) held open
+    ``PROFILE_MARGIN_S`` on each side, as phase 11's gate holds it (the
+    ``variants`` run). A window whose kernel list is shorter than the
+    longest one's names the kernels missing, their position and replay.
+    Prints a ``[profile-count]`` JSON line."""
     import difflib
 
     import torch
@@ -593,8 +597,10 @@ def profile_count_probe(cfg=None, *, bits=8, windows=30, replays=4):
     import deepspeed_tpu_torch as dt
     from deepspeed_tpu_torch.models import llama2
 
-    cfg = cfg or llama2("7b")
-    engine = _serve_engine(cfg, bits=bits)
+    if engine is None:
+        cfg = cfg or llama2("7b")
+        engine = _serve_engine(cfg, bits=bits)
+    cfg = engine.model.cfg
     srv = dt.ServingEngine(engine, SERVING)
     lab = _serve_stream(cfg.vocab_size, SERVING["slots"], seed=1,
                         prompt=(512, 512), new=(256, 256))
@@ -620,6 +626,8 @@ def profile_count_probe(cfg=None, *, bits=8, windows=30, replays=4):
     for variant, wu, margin in (("from_start", None, 0.0),
                                 ("after_warmup", warm, 0.0),
                                 ("margin", None, PROFILE_MARGIN_S)):
+        if variant not in variants:
+            continue
         runs = [_window_kernels(window, wu, margin) for _ in range(windows)]
         full = max(runs, key=len)
         per = len(full) // replays

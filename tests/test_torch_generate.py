@@ -37,7 +37,7 @@ def engines(name, jconf=None, tconf=None):
 
 @pytest.mark.parametrize("name", ["tiny_test", "llama2_tiny", "opt_tiny",
                                   "bloom_tiny", "parallel_rotary",
-                                  "shared_ln_untied"])
+                                  "shared_ln_untied", "mixtral_tiny"])
 def test_greedy_tokens_identical_to_jax(name):
     je, te = engines(name)
     ids = prompts(te.model.cfg)

@@ -5,11 +5,13 @@ Marked ``gpu``; each test takes the ``cuda`` fixture, which skips when no
 card is present (decided at run time, never at import). Run on a card:
 ``python -m pytest -m gpu tests/test_torch_gpu.py -q``."""
 
+import dataclasses
+
 import pytest
 import torch
 
 import deepspeed_tpu_torch as dt
-from deepspeed_tpu_torch.models import bert, bloom, llama2, tiny_test
+from deepspeed_tpu_torch.models import bert, bloom, llama2, mixtral, tiny_test
 from deepspeed_tpu_torch.models.transformer import alibi_slopes
 from deepspeed_tpu_torch.ops import decode_attention as da
 
@@ -321,6 +323,10 @@ SERVE_CASES = {
                           "quant_group_size": 32}),
     "bloom_tiny": (lambda: bloom("tiny", dtype=torch.float32,
                                  vocab_size=1000), {}),
+    # MoE: the one-group dispatch, the int8 banks dequantized in the graph
+    "mixtral_tiny_int8": (lambda: mixtral("tiny", max_seq=256),
+                          {"quantize": True, "quant_bits": 8,
+                           "quant_group_size": 32}),
 }
 
 
@@ -329,7 +335,8 @@ def _server(cuda, name, **serving):
     cfg = make()
     model = dt.models.build_model(cfg)
     g = torch.Generator(device=cuda).manual_seed(0)
-    params = model.init(g, device=cuda, dtype=cfg.dtype)
+    # fp32 weights: the engine casts them (an MoE router stays fp32)
+    params = model.init(g, device=cuda, dtype=torch.float32)
     eng = dt.init_inference(model, params, {
         "dtype": str(cfg.dtype).removeprefix("torch."), **conf})
     return eng, dt.ServingEngine(eng, {"slots": 3, "max_len": 128,
@@ -357,7 +364,9 @@ def test_slot_step_replay_equals_eager(cuda, name):
     while srv.sched.occupancy < 3:
         srv.step()
     assert srv.captures == 1 and srv.graph.replays > 0
-    per_layer = 5 if cfg.is_glu else 4
+    # the fused qkv and wo, and a dense FFN's products (an MoE layer's
+    # banks dequantize at their point of use instead)
+    per_layer = 2 if cfg.num_experts > 1 else (5 if cfg.is_glu else 4)
     woq = per_layer * cfg.n_layer + 1 if "int8" in name else 0
     want = {"decode_attention": cfg.n_layer, "woq_matmul": woq}
     assert srv.graph.captured_launches == {k: n for k, n in want.items()
@@ -465,7 +474,8 @@ def test_paged_captures_stay_one_over_hits_cow_and_evictions(cuda, kv_bits):
         snap["usable_pages"]
 
 
-@pytest.mark.parametrize("name", ["tiny_test", "llama2_tiny_int8"])
+@pytest.mark.parametrize("name", ["tiny_test", "llama2_tiny_int8",
+                                  "mixtral_tiny_int8"])
 @pytest.mark.parametrize("kv_bits", [0, 8])
 def test_paged_slot_step_replay_equals_eager(cuda, name, kv_bits):
     """Three live paged slots: a replay and an eager step from the same
@@ -482,7 +492,7 @@ def test_paged_slot_step_replay_equals_eager(cuda, name, kv_bits):
     while srv.sched.occupancy < 3:
         srv.step()
     assert srv.captures == 1
-    per_layer = 5 if cfg.is_glu else 4
+    per_layer = 2 if cfg.num_experts > 1 else (5 if cfg.is_glu else 4)
     woq = per_layer * cfg.n_layer + 1 if "int8" in name else 0
     want = {"decode_attention": cfg.n_layer, "woq_matmul": woq}
     assert srv.graph.captured_launches == {k: n for k, n in want.items()
@@ -2018,3 +2028,61 @@ def test_stage3_gather_on_use_is_bit_identical_to_stage0(cuda, remat):
             assert peak == (2 if stage == 3 else 0)
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------------------------------ MoE
+@pytest.mark.parametrize("drop_tokens", [True, False])
+def test_moe_layer_on_the_card_matches_its_cpu_run(cuda, drop_tokens):
+    """Mixtral tiny's MoE block, bf16 on the card against fp32 on the CPU
+    from the same bf16 weights and inputs: the training dispatch (a group
+    a row) and the decode dispatch (one group), within one bf16 rounding
+    step of the outputs' scale (2e-2 of max |out|; fp32 routing on both
+    sides, so the same experts)."""
+    cfg = mixtral("tiny", moe_drop_tokens=drop_tokens)
+    model = dt.models.build_model(cfg)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    full = model.init(g, device=cuda, dtype=torch.float32)
+    p = {k[len("layers."):]: (v[0] if k.endswith("router") else
+                              v[0].to(torch.bfloat16))
+         for k, v in full.items() if k.startswith("layers.")}
+    y = torch.randn((3, 40, cfg.d_model), generator=g, device=cuda) \
+        .to(torch.bfloat16)
+    cpu = dt.models.build_model(dataclasses.replace(cfg, dtype=torch.float32))
+    pc = {k: v.float().cpu() for k, v in p.items()}
+    with torch.no_grad():
+        for fn, x in (("_mlp_block", y), ("_mlp_block_infer", y[:, :1])):
+            got, aux = getattr(model, fn)(x, p)
+            want, aux_c = getattr(cpu, fn)(x.float().cpu(), pc)
+            assert got.dtype == torch.bfloat16
+            scale = want.abs().max().item()
+            assert (got.float().cpu() - want).abs().max().item() \
+                <= 2e-2 * scale, fn
+            assert float(aux) == pytest.approx(float(aux_c), rel=1e-5)
+
+
+def test_router_stays_fp32_under_a_bf16_cast(cuda):
+    """The inference engine's cast and the training engine's compute cast
+    keep the router fp32 on the card; every other weight is bf16, and a
+    training step runs through the flash kernels."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    cfg = mixtral("tiny", max_seq=64, vocab_size=256, n_layer=2)
+    model = dt.models.build_model(cfg)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = model.init(g, device=cuda, dtype=torch.float32)
+    eng = dt.init_inference(model, params, {"dtype": "bf16"})
+    assert eng.params["layers.router"].dtype == torch.float32
+    assert eng.params["layers.w_in"].dtype == torch.bfloat16
+    tr = dt.initialize({"train_batch_size": 4,
+                        "train_micro_batch_size_per_gpu": 2,
+                        "moe": {"enabled": True, "num_experts": 4}},
+                       dt.build_model(cfg, attention_fn=dt.make_flash_attention()),
+                       params={k: v.cpu() for k, v in params.items()})
+    cp, _, _ = tr._cast_compute()
+    assert all(t.dtype == torch.float32 for t in cp["layers.router"])
+    assert all(t.dtype == torch.bfloat16 for t in cp["layers.w_gate"])
+    before = fa.flash_fwd.launches
+    ids = torch.randint(0, 256, (4, 64), generator=torch.Generator()
+                        .manual_seed(0))
+    loss = float(tr.train_batch({"input_ids": ids.numpy()})["loss"])
+    assert loss == loss and fa.flash_fwd.launches - before == 2 * 2

@@ -41,6 +41,8 @@ CASES = {
         lm_head_bias=True)),
     "bert_plain": ("bert", ("tiny",), dict(vocab_size=320)),
     "tiled_head": ("tiny_test", (), dict(tiled_head=4)),
+    # Mixtral's MoE trunk: 4 experts, top-2, GQA
+    "mixtral_tiny": ("mixtral", ("tiny",), {"max_seq": 64}),
 }
 
 
@@ -146,9 +148,23 @@ def test_module_forward_uses_loaded_params():
 
 
 @pytest.mark.parametrize("override,item", [(dict(num_experts=4), "MoE")])
-def test_unported_switches_raise_with_roadmap_item(override, item):
-    with pytest.raises(NotImplementedError, match=item):
-        TransformerLM(torch_presets.tiny_test(**override))
+def test_unported_switches_raise_with_roadmap_item(override, item,
+                                                   monkeypatch):
+    """A config switch listed in ``transformer._LATER`` raises naming its
+    ROADMAP item. MoE (item 3) is ported and the list is empty: the switch
+    builds ``MoETransformerLM`` through ``build_model``, and the dense class
+    refuses it by name."""
+    from deepspeed_tpu_torch.models import transformer
+
+    cfg = torch_presets.tiny_test(**override)
+    assert transformer._LATER == ()
+    assert type(build_model(cfg)).__name__ == "MoETransformerLM"
+    with pytest.raises(ValueError, match=item):
+        TransformerLM(cfg)
+    monkeypatch.setattr(transformer, "_LATER", (
+        (lambda c: c.num_experts > 1, "num_experts > 1", 4),))
+    with pytest.raises(NotImplementedError, match="item 4"):
+        build_model(cfg)
 
 
 @pytest.mark.parametrize("override", [dict(post_ln=True),

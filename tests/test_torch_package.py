@@ -122,6 +122,7 @@ def test_inference_config_ports_and_refuses():
     for key, value, item in (("tensor_parallel", 2, "tensor"),
                              ("tensor_parallel", {"tp_size": 2}, "tensor"),
                              ("moe", {"ep_size": 2}, "expert"),
+                             ("expert_parallel", 2, "expert"),
                              ("tp_comm_quant", 8, "tensor"),
                              ("observability", True, "observability"),
                              ("serving", {"host_pool_bytes": 1}, "KV tiers")):
@@ -176,11 +177,16 @@ def test_training_config_ports_and_refuses():
             ({"monitor": {"enabled": True}}, "item 7"),
             ({"observability": {"spans": True}}, "item 7"),
             ({"elasticity": {"enabled": True}}, "item 8"),
-            ({"moe": {"enabled": True}}, "item 3"),
+            ({"mesh": {"expert": 2}}, "item 4"),
             ({"mesh": {"model": 2}}, "item 4"),
             ({"remat": {"enabled": True, "offload": True}}, "item 6")):
         with pytest.raises(NotImplementedError, match=item):
             Config.from_any(conf)
+    # MoE (item 3) is ported: its section parses
+    moe = Config.from_any({"moe": {"enabled": True, "num_experts": 8,
+                                   "top_k": 1, "drop_tokens": False}}).moe
+    assert (moe.enabled, moe.num_experts, moe.top_k, moe.drop_tokens,
+            moe.capacity_factor) == (True, 8, 1, False, 1.25)
     # multi-rank ZeRO (item 1) is ported: its keys parse
     zero = Config.from_any({"zero_optimization": {
         "stage": 3, "zero_quantized_weights": True,
@@ -256,6 +262,12 @@ def test_every_roadmap_item_the_port_names_exists():
     for n, t in named.items():
         assert n in titles and titles[n].startswith(t.lower()), (n, t)
     assert roadmap.later(2) == "ROADMAP.md queue 1, item 2 (ServingEngine)"
+    # MoE (item 3) is ported: no literal call raises it (expert
+    # parallelism, item 4, raises through the mesh and inference tables)
+    raising = {int(n) for path in PORT_FILES for n in re.findall(
+        r"later\((\d+)\)", path.read_text())}
+    assert 3 not in raising and {6, 7, 8} <= raising
+    assert roadmap.later(3) == "ROADMAP.md queue 1, item 3 (MoE)"
 
 
 def test_engine_refuses_tf32_matmuls_on_the_card(monkeypatch):
@@ -275,8 +287,9 @@ def test_public_surface():
             "ServingEngine", "ServingConfig", "models", "initialize",
             "build_model", "make_flash_attention", "PreemptionGuard",
             "NonFiniteLossError"} <= set(dt.__all__)
-    for name in ("gpt2", "llama2", "opt", "bloom", "bert", "tiny_test",
-                 "build_model", "params_from_jax", "params_to_numpy",
-                 "train_state_from_jax", "read_fp32_safetensors",
-                 "TransformerLM"):
+    for name in ("gpt2", "llama2", "opt", "bloom", "bert", "mixtral",
+                 "tiny_test", "build_model", "params_from_jax",
+                 "params_to_numpy", "train_state_from_jax",
+                 "read_fp32_safetensors", "TransformerLM",
+                 "MoETransformerLM"):
         assert hasattr(dt.models, name)

@@ -587,7 +587,8 @@ def _shared_stream(vocab, seed):
 @pytest.mark.parametrize("kv_bits", [0, 8])
 @pytest.mark.parametrize("name,max_len", [("tiny_test", M),
                                           ("llama2_tiny", M),
-                                          ("bloom_tiny", 128)])
+                                          ("bloom_tiny", 128),
+                                          ("mixtral_tiny", M)])
 def test_greedy_paged_tokens_equal_jax_serving_engine(name, max_len,
                                                       kv_bits):
     """The same weights and stream through both packages' paged

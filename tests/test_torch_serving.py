@@ -220,7 +220,8 @@ def test_chunked_prefill_matches_whole(setup):
 
 @pytest.mark.parametrize("name,max_len", [("tiny_test", M),
                                           ("llama2_tiny", M),
-                                          ("bloom_tiny", 128)])
+                                          ("bloom_tiny", 128),
+                                          ("mixtral_tiny", 128)])
 def test_greedy_tokens_equal_jax_serving_engine(name, max_len):
     """The same weights and ragged stream through both packages'
     ServingEngines, greedy: identical tokens. Prompts of 3 and 5 tokens

@@ -47,7 +47,8 @@ FP16_SHARE = 2.0 ** -9
 # group sizes per engine case: tiny_test at 32 (every weight multi-group);
 # llama2 tiny at 64 (w_out's 688 rows degrade to one group); OPT tiny at
 # 128 (d 64 and the 50272-row tied table degrade to one group each)
-GROUP = {"tiny_test": 32, "llama2_tiny": 64, "opt_tiny": 128}
+GROUP = {"tiny_test": 32, "llama2_tiny": 64, "opt_tiny": 128,
+         "mixtral_tiny": 64}
 
 
 # the JAX engine quantizes under jit, where XLA turns the division by
@@ -427,7 +428,8 @@ def decode_logits(je, te, ids, step):
     return tl.numpy(), np.asarray(jl)
 
 
-@pytest.mark.parametrize("name", ["tiny_test", "llama2_tiny", "opt_tiny"])
+@pytest.mark.parametrize("name", ["tiny_test", "llama2_tiny", "opt_tiny",
+                                  "mixtral_tiny"])
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("woq_kernel", [True, False])
 def test_woq_engine_matches_jax_engine(name, bits, woq_kernel):

@@ -45,6 +45,8 @@ MODELS = {
     "bert": (("tiny",), dict(vocab_size=320, max_seq=64, post_ln=True,
                              embed_norm=True, mlm_transform=True,
                              lm_head_bias=True)),
+    # the 4-D expert banks and the router
+    "mixtral": (("tiny",), dict(vocab_size=256, n_layer=2, max_seq=64)),
 }
 # (data, zero, hpZ size, MiCS size)
 MESHES = [(2, 1, 1, 0), (4, 1, 1, 0), (8, 1, 1, 0), (2, 2, 1, 0),

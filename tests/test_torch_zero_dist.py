@@ -61,6 +61,9 @@ def _flat(tree) -> dict:
 def _jax_model(kind, **over):
     if kind == "tiny":
         cfg = jax_presets.tiny_test(max_seq=64, dtype=jnp.float32, **over)
+    elif kind == "mixtral":
+        cfg = jax_presets.mixtral("tiny", vocab_size=zw.VOCAB, n_layer=2,
+                                  max_seq=64, dtype=jnp.float32, **over)
     else:
         cfg = jax_presets.llama2("tiny", vocab_size=zw.VOCAB, n_layer=2,
                                  max_seq=64, dtype=jnp.float32, **over)

@@ -35,6 +35,9 @@ def model_cfg(kind: str, **over):
 
     if kind == "tiny":
         return presets.tiny_test(max_seq=64, dtype=torch.float32, **over)
+    if kind == "mixtral":
+        return presets.mixtral("tiny", vocab_size=VOCAB, n_layer=2,
+                               max_seq=64, dtype=torch.float32, **over)
     return presets.llama2("tiny", vocab_size=VOCAB, n_layer=2, max_seq=64,
                           dtype=torch.float32, **over)
 
@@ -106,7 +109,21 @@ CASES = {
                                           "hysteresis": 1}}),
         # stage 2 with buckets of 5000 elements: several a step
         "bucket_s2": ("tiny", {}, {"zero_optimization": {
-            "stage": 2, "reduce_bucket_size": 5000}})},
+            "stage": 2, "reduce_bucket_size": 5000}}),
+        # MoE: the router and the 4-D expert banks in stage 2's buckets and
+        # gathered on use at stage 3; the moe section drops tokens in
+        # training, not at eval. Adam's eps at
+        # 1e-6: at 1e-8 its first step turns an element's rounding-level
+        # grad into a +-lr step (m / sqrt(v) is its sign), and one such
+        # element of a token row stood at 6e-5 of the table's norm after 4
+        # steps, on the port alone as on one JAX device, while every
+        # step's grads agreed to 3e-6
+        **{f"moe_s{s}": ("mixtral", {}, {
+            "zero_optimization": {"stage": s, "reduce_bucket_size": 50_000},
+            "optimizer": {"type": "adamw", "params": {
+                "lr": 3e-3, "weight_decay": 0.01, "eps": 1e-6}},
+            "moe": {"enabled": True, "num_experts": 4, "capacity_factor": 1.0,
+                    "min_capacity": 1}}) for s in (2, 3)}},
     4: {"tiny_s3": ("tiny", {}, {"zero_optimization": {"stage": 3}}),
         "hpz_s3": ("tiny", {}, {"zero_optimization": {
             "stage": 3, "zero_hpz_partition_size": 2,

@@ -10,10 +10,16 @@ the front, contiguous, for the call and back after it. Every result is
 contiguous. On a mesh with no process group (one process, no
 ``init_distributed``), and along a line of one rank in a larger world,
 each call returns its input; a world of one with a process group runs its
-collectives over that group of one rank.
+collectives over that group of one rank. ``axis_name`` may name several
+axes, a line of their joint ranks (``("expert", "model")``).
+
+``issued`` counts the collectives issued, by the kind names of PyTorch's
+``c10d`` ops: a CUDA graph captured over them replays them without these
+calls, so ``serving/graph.py`` keeps the count of a capture.
 
 ``CommsLogger`` (``comm.py:41``) is ROADMAP queue 1 item 7 and the
-compressed collectives (``comm/compressed.py``) item 8(3).
+gradient half of the compressed collectives (``comm/compressed.py``) item
+8(3).
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import torch
 from ..platform.mesh import BATCH_AXES, Mesh
 
 _OPS = ("sum", "mean", "max", "min")
+issued = {"allreduce": 0, "allgather": 0, "reduce_scatter": 0, "alltoall": 0,
+          "broadcast": 0}
 
 
 def _dist():
@@ -58,6 +66,7 @@ def all_reduce(x: torch.Tensor, axis_name, op: str = "sum", *,
     dist = _dist()
     red = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
            "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}[op]
+    issued["allreduce"] += 1
     dist.all_reduce(x, op=red, group=mesh.group(axis_name))
     if op == "mean":
         n = mesh.size(axis_name)
@@ -74,6 +83,7 @@ def all_gather(x: torch.Tensor, axis_name, dim: int = 0, *, mesh: Mesh,
         return x if out is None else out.copy_(x)
     n = mesh.size(axis_name)
     group = mesh.group(axis_name)
+    issued["allgather"] += 1
     shape = list(x.shape)
     shape[dim] *= n
     if out is None:
@@ -102,11 +112,29 @@ def reduce_scatter(x: torch.Tensor, axis_name, dim: int = 0, *, mesh: Mesh,
                          f"does not split over {n} ranks")
     part = torch.empty((moved.shape[0] // n,) + tuple(moved.shape[1:]),
                        dtype=x.dtype, device=x.device)
+    issued["reduce_scatter"] += 1
     _reduce_scatter_base(part, moved, group)
     res = part.movedim(0, dim)
     if out is not None:
         return out.copy_(res)
     return res.contiguous()
+
+
+def all_to_all(x: torch.Tensor, axis_name, *, mesh: Mesh) -> torch.Tensor:
+    """Chunk ``j`` of ``x``'s dim 0 to the line's member ``j``; returns the
+    chunks received, member ``j``'s at ``j``, along dim 0 (JAX's
+    ``all_to_all(split_axis=0, concat_axis=0, tiled=True)``)."""
+    if mesh.solo(axis_name):
+        return x
+    n = mesh.size(axis_name)
+    if x.shape[0] % n:
+        raise ValueError(f"all_to_all: dim 0 of {tuple(x.shape)} does not "
+                         f"split over {n} ranks")
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    issued["alltoall"] += 1
+    _dist().all_to_all_single(out, x.contiguous(),
+                              group=mesh.group(axis_name))
+    return out
 
 
 def broadcast(x: torch.Tensor, axis_name, src: int = 0, *,
@@ -116,6 +144,7 @@ def broadcast(x: torch.Tensor, axis_name, src: int = 0, *,
     if mesh.solo(axis_name):
         return x
     root = mesh.line_ranks(axis_name)[src]
+    issued["broadcast"] += 1
     _dist().broadcast(x, src=root, group=mesh.group(axis_name))
     return x
 

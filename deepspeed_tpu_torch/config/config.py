@@ -92,7 +92,11 @@ _ZERO_LATER = {
     "zero_quantized_gradients": (False, 8),
 }
 # mesh axis -> item that brings a degree > 1
+# the training engine's mesh axes above 1 -> the ROADMAP item that ports
+# them; ``model`` / ``expert`` serve under the inference engine (item 4's
+# serving half), and train with its training half
 _MESH_LATER = {"model": 4, "expert": 4, "pipe": 8, "seq": 8}
+_MESH_HALF = {"model": ", training half: 4(b)", "expert": ", training half: 4(b)"}
 REMAT_POLICY_NAMES = ("none", "full", "dots_saveable", "save_nothing",
                       "save_names", "save_names_mlp", "offload_dots")
 
@@ -285,7 +289,8 @@ class MeshConfig:
             if int(getattr(self, axis)) != 1:
                 raise NotImplementedError(
                     f"config mesh.{axis}={getattr(self, axis)} is not ported "
-                    f"yet: {later(item)}")
+                    f"yet for training: {later(item)}"
+                    f"{_MESH_HALF.get(axis, '')}")
 
 
 _DATACLASSES = {"optimizer": OptimizerConfig, "bf16": BF16Config,

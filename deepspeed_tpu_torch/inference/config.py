@@ -1,9 +1,10 @@
 """Inference config (counterpart of ``deepspeed_tpu/inference/config.py``).
 
-The port carries the single-card generate() path, dense or with int8/int4
+The port carries the generate() path, dense or with int8/int4
 weight-only quantization (WOQ), and the continuous-batching
 ``ServingEngine`` over contiguous slots or the paged KV pool
-(:class:`ServingConfig`). The JAX
+(:class:`ServingConfig`), on one card or sharded over a ``torch.distributed``
+world by ``tensor_parallel`` and ``expert_parallel``. The JAX
 configs' other knobs are accepted at their defaults, so a JAX config ports
 as it is, and raise ``NotImplementedError`` when set: each names the
 ROADMAP.md item (queue 1) that will port it. Unknown keys raise
@@ -25,8 +26,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
 
 # key → (the JAX default, accepted as a no-op; the ROADMAP item that ports it)
 _LATER = {
-    "tensor_parallel": (1, 4), "expert_parallel": (1, 4),
-    "tp_comm_quant": (0, 4),
     "observability": (False, 7), "trace_ring_size": (256, 7),
 }
 
@@ -169,6 +168,15 @@ class InferenceConfig:
     # Continuous-batching knobs for serving.ServingEngine (ignored by
     # generate()); None = ServingConfig's defaults.
     serving: Optional[ServingConfig] = None
+    # Ranks of the mesh's ``model`` axis (Megatron tensor parallelism: the
+    # heads, the FFN width and the vocabulary split) and of its ``expert``
+    # axis (an MoE model's experts split); their product is the world of
+    # ``init_distributed``.
+    tensor_parallel: int = 1
+    expert_parallel: int = 1
+    # 8: the decode step's row-split reductions (``wo``, the dense MLP's
+    # ``w_out``) travel as two-sided int8 (``comm/compressed.py``); 0 off
+    tp_comm_quant: int = 0
 
     def __post_init__(self):
         if self.dtype not in _DTYPES:
@@ -183,6 +191,13 @@ class InferenceConfig:
         if self.quant_group_size <= 0:
             raise ValueError(f"quant_group_size must be > 0, got "
                              f"{self.quant_group_size}")
+        for knob in ("tensor_parallel", "expert_parallel"):
+            if int(getattr(self, knob)) < 1:
+                raise ValueError(f"{knob} must be >= 1, got "
+                                 f"{getattr(self, knob)}")
+        if self.tp_comm_quant not in (0, 8):
+            raise ValueError(f"tp_comm_quant must be 0 (off) or 8 (int8), "
+                             f"got {self.tp_comm_quant}")
 
     def flash_decode_resolved(self, device: torch.device) -> bool:
         if self.flash_decode is not None:

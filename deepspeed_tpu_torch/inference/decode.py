@@ -28,6 +28,18 @@ Differences from the JAX package, all forced by eager PyTorch:
 - :func:`decode_step` is :func:`decode_forward` then :func:`decode_sample`,
   so the serving engine can replay the first half as a CUDA graph
   (``serving/graph.py``) and sample eagerly after it.
+
+Tensor parallelism spells out what GSPMD inserts in the JAX package, over
+the model's ``tp_layout`` (``TPLayout``, stamped by the inference engine;
+one rank without it): each rank attends at its own query and KV heads
+(caches at its KV heads), all-reduces the partials of ``wo`` and ``w_out``
+over the ``model`` line before their biases (a parallel residual reduces
+both at once at ``tp`` > 1), looks its rows of a vocabulary-split table up
+and all-reduces them, and all-gathers its columns of the logits, so every
+rank samples the same token. Within a ``torch.distributed`` world every
+collective is issued, over a group of one at ``tp`` 1; the rank-local
+branches switch on ``tp`` > 1, so a world of one computes what one card
+with no group does.
 """
 
 from __future__ import annotations
@@ -39,13 +51,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..models.transformer import (LAYER_PREFIX, TransformerConfig,
-                                  _apply_rope, _norm, alibi_slopes,
-                                  layer_params, rope_tables)
+from ..comm import comm
+from ..models.transformer import (LAYER_PREFIX, TPLayout, TransformerConfig,
+                                  _activation, _apply_rope, _norm,
+                                  alibi_slopes, layer_params, rope_tables)
 from ..ops import decode_attention as _da
 from ..utils.logging import warning_once
-from .quantization import (QuantizedTensor, dequant_rows, matmul_any, woq_dot,
-                           woq_dot_t)
+from .quantization import (QuantizedTensor, dequant_rows, matmul_any,
+                           row_partial, tp_quant_dot, woq_dot, woq_dot_t)
 
 BIG_NEG = -2.0 ** 30      # not -inf: an all-masked row must not turn NaN
 
@@ -79,23 +92,34 @@ class PagedKVCache(NamedTuple):
         return self.k.shape[3]
 
 
+def layout_of(model) -> TPLayout:
+    """The model's tensor-parallel layout: the engine's ``tp_layout``, or
+    one rank with no process group."""
+    lay = getattr(model, "tp_layout", None)
+    return lay if lay is not None else TPLayout.of(model.cfg)
+
+
 def cache_layout(cfg: TransformerConfig, batch: int, max_len: int,
-                 dtype=None, *, page_size: int = 0, pages: int = 0) -> tuple:
+                 dtype=None, *, page_size: int = 0, pages: int = 0,
+                 kv_heads: Optional[int] = None) -> tuple:
     """(shape, dtype) of one K or V cache buffer, the one source of the
     shapes for ``init_cache``, the serving slots and the page pool.
     ``page_size`` 0 is the contiguous ``(L, batch, KV, max_len, hd)``;
     above 0 the pool ``(L, pages, KV, page_size, hd)``, whose page is a
-    position-contiguous tile of the contiguous layout."""
+    position-contiguous tile of the contiguous layout. ``kv_heads``: a
+    tensor-parallel rank's (default all of the model's)."""
+    kv = kv_heads or cfg.kv_heads
     if page_size > 0:
-        return ((cfg.n_layer, pages, cfg.kv_heads, page_size, cfg.head_dim),
+        return ((cfg.n_layer, pages, kv, page_size, cfg.head_dim),
                 dtype or cfg.dtype)
-    return ((cfg.n_layer, batch, cfg.kv_heads, max_len, cfg.head_dim),
+    return ((cfg.n_layer, batch, kv, max_len, cfg.head_dim),
             dtype or cfg.dtype)
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None,
-               *, device="cpu") -> KVCache:
-    shape, dtype = cache_layout(cfg, batch, max_len, dtype)
+               *, device="cpu", kv_heads: Optional[int] = None) -> KVCache:
+    shape, dtype = cache_layout(cfg, batch, max_len, dtype,
+                                kv_heads=kv_heads)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
                    length=torch.zeros((), dtype=torch.int32, device=device))
@@ -145,12 +169,13 @@ def _cache_attend(q, ck, cv, length, flash_decode: bool = False, alibi=None):
     return torch.einsum("bhts,bhsd->bthd", probs, cv)
 
 
-def _qkv_proj(model, y, p):
+def _qkv_proj(model, y, p, lay: Optional[TPLayout] = None):
     """The attention projections, as one GEMM when the engine fused them
-    into ``wqkv`` = [wq | wk | wv] (and ``bqkv``)."""
+    into ``wqkv`` = [wq | wk | wv] (and ``bqkv``), at the rank's heads."""
     cfg = model.cfg
+    lay = lay or layout_of(model)
     B, T, _ = y.shape
-    h, kv, hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
+    h, kv, hd = lay.heads, lay.kv_heads, cfg.head_dim
     use_kernel = getattr(model, "woq_kernel", False)
     if "wqkv" in p:
         qkv = matmul_any(y, p["wqkv"], use_kernel)
@@ -261,19 +286,64 @@ def _paged_view(cp, sp, page_table, dtype):
                                            device=g.device))
 
 
+def _reduce(part, dtype, lay: TPLayout):
+    """The ``model`` all-reduce of a row-split product's partials, cast to
+    ``dtype`` (an fp32 WOQ partial is reduced in fp32)."""
+    return comm.all_reduce(part, "model", mesh=lay.mesh).to(dtype)
+
+
+def _tp_quant_eligible(model, p, T: int, lay: TPLayout) -> int:
+    """int8 when the quantized TP collective applies to this step, else 0
+    (``decode.py:266`` of the JAX package): the engine opted in
+    (``tp_comm_quant``, stamped on the model), ``tp`` > 1, T == 1 (decode;
+    a prefill pays its reduction once a request), and a DENSE ``wo`` (a
+    quantized one reduces its fp32 partial)."""
+    bits = int(getattr(model, "tp_quant", 0) or 0)
+    if not bits or T != 1 or lay.tp == 1:
+        return 0
+    if isinstance(p.get("wo"), QuantizedTensor):
+        return 0
+    return bits
+
+
+def _mlp_hidden(model, y, p):
+    """The dense MLP up to ``w_out``: the activation of the rank's FFN
+    columns (the gated product for a GLU)."""
+    u = model._mlp_pre(y, p)
+    return u if model.cfg.is_glu else _activation(u, model.cfg.activation)
+
+
+def _dense_mlp(model, y, p, lay: TPLayout, tpq: int = 0):
+    """The dense MLP of a decode or prefill step: the rank's columns of
+    ``w_in`` / ``w_gate``, its rows of ``w_out``, the ``model`` reduction
+    (the two-sided int8 one with ``tpq``, as ``_mlp_tp_quant`` of the JAX
+    package, where ``w_out`` is dense), then ``b_out``."""
+    u = _mlp_hidden(model, y, p)
+    if tpq and not isinstance(p.get("w_out"), QuantizedTensor):
+        out = tp_quant_dot(u, p["w_out"], mesh=lay.mesh, bits=tpq)
+    else:
+        out = _reduce(row_partial(u, p["w_out"],
+                                  getattr(model, "woq_kernel", False),
+                                  lay.tp), u.dtype, lay)
+    return model._maybe_bias(out, p, "b_out")
+
+
 def _layer_step(model, x, p, cache_k, cache_v, length, rope=None,
-                flash_decode: bool = False, alibi=None, paged=None):
+                flash_decode: bool = False, alibi=None, paged=None, lay=None):
     """One transformer layer over x: (B, T, d), appending its K/V to the
     layer's cache (in place) and attending over it. ``length`` is the
     post-append length; ``rope`` the (cos, sin, rotary_dim) of the step's
-    positions; ``alibi`` the (H,) slopes. ``paged``: (page_table, k_scale,
-    v_scale) when ``cache_k`` / ``cache_v`` are one layer's pools; the
-    attention then reads the gathered view."""
+    positions; ``alibi`` the rank's (H,) slopes. ``paged``: (page_table,
+    k_scale, v_scale) when ``cache_k`` / ``cache_v`` are one layer's pools;
+    the attention then reads the gathered view. ``lay``: the rank's
+    tensor-parallel layout."""
     cfg = model.cfg
+    lay = lay or layout_of(model)
     B, T, _ = x.shape
-    h, hd = cfg.n_head, cfg.head_dim
+    h, hd = lay.heads, cfg.head_dim
+    use_kernel = getattr(model, "woq_kernel", False)
     y = _norm(x, p["ln1_scale"], p.get("ln1_bias"), cfg.norm, cfg.norm_eps)
-    q, k, v = _qkv_proj(model, y, p)
+    q, k, v = _qkv_proj(model, y, p, lay)
     if rope is not None:
         q, k = _apply_rope(q, k, *rope)
     if paged is not None:
@@ -285,17 +355,35 @@ def _layer_step(model, x, p, cache_k, cache_v, length, rope=None,
         _append(cache_k, cache_v, k, v, length)
     o = _cache_attend(q, cache_k, cache_v, length, flash_decode=flash_decode,
                       alibi=alibi)
-    o = model._maybe_bias(
-        matmul_any(o.reshape(B, T, h * hd), p["wo"],
-                   getattr(model, "woq_kernel", False)), p, "bo")
+    o_flat = o.reshape(B, T, h * hd)
+    # the quantized TP collective (tp_comm_quant) reduces wo and the dense
+    # MLP's w_out, each on its own, as the JAX package spells them
+    tpq = _tp_quant_eligible(model, p, T, lay)
     # an MoE trunk's T = 1 step routes the batch as one group with no drop
-    # (``_mlp_block_infer``); its prefill (T > 1) and dense trunks take the
-    # training MLP, as the JAX package's decode does
-    mlp = getattr(model, "_mlp_block_infer", None) if T == 1 else None
-    mlp = mlp or model._mlp_block
+    # (``_mlp_block_infer``); its prefill (T > 1) takes the training
+    # dispatch; both reduce over the ("expert", "model") line themselves
+    moe = getattr(model, "_mlp_block_infer", None) if T == 1 else None
+    moe = moe or (model._mlp_block if model.routes_experts else None)
     if cfg.parallel_residual:
         y2 = y if cfg.parallel_shared_ln else _norm(
             x, p["ln2_scale"], p.get("ln2_bias"), cfg.norm, cfg.norm_eps)
+        if lay.tp > 1 and moe is None and not tpq:
+            # Megatron's parallel block: one reduction for both branches,
+            # the biases after it
+            part = row_partial(o_flat, p["wo"], use_kernel, lay.tp) \
+                + row_partial(_mlp_hidden(model, y2, p), p["w_out"],
+                              use_kernel, lay.tp)
+            out = _reduce(part, x.dtype, lay)
+            return x + model._maybe_bias(model._maybe_bias(out, p, "bo"), p,
+                                         "b_out")
+    if tpq:
+        o = tp_quant_dot(o_flat, p["wo"], mesh=lay.mesh, bits=tpq)
+    else:
+        o = _reduce(row_partial(o_flat, p["wo"], use_kernel, lay.tp),
+                    x.dtype, lay)
+    o = model._maybe_bias(o, p, "bo")
+    mlp = moe or (lambda y_, p_: (_dense_mlp(model, y_, p_, lay, tpq), None))
+    if cfg.parallel_residual:
         return x + o + mlp(y2, p)[0]
     x = x + o
     y2 = _norm(x, p["ln2_scale"], p.get("ln2_bias"), cfg.norm, cfg.norm_eps)
@@ -305,12 +393,15 @@ def _layer_step(model, x, p, cache_k, cache_v, length, rope=None,
 _alibi: dict = {}
 
 
-def _alibi_slopes(n_head: int, device) -> torch.Tensor:
-    """The (H,) ALiBi slopes on ``device``, built once: a copy from host
-    memory each step could not be captured in a CUDA graph."""
-    key = (n_head, str(device))
+def _alibi_slopes(n_head: int, device, lay: Optional[TPLayout] = None):
+    """The rank's slice of the model's (H,) ALiBi slopes on ``device``,
+    built once: a copy from host memory each step could not be captured in
+    a CUDA graph. A tensor-parallel rank takes its query heads' slopes of
+    the GLOBAL ramp, not the ramp of ``n_head / tp`` heads."""
+    q0, heads = (lay.q0, lay.heads) if lay is not None else (0, n_head)
+    key = (n_head, q0, heads, str(device))
     if key not in _alibi:
-        _alibi[key] = alibi_slopes(n_head, device)
+        _alibi[key] = alibi_slopes(n_head, device)[q0:q0 + heads].contiguous()
     return _alibi[key]
 
 
@@ -322,7 +413,24 @@ def _embed_rows(table, ids, dtype):
     return F.embedding(ids, table).to(dtype)
 
 
-def _decode_head(model, params, x):
+def _embed_tokens(table, ids, dtype, lay: TPLayout):
+    """The token embedding: at ``tp`` > 1 over a vocabulary-split table,
+    the rank's rows (the others zero), all-reduced over ``model``, as
+    Megatron's vocab-parallel embedding; a table kept whole (``tp`` does
+    not divide the vocabulary) is looked up with no collective."""
+    if not lay.vocab_split:
+        return _embed_rows(table, ids, dtype)
+    if lay.tp > 1:
+        local = ids - lay.v0
+        hit = (local >= 0) & (local < lay.v1 - lay.v0)
+        rows = _embed_rows(table, torch.where(hit, local, 0), dtype)
+        rows = rows.masked_fill(~hit[..., None], 0)
+    else:
+        rows = _embed_rows(table, ids, dtype)
+    return comm.all_reduce(rows, "model", mesh=lay.mesh)
+
+
+def _decode_head(model, params, x, lay: Optional[TPLayout] = None):
     """Final norm + unembedding for the decode path, with fp32 logits.
 
     The JAX package multiplies compute-dtype operands into fp32
@@ -334,8 +442,11 @@ def _decode_head(model, params, x):
     engine refuses to start with it on.
 
     A quantized table goes through ``woq_dot_t`` (tied, read in ``(V, d)``
-    layout) or ``woq_dot`` (untied ``lm_head``), with fp32 out."""
+    layout) or ``woq_dot`` (untied ``lm_head``), with fp32 out. A
+    vocabulary-split rank computes its columns (and adds its slice of
+    ``lm_head_bias``), then all-gathers the logits along the vocabulary."""
     cfg = model.cfg
+    lay = lay or layout_of(model)
     x = model._pre_head(params, x)
     w = params["tok_embed"] if cfg.tie_embeddings else params["lm_head"]
     if isinstance(w, QuantizedTensor):
@@ -347,6 +458,9 @@ def _decode_head(model, params, x):
         logits = x.float() @ (w.T if cfg.tie_embeddings else w)
     if cfg.lm_head_bias:
         logits = logits + params["lm_head_bias"].float()
+    if lay.vocab_split:
+        logits = comm.all_gather(logits, "model", logits.ndim - 1,
+                                 mesh=lay.mesh)
     return logits
 
 
@@ -371,6 +485,7 @@ def forward_with_cache(model, params, input_ids, cache,
     (the serving slot step): each layer then scatters through the page
     table and attends over the gathered view."""
     cfg = model.cfg
+    lay = layout_of(model)
     mat = materialize if materialize is not None else (lambda p: p)
     layers = layer_params(params)
     params = mat({k: v for k, v in params.items()
@@ -380,7 +495,7 @@ def forward_with_cache(model, params, input_ids, cache,
     new_len = cache.length + T
     positions = (cache.length.reshape(-1, 1)
                  + torch.arange(T, device=dev)).expand(B, T)
-    x = _embed_rows(params["tok_embed"], input_ids, cfg.dtype)
+    x = _embed_tokens(params["tok_embed"], input_ids, cfg.dtype, lay)
     if cfg.pos_embedding == "learned":
         table = params["pos_embed"]
         x = x + _embed_rows(table, positions.clamp(max=table.shape[0] - 1),
@@ -393,7 +508,7 @@ def forward_with_cache(model, params, input_ids, cache,
         rd = cfg.rotary_dim or cfg.head_dim
         rope = (*rope_tables(positions, cfg.rope_theta, rd), rd)
     elif cfg.pos_embedding == "alibi":
-        alibi = _alibi_slopes(cfg.n_head, dev)
+        alibi = _alibi_slopes(cfg.n_head, dev, lay)
     paged = isinstance(cache, PagedKVCache)
     for i in range(cfg.n_layer):
         pg = None
@@ -403,11 +518,13 @@ def forward_with_cache(model, params, input_ids, cache,
                     for s in (cache.k_scale, cache.v_scale)))
         x = _layer_step(model, x, mat({k: w[i] for k, w in layers.items()}),
                         cache.k[i], cache.v[i], new_len, rope=rope,
-                        flash_decode=flash_decode, alibi=alibi, paged=pg)
+                        flash_decode=flash_decode, alibi=alibi, paged=pg,
+                        lay=lay)
     if last_token_head:
         x = x[:, -1:] if last_index is None else \
             x.narrow(1, int(last_index), 1)
-    return _decode_head(model, params, x), cache._replace(length=new_len)
+    return _decode_head(model, params, x, lay), \
+        cache._replace(length=new_len)
 
 
 class GenCarry(NamedTuple):
@@ -445,7 +562,8 @@ def prefill_tokens(model, params, input_ids, rng, *, max_new: int, sampler,
         # stays on the kernel whatever the prompt and output lengths
         cache_len = -(-cache_len // 128) * 128
     cache = init_cache(model.cfg, B, cache_len, cache_dtype or model.cfg.dtype,
-                       device=input_ids.device)
+                       device=input_ids.device,
+                       kv_heads=layout_of(model).kv_heads)
     logits, cache = forward_with_cache(model, params, input_ids, cache,
                                        last_token_head=True,
                                        materialize=materialize)

@@ -1,5 +1,5 @@
-"""InferenceEngine: single-card generation (counterpart of
-``deepspeed_tpu/inference/engine.py``).
+"""InferenceEngine: generation on one card or a tensor- / expert-parallel
+world (counterpart of ``deepspeed_tpu/inference/engine.py``).
 
 The engine casts the state dict to the compute dtype on its device (the
 leaves the model names in ``fp32_param_names()``, an MoE router, stay as
@@ -11,6 +11,14 @@ with the eval capacity factor. The JAX engine
 compiles one program per shape; this one runs eagerly, so there is no
 program cache. The serving engine (``serving/engine.py``) captures its
 slot decode step as one CUDA graph; ``generate()`` runs eagerly.
+
+``tensor_parallel`` / ``expert_parallel``: the engine builds the mesh
+``MeshSpec(data=1, expert=ep, model=tp)`` over the ``torch.distributed``
+world (``init_distributed``), which must hold exactly ``tp x ep`` ranks,
+and keeps this rank's cut of every leaf (``TPLayout.cut``), leaf by leaf:
+each is cast, quantized whole (so its bytes are JAX's) and cut, and the
+whole one dropped before the next. With no process group the mesh is one
+rank and nothing is cut.
 """
 
 from __future__ import annotations
@@ -22,14 +30,16 @@ from typing import Optional
 
 import torch
 
-from ..models.convert import split_fused_qkv
-from ..models.transformer import LAYER_PREFIX, Params, layer_params
+from ..models.convert import cut_leaf, split_fused_qkv
+from ..models.transformer import LAYER_PREFIX, Params, TPLayout, layer_params
 from ..platform.device import resolve_device
+from ..platform.mesh import MeshSpec, build_mesh
 from ..utils.logging import log_dist, warning_once
+from ..utils.roadmap import later
 from .config import InferenceConfig
 from .decode import decode_tokens, generate_tokens, prefill_tokens
 from .quantization import (QuantizedTensor, dequantize_params,
-                           quantize_params, quantized_bytes)
+                           quantize_leaf, quantized_bytes)
 from .sampling import per_request_generators, sample_logits
 
 _QKV = ("wq", "wk", "wv")
@@ -65,19 +75,29 @@ class InferenceEngine:
                 self.model = copy.copy(model)
             self.model.moe_eval_mode = True
         self.flash_decode = cfg.flash_decode_resolved(self.device)
+        self.mesh = self._serving_mesh(cfg, self.model.cfg.num_experts)
+        self.layout = TPLayout.of(self.model.cfg, self.mesh)
+        # the decode path reads the layout (and the flags below) off the
+        # model; a copy, so the caller's model is not stamped
+        if self.model is model:
+            self.model = copy.copy(model)
+        self.model.tp_layout = self.layout
         prequantized = any(isinstance(v, QuantizedTensor)
                            for v in params.values())
         if prequantized and not cfg.quantize:
             raise ValueError("InferenceEngine: the params hold quantized "
                              "leaves; pass {'quantize': True} to serve them")
-        keep = set(self.model.fp32_param_names())
-        cast = {k: v.to(self.device, self.compute_dtype)
-                if isinstance(v, torch.Tensor) and v.is_floating_point()
-                and k.rsplit(".", 1)[-1] not in keep
-                else v.to(self.device) for k, v in params.items()}
         self._fused = (self.model.cfg.objective == "clm"
-                       and all(LAYER_PREFIX + n in cast for n in _QKV))
-        self.params = self._fuse_qkv(cast) if self._fused else cast
+                       and all(LAYER_PREFIX + n in params for n in _QKV))
+        # leaf by leaf: cast, quantize the whole leaf (after the qkv fusion,
+        # as the JAX engine: a fused wqkv has its parts' bytes, the scales
+        # are per column), then this rank's cut; the whole leaf is dropped
+        # before the next
+        self.params = {}
+        src = self._fuse_qkv(params) if self._fused else dict(params)
+        for k in list(src):
+            self.params[k] = cut_leaf(self._prepared(k, src.pop(k)),
+                                      self.layout.cut(self.model.cfg, k))
         # the prefill's quantized → dense function (None: dense weights)
         self.materialize = None
         if cfg.dequant_per_step:
@@ -86,26 +106,69 @@ class InferenceEngine:
                 "keeps weights quantized and dequantizes at each point of "
                 "use; the knob is accepted and changes nothing.")
         if cfg.quantize:
-            # after the cast and the qkv fusion, as the JAX engine: a fused
-            # wqkv has its parts' bytes (the scales are per column). Leaf by
-            # leaf on the device; the dense leaves go with the dict.
-            self.params = quantize_params(
-                self.params, group_size=cfg.quant_group_size,
-                bits=cfg.quant_bits)
             self.materialize = partial(dequantize_params,
                                        dtype=self.compute_dtype)
-            # the decode consumption sites read the flag off the model;
-            # clone first so the caller's model is not flagged
-            if self.model is model:
-                self.model = copy.copy(model)
             self.model.woq_kernel = cfg.woq_kernel_resolved(self.device)
             log_dist(f"inference: int{cfg.quant_bits} WOQ, "
                      f"{quantized_bytes(self.params) / 2**20:.0f} MiB "
-                     f"weights, kernel={self.model.woq_kernel}", ranks=[0])
+                     f"weights a rank, tp={self.layout.tp}, "
+                     f"kernel={self.model.woq_kernel}", ranks=[0])
+        if cfg.tp_comm_quant:
+            # stamped like woq_kernel; the decode step applies it at tp > 1
+            self.model.tp_quant = cfg.tp_comm_quant
+            log_dist(f"inference: int{cfg.tp_comm_quant} quantized TP "
+                     f"decode collective (tp={self.layout.tp}; wo / w_out "
+                     "reductions two-sided int8, logits stay fp)", ranks=[0])
         self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         log_dist(f"inference: {self.model.cfg.param_count() / 1e6:.1f} M "
                  f"params, {self.compute_dtype} on {self.device}, "
-                 f"flash_decode={self.flash_decode}", ranks=[0])
+                 f"flash_decode={self.flash_decode}, mesh "
+                 f"tp={self.layout.tp} ep={self.layout.ep}", ranks=[0])
+
+    @staticmethod
+    def _serving_mesh(cfg: InferenceConfig, num_experts: int):
+        """``MeshSpec(data=1, expert=ep, model=tp)`` over the world that
+        ``init_distributed`` joined (no group: one rank, which takes tp =
+        ep = 1). The JAX engine's ``data`` axis (replicas of the sharded
+        model inside one engine) is not ported: the world must be tp x
+        ep."""
+        import torch.distributed as dist
+
+        tp, ep = int(cfg.tensor_parallel), int(cfg.expert_parallel)
+        if num_experts % ep:
+            raise ValueError(
+                f"expert_parallel={ep} must divide num_experts={num_experts}"
+                " (dense models serve with expert_parallel=1)")
+        active = dist.is_available() and dist.is_initialized()
+        world = dist.get_world_size() if active else 1
+        if not active and tp * ep > 1:
+            raise ValueError(
+                f"tensor_parallel={tp} x expert_parallel={ep} serve over a "
+                f"torch.distributed world of {tp * ep} ranks: call "
+                "init_distributed() in each rank's process first")
+        if world != tp * ep:
+            raise NotImplementedError(
+                f"inference over a world of {world} ranks with "
+                f"tensor_parallel={tp} x expert_parallel={ep}: the engine's "
+                f"data axis (replicas) above 1 is not ported: {later(4)}")
+        return build_mesh(MeshSpec(data=1, expert=ep, model=tp))
+
+    def _prepared(self, name: str, v):
+        """One whole leaf on the engine's device: floating leaves in the
+        compute dtype (but the model's ``fp32_param_names()``), the matmul
+        weights quantized when the config asks for WOQ."""
+        cfg = self.config
+        leaf = name.rsplit(".", 1)[-1]
+        if isinstance(v, QuantizedTensor):
+            return v.to(self.device)
+        if v.is_floating_point() and leaf not in \
+                set(self.model.fp32_param_names()):
+            v = v.to(self.device, self.compute_dtype)
+        else:
+            v = v.to(self.device)
+        if cfg.quantize:
+            v = quantize_leaf(name, v, cfg.quant_group_size, cfg.quant_bits)
+        return v
 
     # ------------------------------------------------------------ qkv fuse
     @staticmethod
@@ -123,7 +186,7 @@ class InferenceEngine:
 
     def _unfused(self, params: Params) -> Params:
         """Split the fused qkv back into per-projection views (``forward``
-        reads the training names)."""
+        reads the training names; whole leaves only)."""
         if not self._fused:
             return params
         layers = split_fused_qkv(layer_params(params), self.model.cfg)
@@ -139,7 +202,13 @@ class InferenceEngine:
     @torch.inference_mode()
     def forward(self, input_ids) -> torch.Tensor:
         """Full forward (no cache): (B, S) → (B, S, V) logits, on dense
-        (dequantized) weights for a quantized engine."""
+        (dequantized) weights for a quantized engine. One rank only: the
+        training forward (``TransformerLM.apply``) is not sharded."""
+        if self.layout.sharded:
+            raise NotImplementedError(
+                "forward() under tensor_parallel / expert_parallel above 1 "
+                f"is not ported: {later(4)}, training half: 4(b); "
+                "generate() and the ServingEngine are")
         params = self.params if self.materialize is None \
             else self.materialize(self.params)
         return self.model.apply(self._unfused(params), self._ids(input_ids))

@@ -1,11 +1,12 @@
-from .convert import (params_from_jax, params_to_numpy,
+from .convert import (cut_leaf, params_from_jax, params_to_numpy, rank_shard,
                       read_fp32_safetensors, train_state_from_jax)
 from .moe import MoETransformerLM
 from .presets import (bert, bloom, build_model, gpt2, llama2, mixtral, opt,
                       tiny_test)
-from .transformer import TransformerConfig, TransformerLM
+from .transformer import TPLayout, TransformerConfig, TransformerLM
 
-__all__ = ["MoETransformerLM", "TransformerConfig", "TransformerLM", "bert",
-           "bloom", "build_model", "gpt2", "llama2", "mixtral", "opt",
-           "params_from_jax", "params_to_numpy", "read_fp32_safetensors",
-           "tiny_test", "train_state_from_jax"]
+__all__ = ["MoETransformerLM", "TPLayout", "TransformerConfig",
+           "TransformerLM", "bert", "bloom", "build_model", "cut_leaf", "gpt2",
+           "llama2", "mixtral", "opt", "params_from_jax", "params_to_numpy",
+           "rank_shard", "read_fp32_safetensors", "tiny_test",
+           "train_state_from_jax"]

@@ -21,6 +21,11 @@ the model's own tree layout and converts the same way, into the port
 engine's ``params=``; :func:`params_to_numpy` goes back, so that master
 params after N steps compare leaf by leaf.
 
+A rank of a tensor- or expert-parallel inference world holds its cut of
+each leaf (``TPLayout.cut``, ``models/transformer.py``): :func:`rank_shard`
+cuts a whole state dict, or a JAX param tree, dense or quantized, into rank
+r's shards, and :func:`cut_leaf` one leaf.
+
 The whole training state crosses too: :func:`train_state_from_jax` puts a
 JAX ``TrainState`` (as numpy: master, moments, counts, loss scale) into a
 port engine, so a JAX run stopped at step k continues in the port; and
@@ -35,7 +40,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from .transformer import LAYER_PREFIX, Params, TransformerConfig, param_shapes
+from .transformer import (LAYER_PREFIX, Params, TPLayout, TransformerConfig,
+                          param_shapes)
 
 
 def _to_torch(a) -> torch.Tensor:
@@ -103,6 +109,43 @@ def params_from_jax(tree: Mapping, cfg: TransformerConfig, *,
                              f"{want[name]}")
         out[name] = t.to(device)
     return out
+
+
+def cut_leaf(t, cut: dict):
+    """The pieces of a leaf that ``cut`` (``{dim: [(start, stop), ...]}``,
+    :meth:`TPLayout.cut`) names, each dim's pieces concatenated in order; a
+    dense tensor or a ``QuantizedTensor`` (its ``q`` and scales cut alike:
+    leading dims by :meth:`select`, the grouped dim by :meth:`rows`, the
+    columns by :meth:`columns`). ``{}`` returns the leaf itself."""
+    quantized = hasattr(t, "columns")
+    for dim, ranges in sorted(cut.items()):
+        if not quantized:
+            parts = [t.narrow(dim, a, b - a) for a, b in ranges]
+            t = torch.cat(parts, dim) if len(parts) > 1 \
+                else parts[0].contiguous()
+            continue
+        last = len(t.shape) - 1
+        if dim == last:
+            parts = [t.columns(a, b) for a, b in ranges]
+            t = type(t).cat_columns(parts) if len(parts) > 1 else parts[0]
+        elif len(ranges) != 1:
+            raise ValueError(f"cut_leaf: dim {dim} of a quantized leaf is "
+                             "cut in one piece")
+        elif dim == last - 1:
+            t = t.rows(*ranges[0])
+        else:
+            t = t.select(dim, *ranges[0])
+    return t
+
+
+def rank_shard(params, cfg: TransformerConfig, layout: TPLayout) -> Params:
+    """Rank ``layout``'s shards of every leaf: of the port's whole state
+    dict (the fused ``wqkv`` / ``bqkv`` of an inference engine cut
+    head-aligned), or of a JAX param tree (numpy, quantized leaves allowed;
+    converted by :func:`params_from_jax` first)."""
+    if "layers" in params:
+        params = params_from_jax(params, cfg)
+    return {k: cut_leaf(v, layout.cut(cfg, k)) for k, v in params.items()}
 
 
 def _flat(tree: Mapping) -> dict:

@@ -15,9 +15,15 @@ decode step, MoE layer included, in one CUDA graph.
 
 The router stays fp32: the engines keep ``fp32_param_names()`` out of
 their compute cast and WOQ keeps it unquantized, so near-tie routing
-decisions do not flap with bf16 rounding. Expert parallelism (the
-``expert`` mesh axis above 1) is ROADMAP.md queue 1, item 4; here the
-axis is named in the specs and has size 1.
+decisions do not flap with bf16 rounding.
+
+Expert parallelism serves (the inference engine's ``expert_parallel``):
+the router is whole on every rank, so every rank routes alike; a rank
+runs its ``E / ep`` experts at ``f / tp`` columns (its ``TPLayout``) on
+its slice of the dispatch, and one all-reduce over the ``("expert",
+"model")`` line sums the combined outputs (``b_out`` joins on one rank of
+each ``model`` line only). Training under ``mesh.expert`` above 1 is
+item 4's training half (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..comm import comm
 from .transformer import LAYER_PREFIX, TransformerLM, _activation
 
 EXPERT = ("expert",)
@@ -117,8 +124,8 @@ def expert_shapes(cfg) -> dict:
 
 
 def expert_specs(cfg) -> dict:
-    """Their sharding (``moe.py:253-264``): experts over ``expert`` (size 1
-    until ROADMAP item 4), the FFN width over ``model``, the router whole."""
+    """Their sharding (``moe.py:253-264``): experts over ``expert``, the FFN
+    width over ``model``, the router whole."""
     M, R = ("model",), ()
     out = {"router": (R, R, R), "w_in": (R, EXPERT, R, M),
            "w_out": (R, EXPERT, M, R)}
@@ -149,9 +156,30 @@ class MoETransformerLM(TransformerLM):
         return ("router",)
 
     def _expert_bias(self, u, p, name):
+        lay = getattr(self, "tp_layout", None)
+        if name == "b_out" and lay is not None and lay.m > 0:
+            return u      # one rank of the model line adds the row bias
         if self.cfg.use_bias and name in p:
             return u + p[name][:, None, :].to(u.dtype)   # (E, f) → (E, 1, f)
         return u
+
+    def _local(self, combine, dispatch):
+        """The rank's experts' slice of the (..., E, C) combine and dispatch
+        under expert parallelism (the whole of them otherwise)."""
+        lay = getattr(self, "tp_layout", None)
+        if lay is None or lay.ep == 1:
+            return combine, dispatch
+        sl = slice(lay.e0, lay.e0 + lay.experts)
+        return combine[..., sl, :], dispatch[..., sl, :]
+
+    def _combined(self, res):
+        """The combine's all-reduce over the ``("expert", "model")`` line
+        of an inference engine's rank (a copy in a world of one; none with
+        no process group or in training)."""
+        lay = getattr(self, "tp_layout", None)
+        if lay is None:
+            return res
+        return comm.all_reduce(res, ("expert", "model"), mesh=lay.mesh)
 
     @staticmethod
     def _bank(p, name, dtype):
@@ -196,10 +224,11 @@ class MoETransformerLM(TransformerLM):
                       drop_tokens=cfg.moe_drop_tokens)
         logits = y.float() @ p["router"].float()               # (B, S, E)
         combine, dispatch, aux = topk_gating(logits, cfg.moe_top_k, C)
+        combine, dispatch = self._local(combine, dispatch)
         xs = torch.einsum("bsec,bsd->becd", dispatch.to(y.dtype), y)
         out = self._experts(xs, p, "bec")
         res = torch.einsum("bsec,becd->bsd", combine.to(y.dtype), out)
-        return res, aux.mean()
+        return self._combined(res), aux.mean()
 
     def _mlp_block_infer(self, y, p):
         """The decode step's dispatch: the B·T tokens as ONE group with
@@ -212,7 +241,8 @@ class MoETransformerLM(TransformerLM):
         yt = y.reshape(B * T, d)
         logits = yt.float() @ p["router"].float()
         combine, dispatch, aux = topk_gating(logits, cfg.moe_top_k, B * T)
+        combine, dispatch = self._local(combine, dispatch)
         xs = torch.einsum("tec,td->ecd", dispatch.to(y.dtype), yt)
         out = self._experts(xs, p, "ec")
         res = torch.einsum("tec,ecd->td", combine.to(y.dtype), out)
-        return res.reshape(B, T, d), aux
+        return self._combined(res).reshape(B, T, d), aux

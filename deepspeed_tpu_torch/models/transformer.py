@@ -31,6 +31,7 @@ from torch import nn
 
 from ..ops.tiled import tiled_matmul
 from ..ops.xent import fused_token_nll, fused_xent_eligible
+from ..platform.mesh import AXIS_ORDER, Mesh
 from ..utils.roadmap import later
 
 Params = dict[str, torch.Tensor]
@@ -246,6 +247,120 @@ def layer_params(params: Params) -> Params:
     """The stacked per-layer leaves, keyed without the ``layers.`` prefix."""
     n = len(LAYER_PREFIX)
     return {k[n:]: v for k, v in params.items() if k.startswith(LAYER_PREFIX)}
+
+
+# ------------------------------------------------------- tensor parallelism
+# the serving layout's fused projections, sharded as their parts
+_FUSED_SPECS = {"wqkv": ((), (), ("model",)), "bqkv": ((), ("model",))}
+
+
+@dataclasses.dataclass(frozen=True)
+class TPLayout:
+    """This rank's cut of a model over the mesh's ``model`` axis (``tp``
+    ranks, this one ``m``) and ``expert`` axis (``ep``, this one ``e``),
+    Megatron's spelling of what ``param_specs`` asks of GSPMD.
+
+    Query heads ``[q0, q0 + heads)`` and with them the rows of ``wo``;
+    KV heads ``[kv0, kv0 + kv_heads)``: ``n_kv_head / tp`` a rank, or,
+    where ``tp`` is a multiple of ``n_kv_head``, the one KV head this
+    rank's query heads read. FFN columns ``[f0, f0 + ffn)``; vocabulary
+    rows ``[v0, v1)``, the whole vocabulary on every rank where ``tp``
+    does not divide it (``vocab_split`` False: no collective); experts
+    ``[e0, e0 + experts)``. ``mesh`` runs the collectives (inactive: they
+    return their input)."""
+
+    mesh: Any
+    tp: int
+    ep: int
+    m: int
+    e: int
+    heads: int
+    q0: int
+    kv_heads: int
+    kv0: int
+    head_dim: int
+    ffn: int
+    f0: int
+    v0: int
+    v1: int
+    vocab_split: bool
+    experts: int
+    e0: int
+
+    @classmethod
+    def of(cls, cfg: TransformerConfig, mesh=None) -> "TPLayout":
+        """The layout of ``mesh``'s rank (None: one rank, no group)."""
+        if mesh is None:
+            mesh = Mesh({a: 1 for a in AXIS_ORDER})
+        tp, ep = mesh.size("model"), mesh.size("expert")
+        m, e = mesh.index("model"), mesh.index("expert")
+        h, kv, f, V = cfg.n_head, cfg.kv_heads, cfg.ffn_dim, cfg.vocab_size
+        E = cfg.num_experts
+        if h % tp:
+            raise ValueError(f"tensor_parallel={tp} must divide n_head={h}")
+        if kv % tp and tp % kv:
+            raise ValueError(f"tensor_parallel={tp} and n_kv_head={kv}: "
+                             "one must divide the other")
+        if f % tp:
+            raise ValueError(f"tensor_parallel={tp} must divide the FFN "
+                             f"width {f}")
+        if E % ep:
+            raise ValueError(f"expert_parallel={ep} must divide "
+                             f"num_experts={E} (dense models serve with "
+                             "expert_parallel=1)")
+        heads = h // tp
+        q0 = m * heads
+        if kv % tp == 0:
+            kv_heads, kv0 = kv // tp, m * (kv // tp)
+        else:        # each KV head is read by the query heads of tp / kv ranks
+            kv_heads, kv0 = 1, q0 // (h // kv)
+        split = V % tp == 0
+        v0, v1 = (m * V // tp, (m + 1) * V // tp) if split else (0, V)
+        return cls(mesh=mesh, tp=tp, ep=ep, m=m, e=e, heads=heads, q0=q0,
+                   kv_heads=kv_heads, kv0=kv0, head_dim=cfg.head_dim,
+                   ffn=f // tp, f0=m * (f // tp), v0=v0, v1=v1,
+                   vocab_split=split, experts=E // ep, e0=e * (E // ep))
+
+    @property
+    def sharded(self) -> bool:
+        """Does any leaf of this rank differ from the whole one?"""
+        return self.tp > 1 or self.ep > 1
+
+    def _model_ranges(self, cfg, leaf: str) -> list:
+        """The ``[start, stop)`` ranges of a ``model``-split dim of
+        ``leaf``."""
+        hd = self.head_dim
+        q = (self.q0 * hd, (self.q0 + self.heads) * hd)
+        kv = (self.kv0 * hd, (self.kv0 + self.kv_heads) * hd)
+        if leaf in ("wq", "bq", "wo"):
+            return [q]
+        if leaf in ("wk", "wv", "bk", "bv"):
+            return [kv]
+        if leaf in ("wqkv", "bqkv"):
+            qd, kvd = cfg.n_head * hd, cfg.kv_heads * hd
+            return [q, (qd + kv[0], qd + kv[1]),
+                    (qd + kvd + kv[0], qd + kvd + kv[1])]
+        if leaf in ("tok_embed", "lm_head", "lm_head_bias"):
+            return [(self.v0, self.v1)]
+        return [(self.f0, self.f0 + self.ffn)]
+
+    def cut(self, cfg, name: str) -> dict:
+        """``{dim: [(start, stop), ...]}``: the pieces of each split dim of
+        the leaf ``name`` this rank holds, concatenated in order (``{}``:
+        the whole leaf). ``param_specs`` names the split dims; the fused
+        qkv is cut head-aligned, each rank ``[wq_r | wk_r | wv_r]``."""
+        leaf = name[len(LAYER_PREFIX):] if name.startswith(LAYER_PREFIX) \
+            else name
+        spec = _FUSED_SPECS.get(leaf) or param_specs(cfg)[name]
+        whole_vocab = leaf in ("tok_embed", "lm_head", "lm_head_bias") \
+            and not self.vocab_split
+        out = {}
+        for dim, axes in enumerate(spec):
+            if "model" in axes and self.tp > 1 and not whole_vocab:
+                out[dim] = self._model_ranges(cfg, leaf)
+            elif "expert" in axes and self.ep > 1:
+                out[dim] = [(self.e0, self.e0 + self.experts)]
+        return out
 
 
 # ------------------------------------------------------------------ helpers

@@ -6,9 +6,10 @@ parallelism and compiles collectives over those axes. Here a rank is one
 process with one device; :func:`build_mesh` gives each rank its coordinates
 in the same order (``AXIS_ORDER``, row-major over the world's ranks, as
 ``build_mesh`` reshapes its device list), so rank ``r`` holds what JAX
-device ``r`` holds, and makes one process group per line of the ``data``
-and the ``zero`` axis. ``pipe``, ``seq``, ``model`` and ``expert`` above 1
-raise with the ROADMAP items that bring them.
+device ``r`` holds, and makes one process group per line of the ``data``,
+``zero``, ``model`` and ``expert`` axes and of the joint ``("expert",
+"model")`` axis (the MoE combine of expert-parallel serving). ``pipe`` and
+``seq`` above 1 raise with the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -27,7 +28,10 @@ AXIS_ORDER = ("pipe", "data", "zero", "expert", "seq", "model")
 # axes that partition examples: the divisor of the batch arithmetic
 BATCH_AXES = ("data", "zero", "expert")
 # an axis above 1 -> the ROADMAP item that ports it
-_LATER = {"pipe": 8, "seq": 8, "model": 4, "expert": 4}
+_LATER = {"pipe": 8, "seq": 8}
+# the lines that get a process group of their own where they are neither a
+# single rank nor the whole world
+_LINES = (("data",), ("zero",), ("expert",), ("model",), ("expert", "model"))
 
 
 @dataclasses.dataclass
@@ -141,14 +145,20 @@ def build_mesh(spec: Optional[MeshSpec] = None) -> Mesh:
     if active:
         # every rank creates every line's group, in one order
         grid = np.arange(world).reshape(tuple(sizes[a] for a in AXIS_ORDER))
-        for axis in ("data", "zero"):
-            if not 1 < sizes[axis] < world:
+        made = set()
+        for line_axes in _LINES:
+            axes = tuple(a for a in line_axes if sizes[a] > 1)
+            n = int(np.prod([sizes[a] for a in axes]))
+            if not 1 < n < world or axes in made:
                 continue
-            lines = np.moveaxis(grid, AXIS_ORDER.index(axis), -1)
-            for line in lines.reshape(-1, sizes[axis]).tolist():
+            made.add(axes)
+            idx = [AXIS_ORDER.index(a) for a in axes]
+            rest = [i for i in range(len(AXIS_ORDER)) if i not in idx]
+            lines = np.transpose(grid, rest + idx).reshape(-1, n)
+            for line in lines.tolist():
                 g = dist.new_group(line)
                 if rank in line:
-                    mesh._groups[(axis,)] = g
+                    mesh._groups[axes] = g
     log_dist(f"mesh: {sizes} over {world} rank(s)", ranks=[0])
     return mesh
 

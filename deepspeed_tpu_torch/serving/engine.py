@@ -28,6 +28,14 @@ table is a static tensor of the state: ``_flush_table`` writes the host
 table into it with ``copy_`` on the replay's stream, never rebinding it,
 so the next replay reads the new rows.
 
+Under ``tensor_parallel`` / ``expert_parallel`` every rank runs its own
+engine on the same submissions: the same scheduler, pool and page tables
+(host, deterministic), its shard of the model and its KV heads on its
+card, and the slot step's collectives (captured in its graph); the logits
+are all-gathered before sampling, so every rank's seeded sampler draws
+the same token. Deadlines read each rank's own clock, so a world above
+one takes none.
+
 A request's tokens equal a solo ``generate(prompt[None], max_new,
 request_seeds=[seed], cache_len=max_len)`` with the same sampling knobs:
 its generator is seeded from its request seed (never from its slot), the
@@ -47,7 +55,7 @@ import torch
 from ..inference.config import ServingConfig
 from ..inference.decode import (GenCarry, KVCache, decode_forward,
                                 decode_sample, finite_rows,
-                                forward_with_cache, init_cache)
+                                forward_with_cache, init_cache, layout_of)
 from ..inference.sampling import per_request_generators, sample_logits
 from ..observability.tracing import ServingStats
 from ..resilience.guards import QueueFullError, RequestStatus
@@ -124,6 +132,20 @@ class ServingEngine:
                                 greedy=self.cfg.greedy)
         self.stats = ServingStats(registry=registry,
                                   **({"clock": clock} if clock else {}))
+        self._kv_heads = layout_of(self.model).kv_heads
+        self._world = layout_of(self.model).mesh.world
+        if self._world > 1 and (self.cfg.ttft_deadline_s
+                                or self.cfg.total_deadline_s):
+            raise NotImplementedError(
+                "serving deadlines over a world of more than one rank (each "
+                "rank's clock would retire other requests) are not ported: "
+                f"{later(4)}")
+        # the quantized TP collective lives on the InferenceEngine; serving
+        # shows it as a gauge, as the JAX engine does
+        self._tp_quant = int(engine.config.tp_comm_quant or 0)
+        if self._tp_quant:
+            self.stats.registry.gauge("Serve/tp_quant_bits").set(
+                float(self._tp_quant))
         # the paged pool and the host's page table, mirrored into the
         # state's table when it changes (a row seated at insert, cleared
         # where the pages are released); page_size 0 builds none of it
@@ -159,11 +181,12 @@ class ServingEngine:
                     mcfg, self.cfg.slots, self.cfg.max_len,
                     self.cfg.page_size, self.cfg.pool_pages,
                     engine.compute_dtype, self.cfg.kv_quant_bits,
-                    device=self.device)
+                    device=self.device, kv_heads=self._kv_heads)
             else:
                 self.state = init_slots(
                     mcfg, self.cfg.slots, self.cfg.max_len,
-                    engine.compute_dtype, device=self.device)
+                    engine.compute_dtype, device=self.device,
+                    kv_heads=self._kv_heads)
         self._graph = SlotGraph() if self.device.type == "cuda" else None
 
     @property
@@ -259,6 +282,10 @@ class ServingEngine:
                                  queue_depth=self.sched.queue_depth,
                                  max_queue=self.cfg.max_queue)
         max_new = int(max_new_tokens or self.engine.config.max_out_tokens)
+        if self._world > 1 and (ttft_deadline_s or total_deadline_s):
+            raise NotImplementedError(
+                "serving deadlines over a world of more than one rank are "
+                f"not ported: {later(4)}")
         req = self.sched.submit(prompt, max_new, seed,
                                 ttft_deadline_s=ttft_deadline_s,
                                 total_deadline_s=total_deadline_s)
@@ -318,7 +345,8 @@ class ServingEngine:
             if req is not None:
                 cache = init_cache(self.model.cfg, 1, self.cfg.max_len,
                                    self.engine.compute_dtype,
-                                   device=self.device)
+                                   device=self.device,
+                                   kv_heads=self._kv_heads)
                 alloc = req.page_alloc
                 if alloc is not None and alloc.hydrate_pages > 0:
                     # prefix sharing: the shared pages (and a copy-on-write
@@ -488,6 +516,8 @@ class ServingEngine:
 
     def metrics_snapshot(self) -> dict:
         out = {"captures": self.captures, **self.stats.snapshot()}
+        if self._tp_quant:
+            out["tp_quant_bits"] = self._tp_quant
         if self._paged:
             out["pages"] = self.pool.snapshot()
         return out

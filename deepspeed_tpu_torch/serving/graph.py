@@ -9,13 +9,26 @@ slot state's static tensors and replayed every iteration, with a capture
 counter that must stay at 1. Sampling stays outside the graph: per-slot
 generators are swapped at insert time, which a graph cannot follow.
 
+Under tensor / expert parallelism the captured forward holds the step's
+NCCL collectives. Their communicators come up at the eager warm-up step,
+which issues every one of them on the same groups before the capture (NCCL
+cannot create one inside a capture). The capture runs in
+``thread_local`` error mode, so ProcessGroupNCCL's watchdog thread may
+still query the events of earlier collectives while this thread captures,
+and with Python's cyclic garbage collector paused: a collection inside the
+capture could destroy an unreachable engine's CUDA graph, an operation a
+capturing stream does not permit.
+
 No fallback: a failed capture or replay raises; the CPU never graphs.
 """
 
 from __future__ import annotations
 
+import gc
+
 import torch
 
+from ..comm import comm
 from ..ops import registry
 
 
@@ -42,6 +55,8 @@ class SlotGraph:
         # those that launched: a replay runs them without calling the
         # wrappers, whose counters only tick at capture
         self.captured_launches: dict = {}
+        # the collectives recorded in the capture, by kind (comm.issued)
+        self.captured_collectives: dict = {}
 
     @property
     def captured(self) -> bool:
@@ -51,15 +66,25 @@ class SlotGraph:
         """Capture ``forward()``; an error in it raises, and nothing is
         kept."""
         before = registry.launch_counts()
+        issued = dict(comm.issued)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = forward()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                out = forward()
+        finally:
+            if collecting:
+                gc.enable()
         self._graph, self._out = graph, out
         self._keep = registry.workspace_buffers()
         after = registry.launch_counts()
         self.captured_launches = {k: n - before.get(k, 0)
                                   for k, n in after.items()
                                   if n != before.get(k, 0)}
+        self.captured_collectives = {k: n - issued[k]
+                                     for k, n in comm.issued.items()
+                                     if n != issued[k]}
         self.captures += 1
 
     def replay(self):

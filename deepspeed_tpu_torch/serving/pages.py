@@ -58,13 +58,17 @@ _SCRATCH = 0        # reserved pool page: idle-slot / shared-entry sink
 # ------------------------------------------------------------ device side
 def init_paged_slots(cfg, slots: int, max_len: int, page_size: int,
                      pages: int, dtype=None, kv_quant_bits: int = 0, *,
-                     device="cpu") -> GenCarry:
+                     device="cpu", kv_heads=None) -> GenCarry:
     """Empty paged slot state: every slot idle (``done``), its table row on
     scratch, length 0. A :class:`~..inference.decode.GenCarry` whose cache
     is a :class:`~..inference.decode.PagedKVCache`, so the slot step of
-    the contiguous engine serves it as it is."""
+    the contiguous engine serves it as it is. ``kv_heads``: a
+    tensor-parallel rank's, whose pool holds its KV heads only (a page's
+    bytes fall by ``tp``); the host half (pool, radix tree, tables) is the
+    same on every rank."""
     shape, dt = cache_layout(cfg, slots, max_len, dtype,
-                             page_size=page_size, pages=pages)
+                             page_size=page_size, pages=pages,
+                             kv_heads=kv_heads)
     k_scale = v_scale = None
     pool_dt = dt
     if kv_quant_bits == 8:

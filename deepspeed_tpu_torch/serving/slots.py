@@ -21,13 +21,14 @@ __all__ = ["init_slots", "insert_request"]
 
 
 def init_slots(cfg, slots: int, max_len: int, dtype=None, *,
-               device="cpu") -> GenCarry:
+               device="cpu", kv_heads=None) -> GenCarry:
     """Empty slot state: every slot idle (``done``), length 0.
 
     A plain :class:`~..inference.decode.GenCarry` whose cache ``length`` is
     a (slots,) vector and whose ``rng`` is a list of per-slot generators,
-    so the ``decode_step`` of ``generate()`` serves it as it is."""
-    shape, dtype = cache_layout(cfg, slots, max_len, dtype)
+    so the ``decode_step`` of ``generate()`` serves it as it is.
+    ``kv_heads``: a tensor-parallel rank's."""
+    shape, dtype = cache_layout(cfg, slots, max_len, dtype, kv_heads=kv_heads)
     cache = KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                     v=torch.zeros(shape, dtype=dtype, device=device),
                     length=torch.zeros(slots, dtype=torch.int32,

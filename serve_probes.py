@@ -10,6 +10,10 @@
   path's top-two logit gap there against an fp32 forward's, decode
   attention's split at B 8 against B 1, and the chunked prefill against the
   whole one layer by layer and op by op;
+- ``tp_graph_probe()``: what a world of one over NCCL puts on the
+  device for the slot step's collectives, eager and captured in a CUDA
+  graph: the profiler's device records of an in-place all-reduce and an
+  all-gather, each issued eagerly and replayed, and the replay's values;
 - ``profile_count_probe()``: how often phase 11's profiled window of
   graph replays misses a kernel record, traced from the window's start,
   after a discarded warm-up replay, or held open ``PROFILE_MARGIN_S`` on
@@ -21,9 +25,10 @@ Run on the card from the repository's root::
     python3 -c "import serve_probes as p; p.parity_probe()"
     python3 -c "import serve_probes as p; p.paged_view_probe()"
     python3 -c "import serve_probes as p; p.profile_count_probe()"
+    python3 -c "import serve_probes as p; p.tp_graph_probe()"
 
 Each prints JSON lines tagged ``[paged-view]`` / ``[solo-parity ...]`` /
-``[prefill-ops ...]``.
+``[prefill-ops ...]`` / ``[tp-graph]``.
 """
 
 from __future__ import annotations
@@ -654,3 +659,167 @@ def profile_count_probe(cfg=None, *, bits=8, windows=30, replays=4,
     del srv, engine
     _free_memory(torch.device("cuda"))
     return out
+
+
+def tp_graph_probe(rows=8, d=4096, vocab=32000, replays=4):
+    """A world of one over NCCL: an in-place all-reduce of a (rows, d) bf16
+    tensor and an all-gather of (rows, vocab) fp32 logits along the
+    vocabulary (the slot step's two kinds), issued eagerly and captured in
+    a CUDA graph, each profiled; prints the device records by name and
+    whether the replays' values equal the eager ones."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.platform.distributed import (_free_port,
+                                                          init_distributed)
+    from deepspeed_tpu_torch.platform.mesh import build_mesh
+
+    init_distributed(f"localhost:{_free_port()}", 1, 0)
+    try:
+        mesh = build_mesh()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn((rows, d), generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        y = torch.randn((rows, vocab), generator=gen, device="cuda")
+
+        def step():
+            a = comm.all_reduce(x * 2, "model", mesh=mesh)
+            b = comm.all_gather(y + 1, "model", 1, mesh=mesh)
+            return a, b
+
+        def records(fn):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                time.sleep(0.2)
+                fn()
+                torch.cuda.synchronize()
+                time.sleep(0.2)
+            dev, host = {}, {}
+            for e in prof.events():
+                into = dev if e.device_type == DeviceType.CUDA else host
+                if e.device_type == DeviceType.CUDA or "c10d" in e.name \
+                        or "nccl" in e.name.lower():
+                    into[e.name[:80]] = into.get(e.name[:80], 0) + 1
+            return {"device": dev, "host": host}
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            want = [t.clone() for t in step()]
+        torch.cuda.current_stream().wait_stream(side)
+        eager = records(step)
+        graph = torch.cuda.CUDAGraph()
+        issued = dict(comm.issued)
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = step()
+        captured = {k: v - issued[k] for k, v in comm.issued.items()
+                    if v != issued[k]}
+        replay = records(lambda: [graph.replay() for _ in range(replays)])
+        same = all(torch.equal(o, w) for o, w in zip(out, want))
+        log("[tp-graph] " + json.dumps({
+            "eager": eager, "replays": replays, "replay": replay,
+            "captured_collectives": captured, "replay_equals_eager": same,
+            "nccl_version": ".".join(map(str, torch.cuda.nccl.version())),
+            "torch": torch.__version__}))
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_capture_probe(tries=4, modes=("thread_local", "global", "relaxed"),
+                     settle_s=(0.0, 0.3)):
+    """Phase 15's capture in a world of one over NCCL, at the card tests'
+    size (Llama-2 tiny int8, 3 slots): a fresh ServingEngine serves a
+    4-request stream ``tries`` times per capture error mode and per wait
+    between the eager warm-up step and the capture (``settle_s``: the
+    device synchronized, then a sleep, so ProcessGroupNCCL's watchdog has
+    retired the warm-up's collectives), with the WOQ kernels on and off;
+    prints which captures succeed (a ``[tp-capture]`` JSON line)."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models import llama2
+    from deepspeed_tpu_torch.ops import registry
+    from deepspeed_tpu_torch.platform.distributed import (_free_port,
+                                                          init_distributed)
+    from deepspeed_tpu_torch.serving import graph as sg
+
+    cfg = llama2("tiny", max_seq=256)
+    model = dt.models.build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda", dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    reqs = [(torch.randint(0, cfg.vocab_size, (P,), generator=gen).numpy(),
+             N, 10 + i) for i, (P, N) in enumerate(
+                 [(5, 20), (20, 20), (40, 20), (9, 10)])]
+    conf = {"dtype": "bfloat16", "quantize": True, "quant_bits": 8,
+            "quant_group_size": 32}
+    serving = {"slots": 3, "max_len": 128, "prefill_chunk": 16,
+               "greedy": True}
+
+    def serve(eng):
+        srv = dt.ServingEngine(eng, serving)
+        out = srv.serve_batch([p for p, _, _ in reqs],
+                              [n for _, n, _ in reqs],
+                              [s for _, _, s in reqs])
+        return [o.tolist() for o in out], srv
+
+    want, _ = serve(dt.init_inference(model, params, conf))
+    original = sg.SlotGraph.capture
+    results = []
+    init_distributed(f"localhost:{_free_port()}", 1, 0)
+    try:
+        for kernel in (True, False):
+            eng = dt.init_inference(model, params,
+                                    {**conf, "woq_kernel": kernel})
+            for mode in modes:
+                for settle in settle_s:
+                    def capture(self, forward, mode=mode, settle=settle):
+                        if settle:
+                            torch.cuda.synchronize()
+                            time.sleep(settle)
+                        before = registry.launch_counts()
+                        issued = dict(comm.issued)
+                        graph = torch.cuda.CUDAGraph()
+                        with torch.cuda.graph(graph,
+                                              capture_error_mode=mode):
+                            out = forward()
+                        self._graph, self._out = graph, out
+                        self._keep = registry.workspace_buffers()
+                        after = registry.launch_counts()
+                        self.captured_launches = {
+                            k: n - before.get(k, 0) for k, n in after.items()
+                            if n != before.get(k, 0)}
+                        self.captured_collectives = {
+                            k: n - issued[k] for k, n in comm.issued.items()
+                            if n != issued[k]}
+                        self.captures += 1
+
+                    sg.SlotGraph.capture = capture
+                    ok, same, err = 0, 0, None
+                    for _ in range(tries):
+                        try:
+                            got, srv = serve(eng)
+                            ok += 1
+                            same += got == want
+                        except Exception as e:   # recorded, then re-tried
+                            err = f"{type(e).__name__}: {str(e)[:160]}"
+                            torch.cuda.synchronize()
+                    results.append({"woq_kernel": kernel, "mode": mode,
+                                    "settle_s": settle, "tries": tries,
+                                    "captured": ok, "tokens_equal": same,
+                                    "error": err})
+                    log(f"[tp-capture] {json.dumps(results[-1])}")
+    finally:
+        sg.SlotGraph.capture = original
+        dist.destroy_process_group()
+    log("[tp-capture] " + json.dumps({"results": results}))

@@ -2086,3 +2086,112 @@ def test_router_stays_fp32_under_a_bf16_cast(cuda):
                         .manual_seed(0))
     loss = float(tr.train_batch({"input_ids": ids.numpy()})["loss"])
     assert loss == loss and fa.flash_fwd.launches - before == 2 * 2
+
+
+# ------------------------------------------------- tensor / expert parallel
+# the shapes each rank of a TP 2 / 4 world gives the decode step's kernels:
+# Llama-2-7B's heads (H = KV = 32 / tp) and the 70B GQA heads at tp 4 and 8
+TP_DECODE_HEADS = [(16, 16), (8, 8), (16, 2), (8, 1)]
+# woq_matmul int8, bf16 x, M 8: Llama-2-7B's column shards (fused qkv,
+# w_in / w_gate) and row shards (wo; w_out at tp 2) with fp32 partials
+TP_WOQ_SHAPES = [(4096, 6144, None), (4096, 3072, None), (4096, 5504, None),
+                 (4096, 2752, None), (2048, 4096, torch.float32),
+                 (1024, 4096, torch.float32), (5504, 4096, torch.float32)]
+
+
+@pytest.mark.parametrize("H,KV", TP_DECODE_HEADS)
+def test_decode_attention_at_rank_heads_matches_plain(cuda, H, KV):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    B, S, hd = 8, 1024, 128
+    q, ck, cv = (torch.randn(shape, generator=g, device=cuda)
+                 .to(torch.bfloat16) for shape in
+                 ((B, 1, H, hd), (B, KV, S, hd), (B, KV, S, hd)))
+    lengths = torch.tensor([1, S, 513, 0, 700, 1023, 64, 900],
+                           dtype=torch.int32, device=cuda)
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, ck, cv, lengths)
+    again = da.decode_attention(q, ck, cv, lengths)
+    want = da.decode_attention_plain(q, ck, cv, lengths)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL[torch.bfloat16], rtol=0)
+
+
+@pytest.mark.parametrize("K,N,out", TP_WOQ_SHAPES)
+def test_woq_matmul_at_rank_shards_matches_plain(cuda, K, N, out):
+    """The shards of the whole leaf's quantization (``rows`` / ``columns``),
+    as a rank holds them, through the kernel."""
+    from deepspeed_tpu_torch.inference.quantization import quantize
+    from deepspeed_tpu_torch.ops import woq_matmul as wm
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    whole = quantize(torch.randn(K * 2 if out else K, N * (1 if out else 2),
+                                 generator=g, device=cuda) * 0.05, 128, 8)
+    qt = whole.rows(K, 2 * K) if out else whole.columns(N, 2 * N)
+    assert qt.aligned
+    x = torch.randn(8, K, generator=g, device=cuda).to(torch.bfloat16)
+    assert wm.woq_route(x.dtype, 8, K, N, qt.group_size) == "mma"
+    kw = dict(group_size=qt.group_size, bits=8, out_dtype=out)
+    got = wm.woq_matmul(x, qt.q, qt.scale, **kw)
+    want = wm.woq_matmul_plain(x, qt.q, qt.scale, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=0,
+        atol=WOQ_SHARE[got.dtype] * want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_woq_matmul_t_on_a_vocab_shard_matches_plain(cuda, tp):
+    """OPT-6.7B's int4 tied table (one group: 50272 rows at group 128) cut
+    over the vocabulary: each rank's table is one group of its own rows."""
+    from deepspeed_tpu_torch.inference.quantization import quantize
+    from deepspeed_tpu_torch.ops import woq_matmul as wm
+
+    V, K = 50272, 4096
+    g = torch.Generator(device=cuda).manual_seed(2)
+    whole = quantize(torch.randn(V, K, generator=g, device=cuda) * 0.02,
+                     128, 4)
+    qt = whole.rows(V // tp, 2 * V // tp)
+    assert qt.group_size == V // tp and qt.scale.shape[0] == 1
+    x = torch.randn(8, K, generator=g, device=cuda).to(torch.bfloat16)
+    assert wm.woq_t_route(x.dtype, K, V // tp, qt.group_size) == "mma"
+    kw = dict(group_size=qt.group_size, bits=4, out_dtype=torch.float32)
+    got = wm.woq_matmul_t(x, qt.q, qt.scale, **kw)
+    want = wm.woq_matmul_t_plain(x, qt.q, qt.scale, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("name", ["llama2_tiny_int8", "mixtral_tiny_int8"])
+def test_graphed_slot_step_with_collectives_is_bit_identical(cuda, name):
+    """A world of one over NCCL: the serving engine's slot step, its
+    all-reduces and all-gather captured in the CUDA graph, serves the same
+    stream with the same tokens as the engine with no process group, with
+    one capture that records the collectives (for an MoE model the
+    ("expert", "model") combine)."""
+    import torch.distributed as dist
+
+    shapes = [(5, 30), (20, 30), (40, 30), (9, 20)]
+
+    def serve():
+        eng, srv = _server(cuda, name)
+        reqs = _stream(eng.model.cfg.vocab_size, shapes)
+        out = srv.serve_batch([p for p, _, _ in reqs],
+                              [n for _, n, _ in reqs],
+                              [s for _, _, s in reqs])
+        return [o.tolist() for o in out], srv
+
+    want, none = serve()
+    assert none.graph.captured_collectives == {}
+    _world_of_one()
+    try:
+        got, srv = serve()
+        cfg = srv.model.cfg
+        assert got == want and srv.captures == 1
+        assert srv.graph.captured_collectives == {
+            "allreduce": 1 + 2 * cfg.n_layer, "allgather": 1}
+    finally:
+        dist.destroy_process_group()

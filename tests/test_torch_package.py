@@ -119,12 +119,19 @@ def test_inference_config_ports_and_refuses():
     assert not InferenceConfig(woq_kernel=False).woq_kernel_resolved("cuda")
     with pytest.raises(ValueError, match="quant_bits"):
         InferenceConfig.from_any({"quantize": True, "quant_bits": 2})
-    for key, value, item in (("tensor_parallel", 2, "tensor"),
-                             ("tensor_parallel", {"tp_size": 2}, "tensor"),
-                             ("moe", {"ep_size": 2}, "expert"),
-                             ("expert_parallel", 2, "expert"),
-                             ("tp_comm_quant", 8, "tensor"),
-                             ("observability", True, "observability"),
+    # tensor and expert parallelism serve (item 4's serving half): the
+    # reference's spellings parse, the quantized collective is int8 only
+    for key, value, field, want in (
+            ("tensor_parallel", 2, "tensor_parallel", 2),
+            ("tensor_parallel", {"tp_size": 4}, "tensor_parallel", 4),
+            ("moe", {"ep_size": 2}, "expert_parallel", 2),
+            ("expert_parallel", 4, "expert_parallel", 4),
+            ("tp_comm_quant", 8, "tp_comm_quant", 8)):
+        assert getattr(InferenceConfig.from_any({key: value}), field) == want
+    for key, value in (("tp_comm_quant", 4), ("tensor_parallel", 0)):
+        with pytest.raises(ValueError, match=key):
+            InferenceConfig.from_any({key: value})
+    for key, value, item in (("observability", True, "observability"),
                              ("serving", {"host_pool_bytes": 1}, "KV tiers")):
         with pytest.raises(NotImplementedError, match=item):
             InferenceConfig.from_any({key: value})

@@ -3,8 +3,15 @@
 
     python3 chip_smoke.py
 
-Phases, in order (phase 14 runs second, right after phase 1, and phase 15
-right after phase 11); any failure raises and the script exits non-zero:
+Phases, in order (phase 14 runs second, right after phase 1, phase 15
+right after phase 11, phase 16 last); any failure raises and the script
+exits non-zero. The phases that profile a window (11, 13, 14, 15 and 16)
+and phase 12 each run in a fresh process of their own (this script with
+``--phase <name> --result <file>``, its result returned as JSON): late in
+one long process a profiled window now and then lost a kernel record
+(ROADMAP.md §3), and phase 12's pinned host buffers stay cached in the
+process that allocated them. A child that fails or dies fails the run;
+nothing is retried:
 
 1. device: the card's name and power limit; build every CUDA kernel of
    ``deepspeed_tpu_torch/ops/csrc`` (nvcc, sm_90a, one process per source,
@@ -207,7 +214,9 @@ right after phase 11); any failure raises and the script exits non-zero:
    launches a step, and the collectives of a profiled step counted by
    kind (``c10d`` ops) against what the engine's layout issues (stage 3:
    an all-gather and a reduce-scatter per cut leaf, layer and micro-batch,
-   and the gathers again in the backward), the NCCL kernels by name. A
+   and the gathers again in the backward; with a group the model's own
+   collectives at tp 1 too, ``tp_train_collectives``), the NCCL kernels by
+   name. A
    ``[zero]`` JSON line: per stage the median step, device busy and idle
    in the profiled step, the NCCL kernels' time, peak memory; the card;
 14. MoE (``phase_moe``). (a) Mixtral-8x7B (``mixtral("8x7b",
@@ -247,6 +256,28 @@ right after phase 11); any failure raises and the script exits non-zero:
    the captured collectives, 2 decode-attention and 5 ``woq_matmul``
    launches a replay. A ``[tp]`` JSON line.
 
+16. tensor / expert parallelism in training (``phase_tp_train``). (a) The
+   xent kernels at a TP rank's training shapes (``phase_tp_train_kernels``):
+   OPT-6.7B's tied head (T 4096, V 50272, d 4096) cut over tp 2, 4 and 8;
+   each rank's ``xent_fwd`` in ``partials`` mode on its rows with shifted
+   targets, combined with the collectives' arithmetic, then ``xent_bwd``
+   with the global lse, against the kernels on the whole head (nll and lse
+   within 1e-4, dx summed over the ranks and each dW shard within 2e-2 of
+   max |whole|, the backward twice bit-identical), each shard's two calls
+   timed beside their bounds; the flash kernels at OPT-6.7B's rank heads (H
+   16 / 8 / 4, hd 128, S 2048) against their plain versions and SDPA. (b)
+   OPT-6.7B at full width and 4 layers with the fused tied head
+   (``TRAIN_CONFIG``, 2048 tokens, ``mesh: {model: 1}``) and phase 14b's
+   2-layer Mixtral (``mesh: {expert: 1}``), each trained by the engine
+   with no process group, then over NCCL in a world of one through every
+   TP and EP branch (the vocab-parallel lookup, Megatron's *f* and *g*,
+   ``fused_token_nll_tp``, the expert all-to-all): losses, grad norms and
+   every master / mu / nu leaf bit-identical over 2 steps, flash and xent
+   launches as the config implies, a profiled step's ``c10d`` collectives
+   by kind exactly ``tp_train_collectives(engine)`` and NCCL's records on
+   the device; step ms, tokens/s, MFU, peak memory and the device's busy
+   share. A ``[tp-train]`` JSON line.
+
 ``remat_sweep()``, ``woq_probe()`` and ``checkpoint_write_probe()`` are
 one-off measurements outside the phases: the default GPT-2 1.5B training
 step under each remat policy, the tensor-core ``x @ W`` under each ring
@@ -272,7 +303,10 @@ capture's count times the graph's replays; ``paged_serving_launches`` the
 same for 11c-11g, ``mixtral_serving_launches`` for 14a, ``tp_launches``
 for 15a, 15a paged and 15b; those rows and ``woq_matmul_t``'s carry
 ``tp_rank_shapes``, each rank shape's µs, bound and route; the flash rows
-carry ``mixtral_train_launches``, 14b's timed steps'.
+carry ``mixtral_train_launches``, 14b's timed steps'; the xent rows and
+the first three flash rows carry ``tp_train_rank_shapes`` (16a: each
+rank shard's or rank head count's µs and bound) and ``tp_train_launches``
+(16b: each model's launches a step).
 The last three lines of standard output are the kernels' JSON, then
 ``nvidia-smi``'s name and power limit of the card, then the device JSON.
 Without a CUDA device, or outside the repository, it exits 1 and prints
@@ -283,10 +317,14 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import sys
 import time
 from functools import partial
 from pathlib import Path
+
+# when this module was imported: a child's start-up is counted from here
+_IMPORTED = time.perf_counter()
 
 PEAK_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
 PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float16": 989e12,
@@ -4935,9 +4973,15 @@ def phase_checkpoint(cfg=None, *, config=None, seq=1024, device=None,
 
 
 def zero_collectives(engine) -> dict:
-    """The collectives one optimizer step of ``engine`` issues, by kind,
-    from its layout (``engine.plans``; a line of one rank in a larger world
-    issues none): what phase 13 holds a profiled step's ``c10d`` ops to."""
+    """The collectives one optimizer step of ``engine``'s ZeRO layout
+    issues, by kind, from ``engine.plans`` (a line of one rank in a larger
+    world issues none): the loss mean, the norm, the casts' gathers and the
+    grad reductions, each leaf over the batch lines its copies see, a dense
+    leaf cut over ZeRO summed over ``expert`` after its reduce-scatter, a
+    KV head several ranks hold summed over ``model``. The model's own
+    collectives are :func:`tp_train_collectives`'."""
+    from deepspeed_tpu_torch.platform.mesh import AXIS_ORDER, BATCH_AXES
+
     cfg, mesh, part = engine.config, engine.mesh, engine.partitioner
     gas = int(cfg.gradient_accumulation_steps)
     n = {"allgather": 0, "reduce_scatter": 0, "allreduce": 0}
@@ -4956,34 +5000,43 @@ def zero_collectives(engine) -> dict:
         if plan.qwz and not last:
             add("allgather", axes)
 
-    add("allreduce", ("data", "zero", "expert"))              # the loss
-    add("allreduce", part.dp_axes)                           # the norm
+    batch = BATCH_AXES
+    add("allreduce", batch)                                  # the loss
+    add("allreduce", part.dp_axes + ("expert", "model"))     # the norm
     if cfg.fp16.enabled:
-        add("allreduce", ("data", "zero", "expert"))          # finite
-    sizes = []
+        add("allreduce", AXIS_ORDER)                         # finite
+    sizes, rest = [], set()
     for k in sorted(engine.plans):
         plan = engine.plans[k]
+        lines = engine._grad_lines(k)
         if plan.compute is not None:
+            done = set(plan.compute.axes)
             if plan.hier:
                 gather(plan, ("data",), plan.master.axes)
                 add("reduce_scatter", ("data",))
+                done.add("data")
             elif part.mics:
                 add("allreduce", ("data",))
+                done.add("data")
             layers = plan.shape[0] if plan.layered else 1
             # forward gathers, the backward's gathers again (every layer
             # but the last is freed in the forward), the reduce-scatters
             add("allgather", plan.compute.axes,
                 gas * (2 * layers - 1 if plan.layered else 1))
             add("reduce_scatter", plan.compute.axes, gas * layers)
+            rest.add(tuple(a for a in lines if a not in done))
             continue
         if plan.master is not None:
             gather(plan, plan.master.axes, plan.master.axes)
         if plan.master is None or part.stage != 2:
-            add("allreduce", ("data", "zero", "expert"))
+            add("allreduce", lines)
             continue
         sizes.append(int(math.prod(plan.shape)))
+        done = set(part.dp_axes)
         if part.mics:
             add("allreduce", ("data",))
+            done.add("data")
+        rest.add(tuple(a for a in lines if a not in done))
     buckets, size = 0, 0
     for k in sizes:
         if buckets == 0 or size + k > \
@@ -4991,17 +5044,158 @@ def zero_collectives(engine) -> dict:
             buckets, size = buckets + 1, 0
         size += k
     add("reduce_scatter", part.dp_axes, buckets)
+    for axes in rest:                  # one flat all-reduce a line
+        if mesh.size(axes) > 1:
+            add("allreduce", axes)
+    if engine.layout is not None and engine.layout.kv_shared:
+        add("allreduce", "model")
     return {k: v for k, v in n.items() if v}
+
+
+def _recomputed(model, policy) -> dict:
+    """The forward collectives of one layer that its remat region issues
+    again in the backward, by kind: a checkpoint reruns its region in
+    order up to the last op whose saved tensors the backward needs and
+    stops there, so a region's trailing collective (a row-parallel
+    reduction a residual add alone follows) is not issued again. ``wo``'s
+    reduction runs again inside a whole-layer checkpoint (the MLP's
+    products follow it), ``w_out``'s where a post-LN norm follows it
+    inside the region, and an MoE block's whole exchange (its combine
+    saves the returned slots)."""
+    if policy in (None, "none"):
+        return {}
+    cfg = model.cfg
+    moe = cfg.num_experts > 1
+    whole = not policy.startswith("save_names")
+    out = {}
+
+    def add(kind, count=1):
+        out[kind] = out.get(kind, 0) + count
+
+    if whole:
+        add("allreduce")
+    if cfg.post_ln and not moe:
+        add("allreduce")
+    if moe:
+        add("allreduce")
+        add("alltoall", 2)
+    return out
+
+
+def tp_train_collectives(engine) -> dict:
+    """The collectives one optimizer step of ``engine`` issues, by kind,
+    from its config and layout (a line of one rank in a larger world, or no
+    process group, issues none): :func:`zero_collectives`, and for each
+    micro-batch the model's under its ``TPLayout``: the vocab-parallel
+    embedding's all-reduce where the vocabulary is split; a layer's
+    Megatron *g* after ``wo`` and ``w_out`` (forward) and *f* before q / k
+    / v and ``w_in`` (backward), an MoE layer's two all-to-alls over
+    ``expert`` each way in place of the dense MLP's, with its *f* and *g*;
+    what a remat region issues again (:func:`_recomputed`); the head's
+    ``fused_token_nll_tp`` (three all-reduces forward, dx's backward) or
+    vocab-parallel NLL (max, sum, shift and target forward; *f* and the
+    max's sum backward)."""
+    n = dict(zero_collectives(engine))
+    lay = engine.layout
+    if lay is None:
+        return n
+    cfg, model = engine.model.cfg, engine.model
+    gas = int(engine.config.gradient_accumulation_steps)
+
+    def add(kind, axes, count=1):
+        if not lay.mesh.solo(axes) and count:
+            n[kind] = n.get(kind, 0) + count * gas
+
+    moe = cfg.num_experts > 1
+    if lay.vocab_split:
+        add("allreduce", "model")                     # the embedding
+    again = _recomputed(model, engine.remat_policy)
+    L = cfg.n_layer
+    add("allreduce", "model", L * 4)      # wo and w_out: f and g each
+    if moe:
+        add("alltoall", "expert", L * 4)
+    add("allreduce", "model", L * again.get("allreduce", 0))
+    add("alltoall", "expert", L * again.get("alltoall", 0))
+    if model._fused_xent_active(engine.device.type == "cuda",
+                                engine.compute_dtype):
+        add("allreduce", "model", 4)
+    elif lay.vocab_split:
+        add("allreduce", "model", 6)
+    return n
 
 
 def _collective_kind(name: str):
     """A profiler event's collective kind: the ``c10d`` ops by name."""
     if not name.startswith("c10d::"):
         return None
-    for kind in ("reduce_scatter", "allgather", "allreduce"):
+    for kind in ("reduce_scatter", "allgather", "allreduce", "alltoall"):
         if kind in name:
             return kind
     return None
+
+
+def _nested_in_itself(event) -> bool:
+    """Is a profiler event inside an event of its own name? A collective
+    issued inside a selective checkpoint's region is recorded again under
+    its dispatch mode (``PythonDispatchMode``), one call seen twice."""
+    p = event.cpu_parent
+    while p is not None:
+        if p.name == event.name:
+            return True
+        p = p.cpu_parent
+    return False
+
+
+def _measure_step(eng, batch, timed_batches, cuda: bool) -> dict:
+    """One profiled optimizer step of ``eng`` (the ``c10d`` collectives by
+    kind, NCCL's device records by name and time, device busy against the
+    wall), then the timed steps (median); the state moves on."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    with profile(activities=[ProfilerActivity.CPU]
+                 + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
+        sync()
+        t0 = time.perf_counter()
+        eng.train_batch(dict(batch))
+        sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kinds, nccl, busy = {}, {}, 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            if "nccl" in e.name.lower():
+                # ProcessGroupNCCL's device range of a collective
+                # ("nccl:_all_gather_base"), or an NCCL kernel
+                c, t = nccl.get(e.name, (0, 0.0))
+                nccl[e.name] = (c + 1, t + us)
+            if not e.name.startswith("nccl:"):   # a range, not work
+                busy += us
+        else:
+            kind = _collective_kind(e.name)
+            if kind and not _nested_in_itself(e):
+                kinds[kind] = kinds.get(kind, 0) + 1
+    times = []
+    for b in timed_batches:
+        sync()
+        t0 = time.perf_counter()
+        m = eng.train_batch(dict(b))
+        float(m["loss"])
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"step_ms": statistics.median(times), "step_ms_all": times,
+            "profiled_wall_ms": wall_us / 1e3,
+            "busy_ms": busy / 1e3 if cuda else None,
+            "idle_share": 1 - busy / wall_us if cuda else None,
+            "nccl_ms": sum(t for k, (_, t) in nccl.items()
+                           if k.startswith("nccl:")) / 1e3,
+            "nccl_kernels": {k: {"count": c, "us": t}
+                             for k, (c, t) in nccl.items()},
+            "collectives": kinds}
 
 
 def phase_zero(cfg=None, *, config=None, seq=1024, device=None, steps=2,
@@ -5017,16 +5211,14 @@ def phase_zero(cfg=None, *, config=None, seq=1024, device=None, steps=2,
     from the same state: everything bit-identical to (a) (every collective
     over a group of one is a copy), each layer's flash and the head's xent
     launches counted, then one profiled step (the ``c10d`` collectives by
-    kind against :func:`zero_collectives`, the NCCL kernels by name and
+    kind against :func:`tp_train_collectives`: the layout's and, with a
+    group, the model's at tp 1, the NCCL kernels by name and
     time, device busy and idle) and ``timed`` timed steps (median). A
     ``[zero]`` JSON line; every engine is freed before the next."""
     import os
-    import statistics
 
     import torch
     import torch.distributed as dist
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     import deepspeed_tpu_torch as dt
     from deepspeed_tpu_torch.models import gpt2
@@ -5073,46 +5265,7 @@ def phase_zero(cfg=None, *, config=None, seq=1024, device=None, steps=2,
                 for g, d in _state_groups(eng).items()}
 
     def measure(eng):
-        """One profiled step, then ``timed`` timed ones (the state moves
-        on: the comparison is over)."""
-        with profile(activities=[ProfilerActivity.CPU]
-                     + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
-            sync()
-            t0 = time.perf_counter()
-            run(eng, data[steps:steps + 1])
-            sync()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kinds, nccl, busy = {}, {}, 0.0
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                us = e.time_range.elapsed_us()
-                if "nccl" in e.name.lower():
-                    # ProcessGroupNCCL's device range of a collective
-                    # ("nccl:_all_gather_base"), or an NCCL kernel
-                    c, t = nccl.get(e.name, (0, 0.0))
-                    nccl[e.name] = (c + 1, t + us)
-                if not e.name.startswith("nccl:"):   # a range, not work
-                    busy += us
-            else:
-                kind = _collective_kind(e.name)
-                if kind:
-                    kinds[kind] = kinds.get(kind, 0) + 1
-        times = []
-        for b in data[steps + 1:]:
-            sync()
-            t0 = time.perf_counter()
-            run(eng, [b])
-            sync()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return {"step_ms": statistics.median(times), "step_ms_all": times,
-                "profiled_wall_ms": wall_us / 1e3,
-                "busy_ms": busy / 1e3 if cuda else None,
-                "idle_share": 1 - busy / wall_us if cuda else None,
-                "nccl_ms": sum(t for k, (_, t) in nccl.items()
-                               if k.startswith("nccl:")) / 1e3,
-                "nccl_kernels": {k: {"count": c, "us": t}
-                                 for k, (c, t) in nccl.items()},
-                "collectives": kinds}
+        return _measure_step(eng, data[steps], data[steps + 1:], cuda)
 
     out = {"card": nvidia_smi_line() if cuda else None, "stages": {}}
     try:
@@ -5165,7 +5318,7 @@ def phase_zero(cfg=None, *, config=None, seq=1024, device=None, steps=2,
                 raise AssertionError(f"{tag} stage {stage}: launches "
                                      f"{launches}, want {expect}")
             m = measure(eng)
-            want_kinds = zero_collectives(eng)
+            want_kinds = tp_train_collectives(eng)
             if m["collectives"] != want_kinds:
                 raise AssertionError(
                     f"{tag} stage {stage}: collectives of a step "
@@ -5736,7 +5889,354 @@ def phase_tp(cfg=None, moe_cfg=None, *, device=None, requests=16,
     return out
 
 
-def main() -> int:
+# ----------------------------------------------------------------- phase 16
+# 16a's shapes: OPT-6.7B's tied head (T tokens, V rows, d) cut over tp 2, 4
+# and 8 (25136, 12568 and 6284 rows a rank), and the flash kernels at the
+# rank's heads (OPT-6.7B's 32 heads over tp 2 / 4 / 8, hd 128, S 2048, B 2:
+# 16b's micro-batch rows)
+TP_TRAIN_HEAD = ("opt_6.7b_head", 4096, 50272, 4096)
+TP_TRAIN_TPS = (2, 4, 8)
+TP_TRAIN_FLASH = tuple((f"opt_6.7b_tp{tp}", 2, 32 // tp, 32 // tp, 2048, 128,
+                        True, None, "torch.bfloat16") for tp in TP_TRAIN_TPS)
+TP_XENT_TOL_SHARE = {"nll": 1e-4, "lse": 1e-4, "dx": 2e-2, "dw": 2e-2}
+# 16b: OPT-6.7B at full width, 4 layers, the fused tied head, phase 7's
+# config (micro 4 x gas 2, bf16, ZeRO 1, remat dots_saveable) at 2048
+# tokens; and phase 14b's 2-layer Mixtral-8x7B
+TP_TRAIN_SEQ = 2048
+
+
+def phase_tp_train_kernels(device="cuda", head=TP_TRAIN_HEAD,
+                           tps=TP_TRAIN_TPS, flash=TP_TRAIN_FLASH,
+                           iters=20) -> dict:
+    """Phase 16a: the xent kernels at a TP rank's training shapes. For
+    each ``tp`` and each rank r: ``xent_fwd`` in ``partials`` mode on rows
+    ``[v0, v0 + V / tp)`` of the head (a view of the table, its 16-byte
+    aligned row v0) with the targets shifted by v0 (foreign ones, and two
+    outside the vocabulary, match no row), the partials combined with
+    ``ops.xent.tp_combine``'s arithmetic (the max, the sum of exps about
+    it, the target logits summed), then ``xent_bwd`` against the
+    global lse; held against ``xent_fwd`` / ``xent_bwd`` on the whole head:
+    nll and lse within 1e-4, dx (the sum over the ranks) and each rank's dW
+    within 2e-2 of max |whole|; each backward called twice, bit-identical.
+    Each rank's two calls timed (device) beside their bounds; the plain
+    versions once a ``tp``. Then the flash kernels at the rank's heads
+    (``_flash_timing``: checked against the plain versions, timed against
+    SDPA)."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import xent as xe
+
+    name, T, V, d = head
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    x, w, _, t, g = _xent_case(gen, T, V, d, False, torch.bfloat16, dev)
+    nll_w, lse_w = xe.xent_fwd(x, w, None, t)
+    dx_w, dw_w, _ = xe.xent_bwd(x, w, None, t, lse_w, g)
+    out = {"head": {"T": T, "V": V, "d": d}, "shards": {}, "errors": {}}
+    worst = {k: 0.0 for k in TP_XENT_TOL_SHARE}
+
+    def share(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max().clamp_min(1e-30))
+
+    for tp in tps:
+        rows = V // tp
+        parts, shards = [], []
+        for r in range(tp):
+            v0 = r * rows
+            ws = w[v0:v0 + rows]
+            if ws.data_ptr() % 16:
+                raise AssertionError(f"[tp-train {name}] rank {r} of tp {tp}"
+                                     ": its table rows are not 16-byte "
+                                     "aligned")
+            shards.append((v0, ws, t - v0))
+            parts.append(xe.xent_fwd(x, ws, None, t - v0, partials=True))
+        tgt = torch.stack([p[0] for p in parts]).sum(0)
+        lse_l = torch.stack([p[1] for p in parts])
+        m = lse_l.amax(0)
+        lse = m + torch.log(torch.exp(lse_l - m).sum(0))
+        nll = lse - tgt
+        dx = torch.zeros(x.shape, dtype=torch.float32, device=dev)
+        errs = {"nll": share(nll, nll_w), "lse": share(lse, lse_w), "dw": 0.0}
+        for r, (v0, ws, tl) in enumerate(shards):
+            dxr, dwr, _ = xe.xent_bwd(x, ws, None, tl, lse, g)
+            dxr2, dwr2, _ = xe.xent_bwd(x, ws, None, tl, lse, g)
+            if not (torch.equal(dxr, dxr2) and torch.equal(dwr, dwr2)):
+                raise AssertionError(f"[tp-train {name}] tp {tp} rank {r}: "
+                                     "the backward called twice differs")
+            dx += dxr.float()
+            errs["dw"] = max(errs["dw"], share(dwr, dw_w[v0:v0 + rows]))
+        errs["dx"] = share(dx, dx_w)
+        bad = {k: v for k, v in errs.items() if v > TP_XENT_TOL_SHARE[k]}
+        if bad:
+            raise AssertionError(f"[tp-train {name}] tp {tp}: {bad} against "
+                                 f"the whole head (gates {TP_XENT_TOL_SHARE})")
+        for k, v in errs.items():
+            worst[k] = max(worst[k], v)
+        out["errors"][tp] = errs
+        b = xent_bound(T, rows, d, False)
+        v0, ws, tl = shards[0]
+        plain = {"xent_fwd": time_ms(lambda i: xe.xent_fwd_plain(
+                     x, ws, None, tl, partials=True), 3),
+                 "xent_bwd": time_ms(lambda i: xe.xent_bwd_plain(
+                     x, ws, None, tl, lse, g), 3)}
+        for r, (v0, ws, tl) in enumerate(shards):
+            fwd = device_ms(lambda i: xe.xent_fwd(x, ws, None, tl,
+                                                  partials=True), 1, iters)
+            bwd = device_ms(lambda i: xe.xent_bwd(x, ws, None, tl, lse, g),
+                            1, iters)
+            out["shards"][f"tp{tp}_r{r}"] = {
+                "rows": rows, "v0": v0,
+                "xent_fwd": {"ms": fwd, "bound_ms": b["xent_fwd"]["bound_ms"],
+                             "bound_by": b["xent_fwd"]["bound_by"],
+                             "plain_ms": plain["xent_fwd"]},
+                "xent_bwd": {"ms": bwd, "bound_ms": b["xent_bwd"]["bound_ms"],
+                             "bound_by": b["xent_bwd"]["bound_by"],
+                             "plain_ms": plain["xent_bwd"]}}
+            log(f"[tp-train] {name} tp {tp} rank {r} (rows [{v0}, "
+                f"{v0 + rows})): xent_fwd partials {fwd * 1e3:.2f} us "
+                f"(bound {b['xent_fwd']['bound_ms'] * 1e3:.2f}, "
+                f"{b['xent_fwd']['bound_ms'] / fwd:.1%}), xent_bwd "
+                f"{bwd * 1e3:.2f} us (bound "
+                f"{b['xent_bwd']['bound_ms'] * 1e3:.2f}, "
+                f"{b['xent_bwd']['bound_ms'] / bwd:.1%})")
+        log(f"[tp-train] {name} tp {tp}: the shards' partials combined and "
+            f"their backward against the whole head: {errs} (gates "
+            f"{TP_XENT_TOL_SHARE} of max |whole|)")
+    out["max_abs_err"] = worst
+    out["flash"] = {}
+    if dev.type == "cuda":
+        for case in flash:
+            out["flash"][case[0]] = _flash_timing(gen, case, iters)
+    log("[tp-train-kernels] " + json.dumps(out))
+    return out
+
+
+def _host_copy(engine) -> dict:
+    """The engine's master / mu / nu on the host (a reference that leaves
+    the card's memory to the next engine)."""
+    return {g: {k: t.detach().to("cpu", copy=True) for k, t in d.items()}
+            for g, d in _state_groups(engine).items()}
+
+
+def phase_tp_train(opt_cfg=None, moe_cfg=None, *, device=None,
+                   seq=TP_TRAIN_SEQ, moe_seq=1024, steps=2, timed=2,
+                   kernels=True) -> dict:
+    """Phase 16: tensor and expert parallelism in training. (a) with
+    ``kernels`` on the card: :func:`phase_tp_train_kernels`. (b) Each of
+    ``opt_cfg`` (OPT-6.7B at full width, 4 layers, the fused tied head,
+    under ``TRAIN_CONFIG`` with ``mesh: {model: 1}``) and ``moe_cfg``
+    (phase 14b's 2-layer Mixtral-8x7B under ``MOE_TRAIN_CONFIG`` with
+    ``mesh: {expert: 1}``): the engine with no process group takes
+    ``steps`` steps from one initial state (its state kept on the host);
+    then ``init_distributed`` joins a world of one over NCCL (``gloo`` with
+    ``device="cpu"``) and the engine takes the same steps through every TP
+    and EP branch (the vocab-parallel lookup, Megatron's *f* and *g*,
+    ``fused_token_nll_tp``, the expert all-to-all), each collective over a
+    group of one: losses, grad norms, lr and every master / mu / nu leaf
+    bit-identical; flash and xent launches as the config implies; one
+    profiled step's ``c10d`` collectives by kind exactly
+    :func:`tp_train_collectives` and NCCL's records on the device; then
+    ``timed`` steps: step ms, tokens/s, MFU at 989 TFLOP/s, peak memory,
+    the device's busy share, beside the engine with no group's step
+    (measured the same way after its state was copied). A ``[tp-train]``
+    JSON line; every engine is
+    freed before the next, the group destroyed after each model."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import mixtral, opt
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import xent as xe
+    from deepspeed_tpu_torch.platform.device import nvidia_smi_line
+    from deepspeed_tpu_torch.platform.distributed import (_free_port,
+                                                          init_distributed)
+    from deepspeed_tpu_torch.runtime import random_token_dataset
+
+    dev = torch.device(device or "cuda")
+    cuda = dev.type == "cuda"
+    kw = {} if device is None else {"device": device}
+    t_phase = time.perf_counter()
+    out = {"card": nvidia_smi_line() if cuda else None}
+    if kernels and cuda:
+        out["kernels"] = phase_tp_train_kernels(device=str(dev))
+        _free_memory(dev)
+    opt_cfg = opt_cfg or opt("6.7b", n_layer=4)
+    moe_cfg = moe_cfg or mixtral("8x7b", n_layer=2)
+    moe_config = {**MOE_TRAIN_CONFIG, "moe": {
+        **MOE_TRAIN_CONFIG["moe"], "num_experts": moe_cfg.num_experts}}
+    counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, xe.xent_fwd,
+                xe.xent_bwd)
+    runs = (("opt", opt_cfg, {**TRAIN_CONFIG, "mesh": {"model": 1}}, seq),
+            ("mixtral", moe_cfg, {**moe_config, "mesh": {"expert": 1}},
+             moe_seq))
+    if dist.is_initialized():
+        raise AssertionError("[tp-train] a process group is already up")
+    for name, cfg, config, s in runs:
+        tag = f"[tp-train {name} {cfg.n_layer}L d{cfg.d_model}]"
+        gas = config["gradient_accumulation_steps"]
+        rows = config["train_micro_batch_size_per_gpu"] * gas
+        data = [_token_batch(random_token_dataset(rows, s, cfg.vocab_size,
+                                                  seed=160 + i,
+                                                  learnable=True))
+                for i in range(steps + 1 + timed)]
+        _free_memory(dev)
+
+        def engine(conf):
+            """An engine from the one initial state, drawn on the device
+            from the same seed for each (and freed once it is copied)."""
+            gen = torch.Generator(device=dev).manual_seed(1616)
+            init = dt.build_model(cfg).init(gen, device=dev,
+                                            dtype=torch.float32)
+            return dt.initialize(conf, dt.build_model(
+                cfg, attention_fn=dt.make_flash_attention()), params=init,
+                **kw)
+
+        def run(eng, batches):
+            res = []
+            for b in batches:
+                m = eng.train_batch(dict(b))
+                res.append((float(m["loss"]), float(m["grad_norm"]),
+                            m["lr"]))
+            return res
+
+        ref = engine({k: v for k, v in config.items() if k != "mesh"})
+        want = run(ref, data[:steps])
+        want_state = _host_copy(ref)
+        # the state moves on: the comparison's copy is taken
+        no_group = _measure_step(ref, data[steps], data[steps + 1:], cuda)
+        del ref
+        _free_memory(dev)
+        os.environ.pop("WORLD_SIZE", None)
+        init_distributed(f"localhost:{_free_port()}", 1, 0, **kw)
+        try:
+            held = _free_memory(dev)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            eng = engine(config)
+            for c in counters:
+                c.launches = 0
+            got = run(eng, data[:steps])
+            launches = {c.__name__: c.launches for c in counters}
+            diff = [(g, k) for g, d in _state_groups(eng).items()
+                    for k, t in d.items()
+                    if not torch.equal(t.detach().cpu(), want_state[g][k])]
+            if got != want or diff:
+                raise AssertionError(
+                    f"{tag} over a world of one through the TP / EP branches:"
+                    f" steps {got} vs {want} with no process group; leaves "
+                    f"that differ {diff[:8]}")
+            del want_state
+            per_step = cfg.n_layer * gas if cuda else 0
+            head = gas if cuda and eng.model._fused_xent_active(
+                cuda, eng.compute_dtype) else 0
+            expect = {"flash_fwd": 2 * per_step * steps, "flash_bwd_dq":
+                      per_step * steps, "flash_bwd_dkv": per_step * steps,
+                      "xent_fwd": head * steps, "xent_bwd": head * steps}
+            if launches != expect:
+                raise AssertionError(f"{tag} launches {launches}, want "
+                                     f"{expect}")
+            m = _measure_step(eng, data[steps], data[steps + 1:], cuda)
+            want_kinds = tp_train_collectives(eng)
+            if m["collectives"] != want_kinds:
+                raise AssertionError(
+                    f"{tag} collectives of a step {m['collectives']}, the "
+                    f"config and layout issue {want_kinds}")
+            if cuda and not m["nccl_kernels"]:
+                raise AssertionError(f"{tag} the profiler shows no NCCL work "
+                                     "on the device")
+            tokens = rows * s
+            flops = cfg.flops_per_token() * tokens
+            m.update(
+                steps=got, launches=launches,
+                launches_per_step={k: v // steps for k, v in launches.items()},
+                reckoned=want_kinds, tokens_per_s=tokens / m["step_ms"] * 1e3,
+                mfu=flops / (m["step_ms"] / 1e3)
+                / PEAK_OPS_PER_S["torch.bfloat16"],
+                busy_share=(m["busy_ms"] / m["profiled_wall_ms"]
+                            if cuda else None),
+                peak_bytes=(torch.cuda.max_memory_allocated() - held
+                            if cuda else 0),
+                fused_head=bool(head), seq=s, rows=rows,
+                no_group={k: no_group[k] for k in (
+                    "step_ms", "step_ms_all", "busy_ms",
+                    "profiled_wall_ms")})
+            out[name] = m
+            log(f"{tag} world of one, NCCL: bit-identical to the engine with "
+                f"no process group over {steps} steps; launches {launches}; "
+                f"collectives {m['collectives']}; step {m['step_ms']:.1f} ms, "
+                f"{m['tokens_per_s']:.0f} tokens/s, MFU {m['mfu']:.1%}, busy "
+                f"{m['busy_share'] or 0:.1%}, peak "
+                f"{m['peak_bytes'] / 2**30:.2f} GiB; with no process group "
+                f"{no_group['step_ms']:.1f} ms a step")
+            del eng
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            _free_memory(dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("[tp-train] " + json.dumps(out))
+    return out
+
+
+# the phases run in a process of their own (``--phase``): each profiles a
+# window, and late in one long process a window now and then lost a kernel
+# record (ROADMAP.md §3); phase 12 for its host memory; the time a child
+# may take
+CHILD_TIMEOUT_S = 900
+
+
+def _child_phases() -> dict:
+    from deepspeed_tpu_torch.models import llama2
+
+    return {"moe": phase_moe,
+            "serve": lambda: phase_serve_all(llama2("7b")),
+            "tp": phase_tp, "ckpt": phase_checkpoint, "zero": phase_zero,
+            "tp_train": phase_tp_train}
+
+
+def _jsonable(o):
+    """What ``json`` cannot write: arrays and tensors as lists, the rest
+    by ``repr``."""
+    if hasattr(o, "tolist"):
+        return o.tolist()
+    if isinstance(o, (set, frozenset)):
+        return sorted(o)
+    return repr(o)
+
+
+def run_child(name: str) -> dict:
+    """Phase ``name`` in a fresh process of this script; its result, read
+    back from the JSON file the child writes. A child that exits non-zero,
+    dies or writes no result fails the run."""
+    import subprocess
+
+    import torch
+
+    torch.cuda.empty_cache()
+    out = Path(__file__).resolve().parent / "chiprun_out" / "phases"
+    out.mkdir(parents=True, exist_ok=True)
+    res = out / f"{name}.json"
+    res.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--phase", name, "--result", str(res)],
+                          timeout=CHILD_TIMEOUT_S)
+    if proc.returncode != 0 or not res.exists():
+        raise AssertionError(f"phase {name} in its own process exited "
+                             f"{proc.returncode}"
+                             + ("" if res.exists() else ", no result"))
+    log(f"[child] phase {name}: {time.perf_counter() - t0:.1f} s in its own "
+        "process")
+    return json.loads(res.read_text())
+
+
+def _ready() -> int:
+    """0 where there is a card and the package beside this script, else 1
+    (with the reason on standard error)."""
     try:
         import torch
     except ImportError as e:
@@ -5753,6 +6253,27 @@ def main() -> int:
         print(f"chip_smoke: the deepspeed_tpu_torch package is not beside "
               f"this script ({e})", file=sys.stderr)
         return 1
+    return 0
+
+
+def child_main(name: str, result: str) -> int:
+    """``--phase name --result file``: one phase, its result as JSON."""
+    if _ready():
+        return 1
+    t0 = time.perf_counter()
+    out = _child_phases()[name]()
+    Path(result).write_text(json.dumps(out, default=_jsonable))
+    log(f"[child] phase {name}: {time.perf_counter() - t0:.1f} s from its "
+        f"start to its result, {t0 - _IMPORTED:.1f} s of imports and checks "
+        "before it")
+    return 0
+
+
+def main() -> int:
+    if _ready():
+        return 1
+    import torch
+
     from deepspeed_tpu_torch.models import bert, gpt2, llama2, opt
     from deepspeed_tpu_torch.ops.flash_attention import library
     from deepspeed_tpu_torch.ops.sparse_attention import \
@@ -5760,10 +6281,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     dev = phase_device()
-    # phase 14 second: after phases 2-13 had run in the process, its long
-    # profiled window lost one kernel record in two runs of two (ROADMAP.md
-    # §3), and never in a fresh one
-    moe = phase_moe()
+    # phase 14 second (its own process, as every profiled phase): after
+    # phases 2-13 had run in one process, its long profiled window lost one
+    # kernel record in two runs of two (ROADMAP.md §3)
+    moe = run_child("moe")
     kern = phase_kernels()
     woq = phase_woq_kernels()
     tpk = phase_tp_kernels()
@@ -5800,15 +6321,22 @@ def main() -> int:
             f"{train['peak_bytes'] / 2**30:.2f} GiB")
     long = phase_long_train()
     evo = phase_evoformer()
-    serve, serve8, paged = phase_serve_all(llama2("7b"))
-    # phase 15 right after phase 11: windows counted by kernel name late
-    # in the run lose a record now and then (ROADMAP.md §3), and run ahead
-    # of phase 11 it pushed phase 11's eight windows later, where one lost
-    # a record in two runs of two
-    tp = phase_tp()
-    phase_checkpoint()
-    phase_zero()
+    serve, serve8, paged = run_child("serve")
+    # phase 15 right after phase 11, each in its own process: windows
+    # counted by kernel name late in one process lost a record now and
+    # then (ROADMAP.md §3)
+    tp = run_child("tp")
+    # phase 12 in its own process too: its pinned host buffers (18.7 GB)
+    # stay cached in the process that allocated them, and phase 16 holds
+    # a 2-layer Mixtral's state (38 GB) on the host beside them
+    run_child("ckpt")
+    run_child("zero")
+    tpt = run_child("tp_train")
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
+    tp_shapes = tpt["kernels"]["shards"]
+    tp_flash = tpt["kernels"]["flash"]
+    tp_launches = {k: tpt[k]["launches_per_step"] for k in ("opt",
+                                                            "mixtral")}
     tp_runs = ("15a", "15a paged", "15b")
     src = "deepspeed_tpu_torch/ops/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -5859,6 +6387,14 @@ def main() -> int:
                           (streamed_line, {**flash["streamed"][name],
                                            "max_abs_err": flash[name][
                                                "max_abs_err"]})):
+            tp_rows = {} if at != line else {
+                "tp_train_rank_shapes": {
+                    c: {"us": t[name]["ms"] * 1e3,
+                        "bound_us": t[name]["bound_ms"] * 1e3,
+                        "library_us": t[name]["library_ms"] * 1e3}
+                    for c, t in tp_flash.items()},
+                "tp_train_launches": {m: n[name]
+                                      for m, n in tp_launches.items()}}
             kernels.append({"name": name, "route": "cuda",
                             "source": src + library(name, torch.bfloat16,
                                                     64) + ".cu",
@@ -5867,7 +6403,7 @@ def main() -> int:
                             "launches": train["launches"][name],
                             "mixtral_train_launches":
                                 moe["train"]["launches"][name],
-                            **{k: times[k] for k in keys}})
+                            **tp_rows, **{k: times[k] for k in keys}})
     # launches: the same run (GPT-2 1.5B under its default config)
     # the backward's one call (xent_bwd) computes kernels #11 and #12: both
     # rows carry its launches and its times
@@ -5880,6 +6416,13 @@ def main() -> int:
                         "launches": train["launches"][wrapper],
                         **({"call": "xent_bwd"} if wrapper == "xent_bwd"
                            else {}),
+                        "tp_train_rank_shapes": {
+                            k: {"us": r[wrapper]["ms"] * 1e3,
+                                "bound_us": r[wrapper]["bound_ms"] * 1e3,
+                                "bound_by": r[wrapper]["bound_by"]}
+                            for k, r in tp_shapes.items()},
+                        "tp_train_launches": {m: n[wrapper] for m, n
+                                              in tp_launches.items()},
                         **{k: xent[name][k] for k in keys}})
     # launches: phase 9 (GPT-2 1.5B at 8192 tokens, the Fixed layout:
     # block 64, hd 64, whose forward runs on the wgmma library)
@@ -5929,4 +6472,14 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--phase" in sys.argv:
+        args = sys.argv[1:]
+        rc = child_main(args[args.index("--phase") + 1],
+                        args[args.index("--result") + 1])
+        # the result is on the disk and every phase frees its engines and
+        # process group itself: skip the interpreter's teardown of the
+        # caches (tens of GB of device and pinned host memory)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(rc)
     sys.exit(main())

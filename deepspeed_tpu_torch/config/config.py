@@ -91,12 +91,9 @@ _ZERO_LATER = {
                            pipeline_write=True), 6),
     "zero_quantized_gradients": (False, 8),
 }
-# mesh axis -> item that brings a degree > 1
 # the training engine's mesh axes above 1 -> the ROADMAP item that ports
-# them; ``model`` / ``expert`` serve under the inference engine (item 4's
-# serving half), and train with its training half
-_MESH_LATER = {"model": 4, "expert": 4, "pipe": 8, "seq": 8}
-_MESH_HALF = {"model": ", training half: 4(b)", "expert": ", training half: 4(b)"}
+# them (``model`` and ``expert`` train: item 4)
+_MESH_LATER = {"pipe": 8, "seq": 8}
 REMAT_POLICY_NAMES = ("none", "full", "dots_saveable", "save_nothing",
                       "save_names", "save_names_mlp", "offload_dots")
 
@@ -289,8 +286,7 @@ class MeshConfig:
             if int(getattr(self, axis)) != 1:
                 raise NotImplementedError(
                     f"config mesh.{axis}={getattr(self, axis)} is not ported "
-                    f"yet for training: {later(item)}"
-                    f"{_MESH_HALF.get(axis, '')}")
+                    f"yet for training: {later(item)}")
 
 
 _DATACLASSES = {"optimizer": OptimizerConfig, "bf16": BF16Config,
@@ -388,6 +384,17 @@ class Config:
                                         "bfloat16", "fp16", "float16"):
             raise ValueError(f"unknown grad_accum_dtype "
                              f"{out.grad_accum_dtype!r}")
+        zc, m = out.zero_optimization, out.mesh
+        sub = {"zero_hpz_partition_size": int(zc.zero_hpz_partition_size) > 1,
+               "mics_shard_size": int(zc.mics_shard_size or 0) > 0,
+               "zero_quantized_weights": bool(zc.zero_quantized_weights),
+               "mesh.zero": int(m.zero or 1) != 1}
+        on = [k for k, v in sub.items() if v]
+        if on and (int(m.model) != 1 or int(m.expert) != 1):
+            raise NotImplementedError(
+                f"{', '.join(on)} under mesh.model={m.model} / mesh.expert="
+                f"{m.expert} (hpZ / MiCS / qwZ composed with tensor or "
+                f"expert parallelism) is not ported yet: {later(4)}")
         return out
 
     def to_dict(self) -> dict:

@@ -18,7 +18,10 @@ world (``init_distributed``), which must hold exactly ``tp x ep`` ranks,
 and keeps this rank's cut of every leaf (``TPLayout.cut``), leaf by leaf:
 each is cast, quantized whole (so its bytes are JAX's) and cut, and the
 whole one dropped before the next. With no process group the mesh is one
-rank and nothing is cut.
+rank and nothing is cut. ``forward()`` of a sharded engine is the training
+forward on the rank's cut (``TransformerLM.apply``: Megatron's collectives
+over the ``model`` line, the serving MoE combine), its logits all-gathered
+along the vocabulary.
 """
 
 from __future__ import annotations
@@ -186,10 +189,12 @@ class InferenceEngine:
 
     def _unfused(self, params: Params) -> Params:
         """Split the fused qkv back into per-projection views (``forward``
-        reads the training names; whole leaves only)."""
+        reads the training names): the rank's ``[wq_r | wk_r | wv_r]`` at
+        its own heads' widths."""
         if not self._fused:
             return params
-        layers = split_fused_qkv(layer_params(params), self.model.cfg)
+        layers = split_fused_qkv(layer_params(params), self.model.cfg,
+                                 self.layout)
         out = {k: v for k, v in params.items()
                if not k.startswith(LAYER_PREFIX)}
         out.update({LAYER_PREFIX + k: v for k, v in layers.items()})
@@ -201,14 +206,16 @@ class InferenceEngine:
     # -------------------------------------------------------------- forward
     @torch.inference_mode()
     def forward(self, input_ids) -> torch.Tensor:
-        """Full forward (no cache): (B, S) → (B, S, V) logits, on dense
-        (dequantized) weights for a quantized engine. One rank only: the
-        training forward (``TransformerLM.apply``) is not sharded."""
-        if self.layout.sharded:
-            raise NotImplementedError(
-                "forward() under tensor_parallel / expert_parallel above 1 "
-                f"is not ported: {later(4)}, training half: 4(b); "
-                "generate() and the ServingEngine are")
+        """Full forward (no cache): (B, S) → (B, S, V) logits on every
+        rank, on dense (dequantized) weights for a quantized engine; a
+        tensor- / expert-parallel rank runs the training forward on its
+        cut, which needs the process group it was cut over."""
+        if self.layout.sharded and not self.layout.mesh.active:
+            raise ValueError(
+                "forward(): this engine's layout is cut over "
+                f"tensor_parallel={self.layout.tp} x expert_parallel="
+                f"{self.layout.ep} ranks but was not built over their "
+                "process group (init_distributed, then init_inference)")
         params = self.params if self.materialize is None \
             else self.materialize(self.params)
         return self.model.apply(self._unfused(params), self._ids(input_ids))

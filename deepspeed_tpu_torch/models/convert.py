@@ -21,10 +21,14 @@ the model's own tree layout and converts the same way, into the port
 engine's ``params=``; :func:`params_to_numpy` goes back, so that master
 params after N steps compare leaf by leaf.
 
-A rank of a tensor- or expert-parallel inference world holds its cut of
-each leaf (``TPLayout.cut``, ``models/transformer.py``): :func:`rank_shard`
-cuts a whole state dict, or a JAX param tree, dense or quantized, into rank
-r's shards, and :func:`cut_leaf` one leaf.
+A rank of a tensor- or expert-parallel world holds its cut of each leaf
+(``TPLayout.cut``, ``models/transformer.py``): :func:`rank_shard` cuts a
+whole state dict, or a JAX param tree (an inference engine's, or a
+training engine's fp32 master), dense or quantized, into rank r's shards,
+and :func:`cut_leaf` one leaf; :func:`gather_rank_shards` puts every
+rank's shards of a training state back into JAX's whole leaves,
+:func:`gather_leaf` one leaf (the training engine's ``whole_of`` goes
+through it), and :func:`place_leaf` writes one rank's cut of a leaf.
 
 The whole training state crosses too: :func:`train_state_from_jax` puts a
 JAX ``TrainState`` (as numpy: master, moments, counts, loss scale) into a
@@ -57,11 +61,15 @@ def _columns(t, start: int, stop=None):
     return t[..., start:stop]
 
 
-def split_fused_qkv(layers: dict, cfg: TransformerConfig) -> dict:
+def split_fused_qkv(layers: dict, cfg: TransformerConfig,
+                    layout: TPLayout = None) -> dict:
     """Per-layer leaves with the fused ``wqkv`` / ``bqkv`` split (in
-    place) into ``wq``/``wk``/``wv`` and ``bq``/``bk``/``bv``."""
-    qd = cfg.n_head * cfg.head_dim
-    kvd = cfg.kv_heads * cfg.head_dim
+    place) into ``wq``/``wk``/``wv`` and ``bq``/``bk``/``bv``; ``layout``:
+    a rank's cut ``[wq_r | wk_r | wv_r]``, at its heads' widths."""
+    heads, kv = (layout.heads, layout.kv_heads) if layout is not None \
+        else (cfg.n_head, cfg.kv_heads)
+    qd = heads * cfg.head_dim
+    kvd = kv * cfg.head_dim
     for fused, names in (("wqkv", ("wq", "wk", "wv")),
                          ("bqkv", ("bq", "bk", "bv"))):
         if fused in layers:
@@ -136,6 +144,47 @@ def cut_leaf(t, cut: dict):
         else:
             t = t.select(dim, *ranges[0])
     return t
+
+
+def place_leaf(whole: torch.Tensor, piece: torch.Tensor, cut: dict) -> None:
+    """Write ``piece``, the pieces of a leaf that ``cut`` names as
+    :func:`cut_leaf` takes them, into ``whole`` in place."""
+    if not cut:
+        whole.copy_(piece)
+        return
+    dim = min(cut)
+    rest = {d: r for d, r in cut.items() if d != dim}
+    off = 0
+    for a, b in cut[dim]:
+        place_leaf(whole.narrow(dim, a, b - a), piece.narrow(dim, off, b - a),
+                   rest)
+        off += b - a
+
+
+def gather_leaf(pieces: Mapping, cfg: TransformerConfig, name: str,
+                tp: int, ep: int = 1) -> torch.Tensor:
+    """The whole leaf ``name`` from the ranks' cuts of it (``pieces[(m,
+    e)]``: the cut of the rank at ``model`` index m and ``expert`` index e
+    of a tp × ep layout, whole over ZeRO; a leaf not cut over an axis needs
+    index 0 of it only). A KV head several ranks hold is read from each."""
+    first = torch.as_tensor(next(iter(pieces.values())))
+    whole = torch.empty(param_shapes(cfg)[name], dtype=first.dtype,
+                        device=first.device)
+    for (m, e), piece in pieces.items():
+        place_leaf(whole, torch.as_tensor(piece),
+                   TPLayout.at(cfg, tp, ep, m, e).cut(cfg, name))
+    return whole
+
+
+def gather_rank_shards(shards: Mapping, cfg: TransformerConfig, tp: int,
+                       ep: int = 1) -> Params:
+    """Every rank's tensor- / expert-parallel shards of a training state
+    (``shards[(m, e)]``: the state dict of the rank at ``model`` index m
+    and ``expert`` index e, each leaf whole over ZeRO) → the whole leaves,
+    as JAX holds them (:func:`gather_leaf` of each)."""
+    return {name: gather_leaf({k: sd[name] for k, sd in shards.items()},
+                              cfg, name, tp, ep)
+            for name in param_shapes(cfg)}
 
 
 def rank_shard(params, cfg: TransformerConfig, layout: TPLayout) -> Params:

@@ -22,8 +22,16 @@ the router is whole on every rank, so every rank routes alike; a rank
 runs its ``E / ep`` experts at ``f / tp`` columns (its ``TPLayout``) on
 its slice of the dispatch, and one all-reduce over the ``("expert",
 "model")`` line sums the combined outputs (``b_out`` joins on one rank of
-each ``model`` line only). Training under ``mesh.expert`` above 1 is
-item 4's training half (ROADMAP.md, queue 1).
+each ``model`` line only).
+
+In training (``TPLayout.rows_split``: ``expert`` is a batch axis, each
+rank of an ``expert`` line routes its own rows, JAX ``_mlp_block``,
+``moe.py:117-158``) the ``(B, E, C, d)`` dispatch goes through an
+all-to-all over ``expert`` (chunk j of the experts to rank j), the rank
+runs its experts on every rank's slots at ``f / tp`` columns behind
+Megatron's *f*, ``w_out``'s partials are all-reduced over ``model``
+(*g*) before ``b_out``, and a second all-to-all brings the outputs back
+before the combine.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..comm import comm
+from ..comm.autograd import exchange
 from .transformer import LAYER_PREFIX, TransformerLM, _activation
 
 EXPERT = ("expert",)
@@ -157,7 +166,8 @@ class MoETransformerLM(TransformerLM):
 
     def _expert_bias(self, u, p, name):
         lay = getattr(self, "tp_layout", None)
-        if name == "b_out" and lay is not None and lay.m > 0:
+        if name == "b_out" and lay is not None and lay.m > 0 \
+                and not lay.rows_split:
             return u      # one rank of the model line adds the row bias
         if self.cfg.use_bias and name in p:
             return u + p[name][:, None, :].to(u.dtype)   # (E, f) → (E, 1, f)
@@ -209,6 +219,9 @@ class MoETransformerLM(TransformerLM):
             u = _activation(u, cfg.activation)
         out = torch.einsum(f"{dims}f,efd->{dims}d", u,
                            self._bank(p, "w_out", dt))
+        lay = getattr(self, "tp_layout", None)
+        if lay is not None and lay.rows_split:
+            out = self._tp_out(out)      # training: g, then the row bias
         return self._expert_bias(out, p, "b_out")
 
     def _mlp_block(self, y, p):
@@ -224,11 +237,35 @@ class MoETransformerLM(TransformerLM):
                       drop_tokens=cfg.moe_drop_tokens)
         logits = y.float() @ p["router"].float()               # (B, S, E)
         combine, dispatch, aux = topk_gating(logits, cfg.moe_top_k, C)
+        lay = getattr(self, "tp_layout", None)
+        if lay is not None and lay.rows_split:
+            xs = torch.einsum("bsec,bsd->becd", dispatch.to(y.dtype),
+                              y).contiguous()
+            out = self._exchanged(xs, p, lay)
+            res = torch.einsum("bsec,becd->bsd", combine.to(y.dtype), out)
+            return res, aux.mean()
         combine, dispatch = self._local(combine, dispatch)
-        xs = torch.einsum("bsec,bsd->becd", dispatch.to(y.dtype), y)
-        out = self._experts(xs, p, "bec")
+        # contiguous, as the exchange leaves them: the products then see
+        # the same operand layouts with an expert line of one or none
+        xs = torch.einsum("bsec,bsd->becd", dispatch.to(y.dtype),
+                          y).contiguous()
+        out = self._experts(xs, p, "bec").contiguous()
         res = torch.einsum("bsec,becd->bsd", combine.to(y.dtype), out)
         return self._combined(res), aux.mean()
+
+    def _exchanged(self, xs, p, lay):
+        """Training's expert parallelism on the ``(B, E, C, d)`` dispatch:
+        the all-to-all over ``expert`` (chunk j of the experts to rank j),
+        the rank's ``E / ep`` experts on the slots of every rank of the
+        line, the all-to-all back. Returns ``(B, E, C, d)``."""
+        B, E, C, d = xs.shape
+        ep = lay.ep
+        send = xs.reshape(B, ep, E // ep, C, d).transpose(0, 1).contiguous()
+        got = exchange(send, "expert", mesh=lay.mesh)     # (ep, B, E/ep, ..)
+        got = self._tp_in(got.reshape(ep * B, E // ep, C, d))
+        out = self._experts(got, p, "bec").reshape(ep, B, E // ep, C, d)
+        back = exchange(out.contiguous(), "expert", mesh=lay.mesh)
+        return back.transpose(0, 1).reshape(B, E, C, d)
 
     def _mlp_block_infer(self, y, p):
         """The decode step's dispatch: the B·T tokens as ONE group with

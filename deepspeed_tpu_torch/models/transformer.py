@@ -16,6 +16,18 @@ takes its own and through the unfused head otherwise; ``forward`` runs on
 the module's own parameters after ``load_params``. Attention goes through
 ``attention_fn``: the dense ``causal_attention`` by default, or
 ``ops.flash_attention.make_flash_attention()`` for the CUDA kernels.
+
+Tensor and expert parallelism (``tp_layout``, a :class:`TPLayout` the
+engines stamp on the model) spell out what GSPMD does for
+``param_specs`` in the JAX package, Megatron's way: each rank holds its
+cut of every leaf; q / k / v, ``w_in`` and ``w_gate`` are column-parallel
+behind Megatron's *f* (``comm/autograd.py`` ``copy_to``), ``wo`` and
+``w_out`` row-parallel with Megatron's *g* (``reduce_from``) and their row
+biases added once after it; the embedding is looked up vocab-parallel and
+the head's loss is a vocab-parallel NLL over the rank's logits columns, or
+``fused_token_nll_tp`` on the fused path. With no layout nothing is cut
+and no collective runs; with one every branch runs at every degree, 1
+included, each collective over a line of one a copy.
 """
 
 from __future__ import annotations
@@ -29,8 +41,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..comm import comm
+from ..comm.autograd import copy_to, max_from, reduce_from
 from ..ops.tiled import tiled_matmul
-from ..ops.xent import fused_token_nll, fused_xent_eligible
+from ..ops.xent import (fused_token_nll, fused_token_nll_tp,
+                        fused_xent_eligible)
 from ..platform.mesh import AXIS_ORDER, Mesh
 from ..utils.roadmap import later
 
@@ -267,7 +282,11 @@ class TPLayout:
     rows ``[v0, v1)``, the whole vocabulary on every rank where ``tp``
     does not divide it (``vocab_split`` False: no collective); experts
     ``[e0, e0 + experts)``. ``mesh`` runs the collectives (inactive: they
-    return their input)."""
+    return their input). ``rows_split``: the ranks of an ``expert`` line
+    hold different rows (training, where ``expert`` is a batch axis: the
+    MoE dispatch goes through an all-to-all) rather than the same ones
+    (serving: each rank runs its experts on every row, one all-reduce
+    combines)."""
 
     mesh: Any
     tp: int
@@ -286,14 +305,26 @@ class TPLayout:
     vocab_split: bool
     experts: int
     e0: int
+    rows_split: bool = False
+    # each KV head held by tp / n_kv_head ranks (tp a multiple of n_kv_head
+    # above it): their grads are the sum over the ranks that hold the head
+    kv_shared: bool = False
 
     @classmethod
-    def of(cls, cfg: TransformerConfig, mesh=None) -> "TPLayout":
+    def of(cls, cfg: TransformerConfig, mesh=None,
+           rows_split: bool = False) -> "TPLayout":
         """The layout of ``mesh``'s rank (None: one rank, no group)."""
         if mesh is None:
             mesh = Mesh({a: 1 for a in AXIS_ORDER})
-        tp, ep = mesh.size("model"), mesh.size("expert")
-        m, e = mesh.index("model"), mesh.index("expert")
+        return cls.at(cfg, mesh.size("model"), mesh.size("expert"),
+                      mesh.index("model"), mesh.index("expert"), mesh,
+                      rows_split)
+
+    @classmethod
+    def at(cls, cfg: TransformerConfig, tp: int, ep: int, m: int, e: int,
+           mesh=None, rows_split: bool = False) -> "TPLayout":
+        """The layout of the rank at ``model`` index ``m`` of ``tp`` and
+        ``expert`` index ``e`` of ``ep``."""
         h, kv, f, V = cfg.n_head, cfg.kv_heads, cfg.ffn_dim, cfg.vocab_size
         E = cfg.num_experts
         if h % tp:
@@ -319,7 +350,8 @@ class TPLayout:
         return cls(mesh=mesh, tp=tp, ep=ep, m=m, e=e, heads=heads, q0=q0,
                    kv_heads=kv_heads, kv0=kv0, head_dim=cfg.head_dim,
                    ffn=f // tp, f0=m * (f // tp), v0=v0, v1=v1,
-                   vocab_split=split, experts=E // ep, e0=e * (E // ep))
+                   vocab_split=split, experts=E // ep, e0=e * (E // ep),
+                   rows_split=rows_split, kv_shared=kv % tp != 0)
 
     @property
     def sharded(self) -> bool:
@@ -344,11 +376,10 @@ class TPLayout:
             return [(self.v0, self.v1)]
         return [(self.f0, self.f0 + self.ffn)]
 
-    def cut(self, cfg, name: str) -> dict:
-        """``{dim: [(start, stop), ...]}``: the pieces of each split dim of
-        the leaf ``name`` this rank holds, concatenated in order (``{}``:
-        the whole leaf). ``param_specs`` names the split dims; the fused
-        qkv is cut head-aligned, each rank ``[wq_r | wk_r | wv_r]``."""
+    def _cuts(self, cfg, name: str) -> dict:
+        """``{dim: (axis, [(start, stop), ...])}``: each split dim of the
+        leaf ``name``, the axis it is cut over and this rank's pieces of it
+        (``param_specs`` names the split dims)."""
         leaf = name[len(LAYER_PREFIX):] if name.startswith(LAYER_PREFIX) \
             else name
         spec = _FUSED_SPECS.get(leaf) or param_specs(cfg)[name]
@@ -357,10 +388,30 @@ class TPLayout:
         out = {}
         for dim, axes in enumerate(spec):
             if "model" in axes and self.tp > 1 and not whole_vocab:
-                out[dim] = self._model_ranges(cfg, leaf)
+                out[dim] = ("model", self._model_ranges(cfg, leaf))
             elif "expert" in axes and self.ep > 1:
-                out[dim] = [(self.e0, self.e0 + self.experts)]
+                out[dim] = ("expert", [(self.e0, self.e0 + self.experts)])
         return out
+
+    def cut(self, cfg, name: str) -> dict:
+        """``{dim: [(start, stop), ...]}``: the pieces of each split dim of
+        the leaf ``name`` this rank holds, concatenated in order (``{}``:
+        the whole leaf). The fused qkv is cut head-aligned, each rank
+        ``[wq_r | wk_r | wv_r]``."""
+        return {d: r for d, (_, r) in self._cuts(cfg, name).items()}
+
+    def cut_axes(self, cfg, name: str) -> dict:
+        """``{dim: axis}``: the dims of leaf ``name`` this rank holds a
+        cut of, and the axis (``"model"`` or ``"expert"``) each is cut
+        over."""
+        return {d: a for d, (a, _) in self._cuts(cfg, name).items()}
+
+    def local_shape(self, cfg, name: str, shape: tuple) -> tuple:
+        """The shape of this rank's cut of a ``shape``-shaped leaf."""
+        out = list(shape)
+        for dim, ranges in self.cut(cfg, name).items():
+            out[dim] = sum(b - a for a, b in ranges)
+        return tuple(out)
 
 
 # ------------------------------------------------------------------ helpers
@@ -478,6 +529,39 @@ def token_nll(logits, targets):
     lse = torch.log(se) + m[..., 0].float()
     tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return lse - tgt.float()
+
+
+def vocab_parallel_nll(logits, targets, lay: "TPLayout"):
+    """:func:`token_nll` over a vocabulary-split rank's columns ``[v0,
+    v1)`` of the logits (JAX ``_token_nll`` under GSPMD): the max and the
+    sum of exps exchanged over the ``model`` line, the target logit taken
+    on the rank that holds it and summed; ``targets`` are global ids. The
+    same rounding points as :func:`token_nll`."""
+    mesh = lay.mesh
+    m = max_from(logits.amax(dim=-1, keepdim=True), "model", mesh=mesh)
+    se = reduce_from(torch.exp((logits - m).float()).sum(dim=-1), "model",
+                     mesh=mesh)
+    # every rank adds the max: its grad enters max_from's sum once; in
+    # fp32, where m / tp summed over the line is m exactly (tp a power of
+    # two), so the add rounds as token_nll's does
+    shift = reduce_from(m[..., 0].float() / lay.tp, "model", mesh=mesh)
+    lse = torch.log(se) + shift
+    local = targets.long() - lay.v0
+    hit = (local >= 0) & (local < logits.shape[-1])
+    tgt = torch.gather(logits, -1, torch.where(hit, local, 0)[..., None])
+    tgt = reduce_from(torch.where(hit, tgt[..., 0], 0), "model", mesh=mesh)
+    return lse - tgt.float()
+
+
+def vocab_lookup(table, ids, lay: "TPLayout"):
+    """Megatron's vocab-parallel embedding (JAX ``vocab_parallel_lookup``,
+    ``transformer.py:213-244``): the rank's rows ``[v0, v1)`` of the
+    table, foreign ids masked to zero, summed over the ``model`` line."""
+    local = ids - lay.v0
+    hit = (local >= 0) & (local < lay.v1 - lay.v0)
+    rows = F.embedding(torch.where(hit, local, 0), table)
+    rows = rows.masked_fill(~hit[..., None], 0)
+    return reduce_from(rows, "model", mesh=lay.mesh)
 
 
 # remat policies (``runtime/engine.py:70-99`` of the JAX package). ``full`` /
@@ -604,12 +688,31 @@ class TransformerLM(nn.Module):
         return y + p[name].to(y.dtype) if self.cfg.use_bias and name in p \
             else y
 
+    def _layout(self) -> Optional[TPLayout]:
+        """The engine's ``tp_layout``: None with no process group."""
+        return getattr(self, "tp_layout", None)
+
+    def _tp_in(self, y):
+        """Megatron's *f* before the column-parallel projections."""
+        lay = self._layout()
+        return y if lay is None else copy_to(y, "model", mesh=lay.mesh)
+
+    def _tp_out(self, y):
+        """Megatron's *g* after the row-parallel ones (before their
+        biases)."""
+        lay = self._layout()
+        return y if lay is None else reduce_from(y, "model", mesh=lay.mesh)
+
     def _attention_block(self, x, p, positions, attn_mask):
         cfg = self.cfg
         B, S, _ = x.shape
+        lay = self._layout()
         h, kv, hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
+        if lay is not None:              # the rank's heads
+            h, kv = lay.heads, lay.kv_heads
         y = x if cfg.post_ln else _norm(x, p["ln1_scale"], p.get("ln1_bias"),
                                         cfg.norm, cfg.norm_eps)
+        y = self._tp_in(y)
         q = self._maybe_bias(y @ p["wq"].to(y.dtype), p, "bq").reshape(B, S, h, hd)
         k = self._maybe_bias(y @ p["wk"].to(y.dtype), p, "bk").reshape(B, S, kv, hd)
         v = self._maybe_bias(y @ p["wv"].to(y.dtype), p, "bv").reshape(B, S, kv, hd)
@@ -620,14 +723,17 @@ class TransformerLM(nn.Module):
         if cfg.pos_embedding == "alibi":
             # functions that take slopes build the ramp themselves (the
             # flash kernels in-kernel); the dense path gets the (H, S, S) bias
-            slopes = alibi_slopes(h, x.device)
+            slopes = alibi_slopes(cfg.n_head, x.device)
+            if lay is not None:      # the rank's heads of the global ramp
+                slopes = slopes[lay.q0:lay.q0 + h]
             if getattr(attn, "accepts_alibi_slopes", False):
                 attn_kw["alibi_slopes"] = slopes
             else:
                 attn_kw["bias"] = alibi_bias(slopes, S)
         o = attn(q, k, v, mask=attn_mask, **attn_kw)
-        return self._maybe_bias(o.reshape(B, S, h * hd) @ p["wo"].to(x.dtype),
-                                p, "bo")
+        return self._maybe_bias(
+            self._tp_out(o.reshape(B, S, h * hd) @ p["wo"].to(x.dtype)), p,
+            "bo")
 
     def _proj(self, y, p, name):
         """``y @ p[name]`` whether the weight is dense or int8/int4
@@ -642,6 +748,7 @@ class TransformerLM(nn.Module):
     def _mlp_pre(self, y, p):
         """The MLP up to the activation JAX tags ``mlp_h``: the
         pre-activation, or the gated product for a GLU."""
+        y = self._tp_in(y)
         u = self._maybe_bias(self._proj(y, p, "w_in"), p, "b_in")
         if self.cfg.is_glu:
             u = F.silu(self._proj(y, p, "w_gate")) * u
@@ -650,7 +757,8 @@ class TransformerLM(nn.Module):
     def _mlp_post(self, u, p):
         if not self.cfg.is_glu:
             u = _activation(u, self.cfg.activation)
-        return self._maybe_bias(self._proj(u, p, "w_out"), p, "b_out")
+        return self._maybe_bias(self._tp_out(self._proj(u, p, "w_out")), p,
+                                "b_out")
 
     def _mlp_block(self, y, p):
         """The FFN half: (out, aux loss). A dense block has no aux loss
@@ -724,7 +832,12 @@ class TransformerLM(nn.Module):
         """(B, S) ids → ((B, S, d) embeddings, (B, S) positions)."""
         cfg = self.cfg
         B, S = input_ids.shape
-        x = F.embedding(input_ids, params["tok_embed"]).to(cfg.dtype)
+        lay = self._layout()
+        if lay is not None and lay.vocab_split:
+            x = vocab_lookup(params["tok_embed"], input_ids, lay) \
+                .to(cfg.dtype)
+        else:
+            x = F.embedding(input_ids, params["tok_embed"]).to(cfg.dtype)
         positions = torch.arange(S, device=input_ids.device).expand(B, S)
         if cfg.pos_embedding == "learned":
             x = x + params["pos_embed"][:S].to(cfg.dtype)[None]
@@ -755,10 +868,17 @@ class TransformerLM(nn.Module):
                       cfg.norm, cfg.norm_eps)
         return x
 
-    def _head(self, params, x):
-        """Pre-head + unembedding: (B, S, d) → (B, S, V) logits."""
+    def _head(self, params, x, gather: bool = True):
+        """Pre-head + unembedding: (B, S, d) → (B, S, V) logits. A
+        vocabulary-split rank forms its columns (behind Megatron's *f*)
+        and, with ``gather``, all-gathers the rest (no grad through the
+        gather: the loss takes the rank's columns)."""
         cfg = self.cfg
         x = self._pre_head(params, x)
+        lay = self._layout()
+        split = lay is not None and lay.vocab_split
+        if split:
+            x = copy_to(x, "model", mesh=lay.mesh)
         w = (params["tok_embed"].to(x.dtype).T if cfg.tie_embeddings
              else params["lm_head"].to(x.dtype))
         if cfg.tiled_head > 1 and w.shape[1] % cfg.tiled_head == 0:
@@ -767,6 +887,9 @@ class TransformerLM(nn.Module):
             logits = x @ w
         if cfg.lm_head_bias:
             logits = logits + params["lm_head_bias"].to(logits.dtype)
+        if split and gather:
+            logits = comm.all_gather(logits.detach(), "model",
+                                     logits.ndim - 1, mesh=lay.mesh)
         return logits
 
     def _trunk(self, params: Params, input_ids, attn_mask, remat_policy):
@@ -831,13 +954,12 @@ class TransformerLM(nn.Module):
             else:
                 nll = self._fused_nll(params, feats[:, :-1], ids[:, 1:])
         else:
-            logits, aux = self.apply(params, ids, attn_mask=attn_mask,
-                                     remat_policy=remat_policy,
-                                     return_aux=True)
+            x, aux = self._trunk(params, ids, attn_mask, remat_policy)
+            logits = self._head(params, x, gather=False)
             if mlm:
-                nll = token_nll(logits, batch["labels"])
+                nll = self._token_nll(logits, batch["labels"])
             else:
-                nll = token_nll(logits[:, :-1], ids[:, 1:])
+                nll = self._token_nll(logits[:, :-1], ids[:, 1:])
         mask = batch["loss_mask"] if mlm else batch.get("loss_mask")
         if mask is None:
             ce = nll.mean()
@@ -848,6 +970,14 @@ class TransformerLM(nn.Module):
             ce = ce + cfg.moe_aux_loss_weight * aux
         return ce
 
+    def _token_nll(self, logits, targets):
+        """:func:`token_nll`, or over a vocabulary-split rank's columns
+        :func:`vocab_parallel_nll`."""
+        lay = self._layout()
+        if lay is not None and lay.vocab_split:
+            return vocab_parallel_nll(logits, targets, lay)
+        return token_nll(logits, targets)
+
     def _fused_nll(self, params, feats, targets):
         """(B, S', d) features and (B, S') targets → (B, S') fp32 NLL
         through the fused kernels; the table and the bias go in the
@@ -855,9 +985,13 @@ class TransformerLM(nn.Module):
         B, S, d = feats.shape
         bias = (params["lm_head_bias"].to(feats.dtype)
                 if self.cfg.lm_head_bias else None)
-        nll = fused_token_nll(feats.reshape(B * S, d),
-                              params["tok_embed"].to(feats.dtype), bias,
-                              targets.reshape(B * S))
+        lay = self._layout()
+        args = (feats.reshape(B * S, d), params["tok_embed"].to(feats.dtype),
+                bias, targets.reshape(B * S))
+        if lay is not None:          # vocab_split: _fused_xent_active
+            nll = fused_token_nll_tp(*args, v0=lay.v0, mesh=lay.mesh)
+        else:
+            nll = fused_token_nll(*args)
         return nll.reshape(B, S)
 
     def _fused_xent_active(self, on_card: bool, compute_dtype=None) -> bool:
@@ -866,10 +1000,14 @@ class TransformerLM(nn.Module):
         ``transformer.py:823-865``)? Only for a tied clm/mlm head at an
         eligible width and dtype; then ``fused_xent=True`` always, and the
         auto mode (``None``) on its accelerator, which the port reads as
-        the card. At world size 1 the JAX mesh checks all pass."""
+        the card. A tensor-parallel rank takes it only where ``tp`` divides
+        the vocabulary (``fused_token_nll_tp``), as JAX does."""
         cfg = self.cfg
         if cfg.fused_xent is False or not cfg.tie_embeddings \
                 or cfg.objective not in ("clm", "mlm"):
+            return False
+        lay = self._layout()
+        if lay is not None and not lay.vocab_split:
             return False
         if not fused_xent_eligible(cfg.dtype, compute_dtype, cfg.d_model,
                                     on_card):

@@ -18,9 +18,10 @@ in ``.launches``. :func:`fused_token_nll` wraps them in one
 
 On the card the kernels take bf16 with ``d % 16 == 0``; fp32 and fp16
 operands raise there (fp16 never reaches them: :func:`fused_xent_eligible`).
-The CPU path takes any float dtype. The vocab-sharded collective wrapper
-of the JAX package (``fused_token_nll_tp``) is not ported; the
-``partials`` mode of the forward it is built on is.
+The CPU path takes any float dtype. :func:`fused_token_nll_tp` is the
+vocab-sharded wrapper of a tensor-parallel head: each rank's kernels run
+on its rows of the table in ``partials`` mode and three collectives over
+the ``model`` line make the global loss.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from ..comm import comm
 from . import builder
 from .registry import counted
 
@@ -345,3 +347,74 @@ def fused_token_nll(x, w, bias: Optional[torch.Tensor], targets):
     if x.device.type == "cuda":
         x, w = x.contiguous(), w.contiguous()
     return _FusedNLL.apply(x, w, bias, targets)
+
+
+# ------------------------------------------------ tensor-parallel (vocab)
+def tp_combine(tgt_p, lse_l, axis_name, mesh):
+    """The global ``(nll, lse)`` from each rank's ``partials`` over the
+    line along ``axis_name`` (``_fwd_tp``, ``ops/xent.py:392-402`` of the
+    JAX package): ``lse = m + log(sum exp(lse_l - m))`` about the line's
+    max ``m``, and the target logit summed (a foreign target's partial is
+    0). Over a line of one rank ``lse`` is ``lse_l + log(1)``: exact."""
+    m = comm.all_reduce(lse_l.clone(), axis_name, "max", mesh=mesh)
+    s = comm.all_reduce(torch.exp(lse_l - m), axis_name, mesh=mesh)
+    tgt = comm.all_reduce(tgt_p.clone(), axis_name, mesh=mesh)
+    lse = m + torch.log(s)
+    return lse - tgt, lse
+
+
+class _FusedNLLTP(torch.autograd.Function):
+    """Forward: the rank's partials, combined over the line; backward: the
+    kernels against the GLOBAL lse, dx summed over the line, dW and db
+    the rank's own rows. The cotangent is every rank's own (each computes
+    the same loss), so nothing is rescaled by the line's size."""
+
+    @staticmethod
+    def forward(ctx, x, w_shard, bias_shard, targets, v0, axis_name, mesh):
+        local = targets - v0          # a foreign target matches no row
+        tgt_p, lse_l = xent_fwd(x, w_shard, bias_shard, local,
+                                partials=True)
+        nll, lse = tp_combine(tgt_p, lse_l, axis_name, mesh)
+        ctx.save_for_backward(x, w_shard, bias_shard, local, lse)
+        ctx.axis_name, ctx.mesh = axis_name, mesh
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, bias, local, lse = ctx.saved_tensors
+        dx, dw, db = xent_bwd(x, w, bias, local, lse, g.float().contiguous())
+        dx = comm.all_reduce(dx, ctx.axis_name, mesh=ctx.mesh)
+        dbias = None if bias is None else db.to(bias.dtype)
+        return dx, dw, dbias, None, None, None, None
+
+
+def fused_token_nll_tp(x, w_shard, bias_shard: Optional[torch.Tensor],
+                       targets, *, v0: int, axis_name="model", mesh):
+    """:func:`fused_token_nll` over a vocabulary cut along ``axis_name``
+    (``fused_token_nll_tp``, ``ops/xent.py:373-435`` of the JAX package):
+    ``w_shard`` ``(V / tp, d)`` holds rows ``[v0, v0 + V / tp)`` and
+    ``bias_shard`` their bias; ``targets`` are GLOBAL ids. No rank forms
+    its ``(T, V / tp)`` logits. Returns the global ``(T,)`` fp32 NLL on
+    every rank of the line; x's grad is the line's sum, the table's and
+    the bias's grads are the rank's rows."""
+    if x.device.type == "cuda":
+        x, w_shard = x.contiguous(), w_shard.contiguous()
+    return _FusedNLLTP.apply(x, w_shard, bias_shard, targets, int(v0),
+                             axis_name, mesh)
+
+
+def fused_token_nll_tp_plain(x, w_shard, bias_shard, targets, *, v0: int,
+                             axis_name="model", mesh):
+    """The same function in plain tensor ops (logits formed, autograd
+    through them): what :func:`fused_token_nll_tp` is held to."""
+    from ..comm.autograd import copy_to, max_from, reduce_from
+
+    x = copy_to(x, axis_name, mesh=mesh)
+    logits = _logits(x, w_shard, bias_shard)
+    local = targets - v0
+    m = max_from(logits.amax(dim=-1).detach(), axis_name, mesh=mesh)
+    s = reduce_from(torch.exp(logits - m[:, None]).sum(dim=-1), axis_name,
+                    mesh=mesh)
+    tgt = reduce_from(torch.where(_onehot(local, w_shard.shape[0]), logits,
+                                  0.0).sum(dim=-1), axis_name, mesh=mesh)
+    return m + torch.log(s) - tgt

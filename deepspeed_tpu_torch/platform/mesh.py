@@ -7,14 +7,18 @@ process with one device; :func:`build_mesh` gives each rank its coordinates
 in the same order (``AXIS_ORDER``, row-major over the world's ranks, as
 ``build_mesh`` reshapes its device list), so rank ``r`` holds what JAX
 device ``r`` holds, and makes one process group per line of the ``data``,
-``zero``, ``model`` and ``expert`` axes and of the joint ``("expert",
-"model")`` axis (the MoE combine of expert-parallel serving). ``pipe`` and
-``seq`` above 1 raise with the ROADMAP item that brings them.
+``zero``, ``model`` and ``expert`` axes, of the joint ``("expert",
+"model")`` axis (the MoE combine of expert-parallel serving) and of the
+joint batch lines (``BATCH_AXES`` and its ``("data", "zero")`` and
+``("data", "expert")`` parts: the loss mean and the grad reductions of a
+training world whose ``model`` axis is above 1). ``pipe`` and ``seq``
+above 1 raise with the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -31,7 +35,8 @@ BATCH_AXES = ("data", "zero", "expert")
 _LATER = {"pipe": 8, "seq": 8}
 # the lines that get a process group of their own where they are neither a
 # single rank nor the whole world
-_LINES = (("data",), ("zero",), ("expert",), ("model",), ("expert", "model"))
+_LINES = (("data",), ("zero",), ("expert",), ("model",), ("expert", "model"),
+          ("data", "zero", "expert"), ("data", "zero"), ("data", "expert"))
 
 
 @dataclasses.dataclass
@@ -83,14 +88,22 @@ class Mesh:
         idx = np.unravel_index(rank, tuple(self.shape[a] for a in AXIS_ORDER))
         self.coords = {a: int(i) for a, i in zip(AXIS_ORDER, idx)}
         self._groups = groups or {}
+        # axes as a caller names them -> AXIS_ORDER's tuple: the collectives
+        # of a training step ask for a few lines hundreds of times
+        self._named = {}
 
     def _axes(self, axes) -> tuple:
-        axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        return tuple(a for a in AXIS_ORDER if a in axes)
+        key = axes if isinstance(axes, str) else tuple(axes)
+        out = self._named.get(key)
+        if out is None:
+            names = (key,) if isinstance(key, str) else key
+            out = self._named[key] = tuple(a for a in AXIS_ORDER
+                                           if a in names)
+        return out
 
     def size(self, axes) -> int:
         """Ranks along ``axes`` jointly (``()`` is 1)."""
-        return int(np.prod([self.shape[a] for a in self._axes(axes)]))
+        return math.prod(self.shape[a] for a in self._axes(axes))
 
     def index(self, axes) -> int:
         """This rank's joint index along ``axes``, the first in

@@ -31,8 +31,14 @@ for the copy too (the optimizers update the state in place), and
 ``wait_for_checkpoint``, the next save or the next load commits.
 
 In a world of several ranks (or one, with a process group) the files are
-the same, so any world size reads any tag. Each group file has one writer
-rank (master: rank 0, mu: rank 1, nu: rank 2, modulo the world), and a cut
+the same, so any world size reads any tag. Under tensor or expert
+parallelism (``model`` or ``expert`` above 1) each rank holds its cut of a
+leaf: each ``(model, expert)`` coordinate writes its own files
+(``state/master.model<m>.expert<e>.safetensors``), its cut of every leaf
+whole over ZeRO, and a tag resumes in the same world shape only
+(resharding to another ``tp`` is ROADMAP queue 1 item 4). Each group file
+has one writer rank among the ranks that hold the same cut (master: the
+first, mu: the second, nu: the third, modulo their number), and a cut
 leaf is all-gathered to it one leaf at a time, so no rank holds the whole
 unsharded state on its device; the gathered copies are synchronous, and an
 async save's side stream carries only the whole leaves. Every rank checks
@@ -57,7 +63,7 @@ from typing import Optional
 import torch
 
 from ...comm import comm
-from ...platform.mesh import BATCH_AXES
+from ...platform.mesh import AXIS_ORDER
 from ...resilience import chaos
 from ...resilience.guards import CheckpointIntegrityError
 from ...resilience.integrity import (MANIFEST, list_tags, newest_verified_tag,
@@ -82,9 +88,28 @@ def _groups(engine) -> dict:
             "nu": engine.opt_state.nu}
 
 
+def _sharded(engine) -> bool:
+    return engine.layout is not None and engine.layout.sharded
+
+
+def _file(engine, group: str) -> str:
+    """``group``'s file name: one a ``(model, expert)`` coordinate under
+    tensor or expert parallelism."""
+    if not _sharded(engine):
+        return f"{group}.safetensors"
+    lay = engine.layout
+    return f"{group}.model{lay.m}.expert{lay.e}.safetensors"
+
+
 def _writer(engine, group: str) -> bool:
-    """Whether this rank writes ``group``'s file."""
-    return GROUPS.index(group) % engine.mesh.world == engine.mesh.rank
+    """Whether this rank writes ``group``'s file: of the ranks that hold
+    the same cut (the ``("data", "zero")`` line under tensor or expert
+    parallelism, else the world), the group's own."""
+    mesh = engine.mesh
+    if not _sharded(engine):
+        return GROUPS.index(group) % mesh.world == mesh.rank
+    line = ("data", "zero")
+    return GROUPS.index(group) % mesh.size(line) == mesh.index(line)
 
 
 def _cut(engine, name: str, t: torch.Tensor):
@@ -114,7 +139,7 @@ def _any_rank(engine, flag: bool) -> bool:
     if not engine.mesh.active:
         return flag
     t = torch.tensor([1.0 if flag else 0.0], device=engine.device)
-    return bool(comm.all_reduce(t, BATCH_AXES, "max", mesh=engine.mesh))
+    return bool(comm.all_reduce(t, AXIS_ORDER, "max", mesh=engine.mesh))
 
 
 def _on_rank0(engine, fn):
@@ -149,7 +174,8 @@ class HostState:
     buffer in its file's data layout (pinned for a card engine), each leaf
     a view. ``groups``: group -> leaf -> (dtype, whole shape)."""
 
-    def __init__(self, groups: dict, pin: bool):
+    def __init__(self, groups: dict, pin: bool, files: dict):
+        self.files = files
         self.layouts = {g: Layout.of(specs) for g, specs in groups.items()}
         self.data = {g: torch.empty(lay.data_bytes, dtype=torch.uint8,
                                     pin_memory=pin)
@@ -173,7 +199,8 @@ def host_state(engine) -> HostState:
     if engine._host_state is None:
         engine._host_state = HostState(
             {g: _specs(engine, d) for g, d in _groups(engine).items()
-             if _writer(engine, g)}, pin=engine.device.type == "cuda")
+             if _writer(engine, g)}, pin=engine.device.type == "cuda",
+            files={g: _file(engine, g) for g in GROUPS})
     return engine._host_state
 
 
@@ -218,7 +245,7 @@ def _write_state(state_dir: Path, hs: HostState, scalars) -> None:
     ``WRITE_THREADS`` ranges at once: the writes release the GIL) and, on
     rank 0, the scalars, all ``fsync``ed; the first error propagates."""
     with ThreadPoolExecutor(max_workers=max(1, len(hs.layouts))) as ex:
-        futures = [ex.submit(write_file, state_dir / f"{g}.safetensors",
+        futures = [ex.submit(write_file, state_dir / hs.files[g],
                              hs.layouts[g], hs.data[g], WRITE_THREADS)
                    for g in hs.layouts]
         for f in futures:
@@ -260,7 +287,7 @@ def _validate_tag(engine, tag: str) -> None:
     mine = int.from_bytes(hashlib.sha256(tag.encode()).digest()[:4], "big")
     hashes = comm.all_gather(
         torch.tensor([mine], dtype=torch.int64, device=engine.device),
-        BATCH_AXES, mesh=mesh)
+        AXIS_ORDER, mesh=mesh)
     if bool((hashes != hashes[0]).any()):
         msg = (f"checkpoint tag {tag!r} differs across processes (hash "
                "mismatch) — ranks would write inconsistent checkpoints")
@@ -448,15 +475,25 @@ def _resolve_verified_tag(engine, base: Path, tag: Optional[str]) -> str:
     return tag
 
 
-def _check_tag_format(path: Path, meta: dict) -> None:
+def _check_tag_format(engine, path: Path, meta: dict) -> None:
     """Refuse what the port cannot read: the offload engine's host layout,
-    and a tag of the JAX package (an orbax store)."""
+    a tag of another tensor / expert-parallel shape, and a tag of the JAX
+    package (an orbax store)."""
     if meta.get("layout") == "host":
         raise NotImplementedError(
             f"checkpoint {path} holds the offload engine's host layout; "
             f"ZeRO-Offload is not ported yet: {later(6)}")
+    saved = meta.get("mesh") or {}
+    here = engine.mesh.shape
+    if any(int(saved.get(a, 1)) != here[a] for a in ("model", "expert")):
+        raise NotImplementedError(
+            f"checkpoint {path} was saved at mesh.model="
+            f"{saved.get('model', 1)}, mesh.expert={saved.get('expert', 1)}"
+            f"; this engine runs {here['model']} / {here['expert']}. "
+            f"Resharding a tag across tensor or expert parallelism is not "
+            f"ported yet: {later(4)}")
     missing = [g for g in GROUPS
-               if not (path / "state" / f"{g}.safetensors").exists()]
+               if not (path / "state" / _file(engine, g)).exists()]
     if missing or not (path / "state" / SCALARS).exists():
         raise ValueError(
             f"checkpoint {path} was not written by deepspeed_tpu_torch (no "
@@ -496,12 +533,12 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None) -> str:
     path = base / tag
     meta_file = path / "meta.json"
     meta = json.loads(meta_file.read_text()) if meta_file.exists() else {}
-    _check_tag_format(path, meta)
+    _check_tag_format(engine, path, meta)
     t0 = time.perf_counter()
     groups = _groups(engine)
     layouts = {}
     for g, d in groups.items():
-        layouts[g] = read_layout(path / "state" / f"{g}.safetensors")
+        layouts[g] = read_layout(path / "state" / _file(engine, g))
         _check_entries(path, g, layouts[g], _specs(engine, d))
     cuda = engine.device.type == "cuda"
     if engine.mesh.active:
@@ -510,7 +547,7 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None) -> str:
         with torch.no_grad():
             for g, d in groups.items():
                 for k, t in d.items():
-                    full = read_entry(path / "state" / f"{g}.safetensors",
+                    full = read_entry(path / "state" / _file(engine, g),
                                       layouts[g], k)
                     t.copy_(full if _cut(engine, k, t) is None
                             else engine.shard_of(k, full))
@@ -523,7 +560,7 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None) -> str:
                                  "is not laid out as this engine writes it")
         with ThreadPoolExecutor(max_workers=len(GROUPS)) as ex:
             futures = {g: ex.submit(read_data,
-                                    path / "state" / f"{g}.safetensors",
+                                    path / "state" / _file(engine, g),
                                     layouts[g], hs.data[g]) for g in GROUPS}
             for g in GROUPS:            # each group's copy once it is read
                 futures[g].result()
@@ -545,7 +582,7 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None) -> str:
     # the run's history, not a fresh all-skipped window
     engine._skipped_total_prev = float(engine.skipped_steps)
     engine._bad_step_streak = 0
-    nbytes = sum((path / "state" / f"{g}.safetensors").stat().st_size
+    nbytes = sum((path / "state" / _file(engine, g)).stat().st_size
                  for g in GROUPS)
     engine.last_checkpoint_timing = {"load_s": time.perf_counter() - t0,
                                      "alloc_s": t_alloc - t0,

@@ -31,6 +31,13 @@ def _load_master(ckpt_path: Path):
     tag directory."""
     meta_file = ckpt_path / "meta.json"
     meta = json.loads(meta_file.read_text()) if meta_file.exists() else {}
+    mesh = meta.get("mesh") or {}
+    if int(mesh.get("model", 1)) > 1 or int(mesh.get("expert", 1)) > 1:
+        raise NotImplementedError(
+            f"{ckpt_path} holds a tensor / expert-parallel world's cuts "
+            f"(mesh {mesh}); gathering them into whole leaves offline is "
+            f"not ported yet: {later(4)} (engine.fp32_params() gathers "
+            "them in the world that trained them)")
     master = ckpt_path / "state" / "master.safetensors"
     if not master.exists():
         raise FileNotFoundError(

@@ -34,6 +34,17 @@ partitioning.py`` is an explicit collective over the mesh's process groups
   ``data`` after the update (int8 with qwZ); MiCS: the partition group is
   ``zero`` and grads are all-reduced across ``data`` after it.
 
+Tensor and expert parallelism (``mesh.model`` / ``mesh.expert``): with a
+process group the engine stamps the rank's ``TPLayout`` on the model, holds
+the rank's cut of every leaf (``TPLayout.cut``: heads, FFN columns,
+vocabulary rows, experts), and composes each ZeRO cut with it over the
+leaf's ``data`` / ``zero`` line, inside its ``model`` line; the model's
+forward issues Megatron's collectives (``models/transformer.py``). Each
+leaf's grads are reduced over the batch lines its copies see (an expert
+bank over ``("data", "zero")``, a dense leaf over ``BATCH_AXES``), a KV
+head several ranks hold summed over them, and the global norm counts
+every element once.
+
 With no process group the engine holds every leaf whole and runs no
 collective; in a world of one it runs them all over a group of one rank.
 
@@ -60,10 +71,12 @@ import torch
 
 from ..comm import comm
 from ..config import Config
+from ..models.convert import cut_leaf, gather_leaf
 from ..models.transformer import (LAYER_PREFIX, REMAT_POLICIES, Params,
-                                  param_shapes, param_specs)
+                                  TPLayout, param_shapes, param_specs)
 from ..platform.device import resolve_device
-from ..platform.mesh import BATCH_AXES, MeshSpec, build_mesh, dp_world_size
+from ..platform.mesh import (AXIS_ORDER, BATCH_AXES, MeshSpec, build_mesh,
+                             dp_world_size)
 from ..resilience import chaos
 from ..resilience.guards import NonFiniteLossError
 from ..utils.logging import log_dist
@@ -75,6 +88,10 @@ from .optimizers import ONEBIT_TYPES, build_optimizer
 from .zero.partitioning import ZeroPartitioner, param_size, stacked_fn
 from .zero.shards import (Cut, GatherSet, LeafPlan, compute_shard,
                           gather_compute, reduce_scatter_buckets, spec_cut)
+
+
+# the projections whose heads a rank may share with others of its model line
+_KV_LEAVES = ("wk", "wv", "bk", "bv")
 
 
 def mesh_spec(cfg: Config) -> MeshSpec:
@@ -156,6 +173,10 @@ class Engine:
                     f"Engine: the process group runs {dist.get_backend()}, "
                     f"and a {self.device.type} engine needs {want} "
                     "(init_distributed(device=...) picks it)")
+        # the rank's cut of every leaf (None: no process group, all whole)
+        self.layout = TPLayout.of(model.cfg, self.mesh, rows_split=True) \
+            if self.mesh.active else None
+        model.tp_layout = self.layout
         self.dp_world = dp_world_size(self.mesh)
         self.config = cfg = cfg.resolve_batch_sizes(self.dp_world)
         self.seed = cfg.seed if seed is None else seed
@@ -181,18 +202,27 @@ class Engine:
         self.accum_dtype = cfg.accum_dtype
         self._fp32_names = frozenset(model.fp32_param_names())
         zc = cfg.zero_optimization
+        # ZeRO cuts the rank's cut of a leaf: its divisibility is the local
+        # shape's, the model's own spec still marks the dims TP took
         self.partitioner = ZeroPartitioner(
-            zc.stage, self.mesh.shape,
+            zc.stage, {**self.mesh.shape, "model": 1, "expert": 1},
             param_persistence_threshold=zc.param_persistence_threshold,
             zero_hpz_partition_size=zc.zero_hpz_partition_size,
             mics_shard_size=zc.mics_shard_size)
-        shapes = param_shapes(model.cfg)
+        self.shapes = shapes = param_shapes(model.cfg)
+        self.tp_axes = {k: self.layout.cut_axes(model.cfg, k)
+                        if self.layout is not None else {} for k in shapes}
+        local = {k: self.layout.local_shape(model.cfg, k, s)
+                 if self.layout is not None else tuple(s)
+                 for k, s in shapes.items()}
         specs, stacked = param_specs(model.cfg), stacked_fn(model.cfg.n_layer)
-        self.master_specs = self.partitioner.master_specs(specs, shapes,
-                                                          stacked)
-        self.compute_specs = self.partitioner.compute_specs(specs, shapes,
-                                                            stacked)
-        self.plans = {k: self._plan(k, tuple(s)) for k, s in shapes.items()}
+        self.master_specs = {k: self.partitioner.master_spec(
+            specs.get(k), local[k], stacked=stacked(tuple(shapes[k])))
+            for k in shapes}
+        self.compute_specs = {k: self.partitioner.compute_spec(
+            specs.get(k), local[k], stacked=stacked(tuple(shapes[k])))
+            for k in shapes}
+        self.plans = {k: self._plan(k, local[k]) for k in shapes}
         self.param_count = sum(param_size(s) for s in shapes.values())
         self.master = self._init_master(params)
         self.opt_state = self.optimizer.init(self.master)
@@ -240,7 +270,7 @@ class Engine:
             return LeafPlan(name, shape, layered)
 
         def cut(spec, axes, wanted):
-            c = spec_cut(spec, mesh)
+            c = spec_cut(spec, mesh, only=("data", "zero"))
             if c is None and wanted and mesh.size(axes) == 1:
                 return Cut(1 if layered else 0, axes, 1, 0)
             return c
@@ -274,13 +304,43 @@ class Engine:
         return torch.float32 if self._keeps_fp32(name) \
             else self.compute_dtype
 
+    def local_of(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's tensor- / expert-parallel cut of a whole
+        ``name``-shaped tensor; anything else as it is."""
+        if self.layout is None or not self.tp_axes[name] \
+                or tuple(full.shape) != tuple(self.shapes[name]):
+            return full
+        return cut_leaf(full, self.layout.cut(self.model.cfg, name))
+
     def shard_of(self, name: str, full: torch.Tensor) -> torch.Tensor:
-        """This rank's part (a view) of a whole ``name``-shaped tensor (the
-        master or a moment); anything else (a (0,) placeholder) as it is."""
+        """This rank's part of a whole ``name``-shaped tensor (the master
+        or a moment): its tensor-parallel cut, then its ZeRO shard of
+        that; anything else (a (0,) placeholder) as it is."""
         plan = self.plans[name]
+        full = self.local_of(name, full)
         if plan.master is None or tuple(full.shape) != plan.shape:
             return full
         return plan.master.shard(full)
+
+    def whole_of(self, name: str, local: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from every rank's tensor-parallel cut ``local``
+        (each whole over ZeRO): all-gathered over the leaf's ``model`` and
+        ``expert`` lines and placed by each rank's layout; a collective of
+        those lines."""
+        axes = self.tp_axes[name]
+        if not axes:
+            return local
+        lay, cfg = self.layout, self.model.cfg
+        cut = set(axes.values())
+        tp = lay.tp if "model" in cut else 1
+        ep = lay.ep if "expert" in cut else 1
+        stack = local[None, None]
+        if tp > 1:
+            stack = comm.all_gather(stack, "model", 1, mesh=self.mesh)
+        if ep > 1:
+            stack = comm.all_gather(stack, "expert", 0, mesh=self.mesh)
+        return gather_leaf({(m, e): stack[e, m] for e in range(ep)
+                            for m in range(tp)}, cfg, name, lay.tp, lay.ep)
 
     def _init_master(self, params: Optional[Params]) -> Params:
         """fp32 master shards on the device: ``model.init`` from a generator
@@ -290,7 +350,8 @@ class Engine:
             gen = torch.Generator(device=self.device).manual_seed(self.seed)
             full = self.model.init(gen, device=self.device,
                                    dtype=torch.float32)
-            return {k: v if self.plans[k].master is None else
+            return {k: v if self.plans[k].master is None
+                    and not self.tp_axes[k] else
                     self.shard_of(k, v).clone(
                         memory_format=torch.contiguous_format)
                     for k, v in full.items()}
@@ -310,18 +371,38 @@ class Engine:
             cut = self.plans[k].master
             if cut is not None:
                 v = comm.all_gather(v, cut.axes, cut.dim, mesh=self.mesh)
-            out[k] = v.detach().to("cpu", torch.float32, copy=True)
+            v = self.whole_of(k, v.detach())
+            out[k] = v.to("cpu", torch.float32, copy=True)
         return out
+
+    def _cut_lines(self, name: str) -> tuple:
+        """The axes whose ranks hold different parts of leaf ``name``: its
+        ZeRO cut's and its tensor- / expert-parallel cut's."""
+        cut = self.plans[name].master
+        zero = cut.axes if cut is not None and cut.n > 1 else ()
+        return tuple(zero) + tuple(sorted(set(self.tp_axes[name].values())))
+
+    def _kv_copy(self, name: str) -> bool:
+        """Is this rank's part of ``name`` a second copy of a KV head
+        another rank of its ``model`` line holds first (``kv_shared``)?"""
+        lay = self.layout
+        if lay is None or not lay.kv_shared or name.rsplit(".", 1)[-1] \
+                not in _KV_LEAVES:
+            return False
+        cfg = self.model.cfg
+        return (lay.m * lay.heads) % (cfg.n_head // cfg.kv_heads) != 0
 
     def _leaf_norm(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """The norm of the whole leaf ``name`` from this rank's part ``t``
         (LAMB's trust ratio): a sum of squares all-reduced over the leaf's
-        line before the square root."""
-        cut = self.plans[name].master
-        if cut is None or cut.n == 1:
+        lines before the square root (a KV head's copies counted once)."""
+        lines = self._cut_lines(name)
+        if not lines:
             return t.norm()
         sq = torch.sum(torch.square(t.float()))
-        return torch.sqrt(comm.all_reduce(sq, cut.axes, mesh=self.mesh))
+        if self._kv_copy(name):
+            sq = torch.zeros_like(sq)
+        return torch.sqrt(comm.all_reduce(sq, lines, mesh=self.mesh))
 
     def _cast_compute(self):
         """(params for ``model.loss``, their leaf tensors by name, the
@@ -400,31 +481,48 @@ class Engine:
             self.gather_peak_layers = gs.peak_layers
         return acc, loss
 
+    def _grad_lines(self, name: str) -> tuple:
+        """The batch axes whose ranks hold copies of leaf ``name`` and sum
+        its grads: all of ``BATCH_AXES``, but ``expert`` for an expert
+        bank (each rank of the line holds other experts)."""
+        if "expert" in self.tp_axes[name].values():
+            return ("data", "zero")
+        return BATCH_AXES
+
     def _reduce_grads(self, acc: dict) -> dict:
         """This rank's grads in the master layout, summed over the ranks:
-        all-reduced (whole masters, stages 0-1 and stage 3's whole compute
-        leaves, then cut), reduce-scattered in buckets (stage 2), or, for a
-        stage-3 cut leaf, finished across ``data`` (hpZ reduce-scatter,
-        MiCS all-reduce)."""
+        all-reduced over the leaf's batch lines (whole masters, stages 0-1
+        and stage 3's whole compute leaves, then cut), reduce-scattered in
+        buckets (stage 2), or, for a stage-3 cut leaf, finished across
+        ``data`` (hpZ reduce-scatter, MiCS all-reduce); a dense leaf cut
+        over ZeRO is then summed over ``expert``, and a KV head several
+        ranks hold over the ``model`` line."""
         mesh, part = self.mesh, self.partitioner
         if not mesh.active:
             return acc
-        out, bucket = {}, []
+        out, bucket, rest = {}, [], []
         for k in sorted(acc):
             plan, g = self.plans[k], acc[k]
+            lines = self._grad_lines(k)
             if plan.compute is not None:
+                done = set(plan.compute.axes)
                 if plan.hier:
                     g = comm.reduce_scatter(g, ("data",), plan.master.dim,
                                             mesh=mesh)
+                    done.add("data")
                 elif part.mics:
                     comm.all_reduce(g, ("data",), mesh=mesh)
+                    done.add("data")
                 out[k] = g
+                rest.append((k, tuple(a for a in lines if a not in done)))
             elif plan.master is None or part.stage != 2:
-                comm.all_reduce(g, BATCH_AXES, mesh=mesh)
+                comm.all_reduce(g, lines, mesh=mesh)
                 out[k] = g if plan.master is None \
                     else plan.master.shard(g).contiguous()
             else:
                 bucket.append((k, g, plan.master))
+                done = set(part.dp_axes) | ({"data"} if part.mics else set())
+                rest.append((k, tuple(a for a in lines if a not in done)))
         if bucket:
             red = reduce_scatter_buckets(
                 bucket, part.dp_axes, mesh,
@@ -433,22 +531,71 @@ class Engine:
                 if part.mics:
                     comm.all_reduce(g, ("data",), mesh=mesh)
                 out[k] = g
+        by_axes = {}
+        for k, axes in rest:
+            if mesh.size(axes) > 1:
+                by_axes.setdefault(axes, []).append((k, out[k]))
+        for axes, items in by_axes.items():
+            self._sum_flat(items, axes)
+        if self.layout is not None and self.layout.kv_shared:
+            self._sum_kv_heads(out)
         return out
+
+    def _sum_flat(self, items: list, axes) -> None:
+        """All-reduce ``items`` ((name, tensor)) over ``axes`` in place, as
+        one flat buffer."""
+        if not items:
+            return
+        flat = torch.cat([t.reshape(-1) for _, t in items])
+        comm.all_reduce(flat, axes, mesh=self.mesh)
+        off = 0
+        for _, t in items:
+            t.copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
+
+    def _sum_kv_heads(self, grads: dict) -> None:
+        """Sum the grads of each KV head over the ranks of the ``model``
+        line that hold it (``kv_shared``): each rank's grads placed at its
+        head's slot of a buffer as wide as all heads, one all-reduce, each
+        rank's slot read back."""
+        lay, kv = self.layout, self.model.cfg.kv_heads
+        names = [k for k in sorted(grads) if k.rsplit(".", 1)[-1]
+                 in _KV_LEAVES]
+        pads = []
+        for k in names:
+            g = grads[k]
+            n = g.shape[-1]
+            pad = torch.zeros(g.shape[:-1] + (kv * n,), dtype=g.dtype,
+                              device=g.device)
+            pad[..., lay.kv0 * n:(lay.kv0 + 1) * n].copy_(g)
+            pads.append((k, pad))
+        self._sum_flat(pads, "model")
+        for k, pad in pads:
+            n = grads[k].shape[-1]
+            grads[k].copy_(pad[..., lay.kv0 * n:(lay.kv0 + 1) * n])
 
     def _global_norm(self, grads: dict, names: list) -> torch.Tensor:
         """sqrt of the sum of squares over the elements each rank owns,
-        all-reduced over the partition group; a leaf whole on every rank is
-        counted by the group's first rank only."""
-        first = self.mesh.index(self.partitioner.dp_axes) == 0
+        all-reduced over the partition group and the ``model`` and
+        ``expert`` lines: a leaf whole over the partition group is counted
+        by the group's first rank only, a leaf whole over ``model`` or
+        ``expert`` by the line's first rank, a KV head several ranks hold
+        by the first of them."""
+        dp = self.partitioner.dp_axes
+        first = self.mesh.index(dp) == 0
         total = None
         for k in names:
             if self.plans[k].master is None and not first:
+                continue
+            cut = self.tp_axes[k].values()
+            if any(a not in cut and self.mesh.index(a) != 0
+                   for a in ("model", "expert")) or self._kv_copy(k):
                 continue
             s = torch.sum(torch.square(grads[k]))
             total = s if total is None else total + s
         if total is None:
             total = torch.zeros((), dtype=torch.float32, device=self.device)
-        comm.all_reduce(total, self.partitioner.dp_axes, mesh=self.mesh)
+        comm.all_reduce(total, dp + ("expert", "model"), mesh=self.mesh)
         return torch.sqrt(total)
 
     def _train_step(self, batch: dict) -> dict:
@@ -465,7 +612,7 @@ class Engine:
         finite = True
         if cfg.fp16.enabled:
             flag = grads_finite(grads[k] for k in names).float()
-            finite = bool(comm.all_reduce(flag, BATCH_AXES, "min",
+            finite = bool(comm.all_reduce(flag, AXIS_ORDER, "min",
                                           mesh=self.mesh))
         gnorm = self._global_norm(grads, names)
         if cfg.gradient_clipping and cfg.gradient_clipping > 0:
@@ -521,7 +668,7 @@ class Engine:
             # the ranks agree on a signal any of them took (the handler
             # cannot run a collective); then all commit together, once
             flag = torch.tensor([float(guard.preempted)], device=self.device)
-            if comm.all_reduce(flag, BATCH_AXES, "max", mesh=self.mesh):
+            if comm.all_reduce(flag, AXIS_ORDER, "max", mesh=self.mesh):
                 guard.preempted = guard.committed = True
                 guard.commit()
         if not isinstance(next(iter(batch.values())), torch.Tensor):

@@ -52,12 +52,14 @@ class Cut:
         return dataclasses.replace(self, dim=self.dim - 1)
 
 
-def spec_cut(spec: tuple, mesh) -> Optional[Cut]:
+def spec_cut(spec: tuple, mesh, only: Optional[tuple] = None) -> Optional[Cut]:
     """This rank's :class:`Cut` of a leaf laid out by ``spec`` (one tuple
-    of axis names per dim): the dim cut over axes of more than one rank,
-    or None where the leaf is whole."""
+    of axis names per dim): the dim cut over axes of more than one rank
+    (of ``only`` where given: the ZeRO axes of a leaf the tensor-parallel
+    layout has cut already), or None where the leaf is whole."""
     for d, entry in enumerate(spec):
-        real = tuple(a for a in entry if mesh.shape[a] > 1)
+        real = tuple(a for a in entry if mesh.shape[a] > 1
+                     and (only is None or a in only))
         if real:
             return Cut(d, real, mesh.size(real), mesh.index(real))
     return None

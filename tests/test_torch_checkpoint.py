@@ -48,6 +48,7 @@ from deepspeed_tpu_torch.resilience import CheckpointIntegrityError
 from deepspeed_tpu_torch.resilience import integrity as port_integrity
 from deepspeed_tpu_torch.runtime.checkpoint import engine as ckpt
 from deepspeed_tpu_torch.runtime.checkpoint import to_fp32 as port_to_fp32
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 S = 32

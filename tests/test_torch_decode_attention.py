@@ -21,6 +21,7 @@ from deepspeed_tpu.ops.decode_attention import decode_attention as jax_kernel
 from deepspeed_tpu_torch.inference.decode import _cache_attend
 from deepspeed_tpu_torch.models.transformer import alibi_slopes
 from deepspeed_tpu_torch.ops import decode_attention as da
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 FP32_TOL = 2e-5
 BF16_TOL = 2e-2

@@ -23,6 +23,7 @@ from deepspeed_tpu.ops import evoformer as jevo
 from deepspeed_tpu_torch.models.transformer import causal_attention
 from deepspeed_tpu_torch.ops import evoformer as tevo
 from deepspeed_tpu_torch.ops import flash_attention as tfa
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _qkv(B=2, S=16, H=4, hd=8, seed=0):

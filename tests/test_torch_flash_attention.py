@@ -28,6 +28,7 @@ import torch
 from deepspeed_tpu.models.transformer import alibi_slopes as jax_slopes
 from deepspeed_tpu.ops import flash_attention as jfa
 from deepspeed_tpu_torch.ops import flash_attention as tfa
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DENSE_TOL = {"float32": 2e-5, "bfloat16": 4e-2}

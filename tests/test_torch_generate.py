@@ -18,6 +18,7 @@ from deepspeed_tpu_torch.inference import decode
 from deepspeed_tpu_torch.ops import decode_attention as da
 
 from test_torch_model import make_pair  # a test module of this directory
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 LOGIT_ATOL = 1e-4
 

@@ -2195,3 +2195,53 @@ def test_graphed_slot_step_with_collectives_is_bit_identical(cuda, name):
             "allreduce": 1 + 2 * cfg.n_layer, "allgather": 1}
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_xent_kernels_on_vocab_shards_match_the_whole_head(cuda, tp):
+    """Phase 16a at a small shape: each rank's ``xent_fwd`` partials on its
+    rows with shifted targets, combined, and ``xent_bwd`` with the global
+    lse against the kernels on the whole head (``phase_tp_train_kernels``
+    raises past its gates; the backward twice bit-identical)."""
+    import chip_smoke
+
+    out = chip_smoke.phase_tp_train_kernels(
+        device="cuda", head=("small", 509, 4000, 256), tps=(tp,), flash=(),
+        iters=2)
+    assert len(out["shards"]) == tp
+    assert out["max_abs_err"]["dx"] <= chip_smoke.TP_XENT_TOL_SHARE["dx"]
+
+
+def test_fused_token_nll_tp_over_a_world_of_one_is_fused_token_nll(cuda):
+    """``fused_token_nll_tp`` over NCCL in a world of one: the kernels on
+    the whole table, the combine exact (lse_l + log 1), dx all-reduced over
+    a group of one: NLL and every grad bit-identical to
+    ``fused_token_nll``."""
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.ops import xent as xe
+    from deepspeed_tpu_torch.platform.mesh import build_mesh
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(300, 128, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(1000, 128, generator=g, device=cuda) * 0.05).bfloat16()
+    b = torch.randn(1000, generator=g, device=cuda).bfloat16()
+    t = torch.randint(0, 1000, (300,), generator=g, device=cuda)
+    t[:2] = torch.tensor([1000, -3])
+
+    def run(fn):
+        leaves = [a.clone().requires_grad_() for a in (x, w, b)]
+        nll = fn(*leaves)
+        nll.sum().backward()
+        return [nll.detach()] + [a.grad for a in leaves]
+
+    want = run(lambda x_, w_, b_: xe.fused_token_nll(x_, w_, b_, t))
+    _world_of_one()
+    try:
+        mesh = build_mesh()
+        got = run(lambda x_, w_, b_: xe.fused_token_nll_tp(
+            x_, w_, b_, t, v0=0, mesh=mesh))
+    finally:
+        dist.destroy_process_group()
+    for a, e in zip(got, want):
+        assert torch.equal(a, e)

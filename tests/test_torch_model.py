@@ -18,6 +18,7 @@ from deepspeed_tpu.models import presets as jax_presets
 from deepspeed_tpu_torch.models import build_model, params_from_jax
 from deepspeed_tpu_torch.models import presets as torch_presets
 from deepspeed_tpu_torch.models.transformer import TransformerLM
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 LOGIT_ATOL = 1e-4
 

@@ -49,6 +49,7 @@ from deepspeed_tpu_torch.models import (MoETransformerLM, mixtral,
 from deepspeed_tpu_torch.models import moe as tmoe
 from deepspeed_tpu_torch.models import presets as torch_presets
 from deepspeed_tpu_torch.models.transformer import param_specs
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 GATE_TOL = 1e-6
 LOGIT_TOL = 1e-5
@@ -355,7 +356,8 @@ def test_moe_section_mismatch_raises_like_jax():
     with pytest.raises(ValueError, match="num_experts"):
         dt.initialize(conf, tm, device="cpu")
     with pytest.raises(NotImplementedError, match="item 4"):
-        dt.initialize(config(1, mesh={"expert": 2}), tm, device="cpu")
+        dt.initialize(config(1, mesh={"expert": 2}, zero_optimization={
+            "stage": 3, "mics_shard_size": 2}), tm, device="cpu")
 
 
 def test_eval_flag_is_restored_when_the_loss_raises(monkeypatch):

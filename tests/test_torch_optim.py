@@ -23,6 +23,7 @@ from deepspeed_tpu_torch.config import FP16Config
 from deepspeed_tpu_torch.runtime import loss_scaler as tls
 from deepspeed_tpu_torch.runtime import lr_schedules as tlr
 from deepspeed_tpu_torch.runtime import optimizers as topt
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 OPTIMIZERS = {
     "adamw": ("adamw", {"lr": 1e-3, "weight_decay": 0.01}),

@@ -13,6 +13,7 @@ from deepspeed_tpu_torch.inference.config import InferenceConfig
 from deepspeed_tpu_torch.models import tiny_test
 from deepspeed_tpu_torch.ops import builder
 from deepspeed_tpu_torch.platform.device import resolve_device
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "deepspeed_tpu_torch").rglob("*.py")) \
@@ -184,8 +185,11 @@ def test_training_config_ports_and_refuses():
             ({"monitor": {"enabled": True}}, "item 7"),
             ({"observability": {"spans": True}}, "item 7"),
             ({"elasticity": {"enabled": True}}, "item 8"),
-            ({"mesh": {"expert": 2}}, "item 4"),
-            ({"mesh": {"model": 2}}, "item 4"),
+            ({"mesh": {"expert": 2},
+              "zero_optimization": {"mics_shard_size": 2}}, "item 4"),
+            ({"mesh": {"model": 2},
+              "zero_optimization": {"zero_hpz_partition_size": 2}},
+             "item 4"),
             ({"remat": {"enabled": True, "offload": True}}, "item 6")):
         with pytest.raises(NotImplementedError, match=item):
             Config.from_any(conf)

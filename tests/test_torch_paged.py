@@ -54,6 +54,7 @@ from deepspeed_tpu_torch.serving import (PagePool, PagePoolExhausted,
                                          insert_paged, plan_chunks)
 
 from test_torch_model import make_pair  # a test module of this directory
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 M = 48          # slot capacity used across these tests
 PS = 8          # page size

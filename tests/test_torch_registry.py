@@ -7,6 +7,7 @@ import torch
 from deepspeed_tpu_torch.ops import (decode_attention, flash_attention,
                                      registry, sparse_attention, woq_matmul,
                                      xent)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 WRAPPERS = {
     "decode_attention": decode_attention.decode_attention,

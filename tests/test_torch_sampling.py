@@ -15,6 +15,7 @@ from deepspeed_tpu.inference import sampling as jax_sampling
 from deepspeed_tpu_torch.inference.sampling import (mask_logits,
                                                     per_request_generators,
                                                     sample_logits)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def logits(B=3, V=50, seed=0):

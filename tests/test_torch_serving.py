@@ -48,6 +48,7 @@ from deepspeed_tpu_torch.serving import (Scheduler, ServingEngine,
                                          plan_chunks)
 
 from test_torch_model import make_pair  # a test module of this directory
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 M = 48          # slot capacity used across these tests
 EOS = 7

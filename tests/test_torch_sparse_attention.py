@@ -35,6 +35,7 @@ from deepspeed_tpu.runtime.dataloader import random_token_dataset
 from deepspeed_tpu_torch.models import params_from_jax, params_to_numpy
 from deepspeed_tpu_torch.models import presets as torch_presets
 from deepspeed_tpu_torch.ops import sparse_attention as tsa
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def config_pair(name, **kw):

@@ -38,6 +38,7 @@ from deepspeed_tpu_torch.models import (TPLayout, build_model, cut_leaf,
                                         llama2, mixtral, tiny_test)
 from deepspeed_tpu_torch.models.transformer import alibi_slopes
 from deepspeed_tpu_torch.platform.mesh import AXIS_ORDER, Mesh
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def layouts(cfg, tp=1, ep=1):
@@ -243,8 +244,11 @@ def test_refusals():
                           device="cpu")
     tcfg = tiny_test()
     for axis in ("model", "expert"):
+        # training under model / expert is ported; hpZ composed with it not
         with pytest.raises(NotImplementedError, match="item 4"):
-            dt.initialize({"train_batch_size": 2, "mesh": {axis: 2}},
+            dt.initialize({"train_batch_size": 2, "mesh": {axis: 2},
+                           "zero_optimization": {
+                               "stage": 3, "zero_hpz_partition_size": 2}},
                           build_model(tcfg), device="cpu")
 
 
@@ -254,7 +258,9 @@ def test_forward_is_refused_on_a_sharded_layout():
                             build_model(cfg).init(torch.Generator()),
                             {"dtype": "float32"}, device="cpu")
     eng.layout = layouts(cfg, 2)[0]
-    with pytest.raises(NotImplementedError, match="4"):
+    # forward() runs sharded, over the process group the engine was cut
+    # over; a layout set by hand, with no group behind it, is refused
+    with pytest.raises(ValueError, match="init_distributed"):
         eng.forward(np.zeros((1, 4), np.int32))
 
 

@@ -41,6 +41,7 @@ from deepspeed_tpu.serving import ServingEngine as JaxServingEngine
 import deepspeed_tpu_torch as dt
 from deepspeed_tpu_torch.models import build_model, params_to_numpy
 from deepspeed_tpu_torch.runtime import random_token_dataset
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 LOGIT_SHARE = 1e-5
 JOIN_S = 400

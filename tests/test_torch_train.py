@@ -44,6 +44,7 @@ from deepspeed_tpu.runtime.dataloader import random_token_dataset
 from deepspeed_tpu_torch.models import params_from_jax, params_to_numpy
 from deepspeed_tpu_torch.models import presets as torch_presets
 from deepspeed_tpu_torch.ops import flash_attention as tfa
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 STEPS = 4
 S = 32

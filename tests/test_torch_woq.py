@@ -38,6 +38,7 @@ from deepspeed_tpu_torch.models import (bloom, gpt2, llama2, opt,
 from deepspeed_tpu_torch.ops import woq_matmul as twm
 
 from test_torch_model import make_pair  # a test module of this directory
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 LOGIT_ATOL = 1e-4
 FP32_SHARE = 2e-5

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from deepspeed_tpu.ops import xent as jx
 from deepspeed_tpu_torch.models import presets
 from deepspeed_tpu_torch.ops import xent as tx
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = {"float32": dict(nll=1e-5, grad=1e-5, db=1e-5),
        "bfloat16": dict(nll=1e-4, grad=2e-2, db=1e-3)}

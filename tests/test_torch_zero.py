@@ -38,6 +38,7 @@ from deepspeed_tpu_torch.runtime.engine import mesh_spec
 from deepspeed_tpu_torch.runtime.zero.partitioning import (ZeroPartitioner,
                                                            stacked_fn)
 from deepspeed_tpu_torch.runtime.zero.shards import spec_cut
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 MODELS = {
     "tiny_test": ((), {}),
@@ -163,7 +164,8 @@ def test_config_accepts_the_zero_keys():
 @pytest.mark.parametrize("conf,item", [
     ({"zero_optimization": {"zero_quantized_gradients": True}}, "item 8"),
     ({"zero_optimization": {"offload_param": {"device": "cpu"}}}, "item 6"),
-    ({"mesh": {"model": 2}}, "item 4"),
+    ({"mesh": {"model": 2},
+      "zero_optimization": {"zero_hpz_partition_size": 2}}, "item 4"),
     ({"mesh": {"pipe": 2}}, "item 8")])
 def test_config_refuses_later_items(conf, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -35,6 +35,7 @@ from deepspeed_tpu.models import presets as jax_presets
 from deepspeed_tpu.ops.quant import rowwise_quant_int8 as jax_quant
 from deepspeed_tpu.platform.mesh import MeshSpec, build_mesh
 from deepspeed_tpu_torch.models import params_to_numpy
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 TOL_QWZ = 1e-4

@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Phases, in order (phase 14 runs second, right after phase 1, phase 15
-right after phase 11, phase 16 last); any failure raises and the script
-exits non-zero. The phases that profile a window (11, 13, 14, 15 and 16)
-and phase 12 each run in a fresh process of their own (this script with
+right after phase 11 and phase 17 after it, phase 16 last); any failure
+raises and the script exits non-zero. The phases that profile a window
+(11, 13, 14, 15, 16 and 17) and phase 12 each run in a fresh process of
+their own (this script with
 ``--phase <name> --result <file>``, its result returned as JSON): late in
 one long process a profiled window now and then lost a kernel record
 (ROADMAP.md §3), and phase 12's pinned host buffers stay cached in the
@@ -220,13 +221,15 @@ nothing is retried:
    ``[zero]`` JSON line: per stage the median step, device busy and idle
    in the profiled step, the NCCL kernels' time, peak memory; the card;
 14. MoE (``phase_moe``). (a) Mixtral-8x7B (``mixtral("8x7b",
-   moe_drop_tokens=False)``, 32 layers, 8 experts, top-2, GQA 32 / 8) at
-   full width and depth, int8 WOQ at group 128 (~48 GB: one card cannot
-   hold it in bf16), its weights drawn on the card layer by layer and
+   n_layer=MOE_SERVE_LAYERS, moe_drop_tokens=False)``, 8 experts, top-2,
+   GQA 32 / 8) at full width and 16 of its 32 layers (the depth cut in PR
+   22 to keep the run inside its limit beside phase 17; at 32 layers, ~48
+   GB, one card holds it only in int8), int8 WOQ at group 128, its weights
+   drawn on the card layer by layer and
    quantized into preallocated int8 stacks (``_moe_serve_engine``), served
    by phase 11's ``ServingEngine`` (8 slots of 1024, chunks of 256) on
-   11b's 16 requests: phase 11's gates, the capture recording 32
-   decode-attention and 65 ``woq_matmul`` launches (the fused qkv and
+   11b's 16 requests: phase 11's gates, the capture recording 16
+   decode-attention and 33 ``woq_matmul`` launches (the fused qkv and
    ``wo`` a layer, the head; the expert banks dequantize at their point of
    use), and the banks' dequantize timed; (b) ``mixtral("8x7b",
    n_layer=2)`` trained at full width (bf16, AdamW, ZeRO 1, remat
@@ -240,14 +243,16 @@ nothing is retried:
    (``phase_tp``, right after phase 11): each model first serves with no
    process group
    (the references), then ``init_distributed()`` joins a world of one
-   rank. (a) Llama-2-7B int8 at full width and depth built with
+   rank. (a) Llama-2-7B int8 at full width and 8 of its 32 layers
+   (``TP_SERVE_LAYERS``, the depth cut in PR 22 to keep the run inside its
+   limit beside phase 17) built with
    ``tensor_parallel: 1`` serves phase 11b's 16 requests contiguous and
    paged: the tokens bit-identical to the reference's, one capture, the collectives the capture recorded and those a
    profiled eager slot step issued (``c10d`` ops by kind) both equal to
    ``tp_collectives(engine)`` (an all-reduce after ``wo`` and after
    ``w_out`` a layer, the embedding's all-reduce, the head's all-gather),
-   NCCL's device records in the eager step, and phase 11's launch gates (32
-   decode-attention and 161 ``woq_matmul`` launches a replay). A world of
+   NCCL's device records in the eager step, and phase 11's launch gates (8
+   decode-attention and 41 ``woq_matmul`` launches a replay). A world of
    one runs NCCL's one-rank path: an in-place all-reduce puts no work on
    the device and an all-gather one copy, so NCCL's device records are
    gated in the eager step. (b) A 2-layer Mixtral-8x7B int8 at full
@@ -278,6 +283,25 @@ nothing is retried:
    the device; step ms, tokens/s, MFU, peak memory and the device's busy
    share. A ``[tp-train]`` JSON line.
 
+17. self-speculative decoding in the ``ServingEngine`` (``phase_spec``):
+   Llama-2-7B at full width and depth, 8 slots of 1024, ``flash_decode``
+   off, n-gram 3 drafts of up to 4 tokens verified by one fixed-shape
+   5-token forward a step (a second CUDA graph); 17a bf16 over contiguous
+   slots, 17b int8 WOQ over the paged pool; 16 requests, half motif-tiled
+   prompts (prompt-lookup traffic), half phase 11's. Gates: every request
+   served in full; the slot step and the verify each captured once; verify
+   steps and accepted drafts; 161 ``woq_matmul`` launches a capture and a
+   profiled window of 4 verify replays showing 4 x 161 by name (17b); no
+   page leaked; the verify's logits, teacher-forced with the plain lane's
+   own tokens from one state, within 5% of max |logit| of the plain
+   steps', the eager verify's winners equal to the graphed one's; spec-on
+   tokens equal spec-off's or part only where spec-off's top-two gap is at
+   most the largest change of a logit difference that teacher-forced
+   comparison saw. Recorded: tokens/s, TPOT, accepted tokens a step, spec
+   on and off; the verify and plain step times. A ``[spec]`` JSON line;
+   phase 2 checks and times ``woq_matmul`` at the verify's M 40 on every
+   Llama-2-7B projection and the head (``[woq-mm-verify]``).
+
 ``remat_sweep()``, ``woq_probe()`` and ``checkpoint_write_probe()`` are
 one-off measurements outside the phases: the default GPT-2 1.5B training
 step under each remat policy, the tensor-core ``x @ W`` under each ring
@@ -301,7 +325,8 @@ launches (11a's and 11b's), from the counts the run took: the wrappers'
 count over the path less the capture's (the eager warm-up step), plus the
 capture's count times the graph's replays; ``paged_serving_launches`` the
 same for 11c-11g, ``mixtral_serving_launches`` for 14a, ``tp_launches``
-for 15a, 15a paged and 15b; those rows and ``woq_matmul_t``'s carry
+for 15a, 15a paged and 15b, ``spec_serving_launches`` (``woq_matmul``)
+for 17a and 17b, with ``verify_layer_int8`` its M 40 layer timing; those rows and ``woq_matmul_t``'s carry
 ``tp_rank_shapes``, each rank shape's µs, bound and route; the flash rows
 carry ``mixtral_train_launches``, 14b's timed steps'; the xent rows and
 the first three flash rows carry ``tp_train_rank_shapes`` (16a: each
@@ -1080,6 +1105,10 @@ def _layer_sum(parts) -> dict:
     return total
 
 
+# the verify forward's M: phase 17's 8 slots x (max_draft 4 + 1)
+SPEC_VERIFY_M = 8 * 5
+
+
 def phase_woq_kernels(device="cuda", iters=200, main=WOQ_MM_MAIN,
                       main_t=WOQ_T_MAIN, edges=WOQ_EDGES, M=4,
                       main_opt=WOQ_MM_OPT) -> dict:
@@ -1087,10 +1116,15 @@ def phase_woq_kernels(device="cuda", iters=200, main=WOQ_MM_MAIN,
     both models (int8 and int4) and the edge cases, each line naming its
     route; on the card, every x @ W shape timed in int8 and int4 (a
     ``[woq-mm]`` JSON line), the x @ W.T head shapes, and the host cost of
-    a call. Returns the JSON numbers of each kernel: ``woq_matmul`` summed
-    over one Llama-2-7B int8 layer's projections, ``woq_matmul_t`` at the
-    OPT-6.7B int4 tied head."""
+    a call; and every Llama-2-7B projection and the head at the
+    speculative verify's M (``SPEC_VERIFY_M``), checked with the
+    ``woq_split_plan`` each runs (logged) and timed (``[woq-mm-verify]``).
+    Returns the JSON numbers of each kernel: ``woq_matmul`` summed over one
+    Llama-2-7B int8 layer's projections, ``woq_matmul_t`` at the OPT-6.7B
+    int4 tied head."""
     import torch
+
+    from deepspeed_tpu_torch.ops.woq_matmul import woq_split_plan
 
     gen = torch.Generator(device=device).manual_seed(2)
     errs = {"mm": 0.0, "mmt": 0.0}
@@ -1110,6 +1144,20 @@ def phase_woq_kernels(device="cuda", iters=200, main=WOQ_MM_MAIN,
     for _, K, N, _, out in main:
         _woq_check(gen, "mm", SERVING["slots"], K, N, 128, 8, "bfloat16", out,
                    device)
+    # phase 17's verify forward: M = slots x (max_draft + 1), int8 and int4,
+    # each with the split plan it runs
+    verify_m = SPEC_VERIFY_M
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device == "cuda" else 132)
+    plans = {}
+    for bits in (8, 4):
+        for name, K, N, _, out in main:
+            plans[name] = woq_split_plan(verify_m, K, N, 128, sms)
+            e, _ = _woq_check(gen, "mm", verify_m, K, N, 128, bits,
+                              "bfloat16", out, device)
+            errs["mm"] = max(errs["mm"], e)
+    log(f"[kernel] woq_split_plan at the verify's M {verify_m} on {sms} SMs: "
+        + json.dumps(plans))
     result = {"woq_matmul": {"max_abs_err": errs["mm"]},
               "woq_matmul_t": {"max_abs_err": errs["mmt"]}}
     if device != "cuda":
@@ -1170,6 +1218,23 @@ def phase_woq_kernels(device="cuda", iters=200, main=WOQ_MM_MAIN,
         f"{wm.woq_t_route(x.dtype, 4096, 50272, qt.group_size)})")
     result["woq_matmul"]["host_us"] = woq_host
     result["woq_matmul_t"]["host_us"] = t_host
+    # the verify's M: every Llama-2-7B projection and the head timed in
+    # int8 and int4, against their bound and cuBLAS on the dense bf16 weight
+    verify = {f"{name} int{bits}": _woq_timing(gen, "mm", verify_m, K, N, 128,
+                                               bits, out, iters // 2)
+              for bits in (8, 4) for name, K, N, _, out in main}
+    for b in (8, 4):
+        t = _layer_sum((per, verify[f"{name} int{b}"])
+                       for name, _, _, per, _ in main)
+        log(f"[kernel] woq_matmul, one Llama-2-7B int{b} layer, M "
+            f"{verify_m}: kernel {t['ms'] * 1e3:.2f} us, bound "
+            f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_ms'] / t['ms']:.1%}), "
+            f"torch.matmul bf16 dense {t['library_ms'] * 1e3:.2f} us "
+            f"({t['ms'] / t['library_ms']:.2f}x)")
+        verify[f"layer int{b}"] = t
+    result["woq_matmul"]["verify"] = verify
+    log("[woq-mm-verify] " + json.dumps({"M": verify_m, "plans": plans,
+                                         "shapes": verify}))
     log("[woq-mm] " + json.dumps({
         "M": M, "shapes": {k: {n: v[n] for n in ("ms", "bound_ms",
                                                   "library_ms", "plain_ms",
@@ -4319,12 +4384,12 @@ def phase_serve(cfg=None, *, bits=None, requests=32, serving=None,
     if srv.graph is not None:
         capture = srv.graph.capture
 
-        def counted_capture(forward):
+        def counted_capture(forward, **kw):
             torch.cuda.synchronize()
             # as the capture itself does first: the delta is its pool
             torch.cuda.empty_cache()
             r0 = torch.cuda.memory_reserved()
-            capture(forward)
+            capture(forward, **kw)
             torch.cuda.synchronize()
             pool["bytes"] = torch.cuda.memory_reserved() - r0
 
@@ -5564,11 +5629,18 @@ def _moe_serve_engine(cfg, *, bits=8, group=128, device=None, seed=2024,
     return engine
 
 
+# 14a's depth: 16 of Mixtral-8x7B's 32 layers (cut in PR 22, with 15a's, so
+# that the run with phase 17 stays well inside its time limit: 14a took
+# 111 s of it at 32 layers)
+MOE_SERVE_LAYERS = 16
+
+
 def phase_moe(serve_cfg=None, train_cfg=None, *, device=None, requests=16,
               serving=None, train_config=None, train_seq=1024, warmup=2,
               steps=4, **serve_kw) -> dict:
-    """Phase 14: (a) Mixtral-8x7B int8 served at full width and depth
-    (``phase_serve`` on ``_moe_serve_engine``, 11b's stream); (b) a 2-layer
+    """Phase 14: (a) Mixtral-8x7B int8 served at full width and
+    ``MOE_SERVE_LAYERS`` layers (``phase_serve`` on ``_moe_serve_engine``,
+    11b's stream); (b) a 2-layer
     full-width Mixtral trained (``phase_train`` under
     ``MOE_TRAIN_CONFIG``). Each engine is freed before the next. Small
     ``serve_cfg`` / ``train_cfg`` and ``device="cpu"`` rehearse it."""
@@ -5580,7 +5652,8 @@ def phase_moe(serve_cfg=None, train_cfg=None, *, device=None, requests=16,
     dev = torch.device(device or "cuda")
     t0 = time.perf_counter()
     _free_memory(dev)
-    scfg = serve_cfg or mixtral("8x7b", moe_drop_tokens=False)
+    scfg = serve_cfg or mixtral("8x7b", n_layer=MOE_SERVE_LAYERS,
+                                moe_drop_tokens=False)
     t1 = time.perf_counter()
     engine = _moe_serve_engine(scfg, device=device)
     build_s = time.perf_counter() - t1
@@ -5782,6 +5855,11 @@ def _tp_lab(srv, marks) -> dict:
     return {"eager_collectives": kinds, "eager_nccl_records": nccl}
 
 
+# 15a's depth: 8 of Llama-2-7B's 32 layers (cut in PR 22, with 14a's; the
+# world-of-one checks are per layer, and their gates follow the depth)
+TP_SERVE_LAYERS = 8
+
+
 def phase_tp(cfg=None, moe_cfg=None, *, device=None, requests=16,
              moe_requests=16, serving=None, paged_serving=None,
              **serve_kw) -> dict:
@@ -5789,7 +5867,8 @@ def phase_tp(cfg=None, moe_cfg=None, *, device=None, requests=16,
     (``gloo`` with ``device="cpu"``), on phase 11's serving path.
 
     First ``moe_cfg`` (a 2-layer Mixtral-8x7B int8 at full width) and
-    ``cfg`` (Llama-2-7B int8) serve 11b's stream with no process group and
+    ``cfg`` (Llama-2-7B int8 at ``TP_SERVE_LAYERS`` layers) serve 11b's
+    stream with no process group and
     no profile: the references. Then
     ``init_distributed`` joins a world of one;
     (a) ``cfg``'s engine with ``tensor_parallel: 1`` serves 11b's stream
@@ -5809,7 +5888,7 @@ def phase_tp(cfg=None, moe_cfg=None, *, device=None, requests=16,
     from deepspeed_tpu_torch.platform.distributed import (_free_port,
                                                           init_distributed)
 
-    cfg = cfg or llama2("7b")
+    cfg = cfg or llama2("7b", n_layer=TP_SERVE_LAYERS)
     moe_cfg = moe_cfg or mixtral("8x7b", n_layer=2, moe_drop_tokens=False)
     serving = serving or SERVING
     paged_serving = paged_serving or PAGED
@@ -6186,6 +6265,410 @@ def phase_tp_train(opt_cfg=None, moe_cfg=None, *, device=None,
 # window, and late in one long process a window now and then lost a kernel
 # record (ROADMAP.md §3); phase 12 for its host memory; the time a child
 # may take
+# ----------------------------------------------------------------- phase 17
+SPEC = {"ngram": 3, "max_draft": 4}
+SPEC_SERVING = {**SERVING, "speculation": SPEC}
+SPEC_PAGED = {**PAGED, "speculation": SPEC}
+# the motif-tiled half of the stream: a motif of 4-8 tokens tiled to a
+# prompt of 128-512, 64-128 new tokens (prompt-lookup traffic: code edits,
+# quoting a retrieved document)
+SPEC_MOTIF = (4, 8)
+SPEC_PROMPT = (128, 512)
+SPEC_NEW = (64, 128)
+# the verify forward's fp32 logits against the plain graphed step's,
+# teacher-forced from one state: phase 3's gate (bf16 GEMMs at M 40 and at
+# M 8 round apart)
+SPEC_LOGIT_TOL_SHARE = LOGIT_TOL_SHARE
+
+
+def _spec_stream(vocab: int, n: int = 16, seed: int = 17, motif=SPEC_MOTIF,
+                 prompt=SPEC_PROMPT, new=SPEC_NEW) -> list:
+    """Phase 17's stream: ``n`` requests, the even ones motif-tiled prompts
+    (``motif`` tokens tiled to ``prompt``, ``new`` to generate), the odd
+    ones the first ``n // 2`` of phase 11's stream; request seeds 1000 +
+    i."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    plain = _serve_stream(vocab, 32)[:n // 2]
+    out = []
+    for i in range(n):
+        if i % 2 == 0:
+            m = rng.integers(0, vocab, int(rng.integers(motif[0],
+                                                       motif[1] + 1)))
+            P = int(rng.integers(prompt[0], prompt[1] + 1))
+            p = np.tile(m, -(-P // len(m)))[:P].astype(np.int32)
+            out.append((p, int(rng.integers(new[0], new[1] + 1)), 1000 + i))
+        else:
+            out.append((plain[i // 2][0], plain[i // 2][1], 1000 + i))
+    return out
+
+
+def _spec_warm(srv, vocab: int) -> None:
+    """Phase 17's warm-up, one request at a time: a random 32-token prompt
+    (plain steps: the slot graph's capture), then a motif-tiled one of up
+    to 96 tokens (the verify graph's, once it drafts); no block shared
+    with the stream."""
+    import numpy as np
+
+    P = min(96, srv.cfg.max_len // 2)
+    motif = np.random.default_rng(99).integers(0, vocab, 5)
+    for p, n in ((_serve_stream(vocab, 1, seed=99)[0][0][:32], 8),
+                 (np.tile(motif, 20)[:P].astype(np.int32), P // 2)):
+        srv.serve_batch([p], [n])
+
+
+def _serve_timed(srv, stream, sync) -> tuple:
+    """Submit ``stream`` at t = 0 and drain; (rids, results, seconds)."""
+    srv.stats.reset()
+    rids = [srv.submit(p, n, seed=s) for p, n, s in stream]
+    t0 = time.perf_counter()
+    done = srv.drain()
+    sync()
+    return rids, done, time.perf_counter() - t0
+
+
+def _spec_gaps(srv) -> tuple:
+    """Record the plain lane's top-two logit gap of every token it emits:
+    ``srv.slot_step`` wrapped, each step's (slot -> (rid, token index))
+    and its (slots,) gap on the device; ``read()`` returns {rid: {index:
+    gap}} after one host read."""
+    import torch
+
+    steps = []
+    step = srv.slot_step
+
+    def rec(graphed=None):
+        at = {s: (r.rid, len(r.tokens)) for s, r in srv.sched.running.items()}
+        lg, ok = step(graphed=graphed)
+        top = lg[:, 0].topk(2, dim=-1).values
+        steps.append((at, top[:, 0] - top[:, 1]))
+        return lg, ok
+
+    def read() -> dict:
+        gaps = torch.stack([g for _, g in steps]).cpu().tolist() \
+            if steps else []
+        out: dict = {}
+        for (at, _), row in zip(steps, gaps):
+            for slot, (rid, idx) in at.items():
+                out.setdefault(rid, {})[idx] = row[slot]
+        return out
+
+    srv.slot_step = rec
+    return read
+
+
+def _spec_lab(srv, cfg, tag, cuda, lab_prompt, lab_new, timed,
+              profile_steps, per_step) -> dict:
+    """Phase 17's measurements on full slots: max_draft + 1 plain graphed
+    steps from one state, then (the state reset) one graphed verify fed the
+    plain lane's own next tokens as drafts: the largest |logit| distance
+    and the largest change of a logit difference (each row's spread of
+    the verify's logits less the plain step's), the winners against the
+    plain tokens; the eager verify against the graphed one from the same
+    state (the same winners: gated); the graphed plain step and verify
+    replay timed in turns; a profiled window of ``profile_steps`` verify
+    replays counted by kernel name (``per_step`` each: gated)."""
+    import torch
+
+    K = srv.cfg.speculation.max_draft
+    slots = srv.cfg.slots
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    srv.end_drain()
+    lab = _serve_stream(cfg.vocab_size, slots, seed=1,
+                        prompt=(lab_prompt, lab_prompt),
+                        new=(lab_new, lab_new))
+    rids = [srv.submit(p, n, seed=s) for p, n, s in lab]
+    for _ in range(64 * slots):
+        if srv.sched.occupancy == slots:
+            break
+        srv.step()
+    else:
+        raise AssertionError(f"{tag} the lab's {slots} requests did not all "
+                             "reach a slot")
+    sync()
+    st = srv.state
+    marks = _slot_marks(st)
+    plain_lg, plain_tok = [], []
+    for _ in range(K + 1):
+        lg, _ = srv.slot_step(graphed=cuda)
+        plain_lg.append(lg[:, 0].clone())
+        plain_tok.append(st.tok.clone())
+    _slot_reset(st, marks)
+    drafts = torch.stack(plain_tok[:K], dim=1).cpu().numpy()
+    lg_v, back = srv.verify_step(drafts, graphed=cuda)
+    lg_v, back = lg_v.clone(), back.clone()
+    want = torch.stack(plain_lg, dim=1)
+    delta = lg_v - want
+    dist = delta.abs().max().item()
+    spread = (delta.amax(-1) - delta.amin(-1)).max().item()
+    scale = want.abs().max().item()
+    winners = (back[:, :-1] == torch.stack(plain_tok, dim=1)).float()
+    _slot_reset(st, marks)
+    lg_e, back_e = srv.verify_step(drafts, graphed=False)
+    eager_same = bool(torch.equal(back_e, back))
+    eager_diff = (lg_e - lg_v).abs().max().item()
+    log(f"{tag} teacher-forced from one state ({slots} slots at length "
+        f"{int(marks[0].min())}-{int(marks[0].max())}): the verify's logits "
+        f"against {K + 1} plain graphed steps' max |diff| {dist:.4e} = "
+        f"{dist / scale:.3e} of max |logit| {scale:.3f} (tol "
+        f"{SPEC_LOGIT_TOL_SHARE}), largest change of a logit difference "
+        f"{spread:.4e}; winners equal to the plain tokens "
+        f"{winners.mean().item():.4f}; eager vs graphed verify: winners "
+        f"identical {eager_same}, logits max |diff| {eager_diff:.3e}")
+    if not dist <= SPEC_LOGIT_TOL_SHARE * scale:
+        raise AssertionError(f"{tag} the verify's logits are {dist:.4e} from "
+                             f"the plain steps' ({dist / scale:.3e} of max "
+                             "|logit|)")
+    if not eager_same:
+        raise AssertionError(f"{tag} the graphed and the eager verify gave "
+                             "different winners")
+    times: dict = {}
+    for verify in (True, False, False, True):
+        _slot_reset(st, marks)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            if verify:
+                srv.verify_step(drafts, graphed=cuda)
+            else:
+                srv.slot_step(graphed=cuda)
+        sync()
+        times.setdefault("verify" if verify else "step", []).append(
+            (time.perf_counter() - t0) / timed * 1e3)
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    log(f"{tag} {timed} graphed verify replays (M {slots * (K + 1)}) and "
+        f"plain steps (M {slots}) in turns: verify {ms['verify']:.3f} ms ("
+        + ", ".join(f"{x:.3f}" for x in times["verify"]) + f"), plain step "
+        f"{ms['step']:.3f} ms (" + ", ".join(f"{x:.3f}"
+                                            for x in times["step"]) + ")")
+    out = {"teacher_forced_max_abs": dist, "teacher_forced_share":
+           dist / scale, "logit_difference_change": spread,
+           "winners_equal_share": winners.mean().item(),
+           "eager_vs_graph_logits": eager_diff, "verify_ms": ms["verify"],
+           "step_ms": ms["step"], "lab_lengths": marks[0].tolist()}
+    if cuda and profile_steps:
+        _slot_reset(st, marks)
+        prof = _profile_counts(lambda: [srv.verify_step(drafts, graphed=True)
+                                        for _ in range(profile_steps)])
+        seen = {k: _kernel_launches(prof["counts"], SERVE_KERNELS[k])
+                for k in per_step}
+        want_seen = {k: profile_steps * v for k, v in per_step.items()}
+        busy = prof["busy_us"] / profile_steps / 1e3
+        log(f"{tag} profiled {profile_steps} verify replays: kernel launches "
+            f"{seen} (want {want_seen}), device busy {busy:.3f} ms a replay; "
+            f"lead {prof['lead_us']} µs, tail {prof['tail_us']} µs")
+        if seen != want_seen:
+            raise AssertionError(
+                f"{tag} verify replays launched {seen}, want {want_seen}; the "
+                f"window's first and last kernels {prof['ends']}, lead "
+                f"{prof['lead_us']} µs, tail {prof['tail_us']} µs; records "
+                f"lost {_missing_in_replays(prof['names'], profile_steps)}")
+        top = sorted(prof["us_by_name"].items(), key=lambda kv: -kv[1])[:6]
+        log(f"{tag} a verify replay's kernels by device time: " + "; ".join(
+            f"{us / profile_steps / 1e3:.3f} ms {name[:90]}"
+            for name, us in top))
+        out.update(verify_busy_ms=busy, verify_profile_launches=seen)
+    for rid in rids:
+        srv.cancel(rid)
+    return out
+
+
+def _first_divergences(on: list, off: list, rids_off: list, gaps: dict,
+                       limit: float) -> tuple:
+    """Spec-on against spec-off tokens: (the share of equal tokens, each
+    first divergence as (request, index, spec-off's top-two gap there),
+    those whose gap exceeds ``limit``)."""
+    same = total = 0
+    parts, bad = [], []
+    for i, (a, b, rid) in enumerate(zip(on, off, rids_off)):
+        same += sum(int(x == y) for x, y in zip(a, b))
+        total += len(b)
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        g = gaps.get(rid, {}).get(j)
+        parts.append((i, j, g))
+        if g is None or g > limit:
+            bad.append((i, j, g))
+    return same / total, parts, bad
+
+
+def _spec_way(engine, cfg, name, bits, serving, stream, *, device,
+              lab_prompt, lab_new, timed, profile_steps) -> dict:
+    """One way of phase 17 on one engine: the stream with speculation on
+    (gated), the lab (``_spec_lab``), then the same stream with it off,
+    its tokens held to spec-on's."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    from deepspeed_tpu_torch.ops import woq_matmul as wm
+    from deepspeed_tpu_torch.resilience.guards import RequestStatus
+
+    dev = torch.device(device or "cuda")
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    paged = serving.get("page_size", 0) > 0
+    tag = f"[spec {name} {cfg.n_layer}L d{cfg.d_model} " + (
+        f"int{bits}" if bits else str(cfg.dtype)[6:]) + \
+        (f" paged {serving['page_size']}" if paged else "") + "]"
+    # woq_matmul a replay of either graph: the fused qkv, wo, w_in, w_gate
+    # and w_out of every layer, and the untied head
+    per = (5 * cfg.n_layer + (not cfg.tie_embeddings)) \
+        if bits and engine.model.woq_kernel else 0
+    per_step = {"woq_matmul": per} if per else {}
+    counters = (da.decode_attention, wm.woq_matmul, wm.woq_matmul_t)
+    srv = dt.ServingEngine(engine, serving)
+    log(f"{tag} ServingEngine {serving}, flash_decode {engine.flash_decode};"
+        f" {len(stream)} requests, prompts "
+        f"{min(len(p) for p, _, _ in stream)}-"
+        f"{max(len(p) for p, _, _ in stream)}, max_new "
+        f"{min(n for _, n, _ in stream)}-{max(n for _, n, _ in stream)}")
+    for c in counters:
+        c.launches = 0
+    _spec_warm(srv, cfg.vocab_size)
+    rids, done, drain_s = _serve_timed(srv, stream, sync)
+    counted = {c.__name__: c.launches for c in counters}
+    snap, spec = srv.stats.snapshot(), srv.spec_snapshot()
+    bad = [(r, done[r].status.value, len(done[r].tokens))
+           for r, (_, n, _) in zip(rids, stream)
+           if done[r].status is not RequestStatus.OK
+           or len(done[r].tokens) != n]
+    if bad:
+        raise AssertionError(f"{tag} requests not served in full: {bad}")
+    on = [list(done[r].tokens) for r in rids]
+    tokens = sum(n for _, n, _ in stream)
+    graphs = {"step": srv.graph, "verify": srv.verify_graph}
+    captured = {k: dict(g.captured_launches) if g else {}
+                for k, g in graphs.items()}
+    replays = {k: g.replays if g else 0 for k, g in graphs.items()}
+    launches = {k: v - sum(c.get(k, 0) for c in captured.values())
+                + sum(captured[g].get(k, 0) * replays[g] for g in captured)
+                for k, v in counted.items()}
+    pages = srv.pool.snapshot() if paged else None
+    log(f"{tag} spec on: {len(stream)} requests, {tokens} tokens in "
+        f"{drain_s:.3f} s: {tokens / drain_s:.1f} tok/s; TPOT p50 "
+        f"{snap['tpot_s']['p50'] * 1e3:.2f} ms; TTFT p50 "
+        f"{snap['ttft_s']['p50'] * 1e3:.1f} ms; speculation {json.dumps(spec)}"
+        f"; captures slot step {srv.captures}, verify {srv.verify_captures}; "
+        f"the wrappers' counts {counted}, captured {captured}, replays "
+        f"{replays}: device launches {launches}")
+    if cuda:
+        if srv.captures != 1 or srv.verify_captures != 1:
+            raise AssertionError(f"{tag} captures: slot step {srv.captures}, "
+                                 f"verify {srv.verify_captures}; want 1 each")
+        want = {k: 4 * per_step.get(k, 0) for k in counted}
+        if counted != want or captured != {"step": per_step,
+                                           "verify": per_step}:
+            raise AssertionError(f"{tag} wrapper counts {counted} (want "
+                                 f"{want}: two eager steps and two captures)"
+                                 f", captured {captured} (want {per_step} "
+                                 "each)")
+    if not (spec["verify_steps"] > 0 and spec["accepted_tokens"] > 0):
+        raise AssertionError(f"{tag} speculation {spec}: want verify steps "
+                             "and accepted drafts")
+    if pages is not None:
+        log(f"{tag} pool after the drain: {json.dumps(pages)}")
+        if pages["free_pages"] + pages["tree_held_pages"] \
+                != pages["usable_pages"]:
+            raise AssertionError(f"{tag} pages leaked: {pages}")
+    lab = _spec_lab(srv, cfg, tag, cuda, lab_prompt, lab_new, timed,
+                    profile_steps, per_step)
+    if srv.captures != (1 if cuda else 0) or \
+            srv.verify_captures != (1 if cuda else 0):
+        raise AssertionError(f"{tag} captures {srv.captures} / "
+                             f"{srv.verify_captures} after the lab")
+    del srv
+    _free_memory(dev)
+
+    # ---- the same stream, speculation off: its tokens, and each token's
+    # top-two logit gap ----
+    off_cfg = {k: v for k, v in serving.items() if k != "speculation"}
+    off = dt.ServingEngine(engine, off_cfg)
+    read_gaps = _spec_gaps(off)
+    _spec_warm(off, cfg.vocab_size)
+    rids_off, done_off, drain_off = _serve_timed(off, stream, sync)
+    snap_off = off.stats.snapshot()
+    offt = [list(done_off[r].tokens) for r in rids_off]
+    gaps = read_gaps()
+    share, parts, apart = _first_divergences(
+        on, offt, rids_off, gaps, lab["logit_difference_change"])
+    log(f"{tag} spec off: {tokens / drain_off:.1f} tok/s, TPOT p50 "
+        f"{snap_off['tpot_s']['p50'] * 1e3:.2f} ms (spec on: "
+        f"{tokens / drain_s:.1f} tok/s, {snap['tpot_s']['p50'] * 1e3:.2f} "
+        f"ms; accepted tokens a step {spec['accepted_tokens_per_step']:.3f})"
+        f"; spec-on tokens equal spec-off's: {share:.4f}; first divergences "
+        f"(request, token, spec-off's top-two gap) {parts}, each allowed up "
+        f"to the lab's largest change of a logit difference "
+        f"{lab['logit_difference_change']:.4e}")
+    if apart:
+        raise AssertionError(f"{tag} spec-on parts from spec-off where "
+                             f"spec-off's top-two gap exceeds "
+                             f"{lab['logit_difference_change']:.4e}: {apart}")
+    del off
+    _free_memory(dev)
+    return {"name": name, "serving": serving, "requests": len(stream),
+            "tokens": tokens, "tok_s": tokens / drain_s,
+            "tpot_ms_p50": snap["tpot_s"]["p50"] * 1e3,
+            "ttft_ms_p50": snap["ttft_s"]["p50"] * 1e3,
+            "off_tok_s": tokens / drain_off,
+            "off_tpot_ms_p50": snap_off["tpot_s"]["p50"] * 1e3,
+            "speculation": spec, "captures": 1 if cuda else 0,
+            "wrapper_counts": counted, "captured": captured,
+            "replays": replays, "launches": launches, "pages": pages,
+            "exact_share": share, "divergences": parts,
+            "tokens_equal": np.mean([a == b for a, b in zip(on, offt)]),
+            **lab}
+
+
+def phase_spec(cfg=None, *, device=None, requests=16, serving=SPEC_SERVING,
+               paged_serving=SPEC_PAGED, stream=None, lab_prompt=512,
+               lab_new=256, timed=8, profile_steps=4) -> dict:
+    """Phase 17: self-speculative decoding in the ``ServingEngine`` on
+    Llama-2-7B at full width and depth, ``flash_decode`` off (the verify
+    runs the dense cache attention), ``SPEC`` (n-gram 3, max_draft 4):
+    17a bf16 over contiguous slots, 17b int8 WOQ over the paged pool
+    (``PAGED``'s pages). Each serves ``_spec_stream`` (half motif-tiled
+    prompts, half phase 11's requests) after a warm-up, the kernel counts
+    zeroed before it. Gates: every request OK with its ``max_new`` tokens;
+    the slot graph and the verify graph each captured exactly once; verify
+    steps and accepted drafts > 0; in int8 each capture records 161
+    ``woq_matmul`` launches and a profiled window of verify replays shows
+    161 a replay by name; the pool ends with every page free or held by
+    the tree; the teacher-forced verify within ``SPEC_LOGIT_TOL_SHARE`` of
+    the plain steps' logits, and the eager verify's winners equal the
+    graphed one's; spec-on tokens equal spec-off's (the same stream, the
+    same engine), or each first divergence falls where spec-off's top-two
+    logit gap is at most the lab's largest change of a logit difference
+    (the verify's GEMMs run at M 40, the plain step's at M 8, and round
+    apart). Recorded: tokens/s, TPOT and the accepted tokens a step with
+    speculation on and off, the exact share, the verify and plain step
+    times. A ``[spec]`` JSON line."""
+    import torch
+
+    from deepspeed_tpu_torch.models import llama2
+
+    cfg = cfg or llama2("7b")
+    dev = torch.device(device or "cuda")
+    stream = stream or _spec_stream(cfg.vocab_size, requests)
+    out = {}
+    for name, bits, scfg in (("17a", None, serving),
+                             ("17b", 8, paged_serving)):
+        _free_memory(dev)
+        engine = _serve_engine(cfg, bits, device,
+                               conf={"flash_decode": False})
+        out[name] = _spec_way(engine, cfg, name, bits, scfg, stream,
+                              device=device, lab_prompt=lab_prompt,
+                              lab_new=lab_new, timed=timed,
+                              profile_steps=profile_steps)
+        del engine
+        _free_memory(dev)
+    log("[spec] " + json.dumps(out, default=_jsonable))
+    return out
+
+
 CHILD_TIMEOUT_S = 900
 
 
@@ -6195,7 +6678,7 @@ def _child_phases() -> dict:
     return {"moe": phase_moe,
             "serve": lambda: phase_serve_all(llama2("7b")),
             "tp": phase_tp, "ckpt": phase_checkpoint, "zero": phase_zero,
-            "tp_train": phase_tp_train}
+            "tp_train": phase_tp_train, "spec": phase_spec}
 
 
 def _jsonable(o):
@@ -6280,26 +6763,38 @@ def main() -> int:
         library as sparse_library
 
     t0 = time.perf_counter()
-    dev = phase_device()
+    laps: dict = {}
+
+    def lap(label, fn, /, *args, **kw):
+        """``fn(*args, **kw)``, its seconds kept under ``label``."""
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        laps[label] = round(time.perf_counter() - t, 1)
+        return out
+
+    dev = lap("1 device", phase_device)
     # phase 14 second (its own process, as every profiled phase): after
     # phases 2-13 had run in one process, its long profiled window lost one
     # kernel record in two runs of two (ROADMAP.md §3)
-    moe = run_child("moe")
-    kern = phase_kernels()
-    woq = phase_woq_kernels()
-    tpk = phase_tp_kernels()
-    flash = phase_flash_kernels()
-    xent = phase_xent_kernels()
-    sparse = phase_sparse_kernels()
-    bias = phase_flash_bias_kernels()
-    sl = phase_slice()
-    woq8 = phase_woq(llama2("7b"), bits=8)
-    woq4 = phase_woq(opt("6.7b"), bits=4)
+    moe = lap("14 moe", run_child, "moe")
+    kern = lap("2 decode attention", phase_kernels)
+    woq = lap("2 woq", phase_woq_kernels)
+    tpk = lap("2 tp kernels", phase_tp_kernels)
+    flash = lap("5 flash", phase_flash_kernels)
+    xent = lap("5b xent", phase_xent_kernels)
+    sparse = lap("5c sparse", phase_sparse_kernels)
+    bias = lap("5d flash bias", phase_flash_bias_kernels)
+    sl = lap("3 slice", phase_slice)
+    woq8 = lap("4 int8", phase_woq, llama2("7b"), bits=8)
+    woq4 = lap("4 int4", phase_woq, opt("6.7b"), bits=4)
     # phase 6, the unfused reference: fewer steps than the default-config
     # phase, the same depth, so step time and peak memory compare
-    unfused = phase_train(warmup=2, steps=4, name="train unfused")
-    train = phase_train(gpt2("1.5b"), check="head", name="train default")
-    mlm = phase_train(
+    unfused = lap("6 train unfused", phase_train, warmup=2, steps=4,
+                  name="train unfused")
+    train = lap("7 train default", phase_train, gpt2("1.5b"), check="head",
+                name="train default")
+    mlm = lap(
+        "8 train bert", phase_train,
         bert("large", post_ln=True, embed_norm=True, mlm_transform=True,
              lm_head_bias=True), config=BERT_TRAIN_CONFIG, check="head",
         seq=512, warmup=3, steps=6, fall=0.8, name="train bert mlm")
@@ -6319,20 +6814,22 @@ def main() -> int:
             f"{unfused['peak_bytes'] / 2**30:.2f} GiB against the default "
             f"config's {train['step_ms']:.1f} ms and "
             f"{train['peak_bytes'] / 2**30:.2f} GiB")
-    long = phase_long_train()
-    evo = phase_evoformer()
-    serve, serve8, paged = run_child("serve")
+    long = lap("9 long train", phase_long_train)
+    evo = lap("10 evoformer", phase_evoformer)
+    serve, serve8, paged = lap("11 serve", run_child, "serve")
     # phase 15 right after phase 11, each in its own process: windows
     # counted by kernel name late in one process lost a record now and
-    # then (ROADMAP.md §3)
-    tp = run_child("tp")
+    # then (ROADMAP.md §3); phase 17 (speculation) after them
+    tp = lap("15 tp", run_child, "tp")
+    spec = lap("17 spec", run_child, "spec")
     # phase 12 in its own process too: its pinned host buffers (18.7 GB)
     # stay cached in the process that allocated them, and phase 16 holds
     # a 2-layer Mixtral's state (38 GB) on the host beside them
-    run_child("ckpt")
-    run_child("zero")
-    tpt = run_child("tp_train")
-    log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
+    lap("12 ckpt", run_child, "ckpt")
+    lap("13 zero", run_child, "zero")
+    tpt = lap("16 tp train", run_child, "tp_train")
+    log(f"[done] all phases in {time.perf_counter() - t0:.1f} s; by phase "
+        f"{json.dumps(laps)}")
     tp_shapes = tpt["kernels"]["shards"]
     tp_flash = tpt["kernels"]["flash"]
     tp_launches = {k: tpt[k]["launches_per_step"] for k in ("opt",
@@ -6369,6 +6866,10 @@ def main() -> int:
          "tp_launches": {k: tp[k]["launches"]["woq_matmul"]
                          for k in tp_runs},
          "tp_rank_shapes": _rank_rows(tpk["woq_matmul"]),
+         "spec_serving_launches": {k: r["launches"]["woq_matmul"]
+                                   for k, r in spec.items()},
+         "verify_layer_int8": {k: woq["woq_matmul"]["verify"][
+             "layer int8"][k] for k in WOQ_KEYS[:4]},
          "woq_route": woq["woq_matmul"]["route"],
          **{k: woq["woq_matmul"][k] for k in keys}},
         # launches: the OPT-6.7B int4 path (tied head)

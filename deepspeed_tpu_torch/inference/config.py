@@ -3,7 +3,8 @@
 The port carries the generate() path, dense or with int8/int4
 weight-only quantization (WOQ), and the continuous-batching
 ``ServingEngine`` over contiguous slots or the paged KV pool
-(:class:`ServingConfig`), on one card or sharded over a ``torch.distributed``
+(:class:`ServingConfig`), with self-speculative decoding
+(``speculation``), on one card or sharded over a ``torch.distributed``
 world by ``tensor_parallel`` and ``expert_parallel``. The JAX
 configs' other knobs are accepted at their defaults, so a JAX config ports
 as it is, and raise ``NotImplementedError`` when set: each names the
@@ -19,6 +20,7 @@ from typing import Optional
 import torch
 
 from ..utils.roadmap import later
+from .speculation import SpeculationConfig
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32,
@@ -34,7 +36,6 @@ _SERVING_LATER = {
     "host_pool_bytes": (0, 6), "nvme_pool_bytes": (0, 6),
     "nvme_path": (None, 6), "demote_ahead_idle_s": (0.0, 6),
     "autoscale": (None, 6),
-    "speculation": (None, 5),
     "spans": (False, 7), "spans_ring": (4096, 7), "flight_dir": (None, 7),
     "flight_max_dumps": (8, 7), "slo": (None, 7), "workload": (None, 7),
     "kvscope": (None, 7), "goodput": (False, 7), "capture": (False, 7),
@@ -88,6 +89,11 @@ class ServingConfig:
     prefix_sharing: bool = True
     # 8 = int8 KV pool with per-token, per-head fp32 scales (paged only)
     kv_quant_bits: int = 0
+    # self-speculative decoding (inference/speculation.py, a
+    # SpeculationConfig or its dict): per-slot n-gram drafts verified by one
+    # fixed-shape (max_draft + 1)-token forward a step; greedy only (the
+    # engine enforces it). None keeps the plain one-token step
+    speculation: Optional[SpeculationConfig] = None
 
     def __post_init__(self):
         if self.slots < 1:
@@ -121,6 +127,8 @@ class ServingConfig:
             if getattr(self, knob) < 0:
                 raise ValueError(f"{knob} must be >= 0, "
                                  f"got {getattr(self, knob)}")
+        if self.speculation is not None:
+            self.speculation = SpeculationConfig.from_any(self.speculation)
 
     @classmethod
     def from_any(cls, cfg: "ServingConfig | dict | None") -> "ServingConfig":

@@ -193,7 +193,10 @@ def _qkv_proj(model, y, p, lay: Optional[TPLayout] = None):
 def _append(cache_k, cache_v, k, v, new_len):
     """Write the T new positions of every row, ``[new_len - T, new_len)``,
     into one layer's cache IN PLACE. ``new_len`` is 0-d or (B,); positions
-    past the cache are clamped to its last one."""
+    past the cache are clamped to its last one (only an idle serving row
+    reaches them: at the speculative verify's T > 1 it writes several
+    tokens to that one position of its own row, harmless garbage, while
+    the engine's headroom check keeps every live row inside the cache)."""
     B, T = k.shape[:2]
     pos = (new_len.reshape(-1, 1) - T
            + torch.arange(T, device=k.device)).clamp_(max=cache_k.shape[2] - 1)
@@ -296,8 +299,9 @@ def _tp_quant_eligible(model, p, T: int, lay: TPLayout) -> int:
     """int8 when the quantized TP collective applies to this step, else 0
     (``decode.py:266`` of the JAX package): the engine opted in
     (``tp_comm_quant``, stamped on the model), ``tp`` > 1, T == 1 (decode;
-    a prefill pays its reduction once a request), and a DENSE ``wo`` (a
-    quantized one reduces its fp32 partial)."""
+    a prefill pays its reduction once a request, and the speculative
+    verify's T > 1 forward reduces at full precision, as in JAX), and a
+    DENSE ``wo`` (a quantized one reduces its fp32 partial)."""
     bits = int(getattr(model, "tp_quant", 0) or 0)
     if not bits or T != 1 or lay.tp == 1:
         return 0

@@ -1,9 +1,10 @@
 """ServingEngine: continuous batching over contiguous KV slots or the
 paged KV pool.
 
-Counterpart of ``deepspeed_tpu/serving/engine.py`` (speculation, the fleet
-and the observability hooks are ROADMAP.md queue 1 items 5, 6 and 7, and
-their config keys raise). The engine owns:
+Counterpart of ``deepspeed_tpu/serving/engine.py`` (the fleet and host-KV
+seams, the observability hooks (``workload.on_spec`` among them) and the
+chaos key are ROADMAP.md queue 1 items 6, 7 and 8, and their config keys
+raise). The engine owns:
 
 - a slot state (``slots.py``): ONE persistent (L, slots, KV, max_len, hd)
   KV cache plus per-slot length / tok / done and a generator per slot,
@@ -27,6 +28,18 @@ eagerly after the replay, from each slot's own generator. The paged
 table is a static tensor of the state: ``_flush_table`` writes the host
 table into it with ``copy_`` on the replay's stream, never rebinding it,
 so the next replay reads the new rows.
+
+With ``speculation`` (greedy only, dense cache attention: ``flash_decode``
+off) the decode lane drafts up to ``max_draft`` tokens a slot from an
+n-gram table over the request's own history (``_spec_plan``), runs every
+slot's carry token and drafts through one fixed-shape verify forward (on
+the card a second CUDA graph over the same state, ``verify_captures``
+stays at 1 whatever the drafts accepted), reads the winners and the logit
+guard back in one transfer, accepts on the host and commits each slot's
+length, token and done flag from one uploaded (4, slots) buffer
+(``_spec_verify_commit``). A step with no draft anywhere, or a slot
+without the verify's headroom, takes the plain step. Greedy tokens equal
+the plain lane's.
 
 Under ``tensor_parallel`` / ``expert_parallel`` every rank runs its own
 engine on the same submissions: the same scheduler, pool and page tables
@@ -57,6 +70,7 @@ from ..inference.decode import (GenCarry, KVCache, decode_forward,
                                 decode_sample, finite_rows,
                                 forward_with_cache, init_cache, layout_of)
 from ..inference.sampling import per_request_generators, sample_logits
+from ..inference.speculation import NGramTable
 from ..observability.tracing import ServingStats
 from ..resilience.guards import QueueFullError, RequestStatus
 from ..utils.logging import warning_once
@@ -130,6 +144,36 @@ class ServingEngine:
                                 temperature=self.cfg.temperature,
                                 top_k=self.cfg.top_k, top_p=self.cfg.top_p,
                                 greedy=self.cfg.greedy)
+        # self-speculative decoding: None keeps the plain one-token step
+        self._spec = None
+        sp = self.cfg.speculation
+        if sp is not None and sp.enabled:
+            if not (self.cfg.greedy or self.cfg.temperature == 0.0):
+                raise ValueError(
+                    "speculation requires greedy sampling (serving.greedy "
+                    "= True or temperature = 0): the parity guarantee is "
+                    "argmax chaining — stochastic sampling cannot be "
+                    "verified against a draft bit-exactly")
+            if self._flash:
+                raise ValueError(
+                    "speculation requires flash_decode off: the verify "
+                    "forward runs the dense cache attention (T > 1), and "
+                    "greedy parity holds only when the plain step runs the "
+                    "same attention")
+            self._spec = sp
+        # slot -> [rid, NGramTable, tokens fed]: each slot's drafter, built
+        # lazily from prompt + emitted tokens, so plain-step fallbacks and
+        # requeues need no hooks
+        self._spec_tables: dict = {}
+        self._spec_steps = 0           # verify forwards run
+        self._spec_proposed = 0        # draft tokens proposed
+        self._spec_accepted = 0        # draft tokens accepted
+        self._spec_first_scored = 0    # slots with a non-empty draft
+        self._spec_first_hits = 0      # ... whose first draft hit
+        # both lanes: emitted / slot steps is the accepted tokens a step
+        # (exactly 1.0 with speculation off)
+        self._decode_slot_steps = 0
+        self._decode_emitted = 0
         self.stats = ServingStats(registry=registry,
                                   **({"clock": clock} if clock else {}))
         self._kv_heads = layout_of(self.model).kv_heads
@@ -187,7 +231,18 @@ class ServingEngine:
                     mcfg, self.cfg.slots, self.cfg.max_len,
                     engine.compute_dtype, device=self.device,
                     kv_heads=self._kv_heads)
-        self._graph = SlotGraph() if self.device.type == "cuda" else None
+            if self._spec is not None:
+                # the verify's static inputs: each slot's drafts (zero
+                # padded), and the commit's packed upload
+                self._drafts = torch.zeros(
+                    (self.cfg.slots, self._spec.max_draft), dtype=torch.long,
+                    device=self.device)
+                self._packed = torch.zeros((4, self.cfg.slots),
+                                           dtype=torch.long,
+                                           device=self.device)
+        cuda = self.device.type == "cuda"
+        self._graph = SlotGraph() if cuda else None
+        self._verify_graph = SlotGraph() if cuda and self._spec else None
 
     @property
     def captures(self) -> int:
@@ -198,6 +253,18 @@ class ServingEngine:
     @property
     def graph(self) -> Optional[SlotGraph]:
         return self._graph
+
+    @property
+    def verify_captures(self) -> int:
+        """CUDA graph captures of the speculative verify forward: 1 after
+        the first verify step on the card, whatever the drafts accepted
+        later (0 on the CPU, or with speculation off)."""
+        g = self._verify_graph
+        return g.captures if g is not None else 0
+
+    @property
+    def verify_graph(self) -> Optional[SlotGraph]:
+        return self._verify_graph
 
     def _flush_table(self) -> None:
         """Write the host page table into the state's, if it changed: in
@@ -243,24 +310,235 @@ class ServingEngine:
         st.done.copy_(nxt.done)
         return lg, ok
 
+    def _warm_then_capture(self, g: SlotGraph, eager, forward):
+        """The first call of a graphed lane: ``eager()`` on a side stream
+        (it creates every workspace the kernels cache), then the capture
+        of ``forward``, in the other graph's pool where one exists.
+        Returns ``eager()``'s result."""
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = eager()
+        cur.wait_stream(side)
+        other = self._verify_graph if g is self._graph else self._graph
+        g.capture(forward, pool=other.pool if other is not None else None)
+        return out
+
     def _decode(self):
         """One decode iteration; on the card the first one is the eager
         warm-up on a side stream, followed by the capture. Then ONE fused
         host read-back of tok, done and the logit guard together."""
         g = self._graph
         if g is not None and not g.captured:
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                _, ok = self.slot_step(graphed=False)
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            g.capture(self._forward_slots)
+            _, ok = self._warm_then_capture(
+                g, lambda: self.slot_step(graphed=False),
+                self._forward_slots)
         else:
             _, ok = self.slot_step()
         st = self.state
         packed = torch.stack([st.tok, st.done.long(), ok.long()]).cpu()
         toks, dones, oks = packed.numpy()
         return toks, dones.astype(bool), oks.astype(bool)
+
+    # ---------------------------------------------------- self-speculation
+    def _forward_verify(self):
+        """The fixed-shape verify forward, the work the verify graph
+        captures: every slot's carry token and its (zero-padded) drafts
+        through ``forward_with_cache`` as one (slots, max_draft + 1) call,
+        the lengths advanced by max_draft + 1 in place. Returns (fp32
+        logits (slots, max_draft + 1, V), one (slots, max_draft + 2) int64
+        read-back: the argmax winners, then the row's logit guard). The
+        argmax of the fp32 logits is the greedy sampler, so winner j is the
+        token the plain step samples after committing positions < j."""
+        st = self.state
+        ids = torch.cat([st.tok[:, None], self._drafts], dim=1)
+        lg, cache = forward_with_cache(self.model, self.engine.params, ids,
+                                       st.cache)
+        st.cache.length.copy_(cache.length)
+        return lg, torch.cat([lg.argmax(dim=-1),
+                              finite_rows(lg)[:, None].long()], dim=1)
+
+    @torch.inference_mode()
+    def verify_step(self, drafts, graphed: Optional[bool] = None):
+        """Upload ``drafts`` ((slots, max_draft) ints) into the static
+        draft buffer and run the verify forward: the graph's replay, or
+        eager. Returns (logits, winners and guard) as
+        :meth:`_forward_verify`. ``graphed`` None takes the graph once it
+        is captured; True without a capture raises."""
+        self._drafts.copy_(torch.as_tensor(np.asarray(drafts),
+                                           dtype=torch.long))
+        g = self._verify_graph
+        if graphed is None:
+            graphed = g is not None and g.captured
+        if graphed:
+            if g is None or not g.captured:
+                raise RuntimeError("verify_step(graphed=True): no CUDA "
+                                   "graph of the verify forward is captured")
+            return g.replay()
+        return self._forward_verify()
+
+    def _spec_plan(self):
+        """This step's drafts from the per-slot n-gram tables, or None for
+        the plain step (host-side only). None when (a) a running slot
+        lacks the verify's headroom (``live + max_draft + 1 <= max_len``:
+        both cache layouts clamp a write past the end) or (b) no slot
+        drafted anything (a verify with no draft is a plain step at
+        max_draft + 1 times the work). The tables follow ``prompt +
+        tokens`` by a watermark, so plain steps and requeues need no
+        hooks. Returns (drafts (slots, max_draft) int64, lengths)."""
+        spec = self._spec
+        K = spec.max_draft
+        running = self.sched.running
+        tables = self._spec_tables
+        for slot in list(tables):
+            req = running.get(slot)
+            if req is None or tables[slot][0] != req.rid:
+                del tables[slot]
+        drafts = np.zeros((self.cfg.slots, K), np.int64)
+        lens = np.zeros(self.cfg.slots, np.int64)
+        any_draft = False
+        for slot, req in running.items():
+            P = len(req.prompt)
+            total = P + len(req.tokens)
+            if total - 1 + K + 1 > self.cfg.max_len:
+                return None
+            ent = tables.get(slot)
+            if ent is None:
+                tab = NGramTable(spec.ngram)
+                tab.extend(np.asarray(req.prompt).reshape(-1).tolist())
+                tab.extend(req.tokens)
+                tables[slot] = [req.rid, tab, total]
+            else:
+                tab = ent[1]
+                if ent[2] < total:
+                    tab.extend(req.tokens[ent[2] - P:])
+                    ent[2] = total
+            cap = min(K, req.max_new - len(req.tokens) - 1)
+            if cap <= 0:
+                continue
+            d = tables[slot][1].draft(cap)
+            if d:
+                drafts[slot, :len(d)] = d
+                lens[slot] = len(d)
+                any_draft = True
+        return (drafts, lens) if any_draft else None
+
+    def _spec_verify_commit(self, plan):
+        """The speculative lane's device work: the verify forward (on the
+        card the first one eager on a side stream, then the capture; later
+        ones replays), ONE host read-back of the winners and the logit
+        guard, the acceptance chain on the host, then the commit: one
+        (4, slots) upload (active, new length, new token, new done) and an
+        in-place ``where`` on the state's length, tok and done, on the same
+        stream. Inactive rows (idle slots, non-finite rows) keep the
+        verify's values, as plain steps advance idle rows. Returns
+        (emitted, bad, tallies) for :meth:`_spec_resolve`."""
+        drafts, lens = plan
+        g = self._verify_graph
+        if g is not None and not g.captured:
+            _, packed_out = self._warm_then_capture(
+                g, lambda: self.verify_step(drafts, graphed=False),
+                self._forward_verify)
+        else:
+            _, packed_out = self.verify_step(drafts)
+        back = packed_out.cpu().numpy()
+        m, vok = back[:, :-1], back[:, -1].astype(bool)
+        eos = self._eos
+        B = self.cfg.slots
+        packed = np.zeros((4, B), np.int64)
+        active, new_len, new_tok, new_done = packed
+        emitted: dict = {}
+        bad: list = []
+        proposed = accepted = first_scored = first_hits = 0
+        for slot, req in self.sched.running.items():
+            if not bool(vok[slot]):
+                bad.append(slot)
+                continue
+            dlen = int(lens[slot])
+            toks = [int(m[slot, 0])]
+            j = 0
+            # draft j survives iff it equals winner j - 1 (then winner j is
+            # the next plain token); stop at the first miss or at eos
+            while j < dlen and (eos is None or toks[-1] != eos) \
+                    and int(drafts[slot, j]) == toks[-1]:
+                toks.append(int(m[slot, j + 1]))
+                j += 1
+            proposed += dlen
+            accepted += j
+            if dlen:
+                first_scored += 1
+                if int(drafts[slot, 0]) == toks[0]:
+                    first_hits += 1
+            live = len(req.prompt) + len(req.tokens) - 1
+            active[slot] = 1
+            new_len[slot] = live + len(toks)
+            new_tok[slot] = toks[-1]
+            new_done[slot] = eos is not None and toks[-1] == eos
+            emitted[slot] = toks
+        st = self.state
+        with torch.inference_mode():
+            self._packed.copy_(torch.from_numpy(packed))
+            on = self._packed[0].bool()
+            length = st.cache.length
+            length.copy_(torch.where(on, self._packed[1].to(length.dtype),
+                                     length))
+            st.tok.copy_(torch.where(on, self._packed[2], st.tok))
+            st.done.copy_(torch.where(on, self._packed[3].bool(), st.done))
+        return emitted, bad, (proposed, accepted, first_scored, first_hits)
+
+    def _spec_resolve(self, spec_out) -> list:
+        """The scheduler and metrics half of the speculative lane: retire
+        the non-finite rows first (before their garbage is appended),
+        commit every other slot's tokens (a paged retirement truncates its
+        pages inside ``on_spec_step``), and count the step."""
+        emitted, bad, (proposed, accepted, first_scored, first_hits) = \
+            spec_out
+        finished: list = []
+        if bad:
+            finished += self.sched.retire_nonfinite(bad)
+            for slot in bad:
+                self._spec_tables.pop(slot, None)
+        n_emitted = sum(len(t) for t in emitted.values())
+        self._decode_slot_steps += len(emitted) + len(bad)
+        self._decode_emitted += n_emitted
+        finished += self.sched.on_spec_step(emitted)
+        self._spec_steps += 1
+        self._spec_proposed += proposed
+        self._spec_accepted += accepted
+        self._spec_first_scored += first_scored
+        self._spec_first_hits += first_hits
+        r = self.stats.registry
+        r.counter("Serve/spec_steps").inc()
+        r.counter("Serve/spec_draft_tokens").inc(proposed)
+        r.counter("Serve/spec_accepted_tokens").inc(accepted)
+        r.counter("Serve/spec_emitted_tokens").inc(n_emitted)
+        return finished
+
+    def spec_snapshot(self) -> Optional[dict]:
+        """The live speculation readout (None with the lane off): the
+        accepted tokens a step over both lanes (a plain step counts 1
+        token a slot), the acceptance rates, and the raw tallies."""
+        if self._spec is None:
+            return None
+        steps = self._decode_slot_steps
+        return {
+            "ngram": self._spec.ngram,
+            "max_draft": self._spec.max_draft,
+            "verify_steps": self._spec_steps,
+            "proposed_tokens": self._spec_proposed,
+            "accepted_tokens": self._spec_accepted,
+            "slot_steps": steps,
+            "emitted_tokens": self._decode_emitted,
+            "accepted_tokens_per_step":
+                (self._decode_emitted / steps) if steps else None,
+            "accept_rate":
+                (self._spec_accepted / self._spec_proposed)
+                if self._spec_proposed else None,
+            "first_accept_rate":
+                (self._spec_first_hits / self._spec_first_scored)
+                if self._spec_first_scored else None,
+        }
 
     # --------------------------------------------------------------- intake
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
@@ -361,14 +639,24 @@ class ServingEngine:
             finished += self._prefill_advance()
             ran_chunk = True
         if self.sched.running:
-            toks, dones, oks = self._decode()
-            if not oks.all():
-                # retire ONLY the poisoned rows, before on_step can append
-                # their garbage tokens
-                bad = [s for s in np.nonzero(~oks)[0]
-                       if int(s) in self.sched.running]
-                finished += self.sched.retire_nonfinite(bad)
-            finished += self.sched.on_step(toks, dones)
+            # decode lane: every occupied slot advances one token or, with
+            # speculation and a draft somewhere, up to max_draft + 1
+            # through the verify forward
+            plan = self._spec_plan() if self._spec is not None else None
+            if plan is not None:
+                finished += self._spec_resolve(self._spec_verify_commit(plan))
+            else:
+                n_slots = len(self.sched.running)
+                toks, dones, oks = self._decode()
+                if not oks.all():
+                    # retire ONLY the poisoned rows, before on_step can
+                    # append their garbage tokens
+                    bad = [s for s in np.nonzero(~oks)[0]
+                           if int(s) in self.sched.running]
+                    finished += self.sched.retire_nonfinite(bad)
+                self._decode_slot_steps += n_slots
+                self._decode_emitted += len(self.sched.running)
+                finished += self.sched.on_step(toks, dones)
             ran_decode = True
         self.stats.on_iteration(self.sched.queue_depth, self.sched.occupancy,
                                 self.cfg.slots, ran_chunk, ran_decode)
@@ -516,6 +804,10 @@ class ServingEngine:
 
     def metrics_snapshot(self) -> dict:
         out = {"captures": self.captures, **self.stats.snapshot()}
+        spec = self.spec_snapshot()
+        if spec is not None:
+            out["speculation"] = spec
+            out["verify_captures"] = self.verify_captures
         if self._tp_quant:
             out["tp_quant_bits"] = self._tp_quant
         if self._paged:

@@ -19,6 +19,12 @@ and with Python's cyclic garbage collector paused: a collection inside the
 capture could destroy an unreachable engine's CUDA graph, an operation a
 capturing stream does not permit.
 
+With speculation on, the verify forward (``max_draft + 1`` tokens a slot:
+the carry token and the drafts, read from a static draft buffer) is a
+second ``SlotGraph`` over the same slot state, captured once after its own
+eager warm-up and sharing the slot step's memory pool: the two graphs never
+run at once, and each one's outputs are read before the other replays.
+
 No fallback: a failed capture or replay raises; the CPU never graphs.
 """
 
@@ -62,16 +68,18 @@ class SlotGraph:
     def captured(self) -> bool:
         return self._graph is not None
 
-    def capture(self, forward) -> None:
+    def capture(self, forward, pool=None) -> None:
         """Capture ``forward()``; an error in it raises, and nothing is
-        kept."""
+        kept. ``pool``: another graph's memory pool (``SlotGraph.pool``) to
+        allocate from, or None for a private one."""
         before = registry.launch_counts()
         issued = dict(comm.issued)
         graph = torch.cuda.CUDAGraph()
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, pool=pool,
+                                  capture_error_mode="thread_local"):
                 out = forward()
         finally:
             if collecting:
@@ -86,6 +94,11 @@ class SlotGraph:
                                      for k, n in comm.issued.items()
                                      if n != issued[k]}
         self.captures += 1
+
+    @property
+    def pool(self):
+        """The captured graph's memory pool handle (None before capture)."""
+        return self._graph.pool() if self._graph is not None else None
 
     def replay(self):
         """Run the captured work once; returns the capture's outputs,

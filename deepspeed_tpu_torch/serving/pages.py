@@ -28,8 +28,11 @@ The host half is plain Python and numpy:
 Pool page 0 is scratch: idle slots' table rows point there, and an insert
 sends its shared entries there.
 
-Left out, each with its ROADMAP.md item: ``truncate`` (speculation, item
-5); the host tier's ``host`` / ``on_demote`` seams,
+``truncate`` is speculation's rollback: a request retiring off a verify
+step drops the pages past its committed extent before its release.
+
+Left out, each with its ROADMAP.md item: the host tier's ``host`` /
+``on_demote`` seams,
 ``demote_ahead_candidates``, ``residency`` and ``export_slot`` /
 ``import_slot`` (the KV tiers and the fleet, item 6); the ``on_evict`` /
 ``on_pages`` seams and the pool clock (observability, item 7).
@@ -512,9 +515,32 @@ class PagePool:
         self._publish()
 
     def truncate(self, rid: int, new_tokens: int) -> int:
-        raise NotImplementedError(
-            f"PagePool.truncate (speculation's rollback) is not ported "
-            f"yet: {later(5)}")
+        """Rewind ``rid``'s live extent to ``new_tokens`` tokens, freeing
+        the whole pages past the (kept, partly filled) tail block. The
+        speculative lane calls it when a request retires off a verify step
+        whose rejected drafts wrote past the committed length, before the
+        ordinary release. It never rewinds below ``alloc.shared`` (tree
+        pages are admission state); freed entries go through
+        :meth:`_unref`, so a page the tree still holds stays resident; the
+        row's freed entries point at scratch, so a stale device mirror of
+        the row writes only page 0; ``generation`` bumps, so a deferred
+        admission retries. Returns the pages freed (0 for a rewind within
+        the tail block or an unknown ``rid``)."""
+        alloc = self._alloc.get(rid)
+        if alloc is None:
+            return 0
+        keep = -(-max(0, int(new_tokens)) // self.page_size)
+        keep = min(alloc.pages, max(keep, alloc.shared))
+        freed = alloc.pages - keep
+        if freed <= 0:
+            return 0
+        for page in alloc.row[keep:alloc.pages]:
+            self._unref(int(page))
+        alloc.row[keep:alloc.pages] = _SCRATCH
+        alloc.pages = keep
+        self.generation += 1
+        self._publish()
+        return freed
 
     # -------------------------------------------------------------- readout
     def snapshot(self) -> dict:

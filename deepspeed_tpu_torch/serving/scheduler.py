@@ -1,8 +1,8 @@
 """Host-side continuous-batching scheduler: queue, slots, chunk plans.
 
-Counterpart of ``deepspeed_tpu/serving/scheduler.py`` with its page
-branches, without its span and speculation ones (ROADMAP.md queue 1 items
-7 and 5): plain Python over numpy and floats, so it makes the same plans
+Counterpart of ``deepspeed_tpu/serving/scheduler.py`` with its page and
+speculation branches, without its span ones (ROADMAP.md queue 1 item 7):
+plain Python over numpy and floats, so it makes the same plans
 and the same admission and retirement order as the JAX package's, and
 runs under a fake clock with no device.
 
@@ -14,7 +14,8 @@ Policy, per serving iteration (see ``ServingEngine.step``):
    head);
 2. chunked prefill — at most ONE prompt chunk runs per iteration, so a
    long prompt never stalls running requests' TPOT for more than a chunk;
-3. decode — every occupied slot advances one token;
+3. decode — every occupied slot advances one token (with speculation, up
+   to ``max_draft + 1`` through one verify step: :meth:`Scheduler.on_spec_step`);
 4. retirement — rows that hit eos or their max_new free their slot
    immediately; the slot is reusable the very next iteration.
 
@@ -325,6 +326,42 @@ class Scheduler:
                                                     req.first_token_t)
                 del self.running[slot]
                 self.free.append(slot)
+                self._release_pages(req)
+                finished.append(req)
+        return finished
+
+    def on_spec_step(self, emitted: dict) -> list:
+        """Account one speculative verify step: ``emitted`` maps slot to
+        the tokens the step committed for it (the carry token's
+        verification and every accepted draft, at least one, cut at the
+        first eos by the engine). A request retires on the predicate of
+        :meth:`on_step` applied to its last committed token, so on the
+        step the plain lane would have reached that token.
+
+        A paged retirement first rolls its pages back to the committed KV
+        extent (``prompt + tokens - 1``: the last token is the next carry,
+        its KV never written) through :meth:`~.pages.PagePool.truncate`,
+        then releases them as usual; the release's ``on_release`` hook
+        points the slot's table row at scratch and marks the engine's
+        table dirty."""
+        finished = []
+        for slot in sorted(emitted):
+            req = self.running.get(slot)
+            toks = emitted[slot]
+            if req is None or not toks:
+                continue
+            req.tokens.extend(int(t) for t in toks)
+            hit_eos = self.eos_token_id is not None \
+                and int(req.tokens[-1]) == self.eos_token_id
+            if hit_eos or len(req.tokens) >= req.max_new:
+                req.status = RequestStatus.OK
+                req.finish_t = self.stats.on_retire(len(req.tokens),
+                                                    req.first_token_t)
+                del self.running[slot]
+                self.free.append(slot)
+                if self.pages is not None:
+                    self.pages.truncate(
+                        req.rid, len(req.prompt) + len(req.tokens) - 1)
                 self._release_pages(req)
                 finished.append(req)
         return finished

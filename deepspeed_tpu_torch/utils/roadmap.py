@@ -8,7 +8,8 @@ ROADMAP.md).
 
 from __future__ import annotations
 
-# item number -> the start of its bold title in ROADMAP.md, queue 1
+# item number -> the start of its bold title in ROADMAP.md, queue 1; items
+# 1-5 are ported (no call raises them), and keep their numbers and titles
 ITEMS = {
     1: "multi-rank ZeRO",
     2: "ServingEngine",

@@ -783,14 +783,15 @@ def tp_capture_probe(tries=4, modes=("thread_local", "global", "relaxed"),
                                     {**conf, "woq_kernel": kernel})
             for mode in modes:
                 for settle in settle_s:
-                    def capture(self, forward, mode=mode, settle=settle):
+                    def capture(self, forward, pool=None, mode=mode,
+                                settle=settle):
                         if settle:
                             torch.cuda.synchronize()
                             time.sleep(settle)
                         before = registry.launch_counts()
                         issued = dict(comm.issued)
                         graph = torch.cuda.CUDAGraph()
-                        with torch.cuda.graph(graph,
+                        with torch.cuda.graph(graph, pool=pool,
                                               capture_error_mode=mode):
                             out = forward()
                         self._graph, self._out = graph, out

@@ -2245,3 +2245,169 @@ def test_fused_token_nll_tp_over_a_world_of_one_is_fused_token_nll(cuda):
         dist.destroy_process_group()
     for a, e in zip(got, want):
         assert torch.equal(a, e)
+
+
+# ------------------------------------------------------------- speculation
+SPEC = {"ngram": 3, "max_draft": 4}
+
+
+def _spec_server(cuda, name, **serving):
+    """``SERVE_CASES[name]`` at a 256-token vocabulary (where a random tiny
+    model falls into the output loops the drafter learns), flash_decode
+    off, serving with speculation."""
+    make, conf = SERVE_CASES[name]
+    cfg = dataclasses.replace(make(), vocab_size=256)
+    model = dt.models.build_model(cfg)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = model.init(g, device=cuda, dtype=torch.float32)
+    eng = dt.init_inference(model, params, {
+        "dtype": str(cfg.dtype).removeprefix("torch."),
+        "flash_decode": False, **conf})
+    return eng, dt.ServingEngine(eng, {"slots": 3, "max_len": 128,
+                                       "prefill_chunk": 16, "greedy": True,
+                                       "speculation": SPEC, **serving})
+
+
+def _spec_requests(n, seed=0):
+    """Half motif-tiled prompts (drafts accepted), half random ones."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for i in range(n):
+        if i % 2 == 0:
+            p = torch.randint(0, 32, (4,), generator=g).repeat(5).numpy()
+            new = 40 + 3 * i
+        else:
+            p = torch.randint(0, 256, (9 + 4 * i,), generator=g).numpy()
+            new = 20 + 2 * i
+        out.append((p, new, 50 + i))
+    return out
+
+
+@pytest.mark.parametrize("name", ["tiny_test", "llama2_tiny_int8"])
+@pytest.mark.parametrize("paged", [False, True])
+def test_verify_replay_equals_eager(cuda, name, paged):
+    """Three live slots once the verify graph is captured: a verify replay
+    and an eager verify from the same state give bit-identical logits and
+    winners, advance every length by max_draft + 1, and the capture
+    recorded the step's kernels (int8: 5 ``woq_matmul`` a layer and the
+    head)."""
+    from deepspeed_tpu_torch.ops import woq_matmul as wm
+
+    eng, srv = _spec_server(cuda, name, **(PAGED if paged else {}))
+    cfg = eng.model.cfg
+    for p, n, s in _spec_requests(3):
+        srv.submit(p, n, seed=s)
+    for _ in range(400):
+        if srv.sched.occupancy == 3 and srv.verify_captures == 1:
+            break
+        srv.step()
+    assert srv.verify_captures == 1 and srv.sched.occupancy == 3
+    woq = 5 * cfg.n_layer + 1 if "int8" in name else 0
+    assert srv.verify_graph.captured_launches == (
+        {"woq_matmul": woq} if woq else {})
+    K = SPEC["max_draft"]
+    drafts = torch.randint(0, 256, (3, K),
+                           generator=torch.Generator().manual_seed(1))
+    st = srv.state
+    with torch.inference_mode():
+        marks = [t.clone() for t in (st.cache.length, st.tok, st.done)]
+        lg_g, back_g = (t.clone() for t in srv.verify_step(drafts,
+                                                             graphed=True))
+        assert torch.equal(st.cache.length, marks[0] + K + 1)
+        for t, m in zip((st.cache.length, st.tok, st.done), marks):
+            t.copy_(m)
+        before = wm.woq_matmul.launches
+        lg_e, back_e = srv.verify_step(drafts, graphed=False)
+        assert wm.woq_matmul.launches - before == woq
+        assert torch.equal(lg_g, lg_e) and torch.equal(back_g, back_e)
+        assert lg_g.shape == (3, K + 1, cfg.vocab_size)
+    assert srv.captures == 1 and srv.verify_captures == 1
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_verify_graph_captured_once_over_a_stream(cuda, paged):
+    """Requests one at a time, then all at once, with as many drafts
+    accepted as the model's loops give (the counts vary step to step): one
+    capture of each graph for the whole stream; every verify but the
+    first (eager, before the capture) is a replay; a paged pool gets every
+    page back."""
+    eng, srv = _spec_server(cuda, "tiny_test", **(PAGED if paged else {}))
+    accepted = []
+    commit = srv._spec_verify_commit
+
+    def counted(plan):
+        out = commit(plan)
+        accepted.append(out[2][1])
+        return out
+
+    srv._spec_verify_commit = counted
+    reqs = _spec_requests(6)
+    for p, n, s in reqs:
+        srv.serve_batch([p], [n], [s])
+    srv.serve_batch([p for p, _, _ in reqs], [n for _, n, _ in reqs],
+                    [s for _, _, s in reqs])
+    snap = srv.spec_snapshot()
+    assert srv.captures == 1 and srv.verify_captures == 1
+    assert snap["verify_steps"] == len(accepted) > 0
+    assert srv.verify_graph.replays == snap["verify_steps"] - 1
+    assert len(set(accepted)) >= 3 and snap["accepted_tokens"] > 0
+    if paged:
+        ps = srv.pool.snapshot()
+        assert ps["free_pages"] + ps["tree_held_pages"] == ps["usable_pages"]
+
+
+SPEC_VERIFY_M = 8 * (SPEC["max_draft"] + 1)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("K,N,out", [(4096, 12288, None), (4096, 4096, None),
+                                     (4096, 11008, None), (11008, 4096, None),
+                                     (4096, 32000, torch.float32)])
+def test_woq_matmul_at_the_verify_width_matches_plain(cuda, bits, K, N, out):
+    """Llama-2-7B's projections and head at the verify forward's M (8
+    slots x 5 tokens): the tensor-core route under its split plan against
+    the plain version, twice bit-identical."""
+    from deepspeed_tpu_torch.ops import woq_matmul as wm
+
+    x, qt = _woq_pair(cuda, "mm", SPEC_VERIFY_M, K, N, 128, bits,
+                      torch.bfloat16)
+    assert wm.woq_route(x.dtype, SPEC_VERIFY_M, K, N, 128) == "mma"
+    kw = dict(group_size=qt.group_size, bits=qt.bits, out_dtype=out)
+    got = wm.woq_matmul(x, qt.q, qt.scale, **kw)
+    again = wm.woq_matmul(x, qt.q, qt.scale, **kw)
+    want = wm.woq_matmul_plain(x, qt.q, qt.scale, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=0,
+        atol=WOQ_SHARE[got.dtype] * want.float().abs().max().item())
+
+
+def test_verify_graph_with_collectives_is_bit_identical(cuda):
+    """A world of one over NCCL: the verify forward's all-reduces and
+    all-gather captured in its graph; the stream's tokens equal the engine
+    with no process group's, bit for bit."""
+    import torch.distributed as dist
+
+    reqs = _spec_requests(4, seed=3)
+
+    def serve():
+        eng, srv = _spec_server(cuda, "llama2_tiny_int8", **PAGED)
+        out = srv.serve_batch([p for p, _, _ in reqs],
+                              [n for _, n, _ in reqs],
+                              [s for _, _, s in reqs])
+        return [o.tolist() for o in out], srv
+
+    want, none = serve()
+    assert none.verify_graph.captured_collectives == {}
+    _world_of_one()
+    try:
+        got, srv = serve()
+        cfg = srv.model.cfg
+        assert got == want
+        assert srv.verify_captures == 1
+        assert srv.spec_snapshot()["accepted_tokens"] > 0
+        assert srv.verify_graph.captured_collectives == {
+            "allreduce": 1 + 2 * cfg.n_layer, "allgather": 1}
+    finally:
+        dist.destroy_process_group()

@@ -138,6 +138,11 @@ def test_inference_config_ports_and_refuses():
             InferenceConfig.from_any({key: value})
     assert InferenceConfig.from_any({"serving": {"slots": 4}}).serving.slots \
         == 4
+    # speculation (item 5) is ported: its serving block parses
+    spec = InferenceConfig.from_any(
+        {"serving": {"speculation": {"ngram": 2, "max_draft": 3}}})
+    assert (spec.serving.speculation.ngram,
+            spec.serving.speculation.max_draft) == (2, 3)
     with pytest.raises(ValueError, match="unknown inference config keys"):
         InferenceConfig.from_any({"flash_decoed": True})
     with pytest.raises(ValueError, match="decode_chunk"):
@@ -273,12 +278,17 @@ def test_every_roadmap_item_the_port_names_exists():
     for n, t in named.items():
         assert n in titles and titles[n].startswith(t.lower()), (n, t)
     assert roadmap.later(2) == "ROADMAP.md queue 1, item 2 (ServingEngine)"
-    # MoE (item 3) is ported: no literal call raises it (expert
-    # parallelism, item 4, raises through the mesh and inference tables)
+    # MoE (item 3) and speculation (item 5) are ported: no literal call
+    # raises them (expert parallelism, item 4, raises through the mesh and
+    # inference tables), and no config table names item 5
     raising = {int(n) for path in PORT_FILES for n in re.findall(
         r"later\((\d+)\)", path.read_text())}
-    assert 3 not in raising and {6, 7, 8} <= raising
+    assert not raising & {3, 5} and {6, 7, 8} <= raising
+    from deepspeed_tpu_torch.inference.config import _LATER, _SERVING_LATER
+    assert 5 not in {item for _, item in (*_LATER.values(),
+                                          *_SERVING_LATER.values())}
     assert roadmap.later(3) == "ROADMAP.md queue 1, item 3 (MoE)"
+    assert roadmap.later(5) == "ROADMAP.md queue 1, item 5 (speculation)"
 
 
 def test_engine_refuses_tf32_matmuls_on_the_card(monkeypatch):

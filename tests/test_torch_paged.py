@@ -399,9 +399,6 @@ def test_page_pool_cow_pin_released_on_abort():
 
 
 def test_pool_refuses_what_later_items_port():
-    pool = PagePool(pages=4, page_size=8, max_len=16)
-    with pytest.raises(NotImplementedError, match="item 5 "):
-        pool.truncate(0, 3)
     with pytest.raises(NotImplementedError, match="item 7 "):
         PagePool(pages=4, page_size=8, max_len=16, clock=lambda: 0.0)
     with pytest.raises(ValueError, match=">= 2 pages"):

@@ -16,7 +16,12 @@ the fused qkv against the head-aligned slice of JAX's ``[wq | wk | wv]``
 (GSPMD cuts the fused matrix in contiguous columns); ``tp_comm_quant: 8``
 greedy tokens identical to JAX's run with the knob on, on briefly trained
 trunks (``tests/unit/test_tp_quant.py:69-96``), and ``int8_psum``'s sum
-within one int8 quantum a hop (2 · max |block| / 127) of JAX's.
+within one int8 quantum a hop (2 · max |block| / 127) of JAX's. The
+speculative lane (paged, ``tests/unit/test_speculation.py``'s traffic):
+greedy tokens and the speculation readout identical to JAX's spec-on run
+on the same mesh, at tp W, at ep W (the tiny Mixtral) and under
+``tp_comm_quant: 8``, where the verify reduces at full precision (T > 1)
+and the plain steps over the int8 wire, as in JAX.
 """
 
 import socket
@@ -111,6 +116,13 @@ def jax_gen(world, name, quant, tp, ep) -> dict:
     return out
 
 
+def _jax_spec(eng, reqs) -> dict:
+    srv = JaxServingEngine(eng, tw.SPEC)
+    got = srv.serve_batch([p for p, _, _ in reqs], [n for _, n, _ in reqs],
+                          [s for _, _, s in reqs])
+    return {"tokens": got, "snapshot": srv.spec_snapshot()}
+
+
 def jax_serve(world) -> dict:
     name = "llama2_tiny"
     cfg = tw.model_cfg(name)
@@ -124,7 +136,15 @@ def jax_serve(world) -> dict:
         out[key] = JaxServingEngine(eng, scfg).serve_batch(
             [p for p, _, _ in reqs], [n for _, n, _ in reqs],
             [s for _, _, s in reqs])
+    out["spec"] = _jax_spec(eng, tw.spec_stream(cfg.vocab_size))
     return out
+
+
+def jax_spec_ep(world) -> dict:
+    name = "mixtral_tiny"
+    eng = _jax_engine(name, params_to_numpy(tw.initial_params(name)), 1,
+                      world, tw.conf("dense", 1, world))
+    return _jax_spec(eng, tw.spec_stream(tw.model_cfg(name).vocab_size))
 
 
 def port_sampled_tp1() -> list:
@@ -163,15 +183,19 @@ def train(name, steps: int = 16) -> dict:
                         for i, p in enumerate((9, 21, 5, 14))]}
 
 
-def jax_tpq(world, trained) -> list:
+def jax_tpq(world, trained) -> dict:
     name, n = tw.TPQ[world]
     t = trained[name]
     eng = _jax_engine(name, params_to_numpy(t["params"]), world, 1,
                       tw.conf("dense", world, 1, tp_comm_quant=8,
                               eos_token_id=tw.EOS))
-    return [np.asarray(eng.generate(jnp.asarray(p[None]), 10, greedy=True,
-                                    request_seeds=[7 + i], cache_len=tw.M))
-            for i, p in enumerate(t["prompts"][:n])]
+    prompts = [np.tile(p[:4], 5) for p in t["prompts"][:n]]
+    return {"tokens": [np.asarray(eng.generate(
+                jnp.asarray(p[None]), 10, greedy=True, request_seeds=[7 + i],
+                cache_len=tw.M))
+                for i, p in enumerate(t["prompts"][:n])],
+            "spec": _jax_spec(eng, [(p, 12, i)
+                                    for i, p in enumerate(prompts)])}
 
 
 def jax_psum(world) -> np.ndarray:
@@ -212,6 +236,7 @@ def runs(tmp_path_factory):
                 jx[world, case] = jax_gen(world, *case)
             jx[world, "serve"] = jax_serve(world)
             jx[world, "tpq"] = jax_tpq(world, trained)
+            jx[world, "spec_ep"] = jax_spec_ep(world)
         finally:
             tw.join(procs, JOIN_S)
         port[world] = _load(out, world)
@@ -347,12 +372,34 @@ def test_paged_pool_holds_the_rank_kv_heads(runs, world):
 
 @pytest.mark.parametrize("world", [2, 4])
 def test_tp_comm_quant_matches_jax(runs, world):
-    want = runs["jax"][world, "tpq"]
+    want = runs["jax"][world, "tpq"]["tokens"]
     for rank in runs["port"][world]:
         got = rank["tpq"]
         assert got["gauge"] == 8
         for g, w in zip(got["tokens"], want):
             np.testing.assert_array_equal(g, w)
+
+
+SPEC_CASES = [(w, k) for w in (2, 4) for k in ("tp", "ep", "tp_comm_quant")]
+
+
+@pytest.mark.parametrize("world,kind", SPEC_CASES,
+                         ids=[f"w{w}-{k}" for w, k in SPEC_CASES])
+def test_spec_serving_matches_jax_spec_on(runs, world, kind):
+    """Greedy spec-on tokens and readout on every rank equal JAX's spec-on
+    run on the same mesh; drafts were accepted; every page came back."""
+    want = {"tp": runs["jax"][world, "serve"]["spec"],
+            "ep": runs["jax"][world, "spec_ep"],
+            "tp_comm_quant": runs["jax"][world, "tpq"]["spec"]}[kind]
+    assert want["snapshot"]["accepted_tokens"] > 0
+    for rank in runs["port"][world]:
+        got = {"tp": rank["serve"]["spec"], "ep": rank["spec_ep"],
+               "tp_comm_quant": rank["tpq"]["spec"]}[kind]
+        assert len(got["tokens"]) == len(want["tokens"])
+        for g, w in zip(got["tokens"], want["tokens"]):
+            np.testing.assert_array_equal(g, w)
+        assert got["snapshot"] == want["snapshot"]
+        assert got["pages_back"]
 
 
 @pytest.mark.parametrize("world", [2, 4])

@@ -5,7 +5,8 @@
 (``device="cpu"``, one thread each); every rank runs every case of its
 world through ``init_inference`` / ``ServingEngine`` with
 ``tensor_parallel`` / ``expert_parallel`` and writes what it saw (tokens,
-prefill logits, its shard of every leaf) to ``<out_dir>/w<world>_rank<r>.pt``.
+prefill logits, its shard of every leaf, the speculative lane's tokens and
+readouts) to ``<out_dir>/w<world>_rank<r>.pt``.
 This module imports neither JAX nor the JAX package: the test process holds
 the results against JAX.
 
@@ -84,6 +85,8 @@ TPQ = {2: ("tpq_glu", 2), 4: ("tpq_tiny", 4)}
 SERVING = {"slots": 3, "max_len": M, "prefill_chunk": 16}
 SAMPLED = {**SERVING, "temperature": 0.9, "top_k": 30}
 PAGE = 16
+SPEC = {**SERVING, "greedy": True, "page_size": PAGE,
+        "speculation": {"ngram": 3, "max_draft": 4}}
 
 
 def model_cfg(name: str):
@@ -115,6 +118,24 @@ def stream(vocab: int, n: int = 7, seed: int = 11) -> list:
     news = rng.integers(2, 9, n)
     return [(rng.integers(0, vocab, int(P)).astype(np.int32), int(N), 70 + i)
             for i, (P, N) in enumerate(zip(lens, news))]
+
+
+def spec_stream(vocab: int, n: int = 4, seed: int = 4) -> list:
+    """(prompt, max_new, seed) of the speculation stream: half motif-tiled
+    prompts with room for the drafter to learn the model's own output
+    loop, half random (``tests/unit/test_speculation.py``'s ``_traffic``)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        if i % 2 == 0:
+            p = np.tile(rng.integers(0, 32, (4,)).astype(np.int32), 5)
+            mn = int(rng.integers(10, 16))
+        else:
+            p = rng.integers(0, vocab, (int(rng.integers(5, 24)),)) \
+                .astype(np.int32)
+            mn = int(rng.integers(4, 12))
+        out.append((p, mn, 100 + i))
+    return out
 
 
 def psum_partials(world: int) -> list:
@@ -177,7 +198,36 @@ def serve_cases(world) -> dict:
         out[key] = [g.copy() for g in got]
         if key == "paged":
             out["pool_k_shape"] = tuple(srv.state.cache.k.shape)
+    out["spec"] = spec_serve(eng, spec_stream(cfg.vocab_size))
     return out
+
+
+def spec_serve(eng, reqs) -> dict:
+    """The speculative lane over the paged pool: tokens, the readout, and
+    whether every page came back."""
+    import deepspeed_tpu_torch as dt
+
+    srv = dt.ServingEngine(eng, SPEC)
+    got = srv.serve_batch([p for p, _, _ in reqs], [n for _, n, _ in reqs],
+                          [s for _, _, s in reqs])
+    ps = srv.pool.snapshot()
+    return {"tokens": [g.copy() for g in got],
+            "snapshot": srv.spec_snapshot(),
+            "pages_back": ps["free_pages"] + ps["tree_held_pages"]
+            == ps["usable_pages"]}
+
+
+def spec_ep_case(world) -> dict:
+    """The tiny Mixtral's experts over ``expert_parallel`` = world, the
+    speculative lane paged."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import build_model
+
+    name = "mixtral_tiny"
+    cfg = model_cfg(name)
+    eng = dt.init_inference(build_model(cfg), initial_params(name),
+                            conf("dense", 1, world), device="cpu")
+    return spec_serve(eng, spec_stream(cfg.vocab_size))
 
 
 def tpq_case(world, out_dir: Path) -> dict:
@@ -196,8 +246,13 @@ def tpq_case(world, out_dir: Path) -> dict:
                          cache_len=M).numpy()
             for i, p in enumerate(saved[name]["prompts"][:n])]
     srv = dt.ServingEngine(eng, {**SERVING, "greedy": True})
+    # the speculative lane: its verify (T > 1) reduces at full precision
+    # while its plain steps take the int8 wire, as JAX's does
+    prompts_ = [np.tile(p[:4], 5) for p in saved[name]["prompts"][:n]]
+    spec = spec_serve(eng, [(p, 12, i) for i, p in enumerate(prompts_)])
     return {"tokens": toks,
-            "gauge": srv.metrics_snapshot().get("tp_quant_bits")}
+            "gauge": srv.metrics_snapshot().get("tp_quant_bits"),
+            "spec": spec}
 
 
 def psum_case(world, rank) -> dict:
@@ -225,6 +280,7 @@ def _run(rank, world, port, out_dir):
         res["gen"] = {case: gen_case(*case) for case in GEN[world]}
         res["serve"] = serve_cases(world)
         res["tpq"] = tpq_case(world, out_dir)
+        res["spec_ep"] = spec_ep_case(world)
         res["seconds"] = time.perf_counter() - t0
         print(f"tp worker w{world} r{rank}: {res['seconds']:.1f} s",
               flush=True)

@@ -4,14 +4,14 @@
     python3 chip_smoke.py
 
 Phases, in order (phase 14 runs second, right after phase 1, phase 15
-right after phase 11 and phase 17 after it, phase 16 last); any failure
-raises and the script exits non-zero. The phases that profile a window
-(11, 13, 14, 15, 16 and 17) and phase 12 each run in a fresh process of
-their own (this script with
+right after phase 11, phases 17 and 18 after it, phase 16 last); any
+failure raises and the script exits non-zero. The phases that profile a
+window (11, 13, 14, 15, 16 and 17) and phases 12 and 18 each run in a
+fresh process of their own (this script with
 ``--phase <name> --result <file>``, its result returned as JSON): late in
 one long process a profiled window now and then lost a kernel record
-(ROADMAP.md §3), and phase 12's pinned host buffers stay cached in the
-process that allocated them. A child that fails or dies fails the run;
+(ROADMAP.md §3), and phases 12's and 18's pinned host buffers stay cached
+in the process that allocated them. A child that fails or dies fails the run;
 nothing is retried:
 
 1. device: the card's name and power limit; build every CUDA kernel of
@@ -302,6 +302,24 @@ nothing is retried:
    phase 2 checks and times ``woq_matmul`` at the verify's M 40 on every
    Llama-2-7B projection and the head (``[woq-mm-verify]``).
 
+18. the KV tiers under the paged ``ServingEngine`` (``phase_tier``, its own
+   process, after phase 17): Llama-2-7B bf16 at full width and depth, 8
+   slots of 1024, pages of 16, 257 of them, chunks of 256, greedy; 10
+   sessions of a 512-token prompt and 64 new tokens, then (after every
+   first turn finished) the conversation and 64 more user tokens; a fresh
+   engine a run: (e) 1025 pages, every resume a tree hit; (b) a 4 GiB host
+   tier; (c) a 1 GiB host tier over a 4 GiB disk rung; (f) (b) with
+   demote-ahead and an idle gap; (a) no tier; (d) (b) with int8 KV. Gates:
+   every request in full, one capture a run, the tiers restoring with no
+   fallback, (c) spilling and restoring from the disk, (f) staging and
+   fast-freeing, no page leaked, the restored blocks of (b)'s first
+   session bit-identical to their pages before the eviction, the tokens of
+   (b), (c), (f) equal to (e)'s, (a) and (d) within phase 11's
+   teacher-forced gate. Recorded: second-turn TTFT, the transfers' GB/s,
+   the CRCs', admissions' and drains' host seconds, the disk's GB/s with
+   O_DIRECT, prefill tokens saved. A ``[tier]`` JSON line; phase 1 also
+   builds ``ops/csrc/aio.cpp`` with g++ and prints its command.
+
 ``remat_sweep()``, ``woq_probe()`` and ``checkpoint_write_probe()`` are
 one-off measurements outside the phases: the default GPT-2 1.5B training
 step under each remat policy, the tensor-core ``x @ W`` under each ring
@@ -326,7 +344,9 @@ count over the path less the capture's (the eager warm-up step), plus the
 capture's count times the graph's replays; ``paged_serving_launches`` the
 same for 11c-11g, ``mixtral_serving_launches`` for 14a, ``tp_launches``
 for 15a, 15a paged and 15b, ``spec_serving_launches`` (``woq_matmul``)
-for 17a and 17b, with ``verify_layer_int8`` its M 40 layer timing; those rows and ``woq_matmul_t``'s carry
+for 17a and 17b, with ``verify_layer_int8`` its M 40 layer timing (phase
+18's decode-attention launches are on its ``[tier]`` line); those rows and
+``woq_matmul_t``'s carry
 ``tp_rank_shapes``, each rank shape's µs, bound and route; the flash rows
 carry ``mixtral_train_launches``, 14b's timed steps'; the xent rows and
 the first three flash rows carry ``tp_train_rank_shapes`` (16a: each
@@ -494,6 +514,9 @@ def phase_device() -> dict:
     t0 = time.perf_counter()
     built = builder.build_all()
     log(f"[build] {len(built)} source(s) in {time.perf_counter() - t0:.2f} s")
+    for name, info in builder.build_all(builder.host_sources()).items():
+        log(f"[build] {name}: g++ {info['seconds']:.2f} s: "
+            f"{info['command']}")
     for name, info in built.items():
         log(f"[build] {name}: nvcc {info['seconds']:.2f} s -> {info['path']}")
         for line in info["log"].splitlines():
@@ -6669,6 +6692,444 @@ def phase_spec(cfg=None, *, device=None, requests=16, serving=SPEC_SERVING,
     return out
 
 
+# ----------------------------------------------------------------- phase 18
+# the KV tiers under the paged ServingEngine: 10 sessions of a 512-token
+# prompt, two turns each, on 257 pages of 16 (256 usable < 10 x 32 prompt
+# blocks, so the earlier sessions' prefixes are evicted)
+TIER_PAGED = {**SERVING, "page_size": PAGE_SIZE, "pool_pages": 257}
+TIER_SESSIONS = 10      # cut from 16 for the run's time limit
+TIER_PROMPT = 512
+TIER_NEW = 64           # each turn's new tokens
+TIER_FOLLOW = 64        # the user tokens a second turn appends
+TIER_HOST = 4 << 30
+TIER_HOST_SMALL = 1 << 30
+TIER_NVME = 4 << 30
+TIER_IDLE_S = 1.0       # run (f)'s demote_ahead_idle_s
+TIER_PROBE_FILES = 64   # the aio probe's files, one pool page each
+
+
+def _tier_sessions(vocab: int, n: int, prompt: int, follow: int,
+                   seed: int = 23) -> list:
+    """(first prompt, second turn's user tokens) of ``n`` sessions."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, vocab, prompt).astype(np.int32),
+             rng.integers(0, vocab, follow).astype(np.int32))
+            for _ in range(n)]
+
+
+def _tier_turns(srv, sessions, new: int, sync, idle_s=None) -> dict:
+    """Both turns of every session: the first turns submitted at once and
+    drained; with ``idle_s``, an idle gap past it and idle steps until
+    demote-ahead stages nothing more; then every second turn (the first
+    prompt, its output and the user's tokens) submitted at once and
+    drained, its TTFT from the stats reset just before."""
+    import numpy as np
+
+    srv.stats.reset()
+    rids = [srv.submit(p, new, seed=i) for i, (p, _) in enumerate(sessions)]
+    t0 = time.perf_counter()
+    done = srv.drain()
+    sync()
+    first_s = time.perf_counter() - t0
+    srv.end_drain()
+    first = [done[r] for r in rids]
+    gap_steps = 0
+    if idle_s is not None:
+        time.sleep(idle_s + 0.5)
+        staged = srv.stats.registry.counter("Serve/demote_ahead_staged")
+        last = -1
+        while staged.value != last and gap_steps < 32:
+            last = staged.value
+            srv.step()
+            gap_steps += 1
+    prompts = [np.concatenate([p, np.asarray(r.tokens, np.int32), f])
+               for (p, f), r in zip(sessions, first)]
+    counted = srv.stats.registry.snapshot()["counters"]
+    srv.stats.reset()
+    rids = [srv.submit(p, new, seed=100 + i) for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    done = srv.drain()
+    sync()
+    second_s = time.perf_counter() - t0
+    srv.end_drain()
+    for k, v in srv.stats.registry.snapshot()["counters"].items():
+        counted[k] = counted.get(k, 0) + v
+    return {"first": first, "second": [done[r] for r in rids],
+            "prompts": [p for p, _ in sessions] + prompts,
+            "snap": srv.stats.snapshot(), "counters": counted,
+            "first_s": first_s,
+            "second_s": second_s, "gap_steps": gap_steps}
+
+
+def _tier_forced_gap(engine, cfg, prompts, tokens, dev) -> tuple:
+    """Phase 11's teacher-forced gate: each prompt and its served tokens
+    through one dense forward; the worst served token's gap to its row's
+    maximum (a share of max |logit|) and the argmax share."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.inference.decode import (forward_with_cache,
+                                                      init_cache)
+
+    worst, exact, total = 0.0, 0, 0
+    with torch.inference_mode():
+        for p, toks in zip(prompts, tokens):
+            ids = torch.as_tensor(np.concatenate([p, toks[:-1]]),
+                                  dtype=torch.long, device=dev)[None]
+            lg, _ = forward_with_cache(
+                engine.model, engine.params, ids,
+                init_cache(cfg, 1, ids.shape[1], cfg.dtype, device=dev),
+                materialize=engine.materialize)
+            rows = lg[0, len(p) - 1:]
+            served = torch.as_tensor(toks, device=dev)
+            gap = (rows.max(dim=-1).values
+                   - rows.gather(1, served[:, None])[:, 0]) \
+                / rows.abs().max(dim=-1).values
+            worst = max(worst, gap.max().item())
+            exact += int((rows.argmax(dim=-1) == served).sum())
+            total += len(toks)
+    return worst, exact / total
+
+
+def _tier_block_probe(srv, prompt, dev) -> dict:
+    """Clone, at its eviction, each pool page of ``prompt``'s blocks that
+    a demotion gathers; at a restore of those blocks, hold the prefill
+    cache's pages to the clones, bit for bit. Returns the tally the
+    wrappers fill."""
+    import torch
+
+    from deepspeed_tpu_torch.serving.pages import _page_split
+
+    ps = srv.cfg.page_size
+    want = tuple(int(t) for t in prompt)
+    before, tally = {}, {"blocks": 0, "equal": 0}
+    demote, restore, pop = (srv._demote_pages, srv._restore_dispatch,
+                            srv.sched.pop_next)
+    seated = {}
+
+    def on_demote(entries):
+        c = srv.state.cache
+        for e in entries:
+            if tuple(e["tokens"]) == want[:len(e["tokens"])]:
+                before[len(e["tokens"])] = (c.k[:, e["page"]].clone(),
+                                            c.v[:, e["page"]].clone())
+        demote(entries)
+
+    def on_restore(cache, alloc):
+        restore(cache, alloc)
+        p = seated.get("prompt")
+        n = cache.k.shape[3] // ps
+        for b in range(alloc.shared, alloc.shared + alloc.restored):
+            end = (b + 1) * ps
+            if end in before and tuple(int(t) for t in p[:end]) \
+                    == want[:end]:
+                k, v = before[end]
+                tally["blocks"] += 1
+                tally["equal"] += int(
+                    torch.equal(_page_split(cache.k, n, ps)[:, b], k)
+                    and torch.equal(_page_split(cache.v, n, ps)[:, b], v))
+
+    def pop_next():
+        req = pop()
+        if req is not None:
+            seated["prompt"] = req.prompt
+        return req
+
+    srv.pool.on_demote = on_demote
+    srv._restore_dispatch = on_restore
+    srv.sched.pop_next = pop_next
+    return tally
+
+
+def _tier_host_probe(srv) -> tuple:
+    """Sum the host seconds of the tier's pieces over a run: the CRCs
+    (``tiles_crc``, a put's and a host match's, on the CRC threads, so
+    thread-seconds), the admissions (``try_admit``: tree match, tier match
+    with its CRCs, evictions and the demote dispatch), the demote dispatch
+    alone, the drains, the restores' dispatch. Returns the dict the
+    wrappers fill and a function that puts ``tiles_crc`` back."""
+    from deepspeed_tpu_torch.serving import hostkv, tiering
+
+    acc = {"crc_s": 0.0, "crc_bytes": 0, "admit_s": 0.0, "dispatch_s": 0.0,
+           "drain_s": 0.0, "restore_s": 0.0}
+    crc = tiering.tiles_crc
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[key] += time.perf_counter() - t
+        return run
+
+    def counted_crc(tiles):
+        acc["crc_bytes"] += sum(int(v.nbytes) for v in tiles.values())
+        return crc(tiles)
+
+    tiering.tiles_crc = hostkv.tiles_crc = timed("crc_s", counted_crc)
+    srv.pool.try_admit = timed("admit_s", srv.pool.try_admit)
+    srv._dispatch_demote_gather = timed("dispatch_s",
+                                        srv._dispatch_demote_gather)
+    srv._drain_demotes = timed("drain_s", srv._drain_demotes)
+    srv._restore_dispatch = timed("restore_s", srv._restore_dispatch)
+
+    def undo():
+        tiering.tiles_crc = hostkv.tiles_crc = crc
+
+    return acc, undo
+
+
+def _aio_probe(path: str, nbytes: int, files: int) -> dict:
+    """``files`` writes, then reads, of ``nbytes`` each through the disk
+    rung's ``AIOFileStore`` (O_DIRECT asked for, pinned buffers), timed;
+    the reads checked against the writes."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.aio import AIOFileStore
+
+    store = AIOFileStore(path, n_threads=4, use_direct=True)
+    pin = torch.cuda.is_available()
+    src = [torch.full((nbytes,), i % 251, dtype=torch.uint8,
+                      pin_memory=pin).numpy() for i in range(files)]
+    t0 = time.perf_counter()
+    store.wait([store.submit_write(f"w{i}.bin", b)
+                for i, b in enumerate(src)][-1])
+    write_s = time.perf_counter() - t0
+    dst = [torch.zeros(nbytes, dtype=torch.uint8, pin_memory=pin).numpy()
+           for _ in range(files)]
+    t0 = time.perf_counter()
+    store.wait([store.submit_read(f"w{i}.bin", b)
+                for i, b in enumerate(dst)][-1])
+    read_s = time.perf_counter() - t0
+    same = all((a == b).all() for a, b in zip(src, dst))
+    for i in range(files):
+        store.unlink(f"w{i}.bin")
+    out = {"bytes": nbytes * files, "write_gb_s": nbytes * files / write_s
+           / 1e9, "read_gb_s": nbytes * files / read_s / 1e9,
+           "o_direct": store.aio.o_direct(), "errors": store.errors}
+    store.close()
+    if not same or out["errors"]:
+        raise AssertionError(f"[tier] the aio probe read back other bytes "
+                             f"or failed: {out}")
+    return out
+
+
+def _tier_run(engine, cfg, name, serving, sessions, new, device, *,
+              idle_s=None, probe=False) -> dict:
+    """One run of phase 18: a fresh ServingEngine, a warm-up request (the
+    slot graph's capture), both turns; the kernel counts zeroed before the
+    warm-up and read after the second turns. Gates: every request OK with
+    its tokens, one capture, no page leaked, the tiers' bytes the sum of
+    their entries, nothing pinned; with ``probe`` the restored blocks of
+    session 0 bit-identical to their pages before the eviction."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    from deepspeed_tpu_torch.ops import woq_matmul as wm
+    from deepspeed_tpu_torch.resilience.guards import RequestStatus
+
+    dev = torch.device(device or "cuda")
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    tag = f"[tier {name}]"
+    t_run = time.perf_counter()
+    _free_memory(dev)
+    srv = dt.ServingEngine(engine, serving)
+    tally = _tier_block_probe(srv, sessions[0][0], dev) if probe else None
+    host_s, undo = _tier_host_probe(srv) if srv.hostkv is not None \
+        else (None, None)
+    counters = (da.decode_attention, wm.woq_matmul)
+    for c in counters:
+        c.launches = 0
+    srv.serve_batch([_serve_stream(cfg.vocab_size, 1, seed=99)[0][0][:32]],
+                    4)
+    turns = _tier_turns(srv, sessions, new, sync, idle_s=idle_s)
+    counted = {c.__name__: c.launches for c in counters}
+    if undo is not None:
+        undo()
+    replays = srv.graph.replays if srv.graph else 0
+    captured = dict(srv.graph.captured_launches) if srv.graph else {}
+    launches = {k: v - captured.get(k, 0) + captured.get(k, 0) * replays
+                for k, v in counted.items()}
+    bad = [(i, r.status.value, len(r.tokens)) for i, r in enumerate(
+        turns["first"] + turns["second"])
+        if r.status is not RequestStatus.OK or len(r.tokens) != new]
+    if bad:
+        raise AssertionError(f"{tag} requests not served in full: {bad}")
+    if srv.captures != (1 if cuda else 0):
+        raise AssertionError(f"{tag} captures {srv.captures}, want 1")
+    per_step = cfg.n_layer if engine.flash_decode else 0
+    if cuda and (counted["decode_attention"] != 2 * per_step
+                 or captured.get("decode_attention", 0) != per_step
+                 or not launches["decode_attention"]):
+        raise AssertionError(f"{tag} decode attention counted "
+                             f"{counted}, captured {captured}")
+    pool = srv.pool
+    leak = {"live": len(pool._alloc), "free": len(pool.free),
+            "tree_held": pool.tree_held, "usable": pool.usable}
+    if leak["live"] or leak["free"] + leak["tree_held"] != leak["usable"]:
+        raise AssertionError(f"{tag} pages leaked: {leak}")
+    stores = [st for st in (srv.hostkv, srv.nvmekv) if st is not None]
+    for st in stores:
+        if st.bytes_used != sum(e["nbytes"] for e in st.entries.values()) \
+                or any(e["pinned"] for e in st.entries.values()) \
+                or st.bytes_used > st.capacity_bytes:
+            raise AssertionError(f"{tag} {st.kind}: bytes {st.bytes_used} "
+                                 "against its entries, pins or budget")
+    tiers = srv.tier_snapshot()
+    ps = pool.snapshot()
+    reg = turns["counters"]
+    snap = turns["snap"]
+    toks = [list(r.tokens) for r in turns["first"] + turns["second"]]
+    out = {"name": name, "serving": serving, "captures": srv.captures,
+           "counted": counted, "captured": captured, "replays": replays,
+           "launches": launches,
+           "ttft_ms": {k: snap["ttft_s"][k] * 1e3 for k in ("p50", "p99")},
+           "second_tok_s": len(sessions) * new / turns["second_s"],
+           "first_s": turns["first_s"], "second_s": turns["second_s"],
+           "gap_steps": turns["gap_steps"],
+           "prefill_tokens_saved": ps["prefill_tokens_saved"],
+           "prompt_tokens": ps["prompt_tokens"],
+           "evictions": ps["evictions"], "defers": ps["defers"],
+           "tokens": toks, "prompts": turns["prompts"]}
+    if tiers is not None:
+        out["tiers"] = {k: v for k, v in tiers.items()
+                        if not isinstance(v, dict) or k in ("io",
+                                                            "nvme_tier")}
+        out["staged"] = reg.get("Serve/demote_ahead_staged", 0)
+        out["fastfrees"] = reg.get("Serve/demote_ahead_fastfrees", 0)
+    if host_s is not None:
+        out["host_s"] = host_s
+    if tally is not None:
+        out["block_probe"] = tally
+        if not tally["blocks"] or tally["equal"] != tally["blocks"]:
+            raise AssertionError(f"{tag} restored blocks against their "
+                                 f"pages before the eviction: {tally}")
+    srv.close()
+    if serving.get("nvme_path"):
+        out["aio_probe"] = _aio_probe(
+            serving["nvme_path"], srv.state.cache.k[:, 0].nbytes * 2,
+            TIER_PROBE_FILES if cuda else 4)
+    del srv
+    _free_memory(dev)
+    out["run_s"] = time.perf_counter() - t_run
+    log(f"{tag} TTFT of the second turns p50 {out['ttft_ms']['p50']:.1f} "
+        f"ms p99 {out['ttft_ms']['p99']:.1f} ms; second turns "
+        f"{out['second_tok_s']:.1f} tok/s; prefill tokens saved "
+        f"{out['prefill_tokens_saved']} of {out['prompt_tokens']}; "
+        f"evictions {out['evictions']}, defers {out['defers']}; launches "
+        f"{launches}; tiers "
+        + json.dumps({k: out.get("tiers", {}).get(k) for k in (
+            "restores", "restored_pages", "hits", "misses", "prunes",
+            "spills", "fallbacks", "demote_wait_s", "io")})
+        + f"; {out['run_s']:.1f} s")
+    return out
+
+
+def phase_tier(cfg=None, *, device=None, sessions=TIER_SESSIONS,
+               prompt=TIER_PROMPT, new=TIER_NEW, follow=TIER_FOLLOW,
+               serving=TIER_PAGED, host=TIER_HOST, host_small=TIER_HOST_SMALL,
+               nvme=TIER_NVME, idle_s=TIER_IDLE_S, nvme_root=None) -> dict:
+    """Phase 18: the KV tiers under the paged ``ServingEngine`` on
+    Llama-2-7B bf16 at full width and depth (8 slots of 1024, pages of 16,
+    257 pages, chunks of 256, greedy), 10 two-turn sessions (a 512-token
+    prompt and 64 new tokens, then that conversation and 64 more user
+    tokens, submitted after every first turn finished), each run a fresh
+    engine over one InferenceEngine: (e) 1025 pages, nothing evicted,
+    every resume a tree hit; (b) a 4 GiB host tier; (c) a 1 GiB host tier
+    over a 4 GiB disk rung under ``nvme_root``; (f) (b) with demote-ahead
+    and an idle gap before the second turns; (a) no tier; (d) (b) with
+    int8 KV. Gates: ``_tier_run``'s; restores > 0 and no fallback in (b),
+    (c), (d), (f); (c) spills and restores blocks from the disk rung; (f)
+    stages ahead and fast-frees; (b)'s restored blocks bit-identical to
+    their pages before the eviction; the tokens of (b), (c) and (f) equal
+    (e)'s; (a) and (d) within phase 11's teacher-forced tolerance. A
+    ``[tier]`` JSON line."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deepspeed_tpu_torch.models import llama2
+
+    cfg = cfg or llama2("7b")
+    dev = torch.device(device or "cuda")
+    t0 = time.perf_counter()
+    sess = _tier_sessions(cfg.vocab_size, sessions, prompt, follow)
+    root = nvme_root or str(Path(__file__).resolve().parent / "chiprun_out"
+                            / "phase18_nvme")
+    os.makedirs(root, exist_ok=True)
+    nvme_dir = tempfile.mkdtemp(prefix="tier_", dir=root)
+    _free_memory(dev)
+    engine = _serve_engine(cfg, None, device)
+    # (e): four times the pages, so nothing is evicted
+    big = {**serving, "pool_pages": 1 + 4 * (serving["pool_pages"] - 1)}
+    runs = {"e": (big, {}),
+            "b": ({**serving, "host_pool_bytes": host}, {"probe": True}),
+            "c": ({**serving, "host_pool_bytes": host_small,
+                   "nvme_pool_bytes": nvme, "nvme_path": nvme_dir}, {}),
+            "f": ({**serving, "host_pool_bytes": host,
+                   "demote_ahead_idle_s": idle_s}, {"idle_s": idle_s}),
+            "a": (serving, {}),
+            "d": ({**serving, "host_pool_bytes": host, "kv_quant_bits": 8},
+                  {})}
+    out = {}
+    for name, (scfg, kw) in runs.items():
+        out[name] = _tier_run(engine, cfg, name, scfg, sess, new, device,
+                              **kw)
+    for name in ("b", "c", "d", "f"):
+        t = out[name]["tiers"]
+        if not (t["restores"] > 0 and t["fallbacks"] == 0
+                and t.get("nvme_tier", {}).get("fallbacks", 0) == 0):
+            raise AssertionError(f"[tier {name}] restores {t['restores']}, "
+                                 f"fallbacks {t['fallbacks']}")
+    nv = out["c"]["tiers"]
+    if not (nv["spills"] > 0 and nv["nvme_tier"]["hits"] > 0):
+        raise AssertionError(f"[tier c] spills {nv['spills']}, blocks "
+                             f"from the disk rung {nv['nvme_tier']['hits']}")
+    if not (out["f"]["staged"] > 0 and out["f"]["fastfrees"] > 0):
+        raise AssertionError(f"[tier f] staged {out['f']['staged']}, "
+                             f"fast-frees {out['f']['fastfrees']}")
+    if out["e"]["evictions"]:
+        raise AssertionError(f"[tier e] evicted {out['e']['evictions']}")
+    for name in ("b", "c", "f"):
+        apart = [i for i, (g, w) in enumerate(zip(out[name]["tokens"],
+                                                  out["e"]["tokens"]))
+                 if g != w]
+        out[name]["apart_from_e"] = apart
+        if apart:
+            raise AssertionError(f"[tier {name}] requests {apart} served "
+                                 "other tokens than (e)'s tree hits")
+    for name in ("a", "d"):
+        r = out[name]
+        gap, share = _tier_forced_gap(engine, cfg, r["prompts"],
+                                      r["tokens"], dev)
+        r["teacher_forced_gap"], r["argmax_share"] = gap, share
+        log(f"[tier {name}] teacher-forced: worst served-token gap {gap:.4f}"
+            f" of max |logit| (tol {LOGIT_TOL_SHARE}), argmax share "
+            f"{share:.4f}")
+        if not gap <= LOGIT_TOL_SHARE:
+            raise AssertionError(f"[tier {name}] a served token's logit is "
+                                 f"{gap:.4f} of max |logit| below its row's")
+    del engine
+    _free_memory(dev)
+    shutil.rmtree(nvme_dir, ignore_errors=True)
+    for r in out.values():
+        del r["tokens"], r["prompts"]
+    out["phase_s"] = time.perf_counter() - t0
+    if dev.type == "cuda":
+        from deepspeed_tpu_torch.platform.device import device_report
+
+        out["card"] = device_report()["nvidia_smi"]
+    log("[tier] " + json.dumps(out, default=_jsonable))
+    return out
+
+
 CHILD_TIMEOUT_S = 900
 
 
@@ -6678,7 +7139,8 @@ def _child_phases() -> dict:
     return {"moe": phase_moe,
             "serve": lambda: phase_serve_all(llama2("7b")),
             "tp": phase_tp, "ckpt": phase_checkpoint, "zero": phase_zero,
-            "tp_train": phase_tp_train, "spec": phase_spec}
+            "tp_train": phase_tp_train, "spec": phase_spec,
+            "tier": phase_tier}
 
 
 def _jsonable(o):
@@ -6822,6 +7284,7 @@ def main() -> int:
     # then (ROADMAP.md §3); phase 17 (speculation) after them
     tp = lap("15 tp", run_child, "tp")
     spec = lap("17 spec", run_child, "spec")
+    lap("18 tier", run_child, "tier")
     # phase 12 in its own process too: its pinned host buffers (18.7 GB)
     # stay cached in the process that allocated them, and phase 16 holds
     # a 2-layer Mixtral's state (38 GB) on the host beside them

@@ -79,16 +79,16 @@ _LATER_SECTIONS = {
 }
 # top-level scalar keys: (JAX default, item)
 _LATER_KEYS = {"wall_clock_breakdown": (False, 7),
-               "sparse_gradients": (False, 6)}
+               "sparse_gradients": (False, (6, "b"))}
 # zero_optimization keys not ported: (JAX default, item). The int8
 # gradient path of zero_quantized_gradients is comm/compressed.py.
 _ZERO_LATER = {
     "offload_optimizer": (dict(device="none", nvme_path=None, buffer_count=4,
                                pin_memory=True, pipeline_read=True,
-                               pipeline_write=True), 6),
+                               pipeline_write=True), (6, "b")),
     "offload_param": (dict(device="none", nvme_path=None, buffer_count=4,
                            pin_memory=True, pipeline_read=True,
-                           pipeline_write=True), 6),
+                           pipeline_write=True), (6, "b")),
     "zero_quantized_gradients": (False, 8),
 }
 # the training engine's mesh axes above 1 -> the ROADMAP item that ports
@@ -161,7 +161,7 @@ class RematConfig:
                              f"{REMAT_POLICY_NAMES}")
         if self.offload:
             raise NotImplementedError(f"config remat.offload is not ported "
-                                      f"yet: {later(6)}")
+                                      f"yet: {later(6, 'b')}")
 
     @property
     def resolved(self) -> Optional[str]:

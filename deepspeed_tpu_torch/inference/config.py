@@ -4,7 +4,8 @@ The port carries the generate() path, dense or with int8/int4
 weight-only quantization (WOQ), and the continuous-batching
 ``ServingEngine`` over contiguous slots or the paged KV pool
 (:class:`ServingConfig`), with self-speculative decoding
-(``speculation``), on one card or sharded over a ``torch.distributed``
+(``speculation``) and the paged pool's KV tiers (``host_pool_bytes``,
+``nvme_pool_bytes``, ``demote_ahead_idle_s``), on one card or sharded over a ``torch.distributed``
 world by ``tensor_parallel`` and ``expert_parallel``. The JAX
 configs' other knobs are accepted at their defaults, so a JAX config ports
 as it is, and raise ``NotImplementedError`` when set: each names the
@@ -33,9 +34,7 @@ _LATER = {
 
 # ServingConfig keys of the JAX package not ported yet: (default, item)
 _SERVING_LATER = {
-    "host_pool_bytes": (0, 6), "nvme_pool_bytes": (0, 6),
-    "nvme_path": (None, 6), "demote_ahead_idle_s": (0.0, 6),
-    "autoscale": (None, 6),
+    "autoscale": (None, (6, "c")),
     "spans": (False, 7), "spans_ring": (4096, 7), "flight_dir": (None, 7),
     "flight_max_dumps": (8, 7), "slo": (None, 7), "workload": (None, 7),
     "kvscope": (None, 7), "goodput": (False, 7), "capture": (False, 7),
@@ -89,6 +88,24 @@ class ServingConfig:
     prefix_sharing: bool = True
     # 8 = int8 KV pool with per-token, per-head fp32 scales (paged only)
     kv_quant_bits: int = 0
+    # the KV tiers (serving/hostkv.py, serving/tiering.py), paged only:
+    # host_pool_bytes > 0 bounds a pinned host store that keeps the pages
+    # eviction frees (full blocks, int8 scales included, keyed by their
+    # token prefix) and restores a matched cold prefix into the prefill
+    # cache instead of recomputing it; a lost, pruned or corrupt copy is
+    # recomputed. 0 builds no tier
+    host_pool_bytes: int = 0
+    # nvme_pool_bytes > 0 (needs the host tier) adds a disk rung under it:
+    # the host store's prune victims spill to one file per block through
+    # ops/aio.py, and an admission reads them back through the same
+    # restore. nvme_path: the directory (default $TMPDIR/dstpu_kv_nvme;
+    # each engine takes a fresh subdirectory)
+    nvme_pool_bytes: int = 0
+    nvme_path: Optional[str] = None
+    # demote_ahead_idle_s > 0 (needs the host tier): tree-held blocks idle
+    # this many seconds are staged into the tier at the end of a step, so
+    # a later eviction of them frees without a copy. 0 = off
+    demote_ahead_idle_s: float = 0.0
     # self-speculative decoding (inference/speculation.py, a
     # SpeculationConfig or its dict): per-slot n-gram drafts verified by one
     # fixed-shape (max_draft + 1)-token forward a step; greedy only (the
@@ -123,6 +140,27 @@ class ServingConfig:
         if self.kv_quant_bits and not self.page_size:
             raise ValueError("kv_quant_bits requires the paged KV cache "
                              "(set serving.page_size)")
+        if self.host_pool_bytes < 0:
+            raise ValueError(f"host_pool_bytes must be >= 0, "
+                             f"got {self.host_pool_bytes}")
+        if self.host_pool_bytes and not self.page_size:
+            raise ValueError("host_pool_bytes (the tiered host KV store) "
+                             "requires the paged KV cache (set "
+                             "serving.page_size)")
+        if self.nvme_pool_bytes < 0:
+            raise ValueError(f"nvme_pool_bytes must be >= 0, "
+                             f"got {self.nvme_pool_bytes}")
+        if self.nvme_pool_bytes and not self.host_pool_bytes:
+            raise ValueError("nvme_pool_bytes (the NVMe KV rung) requires "
+                             "the host tier above it (set "
+                             "serving.host_pool_bytes)")
+        if self.demote_ahead_idle_s < 0:
+            raise ValueError(f"demote_ahead_idle_s must be >= 0, "
+                             f"got {self.demote_ahead_idle_s}")
+        if self.demote_ahead_idle_s and not self.host_pool_bytes:
+            raise ValueError("demote_ahead_idle_s (background demotion) "
+                             "requires the tiered host KV store (set "
+                             "serving.host_pool_bytes)")
         for knob in ("ttft_deadline_s", "total_deadline_s"):
             if getattr(self, knob) < 0:
                 raise ValueError(f"{knob} must be >= 0, "

@@ -808,7 +808,7 @@ class TransformerLM(nn.Module):
             return self._layer
         if policy not in REMAT_POLICIES:
             raise NotImplementedError(
-                f"remat policy {policy!r} is not ported yet: {later(6)}")
+                f"remat policy {policy!r} is not ported yet: {later(6, 'b')}")
         if not policy.startswith("save_names"):
             return _checkpointed(self._layer, policy == "dots_saveable")
         attn = _checkpointed(self._attention_block)

@@ -180,6 +180,10 @@ class MetricsRegistry:
                     percentiles, lock=self._lock)
             return h
 
+    def set_gauges(self, values: dict[str, float]) -> None:
+        for k, v in values.items():
+            self.gauge(k).set(v)
+
     # -------------------------------------------------------------- readout
     def snapshot(self) -> dict:
         """Nested machine-readable view of everything recorded so far."""

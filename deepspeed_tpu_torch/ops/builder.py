@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's CUDA kernels with nvcc, and its host C++ with g++, and
+load them with ctypes.
 
 Every ``ops/csrc/<name>.cu`` has a plain C interface and becomes its own
 shared library, ``build/lib<name>-<hash>.so`` at the repository root
@@ -8,6 +9,13 @@ an unchanged one loads from disk. Sources build in parallel, one nvcc
 process each. A missing nvcc or a failed build raises with the compiler's
 output. ``torch.utils.cpp_extension`` is not used: a source that includes
 PyTorch's headers takes minutes to compile, a plain C one seconds.
+
+Every ``ops/csrc/<name>.cpp`` is host code (the async file I/O of the KV
+tiers' disk rung, ``aio.cpp``) and builds the same way with ``g++`` and
+``GXX_FLAGS``, hashed by its source and those flags. There is no
+``-march=native``: a library cached on one host must not fault on
+another. Host code has no fallback either: a missing g++ or a failed build
+raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -53,61 +62,106 @@ def find_nvcc() -> str:
         "compiled at first use and need the CUDA toolkit")
 
 
+def find_gxx() -> str:
+    """g++ from ``$PATH``."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise KernelBuildError(
+            "g++ not found on $PATH: the host C++ of deepspeed_tpu_torch "
+            "(ops/csrc/*.cpp) is compiled at first use and needs it")
+    return gxx
+
+
 def sources() -> list[str]:
+    """The CUDA sources."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def host_sources() -> list[str]:
+    """The host C++ sources."""
+    return sorted(p.stem for p in CSRC.glob("*.cpp"))
+
+
+def _is_host(name: str) -> bool:
+    return (CSRC / f"{name}.cpp").exists()
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+    if _is_host(name):
+        h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+        deps = [CSRC / f"{name}.cpp"]
+    else:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        deps = [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh"))
+    for p in deps:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _command(name: str, out: str) -> list[str]:
+    if _is_host(name):
+        return [find_gxx(), *GXX_FLAGS, "-o", out, str(CSRC / f"{name}.cpp")]
+    return [find_nvcc(), *NVCC_FLAGS, "-o", out, str(CSRC / f"{name}.cu")]
+
+
 def build_all(names: Optional[list[str]] = None) -> dict[str, dict]:
-    """Build the named sources (default: all) that are not built yet, one
-    nvcc each, all started together. Returns ``{name: {"path", "seconds",
-    "log"}}``; ``log`` holds nvcc's output (``-Xptxas -v``: registers,
-    shared memory and spills of each kernel), also kept beside the library
-    as ``.log``. Raises :class:`KernelBuildError` on any failure."""
+    """Build the named sources (default: every CUDA source) that are not
+    built yet, one compiler process each (nvcc for a ``.cu``, g++ for a
+    ``.cpp``), all started together. Returns ``{name: {"path", "seconds",
+    "command", "log"}}``; ``log`` holds the compiler's output (nvcc's
+    ``-Xptxas -v``: registers, shared memory and spills of each kernel),
+    kept beside the library as ``.log`` with the seconds and the command.
+    Each library and its log are written under a temporary name and
+    renamed into place, so concurrent builders never see half of one.
+    Raises :class:`KernelBuildError` on any failure."""
     names = sources() if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = None
     jobs = {}
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
-        nvcc = nvcc or find_nvcc()
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        try:
+            cmd = _command(name, tmp)
+        except KernelBuildError:
+            os.unlink(tmp)
+            raise
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        jobs[name] = (proc, tmp, out, time.perf_counter())
+        jobs[name] = (proc, cmd, tmp, out, time.perf_counter())
     failed = []
-    for name, (proc, tmp, out, t0) in jobs.items():
+    for name, (proc, cmd, tmp, out, t0) in jobs.items():
         log, _ = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
-            failed.append(f"--- {name}.cu (nvcc exit {proc.returncode}) ---\n{log}")
+            failed.append(f"--- {Path(cmd[-1]).name} ({Path(cmd[0]).name} "
+                          f"exit {proc.returncode}) ---\n{log}")
             os.unlink(tmp)
             continue
-        out.with_suffix(".log").write_text(f"{seconds:.2f}\n{log}")
+        fd, tmp_log = tempfile.mkstemp(suffix=".log", dir=BUILD_DIR)
+        with os.fdopen(fd, "w") as f:
+            f.write(f"{seconds:.2f}\n{' '.join(cmd).replace(tmp, str(out))}"
+                    f"\n{log}")
+        os.replace(tmp_log, out.with_suffix(".log"))
         os.replace(tmp, out)      # atomic: concurrent builders never see half
     if failed:
-        raise KernelBuildError("nvcc failed:\n" + "\n".join(failed))
+        raise KernelBuildError("the build failed:\n" + "\n".join(failed))
     result = {}
     for name in names:
         out = library_path(name)
-        secs, _, log = out.with_suffix(".log").read_text().partition("\n")
-        result[name] = {"path": str(out), "seconds": float(secs), "log": log}
+        secs, _, rest = out.with_suffix(".log").read_text().partition("\n")
+        cmd, _, log = rest.partition("\n")
+        result[name] = {"path": str(out), "seconds": float(secs),
+                        "command": cmd, "log": log}
     return result
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu`` (or ``.cpp``), built first
+    if needed."""
     lib = _loaded.get(name)
     if lib is None:
         build_all([name])

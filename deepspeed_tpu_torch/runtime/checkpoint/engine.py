@@ -482,7 +482,7 @@ def _check_tag_format(engine, path: Path, meta: dict) -> None:
     if meta.get("layout") == "host":
         raise NotImplementedError(
             f"checkpoint {path} holds the offload engine's host layout; "
-            f"ZeRO-Offload is not ported yet: {later(6)}")
+            f"ZeRO-Offload is not ported yet: {later(6, 'b')}")
     saved = meta.get("mesh") or {}
     here = engine.mesh.shape
     if any(int(saved.get(a, 1)) != here[a] for a in ("model", "expert")):

@@ -197,7 +197,7 @@ class Engine:
                 and self.remat_policy not in REMAT_POLICIES:
             raise NotImplementedError(
                 f"remat policy {self.remat_policy!r} (activations offloaded "
-                f"to the host) is not ported yet: {later(6)}")
+                f"to the host) is not ported yet: {later(6, 'b')}")
         self.compute_dtype = cfg.compute_dtype
         self.accum_dtype = cfg.accum_dtype
         self._fp32_names = frozenset(model.fp32_param_names())

@@ -1,10 +1,10 @@
 """ServingEngine: continuous batching over contiguous KV slots or the
 paged KV pool.
 
-Counterpart of ``deepspeed_tpu/serving/engine.py`` (the fleet and host-KV
-seams, the observability hooks (``workload.on_spec`` among them) and the
-chaos key are ROADMAP.md queue 1 items 6, 7 and 8, and their config keys
-raise). The engine owns:
+Counterpart of ``deepspeed_tpu/serving/engine.py`` (the fleet seams, the
+observability hooks (``workload.on_spec`` among them) and the chaos key
+are ROADMAP.md queue 1 items 6(c), 7 and 8, and their config keys raise).
+The engine owns:
 
 - a slot state (``slots.py``): ONE persistent (L, slots, KV, max_len, hd)
   KV cache plus per-slot length / tok / done and a generator per slot,
@@ -41,13 +41,32 @@ length, token and done flag from one uploaded (4, slots) buffer
 without the verify's headroom, takes the plain step. Greedy tokens equal
 the plain lane's.
 
+With ``host_pool_bytes`` (paged only) the pool's eviction demotes the
+freed full blocks into a host tier (``hostkv.py``), with
+``nvme_pool_bytes`` a disk rung under it (``tiering.py``), and an
+admission restores a matched cold prefix from there instead of
+recomputing it. The demote gather is enqueued on the current stream inside
+the eviction pass, before any later insert or replay can rewrite the freed
+pages; its device-to-host copy runs on a side stream into pinned memory
+behind a CUDA event, and ``_drain_demotes`` waits on that event and puts
+the pages into the tier at the end of ``step()``, off the admission path.
+A restore uploads the pinned tiles on the side stream in at most two
+batches (the second's upload overlaps the first's write into the prefill
+cache). With ``demote_ahead_idle_s`` the end of each step also stages
+idle tree-held blocks into the tier (``_demote_ahead_tick``), so a later
+eviction of them frees without a copy. None of this runs inside the slot
+graph: ``captures`` stays 1.
+
 Under ``tensor_parallel`` / ``expert_parallel`` every rank runs its own
 engine on the same submissions: the same scheduler, pool and page tables
 (host, deterministic), its shard of the model and its KV heads on its
 card, and the slot step's collectives (captured in its graph); the logits
 are all-gathered before sampling, so every rank's seeded sampler draws
-the same token. Deadlines read each rank's own clock, so a world above
-one takes none.
+the same token. Deadlines and demote-ahead read each rank's own clock,
+so a world above one takes neither. Each rank's tier holds its own KV
+heads; an admission restores the block run that every rank matched (a
+MIN all-reduce, ``PagePool.agree``), so a fallback on one rank recomputes
+on all and the ranks keep one chunk plan.
 
 A request's tokens equal a solo ``generate(prompt[None], max_new,
 request_seeds=[seed], cache_len=max_len)`` with the same sampling knobs:
@@ -58,13 +77,17 @@ runs, and the chunked prefill writes what a whole prefill writes.
 
 from __future__ import annotations
 
+import math
+import time
 from collections import OrderedDict
+from contextlib import nullcontext
 from functools import partial
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..comm import comm
 from ..inference.config import ServingConfig
 from ..inference.decode import (GenCarry, KVCache, decode_forward,
                                 decode_sample, finite_rows,
@@ -72,11 +95,14 @@ from ..inference.decode import (GenCarry, KVCache, decode_forward,
 from ..inference.sampling import per_request_generators, sample_logits
 from ..inference.speculation import NGramTable
 from ..observability.tracing import ServingStats
+from ..observability.workload import token_hash
 from ..resilience.guards import QueueFullError, RequestStatus
 from ..utils.logging import warning_once
 from ..utils.roadmap import later
 from .graph import SlotGraph
+from .hostkv import HostKVTier, PinnedPages, demote_rows, restore_into_cache
 from .pages import PagePool, hydrate_cache, init_paged_slots, insert_paged
+from .tiering import NVMeKVTier, TieringEngine, tiles_crcs
 from .scheduler import Request, Scheduler
 from .slots import init_slots, insert_request
 
@@ -118,7 +144,7 @@ class ServingEngine:
         if programs is not None or rid_source is not None:
             raise NotImplementedError(
                 "ServingEngine: the fleet seams programs / rid_source are "
-                f"not ported yet: {later(6)}")
+                f"not ported yet: {later(6, 'c')}")
         self.engine = engine
         if serving is None:
             serving = engine.config.serving
@@ -177,13 +203,19 @@ class ServingEngine:
         self.stats = ServingStats(registry=registry,
                                   **({"clock": clock} if clock else {}))
         self._kv_heads = layout_of(self.model).kv_heads
-        self._world = layout_of(self.model).mesh.world
+        self._mesh = layout_of(self.model).mesh
+        self._world = self._mesh.world
         if self._world > 1 and (self.cfg.ttft_deadline_s
                                 or self.cfg.total_deadline_s):
             raise NotImplementedError(
                 "serving deadlines over a world of more than one rank (each "
                 "rank's clock would retire other requests) are not ported: "
                 f"{later(4)}")
+        if self._world > 1 and self.cfg.demote_ahead_idle_s > 0:
+            raise NotImplementedError(
+                "demote_ahead_idle_s over a world of more than one rank "
+                "(each rank's clock would stage other blocks, so the ranks' "
+                f"tiers would prune apart) is not ported: {later(4)}")
         # the quantized TP collective lives on the InferenceEngine; serving
         # shows it as a gauge, as the JAX engine does
         self._tp_quant = int(engine.config.tp_comm_quant or 0)
@@ -197,11 +229,16 @@ class ServingEngine:
         self.pool: Optional[PagePool] = None
         self._table = None
         self._table_dirty = False
+        # demote-ahead reads the pool clock's touch stamps
+        self._demote_ahead = (self.cfg.demote_ahead_idle_s
+                              if self.cfg.demote_ahead_idle_s > 0 else None)
         if self._paged:
             self.pool = PagePool(self.cfg.pool_pages, self.cfg.page_size,
                                  self.cfg.max_len,
                                  registry=self.stats.registry,
-                                 prefix_sharing=self.cfg.prefix_sharing)
+                                 prefix_sharing=self.cfg.prefix_sharing,
+                                 clock=self.stats.clock
+                                 if self._demote_ahead is not None else None)
             self._table = np.zeros(
                 (self.cfg.slots, self.pool.pages_per_slot), np.int32)
         self.sched = Scheduler(self.cfg.slots, self.cfg.max_len,
@@ -240,9 +277,296 @@ class ServingEngine:
                 self._packed = torch.zeros((4, self.cfg.slots),
                                            dtype=torch.long,
                                            device=self.device)
+        self._build_tiers()
         cuda = self.device.type == "cuda"
         self._graph = SlotGraph() if cuda else None
         self._verify_graph = SlotGraph() if cuda and self._spec else None
+
+    # ------------------------------------------------------------ KV tiers
+    def _build_tiers(self) -> None:
+        """The host tier (and the disk rung under it) when
+        ``host_pool_bytes`` is set; else nothing, and the pool's seams stay
+        None."""
+        self.hostkv: Optional[HostKVTier] = None
+        self.nvmekv: Optional[NVMeKVTier] = None
+        self.kvtier: Optional[TieringEngine] = None
+        # demote gathers enqueued this step, put into the tier at its end
+        self._pending_demotes: list = []
+        # restores whose upload may still read their pinned tiles
+        self._restores_in_flight: list = []
+        self._staged_ahead: set = set()
+        self.demote_wait_s = 0.0
+        # the transfers' bytes and device milliseconds (CUDA events) and
+        # the drains' host seconds, CRC included
+        self.tier_io = {"d2h_bytes": 0, "d2h_ms": 0.0, "h2d_bytes": 0,
+                        "h2d_ms": 0.0, "drain_s": 0.0}
+        if not (self._paged and self.cfg.host_pool_bytes > 0):
+            return
+        self._pin = self.device.type == "cuda"
+        self._tier_stream = torch.cuda.Stream(self.device) if self._pin \
+            else None
+        # a page's tiles, each at a 64-byte offset of one host slot; the
+        # slots for the whole budget (and one batch in flight) pinned once
+        c = self.state.cache
+        names = ("k", "v") + (("k_scale", "v_scale")
+                              if c.k_scale is not None else ())
+        self._layout, off = {}, 0
+        for name in names:
+            t = getattr(c, name)
+            shape = (t.shape[0],) + tuple(t.shape[2:])
+            nbytes = math.prod(shape) * t.element_size()
+            np_dt = np.int16 if t.dtype == torch.bfloat16 else \
+                torch.empty(0, dtype=t.dtype).numpy().dtype
+            self._layout[name] = (shape, t.dtype, np_dt, off, nbytes)
+            off += -(-nbytes // 64) * 64
+        page = sum(spec[-1] for spec in self._layout.values())
+        self._pages = PinnedPages(
+            off, slots=self.cfg.host_pool_bytes // page
+            + self.pool.pages_per_slot, pin=self._pin)
+        self.hostkv = HostKVTier(self.cfg.host_pool_bytes,
+                                 self.cfg.page_size,
+                                 registry=self.stats.registry,
+                                 clock=self.stats.clock)
+        self.pool.host = self.hostkv
+        if self.cfg.nvme_pool_bytes > 0:
+            self.nvmekv = NVMeKVTier(self.cfg.nvme_pool_bytes,
+                                     self.cfg.page_size,
+                                     path=self.cfg.nvme_path,
+                                     registry=self.stats.registry,
+                                     clock=self.stats.clock,
+                                     n_threads=4, write_behind=4,
+                                     use_direct=self._pin,
+                                     buffer=self._pages.take)
+            self.kvtier = TieringEngine([self.hostkv, self.nvmekv])
+            self.pool.host = self.kvtier
+        self.pool.on_demote = self._demote_pages
+        if self._world > 1:
+            self.pool.agree = self._least_over_ranks
+
+    def _least_over_ranks(self, n: int) -> int:
+        """``PagePool.agree``: the least ``n`` over the world (each rank's
+        matched block count; a rank's fallback or prune may leave it
+        fewer)."""
+        t = torch.tensor([n], dtype=torch.int64, device=self.device)
+        comm.all_reduce(t, ("expert", "model"), "min", mesh=self._mesh)
+        return int(t.item())
+
+    def _page_tiles(self) -> dict:
+        """A free page slot as the page's numpy tiles (bf16 as int16)."""
+        slot = self._pages.take()
+        return {name: slot[off:off + nb].view(np_dt).reshape(shape)
+                for name, (shape, _, np_dt, off, nb) in self._layout.items()}
+
+    def _torch_tile(self, name: str, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).view(self._layout[name][1])
+
+    def _demote_pages(self, entries: list) -> None:
+        """``PagePool.on_demote``: enqueue the gather of the evicted
+        full-block pages' tiles now, on the current stream (ahead of any
+        later insert or replay that could rewrite them), and their copy to
+        pinned host memory on the tier stream; ``_drain_demotes`` puts them
+        into the tier at the end of the step. With demote-ahead, pages
+        already staged need no copy: their eviction was the refcount drop
+        (``Serve/demote_ahead_fastfrees``)."""
+        todo = entries
+        if self._demote_ahead is not None:
+            tier, todo, fast = self.pool.host, [], 0
+            for e in entries:
+                key = (len(e["tokens"]), token_hash(e["tokens"]))
+                self._staged_ahead.discard(key)
+                if tier.holds(e["tokens"], key=key):
+                    fast += 1
+                else:
+                    todo.append(e)
+            if fast:
+                self.stats.registry.counter(
+                    "Serve/demote_ahead_fastfrees").inc(fast)
+                self.stats.registry.set_gauges({
+                    "Serve/host_tier_staged_ahead":
+                        float(len(self._staged_ahead))})
+        if todo:
+            self._dispatch_demote_gather(todo, pressure=True)
+
+    def _dispatch_demote_gather(self, entries: list, pressure: bool) -> None:
+        """Gather ``entries``' pages in batches of ``pages_per_slot`` and
+        start each batch's copy into page slots (pinned) behind an event.
+        ``pressure`` tags eviction-driven batches: their host time here and
+        their wait at the drain count in ``Serve/host_tier_demote_wait_s``
+        (the admission path's demote cost); demote-ahead's staging does
+        not."""
+        t0 = self.stats.clock() if pressure else None
+        n = self.pool.pages_per_slot
+        cur = torch.cuda.current_stream(self.device) if self._pin else None
+        for off in range(0, len(entries), n):
+            batch = entries[off:off + n]
+            idx = torch.tensor([e["page"] for e in batch], dtype=torch.long)
+            if self._pin:
+                idx = idx.pin_memory().to(self.device, non_blocking=True)
+            gathered = demote_rows(self.state, idx)
+            pages = [self._page_tiles() for _ in batch]
+            start = end = None
+            if self._pin:
+                ts = self._tier_stream
+                ts.wait_stream(cur)
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record(ts)
+            with torch.cuda.stream(ts) if self._pin else nullcontext():
+                for i, tiles in enumerate(pages):
+                    for k, a in tiles.items():
+                        self._torch_tile(k, a).copy_(gathered[k][i],
+                                                     non_blocking=self._pin)
+            if self._pin:
+                end.record(ts)
+                for v in gathered.values():
+                    v.record_stream(ts)
+            self._pending_demotes.append((start, end, pages, batch,
+                                          pressure))
+        if pressure:
+            self.demote_wait_s += max(0.0, self.stats.clock() - t0)
+            self.stats.registry.set_gauges({
+                "Serve/host_tier_demote_wait_s": self.demote_wait_s})
+
+    def _demote_ahead_tick(self) -> None:
+        """The background lane: tree-held full blocks idle past
+        ``demote_ahead_idle_s`` (the pool clock's touch stamps) are
+        gathered and staged into the tier, one ``pages_per_slot`` batch a
+        step, oldest first. Staging is a copy: the pages stay tree-held,
+        and a resume still takes the tree hit."""
+        pool = self.pool
+        if pool.tree_held == 0:
+            return
+        tier = pool.host
+        cutoff = self.stats.clock() - self._demote_ahead
+        cand = pool.demote_ahead_candidates(cutoff, pool.pages_per_slot,
+                                            skip=tier.holds)
+        if not cand:
+            return
+        self._dispatch_demote_gather(cand, pressure=False)
+        for e in cand:
+            self._staged_ahead.add((len(e["tokens"]),
+                                    token_hash(e["tokens"])))
+        self.stats.registry.counter("Serve/demote_ahead_staged").inc(
+            len(cand))
+        self.stats.registry.set_gauges({
+            "Serve/host_tier_staged_ahead": float(len(self._staged_ahead))})
+
+    def _drain_demotes(self) -> None:
+        """Put this step's demoted pages into the tier: wait on each batch's
+        copy event, check the batch's CRCs together, then one ``put`` a
+        page. Runs at the end of ``step()``; pressure-tagged batches bill
+        their wait to the demote-wait meter."""
+        t_drain = time.perf_counter()
+        pending, self._pending_demotes = self._pending_demotes, []
+        pressured = False
+        for start, end, pages, batch, pressure in pending:
+            if end is not None:
+                t0 = self.stats.clock() if pressure else None
+                end.synchronize()
+                if pressure:
+                    self.demote_wait_s += max(0.0, self.stats.clock() - t0)
+                    pressured = True
+                self.tier_io["d2h_ms"] += start.elapsed_time(end)
+                self.tier_io["d2h_bytes"] += sum(
+                    a.nbytes for tiles in pages for a in tiles.values())
+            for e, tiles, crc in zip(batch, pages, tiles_crcs(pages)):
+                self.pool.host.put(e["tokens"], tiles, crc=crc)
+        if pressured:
+            self.stats.registry.set_gauges({
+                "Serve/host_tier_demote_wait_s": self.demote_wait_s})
+        self.tier_io["drain_s"] += time.perf_counter() - t_drain
+
+    def _restore_dispatch(self, cache, alloc) -> None:
+        """Write one admission's restored blocks into its prefill cache
+        pages ``[shared, shared + restored)``: each block's pinned tiles
+        uploaded on the tier stream in at most two batches, the current
+        stream waiting on each batch's event before its write, so the
+        second upload overlaps the first write. The pinned tiles stay
+        referenced until the end of the step (``_settle_restores``)."""
+        t0 = self.stats.clock()
+        n = self.pool.pages_per_slot
+        R = max(1, (n + 1) // 2)
+        tiles = {k: [self._torch_tile(k, a) for a in v]
+                 for k, v in alloc.restore_tiles.items()}
+        spans = [(off, min(R, alloc.restored - off))
+                 for off in range(0, alloc.restored, R)]
+        if not self._pin:
+            for off, cnt in spans:
+                restore_into_cache(cache, {k: torch.stack(v[off:off + cnt])
+                                           for k, v in tiles.items()},
+                                   alloc.shared + off)
+        else:
+            cur = torch.cuda.current_stream(self.device)
+            ts = self._tier_stream
+            bufs = [{k: torch.empty((cnt, *v[0].shape), dtype=v[0].dtype,
+                                    device=self.device)
+                     for k, v in tiles.items()} for _, cnt in spans]
+            ts.wait_stream(cur)
+            start = torch.cuda.Event(enable_timing=True)
+            events = []
+            with torch.cuda.stream(ts):
+                start.record(ts)
+                for (off, cnt), buf in zip(spans, bufs):
+                    for k, v in tiles.items():
+                        for i in range(cnt):
+                            buf[k][i].copy_(v[off + i], non_blocking=True)
+                    ev = torch.cuda.Event(enable_timing=True)
+                    ev.record(ts)
+                    events.append(ev)
+            for (off, _), buf, ev in zip(spans, bufs, events):
+                cur.wait_event(ev)
+                restore_into_cache(cache, buf, alloc.shared + off)
+            self._restores_in_flight.append(
+                (start, events[-1], tiles, alloc.restore_bytes))
+        self.pool.host.on_restore(self.stats.clock() - t0,
+                                  pages=alloc.restored,
+                                  tokens=alloc.restore_tokens,
+                                  nbytes=alloc.restore_bytes)
+        alloc.restore_tiles = None
+
+    def _settle_restores(self) -> None:
+        """The end of the step: the uploads are done (the step's chunk read
+        their cache); read their times and drop the pinned tiles."""
+        for start, end, _tiles, nbytes in self._restores_in_flight:
+            end.synchronize()
+            self.tier_io["h2d_ms"] += start.elapsed_time(end)
+            self.tier_io["h2d_bytes"] += nbytes
+        self._restores_in_flight = []
+
+    def tier_snapshot(self) -> Optional[dict]:
+        """The KV tiers' readout (None without a tier): the pool's tier
+        snapshot, the demote-ahead set, the admission path's demote wait,
+        the transfers' bytes and device time and the drains' host time."""
+        if self.hostkv is None:
+            return None
+        io = dict(self.tier_io)
+        for way in ("d2h", "h2d"):
+            ms = io[f"{way}_ms"]
+            io[f"{way}_gb_s"] = io[f"{way}_bytes"] / ms / 1e6 if ms else None
+        return {**self.pool.host.snapshot(),
+                "staged_ahead": len(self._staged_ahead),
+                "demote_wait_s": self.demote_wait_s, "io": io}
+
+    def close(self) -> None:
+        """Wait out the disk rung's writes and close its files (nothing to
+        do without a disk rung)."""
+        if self.nvmekv is not None:
+            self.nvmekv.close()
+
+    def prefix_residency(self, prompt) -> tuple:
+        raise NotImplementedError(
+            f"ServingEngine.prefix_residency (the fleet router's probe) is "
+            f"not ported yet: {later(6, 'c')}")
+
+    def export_slot(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"ServingEngine.export_slot (disaggregated prefill) is not "
+            f"ported yet: {later(6, 'c')}")
+
+    def import_slot(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"ServingEngine.import_slot (disaggregated prefill) is not "
+            f"ported yet: {later(6, 'c')}")
 
     @property
     def captures(self) -> int:
@@ -632,6 +956,10 @@ class ServingEngine:
                     # then recomputes only the suffix
                     hydrate_cache(self.state, cache, alloc.hydrate_row,
                                   alloc.hydrate_pages)
+                if alloc is not None and alloc.restored:
+                    # the KV tier's cold blocks after the shared run; the
+                    # suffix chunks run behind the upload
+                    self._restore_dispatch(cache, alloc)
                 self._prefill = (req, self.sched.plan(req), 0, cache,
                                  per_request_generators([req.seed],
                                                         self.device))
@@ -658,6 +986,14 @@ class ServingEngine:
                 self._decode_emitted += len(self.sched.running)
                 finished += self.sched.on_step(toks, dones)
             ran_decode = True
+        if self._demote_ahead is not None:
+            # stage idle tree-held pages before pressure; they drain below
+            self._demote_ahead_tick()
+        if self._pending_demotes:
+            # off the admission path: this step's demotes land in the tier
+            self._drain_demotes()
+        if self._restores_in_flight:
+            self._settle_restores()
         self.stats.on_iteration(self.sched.queue_depth, self.sched.occupancy,
                                 self.cfg.slots, ran_chunk, ran_decode)
         for req in finished:
@@ -812,4 +1148,7 @@ class ServingEngine:
             out["tp_quant_bits"] = self._tp_quant
         if self._paged:
             out["pages"] = self.pool.snapshot()
+        tiers = self.tier_snapshot()
+        if tiers is not None:
+            out["tiers"] = tiers
         return out

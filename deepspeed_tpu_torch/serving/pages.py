@@ -31,11 +31,20 @@ sends its shared entries there.
 ``truncate`` is speculation's rollback: a request retiring off a verify
 step drops the pages past its committed extent before its release.
 
-Left out, each with its ROADMAP.md item: the host tier's ``host`` /
-``on_demote`` seams,
-``demote_ahead_candidates``, ``residency`` and ``export_slot`` /
-``import_slot`` (the KV tiers and the fleet, item 6); the ``on_evict`` /
-``on_pages`` seams and the pool clock (observability, item 7).
+The KV tiers (``hostkv.py``, ``tiering.py``) plug in through two seams:
+``host``, the store an admission consults right after the tree match (its
+matched cold blocks are pinned, consumed at the commit point, released on
+a defer, and ride on the :class:`PageAllocation` as ``restore_tiles``),
+and ``on_demote``, called in an eviction pass with the evicted full-block
+entries before their pages can be reused. The pool's ``clock`` stamps each
+tree entry's last touch; :meth:`PagePool.demote_ahead_candidates` reads
+those stamps to stage idle prefixes into the tier before pressure. Over
+more than one rank, ``agree`` takes the world's least matched block count
+before the commit point: each rank's tier holds its own KV heads, and one
+rank's fallback must not give it another chunk plan than the others.
+
+Left out, each with its ROADMAP.md item: ``residency`` (the fleet, item
+6(c)); the ``on_evict`` / ``on_pages`` seams (observability, item 7).
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ import torch
 
 from ..inference.decode import (GenCarry, PagedKVCache, cache_layout,
                                 dequantize_kv, quantize_kv)
+from ..observability.workload import extend_hash
 from ..resilience.guards import PagePoolExhausted
 from ..utils.roadmap import later
 
@@ -162,7 +172,10 @@ class PageAllocation:
     ``first_private``); ``skip`` the prompt tokens the prefill lane does
     not recompute; ``hydrate_row`` / ``hydrate_pages`` the gather plan
     (``hydrate_pages`` may exceed ``shared`` by one: the copy-on-write
-    source)."""
+    source). ``restored`` counts the full blocks after the shared run that
+    the KV tier serves (counted in ``skip``; their pages are ordinary
+    private pages), ``restore_tiles`` their payload until the engine
+    uploads it."""
 
     rid: int
     row: np.ndarray
@@ -174,20 +187,42 @@ class PageAllocation:
     cow: bool = False           # a partially matched tail page was copied
     cow_src: Optional[int] = None   # donor page pinned until insert/abort
     registered: bool = False
+    restored: int = 0
+    restore_tiles: Optional[dict] = None
+    restore_tokens: int = 0
+    restore_bytes: int = 0
 
 
 class _Node:
     """One radix-tree node: one ``page_size``-token block of a registered
     prompt and the pool page holding its KV. ``tails`` maps a trailing
-    partial block (tokens) to its page: the copy-on-write sources."""
+    partial block (tokens) to its page: the copy-on-write sources.
+    ``tstamp`` is the pool clock's time of the last touch (None without a
+    clock); ``phash`` the rolling hash of the whole prefix through this
+    block, the KV tier's key with its length; ``toks`` that prefix, built
+    on first use (:meth:`prefix`)."""
 
-    __slots__ = ("children", "tails", "page", "stamp")
+    __slots__ = ("children", "tails", "page", "stamp", "tstamp", "parent",
+                 "key", "phash", "toks")
 
-    def __init__(self, page: int = -1):
+    def __init__(self, parent=None, key=None, page: int = -1):
         self.children: dict = {}
         self.tails: dict = {}
         self.page = page
         self.stamp = 0
+        self.tstamp: Optional[float] = None
+        self.parent = parent
+        self.key = key
+        self.phash = 0 if parent is None else extend_hash(parent.phash, key)
+        self.toks: Optional[tuple] = None if parent is not None else ()
+
+    def prefix(self) -> tuple:
+        """The whole token prefix through this block, one tuple kept for
+        the node's life: the tier's entry holds this same object, so a
+        membership check compares it by identity."""
+        if self.toks is None:
+            self.toks = self.parent.prefix() + self.key
+        return self.toks
 
 
 class RadixPrefixTree:
@@ -202,10 +237,15 @@ class RadixPrefixTree:
         self.page_size = page_size
         self.root = _Node()
         self._tick = 0
+        # the pool stamps this before a walk (one clock read a match or
+        # register, only when the pool has a clock)
+        self.now: Optional[float] = None
 
     def _touch(self, node: _Node) -> None:
         self._tick += 1
         node.stamp = self._tick
+        if self.now is not None:
+            node.tstamp = self.now
 
     def match(self, prompt: np.ndarray) -> tuple:
         """(shared page ids, cow (src_page, tail_len) or None)."""
@@ -227,6 +267,19 @@ class RadixPrefixTree:
                 cow = (page, len(tail))
         return ids, cow
 
+    def peek_blocks(self, toks: np.ndarray) -> int:
+        """Leading full blocks of ``toks`` the tree holds, without touching
+        an LRU stamp."""
+        ps = self.page_size
+        node, i, n = self.root, 0, 0
+        while i + ps <= len(toks):
+            child = node.children.get(tuple(toks[i:i + ps].tolist()))
+            if child is None:
+                break
+            n += 1
+            node, i = child, i + ps
+        return n
+
     def register(self, prompt: np.ndarray, row: np.ndarray) -> list:
         """Index an inserted request's prompt: full blocks as child nodes,
         a trailing partial block as a tail entry. A block already present
@@ -239,7 +292,8 @@ class RadixPrefixTree:
             key = tuple(toks[b * ps:(b + 1) * ps].tolist())
             child = node.children.get(key)
             if child is None:
-                child = node.children[key] = _Node(page=int(row[b]))
+                child = node.children[key] = _Node(
+                    parent=node, key=key, page=int(row[b]))
                 taken.append(child.page)
             self._touch(child)
             node = child
@@ -274,6 +328,37 @@ class RadixPrefixTree:
         else:
             parent.children.pop(key, None)
 
+    @staticmethod
+    def entry_tokens(node: _Node, key) -> tuple:
+        """The full token prefix an entry caches: the blocks from the root
+        down to ``node``, then ``key`` (a child block or a tail)."""
+        child = node.children.get(key)
+        if child is not None:
+            return child.prefix()
+        return node.prefix() + tuple(key)
+
+    def oldest_entry_time(self) -> Optional[float]:
+        """Touch time of the oldest evictable entry (None without a clock
+        or an evictable entry), in one walk without a sort."""
+        best = None
+
+        def consider(n):
+            nonlocal best
+            if n.tstamp is not None and (best is None or n.tstamp < best):
+                best = n.tstamp
+
+        stack = [self.root]
+        while stack:
+            node = stack.pop()
+            if node.tails:
+                consider(node)
+            for child in node.children.values():
+                if not child.children and not child.tails:
+                    consider(child)
+                else:
+                    stack.append(child)
+        return best
+
     def __len__(self) -> int:
         n, stack = 0, [self.root]
         while stack:
@@ -288,14 +373,13 @@ class PagePool:
     scratch): per page, slot references (live requests whose rows hold
     it) and one optional tree reference. A page returns to the free list
     when both drop. Every decision is host-side: no device work, no sync.
+    ``clock`` (None: no reads) stamps each tree entry's last touch: the
+    oldest entry's age in :meth:`snapshot`, and the idleness
+    :meth:`demote_ahead_candidates` reads.
     """
 
     def __init__(self, pages: int, page_size: int, max_len: int,
                  registry=None, prefix_sharing: bool = True, clock=None):
-        if clock is not None:
-            raise NotImplementedError(
-                f"PagePool: the eviction-pressure clock is not ported yet: "
-                f"{later(7)}")
         if pages < 2:
             raise ValueError(f"page pool needs >= 2 pages (one is "
                              f"reserved scratch), got {pages}")
@@ -303,6 +387,7 @@ class PagePool:
         self.page_size = page_size
         self.pages_per_slot = max_len // page_size
         self.registry = registry
+        self.clock = clock
         self.free: list[int] = list(range(pages - 1, 0, -1))  # pop() -> 1..
         self.slot_refs = np.zeros(pages, np.int64)
         self.tree_refs = np.zeros(pages, bool)
@@ -313,6 +398,14 @@ class PagePool:
         # prefixes registered): the scheduler's retry gate for a deferred
         # queue head
         self.generation = 0
+        # the KV tier's seams (serving/hostkv.py): ``host`` is consulted
+        # right after the tree match at admission; ``on_demote`` is called
+        # in an eviction pass with the evicted full-block entries before
+        # their pages can be reused. None: one `is not None` each
+        self.host = None
+        self.on_demote = None
+        # over several ranks: n -> the world's least n (None: one rank)
+        self.agree = None
         # cumulative accounting: ``evictions`` counts PAGES freed by
         # eviction, ``eviction_events`` the passes that freed any
         self.prefill_tokens_saved = 0
@@ -324,6 +417,28 @@ class PagePool:
         self.eviction_events = 0
         self.defers = 0
         self._publish()
+
+    # the observability seams (ROADMAP.md queue 1 item 7): None, and
+    # refused when set
+    @property
+    def on_evict(self):
+        return None
+
+    @on_evict.setter
+    def on_evict(self, fn) -> None:
+        if fn is not None:
+            raise NotImplementedError(
+                f"PagePool.on_evict is not ported yet: {later(7)}")
+
+    @property
+    def on_pages(self):
+        return None
+
+    @on_pages.setter
+    def on_pages(self, fn) -> None:
+        if fn is not None:
+            raise NotImplementedError(
+                f"PagePool.on_pages is not ported yet: {later(7)}")
 
     # ------------------------------------------------------------- metrics
     def _publish(self) -> None:
@@ -378,6 +493,7 @@ class PagePool:
         if self.tree is None or need <= 0:
             return need <= 0
         freed = 0
+        demote = [] if self.on_demote is not None else None
         while freed < need:
             # leaf-first passes: dropping a leaf can expose its parent, so
             # re-list until the need is met or a pass frees nothing
@@ -386,6 +502,12 @@ class PagePool:
                 if freed >= need:
                     break
                 if self.slot_refs[page] == 0 and self.tree_refs[page]:
+                    if demote is not None and kind == "node":
+                        # full blocks demote; partial tails stay
+                        # recompute-only (block-grain keys)
+                        demote.append({
+                            "tokens": self.tree.entry_tokens(parent, key),
+                            "page": int(page), "block": len(key)})
                     self.tree.drop(kind, parent, key)
                     self.tree_refs[page] = False
                     self.free.append(page)
@@ -398,7 +520,48 @@ class PagePool:
             self.eviction_events += 1
             self._count("Serve/page_evictions", freed)
             self._count("Serve/page_eviction_events")
+            if demote:
+                # before the freed pages can be popped for reuse: the
+                # engine enqueues the gather of their tiles here
+                self.on_demote(demote)
         return freed >= need
+
+    def demote_ahead_candidates(self, cutoff: float, limit: int,
+                                skip=None) -> list:
+        """Full-block tree entries last touched at or before ``cutoff``
+        whose page no slot uses, oldest first, at most ``limit``, shaped as
+        the ``on_demote`` payload: the demote-ahead lane's feed. Every
+        block node of an idle chain qualifies (not only leaves). Read-only:
+        the pages stay tree-held, and a resume keeps them as a tree hit
+        (tree-held pages no slot uses are never written, so a staged copy
+        cannot go stale). ``skip(tokens, key)`` filters entries already
+        staged (``key``: the tier's ``(length, hash)``, cached on the node,
+        so a step's walk hashes no prefix again). Needs the pool clock: an
+        entry without a stamp never qualifies."""
+        if self.tree is None or limit <= 0:
+            return []
+        cands: list = []
+
+        def walk(node):
+            for child in node.children.values():
+                if (child.tstamp is not None and child.tstamp <= cutoff
+                        and self.slot_refs[child.page] == 0
+                        and self.tree_refs[child.page]):
+                    cands.append((child.tstamp, child))
+                walk(child)
+
+        walk(self.tree.root)
+        cands.sort(key=lambda c: c[0])
+        out = []
+        for _ts, child in cands:
+            if len(out) >= limit:
+                break
+            toks = child.prefix()
+            if skip is not None and skip(toks, (len(toks), child.phash)):
+                continue
+            out.append({"tokens": toks, "page": int(child.page),
+                        "block": len(child.key)})
+        return out
 
     def try_admit(self, prompt: np.ndarray, max_new: int,
                   rid: int) -> Optional[PageAllocation]:
@@ -408,6 +571,9 @@ class PagePool:
         request stays at the queue head and retries after a release."""
         prompt = np.asarray(prompt).reshape(-1)
         P, ps, n = len(prompt), self.page_size, self.pages_per_slot
+        if self.tree is not None and self.clock is not None:
+            # one clock read an admission stamps every node the walk touches
+            self.tree.now = self.clock()
         shared_ids, cow = (self.tree.match(prompt)
                            if self.tree is not None else ([], None))
         total_need = self.worst_case_pages(P, max_new)
@@ -422,8 +588,26 @@ class PagePool:
         shared = min(len(shared_ids), total_need)
         shared_ids = shared_ids[:shared]
         skip = shared * ps
-        cow_src, cow_len = (cow if cow is not None and cow[1] > 0
-                            and skip + cow[1] < P else (None, 0))
+        # the tier's restore plan: cold full blocks continuing the tree
+        # match, pinned in the tier until this allocation commits
+        # (consume) or defers (release)
+        restore_keys: list = []
+        if self.host is not None:
+            restore_keys = self.host.match(prompt, start_block=shared,
+                                           max_blocks=total_need - shared)
+            if self.agree is not None:
+                # every rank restores the run that every rank holds; the
+                # rest stays restorable, and is recomputed here
+                least = self.agree(len(restore_keys))
+                if least < len(restore_keys):
+                    self.host.release(restore_keys[least:])
+                    restore_keys = restore_keys[:least]
+        restored = len(restore_keys)
+        skip += restored * ps
+        # a restored block covers a copy-on-write tail at its position
+        cow_src, cow_len = (cow if restored == 0 and cow is not None
+                            and cow[1] > 0 and skip + cow[1] < P
+                            else (None, 0))
         private_need = total_need - shared
         # pin the matched pages BEFORE any eviction pass: a tree-only page
         # about to be shared must not be reclaimed for this request
@@ -437,6 +621,9 @@ class PagePool:
                 self._unref(p)
             if cow_src is not None:
                 self._unref(cow_src)
+            if restore_keys:
+                # the cold blocks stay restorable for the retry
+                self.host.release(restore_keys)
             self.defers += 1
             self._count("Serve/page_defers")
             return None
@@ -458,10 +645,16 @@ class PagePool:
             self.cow_copies += 1
             self._count("Serve/page_cow_copies")
         skip = min(skip, P - 1)
+        tiles, rbytes, rtoks = None, 0, 0
+        if restore_keys:
+            # the commit point: the pinned copies move onto the allocation
+            tiles, rbytes, rtoks = self.host.consume(restore_keys)
         alloc = PageAllocation(
             rid=rid, row=row, pages=total_need, shared=shared, skip=skip,
             hydrate_row=hyd, hydrate_pages=hydrate_pages,
-            cow=cow_src is not None, cow_src=cow_src)
+            cow=cow_src is not None, cow_src=cow_src,
+            restored=restored, restore_tiles=tiles,
+            restore_tokens=rtoks, restore_bytes=rbytes)
         self._alloc[rid] = alloc
         self.prompt_tokens += P
         self.prefill_tokens_saved += skip
@@ -485,6 +678,8 @@ class PagePool:
         alloc.registered = True
         self._release_cow(alloc)
         if self.tree is not None:
+            if self.clock is not None:
+                self.tree.now = self.clock()
             for page in self.tree.register(np.asarray(prompt), alloc.row):
                 self.tree_refs[page] = True
         self.generation += 1
@@ -543,10 +738,21 @@ class PagePool:
         return freed
 
     # -------------------------------------------------------------- readout
+    def residency(self, prompt: np.ndarray) -> tuple:
+        raise NotImplementedError(
+            f"PagePool.residency (the fleet router's probe) is not ported "
+            f"yet: {later(6, 'c')}")
+
     def snapshot(self) -> dict:
-        """Pool occupancy, sharing and eviction pressure: the JAX
-        package's keys, the clock's age and the host tier None."""
+        """Pool occupancy, sharing and eviction pressure (the JAX
+        package's keys), the oldest tree entry's age on the pool clock, and
+        the KV tier's snapshot (None without a tier)."""
         used = self.usable - len(self.free)
+        oldest_age = None
+        if self.tree is not None and self.clock is not None:
+            t = self.tree.oldest_entry_time()
+            if t is not None:
+                oldest_age = max(0.0, self.clock() - t)
         return {
             "pages": self.pages,
             "usable_pages": self.usable,
@@ -574,8 +780,9 @@ class PagePool:
             "pages_evicted": self.evictions,
             "eviction_events": self.eviction_events,
             "evictable_pages": self.tree_held,
-            "oldest_tree_entry_age_s": None,
+            "oldest_tree_entry_age_s": oldest_age,
             "defers": self.defers,
             "prefix_sharing": self.tree is not None,
-            "host_tier": None,
+            "host_tier": (self.host.snapshot()
+                          if self.host is not None else None),
         }

@@ -3,7 +3,8 @@
 Every ``NotImplementedError`` of the port names its item through
 :func:`later`, so the number and the title change in one place when the
 queue is renumbered (``tests/test_torch_package.py`` checks each against
-ROADMAP.md).
+ROADMAP.md). An item split into parts names the part too: ``later(6,
+"c")``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,21 @@ ITEMS = {
 }
 
 
-def later(item: int) -> str:
-    """``"ROADMAP.md queue 1, item N (title)"`` for an error message."""
-    return f"ROADMAP.md queue 1, item {item} ({ITEMS[item]})"
+# (item, part) -> the start of the part's bold title in ROADMAP.md; item 6's
+# part (a), the KV tiers, is ported
+PARTS = {
+    (6, "b"): "ZeRO-Offload",
+    (6, "c"): "the fleet",
+}
+
+
+def later(item, part: str = "") -> str:
+    """``"ROADMAP.md queue 1, item N (title)"`` for an error message, and
+    ``", part N(p) (title)"`` after it for a part of a split item. ``item``
+    may be an ``(item, part)`` pair, as the config tables hold it."""
+    if isinstance(item, tuple):
+        item, part = item
+    out = f"ROADMAP.md queue 1, item {item} ({ITEMS[item]})"
+    if part:
+        out += f", part {item}({part}) ({PARTS[item, part]})"
+    return out

@@ -18,7 +18,12 @@
   graph replays misses a kernel record, traced from the window's start,
   after a discarded warm-up replay, or held open ``PROFILE_MARGIN_S`` on
   each side as phase 11's gate holds it, and where the missing record
-  lies.
+  lies;
+- ``demote_ahead_probe()``: the host milliseconds of one demote-ahead
+  tick's walk (``PagePool.demote_ahead_candidates`` with the tier's
+  ``holds`` as its filter) over a tree of ``chains`` idle 512-token
+  prefixes, every block already staged, so the walk stages nothing, as
+  in run (f)'s steps after its idle gap. Host code only.
 
 Run on the card from the repository's root::
 
@@ -26,9 +31,10 @@ Run on the card from the repository's root::
     python3 -c "import serve_probes as p; p.paged_view_probe()"
     python3 -c "import serve_probes as p; p.profile_count_probe()"
     python3 -c "import serve_probes as p; p.tp_graph_probe()"
+    python3 -c "import serve_probes as p; p.demote_ahead_probe()"
 
 Each prints JSON lines tagged ``[paged-view]`` / ``[solo-parity ...]`` /
-``[prefill-ops ...]`` / ``[tp-graph]``.
+``[prefill-ops ...]`` / ``[tp-graph]`` / ``[demote-ahead]``.
 """
 
 from __future__ import annotations
@@ -824,3 +830,39 @@ def tp_capture_probe(tries=4, modes=("thread_local", "global", "relaxed"),
         sg.SlotGraph.capture = original
         dist.destroy_process_group()
     log("[tp-capture] " + json.dumps({"results": results}))
+
+
+def demote_ahead_probe(chains=20, blocks=32, ps=PAGE_SIZE, ticks=50):
+    """Host ms of one demote-ahead walk over ``chains`` x ``blocks`` idle
+    tree-held blocks that the host tier already holds (tiles of 64 bytes:
+    the walk never reads them)."""
+    import time
+
+    import numpy as np
+
+    from deepspeed_tpu_torch.serving.hostkv import HostKVTier
+    from deepspeed_tpu_torch.serving.pages import PagePool
+
+    now = [0.0]
+    pool = PagePool(1 + 2 * chains * blocks, ps, 2 * blocks * ps,
+                    clock=lambda: now[0])
+    tier = HostKVTier(1 << 30, ps)
+    rng = np.random.default_rng(5)
+    for rid in range(chains):
+        prompt = rng.integers(0, 32000, blocks * ps).astype(np.int32)
+        pool.try_admit(prompt, ps, rid)
+        pool.on_inserted(rid, prompt)
+        pool.release(rid)
+    now[0] = 10.0
+    tile = {"k": np.zeros(64, np.uint8)}
+    for e in pool.demote_ahead_candidates(5.0, 10 ** 9):
+        tier.put(e["tokens"], dict(tile))
+    staged = len(tier.entries)
+    t = time.perf_counter()
+    for _ in range(ticks):
+        left = pool.demote_ahead_candidates(5.0, blocks, skip=tier.holds)
+    ms = (time.perf_counter() - t) / ticks * 1e3
+    out = {"blocks": chains * blocks, "staged": staged,
+           "left_to_stage": len(left), "tick_ms": ms}
+    log("[demote-ahead] " + json.dumps(out))
+    return out

@@ -516,6 +516,46 @@ def test_paged_slot_step_replay_equals_eager(cuda, name, kv_bits):
         assert (a == b).all()
 
 
+@pytest.mark.parametrize("tier", ["host", "nvme", "int8"])
+def test_tier_restores_on_the_card(cuda, tier, tmp_path):
+    """Two sessions alternating on a one-request pool: every resume
+    restores its evicted prefix from the pinned host tier (or the disk rung
+    under a host tier of two pages) through the tier stream's copies; the
+    tokens equal the tier-off engine's, one capture, nothing pinned or
+    leaked, both copy directions timed."""
+    paged = {**PAGED, "pool_pages": 5}        # one request's 48 + 8 tokens
+    if tier == "int8":
+        paged["kv_quant_bits"] = 8
+    _, ref = _server(cuda, "tiny_test", **paged)
+    page = ref.state.cache.k[:, 0].nbytes + ref.state.cache.v[:, 0].nbytes
+    conf = {"host": {"host_pool_bytes": 64 << 20},
+            "nvme": {"host_pool_bytes": 2 * page, "nvme_pool_bytes": 64 << 20,
+                     "nvme_path": str(tmp_path)},
+            "int8": {"host_pool_bytes": 64 << 20}}[tier]
+    eng, srv = _server(cuda, "tiny_test", **paged, **conf)
+    A, B = (p for p, _, _ in _stream(eng.model.cfg.vocab_size,
+                                     [(48, 8), (48, 8)]))
+
+    def cycle(s):
+        return [s.serve_batch([p], [8], [10 * i + r])[0].tolist()
+                for r in range(3) for i, p in enumerate((A, B))]
+
+    assert cycle(srv) == cycle(ref)
+    assert srv.captures == 1
+    snap = srv.tier_snapshot()
+    assert snap["restores"] >= 4 and snap["fallbacks"] == 0
+    io = snap["io"]
+    assert io["d2h_bytes"] > 0 and io["d2h_ms"] > 0
+    assert io["h2d_bytes"] > 0 and io["h2d_ms"] > 0
+    if tier == "nvme":
+        assert snap["spills"] > 0 and snap["nvme_tier"]["hits"] > 0
+        assert snap["nvme_tier"]["fallbacks"] == 0
+    pool = srv.pool
+    assert not pool._alloc and len(pool.free) + pool.tree_held == pool.usable
+    assert all(not e["pinned"] for e in srv.hostkv.entries.values())
+    srv.close()
+
+
 def test_paged_view_attention_equals_contiguous(cuda):
     """Decode attention over the gathered view of shuffled pages equals
     decode attention over a contiguous cache holding the same bytes, bit

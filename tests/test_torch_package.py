@@ -133,9 +133,16 @@ def test_inference_config_ports_and_refuses():
         with pytest.raises(ValueError, match=key):
             InferenceConfig.from_any({key: value})
     for key, value, item in (("observability", True, "observability"),
-                             ("serving", {"host_pool_bytes": 1}, "KV tiers")):
+                             ("serving", {"autoscale": {"enabled": True}},
+                              r"part 6\(c\) \(the fleet\)")):
         with pytest.raises(NotImplementedError, match=item):
             InferenceConfig.from_any({key: value})
+    # the KV tiers (item 6(a)) are ported: their serving keys parse
+    tiers = InferenceConfig.from_any({"serving": {
+        "page_size": 16, "max_len": 256, "host_pool_bytes": 1 << 20,
+        "nvme_pool_bytes": 1 << 22, "demote_ahead_idle_s": 2.0}}).serving
+    assert (tiers.host_pool_bytes, tiers.nvme_pool_bytes,
+            tiers.demote_ahead_idle_s) == (1 << 20, 1 << 22, 2.0)
     assert InferenceConfig.from_any({"serving": {"slots": 4}}).serving.slots \
         == 4
     # speculation (item 5) is ported: its serving block parses
@@ -282,8 +289,21 @@ def test_every_roadmap_item_the_port_names_exists():
     # raises them (expert parallelism, item 4, raises through the mesh and
     # inference tables), and no config table names item 5
     raising = {int(n) for path in PORT_FILES for n in re.findall(
-        r"later\((\d+)\)", path.read_text())}
+        r"later\((\d+)[,)]", path.read_text())}
     assert not raising & {3, 5} and {6, 7, 8} <= raising
+    # a split item's parts: each part the port names is a bold "N(p) title"
+    # under its item, and part 6(a) (the KV tiers) raises nowhere
+    parts = {(int(n), p): t.lower() for n, p, t in re.findall(
+        r"\*\*(\d+)\(([a-z])\) ([^*]+)\*\*", queue)}
+    named_parts = {(int(n), p) for path in PORT_FILES for n, p in re.findall(
+        r"later\((\d+), ['\"]([a-z])['\"]\)", path.read_text())}
+    assert named_parts and named_parts <= set(roadmap.PARTS)
+    assert (6, "a") in parts and (6, "a") not in roadmap.PARTS
+    for key, t in roadmap.PARTS.items():
+        assert key in parts and parts[key].startswith(t.lower()), (key, t)
+    assert roadmap.later(6, "c") == ("ROADMAP.md queue 1, item 6 (KV tiers, "
+                                     "fleet and host native code), part "
+                                     "6(c) (the fleet)")
     from deepspeed_tpu_torch.inference.config import _LATER, _SERVING_LATER
     assert 5 not in {item for _, item in (*_LATER.values(),
                                           *_SERVING_LATER.values())}

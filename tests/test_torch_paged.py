@@ -399,8 +399,18 @@ def test_page_pool_cow_pin_released_on_abort():
 
 
 def test_pool_refuses_what_later_items_port():
+    """The pool clock is ported (the KV tiers' demote-ahead reads it); the
+    observability seams (item 7) and the fleet's residency probe (item
+    6(c)) raise."""
+    pool = PagePool(pages=4, page_size=8, max_len=16, clock=lambda: 0.0)
+    assert pool.on_evict is None and pool.on_pages is None
+    pool.on_evict = None
     with pytest.raises(NotImplementedError, match="item 7 "):
-        PagePool(pages=4, page_size=8, max_len=16, clock=lambda: 0.0)
+        pool.on_evict = print
+    with pytest.raises(NotImplementedError, match="item 7 "):
+        pool.on_pages = print
+    with pytest.raises(NotImplementedError, match=r"part 6\(c\)"):
+        pool.residency(np.arange(8))
     with pytest.raises(ValueError, match=">= 2 pages"):
         PagePool(pages=1, page_size=8, max_len=16)
 

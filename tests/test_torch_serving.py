@@ -383,9 +383,12 @@ def test_deferred_serving_keys_raise_naming_their_item(key):
     default, item = _SERVING_LATER[key]
     value = {"enabled": True} if default is None else \
         (not default) if isinstance(default, bool) else default + 1
-    with pytest.raises(NotImplementedError, match=f"item {item} "):
+    # an item split into parts (6(c): the fleet) names its part too
+    named = f"item {item} " if isinstance(item, int) else \
+        rf"item {item[0]} .*part {item[0]}\({item[1]}\) "
+    with pytest.raises(NotImplementedError, match=named):
         ServingConfig.from_any({"slots": 2, key: value})
-    with pytest.raises(NotImplementedError, match=f"item {item} "):
+    with pytest.raises(NotImplementedError, match=named):
         InferenceConfig.from_any({"serving": {key: value}})
     # the JAX default is accepted, so a JAX config ports as it is
     assert ServingConfig.from_any({key: default}) == ServingConfig()

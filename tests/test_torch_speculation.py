@@ -16,6 +16,8 @@ Oracles (``tests/unit/test_speculation.py``'s, held against both packages):
   |logit| of the plain step's, teacher-forced from one state;
 - ``PagePool.truncate``: pages freed, rows, refcounts, free list and
   generation equal to JAX's pool after the same calls;
+- with the host KV tier (a one-request pool, every resume restored):
+  spec-on tokens equal spec-off's and JAX's spec-on tokens;
 - speculation off: no readout, no ``speculation`` key.
 """
 
@@ -326,6 +328,48 @@ def test_spec_multiturn_paged_sessions_parity():
     assert srv.spec_snapshot()["verify_steps"] > 0
     ps = srv.pool.snapshot()
     assert ps["prefix_hit_rate"] > 0
+    assert ps["free_pages"] + ps["tree_held_pages"] == ps["usable_pages"]
+
+
+def test_spec_parity_with_host_kv_restore():
+    """``tests/unit/test_speculation.py``'s tier composition: two sessions
+    alternating on a one-request pool, so each retirement's prefix is
+    evicted into the host tier and every resume restores from it; a paged
+    retirement off a verify step truncates, then demotes. Rejection-heavy
+    traffic (2-gram drafts off a barely repetitive stream): nearly every
+    verify truncates. Spec-on tokens equal spec-off's and JAX's spec-on
+    tokens, with >= 2 restores."""
+    je, te = _engines("tiny_test")
+    pool = 1 + (20 + 10 - 1 + PS - 1) // PS
+
+    def cycle(make, extra):
+        srv = make({"slots": 2, "max_len": M, "prefill_chunk": 16,
+                    "greedy": True, "page_size": PS, "pool_pages": pool,
+                    "host_pool_bytes": 8 << 20, **extra})
+        rng = np.random.default_rng(6)
+        A = np.tile(rng.integers(0, 32, (4,)).astype(np.int32), 5)
+        B = rng.integers(0, 256, (20,)).astype(np.int32)
+        toks = []
+        for r in range(3):
+            for s, p in enumerate((A, B)):
+                rid = srv.submit(p, 10, seed=100 * s + r)
+                out = None
+                for _ in range(100_000):
+                    out = srv.pop_result(rid)
+                    if out is not None:
+                        break
+                    srv.step()
+                toks.append(list(out.tokens))
+        return srv, toks
+
+    spec = {"speculation": {"ngram": 2, "max_draft": 4}}
+    _, base = cycle(lambda c: ServingEngine(te, c), {})
+    srv, outs = cycle(lambda c: ServingEngine(te, c), spec)
+    _, want = cycle(lambda c: jds.serving.ServingEngine(je, c), spec)
+    assert base == outs and outs == want
+    assert srv.tier_snapshot()["restores"] >= 2
+    assert srv.spec_snapshot()["proposed_tokens"] > 0
+    ps = srv.pool.snapshot()
     assert ps["free_pages"] + ps["tree_held_pages"] == ps["usable_pages"]
 
 

@@ -21,7 +21,12 @@ speculative lane (paged, ``tests/unit/test_speculation.py``'s traffic):
 greedy tokens and the speculation readout identical to JAX's spec-on run
 on the same mesh, at tp W, at ep W (the tiny Mixtral) and under
 ``tp_comm_quant: 8``, where the verify reduces at full precision (T > 1)
-and the plain steps over the int8 wire, as in JAX.
+and the plain steps over the int8 wire, as in JAX. The KV tiers (two
+sessions alternating on a one-request pool, every resume restored; a host
+tier, and a host tier of two rank pages over a disk rung): every rank's
+greedy tokens identical to JAX's tier-on run on the same mesh
+(``tests/unit/test_host_kv.py:115``, ``test_nvme_kv.py:177``), every
+rank restoring with no fallback from a tier that holds its own KV heads.
 """
 
 import socket
@@ -123,7 +128,7 @@ def _jax_spec(eng, reqs) -> dict:
     return {"tokens": got, "snapshot": srv.spec_snapshot()}
 
 
-def jax_serve(world) -> dict:
+def jax_serve(world, out_dir) -> dict:
     name = "llama2_tiny"
     cfg = tw.model_cfg(name)
     eng = _jax_engine(name, params_to_numpy(tw.initial_params(name)), world,
@@ -137,6 +142,9 @@ def jax_serve(world) -> dict:
             [p for p, _, _ in reqs], [n for _, n, _ in reqs],
             [s for _, _, s in reqs])
     out["spec"] = _jax_spec(eng, tw.spec_stream(cfg.vocab_size))
+    out["tier"] = {kind: tw.tier_cycle(JaxServingEngine(eng, tw.tier_serving(
+        world, kind, out_dir / f"jax_nvme_w{world}")), cfg.vocab_size)
+        for kind in tw.TIER_KINDS}
     return out
 
 
@@ -234,7 +242,7 @@ def runs(tmp_path_factory):
             jx[world, "psum"] = jax_psum(world)
             for case in tw.GEN[world]:
                 jx[world, case] = jax_gen(world, *case)
-            jx[world, "serve"] = jax_serve(world)
+            jx[world, "serve"] = jax_serve(world, out)
             jx[world, "tpq"] = jax_tpq(world, trained)
             jx[world, "spec_ep"] = jax_spec_ep(world)
         finally:
@@ -413,3 +421,52 @@ def test_int8_psum_within_a_quantum_a_hop_of_jax(runs, world):
         assert np.abs(got - want).max() <= 2 * top / 127
     # and the int8 wire is lossy: the exact sum is not what comes back
     assert not np.array_equal(want, sum(parts))
+
+
+TIER_CASES = [(w, k) for w in (2, 4) for k in tw.TIER_KINDS]
+
+
+@pytest.mark.parametrize("world,kind", TIER_CASES,
+                         ids=[f"w{w}-{k}" for w, k in TIER_CASES])
+def test_tier_serving_matches_jax(runs, world, kind):
+    """Every rank's tokens equal JAX's tier-on run on the same mesh; every
+    rank restored with no fallback (the disk rung spilled and read back),
+    from a tier whose tiles hold the rank's KV heads."""
+    want = runs["jax"][world, "serve"]["tier"][kind]
+    for rank in runs["port"][world]:
+        got = rank["tier"][kind]
+        assert len(got["tokens"]) == len(want)
+        for g, w in zip(got["tokens"], want):
+            np.testing.assert_array_equal(g, w)
+        snap = got["snapshot"]
+        assert snap["restores"] >= 2 and snap["fallbacks"] == 0
+        assert got["tile_shape"][1] == got["pool_kv_heads"] \
+            == max(1, tw.model_cfg("llama2_tiny").kv_heads // world)
+        if kind == "nvme":
+            assert snap["spills"] > 0
+            assert snap["nvme_tier"]["promotions"] > 0
+            assert snap["nvme_tier"]["fallbacks"] == 0
+
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_tier_one_rank_fallback_keeps_ranks_together(runs, world):
+    """A corrupt host copy on the last rank alone: that rank falls back,
+    every rank restores the same shorter run (the MIN over the ranks'
+    matches) and recomputes the rest, and every rank's tokens equal the
+    fault-free tier run's, which equal JAX's."""
+    want = runs["jax"][world, "serve"]["tier"]["host"]
+    ranks = runs["port"][world]
+    hits = {r["tier"]["host_fault"]["snapshot"]["hits"] for r in ranks}
+    assert len(hits) == 1
+    for i, rank in enumerate(ranks):
+        got = rank["tier"]["host_fault"]
+        assert len(got["tokens"]) == len(want)
+        for g, w in zip(got["tokens"], want):
+            np.testing.assert_array_equal(g, w)
+        snap = got["snapshot"]
+        assert snap["fallbacks"] == (1 if i == world - 1 else 0)
+        assert snap["restores"] >= 2
+        assert snap["hits"] < rank["tier"]["host"]["snapshot"]["hits"]
+        # demote-ahead reads each rank's clock: refused above one rank
+        assert "demote_ahead_idle_s" in rank["tier"]["ahead_refused"]
+        assert "item 4" in rank["tier"]["ahead_refused"]

@@ -6,7 +6,8 @@
 world through ``init_inference`` / ``ServingEngine`` with
 ``tensor_parallel`` / ``expert_parallel`` and writes what it saw (tokens,
 prefill logits, its shard of every leaf, the speculative lane's tokens and
-readouts) to ``<out_dir>/w<world>_rank<r>.pt``.
+readouts, the KV tiers' tokens and counters) to
+``<out_dir>/w<world>_rank<r>.pt``.
 This module imports neither JAX nor the JAX package: the test process holds
 the results against JAX.
 
@@ -22,6 +23,7 @@ from __future__ import annotations
 import os
 import time
 import traceback
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -87,6 +89,11 @@ SAMPLED = {**SERVING, "temperature": 0.9, "top_k": 30}
 PAGE = 16
 SPEC = {**SERVING, "greedy": True, "page_size": PAGE,
         "speculation": {"ngram": 3, "max_draft": 4}}
+# the KV tiers: two sessions of TIER_PROMPT tokens alternating on a
+# one-request pool, so every resume finds its prefix evicted into the tier
+TIER_PROMPT = 48
+TIER_NEW = 8
+TIER_KINDS = ("host", "nvme")
 
 
 def model_cfg(name: str):
@@ -136,6 +143,99 @@ def spec_stream(vocab: int, n: int = 4, seed: int = 4) -> list:
             mn = int(rng.integers(4, 12))
         out.append((p, mn, 100 + i))
     return out
+
+
+def rank_page_bytes(world: int) -> int:
+    """One pool page's K and V bytes on a rank of llama2 tiny at tp
+    ``world`` (fp32): the rank's tier holds its own KV heads."""
+    cfg = model_cfg("llama2_tiny")
+    return 2 * cfg.n_layer * max(1, cfg.kv_heads // world) * PAGE * \
+        cfg.head_dim * 4
+
+
+def tier_serving(world: int, kind: str, path=None) -> dict:
+    """The tier cases' serving config: ``host`` a host tier that holds
+    everything; ``nvme`` a host tier of two rank pages over a disk rung
+    under ``path``, so the host prunes spill down."""
+    cfg = {**SERVING, "slots": 2, "greedy": True, "page_size": PAGE,
+           "pool_pages": 1 + (TIER_PROMPT + TIER_NEW - 1 + PAGE - 1) // PAGE}
+    if kind == "host":
+        return {**cfg, "host_pool_bytes": 8 << 20}
+    return {**cfg, "host_pool_bytes": 2 * rank_page_bytes(world),
+            "nvme_pool_bytes": 64 << 20, "nvme_path": str(path)}
+
+
+def tier_cycle(srv, vocab: int, rounds: int = 3, before=None) -> list:
+    """Two sessions alternating, ``rounds`` turns each: the tokens of every
+    request in order (the same driver for both packages' engines).
+    ``before(round, session, prompt, srv)`` runs ahead of each submit."""
+    rng = np.random.default_rng(21)
+    sessions = [rng.integers(0, vocab, TIER_PROMPT).astype(np.int32)
+                for _ in range(2)]
+    toks = []
+    for r in range(rounds):
+        for s, p in enumerate(sessions):
+            if before is not None:
+                before(r, s, p, srv)
+            rid = srv.submit(p, TIER_NEW, seed=10 * s + r)
+            req = None
+            for _ in range(100_000):
+                req = srv.pop_result(rid)
+                if req is not None:
+                    break
+                srv.step()
+            toks.append(np.asarray(req.tokens, np.int32))
+    return toks
+
+
+def tier_cases(world, rank, out_dir: Path) -> dict:
+    """The KV tiers under tensor parallelism: each rank's tier holds its
+    own KV-head shard; tokens, counters and a tile's shape."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import build_model
+
+    name = "llama2_tiny"
+    cfg = model_cfg(name)
+    eng = dt.init_inference(build_model(cfg), initial_params(name),
+                            conf("dense", world, 1), device="cpu")
+    out = {}
+    for kind in TIER_KINDS:
+        srv = dt.ServingEngine(eng, tier_serving(
+            world, kind, out_dir / f"nvme_w{world}_r{rank}"))
+        toks = tier_cycle(srv, cfg.vocab_size)
+        snap = srv.tier_snapshot()
+        ent = next(iter(srv.hostkv.entries.values()))
+        out[kind] = {"tokens": toks, "snapshot": snap,
+                     "tile_shape": ent["tiles"]["k"].shape,
+                     "pool_kv_heads": srv.state.cache.k.shape[2]}
+        srv.close()
+    # a fallback on the last rank alone: its host copy of session 0's
+    # second block is corrupted before that session's first resume, so
+    # its match stops a block short of the other ranks'
+    srv = dt.ServingEngine(eng, tier_serving(world, "host"))
+    out["host_fault"] = {
+        "tokens": tier_cycle(srv, cfg.vocab_size, before=partial(
+            corrupt_second_block, rank == world - 1)),
+        "snapshot": srv.tier_snapshot()}
+    try:
+        dt.ServingEngine(eng, {**tier_serving(world, "host"),
+                               "demote_ahead_idle_s": 1.0})
+        out["ahead_refused"] = ""
+    except NotImplementedError as e:
+        out["ahead_refused"] = str(e)
+    return out
+
+
+def corrupt_second_block(here: bool, r: int, s: int, prompt, srv) -> None:
+    """``tier_cycle``'s hook: where ``here``, flip one K value of the host
+    copy of session 0's second block before its first resume."""
+    from deepspeed_tpu_torch.observability.workload import token_hash
+
+    if not (here and r == 1 and s == 0):
+        return
+    toks = tuple(int(t) for t in prompt[:2 * PAGE])
+    ent = srv.hostkv.entries[(len(toks), token_hash(toks))]
+    ent["tiles"]["k"].reshape(-1)[0] += 1.0
 
 
 def psum_partials(world: int) -> list:
@@ -281,6 +381,7 @@ def _run(rank, world, port, out_dir):
         res["serve"] = serve_cases(world)
         res["tpq"] = tpq_case(world, out_dir)
         res["spec_ep"] = spec_ep_case(world)
+        res["tier"] = tier_cases(world, rank, out_dir)
         res["seconds"] = time.perf_counter() - t0
         print(f"tp worker w{world} r{rank}: {res['seconds']:.1f} s",
               flush=True)
